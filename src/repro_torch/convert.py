@@ -1,0 +1,82 @@
+"""Carry the JAX package's objects, given as numpy, into the port.
+
+Everything here takes array-likes that ``numpy.asarray`` accepts (numpy
+arrays, or the reference's arrays, which convert without this module
+importing JAX) and returns the port's tensors on `device` (None means
+CUDA). With these, both packages compute the same thing from the same
+inputs:
+
+  - `params_from_numpy`: a parameter pytree -> dict in jax flatten order
+    (sorted keys at every level);
+  - `state_from_numpy`: the reference's `DracoState` -> the port's (the
+    ring, ``w_ring``, ``delay_ring``, counters, window index and
+    positions; the JAX key becomes a fresh generator seeded by `seed`);
+  - `data_from_numpy`: ``(xs, ys)`` shards;
+  - `draws_from_numpy`: one window's draws -> `WindowDraws`.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import as_generator, resolve_device
+from repro_torch.core.flat import tree_from_items
+from repro_torch.core.protocol import DracoState, WindowDraws
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def params_from_numpy(tree, device=None):
+    """Nested mapping of arrays -> nested dict of tensors, sorted keys."""
+    dev = resolve_device(device)
+
+    def items(node, prefix):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                yield from items(node[k], prefix + (k,))
+        else:
+            yield prefix, _tensor(node, dev)
+
+    return tree_from_items(items(tree, ()))
+
+
+def state_from_numpy(state, *, seed: int = 0, device=None) -> DracoState:
+    """The reference's `DracoState` (any object with its field names as
+    attributes or keys) -> the port's `DracoState`."""
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, Mapping) else state.__getattribute__
+    return DracoState(
+        params=params_from_numpy(get("params"), dev),
+        pending=_tensor(get("pending"), dev, torch.float32),
+        buffer=_tensor(get("buffer"), dev, torch.float32),
+        w_ring=_tensor(get("w_ring"), dev, torch.float32),
+        delay_ring=_tensor(get("delay_ring"), dev, torch.int32),
+        accept_count=_tensor(get("accept_count"), dev, torch.int32),
+        total_accept=_tensor(get("total_accept"), dev, torch.int32),
+        window_idx=int(np.asarray(get("window_idx"))),
+        generator=as_generator(seed, dev),
+        positions=_tensor(get("positions"), dev, torch.float32),
+    )
+
+
+def data_from_numpy(data, device=None):
+    """``(xs, ys)`` -> (f32 tensor, int64 tensor) on `device`."""
+    dev = resolve_device(device)
+    xs, ys = data
+    return _tensor(xs, dev, torch.float32), _tensor(ys, dev, torch.int64)
+
+
+def draws_from_numpy(draws: Mapping, device=None) -> WindowDraws:
+    """Mapping with the `WindowDraws` field names -> `WindowDraws`."""
+    dev = resolve_device(device)
+    opt = {k: None if draws.get(k) is None else _tensor(draws[k], dev, dt)
+           for k, dt in (("fading", torch.float32), ("perm", torch.int64))}
+    return WindowDraws(
+        grad_mask=_tensor(draws["grad_mask"], dev, torch.bool),
+        batch_idx=_tensor(draws["batch_idx"], dev, torch.int64),
+        tx_mask=_tensor(draws["tx_mask"], dev, torch.bool),
+        **opt)

@@ -1,0 +1,129 @@
+"""Public wrapper of the gossip drain kernel (port of
+`repro.kernels.gossip.ops.gossip_drain`).
+
+Backend by tensor placement, never by option: a CUDA tensor launches the
+hand-written Hopper kernel (``csrc/drain.cu``) or raises; a CPU tensor
+takes the plain version, `gossip_drain_reference`. There is no fallback
+from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels.gossip import build
+
+RING_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _drain_lib() -> ctypes.CDLL:
+    lib = build.load("drain")
+    lib.drain_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.drain_launch.restype = ctypes.c_int
+    for fn in ("drain_max_j", "drain_max_n", "drain_max_m"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _check(w_stack, ring, slots):
+    if w_stack.dim() != 3 or ring.dim() != 3:
+        raise ValueError(f"w_stack must be (J, N, M) and ring (S, N, K); got "
+                         f"{tuple(w_stack.shape)} and {tuple(ring.shape)}")
+    if ring.dtype not in RING_DTYPES:
+        raise TypeError(f"ring dtype {ring.dtype} not supported; the drain "
+                        f"takes {RING_DTYPES}")
+    j_total, n, _ = w_stack.shape
+    if ring.shape[1] != n:
+        raise ValueError(f"w_stack has {n} senders, ring has {ring.shape[1]}")
+    if len(slots) != j_total:
+        raise ValueError(f"{len(slots)} slots for {j_total} weight buckets")
+    if any(not 0 <= s < ring.shape[0] for s in slots):
+        raise IndexError(f"slots {list(slots)} out of range for a ring of "
+                         f"{ring.shape[0]} rows")
+    if w_stack.device != ring.device:
+        raise ValueError(f"w_stack on {w_stack.device}, ring on {ring.device}")
+
+
+def _host_slots(slots) -> list:
+    if isinstance(slots, torch.Tensor):
+        if slots.device.type != "cpu":
+            raise ValueError("slots must be host integers (a CUDA tensor "
+                             "would need a device read)")
+        return [int(s) for s in slots.tolist()]
+    return [int(s) for s in slots]
+
+
+def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
+                 slots: Sequence[int]) -> torch.Tensor:
+    """Fused delay-bucketed drain: ``sum_j w_stack[j]^T @ ring[slots[j]]``.
+
+    w_stack (J, N, M): masked weights per stored broadcast, stacked
+    oldest-first (M == N on one device; rectangular for a senders
+    slice); ring (S, N, K): the payload ring, f32 or bf16; slots: the J
+    ring rows aligned with ``w_stack``, as host integers. Returns the f32
+    (M, K) aggregate, accumulated oldest bucket first.
+
+    CUDA tensors launch ``csrc/drain.cu`` (counted in
+    ``gossip_drain.launches``); CPU tensors take `gossip_drain_reference`.
+    """
+    slots = _host_slots(slots)
+    _check(w_stack, ring, slots)
+    if ring.device.type == "cpu":
+        return gossip_drain_reference(w_stack, ring, slots)
+    if ring.device.type != "cuda":
+        raise ValueError(f"no drain kernel for device {ring.device}")
+    lib = _drain_lib()
+    j_total, n, m = w_stack.shape
+    k = ring.shape[2]
+    if (j_total > lib.drain_max_j() or n > lib.drain_max_n()
+            or m > lib.drain_max_m()):
+        raise ValueError(
+            f"drain kernel supports J <= {lib.drain_max_j()}, N <= "
+            f"{lib.drain_max_n()}, M <= {lib.drain_max_m()}; got (J, N, M) = "
+            f"{(j_total, n, m)}")
+    if not ring.is_contiguous():
+        raise ValueError("ring must be contiguous")
+    w = w_stack.to(torch.float32).contiguous()
+    out = torch.empty((m, k), dtype=torch.float32, device=ring.device)
+    c_slots = (ctypes.c_int * max(j_total, 1))(*slots)
+    with torch.cuda.device(ring.device):
+        stream = torch.cuda.current_stream(ring.device).cuda_stream
+        err = lib.drain_launch(
+            w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots, j_total,
+            n, m, k, int(ring.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"drain kernel launch failed: CUDA error {err}")
+    gossip_drain.launches += 1
+    return out
+
+
+gossip_drain.launches = 0
+
+
+def gossip_drain_reference(w_stack: torch.Tensor, ring: torch.Tensor,
+                           slots: Sequence[int]) -> torch.Tensor:
+    """Plain version of `gossip_drain`: the reference's XLA-fallback loop.
+
+    w_stack (J, N, M), ring (S, N, K), slots (J,) host integers. One
+    GEMM per stored broadcast, oldest first, skipping buckets with no
+    edge (exact: an all-zero bucket adds an exact +-0 matrix). The skip
+    test reads the weights on the host; on a CUDA tensor that is a device
+    read, which is why the main path never calls this on the card.
+    """
+    slots = _host_slots(slots)
+    _check(w_stack, ring, slots)
+    m, k = w_stack.shape[2], ring.shape[2]
+    out = torch.zeros((m, k), dtype=torch.float32, device=ring.device)
+    for j, s in enumerate(slots):
+        w_j = w_stack[j].to(torch.float32)
+        if bool(torch.any(w_j != 0)):
+            out = out + w_j.T @ ring[s].to(torch.float32)
+    return out

@@ -1,0 +1,16 @@
+"""Plain-torch oracle for the gossip drain (port of `repro.kernels.gossip.ref`)."""
+from __future__ import annotations
+
+import torch
+
+
+def gossip_drain_ref(w_stack: torch.Tensor, payloads: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Fused multi-window drain: out = sum_j w_stack[j]^T @ payloads[j].
+
+    w_stack (J, N, M), payloads (J, N, K), stacked oldest-first; f32
+    accumulation, output (M, K) in `out_dtype`.
+    """
+    out = torch.einsum("jnm,jnk->mk", w_stack.to(torch.float32),
+                       payloads.to(torch.float32))
+    return out.to(out_dtype)

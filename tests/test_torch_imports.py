@@ -1,0 +1,94 @@
+"""The port stands alone: importing every `repro_torch` module loads
+neither JAX nor the JAX package, and its entry points refuse to run on
+the CPU unless asked to."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _modules():
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"names = {_modules()!r}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_module_list_covers_the_slice():
+    names = set(_modules())
+    for mod in ("core.flat", "core.topology", "core.events", "core.channel",
+                "core.protocol", "kernels.gossip.ops", "kernels.gossip.ref",
+                "kernels.gossip.build", "models.layers", "data.synthetic",
+                "tasks.base", "tasks.zoo", "api.algorithm", "api.context",
+                "api.simulate", "api.algorithms", "convert"):
+        assert f"repro_torch.{mod}" in names
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def _entry_points():
+    from repro_torch.api import simulate
+    from repro_torch.core import protocol
+    from repro_torch.data import synthetic
+    from repro_torch.tasks import get_task
+
+    cfg = protocol.DracoConfig(num_clients=3)
+    task = get_task("linear-softmax")
+    return {
+        "simulate": lambda: simulate("draco", cfg, task="linear-softmax",
+                                     num_steps=1, key=0),
+        "init_state": lambda: protocol.init_state(0, cfg, {"w": torch.zeros(2)}),
+        "build_graph": lambda: protocol.build_graph(cfg),
+        "federated_classification": lambda: synthetic.federated_classification(
+            0, 3, 4, 2, per_client=5),
+        "make_mlp": lambda: synthetic.make_mlp(0, 4, (), 2),
+        "task.init_params": lambda: task.init_params(0),
+        "task.make_data": lambda: task.make_data(0, 3),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "build_graph", "federated_classification", "init_state", "make_mlp",
+    "simulate", "task.init_params", "task.make_data"])
+def test_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[entry]()
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.default_device()
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
