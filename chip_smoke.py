@@ -4,17 +4,29 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   - compile every CUDA source of the port with nvcc (sm_90a);
+  1. build   - compile every CUDA source of the port with nvcc (sm_90a),
+               all sources at once;
   2. kernels - each kernel's wrapper against its plain PyTorch version on
-               the card, at the main path's shapes and the edge cases;
+               the card, at the main paths' shapes and the edge cases
+               (the mix also past 2^31 elements, and in bf16);
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
                no host sync inside the window loop;
   4. plain   - 50 windows of the main path twice from one seed, through
                the kernel and through the plain drain: final params agree;
-  5. times   - each kernel's time (CUDA events) beside its bound, its plain
-               version and one PyTorch library call computing the same.
+  5. trainer - the DRACO LM trainer `repro_torch.launch.train.main` at
+               qwen2-1.5b's full width (28 layers, d_model 1536, vocab
+               151,936, bf16), 4 clients, 20 steps, Psi = 1, 2
+               unifications: one mix launch per step, finite losses, the
+               first near ln V, peak device memory;
+  6. trainer plain - 3 trainer steps twice from one seed, through the mix
+               kernel and through its plain version: the losses agree; the
+               kernel run's steps are profiled (device idle share, mix
+               time per step);
+  7. times   - each kernel's time (CUDA events) beside its bound, its plain
+               version and one PyTorch library call computing the same, at
+               its main path's shapes.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -23,6 +35,7 @@ without the repository's `src/` beside this file.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -34,12 +47,23 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+# the trainer holds two 24.7 GB f32 planes beside 12.4 GB of params:
+# growable segments keep the allocator from fragmenting around them
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 RTOL = ATOL = 1e-5  # kernel against its plain version: f32 sums reordered
 PATH_TOL = 1e-4  # 50 windows, kernel path against the plain-drain path
 WINDOWS, EVAL_EVERY, PLAIN_WINDOWS = 300, 100, 50
+TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "4", "--batch-per-client", "2",
+              "--seq", "128", "--steps", "20", "--unify-every", "10", "--psi", "1",
+              "--log-every", "5"]
+TRAIN_STEPS, TRAIN_PLAIN_STEPS = 20, 3
+TRAIN_PATH_RTOL = 1e-3  # kernel path against the plain path: bf16 params round
+MIX_N, MIX_K = (1, 3, 4, 5, 25, 64), (1, 511, 513, 146_447)
+BIG_MIX = (4, 536_870_919)  # N * K > 2^31
+SLICE = 1 << 27  # columns per comparison slice of a multi-GB plane
 SPIN_CYCLES = 2_000_000  # about 1 ms of device clock, to cover host enqueue
 SEED = 0
 
@@ -84,6 +108,53 @@ def bound_ms(j_live, j, n, m, k, elem_bytes):
     flops = 2 * j_live * n * m * k
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mix_case(torch, n, k, dtype, seed):
+    """q (N, N) row-stochastic f32 and deltas (N, K) in `dtype`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.rand((n, n), generator=g, device="cuda")
+    q = q / q.sum(dim=1, keepdim=True)
+    deltas = torch.randn((n, k), generator=g, device="cuda").to(dtype)
+    return q, deltas
+
+
+def mix_bound_ms(n, k, elem_bytes):
+    """Least time for one mix: deltas read once, the output written once
+    and Q read once, over the memory rate; f32 FMAs over the f32 rate."""
+    moved = 2 * n * k * elem_bytes + n * n * 4
+    flops = 2 * n * n * k
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mix_against_plain(torch, ops, q, deltas, got):
+    """(max |kernel - plain|, agree?) over column slices, so that a
+    multi-GB plane needs no second full-size plain result."""
+    worst, ok = 0.0, True
+    for lo in range(0, deltas.shape[1], SLICE):
+        want = ops.gossip_mix_reference(q, deltas[:, lo:lo + SLICE]).float()
+        part = got[:, lo:lo + SLICE].float()
+        worst = max(worst, float((part - want).abs().max()))
+        ok = ok and bool(torch.allclose(part, want, rtol=RTOL, atol=ATOL))
+        ok = ok and bool(torch.isfinite(part).all())
+    return worst, ok
+
+
+def device_rows(prof):
+    """(device us, kernel name, count) per kernel of a profiler run."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue  # CPU ops also carry their kernels' time
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev, evt.key, evt.count))
+    return rows
 
 
 def time_ms(torch, fn, reps=60, flush=None):
@@ -237,7 +308,6 @@ def phase_main(torch):
 def profile_windows(torch, protocol, st, cfg, ctx, task, data, steady_ms):
     """Device time by kernel over 20 profiled windows, and the device's
     busy share of an unprofiled steady window (`steady_ms`)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
@@ -246,15 +316,7 @@ def profile_windows(torch, protocol, st, cfg, ctx, task, data, steady_ms):
             protocol.run_windows(st, cfg, ctx.q, ctx.adj, task, data, 20)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = []
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA:
-                continue  # CPU ops also carry their kernels' time
-            dev = getattr(evt, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev > 0:
-                rows.append((dev, evt.key, evt.count))
+        rows = device_rows(prof)
     except (RuntimeError, AttributeError) as exc:
         log(f"  profiler: not measured ({exc})")
         return
@@ -297,6 +359,163 @@ def phase_plain(torch, ctx, params0, data):
         raise AssertionError("kernel path and plain path accepted different messages")
 
 
+def phase_mix_kernels(torch):
+    from repro_torch.kernels.gossip import ops
+
+    cases = [(f"N={n} K={k} f32", n, k, torch.float32) for n in MIX_N for k in MIX_K]
+    cases += [("N=4 K=146447 bf16", 4, 146_447, torch.bfloat16),
+              ("N=25 K=513 bf16", 25, 513, torch.bfloat16),
+              (f"N={BIG_MIX[0]} K={BIG_MIX[1]} f32 (N*K > 2^31)", *BIG_MIX,
+               torch.float32)]
+    worst = 0.0
+    for i, (label, n, k, dtype) in enumerate(cases):
+        q, deltas = mix_case(torch, n, k, dtype, seed=1000 + i)
+        got = ops.gossip_mix(q, deltas)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or tuple(got.shape) != (n, k):
+            raise AssertionError(f"mix kernel returned {got.dtype} {tuple(got.shape)}")
+        err, ok = mix_against_plain(torch, ops, q, deltas, got)
+        worst = max(worst, err)
+        if n * k > 10**6 or not ok:
+            log(f"  mix {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mix kernel disagrees with its plain version: {label}")
+        del q, deltas, got
+    torch.cuda.empty_cache()
+    log(f"phase 2 kernels: gossip_mix max_abs_err={worst:.3e} (tolerance "
+        f"rtol={RTOL} atol={ATOL}) over {len(cases)} cases")
+    return worst
+
+
+def phase_trainer(torch):
+    from repro_torch.configs.base import get_config, get_reduced
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import train
+
+    args = train.parse_args(TRAIN_ARGS)
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.gossip_mix.launches = 0
+    ops.gossip_drain.launches = 0
+    t0 = time.perf_counter()
+    losses = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix_launches, drain_launches = ops.gossip_mix.launches, ops.gossip_drain.launches
+    peak = torch.cuda.max_memory_allocated()
+    ln_v = math.log(cfg.vocab_size)
+    log(f"  trainer: {TRAIN_STEPS} steps of {cfg.name} ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}) in {wall:.3f} s with init and data ({wall / TRAIN_STEPS:.4f} "
+        f"s/step); mix launches {mix_launches}, drain launches {drain_launches}; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    log(f"  losses: first {losses[0]:.6f} (ln V = {ln_v:.6f}), last {losses[-1]:.6f}; "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if mix_launches != TRAIN_STEPS:
+        raise AssertionError(f"mix launched {mix_launches} times in {TRAIN_STEPS} steps")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"trainer losses not finite: {losses}")
+    if not ln_v - 1 <= losses[0] <= ln_v + 3:
+        raise AssertionError(f"first loss {losses[0]} outside [ln V - 1, ln V + 3]")
+    log(f"phase 5 trainer: ok, {wall / TRAIN_STEPS:.4f} s/step")
+    return mix_launches, wall / TRAIN_STEPS, peak, losses
+
+
+def phase_trainer_plain(torch):
+    """3 steps from one seed through the kernel and through the plain
+    mix; the kernel run times its first step unprofiled and profiles the
+    other two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import make_context
+    from repro_torch.configs.base import get_config, get_reduced
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.core.protocol import DracoConfig
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import train
+
+    args = train.parse_args(TRAIN_ARGS)
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    n = args.clients
+    q = make_context(DracoConfig(num_clients=n, topology=args.topology, channel=None),
+                     device="cuda").q
+    data = train.make_batches(train.stream_seed(SEED, train.STREAM_DATA), cfg, n,
+                              8 * args.batch_per_client, args.seq, device="cuda")
+    gen = torch.Generator(device="cuda")
+    runs, out = {}, {}
+    for name, mix in (("kernel", None), ("plain", ops.gossip_mix_reference)):
+        params = train.init_client_params(SEED, cfg, n, "cuda")
+        out["dflat"] = flat_lib.spec_of(params).dim
+        losses = []
+
+        def step(i, params):
+            gen.manual_seed(train.stream_seed(SEED, train.STREAM_EVENTS, i))
+            q_eff = train.mixing_weights(q, args.psi, generator=gen,
+                                         lambda_tx=args.lambda_tx)
+            batch = train.select_batch(data, i, args.batch_per_client)
+            params, loss = train.train_step(params, batch, q_eff, cfg, args.lr, mix=mix)
+            losses.append(float(loss))
+            return params
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = step(0, params)
+        torch.cuda.synchronize()
+        if name == "kernel":
+            out["steady_s"] = time.perf_counter() - t0
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(1, TRAIN_PLAIN_STEPS):
+                        params = step(i, params)
+                    torch.cuda.synchronize()
+                    out["profiled_s"] = (time.perf_counter() - t0) / (TRAIN_PLAIN_STEPS - 1)
+                out["rows"] = device_rows(prof)
+            except (RuntimeError, AttributeError) as exc:
+                log(f"  profiler: not measured ({exc})")
+                for i in range(1, TRAIN_PLAIN_STEPS):
+                    params = step(i, params)
+        else:
+            for i in range(1, TRAIN_PLAIN_STEPS):
+                params = step(i, params)
+        sums = [float(leaf.sum(dtype=torch.float64)) for leaf in flat_lib.tree_leaves(params)]
+        scale = [float(leaf.abs().sum(dtype=torch.float64)) for leaf in
+                 flat_lib.tree_leaves(params)]
+        runs[name] = (losses, sums, scale)
+        del params
+        torch.cuda.empty_cache()
+    (lk, sk, _), (lp, sp, scale) = runs["kernel"], runs["plain"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    param_gap = max(abs(a - b) / max(c, 1e-30) for a, b, c in zip(sk, sp, scale))
+    log(f"  kernel path losses {' '.join(f'{x:.6f}' for x in lk)}; plain path "
+        f"{' '.join(f'{x:.6f}' for x in lp)}; largest relative loss gap "
+        f"{loss_gap:.3e}, largest per-leaf |sum gap| / sum|p| {param_gap:.3e} "
+        f"(tolerance {TRAIN_PATH_RTOL})")
+    if loss_gap > TRAIN_PATH_RTOL or param_gap > TRAIN_PATH_RTOL:
+        raise AssertionError("trainer kernel path and plain path differ")
+    rows = out.get("rows") or []
+    busy_us = sum(r[0] for r in rows) / (TRAIN_PLAIN_STEPS - 1)
+    mix_us = sum(r[0] for r in rows if "mix_kernel" in r[1]) / (TRAIN_PLAIN_STEPS - 1)
+    steady_us = out["steady_s"] * 1e6
+    if busy_us > 0:
+        share = busy_us / steady_us
+        log(f"  profiler over {TRAIN_PLAIN_STEPS - 1} steps: device busy "
+            f"{busy_us / 1e3:.3f} ms/step ({out['profiled_s'] * 1e3:.3f} ms/step wall "
+            f"under the profiler); against the unprofiled step "
+            f"({steady_us / 1e3:.3f} ms): {100 * share:.2f}% busy, "
+            f"{100 - 100 * share:.2f}% idle; mix kernel {mix_us / 1e3:.3f} ms/step")
+        for dev, key, count in sorted(rows, reverse=True)[:10]:
+            log(f"    {dev / 1e3 / (TRAIN_PLAIN_STEPS - 1):9.3f} ms/step  {count:6d}x  "
+                f"{key[:90]}")
+    else:
+        log("  profiler: no device time recorded (not measured)")
+    log(f"phase 6 trainer plain: kernel path and plain path agree; "
+        f"{out['steady_s']:.4f} s/step unprofiled")
+    return out["dflat"], out["steady_s"], busy_us, mix_us
+
+
 def phase_times(torch):
     from repro_torch.kernels.gossip import ops
 
@@ -317,8 +536,35 @@ def phase_times(torch):
         log(f"  drain J=3 N=M=25 K=146447 f32, {live} live bucket(s): kernel "
             f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of "
             f"bound), plain {plain:.4f} ms, library einsum {lib:.4f} ms")
-    log("phase 5 times: done")
     return out
+
+
+def phase_mix_times(torch, k):
+    """The mix at the trainer's shape: N = 4 clients, K = Dflat, f32."""
+    from repro_torch.kernels.gossip import ops
+
+    n = 4
+    q, deltas = mix_case(torch, n, k, torch.float32, seed=7)
+    got = ops.gossip_mix(q, deltas)
+    err, ok = mix_against_plain(torch, ops, q, deltas, got)
+    log(f"  mix N={n} K={k} f32 (the trainer's plane): max_abs_err={err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mix kernel disagrees with its plain version at the "
+                             "trainer's shape")
+    del got
+    kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10)
+    plain = time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=10)
+    buf, qt = torch.empty_like(deltas), q.T
+    lib = time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=10)
+    bound, by = mix_bound_ms(n, k, 4)
+    log(f"  mix N={n} K={k} f32: kernel {kern:.4f} ms, bound {bound:.4f} ms ({by}, "
+        f"{100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, library "
+        f"matmul {lib:.4f} ms")
+    del q, deltas, buf
+    torch.cuda.empty_cache()
+    return dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by), err
 
 
 def main() -> int:
@@ -329,18 +575,34 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (TF32 off)
 
+    t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(torch)
+    mix_err = phase_mix_kernels(torch)
     launches, ms_window, steady, ctx, params0, data = phase_main(torch)
     phase_plain(torch, ctx, params0, data)
+    del ctx, params0, data
+    mix_launches, s_step, peak, _ = phase_trainer(torch)
+    dflat, steady_s, busy_us, mix_us = phase_trainer_plain(torch)
     times = phase_times(torch)
-    kernels = [dict(
-        name="gossip_drain", route="cuda",
-        source="src/repro_torch/kernels/gossip/csrc/drain.cu",
-        replaces="src/repro/kernels/gossip/gossip.py:100",
-        launches=launches, max_abs_err=max_err, **times[3])]
-    log(f"main path: {ms_window:.3f} ms/window (300-window simulate, evals "
+    mix_times, mix_err_train = phase_mix_times(torch, dflat)
+    log("phase 7 times: done")
+    kernels = [
+        dict(name="gossip_drain", route="cuda",
+             source="src/repro_torch/kernels/gossip/csrc/drain.cu",
+             replaces="src/repro/kernels/gossip/gossip.py:100",
+             launches=launches, max_abs_err=max_err, **times[3]),
+        dict(name="gossip_mix", route="cuda",
+             source="src/repro_torch/kernels/gossip/csrc/mix.cu",
+             replaces="src/repro/kernels/gossip/gossip.py:33",
+             launches=mix_launches, max_abs_err=max(mix_err, mix_err_train),
+             **mix_times)]
+    log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
+    log(f"trainer path: {s_step:.4f} s/step over {TRAIN_STEPS} steps with init, "
+        f"{steady_s:.4f} s/step steady; device busy {busy_us / 1e3:.3f} ms/step, "
+        f"mix {mix_us / 1e3:.3f} ms/step; peak {peak / 2**30:.2f} GiB")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ CUDA). With these, both packages compute the same thing from the same
 inputs:
 
   - `params_from_numpy`: a parameter pytree -> dict in jax flatten order
-    (sorted keys at every level);
+    (sorted keys at every level); bf16 leaves stay bf16, bit for bit;
   - `state_from_numpy`: the reference's `DracoState` -> the port's (the
     ring, ``w_ring``, ``delay_ring``, counters, window index and
     positions; the JAX key becomes a fresh generator seeded by `seed`);
@@ -27,7 +27,13 @@ from repro_torch.core.protocol import DracoState, WindowDraws
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":
+        # JAX's bf16 (an ml_dtypes numpy type) has no torch counterpart
+        # that as_tensor knows: carry the bit pattern over as 16-bit ints
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype or torch.bfloat16)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
 def params_from_numpy(tree, device=None):

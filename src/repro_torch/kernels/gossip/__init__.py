@@ -1,1 +1,2 @@
-"""Delay-bucketed gossip drain: CUDA kernel, wrapper, build."""
+"""Gossip kernels (delay-bucketed drain, row-stochastic mix): CUDA
+sources, wrappers, build."""

@@ -1,10 +1,12 @@
-"""Public wrapper of the gossip drain kernel (port of
-`repro.kernels.gossip.ops.gossip_drain`).
+"""Public wrappers of the gossip kernels (port of
+`repro.kernels.gossip.ops`): `gossip_drain` (delay-bucketed drain,
+``csrc/drain.cu``) and `gossip_mix` (row-stochastic mix, ``csrc/mix.cu``).
 
 Backend by tensor placement, never by option: a CUDA tensor launches the
-hand-written Hopper kernel (``csrc/drain.cu``) or raises; a CPU tensor
-takes the plain version, `gossip_drain_reference`. There is no fallback
-from the kernel to the plain version.
+hand-written Hopper kernel or raises; a CPU tensor takes the plain
+version (`gossip_drain_reference`, `gossip_mix_reference`). There is no
+fallback from a kernel to its plain version. Each wrapper counts its
+kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels.gossip import build
 
 RING_DTYPES = (torch.float32, torch.bfloat16)
+MIX_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,6 +33,18 @@ def _drain_lib() -> ctypes.CDLL:
     for fn in ("drain_max_j", "drain_max_n", "drain_max_m"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mix_lib() -> ctypes.CDLL:
+    lib = build.load("mix")
+    lib.mix_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.mix_launch.restype = ctypes.c_int
+    lib.mix_max_n.argtypes = []
+    lib.mix_max_n.restype = ctypes.c_int
     return lib
 
 
@@ -127,3 +142,61 @@ def gossip_drain_reference(w_stack: torch.Tensor, ring: torch.Tensor,
         if bool(torch.any(w_j != 0)):
             out = out + w_j.T @ ring[s].to(torch.float32)
     return out
+
+
+def _check_mix(q, deltas):
+    if q.dim() != 2 or deltas.dim() != 2 or q.shape[0] != q.shape[1] \
+            or q.shape[0] != deltas.shape[0]:
+        raise ValueError(f"q must be (N, N) and deltas (N, K); got "
+                         f"{tuple(q.shape)} and {tuple(deltas.shape)}")
+    if deltas.dtype not in MIX_DTYPES:
+        raise TypeError(f"deltas dtype {deltas.dtype} not supported; the mix "
+                        f"takes {MIX_DTYPES}")
+    if q.device != deltas.device:
+        raise ValueError(f"q on {q.device}, deltas on {deltas.device}")
+
+
+def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Row-stochastic gossip: ``out = Q^T @ deltas``.
+
+    q (N, N): (sender, receiver) weights; deltas (N, K): the flat
+    per-client updates, f32 or bf16. Returns (N, K) in ``deltas.dtype``,
+    accumulated in f32 in sender order. No padding copy is made.
+
+    CUDA tensors launch ``csrc/mix.cu`` (counted in
+    ``gossip_mix.launches``; N <= 64, deltas contiguous); CPU tensors
+    take `gossip_mix_reference`.
+    """
+    _check_mix(q, deltas)
+    if deltas.device.type == "cpu":
+        return gossip_mix_reference(q, deltas)
+    if deltas.device.type != "cuda":
+        raise ValueError(f"no mix kernel for device {deltas.device}")
+    lib = _mix_lib()
+    n, k = deltas.shape
+    if n > lib.mix_max_n():
+        raise ValueError(f"mix kernel supports N <= {lib.mix_max_n()}, got N = {n}")
+    if not deltas.is_contiguous():
+        raise ValueError("deltas must be contiguous")
+    q32 = q.to(torch.float32).contiguous()
+    out = torch.empty_like(deltas)
+    with torch.cuda.device(deltas.device):
+        stream = torch.cuda.current_stream(deltas.device).cuda_stream
+        err = lib.mix_launch(q32.data_ptr(), deltas.data_ptr(), out.data_ptr(),
+                             n, k, int(deltas.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"mix kernel launch failed: CUDA error {err}")
+    gossip_mix.launches += 1
+    return out
+
+
+gossip_mix.launches = 0
+
+
+def gossip_mix_reference(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Plain version of `gossip_mix`: one f32 GEMM, q (N, N), deltas
+    (N, K) -> ``(q^T @ deltas)`` cast to ``deltas.dtype``. The main path
+    never calls it on the card."""
+    _check_mix(q, deltas)
+    out = q.to(torch.float32).T @ deltas.to(torch.float32)
+    return out.to(deltas.dtype)

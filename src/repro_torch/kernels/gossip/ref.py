@@ -1,7 +1,18 @@
-"""Plain-torch oracle for the gossip drain (port of `repro.kernels.gossip.ref`)."""
+"""Plain-torch oracles for the gossip kernels (port of `repro.kernels.gossip.ref`)."""
 from __future__ import annotations
 
 import torch
+
+
+def gossip_mix_ref(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """out[m, :] = sum_n q[n, m] * deltas[n, :].
+
+    q (N, N) row-stochastic (sender, receiver), deltas (N, K).
+    Accumulation in f32, output in ``deltas.dtype``.
+    """
+    out = torch.einsum("nm,nd->md", q.to(torch.float32),
+                       deltas.to(torch.float32))
+    return out.to(deltas.dtype)
 
 
 def gossip_drain_ref(w_stack: torch.Tensor, payloads: torch.Tensor,

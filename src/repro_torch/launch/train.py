@@ -1,0 +1,222 @@
+"""End-to-end DRACO trainer for a decoder LM on one device.
+
+Port of `repro.launch.train` with its single-device step
+(`train.py:119-129` of the reference): per-client local gradients of
+`lm_loss`, row-stochastic gossip (`mixing.mix_plane`, the flat form of
+`mix_dense`) under per-step event and Psi masks, periodic unification
+on a rotating hub, and checkpoints in the reference's layout. The graph and its row-stochastic
+Q come from `repro_torch.api.make_context`, as in the reference.
+
+Memory. The reference vmaps the clients' gradients, which at
+qwen2-1.5b width with 4 clients would hold four bf16 gradient sets and
+a bf16 copy of the mixed plane beside the params and two f32 planes,
+more than one card has. `train_step` computes the same thing client by
+client: client i's gradient is scaled by ``-lr`` in the leaf's dtype
+and written straight into row i of the f32 (N, Dflat) delta plane (in
+`FlatSpec` column order, which is the reference's ravel), the gradient
+is freed, the plane is mixed by one gossip-mix launch, and the mixed
+plane is added into the params leaf by leaf, in place.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --reduced --device cpu --steps 12 --clients 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --steps 20 --clients 4 --psi 1 --unify-every 10     # on the card
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import as_generator, resolve_device
+from repro_torch import checkpoint as ckpt_lib
+from repro_torch.api import make_context
+from repro_torch.configs.base import get_config, get_reduced
+from repro_torch.core import flat as flat_lib
+from repro_torch.core import mixing
+from repro_torch.core.events import sample_event_masks
+from repro_torch.core.protocol import DracoConfig
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import model as M
+
+# independent random streams of one run, each seeded from (--seed, stream)
+STREAM_INIT, STREAM_DATA, STREAM_EVENTS, STREAM_GRAPH = range(4)
+
+
+def stream_seed(seed: int, stream: int, step: int = 0) -> int:
+    """A 63-bit seed for one random stream (and step) of a run."""
+    state = np.random.SeedSequence([seed, stream, step]).generate_state(2)
+    return int((int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1))
+
+
+def make_batches(key, cfg, n_clients: int, per_client: int, seq: int,
+                 device=None):
+    """Synthetic LM token shards per client: ``{"tokens": (N, P, S)}``
+    int64, uniform over the vocabulary."""
+    if cfg.embeds_in or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"synthetic batches for the {cfg.family!r} family are not ported yet")
+    gen = as_generator(key, device)
+    tokens = torch.randint(0, cfg.vocab_size, (n_clients, per_client, seq),
+                           generator=gen, device=gen.device)
+    return {"tokens": tokens}
+
+
+def select_batch(data, idx: int, batch_per_client: int):
+    """Step `idx`'s ``batch_per_client`` rows of every client's shard,
+    starting at ``(idx * b) % max(per_client - b + 1, 1)``."""
+    per_client = next(iter(data.values())).shape[1]
+    start = (idx * batch_per_client) % max(per_client - batch_per_client + 1, 1)
+    return {k: v[:, start:start + batch_per_client] for k, v in data.items()}
+
+
+def mixing_weights(q: torch.Tensor, psi: int, *,
+                   generator: Optional[torch.Generator] = None,
+                   lambda_tx: float = 1.0,
+                   tx: Optional[torch.Tensor] = None,
+                   psi_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step's effective weights ``q_eff`` (N, N): the rows of senders
+    that fire in a unit window (Poisson thinning at `lambda_tx`) kept,
+    then at most `psi` incoming edges per receiver (``psi=0``: no cap).
+
+    The tx mask (N,) and the Psi tie-break noise (N, N) are drawn from
+    `generator`, in that order, unless given (tests inject the
+    reference's draws)."""
+    n = q.shape[0]
+    if tx is None:
+        tx = sample_event_masks(generator, lambda_tx, 1.0, n)
+    q_eff = q * tx[:, None].to(q.dtype)
+    if psi > 0:
+        q_eff = mixing.psi_cap_mask(q_eff, psi, generator=generator,
+                                    noise=psi_noise)
+    return q_eff
+
+
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """`x` rounded to `dtype`, as JAX rounds a Python scalar to the
+    array's dtype in ``scalar * array``."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
+               mix: Optional[mixing.MixFn] = None):
+    """One DRACO step on one device; returns ``(params, mean loss)``.
+
+    params: dict of (N, ...) leaves, updated in place; batch
+    ``{"tokens": (N, B, S)}``; q_eff (N, N) this step's masked weights.
+    For each client in turn: `lm_loss` and its gradient, ``-lr * g`` in
+    the leaf's dtype written into that client's row of the f32 delta
+    plane. Then one `mix_plane` (the gossip-mix kernel, or `mix`) and
+    ``p += mixed.to(p.dtype)`` leaf by leaf. The loss is the mean of the
+    clients' f32 losses, as a 0-d tensor (no host read)."""
+    spec = flat_lib.spec_of(params)
+    n = spec.num_clients
+    plane = torch.empty((n, spec.dim), dtype=torch.float32, device=q_eff.device)
+    losses = []
+    for i in range(n):
+        p_i = flat_lib.tree_map(lambda p: p[i].detach().requires_grad_(), params)
+        loss = M.lm_loss(p_i, cfg, {k: v[i] for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(p_i))
+        for g, off, size in zip(grads, spec.offsets, spec.sizes):
+            plane[i, off:off + size].copy_(g.reshape(-1).mul_(_in_dtype(-lr, g.dtype)))
+        losses.append(loss.detach())
+        del p_i, loss, grads
+    mixed = mixing.mix_plane(q_eff, plane, mix)
+    del plane
+    with torch.no_grad():
+        mixing.add_plane_(params, mixed, spec)
+    return params, torch.stack(losses).mean()
+
+
+def init_client_params(seed: int, cfg, n_clients: int, device=None):
+    """One init (`init_params` from ``(seed, STREAM_INIT)``) copied to
+    every client: a dict of (N, ...) leaves."""
+    params0 = M.init_params(stream_seed(seed, STREAM_INIT), cfg, device)
+    return flat_lib.tree_map(
+        lambda p: p[None].expand(n_clients, *p.shape).clone(), params0)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--batch-per-client", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    # accepted as the reference's CLI does; its single-device step, like
+    # this one, always mixes densely (ring and none are mesh-step modes)
+    ap.add_argument("--mix", default="dense", choices=["dense", "ring", "none"])
+    ap.add_argument("--psi", type=int, default=0)
+    ap.add_argument("--topology", default="cycle")
+    ap.add_argument("--unify-every", type=int, default=50)
+    ap.add_argument("--lambda-tx", type=float, default=1.0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; cpu only when asked)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    n = args.clients
+
+    params = init_client_params(args.seed, cfg, n, dev)
+    # protocol-plane context: the graph and Q built once, by the same
+    # path as `repro_torch.api.simulate`
+    proto_cfg = DracoConfig(num_clients=n, topology=args.topology,
+                            psi=args.psi, unify_period=args.unify_every,
+                            lambda_tx=args.lambda_tx, channel=None)
+    ctx = make_context(proto_cfg, graph_seed=stream_seed(args.seed, STREAM_GRAPH),
+                       device=dev)
+    q = ctx.q
+    data = make_batches(stream_seed(args.seed, STREAM_DATA), cfg, n,
+                        per_client=8 * args.batch_per_client, seq=args.seq,
+                        device=dev)
+    unify_fn = steps_lib.make_unify_step(cfg, None)
+
+    start = 0
+    if args.ckpt_dir:
+        latest = ckpt_lib.latest_step(args.ckpt_dir)
+        if latest is not None:
+            params = ckpt_lib.restore(args.ckpt_dir, params, latest)
+            start = latest
+            print(f"restored step {latest}")
+
+    gen_ev = torch.Generator(device=dev)
+    losses = []
+    t0 = time.time()
+    for step in range(start, args.steps):
+        gen_ev.manual_seed(stream_seed(args.seed, STREAM_EVENTS, step))
+        q_eff = mixing_weights(q, args.psi, generator=gen_ev,
+                               lambda_tx=args.lambda_tx)
+        batch = select_batch(data, step, args.batch_per_client)
+        params, loss = train_step(params, batch, q_eff, cfg, args.lr)
+        losses.append(float(loss))
+        if args.unify_every and (step + 1) % args.unify_every == 0:
+            params = unify_fn(params, (step // args.unify_every) % n)
+        if (step + 1) % args.log_every == 0:
+            dt = time.time() - t0
+            print(f"step {step+1:5d} loss {np.mean(losses[-args.log_every:]):.4f} "
+                  f"({dt/args.log_every:.2f}s/step)")
+            t0 = time.time()
+        if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            ckpt_lib.save(args.ckpt_dir, step + 1, params)
+            print(f"saved checkpoint @ {step+1}")
+
+    print(f"final loss {np.mean(losses[-10:]):.4f} (first 10: {np.mean(losses[:10]):.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Model building blocks (the slice needs only what make_mlp uses)."""
+"""Models: layer primitives, attention, the unified decoder, registry."""

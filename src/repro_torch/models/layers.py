@@ -1,5 +1,9 @@
-"""Layer primitives (port of the part of `repro.models.layers` that
-`make_mlp` uses)."""
+"""Shared layer primitives: init, RMSNorm, RoPE, SwiGLU MLP, cross-entropy.
+
+Port of `repro.models.layers`. Every function takes and returns tensors
+on the caller's device; RMSNorm and RoPE compute in f32 inside and cast
+back to the input's dtype, as the reference does.
+"""
 from __future__ import annotations
 
 import math
@@ -15,6 +19,50 @@ def dense_init(generator: torch.Generator, shape, in_dim=None,
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * (1.0 / math.sqrt(max(in_dim, 1)))).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis with a ``1 + scale`` gain (zero-init
+    scale is the identity gain), in f32, cast back to ``x.dtype``."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim/2,) f32 inverse frequencies ``theta^(-2i/head_dim)``."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split rotation. x (..., S, H, hd);
+    positions (..., S) int. Computed in f32, cast back to ``x.dtype``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype):
+    """SwiGLU weights ``{w_down (d_ff, d), w_gate (d, d_ff), w_up (d, d_ff)}``."""
+    return {
+        "w_gate": dense_init(generator, (d_model, d_ff), d_model, dtype),
+        "w_up": dense_init(generator, (d_model, d_ff), d_model, dtype),
+        "w_down": dense_init(generator, (d_ff, d_model), d_ff, dtype),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP. x (..., d) -> (..., d)."""
+    h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

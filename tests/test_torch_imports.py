@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30
 
 
 def test_module_list_covers_the_slice():
@@ -44,7 +44,10 @@ def test_module_list_covers_the_slice():
                 "core.protocol", "kernels.gossip.ops", "kernels.gossip.ref",
                 "kernels.gossip.build", "models.layers", "data.synthetic",
                 "tasks.base", "tasks.zoo", "api.algorithm", "api.context",
-                "api.simulate", "api.algorithms", "convert"):
+                "api.simulate", "api.algorithms", "convert",
+                "configs.base", "configs.qwen2_1p5b", "models.attention",
+                "models.model", "models.registry", "core.mixing",
+                "launch.steps", "launch.train", "checkpoint.ckpt"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -57,7 +60,10 @@ def no_cuda():
 def _entry_points():
     from repro_torch.api import simulate
     from repro_torch.core import protocol
+    from repro_torch.configs.base import get_reduced
     from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import model
     from repro_torch.tasks import get_task
 
     cfg = protocol.DracoConfig(num_clients=3)
@@ -72,12 +78,16 @@ def _entry_points():
         "make_mlp": lambda: synthetic.make_mlp(0, 4, (), 2),
         "task.init_params": lambda: task.init_params(0),
         "task.make_data": lambda: task.make_data(0, 3),
+        "init_params": lambda: model.init_params(0, get_reduced("qwen2-1.5b")),
+        "make_batches": lambda: train.make_batches(0, get_reduced("qwen2-1.5b"), 2, 2, 4),
+        "train.main": lambda: train.main(["--reduced", "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", [
-    "build_graph", "federated_classification", "init_state", "make_mlp",
-    "simulate", "task.init_params", "task.make_data"])
+    "build_graph", "federated_classification", "init_params", "init_state",
+    "make_batches", "make_mlp", "simulate", "task.init_params", "task.make_data",
+    "train.main"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[entry]()
