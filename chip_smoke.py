@@ -5,10 +5,14 @@
 
 Phases (any failure exits non-zero):
   1. build   - compile every CUDA source of the port with nvcc (sm_90a),
-               all sources at once;
+               all sources at once (drain, mix, enqueue, ssd_chunk);
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card, at the main paths' shapes and the edge cases
-               (the mix also past 2^31 elements, and in bf16);
+               (the mix also past 2^31 elements, and in bf16; the SSD
+               intra-chunk step at the mamba2 trainer's shape in bf16, with
+               groups, with Q != N in f32, and under a strong decay); the
+               bucketed enqueue driven at the JAX package's own test cases
+               and the windowed path's width, one launch per call;
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -24,9 +28,19 @@ Phases (any failure exits non-zero):
                kernel and through its plain version: the losses agree; the
                kernel run's steps are profiled (device idle share, mix
                time per step);
-  7. times   - each kernel's time (CUDA events) beside its bound, its plain
-               version and one PyTorch library call computing the same, at
-               its main path's shapes.
+  7. mamba2  - the trainer on mamba2-2.7b at full width (d_model 2560, 80
+               SSD heads of 64, state 128, vocab 50,280, bf16) cut to 32 of
+               its 64 layers (the 4 clients' planes of all 64 do not fit one
+               card), 4 clients, batch 2 x 512 tokens (4 SSD chunks), 10
+               steps: finite losses, the first near ln V, one mix launch per
+               step, two SSD-kernel launches per block, client and step
+               (forward and remat), peak device memory;
+  8. mamba2 plain - 3 steps through the kernels and 3 through the plain
+               SSD step and plain mix: the losses agree; the kernel run's
+               steps are profiled (device idle share, SSD and mix time);
+  9. times   - each kernel's time (CUDA events) beside its bound, its plain
+               version and one PyTorch library call computing the same
+               (where there is one), at its main path's shapes.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -53,6 +67,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores (f32 accumulation), dense
 RTOL = ATOL = 1e-5  # kernel against its plain version: f32 sums reordered
 PATH_TOL = 1e-4  # 50 windows, kernel path against the plain-drain path
 WINDOWS, EVAL_EVERY, PLAIN_WINDOWS = 300, 100, 50
@@ -66,6 +81,31 @@ BIG_MIX = (4, 536_870_919)  # N * K > 2^31
 SLICE = 1 << 27  # columns per comparison slice of a multi-GB plane
 SPIN_CYCLES = 2_000_000  # about 1 ms of device clock, to cover host enqueue
 SEED = 0
+# mamba2-2.7b: the trainer's defaults at 512 tokens, at 32 of the 64
+# layers (4 clients' bf16 params, two f32 planes and one gradient at 40 B
+# per parameter: 113 GB at 64 layers, 57 GB at 32)
+MAMBA_LAYERS = 32
+MAMBA_ARGS = ["--arch", "mamba2-2.7b", "--clients", "4", "--batch-per-client", "2",
+              "--seq", "512", "--steps", "10", "--unify-every", "10", "--psi", "1",
+              "--log-every", "5"]
+MAMBA_STEPS, MAMBA_PLAIN_STEPS = 10, 3
+SSD_REL_TOL = 1e-4  # kernel against plain, relative to the largest |Y| (|S|)
+# (Bb, H, G, nc, Q, N, P, A scale, dtype): the trainer's shape (batch 2, 512
+# tokens, 80 heads, one group), grouped, f32 with Q != N and a ragged P,
+# and a decay that overflows exp above the diagonal unless masked first
+SSD_MAIN = (2, 80, 1, 4, 128, 128, 64, 1.0, "bfloat16")
+SSD_CASES = {
+    "trainer shape bf16": SSD_MAIN,
+    "grouped G=4 H=16 N=64": (2, 16, 4, 2, 128, 64, 64, 1.0, "bfloat16"),
+    "f32 Q=64 N=128 P=48": (2, 8, 1, 3, 64, 128, 48, 1.0, "float32"),
+    "strong decay A=-10h dt+1": (2, 80, 1, 4, 128, 128, 64, 10.0, "float32"),
+}
+# gossip_enqueue's path: the JAX package's own cases
+# (tests/test_kernels_gossip_bucketed.py) and the windowed path's width
+ENQ_MAIN = (3, 25, 146_447)  # J = D - 1 buckets, N clients, K = Dflat of EMNIST
+ENQ_PATH = [(1, 16, 256), (3, 16, 256), (7, 16, 256), (3, 25, 192), (3, 7, 192),
+            (3, 8, 513), (4, 10, 96), (1, 25, 146_447), (3, 25, 146_447),
+            (7, 25, 146_447)]
 
 
 def log(msg):
@@ -190,7 +230,7 @@ def card_line():
 
 
 def phase_build():
-    from repro_torch.kernels.gossip import build
+    from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     paths = build.build()
@@ -387,56 +427,256 @@ def phase_mix_kernels(torch):
     return worst
 
 
-def phase_trainer(torch):
-    from repro_torch.configs.base import get_config, get_reduced
+def ssd_case(torch, bb, h, g, nc, q, n, p, decay, dtype, seed):
+    """The SSD intra-chunk inputs as `ssm_block` hands them to the kernel:
+    x, B and C are views of one (Bb, T, H * P + 2 * G * N) tensor (B and
+    C one per group, never repeated over heads), dt = softplus(N(0, 1))
+    (+1 under a strong decay), A = -decay * (1..H) as at the mamba2 init,
+    cums = cumsum(dt * A) per chunk."""
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = getattr(torch, dtype)
+    t = nc * q
+    proj = torch.randn((bb, t, h * p + 2 * g * n), generator=g_, device="cuda").to(dtype)
+    x = proj[..., :h * p].reshape(bb, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    B = proj[..., h * p:h * p + g * n].reshape(bb, nc, q, g, n).permute(0, 3, 1, 2, 4)
+    C = proj[..., h * p + g * n:].reshape(bb, nc, q, g, n).permute(0, 3, 1, 2, 4)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bb, h, nc, q), generator=g_, device="cuda"))
+    if decay > 1:
+        dt = dt + 1.0
+    a = -decay * torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    cums = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+    return C, B, x, cums, dt
+
+
+def ssd_bound_ms(args):
+    """Least time for one ssd_chunk call on these inputs: the necessary
+    FMAs over the peak rate of their type, against each input read once
+    (B and C once per group) and Y, S written once over the memory rate.
+    The lower triangle of C B^T multiplies two inputs of the model dtype
+    into f32: at the bf16 tensor-core rate for bf16 inputs, else at the
+    f32 rate. Its product with X and S take f32 operands (the decayed
+    scores, the decayed B) at the f32 rate."""
+    C, B, x, cums, dt = args
+    bb, g, nc, q, n = C.shape
+    h, p = x.shape[1], x.shape[4]
+    tri = q * (q + 1) // 2
+    cb_flops = 2 * bb * h * nc * tri * n
+    f32_flops = 2 * bb * h * nc * (tri * p + q * n * p)
+    cb_rate = BF16_FLOPS if C.element_size() == 2 else F32_FLOPS  # bf16 or f32
+    moved = ((C.numel() + B.numel() + x.numel()) * x.element_size()
+             + (cums.numel() + dt.numel()) * 4 + bb * h * nc * (q + n) * p * 4)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (cb_flops / cb_rate + f32_flops / F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ssd_kernels(torch):
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    worst = 0.0
+    for i, (label, case) in enumerate(SSD_CASES.items()):
+        args = ssd_case(torch, *case, seed=2000 + i)
+        got = ssd_ops.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        want = ssd_chunk_ref(*args)
+        errs = []
+        for name, a, b in zip("YS", got, want):
+            if a.shape != b.shape or a.dtype != torch.float32:
+                raise AssertionError(f"ssd_chunk returned {name} {a.dtype} {tuple(a.shape)}")
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            finite = bool(torch.isfinite(a).all())
+            errs.append((name, err, scale))
+            worst = max(worst, err)
+            if not finite or err > SSD_REL_TOL * scale:
+                raise AssertionError(f"ssd_chunk kernel disagrees with its plain version: "
+                                     f"{label}: {name} max |err| {err} vs largest |{name}| "
+                                     f"{scale}")
+        log(f"  ssd_chunk {label} {tuple(args[2].shape)}: " + ", ".join(
+            f"{nm} max_abs_err={e:.3e} (largest |{nm}| {sc:.3e}, rel {e / sc:.2e})"
+            for nm, e, sc in errs) + " ok")
+        del args, got, want
+    torch.cuda.empty_cache()
+    log(f"phase 2 kernels: ssd_chunk max_abs_err={worst:.3e} (tolerance {SSD_REL_TOL} of "
+        f"the largest |Y|, |S|) over {len(SSD_CASES)} cases")
+    return worst
+
+
+def enqueue_case(torch, j, n, k, dtype, seed):
+    """w_stack (J, N, N): a row-stochastic Q split by a per-link delay
+    bucket; pending (N, K) in `dtype`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.softmax(torch.randn((n, n), generator=g, device="cuda"), dim=1)
+    delay = torch.randint(0, j, (n, n), generator=g, device="cuda")
+    w = torch.stack([q * (delay == b) for b in range(j)]).contiguous()
+    pending = torch.randn((n, k), generator=g, device="cuda").to(dtype)
+    return w, pending
+
+
+def enqueue_bound_ms(j, n, k, in_bytes, out_bytes):
+    """Least time for one enqueue: pending read once, the J outputs
+    written once, the weights read once; f32 FMAs over the f32 rate."""
+    moved = n * k * in_bytes + j * n * k * out_bytes + j * n * n * 4
+    flops = 2 * j * n * n * k
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_enqueue(torch):
+    """The enqueue's path: its wrapper driven at the JAX package's own
+    cases and the windowed path's width, f32 and bf16 in, f32 and bf16
+    out, with the launch count set to 0 before and read after; then each
+    output against the plain version (which launches nothing)."""
     from repro_torch.kernels.gossip import ops
+
+    calls = []
+    for i, (j, n, k) in enumerate(ENQ_PATH):
+        args = enqueue_case(torch, j, n, k, torch.float32, 3000 + i)
+        calls.append((f"J={j} N={n} K={k} f32", args, torch.float32))
+    w, p16 = enqueue_case(torch, *ENQ_MAIN, torch.bfloat16, 3100)
+    calls.append(("J=3 N=25 K=146447 bf16 -> f32", (w, p16), torch.float32))
+    calls.append(("J=3 N=25 K=146447 bf16 -> bf16", (w, p16), torch.bfloat16))
+    reset_launches()
+    outs = [ops.gossip_enqueue(*args, out_dtype=od) for _, args, od in calls]
+    torch.cuda.synchronize()
+    launches = launch_counts()["enqueue"]
+    if launches != len(calls):
+        raise AssertionError(f"enqueue launched {launches} times in {len(calls)} calls")
+    worst = 0.0
+    for (label, (w, pending), od), got in zip(calls, outs):
+        want = ops.gossip_enqueue_reference(w, pending, out_dtype=torch.float32)
+        if od == torch.float32:
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+            worst = max(worst, err)
+        else:  # the kernel's own f32 sums, rounded once
+            f32 = outs[[c[0] for c in calls].index("J=3 N=25 K=146447 bf16 -> f32")]
+            err = float((got.float() - want).abs().max())
+            ok = torch.equal(got, f32.to(torch.bfloat16)) and bool(torch.allclose(
+                got.float(), want.to(torch.bfloat16).float(), rtol=2.0 ** -8, atol=ATOL))
+        ok = ok and bool(torch.isfinite(got).all()) and got.dtype == od
+        if pending.shape[1] > 10**5 or not ok:
+            log(f"  enqueue {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"enqueue kernel disagrees with its plain version: {label}")
+    # buckets partition the edge set: they sum to the full mix
+    w, pending = calls[8][1]
+    full = ops.gossip_mix_reference(w.sum(0), pending)
+    if not torch.allclose(outs[8].sum(0), full, rtol=1e-4, atol=1e-4):
+        raise AssertionError("enqueue buckets do not sum to the full mix")
+    del calls, outs
+    torch.cuda.empty_cache()
+    log(f"phase 2 kernels: gossip_enqueue {launches} launches over its path, "
+        f"max_abs_err={worst:.3e} (f32 out, tolerance rtol={RTOL} atol={ATOL}; bf16 out "
+        f"equal to the kernel's f32 sums rounded once, and within one bf16 step of "
+        f"the plain version); buckets sum to the full mix")
+    return launches, worst
+
+
+def phase_new_times(torch):
+    """ssd_chunk at the mamba2 trainer's shape, the enqueue at the
+    windowed path's width: kernel, plain version, library call, bound."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
+    args = ssd_case(torch, *SSD_MAIN, seed=4000)
+    kern = time_ms(torch, lambda: ssd_ops.ssd_chunk(*args), reps=30, flush=flush)
+    plain = time_ms(torch, lambda: ssd_chunk_ref(*args), reps=30, flush=flush)
+    bound, by = ssd_bound_ms(args)
+    ssd = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by)
+    log(f"  ssd_chunk {tuple(args[2].shape)} bf16: kernel {kern:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, "
+        f"library: none (no one PyTorch call computes the masked SSD step)")
+    del args
+    j, n, k = ENQ_MAIN
+    w, pending = enqueue_case(torch, j, n, k, torch.float32, 4100)
+    kern = time_ms(torch, lambda: ops.gossip_enqueue(w, pending), flush=flush)
+    plain = time_ms(torch, lambda: ops.gossip_enqueue_reference(w, pending), flush=flush)
+    buf, wt = torch.empty((j, n, k), device="cuda"), w.transpose(1, 2)
+    lib = time_ms(torch, lambda: torch.matmul(wt, pending, out=buf), flush=flush)
+    bound, by = enqueue_bound_ms(j, n, k, 4, 4)
+    enq = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+    log(f"  enqueue J={j} N={n} K={k} f32: kernel {kern:.4f} ms, bound {bound:.4f} ms "
+        f"({by}, {100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, library "
+        f"matmul {lib:.4f} ms")
+    return ssd, enq
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    for fn in (ops.gossip_drain, ops.gossip_mix, ops.gossip_enqueue, ssd_ops.ssd_chunk):
+        fn.launches = 0
+
+
+def launch_counts():
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return {"drain": ops.gossip_drain.launches, "mix": ops.gossip_mix.launches,
+            "enqueue": ops.gossip_enqueue.launches, "ssd_chunk": ssd_ops.ssd_chunk.launches}
+
+
+def run_trainer(torch, argv, cfg, steps, label):
+    """`repro_torch.launch.train.main(argv, cfg=cfg)` with every launch
+    count set to 0 just before and read just after; checks the losses and
+    one mix launch per step. Returns (launches, s/step, peak bytes)."""
     from repro_torch.launch import train
 
-    args = train.parse_args(TRAIN_ARGS)
-    cfg = (get_reduced if args.reduced else get_config)(args.arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ops.gossip_mix.launches = 0
-    ops.gossip_drain.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
-    losses = train.main(TRAIN_ARGS)
+    losses = train.main(argv, cfg=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mix_launches, drain_launches = ops.gossip_mix.launches, ops.gossip_drain.launches
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     ln_v = math.log(cfg.vocab_size)
-    log(f"  trainer: {TRAIN_STEPS} steps of {cfg.name} ({cfg.num_layers} layers, "
+    log(f"  trainer: {steps} steps of {cfg.name} ({cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}) in {wall:.3f} s with init and data ({wall / TRAIN_STEPS:.4f} "
-        f"s/step); mix launches {mix_launches}, drain launches {drain_launches}; "
-        f"peak device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+        f"{cfg.dtype}) in {wall:.3f} s with init and data ({wall / steps:.4f} "
+        f"s/step); launches {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
     log(f"  losses: first {losses[0]:.6f} (ln V = {ln_v:.6f}), last {losses[-1]:.6f}; "
         + " ".join(f"{x:.4f}" for x in losses))
-    if mix_launches != TRAIN_STEPS:
-        raise AssertionError(f"mix launched {mix_launches} times in {TRAIN_STEPS} steps")
-    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS:
+    if launches["mix"] != steps:
+        raise AssertionError(f"mix launched {launches['mix']} times in {steps} steps")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
         raise AssertionError(f"trainer losses not finite: {losses}")
     if not ln_v - 1 <= losses[0] <= ln_v + 3:
         raise AssertionError(f"first loss {losses[0]} outside [ln V - 1, ln V + 3]")
-    log(f"phase 5 trainer: ok, {wall / TRAIN_STEPS:.4f} s/step")
-    return mix_launches, wall / TRAIN_STEPS, peak, losses
+    log(f"phase {label} trainer: ok, {wall / steps:.4f} s/step")
+    return launches, wall / steps, peak
 
 
-def phase_trainer_plain(torch):
-    """3 steps from one seed through the kernel and through the plain
-    mix; the kernel run times its first step unprofiled and profiles the
-    other two."""
+def phase_trainer(torch):
+    from repro_torch.configs.base import get_config
+
+    launches, s_step, peak = run_trainer(torch, TRAIN_ARGS, get_config("qwen2-1.5b"),
+                                         TRAIN_STEPS, "5")
+    return launches["mix"], s_step, peak
+
+
+def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label):
+    """`steps` trainer steps from one seed through the kernels and through
+    the plain versions (`plain`: keyword arguments of `train_step`); the
+    kernel run times its first step unprofiled and profiles the others.
+    Returns Dflat, the unprofiled step (s), the device busy time per step
+    and each of `kernel_rows`' device time per step (us)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import make_context
-    from repro_torch.configs.base import get_config, get_reduced
     from repro_torch.core import flat as flat_lib
     from repro_torch.core.protocol import DracoConfig
-    from repro_torch.kernels.gossip import ops
     from repro_torch.launch import train
 
-    args = train.parse_args(TRAIN_ARGS)
-    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    args = train.parse_args(argv)
     n = args.clients
     q = make_context(DracoConfig(num_clients=n, topology=args.topology, channel=None),
                      device="cuda").q
@@ -444,7 +684,7 @@ def phase_trainer_plain(torch):
                               8 * args.batch_per_client, args.seq, device="cuda")
     gen = torch.Generator(device="cuda")
     runs, out = {}, {}
-    for name, mix in (("kernel", None), ("plain", ops.gossip_mix_reference)):
+    for name, kw in (("kernel", {}), ("plain", plain)):
         params = train.init_client_params(SEED, cfg, n, "cuda")
         out["dflat"] = flat_lib.spec_of(params).dim
         losses = []
@@ -454,7 +694,7 @@ def phase_trainer_plain(torch):
             q_eff = train.mixing_weights(q, args.psi, generator=gen,
                                          lambda_tx=args.lambda_tx)
             batch = train.select_batch(data, i, args.batch_per_client)
-            params, loss = train.train_step(params, batch, q_eff, cfg, args.lr, mix=mix)
+            params, loss = train.train_step(params, batch, q_eff, cfg, args.lr, **kw)
             losses.append(float(loss))
             return params
 
@@ -468,17 +708,17 @@ def phase_trainer_plain(torch):
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    for i in range(1, TRAIN_PLAIN_STEPS):
+                    for i in range(1, steps):
                         params = step(i, params)
                     torch.cuda.synchronize()
-                    out["profiled_s"] = (time.perf_counter() - t0) / (TRAIN_PLAIN_STEPS - 1)
+                    out["profiled_s"] = (time.perf_counter() - t0) / (steps - 1)
                 out["rows"] = device_rows(prof)
             except (RuntimeError, AttributeError) as exc:
                 log(f"  profiler: not measured ({exc})")
-                for i in range(1, TRAIN_PLAIN_STEPS):
+                for i in range(1, steps):
                     params = step(i, params)
         else:
-            for i in range(1, TRAIN_PLAIN_STEPS):
+            for i in range(1, steps):
                 params = step(i, params)
         sums = [float(leaf.sum(dtype=torch.float64)) for leaf in flat_lib.tree_leaves(params)]
         scale = [float(leaf.abs().sum(dtype=torch.float64)) for leaf in
@@ -496,24 +736,67 @@ def phase_trainer_plain(torch):
     if loss_gap > TRAIN_PATH_RTOL or param_gap > TRAIN_PATH_RTOL:
         raise AssertionError("trainer kernel path and plain path differ")
     rows = out.get("rows") or []
-    busy_us = sum(r[0] for r in rows) / (TRAIN_PLAIN_STEPS - 1)
-    mix_us = sum(r[0] for r in rows if "mix_kernel" in r[1]) / (TRAIN_PLAIN_STEPS - 1)
+    busy_us = sum(r[0] for r in rows) / (steps - 1)
+    per_kernel = {k: sum(r[0] for r in rows if key in r[1]) / (steps - 1)
+                  for k, key in kernel_rows.items()}
     steady_us = out["steady_s"] * 1e6
     if busy_us > 0:
         share = busy_us / steady_us
-        log(f"  profiler over {TRAIN_PLAIN_STEPS - 1} steps: device busy "
+        log(f"  profiler over {steps - 1} steps: device busy "
             f"{busy_us / 1e3:.3f} ms/step ({out['profiled_s'] * 1e3:.3f} ms/step wall "
             f"under the profiler); against the unprofiled step "
             f"({steady_us / 1e3:.3f} ms): {100 * share:.2f}% busy, "
-            f"{100 - 100 * share:.2f}% idle; mix kernel {mix_us / 1e3:.3f} ms/step")
+            f"{100 - 100 * share:.2f}% idle; "
+            + ", ".join(f"{k} kernel {v / 1e3:.3f} ms/step" for k, v in per_kernel.items()))
         for dev, key, count in sorted(rows, reverse=True)[:10]:
-            log(f"    {dev / 1e3 / (TRAIN_PLAIN_STEPS - 1):9.3f} ms/step  {count:6d}x  "
-                f"{key[:90]}")
+            log(f"    {dev / 1e3 / (steps - 1):9.3f} ms/step  {count:6d}x  {key[:90]}")
     else:
         log("  profiler: no device time recorded (not measured)")
-    log(f"phase 6 trainer plain: kernel path and plain path agree; "
+    log(f"phase {label}: kernel path and plain path agree; "
         f"{out['steady_s']:.4f} s/step unprofiled")
-    return out["dflat"], out["steady_s"], busy_us, mix_us
+    return out["dflat"], out["steady_s"], busy_us, per_kernel
+
+
+def phase_trainer_plain(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gossip import ops
+
+    dflat, steady_s, busy_us, per_kernel = compare_trainer_paths(
+        torch, TRAIN_ARGS, get_config("qwen2-1.5b"), TRAIN_PLAIN_STEPS,
+        dict(mix=ops.gossip_mix_reference), {"mix": "mix_kernel"}, "6 trainer plain")
+    return dflat, steady_s, busy_us, per_kernel["mix"]
+
+
+def mamba2_config():
+    from repro_torch.configs.base import get_config
+
+    return get_config("mamba2-2.7b").with_(num_layers=MAMBA_LAYERS)
+
+
+def phase_mamba2(torch):
+    cfg = mamba2_config()
+    launches, s_step, peak = run_trainer(torch, MAMBA_ARGS, cfg, MAMBA_STEPS, "7 mamba2")
+    clients = int(MAMBA_ARGS[MAMBA_ARGS.index("--clients") + 1])
+    # forward and the remat recompute: two per block, client and step
+    want = MAMBA_STEPS * cfg.num_layers * clients * (2 if cfg.remat else 1)
+    if launches["ssd_chunk"] != want:
+        raise AssertionError(f"ssd_chunk launched {launches['ssd_chunk']} times, "
+                             f"expected {want}")
+    if launches["drain"] or launches["enqueue"]:
+        raise AssertionError(f"unexpected launches on the trainer path: {launches}")
+    log(f"  ssd_chunk launches {launches['ssd_chunk']} = {MAMBA_STEPS} steps x "
+        f"{cfg.num_layers} layers x {clients} clients x 2 (forward, remat)")
+    return launches, s_step, peak
+
+
+def phase_mamba2_plain(torch):
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    return compare_trainer_paths(
+        torch, MAMBA_ARGS, mamba2_config(), MAMBA_PLAIN_STEPS,
+        dict(mix=ops.gossip_mix_reference, chunk_fn=ssd_chunk_ref),
+        {"mix": "mix_kernel", "ssd_chunk": "ssd_chunk_kernel"}, "8 mamba2 plain")
 
 
 def phase_times(torch):
@@ -579,14 +862,19 @@ def main() -> int:
     phase_build()
     max_err = phase_kernels(torch)
     mix_err = phase_mix_kernels(torch)
+    ssd_err = phase_ssd_kernels(torch)
+    enq_launches, enq_err = phase_enqueue(torch)
     launches, ms_window, steady, ctx, params0, data = phase_main(torch)
     phase_plain(torch, ctx, params0, data)
     del ctx, params0, data
-    mix_launches, s_step, peak, _ = phase_trainer(torch)
+    mix_launches, s_step, peak = phase_trainer(torch)
     dflat, steady_s, busy_us, mix_us = phase_trainer_plain(torch)
+    m_launches, m_step, m_peak = phase_mamba2(torch)
+    m_dflat, m_steady, m_busy, m_kernels = phase_mamba2_plain(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
-    log("phase 7 times: done")
+    ssd_times, enq_times = phase_new_times(torch)
+    log("phase 9 times: done")
     kernels = [
         dict(name="gossip_drain", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
@@ -596,12 +884,25 @@ def main() -> int:
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
              launches=mix_launches, max_abs_err=max(mix_err, mix_err_train),
-             **mix_times)]
+             **mix_times),
+        dict(name="gossip_enqueue", route="cuda",
+             source="src/repro_torch/kernels/gossip/csrc/enqueue.cu",
+             replaces="src/repro/kernels/gossip/gossip.py:62",
+             launches=enq_launches, max_abs_err=enq_err, **enq_times),
+        dict(name="ssd_chunk", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd/ssd.py:47",
+             launches=m_launches["ssd_chunk"], max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
-    log(f"trainer path: {s_step:.4f} s/step over {TRAIN_STEPS} steps with init, "
-        f"{steady_s:.4f} s/step steady; device busy {busy_us / 1e3:.3f} ms/step, "
+    log(f"trainer path (qwen2-1.5b): {s_step:.4f} s/step over {TRAIN_STEPS} steps with "
+        f"init, {steady_s:.4f} s/step steady; device busy {busy_us / 1e3:.3f} ms/step, "
         f"mix {mix_us / 1e3:.3f} ms/step; peak {peak / 2**30:.2f} GiB")
+    log(f"trainer path (mamba2-2.7b, {MAMBA_LAYERS} of 64 layers, Dflat {m_dflat}): "
+        f"{m_step:.4f} s/step over {MAMBA_STEPS} steps with init, {m_steady:.4f} s/step "
+        f"steady; device busy {m_busy / 1e3:.3f} ms/step, ssd_chunk "
+        f"{m_kernels['ssd_chunk'] / 1e3:.3f} ms/step, mix {m_kernels['mix'] / 1e3:.3f} "
+        f"ms/step; peak {m_peak / 2**30:.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

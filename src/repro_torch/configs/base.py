@@ -5,8 +5,9 @@ the port imports nothing of the JAX package): `ModelConfig` with its
 analytic `param_count`, the CLI aliases, `get_config` and `get_reduced`.
 Each architecture is a module ``repro_torch.configs.<id>`` exporting
 ``CONFIG`` (the published scale) and ``reduced()`` (a CPU-sized variant
-of the same family). Only the dense family is ported so far
-(``qwen2_1p5b``); the other architectures come with their families.
+of the same family). The dense (``qwen2_1p5b``) and ssm
+(``mamba2_2p7b``) families are ported so far; the other architectures
+come with their families.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
-"""Build the gossip CUDA sources into shared libraries on first use.
+"""Build the port's CUDA sources into shared libraries on first use.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into
-``build/lib<name>-<hash>.so`` beside this file, then loaded with
-`ctypes`. The hash covers the source and the compiler flags, so an edit
+Every kernel package keeps its sources under ``<package>/csrc/``; each
+``<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside this
+file, then loaded with `ctypes`. `SOURCES` names every source of the
+port. The hash covers the source and the compiler flags, so an edit
 rebuilds. ``build/`` is listed in ``.gitignore``; nothing is compiled
 when a module is imported, only when a kernel is first launched (or
 when `build` is called, as ``chip_smoke.py`` does).
@@ -19,11 +20,22 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("drain", "mix")
+# kernel name -> its source, relative to this directory
+SOURCES = {
+    "drain": "gossip/csrc/drain.cu",
+    "mix": "gossip/csrc/mix.cu",
+    "enqueue": "gossip/csrc/enqueue.cu",
+    "ssd_chunk": "ssd/csrc/ssd_chunk.cu",
+}
+
+
+def source_path(name: str) -> Path:
+    """The ``.cu`` file of kernel `name`."""
+    return KERNELS / SOURCES[name]
 
 
 def find_nvcc() -> str:
@@ -41,17 +53,17 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed on source + flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where kernel `name` builds to, keyed on source + flags."""
+    h = hashlib.sha256(source_path(name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, name: str, out: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
     """Compile every source of `names` that is not built yet, one
     ``nvcc`` per source, all started together; returns name -> library.
 
@@ -76,7 +88,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         log, _ = proc.communicate()
         paths[name].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{source_path(name).name} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[name])
@@ -87,5 +99,5 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built on first call)."""
+    """The built library of kernel `name` (built on first call)."""
     return ctypes.CDLL(str(build((name,))[name]))

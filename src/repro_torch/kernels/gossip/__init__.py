@@ -1,2 +1,2 @@
-"""Gossip kernels (delay-bucketed drain, row-stochastic mix): CUDA
-sources, wrappers, build."""
+"""Gossip kernels (delay-bucketed drain, row-stochastic mix, bucketed
+enqueue): CUDA sources, wrappers, plain versions."""

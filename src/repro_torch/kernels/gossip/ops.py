@@ -1,12 +1,14 @@
 """Public wrappers of the gossip kernels (port of
 `repro.kernels.gossip.ops`): `gossip_drain` (delay-bucketed drain,
-``csrc/drain.cu``) and `gossip_mix` (row-stochastic mix, ``csrc/mix.cu``).
+``csrc/drain.cu``), `gossip_mix` (row-stochastic mix, ``csrc/mix.cu``)
+and `gossip_enqueue` (eager delay-bucketed mix, ``csrc/enqueue.cu``).
 
 Backend by tensor placement, never by option: a CUDA tensor launches the
 hand-written Hopper kernel or raises; a CPU tensor takes the plain
-version (`gossip_drain_reference`, `gossip_mix_reference`). There is no
-fallback from a kernel to its plain version. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+version (`gossip_drain_reference`, `gossip_mix_reference`,
+`gossip_enqueue_reference`). There is no fallback from a kernel to its
+plain version. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.gossip import build
+from repro_torch.kernels import build
+from repro_torch.kernels.gossip.ref import gossip_enqueue_ref
 
 RING_DTYPES = (torch.float32, torch.bfloat16)
 MIX_DTYPES = (torch.float32, torch.bfloat16)
@@ -45,6 +48,21 @@ def _mix_lib() -> ctypes.CDLL:
     lib.mix_launch.restype = ctypes.c_int
     lib.mix_max_n.argtypes = []
     lib.mix_max_n.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _enqueue_lib() -> ctypes.CDLL:
+    lib = build.load("enqueue")
+    lib.enqueue_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.enqueue_launch.restype = ctypes.c_int
+    lib.enqueue_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.enqueue_smem_bytes.restype = ctypes.c_longlong
+    for fn in ("enqueue_max_n", "enqueue_max_smem"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -200,3 +218,75 @@ def gossip_mix_reference(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     _check_mix(q, deltas)
     out = q.to(torch.float32).T @ deltas.to(torch.float32)
     return out.to(deltas.dtype)
+
+
+def _check_enqueue(w_stack, pending, out_dtype):
+    if w_stack.dim() != 3 or pending.dim() != 2 or w_stack.shape[1] != w_stack.shape[2] \
+            or w_stack.shape[1] != pending.shape[0]:
+        raise ValueError(f"w_stack must be (J, N, N) and pending (N, K); got "
+                         f"{tuple(w_stack.shape)} and {tuple(pending.shape)}")
+    if pending.dtype not in MIX_DTYPES or out_dtype not in MIX_DTYPES:
+        raise TypeError(f"pending {pending.dtype} -> out {out_dtype}: the enqueue "
+                        f"takes and writes {MIX_DTYPES}")
+    if w_stack.device != pending.device:
+        raise ValueError(f"w_stack on {w_stack.device}, pending on {pending.device}")
+
+
+def gossip_enqueue(w_stack: torch.Tensor, pending: torch.Tensor, *,
+                   out_dtype=None) -> torch.Tensor:
+    """Batched delay-bucketed mixing: ``out[j] = w_stack[j]^T @ pending``.
+
+    The eager lowering of bucketed gossip: one broadcast mixed into all J
+    delay buckets at send time (the windowed engine stores raw payloads
+    and mixes at drain time instead). w_stack (J, N, N): per-bucket
+    masked weights (Q * M_d); pending (N, K) flat updates, f32 or bf16.
+    Returns (J, N, K) in `out_dtype` (default ``pending.dtype``),
+    accumulated in f32 in sender order. No padding copy is made.
+
+    CUDA tensors launch ``csrc/enqueue.cu`` (counted in
+    ``gossip_enqueue.launches``; N <= 64, pending contiguous, the J
+    weight matrices within a block's shared memory); CPU tensors take
+    `gossip_enqueue_reference`.
+    """
+    out_dtype = pending.dtype if out_dtype is None else out_dtype
+    _check_enqueue(w_stack, pending, out_dtype)
+    if pending.device.type == "cpu":
+        return gossip_enqueue_reference(w_stack, pending, out_dtype=out_dtype)
+    if pending.device.type != "cuda":
+        raise ValueError(f"no enqueue kernel for device {pending.device}")
+    lib = _enqueue_lib()
+    j_total, n, _ = w_stack.shape
+    k = pending.shape[1]
+    if n > lib.enqueue_max_n():
+        raise ValueError(f"enqueue kernel supports N <= {lib.enqueue_max_n()}, got N = {n}")
+    if not pending.is_contiguous():
+        raise ValueError("pending must be contiguous")
+    w = w_stack.to(torch.float32).contiguous()
+    out = torch.empty((j_total, n, k), dtype=out_dtype, device=pending.device)
+    with torch.cuda.device(pending.device):
+        smem, limit = lib.enqueue_smem_bytes(j_total, n), lib.enqueue_max_smem()
+        if smem > limit:
+            raise ValueError(f"enqueue kernel: {j_total} buckets of {n} clients need "
+                             f"{smem} bytes of shared memory, more than the {limit} a "
+                             f"block has")
+        stream = torch.cuda.current_stream(pending.device).cuda_stream
+        err = lib.enqueue_launch(w.data_ptr(), pending.data_ptr(), out.data_ptr(),
+                                 j_total, n, k, int(pending.dtype == torch.bfloat16),
+                                 int(out_dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"enqueue kernel launch failed: CUDA error {err}")
+    gossip_enqueue.launches += 1
+    return out
+
+
+gossip_enqueue.launches = 0
+
+
+def gossip_enqueue_reference(w_stack: torch.Tensor, pending: torch.Tensor, *,
+                             out_dtype=None) -> torch.Tensor:
+    """Plain version of `gossip_enqueue`: the batched f32 einsum
+    ``out[j] = w_stack[j]^T @ pending``, w_stack (J, N, N), pending (N,
+    K) -> (J, N, K) in `out_dtype` (default ``pending.dtype``)."""
+    out_dtype = pending.dtype if out_dtype is None else out_dtype
+    _check_enqueue(w_stack, pending, out_dtype)
+    return gossip_enqueue_ref(w_stack, pending, out_dtype=out_dtype)

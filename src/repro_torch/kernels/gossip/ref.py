@@ -15,6 +15,18 @@ def gossip_mix_ref(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     return out.to(deltas.dtype)
 
 
+def gossip_enqueue_ref(w_stack: torch.Tensor, pending: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
+    """Batched delay-bucketed mix: out[j] = w_stack[j]^T @ pending.
+
+    w_stack (J, N, N) per-bucket masked weights (Q * M_d), pending
+    (N, K). f32 accumulation; output dtype defaults to pending.dtype.
+    """
+    out = torch.einsum("jnm,nk->jmk", w_stack.to(torch.float32),
+                       pending.to(torch.float32))
+    return out.to(pending.dtype if out_dtype is None else out_dtype)
+
+
 def gossip_drain_ref(w_stack: torch.Tensor, payloads: torch.Tensor,
                      out_dtype=torch.float32) -> torch.Tensor:
     """Fused multi-window drain: out = sum_j w_stack[j]^T @ payloads[j].

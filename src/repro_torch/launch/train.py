@@ -20,6 +20,8 @@ plane is added into the params leaf by leaf, in place.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 12 --clients 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --reduced --device cpu --steps 12 --clients 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 20 --clients 4 --psi 1 --unify-every 10     # on the card
 """
@@ -103,7 +105,7 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
 
 
 def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
-               mix: Optional[mixing.MixFn] = None):
+               mix: Optional[mixing.MixFn] = None, chunk_fn=None):
     """One DRACO step on one device; returns ``(params, mean loss)``.
 
     params: dict of (N, ...) leaves, updated in place; batch
@@ -112,14 +114,17 @@ def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
     the leaf's dtype written into that client's row of the f32 delta
     plane. Then one `mix_plane` (the gossip-mix kernel, or `mix`) and
     ``p += mixed.to(p.dtype)`` leaf by leaf. The loss is the mean of the
-    clients' f32 losses, as a 0-d tensor (no host read)."""
+    clients' f32 losses, as a 0-d tensor (no host read). `chunk_fn`
+    replaces the SSD intra-chunk kernel of an ssm model (see
+    `M.apply_model`)."""
     spec = flat_lib.spec_of(params)
     n = spec.num_clients
     plane = torch.empty((n, spec.dim), dtype=torch.float32, device=q_eff.device)
     losses = []
     for i in range(n):
         p_i = flat_lib.tree_map(lambda p: p[i].detach().requires_grad_(), params)
-        loss = M.lm_loss(p_i, cfg, {k: v[i] for k, v in batch.items()})
+        loss = M.lm_loss(p_i, cfg, {k: v[i] for k, v in batch.items()},
+                         chunk_fn=chunk_fn)
         grads = torch.autograd.grad(loss, flat_lib.tree_leaves(p_i))
         for g, off, size in zip(grads, spec.offsets, spec.sizes):
             plane[i, off:off + size].copy_(g.reshape(-1).mul_(_in_dtype(-lr, g.dtype)))
@@ -165,10 +170,26 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
+def check_seq(cfg, seq: int) -> None:
+    """An ssm model's SSD runs in chunks of ``min(ssm_chunk, seq)``
+    tokens, so `seq` must be a multiple of ``ssm_chunk`` or no longer
+    than it (the reference asserts this in ``ssd_chunked``)."""
+    if cfg.family == "ssm" and seq > cfg.ssm_chunk and seq % cfg.ssm_chunk:
+        raise ValueError(
+            f"--seq {seq} does not fit {cfg.name}'s SSD chunk of {cfg.ssm_chunk} "
+            f"tokens: give a multiple of {cfg.ssm_chunk}, or at most {cfg.ssm_chunk}")
+
+
+def main(argv=None, *, cfg=None):
+    """Run the trainer with the CLI's arguments. `cfg` trains that model
+    config instead of the one ``--arch`` / ``--reduced`` name (for
+    example a depth cut of it, ``get_config(arch).with_(num_layers=32)``).
+    Returns the per-step losses."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    check_seq(cfg, args.seq)
     n = args.clients
 
     params = init_client_params(args.seed, cfg, n, dev)

@@ -1,19 +1,20 @@
-"""The unified decoder, dense family.
+"""The unified decoder, dense and ssm families.
 
-Port of `repro.models.model` for the training path of the dense family.
-A model is a repeating *pattern* of sub-blocks over ``n_groups``
-(dense: ``['attn', 'mlp'] x L``). The parameters keep the reference's
-**stacked** layout: every leaf of ``params["groups"]`` has a leading
-group axis (L, ...), under the keys ``"0:attn"`` and ``"1:mlp"``, so the
-flat plane of a parameter dict matches the JAX ravel column for column.
+Port of `repro.models.model` for the training path of the dense and ssm
+families. A model is a repeating *pattern* of sub-blocks over
+``n_groups`` (dense: ``['attn', 'mlp'] x L``; ssm: ``['ssm'] x L``). The
+parameters keep the reference's **stacked** layout: every leaf of
+``params["groups"]`` has a leading group axis (L, ...), under the keys
+``"0:attn"`` and ``"1:mlp"`` (dense) or ``"0:ssm"`` (ssm), so the flat
+plane of a parameter dict matches the JAX ravel column for column.
 
 The reference's ``lax.scan`` over groups is a loop over ``g`` here, and
 its ``jax.checkpoint`` (``cfg.remat``) is
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. Its
 ``sharding.axes.constrain`` calls only place activations on a device
 mesh and do nothing on one device, so they are left out. The other
-families, decode, the hidden-state output and the chunked-vocab loss
-(``vocab_chunk > 0``) come with later slices.
+families (moe, hybrid, vlm), decode, the hidden-state output and the
+chunked-vocab loss (``vocab_chunk > 0``) come with later slices.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch import as_generator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import cross_entropy, dense_init, init_mlp, mlp, rms_norm
+from repro_torch.models.ssm import init_ssm, ssm_block
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
@@ -35,9 +37,11 @@ def block_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
             raise NotImplementedError(
                 "frame-embedding inputs (audio) are not ported yet")
         return ("attn", "mlp"), cfg.num_layers
+    if cfg.family == "ssm":
+        return ("ssm",), cfg.num_layers
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported to repro_torch yet; "
-        "only the dense family is")
+        "only the dense and ssm families are")
 
 
 def init_params(key, cfg: ModelConfig, device=None) -> Dict[str, Any]:
@@ -67,6 +71,8 @@ def init_params(key, cfg: ModelConfig, device=None) -> Dict[str, Any]:
             elif kind == "mlp":
                 gp[name] = {"norm": zeros(d),
                             "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
+            elif kind == "ssm":
+                gp[name] = {"norm": zeros(d), "ssm": init_ssm(gen, cfg)}
         return gp
 
     per_group = [init_group() for _ in range(n_groups)]
@@ -105,30 +111,37 @@ def _logits(params, cfg, h):
     return h @ w
 
 
-def _apply_block(kind, bp, h, cfg, sliding_window):
+def _apply_block(kind, bp, h, cfg, sliding_window, chunk_fn):
     x = rms_norm(h, bp["norm"], cfg.norm_eps)
     if kind == "attn":
         return h + attn_lib.full_attention(bp["attn"], x, cfg,
                                            sliding_window=sliding_window)
     if kind == "mlp":
         return h + mlp(bp["mlp"], x)
+    if kind == "ssm":
+        return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn)
     raise ValueError(kind)
 
 
-def apply_model(params, cfg: ModelConfig, batch):
+def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None):
     """Full-sequence forward: batch ``{"tokens": (B, S) int}`` ->
-    (logits (B, S, V), aux scalar f32); aux is 0 for the dense family."""
+    (logits (B, S, V), aux scalar f32); aux is 0 for these families.
+
+    `chunk_fn` replaces the SSD intra-chunk step of the ssm blocks
+    (default: the kernel; ``kernels.ssd.ref.ssd_chunk_ref`` is the plain
+    path)."""
     pattern, n_groups = block_pattern(cfg)
     h = params["embed"][batch["tokens"]]
     S = h.shape[1]
-    if S >= 8192:
+    if S >= 8192 and cfg.family != "ssm":
         raise NotImplementedError(
             "the reference switches to blocked attention at S >= 8192; "
             "that path is not ported yet")
 
     def group_fn(h, gp):
         for i, kind in enumerate(pattern):
-            h = _apply_block(kind, gp[f"{i}:{kind}"], h, cfg, cfg.sliding_window)
+            h = _apply_block(kind, gp[f"{i}:{kind}"], h, cfg, cfg.sliding_window,
+                             chunk_fn)
         return h
 
     for gp in _unbind_groups(params["groups"], n_groups):
@@ -150,10 +163,10 @@ def _labels_and_mask(batch):
     return labels, mask
 
 
-def lm_loss(params, cfg: ModelConfig, batch):
+def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None):
     """Next-token cross-entropy (mean over unmasked positions) plus aux,
     from the full logits: the reference's ``vocab_chunk=0``, which is what
-    the trainer calls."""
+    the trainer calls. `chunk_fn` as in `apply_model`."""
     labels, mask = _labels_and_mask(batch)
-    logits, aux = apply_model(params, cfg, batch)
+    logits, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn)
     return cross_entropy(logits, labels, mask) + aux

@@ -1,6 +1,7 @@
-"""repro_torch on the card: the drain and mix kernels against their
-plain versions, the windowed main path launching the drain once per
-window, and the trainer launching the mix once per step.
+"""repro_torch on the card: the drain, mix, enqueue and SSD intra-chunk
+kernels against their plain versions, the windowed main path launching
+the drain once per window, and the trainer launching the mix once per
+step and, on an ssm model, the SSD kernel once per block and client.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.gossip import ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
 # (J, N, M, K, ring rows, live buckets): the main path's widths, clients
 # off any tile grid, ragged K, D in {2, 4, 8}, rectangular, N = M = 64
@@ -182,6 +185,232 @@ def test_trainer_kernel_path_matches_plain_path(cuda_device):
             q_eff = train.mixing_weights(q, 1, generator=gen)
             params, loss = train.train_step(params, train.select_batch(data, step, 2),
                                             q_eff, cfg, 3e-3, mix=mix)
+            losses.append(float(loss))
+        runs[name] = (losses, params)
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(runs["kernel"][1]), tree_leaves(runs["plain"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# gossip_enqueue: J buckets (ring depths 2, 4, 8), clients off any tile
+# grid up to 64, K with a ragged last block, the windowed path's width
+ENQ_J = (1, 3, 7)
+ENQ_N = (7, 25, 64)
+ENQ_K = (1, 513, 146_447)
+
+
+def _enqueue_case(device, j, n, k, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.random((n, n)).astype(np.float32)
+    q /= q.sum(axis=1, keepdims=True)
+    delay = rng.integers(0, j, (n, n))
+    w = np.stack([q * (delay == b) for b in range(j)]).astype(np.float32)
+    pending = rng.standard_normal((n, k)).astype(np.float32)
+    return torch.as_tensor(w, device=device), torch.as_tensor(pending, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", ENQ_J)
+@pytest.mark.parametrize("n", ENQ_N)
+@pytest.mark.parametrize("k", ENQ_K)
+def test_enqueue_kernel_matches_plain_version(cuda_device, j, n, k):
+    w, pending = _enqueue_case(cuda_device, j, n, k, seed=j * n + k)
+    before = ops.gossip_enqueue.launches
+    got = ops.gossip_enqueue(w, pending)
+    torch.cuda.synchronize()
+    assert ops.gossip_enqueue.launches == before + 1
+    assert got.shape == (j, n, k) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ops.gossip_enqueue_reference(w, pending),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(25, 146_447), (7, 513)])
+def test_enqueue_kernel_bf16(cuda_device, n, k):
+    """bf16 payloads accumulate in f32; a bf16 output is the kernel's f32
+    sum rounded once (bit for bit), within one bf16 step of the plain
+    version's."""
+    w, pending = _enqueue_case(cuda_device, 3, n, k, seed=n)
+    p16 = pending.to(torch.bfloat16)
+    out32 = ops.gossip_enqueue(w, p16, out_dtype=torch.float32)
+    torch.testing.assert_close(
+        out32, ops.gossip_enqueue_reference(w, p16, out_dtype=torch.float32),
+        rtol=1e-5, atol=1e-5)
+    out16 = ops.gossip_enqueue(w, p16)
+    assert out16.dtype == torch.bfloat16
+    assert torch.equal(out16, out32.to(torch.bfloat16))
+    torch.testing.assert_close(out16.float(), ops.gossip_enqueue_reference(w, p16).float(),
+                               rtol=2.0 ** -8, atol=1e-5)
+    out_f32_to_bf16 = ops.gossip_enqueue(w, pending, out_dtype=torch.bfloat16)
+    assert torch.equal(out_f32_to_bf16, ops.gossip_enqueue(w, pending).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_enqueue_kernel_rejects_what_it_cannot_hold(cuda_device):
+    w, pending = _enqueue_case(cuda_device, 3, 65, 16)
+    with pytest.raises(ValueError, match="N <= 64"):
+        ops.gossip_enqueue(w, pending)
+    w, pending = _enqueue_case(cuda_device, 15, 64, 16)  # 245,760 bytes of weights
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.gossip_enqueue(w, pending)
+    w, pending = _enqueue_case(cuda_device, 3, 4, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gossip_enqueue(w, pending.T.contiguous().T)
+
+
+# ssd_chunk: (Bb, H, G, nc, Q, N, P, A scale): mamba2's block widths with
+# fewer heads, groups, Q != N, ragged tiles in Q, N and P, a tiny case,
+# and a decay strong enough that exp(cums_i - cums_j) overflows above
+# the diagonal unless masked first
+SSD_CASES = {
+    "mamba2-heads8": (2, 8, 1, 2, 128, 128, 64, 1.0),
+    "groups2-q64-n32-p48": (2, 4, 2, 3, 64, 32, 48, 1.0),
+    "ragged-q40-n40-p70": (1, 3, 3, 2, 40, 40, 70, 1.0),
+    "tiny-q8": (1, 2, 1, 4, 8, 4, 4, 1.0),
+    "strong-decay": (1, 4, 1, 2, 128, 32, 16, 80.0),
+}
+
+
+def _ssd_case(device, bb, h, g, nc, q, n, p, decay, dtype, seed=0):
+    """Grouped views of one projection tensor, as ssm_block makes them:
+    C, B (Bb, G, nc, Q, N), x (Bb, H, nc, Q, P), cums, dt (Bb, H, nc, Q)."""
+    rng = np.random.default_rng(seed)
+    t = nc * q
+    width = h * p + 2 * g * n
+    proj = torch.as_tensor(rng.standard_normal((bb, t, width)).astype(np.float32),
+                           device=device).to(dtype)
+    x = proj[..., :h * p].reshape(bb, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    B = proj[..., h * p:h * p + g * n].reshape(bb, nc, q, g, n).permute(0, 3, 1, 2, 4)
+    C = proj[..., h * p + g * n:].reshape(bb, nc, q, g, n).permute(0, 3, 1, 2, 4)
+    dt = np.log1p(np.exp(rng.standard_normal((bb, h, nc, q)))).astype(np.float32)
+    dt = torch.as_tensor(dt, device=device)
+    a = -decay * torch.arange(1, h + 1, dtype=torch.float32, device=device)
+    cums = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+    return C, B, x, cums, dt
+
+
+def _assert_ssd_close(got, want):
+    """Within 1e-4 of the largest |Y| (|S|): f32 sums of up to Q * N
+    products in another order."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_chunk_kernel_matches_plain_version(cuda_device, name, dtype):
+    args = _ssd_case(cuda_device, *SSD_CASES[name], dtype, seed=len(name))
+    before = ssd_ops.ssd_chunk.launches
+    got = ssd_ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk.launches == before + 1
+    _assert_ssd_close(got, ssd_chunk_ref(*args))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_takes_one_group_per_head(cuda_device):
+    """The reference kernel's (BH, nc, Q, N) inputs as one batch row of
+    the grouped layout with a group per head, against the plain version
+    in the reference's 4-D layout."""
+    C, B, x, cums, dt = _ssd_case(cuda_device, 2, 4, 2, 2, 32, 16, 8, 1.0, torch.float32)
+    flat = [C.repeat_interleave(2, 1), B.repeat_interleave(2, 1), x, cums, dt]
+    flat = [t.reshape(8, *t.shape[2:]) for t in flat]
+    y, s = ssd_ops.ssd_chunk(*(t.unsqueeze(0) for t in flat))
+    assert y.shape == (1, 8, 2, 32, 8) and s.shape == (1, 8, 2, 16, 8)
+    _assert_ssd_close((y[0], s[0]), ssd_chunk_ref(*flat))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_rejects_what_it_cannot_hold(cuda_device):
+    C, B, x, cums, dt = _ssd_case(cuda_device, 1, 2, 1, 2, 16, 8, 8, 1.0, torch.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_ops.ssd_chunk(C.half(), B.half(), x.half(), cums, dt)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_ops.ssd_chunk(C, B, x.to(torch.bfloat16), cums, dt)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_chunk(C, B, x, cums.double(), dt)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        ssd_ops.ssd_chunk(C.transpose(-1, -2).contiguous().transpose(-1, -2), B, x, cums, dt)
+    with pytest.raises(ValueError, match="cums and dt must be contiguous"):
+        ssd_ops.ssd_chunk(C, B, x, cums.transpose(-1, -2).contiguous().transpose(-1, -2), dt)
+    with pytest.raises(ValueError, match="multiple of G"):
+        ssd_ops.ssd_chunk(C.expand(1, 3, *C.shape[2:]), B.expand(1, 3, *B.shape[2:]), x,
+                          cums, dt)
+    with pytest.raises(ValueError, match="grouped layout"):
+        ssd_ops.ssd_chunk(C[0], B[0], x[0], cums[0], dt[0])
+
+
+@pytest.mark.cuda
+def test_ssd_forward_through_the_kernel_matches_plain_path(cuda_device):
+    """Forward and gradients of ssd_forward: the kernel's forward with the
+    plain version's backward against autograd through the plain version."""
+    C, B, x, cums, dt = _ssd_case(cuda_device, 2, 4, 1, 2, 32, 16, 8, 1.0, torch.float32)
+    xs = x.permute(0, 2, 3, 1, 4).reshape(2, 64, 4, 8).contiguous()
+    Bs = B.permute(0, 2, 3, 1, 4).reshape(2, 64, 1, 16).contiguous()
+    Cs = C.permute(0, 2, 3, 1, 4).reshape(2, 64, 1, 16).contiguous()
+    dts = dt.permute(0, 2, 3, 1).reshape(2, 64, 4).contiguous()
+    a = -torch.arange(1, 5, dtype=torch.float32, device=cuda_device)
+    d = torch.ones(4, device=cuda_device)
+    out = []
+    for chunk_fn in (None, ssd_chunk_ref):
+        leaves = [t.clone().requires_grad_() for t in (xs, dts, a, Bs, Cs, d)]
+        before = ssd_ops.ssd_chunk.launches
+        y = ssd_ops.ssd_forward(*leaves, 32, chunk_fn=chunk_fn)
+        assert ssd_ops.ssd_chunk.launches == before + (chunk_fn is None)
+        out.append((y, torch.autograd.grad(y.square().sum(), leaves)))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-5, atol=1e-5)
+    for g, w in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_mamba2_trainer_launches_the_ssd_kernel_per_block_and_client(cuda_device):
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch import train
+
+    cfg = get_reduced("mamba2-2.7b")
+    ops.gossip_mix.launches = 0
+    ssd_ops.ssd_chunk.launches = 0
+    losses = train.main(["--arch", "mamba2-2.7b", "--reduced", "--steps", "4",
+                         "--clients", "4", "--seq", "64", "--unify-every", "2",
+                         "--psi", "1", "--log-every", "2"])
+    assert np.isfinite(losses).all()
+    assert ops.gossip_mix.launches == 4
+    # remat is off in the reduced config: one launch per block, client and step
+    assert ssd_ops.ssd_chunk.launches == 4 * cfg.num_layers * 4
+    ssd_ops.ssd_chunk.launches = 0
+    train.main(["--arch", "mamba2-2.7b", "--reduced", "--steps", "1", "--clients", "2",
+                "--seq", "64"], cfg=cfg.with_(remat=True))
+    # with remat the backward recomputes each block's forward
+    assert ssd_ops.ssd_chunk.launches == 2 * cfg.num_layers * 2
+
+
+@pytest.mark.cuda
+def test_mamba2_trainer_kernel_path_matches_plain_path(cuda_device):
+    from repro_torch.api import make_context
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.core.flat import tree_leaves
+    from repro_torch.core.protocol import DracoConfig
+    from repro_torch.launch import train
+
+    cfg = get_reduced("mamba2-2.7b")
+    q = make_context(DracoConfig(num_clients=4, channel=None), device=cuda_device).q
+    data = train.make_batches(1, cfg, 4, 8, 64, device=cuda_device)
+    runs = {}
+    for name, mix, chunk_fn in (("kernel", None, None),
+                                ("plain", ops.gossip_mix_reference, ssd_chunk_ref)):
+        params = train.init_client_params(0, cfg, 4, cuda_device)
+        gen = torch.Generator(device=cuda_device)
+        losses = []
+        for step in range(3):
+            gen.manual_seed(step)
+            q_eff = train.mixing_weights(q, 1, generator=gen)
+            params, loss = train.train_step(params, train.select_batch(data, step, 2),
+                                            q_eff, cfg, 3e-3, mix=mix, chunk_fn=chunk_fn)
             losses.append(float(loss))
         runs[name] = (losses, params)
     np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-5, atol=1e-5)

@@ -16,7 +16,7 @@ import torch
 
 from repro.kernels.gossip import ops as jops
 from repro.kernels.gossip import ref as jref
-from repro_torch.kernels.gossip import build
+from repro_torch.kernels import build
 from repro_torch.kernels.gossip import ops as tops
 from repro_torch.kernels.gossip import ref as tref
 
@@ -132,11 +132,21 @@ def test_drain_rejects_bad_input(bad):
 def test_build_targets_hopper_and_keys_on_source():
     cmd = build.nvcc_command("nvcc", "drain", build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert str(build.CSRC / "drain.cu") in cmd
+    assert str(build.KERNELS / "gossip" / "csrc" / "drain.cu") in cmd
     path = build.library_path("drain")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libdrain-") and path.suffix == ".so"
     assert build.library_path("drain") == path  # stable for an unchanged source
+
+
+@pytest.mark.parametrize("name", ["drain", "mix", "enqueue", "ssd_chunk"])
+def test_build_knows_every_source_of_the_port(name):
+    """One build covers every kernel package's csrc/, into one ignored
+    directory."""
+    assert build.source_path(name).is_file()
+    assert build.source_path(name).parent.name == "csrc"
+    assert build.library_path(name).parent == build.BUILD_DIR
+    assert build.BUILD_DIR.parent == build.KERNELS
 
 
 def test_build_without_nvcc_raises(monkeypatch):

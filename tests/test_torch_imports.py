@@ -42,12 +42,14 @@ def test_module_list_covers_the_slice():
     names = set(_modules())
     for mod in ("core.flat", "core.topology", "core.events", "core.channel",
                 "core.protocol", "kernels.gossip.ops", "kernels.gossip.ref",
-                "kernels.gossip.build", "models.layers", "data.synthetic",
+                "kernels.build", "models.layers", "data.synthetic",
                 "tasks.base", "tasks.zoo", "api.algorithm", "api.context",
                 "api.simulate", "api.algorithms", "convert",
                 "configs.base", "configs.qwen2_1p5b", "models.attention",
                 "models.model", "models.registry", "core.mixing",
-                "launch.steps", "launch.train", "checkpoint.ckpt"):
+                "launch.steps", "launch.train", "checkpoint.ckpt",
+                "configs.mamba2_2p7b", "models.ssm", "kernels.ssd.ops",
+                "kernels.ssd.ref"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -81,13 +83,16 @@ def _entry_points():
         "init_params": lambda: model.init_params(0, get_reduced("qwen2-1.5b")),
         "make_batches": lambda: train.make_batches(0, get_reduced("qwen2-1.5b"), 2, 2, 4),
         "train.main": lambda: train.main(["--reduced", "--steps", "1"]),
+        "init_params[mamba2]": lambda: model.init_params(0, get_reduced("mamba2-2.7b")),
+        "train.main[mamba2]": lambda: train.main(["--arch", "mamba2-2.7b", "--reduced",
+                                                  "--steps", "1", "--seq", "32"]),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "build_graph", "federated_classification", "init_params", "init_state",
     "make_batches", "make_mlp", "simulate", "task.init_params", "task.make_data",
-    "train.main"])
+    "train.main", "init_params[mamba2]", "train.main[mamba2]"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[entry]()

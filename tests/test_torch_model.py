@@ -3,8 +3,11 @@ against the JAX package.
 
 The inputs come from numpy seeds and the parameters are the reference's
 own init, carried over with `convert.params_from_numpy`; everything runs
-at the reduced qwen2 config (f32, 2 layers, d_model 192). Tolerance
-rtol = atol = 1e-5: f32 sums in another order.
+at the reduced qwen2 config (f32, 2 layers, d_model 192) and the reduced
+mamba2 config (f32, 2 layers, d_model 256, 16 SSD heads of 32, state 32,
+chunk 32). Tolerance rtol = atol = 1e-5: f32 sums in another order; the
+mamba2 logits at 1e-5 of the largest |logit|, for the f32 cumsum reason
+that tests/test_torch_ssm.py's docstring gives.
 """
 import dataclasses
 
@@ -70,7 +73,7 @@ def test_model_config_fields_and_aliases_match_reference():
     assert tbase.get_config("qwen2_1p5b") == tbase.get_config(ARCH)
     assert tbase.get_config(ARCH).param_count() == 1_543_712_768
     with pytest.raises(ValueError, match="not ported"):
-        tbase.get_config("mamba2-2.7b")
+        tbase.get_config("zamba2-2.7b")
 
 
 def test_rms_norm_matches_reference():
@@ -240,7 +243,7 @@ def test_registry_builds_the_same_surface():
 
 
 def test_other_families_raise():
-    cfg = tbase.get_reduced(ARCH).with_(family="ssm")
+    cfg = tbase.get_reduced(ARCH).with_(family="hybrid")
     with pytest.raises(NotImplementedError, match="not ported"):
         tmodel.block_pattern(cfg)
 
@@ -254,3 +257,160 @@ def test_bf16_params_carry_over_bit_for_bit():
         assert tl.dtype == torch.bfloat16, path
         np.testing.assert_array_equal(tl.view(torch.int16).numpy(),
                                       np.asarray(jl).view(np.int16))
+
+
+# ---- the ssm family: mamba2-2.7b ----------------------------------------
+SSM_ARCH = "mamba2-2.7b"
+
+
+def _ssm_cfgs(**over):
+    return (jbase.get_reduced(SSM_ARCH).with_(**over),
+            tbase.get_reduced(SSM_ARCH).with_(**over))
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "reduced"])
+def test_mamba2_config_equals_reference(which):
+    jmod = __import__("repro.configs.mamba2_2p7b", fromlist=["x"])
+    tmod = __import__("repro_torch.configs.mamba2_2p7b", fromlist=["x"])
+    jc = jmod.CONFIG if which == "CONFIG" else jmod.reduced()
+    tc = tmod.CONFIG if which == "CONFIG" else tmod.reduced()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.param_count() == jc.param_count()
+    assert (tc.d_inner, tc.ssm_heads) == (jc.d_inner, jc.ssm_heads)
+    assert tbase.get_config(SSM_ARCH) == tmod.CONFIG
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_init_layout_flat_spec_and_dtypes_equal_reference(dtype):
+    jcfg, tcfg = _ssm_cfgs(dtype=dtype)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = tmodel.init_params(0, tcfg, device="cpu")
+    n = 3
+    jstack = jax.tree_util.tree_map(lambda p: jnp.broadcast_to(p[None], (n,) + p.shape), jp)
+    tstack = tflat.tree_map(lambda p: p[None].expand(n, *p.shape), tp)
+    jspec, tspec = jflat.spec_of(jstack), tflat.spec_of(tstack)
+    jpaths = [tuple(k.key for k in path)
+              for path, _ in jax.tree_util.tree_flatten_with_path(jstack)[0]]
+    assert list(tspec.paths) == jpaths
+    assert tspec.shapes == jspec.shapes
+    assert tspec.offsets == jspec.offsets and tspec.sizes == jspec.sizes
+    assert tspec.dim == jspec.dim
+    assert [str(d).split(".")[-1] for d in tspec.dtypes] == [str(d) for d in jspec.dtypes]
+    ssm = tp["groups"]["0:ssm"]["ssm"]
+    assert ssm["in_proj"].shape == (2, 256, 2 * 512 + 2 * 32 + 16)
+    # f32 leaves inside a model of another dtype, as in the reference
+    for k in ("a_log", "dt_bias", "ssm_d"):
+        assert ssm[k].dtype == torch.float32 and ssm[k].shape == (2, 16)
+    assert ssm["out_proj"].dtype == tcfg.torch_dtype
+    n_params = sum(p.numel() for p in tflat.tree_leaves(tp))
+    assert n_params == sum(int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(jp))
+    # the analytic count leaves out the final norm, conv_b and dt_bias
+    conv_ch = tcfg.d_inner + 2 * tcfg.ssm_groups * tcfg.ssm_state
+    assert n_params == (tcfg.param_count() + tcfg.d_model
+                        + tcfg.num_layers * (conv_ch + tcfg.ssm_heads))
+    tconv = convert.params_from_numpy(jax.device_get(jstack), "cpu")
+    np.testing.assert_array_equal(tflat.ravel_clients(tconv).numpy(),
+                                  np.asarray(jflat.ravel_clients(jstack)))
+
+
+def _ssm_params(jcfg, seed=0):
+    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
+    # non-zero norm gains and biases, so those paths are exercised
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, v: v + 0.1 if path[-1].key in ("norm", "gnorm", "conv_b") else v, jp)
+    return jp, convert.params_from_numpy(jax.device_get(jp), "cpu")
+
+
+def _close_scaled(got, want, tol=1e-5):
+    want = np.asarray(want)
+    _close(got, want, rtol=tol, atol=tol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("seq", [16, 64], ids=["one-short-chunk", "two-chunks"])
+def test_mamba2_apply_model_logits_match_reference(seq):
+    jcfg, tcfg = _ssm_cfgs()
+    jp, tp = _ssm_params(jcfg)
+    tok = _tokens(jcfg, s=seq, seed=seq)
+    want, jaux = jmodel.apply_model(jp, jcfg, {"tokens": jnp.asarray(tok)})
+    got, taux = tmodel.apply_model(tp, tcfg, {"tokens": torch.as_tensor(tok)})
+    assert got.shape == (2, seq, jcfg.vocab_size)
+    _close_scaled(got, want)
+    assert float(taux) == float(jaux) == 0.0
+
+
+def test_mamba2_lm_loss_and_gradients_match_reference():
+    jcfg, tcfg = _ssm_cfgs()
+    jp, tp = _ssm_params(jcfg, seed=2)
+    tok = _tokens(jcfg, s=64, seed=5)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodel.lm_loss(p, jcfg, {"tokens": jnp.asarray(tok)}))(jp)
+    tp = tflat.tree_map(lambda p: p.requires_grad_(), tp)
+    tloss = tmodel.lm_loss(tp, tcfg, {"tokens": torch.as_tensor(tok)})
+    tgrads = torch.autograd.grad(tloss, tflat.tree_leaves(tp))
+    _close(tloss, jloss)
+    jleaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(tgrads) == len(jleaves)
+    for g, (path, jg) in zip(tgrads, jleaves):
+        _close_scaled(g, jg, tol=1e-4)
+
+
+def test_mamba2_plain_chunk_path_equals_kernel_path_on_cpu():
+    """On the CPU the kernel wrapper takes `ssd_chunk_ref`, so the two
+    paths `chunk_fn` selects give the same loss and gradients."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    jcfg, tcfg = _ssm_cfgs()
+    _, tp = _ssm_params(jcfg, seed=3)
+    batch = {"tokens": torch.as_tensor(_tokens(jcfg, s=64, seed=6))}
+    out = []
+    for chunk_fn in (None, ssd_chunk_ref):
+        leaves = tflat.tree_map(lambda p: p.detach().clone().requires_grad_(), tp)
+        loss = tmodel.lm_loss(leaves, tcfg, batch, chunk_fn=chunk_fn)
+        out.append((loss, torch.autograd.grad(loss, tflat.tree_leaves(leaves))))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=0, atol=0)
+    for a, b in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_mamba2_remat_changes_nothing():
+    jcfg, tcfg = _ssm_cfgs()
+    _, tp = _ssm_params(jcfg)
+    tok = torch.as_tensor(_tokens(jcfg, s=64, seed=3))
+    base = tmodel.lm_loss(tp, tcfg, {"tokens": tok})
+    remat = tmodel.lm_loss(tp, tcfg.with_(remat=True), {"tokens": tok})
+    assert float(base) == float(remat)
+
+
+def test_mamba2_registry_builds_the_same_surface():
+    full = tregistry.build_model(SSM_ARCH)
+    assert full.cfg.num_heads == 0 and full.cfg.family == "ssm"
+    assert full.cfg.param_count() == jregistry.build_model(SSM_ARCH).cfg.param_count()
+    assert tmodel.block_pattern(full.cfg) == (("ssm",), 64)
+    jm, tm = jregistry.build_reduced(SSM_ARCH), tregistry.build_reduced(SSM_ARCH)
+    assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
+    jp = jm.init(jax.random.PRNGKey(7))
+    tp = convert.params_from_numpy(jax.device_get(jp), "cpu")
+    tok = _tokens(jm.cfg, s=32, seed=7)
+    _close(tm.loss(tp, {"tokens": torch.as_tensor(tok)}),
+           jm.loss(jp, {"tokens": jnp.asarray(tok)}))
+    assert tm.init(0, device="cpu").keys() == jp.keys()
+
+
+def test_mamba2_mixed_dtype_params_carry_over_bit_for_bit():
+    """A bf16 model keeps a_log, dt_bias and ssm_d in f32: each leaf
+    crosses with its own dtype, bit for bit."""
+    jcfg, _ = _ssm_cfgs(dtype="bfloat16")
+    jp = jmodel.init_params(jax.random.PRNGKey(8), jcfg)
+    tp = convert.params_from_numpy(jax.device_get(jp), "cpu")
+    dtypes = set()
+    for (path, jl), tl in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
+                              tflat.tree_leaves(tp)):
+        jl = np.asarray(jl)
+        dtypes.add(str(tl.dtype))
+        if jl.dtype.name == "bfloat16":
+            assert tl.dtype == torch.bfloat16, path
+            np.testing.assert_array_equal(tl.view(torch.int16).numpy(), jl.view(np.int16))
+        else:
+            assert tl.dtype == torch.float32, path
+            np.testing.assert_array_equal(tl.numpy(), jl)
+    assert dtypes == {"torch.bfloat16", "torch.float32"}

@@ -1,5 +1,6 @@
 """repro_torch LM trainer (the single-device DRACO step, checkpoints and
-the CLI) against the JAX package.
+the CLI) against the JAX package, for the dense (qwen2) and ssm (mamba2)
+families.
 
 The JAX side of the trainer step is rebuilt here from `M.lm_loss`,
 `mixing.mix_dense` (through the Pallas mix kernel in interpret mode)
@@ -64,15 +65,15 @@ def test_cycle_graph_matches_reference():
     assert (q > 0).sum(dim=0).tolist() == [2, 2, 2, 2]
 
 
-def test_three_steps_with_one_unify_match_reference():
-    jcfg, tcfg = jget_reduced(ARCH), get_reduced(ARCH)
+def _three_steps_with_one_unify(arch, seq):
+    jcfg, tcfg = jget_reduced(arch), get_reduced(arch)
     q = make_context(DracoConfig(num_clients=N, channel=None), device="cpu").q
     jp0 = jmodel.init_params(jax.random.PRNGKey(3), jcfg)
     jparams = jax.tree_util.tree_map(
         lambda p: jnp.broadcast_to(p[None], (N,) + p.shape), jp0)
     tparams = convert.params_from_numpy(jax.device_get(jparams), "cpu")
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, jcfg.vocab_size, (N, 8 * B, SEQ))
+    tokens = rng.integers(0, jcfg.vocab_size, (N, 8 * B, seq))
     jdata, tdata = {"tokens": jnp.asarray(tokens)}, {"tokens": torch.as_tensor(tokens)}
     jstep = _jax_step(jcfg, LR)
     junify = jsteps.make_unify_step(jcfg, None)
@@ -99,6 +100,15 @@ def test_three_steps_with_one_unify_match_reference():
             tparams = tunify(tparams, hub)
     for t, j in zip(tflat.tree_leaves(tparams), jax.tree_util.tree_leaves(jparams)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4)
+
+
+def test_three_steps_with_one_unify_match_reference():
+    _three_steps_with_one_unify(ARCH, SEQ)
+
+
+def test_mamba2_three_steps_with_one_unify_match_reference():
+    """Reduced mamba2 at seq 64: two SSD chunks of 32 per sequence."""
+    _three_steps_with_one_unify("mamba2-2.7b", 64)
 
 
 def test_train_step_mixes_once_through_the_injected_mix():
@@ -201,3 +211,31 @@ def test_trainer_cli_runs_and_resumes_from_its_checkpoint(tmp_path, capsys):
     # uninterrupted one exactly
     full = ttrain.main(CLI + ["--steps", "8", "--log-every", "4"])
     assert full[:6] == losses and full[6:] == resumed
+
+
+MAMBA_CLI = ["--arch", "mamba2-2.7b", "--reduced", "--device", "cpu", "--clients", "4",
+             "--seq", "64", "--batch-per-client", "1", "--unify-every", "3", "--psi", "1"]
+
+
+def test_mamba2_trainer_cli_runs(capsys):
+    losses = ttrain.main(MAMBA_CLI + ["--steps", "4", "--log-every", "2"])
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    # uniform tokens over V = 512 start near ln V
+    assert abs(losses[0] - np.log(512)) < 1.0
+    assert "final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("seq", [48, 80])
+def test_trainer_rejects_seq_off_the_ssd_chunk(seq):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ttrain.main(MAMBA_CLI[:5] + ["--seq", str(seq), "--steps", "1"])
+
+
+def test_main_trains_a_given_config():
+    """`cfg=` trains a cut of the named architecture, as chip_smoke.py
+    drives mamba2-2.7b at 32 of its 64 layers."""
+    cfg = get_reduced("mamba2-2.7b").with_(num_layers=1)
+    a = ttrain.main(MAMBA_CLI + ["--steps", "2", "--seq", "32"], cfg=cfg)
+    b = ttrain.main(MAMBA_CLI + ["--steps", "2", "--seq", "32"])
+    assert len(a) == len(b) == 2 and np.isfinite(a).all()
+    assert a != b  # one layer is another model than the reduced two
