@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
                the card, at the main paths' shapes and the edge cases
                (the mix also past 2^31 elements, and in bf16; the SSD
                intra-chunk step at the mamba2 trainer's shape in bf16, with
-               groups, with Q != N in f32, and under a strong decay); the
+               groups, with Q != N in f32, under strong decays in f32 and
+               bf16, ragged against the MMA tiles and at Q = N = 256); the
                bucketed enqueue driven at the JAX package's own test cases
                and the windowed path's width, one launch per call;
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
@@ -25,9 +26,9 @@ Phases (any failure exits non-zero):
                unifications: one mix launch per step, finite losses, the
                first near ln V, peak device memory;
   6. trainer plain - 3 trainer steps twice from one seed, through the mix
-               kernel and through its plain version: the losses agree; the
-               kernel run's steps are profiled (device idle share, mix
-               time per step);
+               kernel and through its plain version: the losses and every
+               leaf's |sum gap| / sum |p| within 1e-3; the kernel run's
+               steps are profiled (device idle share, mix time per step);
   7. mamba2  - the trainer on mamba2-2.7b at full width (d_model 2560, 80
                SSD heads of 64, state 128, vocab 50,280, bf16) cut to 32 of
                its 64 layers (the 4 clients' planes of all 64 do not fit one
@@ -35,9 +36,14 @@ Phases (any failure exits non-zero):
                steps: finite losses, the first near ln V, one mix launch per
                step, two SSD-kernel launches per block, client and step
                (forward and remat), peak device memory;
-  8. mamba2 plain - 3 steps through the kernels and 3 through the plain
-               SSD step and plain mix: the losses agree; the kernel run's
-               steps are profiled (device idle share, SSD and mix time);
+  8. mamba2 plain - 3 steps through the plain SSD step and plain mix, 3
+               through the kernels and 3 through a control (the plain
+               path with each SSD output moved by 2^-23 of itself): the
+               losses within 1e-3, every leaf's gap to the plain path over
+               that leaf's own 3-step change within 1.1 x the control's,
+               and the kernel on the inputs of every SSD call of the
+               plain run within 1e-4; the kernel run's steps are profiled
+               (device idle share, SSD and mix time);
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes.
@@ -45,9 +51,20 @@ Phases (any failure exits non-zero):
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
 without the repository's `src/` beside this file.
+
+    python3 chip_smoke.py --ssd-variants [NAMES] [--flush zero,read,none]
+    python3 chip_smoke.py --trainer-controls
+
+run one diagnostic instead: the first times variants of ssd_chunk.cu
+(`repro_torch.kernels.ssd.variants`) at the trainer's shape; the second
+runs phase 8 with further paths, printed and not held: the kernel's
+forward built from `CONTROL_VARIANTS` of its source (a planted fault
+among them), training beside the kernel's path and shadowing the plain
+run's SSD calls.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -68,6 +85,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores (f32 accumulation), dense
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 RTOL = ATOL = 1e-5  # kernel against its plain version: f32 sums reordered
 PATH_TOL = 1e-4  # 50 windows, kernel path against the plain-drain path
 WINDOWS, EVAL_EVERY, PLAIN_WINDOWS = 300, 100, 50
@@ -75,7 +93,10 @@ TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "4", "--batch-per-client", "2
               "--seq", "128", "--steps", "20", "--unify-every", "10", "--psi", "1",
               "--log-every", "5"]
 TRAIN_STEPS, TRAIN_PLAIN_STEPS = 20, 3
-TRAIN_PATH_RTOL = 1e-3  # kernel path against the plain path: bf16 params round
+# kernel path against the plain path: every step's loss, and per leaf
+# |sum gap| / sum |p| where the paths are equal up to the order of f32 sums
+# (qwen2)
+TRAIN_PATH_RTOL = 1e-3
 MIX_N, MIX_K = (1, 3, 4, 5, 25, 64), (1, 511, 513, 146_447)
 BIG_MIX = (4, 536_870_919)  # N * K > 2^31
 SLICE = 1 << 27  # columns per comparison slice of a multi-GB plane
@@ -89,16 +110,31 @@ MAMBA_ARGS = ["--arch", "mamba2-2.7b", "--clients", "4", "--batch-per-client", "
               "--seq", "512", "--steps", "10", "--unify-every", "10", "--psi", "1",
               "--log-every", "5"]
 MAMBA_STEPS, MAMBA_PLAIN_STEPS = 10, 3
+# mamba2's kernel path against its plain path, per leaf: sum |p - p_plain|
+# over the leaf's own 3-step change sum |p_plain - p_init|, the kernel's at
+# most this times the control's (the plain path with an f32-level change
+# in its SSD outputs). Any f32-level change flips bf16 roundings of the
+# activations and updates, so no leaf is equal up to summation order
+# (PERF.md, PR 14)
+CONTROL_MARGIN = 1.1
+# builds of ssd_chunk.cu that --trainer-controls also trains through: two
+# split terms (within SSD_REL_TOL) and one (a planted fault)
+CONTROL_VARIANTS = ("two-term", "one-term")
 SSD_REL_TOL = 1e-4  # kernel against plain, relative to the largest |Y| (|S|)
 # (Bb, H, G, nc, Q, N, P, A scale, dtype): the trainer's shape (batch 2, 512
 # tokens, 80 heads, one group), grouped, f32 with Q != N and a ragged P,
-# and a decay that overflows exp above the diagonal unless masked first
+# decays that overflow exp above the diagonal unless masked first (f32
+# and, through the tensor cores, bf16), Q, N and P ragged against the
+# MMA tiles, and the bf16 kernel's largest Q = N = 256
 SSD_MAIN = (2, 80, 1, 4, 128, 128, 64, 1.0, "bfloat16")
 SSD_CASES = {
     "trainer shape bf16": SSD_MAIN,
     "grouped G=4 H=16 N=64": (2, 16, 4, 2, 128, 64, 64, 1.0, "bfloat16"),
     "f32 Q=64 N=128 P=48": (2, 8, 1, 3, 64, 128, 48, 1.0, "float32"),
     "strong decay A=-10h dt+1": (2, 80, 1, 4, 128, 128, 64, 10.0, "float32"),
+    "strong decay A=-80h dt+1 bf16": (2, 80, 1, 4, 128, 128, 64, 80.0, "bfloat16"),
+    "ragged Q=72 N=24 P=40 bf16": (2, 6, 2, 3, 72, 24, 40, 1.0, "bfloat16"),
+    "Q=N=256 bf16": (1, 8, 1, 2, 256, 256, 64, 1.0, "bfloat16"),
 }
 # gossip_enqueue's path: the JAX package's own cases
 # (tests/test_kernels_gossip_bucketed.py) and the windowed path's width
@@ -450,24 +486,34 @@ def ssd_case(torch, bb, h, g, nc, q, n, p, decay, dtype, seed):
 
 
 def ssd_bound_ms(args):
-    """Least time for one ssd_chunk call on these inputs: the necessary
-    FMAs over the peak rate of their type, against each input read once
-    (B and C once per group) and Y, S written once over the memory rate.
-    The lower triangle of C B^T multiplies two inputs of the model dtype
-    into f32: at the bf16 tensor-core rate for bf16 inputs, else at the
-    f32 rate. Its product with X and S take f32 operands (the decayed
-    scores, the decayed B) at the f32 rate."""
+    """Least time for one ssd_chunk call on these inputs by any route on
+    this card that keeps each f32 operand to f32 accuracy (at least the
+    ~22 bits of a hi + lo TF32 pair): the larger of the bytes (each input
+    read once, B and C once per group, Y and S written once) over the
+    memory rate, and the necessary products at the tensor-core rates.
+    The lower triangle of C B^T multiplies bf16 inputs exactly into f32,
+    so it counts once at the bf16 rate. A product with one f32 operand
+    (the masked scores times X, S) takes that operand as two TF32 terms
+    or three bf16 terms, whichever is faster: min(2 / TF32, 3 / bf16 rate)
+    per flop, the bf16 three-term route on this card. With two f32
+    operands (f32 inputs) the split takes three TF32 or six bf16 products.
+    (The f32 rate outside the tensor cores is no floor: a tensor-core
+    kernel at f32 accuracy beats it.) At the trainer's shape this is the
+    bytes, 53.6 MB: 0.0160 ms against 0.0075 ms of products."""
     C, B, x, cums, dt = args
     bb, g, nc, q, n = C.shape
     h, p = x.shape[1], x.shape[4]
     tri = q * (q + 1) // 2
     cb_flops = 2 * bb * h * nc * tri * n
     f32_flops = 2 * bb * h * nc * (tri * p + q * n * p)
-    cb_rate = BF16_FLOPS if C.element_size() == 2 else F32_FLOPS  # bf16 or f32
+    if C.element_size() == 2:
+        t_ops = cb_flops / BF16_FLOPS + f32_flops * min(2 / TF32_FLOPS, 3 / BF16_FLOPS)
+    else:
+        t_ops = (cb_flops + f32_flops) * min(3 / TF32_FLOPS, 6 / BF16_FLOPS)
     moved = ((C.numel() + B.numel() + x.numel()) * x.element_size()
              + (cums.numel() + dt.numel()) * 4 + bb * h * nc * (q + n) * p * 4)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (cb_flops / cb_rate + f32_flops / F32_FLOPS) * 1e3
+    t_ops *= 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -663,10 +709,38 @@ def phase_trainer(torch):
     return launches["mix"], s_step, peak
 
 
-def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label):
-    """`steps` trainer steps from one seed through the kernels and through
-    the plain versions (`plain`: keyword arguments of `train_step`); the
-    kernel run times its first step unprofiled and profiles the others.
+def leaf_gaps(flat_lib, params, ref):
+    """Leaf name -> (sum p - sum r, sum |p - r|, sum |r|) of the tree
+    `params` against the tree `ref`, on the card, a client at a time,
+    in f64."""
+    out = {}
+    for (path, leaf), r in zip(flat_lib.tree_items(params), flat_lib.tree_leaves(ref)):
+        acc = [0.0, 0.0, 0.0]
+        for i in range(leaf.shape[0]):
+            a, b = leaf[i].double(), r[i].double()
+            acc[0] += float(a.sum() - b.sum())
+            acc[1] += float((a - b).abs().sum())
+            acc[2] += float(b.abs().sum())
+            del a, b
+        out["/".join(path)] = tuple(acc)
+    return out
+
+
+def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
+                          control=None, others=()):
+    """`steps` trainer steps from one seed through the plain versions
+    (`plain`: keyword arguments of `train_step`) and through the kernels;
+    the kernel run times its first step unprofiled and profiles the
+    others. The plain run's parameters stay on the card as the reference.
+
+    The paths agree when every step's loss is within `TRAIN_PATH_RTOL`
+    and every leaf is. Without `control`, by |sum p_kernel - sum p_plain|
+    / sum |p_plain| <= `TRAIN_PATH_RTOL` (paths equal up to the order of
+    f32 sums). With `control` (keyword arguments of a third path, the
+    plain one with an f32-level change), by each leaf's gap over its own
+    change, sum |p - p_plain| / sum |p_plain - p_init|: the kernel's
+    within `CONTROL_MARGIN` times the control's. `others` are further
+    (name, keyword arguments) paths printed leaf by leaf and not held.
     Returns Dflat, the unprofiled step (s), the device busy time per step
     and each of `kernel_rows`' device time per step (us)."""
     from torch.profiler import ProfilerActivity, profile
@@ -683,8 +757,10 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label):
     data = train.make_batches(train.stream_seed(SEED, train.STREAM_DATA), cfg, n,
                               8 * args.batch_per_client, args.seq, device="cuda")
     gen = torch.Generator(device="cuda")
-    runs, out = {}, {}
-    for name, kw in (("kernel", {}), ("plain", plain)):
+    runs, gaps, out, ref = {}, {}, {}, None
+    paths = [("plain", plain), ("kernel", {})]
+    paths += ([("control", control)] if control else []) + list(others)
+    for name, kw in paths:
         params = train.init_client_params(SEED, cfg, n, "cuda")
         out["dflat"] = flat_lib.spec_of(params).dim
         losses = []
@@ -720,21 +796,54 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label):
         else:
             for i in range(1, steps):
                 params = step(i, params)
-        sums = [float(leaf.sum(dtype=torch.float64)) for leaf in flat_lib.tree_leaves(params)]
-        scale = [float(leaf.abs().sum(dtype=torch.float64)) for leaf in
-                 flat_lib.tree_leaves(params)]
-        runs[name] = (losses, sums, scale)
+        runs[name] = losses
+        if ref is None:
+            ref = params
+        else:
+            gaps[name] = leaf_gaps(flat_lib, params, ref)
         del params
         torch.cuda.empty_cache()
-    (lk, sk, _), (lp, sp, scale) = runs["kernel"], runs["plain"]
-    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    param_gap = max(abs(a - b) / max(c, 1e-30) for a, b, c in zip(sk, sp, scale))
-    log(f"  kernel path losses {' '.join(f'{x:.6f}' for x in lk)}; plain path "
-        f"{' '.join(f'{x:.6f}' for x in lp)}; largest relative loss gap "
-        f"{loss_gap:.3e}, largest per-leaf |sum gap| / sum|p| {param_gap:.3e} "
-        f"(tolerance {TRAIN_PATH_RTOL})")
-    if loss_gap > TRAIN_PATH_RTOL or param_gap > TRAIN_PATH_RTOL:
-        raise AssertionError("trainer kernel path and plain path differ")
+    moved = {}
+    if control or others:
+        init = train.init_client_params(SEED, cfg, n, "cuda")
+        moved = {k: v[1] for k, v in leaf_gaps(flat_lib, ref, init).items()}
+        del init
+    del ref
+    torch.cuda.empty_cache()
+    lp = runs["plain"]
+    log(f"  plain path losses {' '.join(f'{x:.6f}' for x in lp)}")
+    rel, loss_gaps = {}, {}
+    for name in gaps:
+        loss_gaps[name] = [abs(a - b) / abs(b) for a, b in zip(runs[name], lp)]
+        sums = {k: abs(d) / max(m, 1e-30) for k, (d, _, m) in gaps[name].items()}
+        worst_sum = max(sums, key=sums.get)
+        line = (f"  {name} path losses {' '.join(f'{x:.6f}' for x in runs[name])}; "
+                f"relative loss gap by step "
+                f"{' '.join(f'{x:.3e}' for x in loss_gaps[name])}; largest per-leaf "
+                f"|sum gap| / sum|p| {sums[worst_sum]:.3e} ({worst_sum})")
+        if moved:
+            rel[name] = {k: g / moved[k] if moved[k] else (math.inf if g else 0.0)
+                         for k, (_, g, _) in gaps[name].items()}
+            worst = max(rel[name], key=rel[name].get)
+            line += (f"; largest per-leaf sum|gap| / sum|p_plain - p_init| "
+                     f"{rel[name][worst]:.3e} ({worst})")
+        log(line)
+        if name == "kernel" and not control and sums[worst_sum] > TRAIN_PATH_RTOL:
+            raise AssertionError(f"trainer kernel path and plain path differ in {worst_sum}")
+    if max(loss_gaps["kernel"]) > TRAIN_PATH_RTOL:
+        raise AssertionError("trainer kernel path and plain path differ in their losses")
+    if moved:
+        log(f"  per leaf, sum|gap| / sum|p_plain - p_init| by path ({', '.join(rel)})"
+            + (f"; the kernel's held within {CONTROL_MARGIN} x the control's"
+               if control else ""))
+        for k in sorted(moved):
+            log(f"    {k}: " + " ".join(f"{r[k]:.3e}" for r in rel.values())
+                + f" (sum|p_plain - p_init| {moved[k]:.6e})")
+        if control:
+            over = [k for k in moved if rel["kernel"][k] > CONTROL_MARGIN * rel["control"][k]]
+            if over:
+                raise AssertionError(f"trainer kernel path and plain path differ beyond "
+                                     f"the control in {over}")
     rows = out.get("rows") or []
     busy_us = sum(r[0] for r in rows) / (steps - 1)
     per_kernel = {k: sum(r[0] for r in rows if key in r[1]) / (steps - 1)
@@ -789,14 +898,119 @@ def phase_mamba2(torch):
     return launches, s_step, peak
 
 
-def phase_mamba2_plain(torch):
-    from repro_torch.kernels.gossip import ops
+def control_chunk_fn(torch):
+    """`ssd_chunk_ref` with each element of Y and S scaled by 1 +- 2^-23,
+    the sign a hash of the element's index: an f32-level change of the
+    outputs, as a reordering of the sums makes, and the same in the
+    forward and in its remat recompute."""
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
-    return compare_trainer_paths(
+    def chunk_fn(*args):
+        out = []
+        for t in ssd_chunk_ref(*args):
+            idx = torch.arange(t.numel(), device=t.device).view(t.shape)
+            sign = ((idx * 2654435761) >> 15 & 1) * 2 - 1
+            out.append(t * (1 + 2.0 ** -23 * sign))
+        return tuple(out)
+
+    return chunk_fn
+
+
+def shadowed_ssd_chunk_ref(torch, shadows):
+    """`ssd_chunk_ref` that also runs each of `shadows` (name -> a
+    function of the same inputs, such as the kernel's wrapper) on every
+    call's inputs, outside autograd, and keeps its largest |error| over
+    the largest |Y|, |S| of that call; returns (chunk_fn, name -> list of
+    0-d device tensors)."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    errs = {name: [] for name in shadows}
+
+    def chunk_fn(*args):
+        out = ssd_chunk_ref(*args)
+        with torch.no_grad():
+            inputs = [t.detach() for t in args]
+            for name, fn in shadows.items():
+                errs[name] += [(a - b).abs().max() / b.abs().max()
+                               for a, b in zip(fn(*inputs), out)]
+        return out
+
+    return chunk_fn, errs
+
+
+def phase_mamba2_plain(torch, controls=False):
+    """Phase 8. The plain run checks the kernel on the inputs of every SSD
+    call it makes (`shadowed_ssd_chunk_ref`) within `SSD_REL_TOL`; the
+    control is the plain path with `control_chunk_fn`. With `controls`,
+    the kernel's forward built from `CONTROL_VARIANTS` of its source also
+    trains and shadows, printed and not held."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    shadows, others = {"kernel": ssd_ops.ssd_chunk}, []
+    if controls:
+        from repro_torch.kernels.ssd import variants
+
+        libs = variants.build_variants(CONTROL_VARIANTS)
+        for v in CONTROL_VARIANTS:
+            shadows[f"variant {v}"] = lambda *a, lib=libs[v]: ssd_ops.launch(lib, *a)
+            others.append((f"variant {v}", dict(chunk_fn=variants.chunk_fn(libs[v]))))
+    chunk_fn, errs = shadowed_ssd_chunk_ref(torch, shadows)
+    result = compare_trainer_paths(
         torch, MAMBA_ARGS, mamba2_config(), MAMBA_PLAIN_STEPS,
-        dict(mix=ops.gossip_mix_reference, chunk_fn=ssd_chunk_ref),
-        {"mix": "mix_kernel", "ssd_chunk": "ssd_chunk_kernel"}, "8 mamba2 plain")
+        dict(mix=ops.gossip_mix_reference, chunk_fn=chunk_fn),
+        {"mix": "mix_kernel", "ssd_chunk": "ssd_chunk_kernel"}, "8 mamba2 plain",
+        control=dict(mix=ops.gossip_mix_reference, chunk_fn=control_chunk_fn(torch)),
+        others=others)
+    for name, e in errs.items():
+        worst = float(torch.stack(e).max())
+        log(f"  {name} on the plain run's {len(e) // 2} SSD calls: largest |error| "
+            f"{worst:.3e} of the largest |Y|, |S|"
+            + (f" (tolerance {SSD_REL_TOL})" if name == "kernel" else " (not held)"))
+        if name == "kernel" and not worst <= SSD_REL_TOL:
+            raise AssertionError("ssd_chunk disagrees with its plain version on the "
+                                 "trainer's inputs")
+    return result
+
+
+def ssd_variants(torch, names, flushes):
+    """Times `repro_torch.kernels.ssd.variants` of ssd_chunk.cu at the
+    trainer's shape (`SSD_MAIN`), three rounds in turns (forward,
+    backward, forward) of `time_ms`' median of 40 launches, after holding
+    the variants that keep the arithmetic to `ssd_chunk_ref`. `flushes`:
+    ``zero`` clears L2 as phase 9 does (zeroing 96 MB, which leaves
+    dirty lines), ``read`` reads 96 MB instead, ``none`` leaves the
+    inputs in L2."""
+    from repro_torch.kernels.ssd import ops, variants
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    libs = variants.build_variants(names)
+    inputs = ssd_case(torch, *SSD_MAIN, seed=4000)
+    want = ssd_chunk_ref(*inputs)
+    for name in names:
+        if name in variants.EXACT:
+            got = ops.launch(libs[name], *inputs)
+            rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+            log(f"{name}: max error {rel:.3e} of the largest |Y|, |S|")
+            if rel > SSD_REL_TOL:
+                raise AssertionError(f"variant {name} disagrees with ssd_chunk_ref")
+    del want
+    buf = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
+
+    class ReadFlush:
+        def zero_(self):
+            buf.sum()
+
+    by_mode = {"zero": buf, "read": ReadFlush(), "none": None}
+    for mode in flushes:
+        times = {name: [] for name in names}
+        for rnd in range(3):
+            for name in (names if rnd % 2 == 0 else names[::-1]):
+                times[name].append(time_ms(
+                    torch, lambda lib=libs[name]: ops.launch(lib, *inputs), reps=40,
+                    flush=by_mode[mode]))
+        for name in names:
+            log(f"flush={mode} {name}: " + " ".join(f"{t:.4f}" for t in times[name]) + " ms")
 
 
 def phase_times(torch):
@@ -850,7 +1064,16 @@ def phase_mix_times(torch, k):
                 bound_by=by), err
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
+                        help="only time variants of ssd_chunk.cu (comma-separated; "
+                             "default: repro_torch.kernels.ssd.variants.DEFAULT)")
+    parser.add_argument("--flush", default="zero", help="for --ssd-variants: zero, read, "
+                        "none; comma-separated")
+    parser.add_argument("--trainer-controls", action="store_true",
+                        help="only phase 8, with the control and planted-fault paths")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -858,6 +1081,18 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (TF32 off)
 
+    if args.ssd_variants is not None:
+        from repro_torch.kernels.ssd import variants
+
+        ssd_variants(torch, args.ssd_variants.split(",") if args.ssd_variants
+                     else variants.DEFAULT, args.flush.split(","))
+        log(card_line())
+        return 0
+    if args.trainer_controls:
+        phase_build()
+        phase_mamba2_plain(torch, controls=True)
+        log(card_line())
+        return 0
     t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(torch)

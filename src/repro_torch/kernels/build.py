@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS / "build"
@@ -52,46 +52,63 @@ def find_nvcc() -> str:
         "are built on a machine with the CUDA toolkit")
 
 
+def _keyed(label: str, source: bytes) -> Path:
+    h = hashlib.sha256(source)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{label}-{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where kernel `name` builds to, keyed on source + flags."""
-    h = hashlib.sha256(source_path(name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return _keyed(name, source_path(name).read_bytes())
 
 
-def nvcc_command(nvcc: str, name: str, out: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
+def nvcc_command(nvcc: str, name: str, out: Path, source: Optional[Path] = None) -> list:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source or source_path(name))]
 
 
-def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
+def build(names: Sequence[str] = tuple(SOURCES), *,
+          texts: Optional[Mapping[str, str]] = None) -> Dict[str, Path]:
     """Compile every source of `names` that is not built yet, one
     ``nvcc`` per source, all started together; returns name -> library.
 
-    Each compile writes a temporary file that is renamed into place, so
-    concurrent builders never load a half-written library. The ptxas
-    report (registers, shared memory, spills) goes to ``<lib>.log``.
+    `texts` maps further labels to CUDA source text (a variant of a
+    kernel's source, say), written to ``build/<label>-<hash>.cu`` and
+    built the same way, keyed on the text; the result has them under
+    their labels. Each compile writes a temporary file that is renamed
+    into place, so concurrent builders never load a half-written
+    library. The ptxas report (registers, shared memory, spills) goes to
+    ``<lib>.log``.
     """
-    paths = {name: library_path(name) for name in names}
-    todo = [n for n, p in paths.items() if not p.exists()]
+    texts = dict(texts or {})
+    jobs = {name: (source_path(name), library_path(name)) for name in names}
+    for label, text in texts.items():
+        lib = _keyed(label, text.encode())
+        jobs[label] = (lib.with_name(f"{lib.stem[3:]}.cu"), lib)
+    paths = {label: lib for label, (_, lib) in jobs.items()}
+    todo = [label for label, lib in paths.items() if not lib.exists()]
     if not todo:
         return paths
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in todo:
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            nvcc_command(nvcc, name, tmp), stdout=subprocess.PIPE,
+    for label in todo:
+        source, lib = jobs[label]
+        if label in texts:
+            source.write_text(texts[label])
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[label] = (tmp, subprocess.Popen(
+            nvcc_command(nvcc, label, tmp, source), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     failed = []
-    for name, (tmp, proc) in procs.items():
+    for label, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        paths[name].with_suffix(".log").write_text(log)
+        paths[label].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{source_path(name).name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{jobs[label][0].name} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, paths[name])
+            os.replace(tmp, paths[label])
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths

@@ -23,18 +23,23 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
 SSD_DTYPES = (torch.float32, torch.bfloat16)
+TC_MAX = 256  # largest Q and N of the bf16 (tensor-core) kernel
 ChunkFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("ssd_chunk")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` with the argument types of its ``ssd_chunk_launch``."""
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.ssd_chunk_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [strides] * 3
         + [ctypes.c_int, ctypes.c_void_p])
     lib.ssd_chunk_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("ssd_chunk"))
 
 
 def _check_layout(C, B, x, cums, dt):
@@ -65,12 +70,30 @@ def ssd_chunk(C, B, x, cums, dt):
     CUDA tensors launch ``csrc/ssd_chunk.cu`` (counted in
     ``ssd_chunk.launches``): C, B and x f32 or bf16 of one dtype, any
     strides with a contiguous last dimension (views of the block's
-    projection need no copy), cums and dt f32 and contiguous. CPU tensors
-    take `ssd_chunk_ref`.
+    projection need no copy), cums and dt f32 and contiguous; bf16 takes
+    Q, N <= 256. bf16 runs on the tensor cores with each f32 operand split
+    into three bf16 terms: not equal to `ssd_chunk_ref` bit for bit, but
+    within 1e-4 of its largest |Y|, |S| (the checks' tolerance; the split
+    itself errs by about 2^-24 of an operand). CPU tensors take
+    `ssd_chunk_ref`.
     """
     _check_layout(C, B, x, cums, dt)
     if x.device.type == "cpu":
         return ssd_chunk_ref(C, B, x, cums, dt)
+    y, s = launch(_lib(), C, B, x, cums, dt)
+    ssd_chunk.launches += 1
+    return y, s
+
+
+ssd_chunk.launches = 0
+
+
+def launch(lib: ctypes.CDLL, C, B, x, cums, dt):
+    """``(Y, S)`` from ``ssd_chunk_launch`` of `lib` on the current
+    stream: `lib` is `bind` of a library built from ``csrc/ssd_chunk.cu``
+    (`ssd_chunk`'s) or from a variant of it (`variants`). The inputs are
+    in the grouped layout `ssd_chunk` checks; this checks their device,
+    dtypes, strides and the bf16 limit. Counts nothing."""
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_chunk kernel for device {x.device}")
     if any(t.device != x.device for t in (C, B, cums, dt)):
@@ -86,6 +109,9 @@ def ssd_chunk(C, B, x, cums, dt):
         raise ValueError("cums and dt must be contiguous")
     bb, g, nc, q, n = C.shape
     h, p = x.shape[1], x.shape[4]
+    if x.dtype == torch.bfloat16 and max(q, n) > TC_MAX:
+        raise ValueError(f"ssd_chunk's bf16 kernel takes Q, N <= {TC_MAX}; got Q {q}, "
+                         f"N {n}")
     y = torch.empty((bb, h, nc, q, p), dtype=torch.float32, device=x.device)
     s = torch.empty((bb, h, nc, n, p), dtype=torch.float32, device=x.device)
 
@@ -94,17 +120,13 @@ def ssd_chunk(C, B, x, cums, dt):
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().ssd_chunk_launch(
+        err = lib.ssd_chunk_launch(
             C.data_ptr(), B.data_ptr(), x.data_ptr(), cums.data_ptr(), dt.data_ptr(),
             y.data_ptr(), s.data_ptr(), bb, h, g, nc, q, n, p, strides(C),
             strides(B), strides(x), int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
-    ssd_chunk.launches += 1
     return y, s
-
-
-ssd_chunk.launches = 0
 
 
 class SSDChunk(torch.autograd.Function):

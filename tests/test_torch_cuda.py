@@ -259,15 +259,23 @@ def test_enqueue_kernel_rejects_what_it_cannot_hold(cuda_device):
 
 
 # ssd_chunk: (Bb, H, G, nc, Q, N, P, A scale): mamba2's block widths with
-# fewer heads, groups, Q != N, ragged tiles in Q, N and P, a tiny case,
-# and a decay strong enough that exp(cums_i - cums_j) overflows above
-# the diagonal unless masked first
+# fewer heads, groups, Q != N, ragged tiles in Q, N and P (a 900-byte bf16
+# row stride in ragged-q40), a tiny case, decays strong enough that
+# exp(cums_i - cums_j) overflows above the diagonal unless masked first
+# (at N = 32 and at the trainer's N = 128, P = 64), Q off the 16-row MMA
+# tiles with N and P ragged against them, one short chunk, an odd head
+# count, and the bf16 kernel's largest Q = N = 256
 SSD_CASES = {
     "mamba2-heads8": (2, 8, 1, 2, 128, 128, 64, 1.0),
     "groups2-q64-n32-p48": (2, 4, 2, 3, 64, 32, 48, 1.0),
     "ragged-q40-n40-p70": (1, 3, 3, 2, 40, 40, 70, 1.0),
     "tiny-q8": (1, 2, 1, 4, 8, 4, 4, 1.0),
     "strong-decay": (1, 4, 1, 2, 128, 32, 16, 80.0),
+    "strong-decay-n128-p64": (1, 8, 1, 2, 128, 128, 64, 80.0),
+    "ragged-q72-n24-p40": (2, 3, 1, 2, 72, 24, 40, 1.0),
+    "one-short-chunk-q100": (2, 4, 1, 1, 100, 128, 64, 1.0),
+    "heads5": (1, 5, 1, 2, 48, 64, 64, 1.0),
+    "q256-n256": (1, 4, 1, 2, 256, 256, 64, 1.0),
 }
 
 
@@ -342,6 +350,22 @@ def test_ssd_chunk_kernel_rejects_what_it_cannot_hold(cuda_device):
                           cums, dt)
     with pytest.raises(ValueError, match="grouped layout"):
         ssd_ops.ssd_chunk(C[0], B[0], x[0], cums[0], dt[0])
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_raises_beyond_its_limit(cuda_device):
+    """bf16 takes Q, N <= 256 (the tensor-core kernel's shared memory);
+    f32 (f32 FMAs outside the tensor cores) has no such limit."""
+    for q, n in ((264, 64), (64, 264)):
+        args = _ssd_case(cuda_device, 1, 2, 1, 1, q, n, 16, 1.0, torch.bfloat16)
+        before = ssd_ops.ssd_chunk.launches
+        with pytest.raises(ValueError, match="Q, N <= 256"):
+            ssd_ops.ssd_chunk(*args)
+        assert ssd_ops.ssd_chunk.launches == before
+        args = _ssd_case(cuda_device, 1, 2, 1, 1, q, n, 16, 1.0, torch.float32)
+        got = ssd_ops.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        _assert_ssd_close(got, ssd_chunk_ref(*args))
 
 
 @pytest.mark.cuda

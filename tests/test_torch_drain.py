@@ -8,6 +8,8 @@ buckets, rectangular (J, N, M) weights, a bf16 ring). Tolerance
 rtol = atol = 1e-5: f32 sums in another order. The kernel itself runs
 only on the card (tests/test_torch_cuda.py, and chip_smoke.py).
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +149,28 @@ def test_build_knows_every_source_of_the_port(name):
     assert build.source_path(name).parent.name == "csrc"
     assert build.library_path(name).parent == build.BUILD_DIR
     assert build.BUILD_DIR.parent == build.KERNELS
+
+
+def test_build_compiles_source_text_keyed_on_it(monkeypatch, tmp_path):
+    """`build(texts=...)` writes each text beside its library, runs the
+    same nvcc command on it, and keys the library on the text: an
+    unchanged text is not rebuilt, another one is."""
+    nvcc = tmp_path / "nvcc"  # copies the source to the -o path
+    nvcc.write_text(f"#!{sys.executable}\nimport shutil, sys\na = sys.argv\n"
+                    "shutil.copy(a[-1], a[a.index('-o') + 1])\n"
+                    "print('ptxas info    : Used 1 registers')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    lib = build.build((), texts={"ssd_chunk-v": "// one\n"})["ssd_chunk-v"]
+    assert lib.parent == build.BUILD_DIR and lib.name.startswith("libssd_chunk-v-")
+    assert lib.read_text() == "// one\n"
+    assert "registers" in lib.with_suffix(".log").read_text()
+    monkeypatch.setattr(build, "find_nvcc", lambda: pytest.fail("rebuilt"))
+    assert build.build((), texts={"ssd_chunk-v": "// one\n"})["ssd_chunk-v"] == lib
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    other = build.build((), texts={"ssd_chunk-v": "// two\n"})["ssd_chunk-v"]
+    assert other != lib and other.read_text() == "// two\n"
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -16,7 +16,8 @@ cumsum is the whole difference: with XLA's cumsum substituted, the
 port's SSD forward meets rtol = atol = 1e-5 element by element. Against
 the sequential oracle the bound is 5e-4, the JAX package's own. The
 kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py); `test_three_bf16_terms_meet_f32_accuracy` holds its bf16
+arithmetic, emulated in plain torch, to 1e-5 of the largest |Y|, |S|.
 """
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,9 @@ from repro.kernels.ssd.ssd import ssd_chunk_pallas
 from repro.models import ssm as jssm
 from repro_torch import convert
 from repro_torch.configs.base import get_reduced
+from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ops as tops
+from repro_torch.kernels.ssd import variants
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 from repro_torch.models import ssm as tssm
 
@@ -232,6 +235,81 @@ def test_gradients_finite_with_strongly_negative_decay():
     grads = torch.autograd.grad(y.square().sum(), leaves)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert float(grads[0].abs().sum()) > 0
+
+
+def _bf16_terms(v, terms):
+    """f32 `v` as `terms` bf16 values, each the nearest bf16 of what the
+    earlier ones left: the split of ``csrc/ssd_chunk.cu``'s bf16 kernel."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _split_chunk(C, B, x, cums, dt, terms):
+    """Y, S as the bf16 kernel forms them, in plain torch: the f32 scores
+    and decayed B split into bf16 terms, each multiplied by the bf16 X
+    (exact products, f32 sums) and the products summed."""
+    q = C.shape[-2]
+    diff = cums[..., :, None] - cums[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(mask, diff, torch.full_like(diff, -1e30)))
+    scores = (C @ B.transpose(-1, -2)) * L * dt[..., None, :]
+    Bw = B * (torch.exp(cums[..., -1:] - cums) * dt)[..., None]
+    return (sum(t @ x for t in _bf16_terms(scores, terms)),
+            sum(t.transpose(-1, -2) @ x for t in _bf16_terms(Bw, terms)))
+
+
+@pytest.mark.parametrize("decay", [1.0, 80.0], ids=["mamba2-init", "a-80h"])
+def test_three_bf16_terms_meet_f32_accuracy(decay):
+    """The card's bf16 kernel splits each f32 operand (the masked scores,
+    the decayed B) into three bf16 terms. On bf16 C, B, X at mamba2's
+    chunk widths (Q = N = 128, P = 64), with A = -h for heads h up to 80
+    (the init) or A = -80h with dt + 1, the split gives Y and S within
+    1e-5 of the largest |Y|, |S| of `ssd_chunk_ref`; one unsplit bf16
+    pass misses the card's 1e-4."""
+    rng = np.random.default_rng(12)
+    heads = np.array([1, 2, 5, 10, 20, 40, 60, 80], np.float32)
+    bh, nc, q, n, p = len(heads), 2, 128, 128, 64
+
+    def bf16(*shape):
+        t = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+        return t.to(torch.bfloat16).float()
+
+    C, B, x = bf16(bh, nc, q, n), bf16(bh, nc, q, n), bf16(bh, nc, q, p)
+    dt = torch.as_tensor(_softplus(rng.standard_normal((bh, nc, q))).astype(np.float32))
+    if decay > 1:
+        dt = dt + 1.0
+    cums = torch.cumsum(dt * torch.as_tensor(-decay * heads)[:, None, None], dim=-1)
+    want = ssd_chunk_ref(C, B, x, cums, dt)
+    errs = {}
+    for terms in (1, 2, 3):
+        got = _split_chunk(C, B, x, cums, dt, terms)
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        errs[terms] = max(float((g - w).abs().max()) / float(w.abs().max())
+                          for g, w in zip(got, want))
+    print(f"split error of the largest |Y|, |S| at A scale {decay}: " + ", ".join(
+        f"{t} term(s) {e:.2e}" for t, e in errs.items()))
+    assert errs[3] <= 1e-5 and errs[1] > 1e-4, errs
+
+
+@pytest.mark.parametrize("edit", sorted(variants.EDITS))
+def test_every_variant_edit_finds_its_text(edit):
+    """Each edit of the kernel's variants (timing parts of it, planted
+    faults) still finds the text it replaces in ``csrc/ssd_chunk.cu``."""
+    got = variants.variant_source(edit)
+    assert got != variants.variant_source("kernel")
+    assert all(new in got for _, new in variants.EDITS[edit])
+
+
+def test_default_variants_apply():
+    assert variants.variant_source("kernel") == build.source_path("ssd_chunk").read_text()
+    for name in variants.DEFAULT:
+        variants.variant_source(name)
+    with pytest.raises(KeyError):
+        variants.variant_source("no-such-edit")
 
 
 def _block_params(cfg, seed=0):
