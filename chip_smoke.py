@@ -8,7 +8,11 @@ Phases (any failure exits non-zero):
                all sources at once (drain, mix, enqueue, ssd_chunk);
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card, at the main paths' shapes and the edge cases
-               (the mix also past 2^31 elements, and in bf16; the SSD
+               (the drain in f32 and bf16 at every case: payload rows at
+               every alignment, K under one tile, more senders than
+               receivers, slots out of order, empty buckets between live
+               ones, the largest staging; the mix also past 2^31
+               elements, and in bf16; the SSD
                intra-chunk step at the mamba2 trainer's shape in bf16, with
                groups, with Q != N in f32, under strong decays in f32 and
                bf16, ragged against the MMA tiles and at Q = N = 256); the
@@ -53,10 +57,14 @@ line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
 without the repository's `src/` beside this file.
 
     python3 chip_smoke.py --ssd-variants [NAMES] [--flush zero,read,none]
+    python3 chip_smoke.py --gossip-variants [NAMES] [--baseline TREE]
     python3 chip_smoke.py --trainer-controls
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
 (`repro_torch.kernels.ssd.variants`) at the trainer's shape; the second
+variants of drain.cu and enqueue.cu (`repro_torch.kernels.gossip.variants`;
+``baseline`` is the same kernel's source under TREE, say the parent
+commit unpacked) at the windowed path's shapes; the third
 runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
@@ -65,9 +73,11 @@ run's SSD calls.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -164,17 +174,22 @@ def emnist_config():
     return cfg, task
 
 
-def drain_case(torch, j, n, m, k, s, nonempty, dtype, seed):
+def drain_case(torch, j, n, m, k, s, live, dtype, seed, slots=None):
     """w_stack (J, N, M), ring (S, N, K), slots: a row-stochastic Q split
-    over J delay buckets, the first `nonempty` buckets live."""
+    over the live delay buckets, `live` the number of leading live
+    buckets or the tuple of live bucket indices; `slots` the J ring rows
+    (default: oldest first, ending at row S - 1, as the main path)."""
+    live = tuple(range(live)) if isinstance(live, int) else tuple(live)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.rand((n, m), generator=g, device="cuda")
     q = q / q.sum(dim=1, keepdim=True)
-    bucket = torch.randint(0, max(nonempty, 1), (n, m), generator=g, device="cuda")
-    w = torch.stack([q * (bucket == b) * (b < nonempty) for b in range(j)])
+    pick = torch.randint(0, max(len(live), 1), (n, m), generator=g, device="cuda")
+    w = torch.stack([q * (pick == live.index(b)) if b in live else torch.zeros_like(q)
+                     for b in range(j)])
     ring = torch.randn((s, n, k), generator=g, device="cuda").to(dtype)
-    slots = [(s - 1 - a) % s for a in range(j, 0, -1)]  # widx = s-1, oldest first
-    return w.float().contiguous(), ring, slots
+    if slots is None:
+        slots = [(s - 1 - a) % s for a in range(j, 0, -1)]  # widx = s-1, oldest first
+    return w.float().contiguous(), ring, list(slots)
 
 
 def bound_ms(j_live, j, n, m, k, elem_bytes):
@@ -273,47 +288,69 @@ def phase_build():
     log(f"phase 1 build: {len(paths)} CUDA source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, path in paths.items():
-        report = path.with_suffix(".log")
-        lines = report.read_text().splitlines() if report.exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        log(f"  {name}: {ptxas_summary(path)}")
     return paths
+
+
+def ptxas_summary(lib_path):
+    """Instances, their register range and the ones that spill, from a
+    library's ptxas report (``<lib>.log``)."""
+    report = lib_path.with_suffix(".log")
+    text = report.read_text() if report.exists() else ""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    if not regs:
+        return "no ptxas report"
+    spilled = re.findall(r"Function properties for (\S+)\n.*?(\d+) bytes spill stores", text)
+    spilled = [f"{name} ({b} bytes)" for name, b in spilled if int(b)]
+    return (f"{len(regs)} kernel instance(s), {min(regs)}-{max(regs)} registers; spill "
+            f"stores in {', '.join(spilled) if spilled else 'none'}")
+
+
+# (J, N, M, K, ring rows, live buckets, slots): the main path's shapes
+# (most Psi-capped buckets are empty), D in {2, 4, 8}, rectangular both
+# ways, N = M = 64, payload rows at every 4- and 2-byte phase (N = 5, odd
+# K) and K under one tile, slots out of the main path's order, empty
+# buckets between live ones, and the largest staging (J = 7, N = M = 64)
+DRAIN_CASES = {
+    "main J=3 N=M=25 K=146447 live=0": (3, 25, 25, 146_447, 4, 0, None),
+    "main J=3 N=M=25 K=146447 live=1": (3, 25, 25, 146_447, 4, 1, None),
+    "main J=3 N=M=25 K=146447 live=3": (3, 25, 25, 146_447, 4, 3, None),
+    "N=7 K=1000 D=2": (1, 7, 7, 1000, 2, 1, None),
+    "N=7 K=1000 D=4": (3, 7, 7, 1000, 4, 3, None),
+    "N=7 K=1000 D=8": (7, 7, 7, 1000, 8, 7, None),
+    "rectangular J=3 N=8 M=16 K=5000": (3, 8, 16, 5000, 4, 3, None),
+    "senders > receivers J=3 N=16 M=8 K=5000": (3, 16, 8, 5000, 4, 3, None),
+    "N=M=64 K=2049": (3, 64, 64, 2049, 4, 2, None),
+    **{f"aligned N=M=5 K={k}": (3, 5, 5, k, 4, 3, None) for k in (1, 3, 8, 4096, 4099)},
+    "slots [2, 0, 3] K=4099": (3, 25, 25, 4099, 4, 3, (2, 0, 3)),
+    "live 0, 2, 4 of J=5 K=4099": (5, 25, 25, 4099, 6, (0, 2, 4), None),
+    "largest staging J=7 N=M=64 K=4099": (7, 64, 64, 4099, 8, 7, None),
+}
 
 
 def phase_kernels(torch):
     from repro_torch.kernels.gossip import ops
 
-    cases = []
-    for live in (0, 1, 3):  # main-path shapes; most Psi-capped buckets are empty
-        cases.append((f"main J=3 N=M=25 K=146447 f32 live={live}",
-                      dict(j=3, n=25, m=25, k=146_447, s=4, nonempty=live,
-                           dtype=torch.float32)))
-    cases.append(("main J=3 N=M=25 K=146447 bf16 live=3",
-                  dict(j=3, n=25, m=25, k=146_447, s=4, nonempty=3,
-                       dtype=torch.bfloat16)))
-    for depth in (2, 4, 8):
-        cases.append((f"N=7 K=1000 D={depth}",
-                      dict(j=depth - 1, n=7, m=7, k=1000, s=depth,
-                           nonempty=depth - 1, dtype=torch.float32)))
-    cases.append(("rectangular J=3 N=8 M=16 K=5000",
-                  dict(j=3, n=8, m=16, k=5000, s=4, nonempty=3, dtype=torch.float32)))
-    cases.append(("N=M=64 K=2049", dict(j=3, n=64, m=64, k=2049, s=4, nonempty=2,
-                                        dtype=torch.float32)))
+    lib = ops._drain_lib()
     worst = 0.0
-    for i, (label, kw) in enumerate(cases):
-        w, ring, slots = drain_case(torch, seed=i, **kw)
-        got = ops.gossip_drain(w, ring, slots)
-        ref = ops.gossip_drain_reference(w, ring, slots)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
-        worst = max(worst, err)
-        log(f"  drain {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"drain kernel disagrees with its plain version: {label}")
+    for i, (label, (j, n, m, k, s, live, slots)) in enumerate(DRAIN_CASES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            need = ops.drain_smem_bytes(j, n, m, dtype)
+            if need != lib.drain_smem_bytes(j, n, m, int(dtype == torch.bfloat16)):
+                raise AssertionError(f"drain shared memory reckoned apart: {label}")
+            w, ring, slots_ = drain_case(torch, j, n, m, k, s, live, dtype, seed=i, slots=slots)
+            got = ops.gossip_drain(w, ring, slots_)
+            ref = ops.gossip_drain_reference(w, ring, slots_)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
+            worst = max(worst, err)
+            name = f"{label} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            log(f"  drain {name}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"drain kernel disagrees with its plain version: {name}")
     log(f"phase 2 kernels: gossip_drain max_abs_err={worst:.3e} "
-        f"(tolerance rtol={RTOL} atol={ATOL}) over {len(cases)} cases")
+        f"(tolerance rtol={RTOL} atol={ATOL}) over {2 * len(DRAIN_CASES)} cases")
     return worst
 
 
@@ -408,6 +445,10 @@ def profile_windows(torch, protocol, st, cfg, ctx, task, data, steady_ms):
         f"{100 - 100 * share:.2f}% idle")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
         log(f"    {dev / 20:9.2f} us/window  {count:5d}x  {key[:90]}")
+    for dev, key, count in rows:
+        if "drain_kernel" in key:
+            log(f"  drain row: {dev / 20:.2f} us/window, {count}x, {dev / count:.2f} us "
+                f"per launch ({key[:60]})")
 
 
 def phase_plain(torch, ctx, params0, data):
@@ -640,12 +681,14 @@ def phase_new_times(torch):
     j, n, k = ENQ_MAIN
     w, pending = enqueue_case(torch, j, n, k, torch.float32, 4100)
     kern = time_ms(torch, lambda: ops.gossip_enqueue(w, pending), flush=flush)
+    read = time_ms(torch, lambda: ops.gossip_enqueue(w, pending), flush=flushes(torch)["read"])
     plain = time_ms(torch, lambda: ops.gossip_enqueue_reference(w, pending), flush=flush)
     buf, wt = torch.empty((j, n, k), device="cuda"), w.transpose(1, 2)
     lib = time_ms(torch, lambda: torch.matmul(wt, pending, out=buf), flush=flush)
     bound, by = enqueue_bound_ms(j, n, k, 4, 4)
     enq = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-    log(f"  enqueue J={j} N={n} K={k} f32: kernel {kern:.4f} ms, bound {bound:.4f} ms "
+    log(f"  enqueue J={j} N={n} K={k} f32: kernel {kern:.4f} ms (read flush {read:.4f}), "
+        f"bound {bound:.4f} ms "
         f"({by}, {100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, library "
         f"matmul {lib:.4f} ms")
     return ssd, enq
@@ -1013,26 +1056,138 @@ def ssd_variants(torch, names, flushes):
             log(f"flush={mode} {name}: " + " ".join(f"{t:.4f}" for t in times[name]) + " ms")
 
 
-def phase_times(torch):
+def gossip_instances(torch):
+    """The drain's and the enqueue's instances at the windowed path's
+    shapes: registers, shared memory and blocks per SM, as launched."""
     from repro_torch.kernels.gossip import ops
 
+    info = (ctypes.c_int * 3)()
+    j, n, k = ENQ_MAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = int(dtype == torch.bfloat16)
+        name = "bf16" if bf16 else "f32"
+        if ops._drain_lib().drain_info(j, n, n, k, bf16, info) != 0:
+            raise AssertionError("drain_info failed")
+        log(f"  drain instance J={j} N=M={n} {name} ring: {info[0]} registers, "
+            f"{ops.drain_smem_bytes(j, n, n, dtype)} bytes of shared memory, "
+            f"{info[1]} blocks per SM, grid {info[2]}")
+        if ops._enqueue_lib().enqueue_info(j, n, k, bf16, info) != 0:
+            raise AssertionError("enqueue_info failed")
+        log(f"  enqueue instance J={j} N={n} {name} pending: {info[0]} registers, "
+            f"{ops.enqueue_smem_bytes(j, n, dtype)} bytes of shared memory, "
+            f"{info[1]} blocks per SM, grid {info[2]}")
+
+
+def flushes(torch):
+    """L2 flushes by name: ``zero`` writes 96 MB (phase 9's flush: it
+    leaves the L2 full of dirty lines, whose write-back the timed kernel
+    then pays), ``read`` reads 96 MB of clean lines (the
+    kernel pays its own traffic only), ``none`` leaves the inputs in L2."""
+    buf = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
+
+    class ReadFlush:
+        def zero_(self):
+            buf.sum()
+
+    return {"zero": buf, "read": ReadFlush(), "none": None}
+
+
+def gossip_variants(torch, names, baseline, modes=("zero",)):
+    """Times `repro_torch.kernels.gossip.variants` of drain.cu and
+    enqueue.cu at the windowed path's shapes (the drain with 3 and 1 live
+    f32 buckets, the enqueue at `ENQ_MAIN` f32), three rounds in turns
+    (forward, backward, forward) of `time_ms`' median of 40 launches
+    with the L2 flushed (`flushes`, each of `modes`), after holding the
+    variants that keep the arithmetic to the plain versions."""
+    from repro_torch.kernels.gossip import ops, variants
+
+    libs = variants.build_variants(names, baseline)
+    j, n, k = ENQ_MAIN
+    # and, to see what odd K costs, rows 16-byte aligned (K + 1 = 146,448)
+    shapes = {
+        "drain": [(f"f32 live={live}", drain_case(torch, j, n, n, k, 4, live, torch.float32,
+                                                  4200 + live)) for live in (3, 1)]
+        + [("f32 live=3 K+1", drain_case(torch, j, n, n, k + 1, 4, 3, torch.float32, 4210))],
+        "enqueue": [("f32", enqueue_case(torch, j, n, k, torch.float32, 4300)),
+                    ("f32 K+1", enqueue_case(torch, j, n, k + 1, torch.float32, 4310))],
+    }
+    launch = {"drain": lambda lib, a: ops.launch_drain(lib, *a),
+              "enqueue": lambda lib, a: ops.launch_enqueue(lib, *a, torch.float32)}
+    plain = {"drain": lambda a: ops.gossip_drain_reference(*a),
+             "enqueue": lambda a: ops.gossip_enqueue_reference(*a)}
+    info = (ctypes.c_int * 3)()
+    by_mode = flushes(torch)
+    one = torch.empty(1, device="cuda")
+    a, b, c = (torch.randn((n, k), device="cuda") for _ in range(3))
+    for mode in modes:
+        log(f"flush={mode} a one-element fill (the timing's floor): "
+            f"{time_ms(torch, one.zero_, reps=40, flush=by_mode[mode]):.4f} ms; "
+            f"torch.add of two ({n}, {k}) f32 planes (43.9 MB moved): "
+            f"{time_ms(torch, lambda: torch.add(a, b, out=c), reps=40, flush=by_mode[mode]):.4f}"
+            f" ms")
+    del a, b, c
+    for kernel, cases in shapes.items():
+        kernel_names = [name for name in names if name in libs[kernel]]
+        for name in kernel_names:
+            lib = libs[kernel][name]
+            has_info = hasattr(lib, f"{kernel}_info")
+            if has_info and (lib.drain_info(j, n, n, k, 0, info) if kernel == "drain"
+                             else lib.enqueue_info(j, n, k, 0, info)) == 0:
+                log(f"{kernel} {name}: {info[0]} registers, {info[1]} blocks per SM, "
+                    f"grid {info[2]}")
+            if name not in variants.EXACT:
+                continue
+            for label, args in cases:
+                got, want = launch[kernel](lib, args), plain[kernel](args)
+                err = float((got - want).abs().max())
+                log(f"{kernel} {name} {label}: max_abs_err={err:.3e}")
+                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    raise AssertionError(f"{kernel} variant {name} disagrees with the plain "
+                                         f"version")
+        for mode in modes:
+            for label, args in cases:
+                times = {name: [] for name in kernel_names}
+                for rnd in range(3):
+                    for name in (kernel_names if rnd % 2 == 0 else kernel_names[::-1]):
+                        times[name].append(time_ms(
+                            torch, lambda lib=libs[kernel][name]: launch[kernel](lib, args),
+                            reps=40, flush=by_mode[mode]))
+                for name in kernel_names:
+                    log(f"flush={mode} {kernel} {label} {name}: median "
+                        f"{statistics.median(times[name]):.4f} ms ("
+                        + " ".join(f"{t:.4f}" for t in times[name]) + ")")
+
+
+def phase_times(torch):
+    """The drain at the windowed path's shape, 1 and 3 live buckets, f32
+    and bf16 ring: kernel, plain version, library einsum, bound. The L2
+    is flushed by zeroing 96 MB, as for every kernel of phase 9 (the
+    kernel also pays the write-back of those dirty lines); the kernel's
+    time after a read flush (`flushes`: clean lines) is logged beside it."""
+    from repro_torch.kernels.gossip import ops
+
+    gossip_instances(torch)
     j, n, m, k, s = 3, 25, 25, 146_447, 4
-    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
+    by_mode = flushes(torch)
     out = {}
-    for live in (1, 3):
-        w, ring, slots = drain_case(torch, j, n, m, k, s, live, torch.float32, 100 + live)
-        slots_dev = torch.tensor(slots, device="cuda")
-        kern = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), flush=flush)
-        plain = time_ms(torch, lambda: ops.gossip_drain_reference(w, ring, slots),
-                        flush=flush)
-        lib = time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ring[slots_dev]),
-                      flush=flush)
-        bound, by = bound_ms(live, j, n, m, k, 4)
-        out[live] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                         bound_by=by)
-        log(f"  drain J=3 N=M=25 K=146447 f32, {live} live bucket(s): kernel "
-            f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of "
-            f"bound), plain {plain:.4f} ms, library einsum {lib:.4f} ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for live in (1, 3):
+            w, ring, slots = drain_case(torch, j, n, m, k, s, live, dtype, 100 + live)
+            slots_dev = torch.tensor(slots, device="cuda")
+            kern = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), flush=by_mode["zero"])
+            read = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), flush=by_mode["read"])
+            plain = time_ms(torch, lambda: ops.gossip_drain_reference(w, ring, slots),
+                            flush=by_mode["zero"])
+            lib = time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ring[slots_dev].float()),
+                          flush=by_mode["zero"])
+            bound, by = bound_ms(live, j, n, m, k, ring.element_size())
+            out[name, live] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                   bound_by=by)
+            log(f"  drain J=3 N=M=25 K=146447 {name}, {live} live bucket(s): kernel "
+                f"{kern:.4f} ms (read flush {read:.4f}), bound {bound:.4f} ms ({by}, "
+                f"{100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, library einsum "
+                f"{lib:.4f} ms")
     return out
 
 
@@ -1069,8 +1224,14 @@ def main(argv=None) -> int:
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
                         help="only time variants of ssd_chunk.cu (comma-separated; "
                              "default: repro_torch.kernels.ssd.variants.DEFAULT)")
-    parser.add_argument("--flush", default="zero", help="for --ssd-variants: zero, read, "
-                        "none; comma-separated")
+    parser.add_argument("--flush", default="zero", help="for --ssd-variants and "
+                        "--gossip-variants: zero, read, none; comma-separated")
+    parser.add_argument("--gossip-variants", nargs="?", const="", metavar="NAMES",
+                        help="only time variants of drain.cu and enqueue.cu (comma-"
+                             "separated; default: repro_torch.kernels.gossip.variants."
+                             "DEFAULT, and baseline with --baseline)")
+    parser.add_argument("--baseline", metavar="TREE", help="for --gossip-variants: a tree "
+                        "whose drain.cu and enqueue.cu are the baseline variant")
     parser.add_argument("--trainer-controls", action="store_true",
                         help="only phase 8, with the control and planted-fault paths")
     args = parser.parse_args(argv)
@@ -1086,6 +1247,14 @@ def main(argv=None) -> int:
 
         ssd_variants(torch, args.ssd_variants.split(",") if args.ssd_variants
                      else variants.DEFAULT, args.flush.split(","))
+        log(card_line())
+        return 0
+    if args.gossip_variants is not None:
+        from repro_torch.kernels.gossip import variants
+
+        names = (args.gossip_variants.split(",") if args.gossip_variants
+                 else variants.DEFAULT + (["baseline"] if args.baseline else []))
+        gossip_variants(torch, names, args.baseline, args.flush.split(","))
         log(card_line())
         return 0
     if args.trainer_controls:
@@ -1114,7 +1283,7 @@ def main(argv=None) -> int:
         dict(name="gossip_drain", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
-             launches=launches, max_abs_err=max_err, **times[3]),
+             launches=launches, max_abs_err=max_err, **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",

@@ -4,8 +4,10 @@ Every kernel package keeps its sources under ``<package>/csrc/``; each
 ``<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside this
 file, then loaded with `ctypes`. `SOURCES` names every source of the
-port. The hash covers the source and the compiler flags, so an edit
-rebuilds. ``build/`` is listed in ``.gitignore``; nothing is compiled
+port. Every ``csrc/`` directory is on the include path, so a source (or
+a variant's text built elsewhere) finds the device headers (``*.cuh``)
+beside it. The hash covers the source, every header and the compiler
+flags, so an edit to any of them rebuilds. ``build/`` is listed in ``.gitignore``; nothing is compiled
 when a module is imported, only when a kernel is first launched (or
 when `build` is called, as ``chip_smoke.py`` does).
 """
@@ -52,19 +54,32 @@ def find_nvcc() -> str:
         "are built on a machine with the CUDA toolkit")
 
 
+def include_dirs() -> list:
+    """The ``csrc/`` directory of every source, each once."""
+    return sorted({source_path(name).parent for name in SOURCES})
+
+
+def headers() -> list:
+    """Every device header (``*.cuh``) on the include path."""
+    return sorted(p for d in include_dirs() for p in d.glob("*.cuh"))
+
+
 def _keyed(label: str, source: bytes) -> Path:
     h = hashlib.sha256(source)
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{label}-{h.hexdigest()[:16]}.so"
 
 
 def library_path(name: str) -> Path:
-    """Where kernel `name` builds to, keyed on source + flags."""
+    """Where kernel `name` builds to, keyed on source + headers + flags."""
     return _keyed(name, source_path(name).read_bytes())
 
 
 def nvcc_command(nvcc: str, name: str, out: Path, source: Optional[Path] = None) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source or source_path(name))]
+    includes = [f"-I{d}" for d in include_dirs()]
+    return [nvcc, *NVCC_FLAGS, *includes, "-o", str(out), str(source or source_path(name))]
 
 
 def build(names: Sequence[str] = tuple(SOURCES), *,

@@ -12,104 +12,261 @@
 // _drain_kernel), reached from core/protocol.py::draco_window once per
 // window through kernels/gossip/ops.py::gossip_drain.
 //
-// Bound. The work is memory-bound: it must read (non-empty J) * N * K
-// payload elements and the J * N * M weights, and write M * K f32
-// outputs; arithmetic is 2 * N * M flops per payload column per bucket
-// on the CUDA cores, far below the card's ridge point. So the least
-// time is (payload bytes + weight bytes + output bytes) / HBM rate.
+// Bound. The kernel must read the (live J) * N * K payload elements and
+// the J * N * M weights once, and write the M * K f32 outputs once. At the
+// windowed path's shape (J = 3, N = M = 25, K = Dflat = 146,447, f32) with
+// 3 live buckets that is 43.9 MB read and 14.6 MB written, 17.5 us at
+// 3.35 TB/s; with 1 live bucket 8.7 us. The useful FMAs, 3 x 25 x 25 x K
+// = 274.6 M, take 8.2 us at 67 TFLOP/s: memory-bound on paper. What held
+// the first design (one column per thread, every weight broadcast from
+// shared memory) at 0.065 ms was the product: one shared-memory cycle per
+// warp FMA, and its copies and stores waited behind it (PERF.md).
 //
-// Design.
-//  - Grid over tiles of K columns, one thread per column: the loads of
-//    one sender row are coalesced across the warp, and every payload
-//    element is read from device memory exactly once.
-//  - No (J, N, K) gather copy: the block reads ring + slots[j] * N * K
-//    directly; the J slot indices travel by value in the launch.
-//  - For each bucket, the block stages that bucket's (N, M) weights in
-//    shared memory (zero-padded to MP receivers), one bucket at a time,
-//    so the kernel needs N * MP * 4 bytes of shared memory at most.
-//  - An all-zero bucket is skipped, decided inside the block by the
-//    barrier that ends the staging (__syncthreads_or): the skip is exact
-//    (an empty bucket adds an exact +-0 matrix, and the reference loop
-//    skips it too), needs no host read, and is what the Psi-capped main
-//    path needs, where most buckets of most windows are empty.
-//  - MP accumulators per thread live in registers (MP is a template
-//    parameter so every index is static); each output element is
-//    written once.
-//  wgmma, TMA and vector loads are left for a later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (stream.cuh holds the shared parts).
+//  - Persistent grid: as many blocks as fit the card at once
+//    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, once per instance),
+//    walking tiles of TILE columns round-robin: no tail wave, and the
+//    blocks running together read neighbouring pieces of every row.
+//  - Every bucket's (N, M) weights are staged once per block, in one
+//    pass; a flag per bucket builds the list of live buckets, so an
+//    all-zero bucket is skipped on the device with no host read (exact:
+//    it adds an exact +-0, and the reference loop skips it too).
+//  - The block's work is a sequence of (tile, live bucket) units. A
+//    producer warp copies each unit's N payload rows x TILE columns into a
+//    ring of STAGES shared-memory stages, one bulk copy (cp.async.bulk)
+//    per row on the stage's mbarrier; odd-K rows are copied as their
+//    16-byte-aligned supersets and read at their element shift. Four
+//    consumer warps wait for a stage, reduce it and release it, each at
+//    its own pace: no block barrier after the prologue.
+//  - The product on the tensor cores (stream.cuh: accumulate_tc): TF32
+//    mma.sync with each f32 operand split into hi + lo, three products,
+//    within 2.5e-6 of the f32 plain version; 2 x 3 x 4 MMAs per warp and
+//    8 senders. It issues about a fifth of the CUDA-core product's
+//    shared-memory loads, and timed faster on an H100 at this shape
+//    (PERF.md; variant `cuda-cores`). Buckets in stack order.
+//  - After a tile's last live bucket each output element is written once,
+//    through a per-warp buffer so that each row leaves in 128-byte stores
+//    (output rows are misaligned like payload rows).
+//  - The J slot indices travel by value in the launch; the weights and
+//    ring are read in place, with no gather copy.
+#include "stream.cuh"
 
-#define DRAIN_MAX_J 32
+constexpr int STAGES = 3;  // payload tiles in the ring
+static_assert(STAGES <= RING_BARRIERS / 16, "two mbarriers a stage");
+constexpr bool TENSOR_CORES = true;  // the product on the tensor cores (stream.cuh)
+constexpr int COLS = 4;    // columns per lane
+constexpr int TILE = GOSSIP_CONSUMERS / GOSSIP_GROUPS * COLS;  // columns per ring stage
+constexpr int ROW = TILE + 8;  // elements per staged row: the tile and the largest shift
+#define DRAIN_MAX_J 256  // slot indices passed by value (1 KB of launch parameters)
 #define DRAIN_MAX_N 64
 #define DRAIN_MAX_M 64
-#define DRAIN_THREADS 256
 
 struct DrainSlots {
   int s[DRAIN_MAX_J];
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+static_assert(!TENSOR_CORES || TILE == GOSSIP_CONSUMERS, "a warp's 32 columns per stage");
 
-template <typename T, int MP>
-__global__ void __launch_bounds__(DRAIN_THREADS)
+// The kernel's receiver blocking R for M receivers: receivers per lane,
+// or 16-receiver tiles on the tensor cores.
+static int blocking(int M) {
+  return TENSOR_CORES ? (M + 15) / 16 : (M + GOSSIP_GROUPS - 1) / GOSSIP_GROUPS;
+}
+// floats per staged weight row (one sender) and staged senders per bucket
+__host__ __device__ constexpr int weight_row(int R) {
+  // on the tensor cores 8 or 24 floats over the receivers (mod 32), so an
+  // A fragment's four senders fall in four bank octets; above 32 receivers
+  // unpadded, so that 7 buckets of 64 x 64 still fit a block
+  return TENSOR_CORES ? 16 * R + (R <= 2 ? 8 : 0) : GOSSIP_GROUPS * lane_weights(R);
+}
+__host__ __device__ constexpr int weight_rows(int N) { return TENSOR_CORES ? (N + 7) / 8 * 8 : N; }
+// the receiver at position p of a staged weight row, or -1 for padding
+__host__ __device__ constexpr int staged_receiver(int p, int R) {
+  return TENSOR_CORES                       ? p
+         : p % lane_weights(R) < R ? p / lane_weights(R) * R + p % lane_weights(R)
+                                   : -1;
+}
+
+// Dynamic shared memory of one block: ring barriers, weights, ring, row
+// offsets, live list and flags (and the tensor cores' store buffers).
+static long long smem_bytes(int J, int N, int M, int elem) {
+  return RING_BARRIERS + 4LL * align4(J * weight_rows(N) * weight_row(blocking(M))) +
+         (TENSOR_CORES ? 4LL * STORE_FLOATS : 0) + (long long)STAGES * N * ROW * elem +
+         4LL * STAGES * N + 12LL * J;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(GOSSIP_THREADS)
 drain_kernel(const float* __restrict__ w_stack, const T* __restrict__ ring,
              float* __restrict__ out, DrainSlots slots, int J, int N, int M,
              long long K) {
-  __shared__ float w_sh[DRAIN_MAX_N * MP];
-  const long long col = (long long)blockIdx.x * DRAIN_THREADS + threadIdx.x;
-  const bool live = col < K;
-  const long long plane = (long long)N * K;
+  constexpr int MB = R, WROW = weight_row(R), STEP = 32 / GOSSIP_GROUPS;
+  const int NK = weight_rows(N);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar_sh = reinterpret_cast<uint64_t*>(smem);                // full, empty: [2][4]
+  float* w_sh = reinterpret_cast<float*>(smem + RING_BARRIERS);        // [J][NK][WROW]
+  float* store_sh = w_sh + align4(J * NK * WROW);  // tensor cores: [warp][16][STORE_ROW]
+  T* ring_sh = reinterpret_cast<T*>(store_sh + (TENSOR_CORES ? STORE_FLOATS : 0));     // [STAGES][N][ROW]
+  int* off_sh = reinterpret_cast<int*>(ring_sh + STAGES * N * ROW);   // [STAGES][N]
+  int* live_sh = off_sh + STAGES * N;  // [J][2]: (bucket, ring slot) of each live bucket
+  int* flag_sh = live_sh + 2 * J;      // [J]: bucket j has a nonzero weight
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = lane % GOSSIP_GROUPS;                       // receivers group * MB + r
+  const int first = warp * STEP * COLS + lane / GOSSIP_GROUPS;  // columns first + i * STEP
+  const Ring<STAGES, ROW, T> pipe{ring_sh, off_sh, bar_sh, bar_sh + 4, N};
+  pipe.init();
 
-  float acc[MP];
-#pragma unroll
-  for (int m = 0; m < MP; ++m) acc[m] = 0.f;
-
+  // every bucket's weights in one pass, all loads in flight together
+  for (int j = tid; j < J; j += GOSSIP_THREADS) flag_sh[j] = 0;
+  __syncthreads();
+  for (int i = tid; i < J * NK * WROW; i += GOSSIP_THREADS) {
+    const int jn = i / WROW, j = jn / NK, n = jn - j * NK;
+    const int m = staged_receiver(i - jn * WROW, R);
+    const float w = m >= 0 && m < M && n < N ? w_stack[((long long)j * N + n) * M + m] : 0.f;
+    w_sh[i] = w;
+    if (w != 0.f) flag_sh[j] = 1;
+  }
+  __syncthreads();
+  int live = 0;  // the live buckets in stack order, the same in every thread
   for (int j = 0; j < J; ++j) {
-    const float* wj = w_stack + (long long)j * N * M;
-    int nonzero = 0;
-    for (int i = threadIdx.x; i < N * MP; i += DRAIN_THREADS) {
-      const int n = i / MP, m = i % MP;
-      const float w = m < M ? wj[n * M + m] : 0.f;
-      w_sh[i] = w;
-      nonzero |= (w != 0.f);
+    if (!flag_sh[j]) continue;
+    if (tid == 0) {
+      live_sh[2 * live] = j;
+      live_sh[2 * live + 1] = slots.s[j];
     }
-    // barrier + block-wide OR; uniform across the block, so skipping
-    // keeps every thread on the same barriers
-    if (!__syncthreads_or(nonzero)) continue;
+    ++live;
+  }
+  __syncthreads();  // live_sh
 
-    if (live) {
-      const T* pj = ring + (long long)slots.s[j] * plane + col;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        const float p = to_f32(pj[(long long)n * K]);
-        const float* wn = w_sh + n * MP;
-#pragma unroll
-        for (int m = 0; m < MP; ++m) acc[m] = fmaf(wn[m], p, acc[m]);
-      }
+  const int tiles = block_tiles<TILE>(K);
+  if (live == 0) {
+    for (int t = 0; t < tiles; ++t) {
+      const long long c0 = tile_start<TILE>(t);
+      for (long long c = c0 + tid; c < min(K, c0 + TILE); c += GOSSIP_THREADS)
+        for (int m = 0; m < M; ++m) out[(long long)m * K + c] = 0.f;
     }
-    __syncthreads();  // w_sh is restaged by the next bucket
+    return;
+  }
+  const int units = tiles * live;
+  const long long plane = (long long)N * K;
+  if (warp == GOSSIP_CONSUMERS / 32) {  // the producer: unit v = (tile v / live, bucket v % live)
+    for (int v = 0; v < units; ++v) {
+      const int t = v / live, l = v - t * live;
+      const long long c0 = tile_start<TILE>(t);
+      pipe.fill(v, ring + live_sh[2 * l + 1] * plane + c0, K, (int)min((long long)TILE, K - c0));
+    }
+    return;
   }
 
-  if (live) {
+  float acc[TENSOR_CORES ? 1 : MB][COLS] = {};  // CUDA cores
+  float c[TENSOR_CORES ? R : 1][4][4] = {};     // tensor cores
+  int t = 0, l = 0;
+  for (int u = 0; u < units; ++u) {
+    pipe.wait(u);
+    const int s = u % STAGES;
+    const long long c0 = tile_start<TILE>(t);
+    const int cols = (int)min((long long)TILE, K - c0);
+    const float* wl = w_sh + live_sh[2 * l] * NK * WROW;
+    if (warp * (TILE / 4) < cols) {  // a warp with no column of the tile idles
+      if constexpr (TENSOR_CORES) {
+        accumulate_tc(c, ring_sh + s * N * ROW + 32 * warp + lane / 4, off_sh + s * N,
+                      wl + lane / 4, WROW, N);
+      } else {
+        accumulate(acc, ring_sh + s * N * ROW + first, off_sh + s * N,
+                   wl + group * lane_weights(MB), WROW, N);
+      }
+    }
+    pipe.release(u);
+    if (++l == live) {  // the tile's last live bucket: write it
+      if constexpr (TENSOR_CORES) {
+        float* buf = store_sh + warp * 16 * STORE_ROW;
+        store_tc(c, buf, M, cols - 32 * warp,
+                 [&](int m, int col, float v) { out[(long long)m * K + c0 + 32 * warp + col] = v; });
 #pragma unroll
-    for (int m = 0; m < MP; ++m)
-      if (m < M) out[(long long)m * K + col] = acc[m];
+        for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+      } else {
+#pragma unroll
+        for (int r = 0; r < MB; ++r) {
+          const int m = group * MB + r;
+#pragma unroll
+          for (int i = 0; i < COLS; ++i) {
+            const int col = first + i * STEP;
+            if (m < M && col < cols) out[(long long)m * K + c0 + col] = acc[r][i];
+            acc[r][i] = 0.f;
+          }
+        }
+      }
+      l = 0;
+      ++t;
+    }
   }
 }
 
+typedef cudaError_t (*drain_fn)(const float*, const void*, float*, const DrainSlots&, int, int,
+                                int, long long, size_t, cudaStream_t, int*);
+
+// Launch (or, with `info`, describe) one instance: info = {registers,
+// blocks per SM, blocks in the grid}.
+template <typename T, int R>
+static cudaError_t run(const float* w, const void* ring, float* out, const DrainSlots& slots,
+                       int J, int N, int M, long long K, size_t smem, cudaStream_t stream,
+                       int* info) {
+  int per_sm = 0;
+  const cudaError_t err = blocks_per_sm<&drain_kernel<T, R>>(smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const unsigned grid = persistent_grid(per_sm, (K + TILE - 1) / TILE);
+  if (info) {
+    info[0] = registers<&drain_kernel<T, R>>();
+    info[1] = per_sm;
+    info[2] = (int)grid;
+    return cudaSuccess;
+  }
+  drain_kernel<T, R><<<grid, GOSSIP_THREADS, smem, stream>>>(
+      w, static_cast<const T*>(ring), out, slots, J, N, M, K);
+  return cudaGetLastError();
+}
+
 template <typename T>
-static void launch(const float* w, const T* ring, float* out, DrainSlots slots,
-                   int J, int N, int M, long long K, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((K + DRAIN_THREADS - 1) / DRAIN_THREADS);
-  if (M <= 8)
-    drain_kernel<T, 8><<<blocks, DRAIN_THREADS, 0, stream>>>(w, ring, out, slots, J, N, M, K);
-  else if (M <= 16)
-    drain_kernel<T, 16><<<blocks, DRAIN_THREADS, 0, stream>>>(w, ring, out, slots, J, N, M, K);
-  else if (M <= 32)
-    drain_kernel<T, 32><<<blocks, DRAIN_THREADS, 0, stream>>>(w, ring, out, slots, J, N, M, K);
-  else
-    drain_kernel<T, 64><<<blocks, DRAIN_THREADS, 0, stream>>>(w, ring, out, slots, J, N, M, K);
+static drain_fn pick(int M) {
+#define DRAIN_CASE(r) \
+  case r:             \
+    return run<T, r>;
+  if constexpr (TENSOR_CORES) {
+    switch (blocking(M)) {
+      DRAIN_CASE(1) DRAIN_CASE(2) DRAIN_CASE(3) DRAIN_CASE(4)
+      default:
+        return nullptr;
+    }
+  } else {
+    switch (blocking(M)) {
+      DRAIN_CASE(1) DRAIN_CASE(2) DRAIN_CASE(3) DRAIN_CASE(4) DRAIN_CASE(5) DRAIN_CASE(6)
+      DRAIN_CASE(7) DRAIN_CASE(8) DRAIN_CASE(9) DRAIN_CASE(10) DRAIN_CASE(11) DRAIN_CASE(12)
+      DRAIN_CASE(13) DRAIN_CASE(14) DRAIN_CASE(15) DRAIN_CASE(16)
+      default:
+        return nullptr;
+    }
+  }
+#undef DRAIN_CASE
+}
+
+static int dispatch(const void* w_stack, const void* ring, void* out, const int* slots, int J,
+                    int N, int M, long long K, int ring_is_bf16, void* stream, int* info) {
+  if (J < 0 || J > DRAIN_MAX_J || N < 1 || N > DRAIN_MAX_N || M < 1 || M > DRAIN_MAX_M ||
+      K < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes(J, N, M, ring_is_bf16 ? 2 : 4);
+  if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
+  DrainSlots s;
+  for (int j = 0; j < DRAIN_MAX_J; ++j) s.s[j] = j < J ? slots[j] : 0;
+  const drain_fn fn = ring_is_bf16 ? pick<__nv_bfloat16>(M) : pick<float>(M);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn((const float*)w_stack, ring, (float*)out, s, J, N, M, K, (size_t)smem,
+                 (cudaStream_t)stream, info);
 }
 
 extern "C" {
@@ -117,25 +274,23 @@ extern "C" {
 int drain_max_j() { return DRAIN_MAX_J; }
 int drain_max_n() { return DRAIN_MAX_N; }
 int drain_max_m() { return DRAIN_MAX_M; }
+int drain_max_smem() { return max_smem_optin(); }
+long long drain_smem_bytes(int J, int N, int M, int ring_is_bf16) {
+  return smem_bytes(J, N, M, ring_is_bf16 ? 2 : 4);
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `slots` is a host array of J ring rows; pointers are device pointers.
-int drain_launch(const void* w_stack, const void* ring, void* out,
-                 const int* slots, int J, int N, int M, long long K,
-                 int ring_is_bf16, void* stream) {
-  if (J < 0 || J > DRAIN_MAX_J || N < 1 || N > DRAIN_MAX_N || M < 1 ||
-      M > DRAIN_MAX_M || K < 1)
-    return (int)cudaErrorInvalidValue;
-  DrainSlots s;
-  for (int j = 0; j < DRAIN_MAX_J; ++j) s.s[j] = j < J ? slots[j] : 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ring_is_bf16)
-    launch<__nv_bfloat16>((const float*)w_stack, (const __nv_bfloat16*)ring,
-                          (float*)out, s, J, N, M, K, st);
-  else
-    launch<float>((const float*)w_stack, (const float*)ring, (float*)out, s,
-                  J, N, M, K, st);
-  return (int)cudaGetLastError();
+int drain_launch(const void* w_stack, const void* ring, void* out, const int* slots, int J,
+                 int N, int M, long long K, int ring_is_bf16, void* stream) {
+  return dispatch(w_stack, ring, out, slots, J, N, M, K, ring_is_bf16, stream, nullptr);
+}
+
+// The instance a launch of this shape takes, without launching:
+// info = {registers per thread, blocks per SM, blocks in the grid}.
+int drain_info(int J, int N, int M, long long K, int ring_is_bf16, int* info) {
+  int zero[DRAIN_MAX_J] = {0};
+  return dispatch(nullptr, nullptr, nullptr, zero, J, N, M, K, ring_is_bf16, nullptr, info);
 }
 
 }  // extern "C"

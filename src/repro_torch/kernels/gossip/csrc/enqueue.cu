@@ -14,156 +14,230 @@
 // _enqueue_kernel), reached through kernels/gossip/ops.py::gossip_enqueue.
 //
 // Bound. Per call the kernel must read the N * K pending elements once
-// and write the J * N * K outputs once; the 2 * J * N * N * K FMAs run on
+// and write the J * N * K outputs once; the J * N * N * K FMAs run on
 // the CUDA cores. At the windowed path's shape (J = 3 buckets, N = 25
 // clients, K = 146,447 f32) that is 14.6 MB read and 43.9 MB written,
-// 17.5 us at 3.35 TB/s, against 8.2 us of f32 FMAs at 67 TFLOP/s: the
-// kernel is memory-bound, by the J outputs it writes.
+// 17.5 us at 3.35 TB/s, against 8.2 us of f32 FMAs at 67 TFLOP/s:
+// memory-bound on paper, by the J outputs it writes. In practice the
+// product's shared-memory loads and the misaligned rows' stores take
+// longer than the copies (PERF.md).
 //
-// Design (mix.cu with J outputs).
-//  - One thread per column in a grid-stride loop over K: the N pending
-//    values of a column are loaded once, coalesced across the warp, and
-//    held in registers (NP of them, NP in {8, 16, 32, 64} a template
-//    parameter so every index is static) while the thread produces all
-//    J * N outputs of that column, so each pending element is read from
-//    device memory exactly once for all J buckets.
-//  - The J weight matrices live in dynamic shared memory, transposed to
-//    [j][receiver][sender] and zero-padded to NP senders, so a receiver's
-//    weights are read as float4 broadcasts (every thread of a warp reads
-//    the same address): four FMAs per shared load. J * N * NP * 4 bytes
-//    must fit the block's shared memory; the wrapper refuses more.
-//  - The (bucket, receiver) loop is not unrolled, so the register count
-//    stays that of the NP pending values (mix.cu spilled at NP >= 16
-//    while its sender loop was unrolled).
-//  - No padding copy: the reference's wrapper pads N to 8 and K to 512
-//    (ops.py:91-92); here the ragged edge of K is masked by the loop
-//    bound and padded senders are never loaded.
+// Design (the drain's memory side, stream.cuh).
+//  - Persistent grid sized from occupancy, walking tiles of TILE columns
+//    round-robin.
+//  - A producer warp copies each pending (N, TILE) tile into a ring of
+//    STAGES shared-memory stages by bulk copies, one per row on the
+//    stage's mbarrier (odd-K rows as their 16-byte-aligned supersets, read
+//    at their shift); the first tiles' copies are in flight while the
+//    consumer warps stage the J weight matrices, [j][sender][receiver].
+//    Every pending element is read from device memory once for all J
+//    buckets.
+//  - Per tile and bucket, a lane computes MB = ceil(N / GOSSIP_GROUPS)
+//    receivers x COLS columns on the CUDA cores (register-blocked, senders
+//    in order) and stores them as soon as the bucket is done (scalar
+//    stores, fire and forget), so the stores stream under the next
+//    bucket's FMAs. A store never passes its row's end: only receivers <
+//    N and columns < K are written. The tensor-core product (variant
+//    `tensor-cores`) computes faster but its stores cost more here, where
+//    the outputs are three times the drain's (PERF.md).
 //  - 64-bit offsets for every row offset and column index.
-//  Scalar global loads and stores; vector loads and TMA are left for a
-//  later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stream.cuh"
 
+constexpr int STAGES = 3;  // pending tiles in the ring
+static_assert(STAGES <= RING_BARRIERS / 16, "two mbarriers a stage");
+constexpr bool TENSOR_CORES = false;  // the product on the tensor cores (stream.cuh)
+constexpr int COLS = 4;    // columns per lane
+constexpr int TILE = GOSSIP_CONSUMERS / GOSSIP_GROUPS * COLS;  // columns per ring stage
+constexpr int ROW = TILE + 8;  // elements per staged row: the tile and the largest shift
 #define ENQ_MAX_N 64
-#define ENQ_THREADS 256
-#define ENQ_BLOCKS_PER_SM 8
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+static_assert(!TENSOR_CORES || TILE == GOSSIP_CONSUMERS, "a warp's 32 columns per stage");
 
-static int padded_n(int N) { return N <= 8 ? 8 : N <= 16 ? 16 : N <= 32 ? 32 : 64; }
+// The kernel's receiver blocking R for N receivers: receivers per lane,
+// or 16-receiver tiles on the tensor cores.
+static int blocking(int N) {
+  return TENSOR_CORES ? (N + 15) / 16 : (N + GOSSIP_GROUPS - 1) / GOSSIP_GROUPS;
+}
+// floats per staged weight row (one sender) and staged senders per bucket
+__host__ __device__ constexpr int weight_row(int R) {
+  // on the tensor cores 8 or 24 floats over the receivers (mod 32), so an
+  // A fragment's four senders fall in four bank octets
+  return TENSOR_CORES ? 16 * R + 8 : GOSSIP_GROUPS * lane_weights(R);
+}
+__host__ __device__ constexpr int weight_rows(int N) { return TENSOR_CORES ? (N + 7) / 8 * 8 : N; }
+// the receiver at position p of a staged weight row, or -1 for padding
+__host__ __device__ constexpr int staged_receiver(int p, int R) {
+  return TENSOR_CORES                       ? p
+         : p % lane_weights(R) < R ? p / lane_weights(R) * R + p % lane_weights(R)
+                                   : -1;
+}
 
-template <typename TI, typename TO, int NP>
-__global__ void __launch_bounds__(ENQ_THREADS)
+// Dynamic shared memory of one block: ring barriers, weights, ring, row
+// offsets (and the tensor cores' store buffers).
+static long long smem_bytes(int J, int N, int elem) {
+  return RING_BARRIERS + 4LL * align4(J * weight_rows(N) * weight_row(blocking(N))) +
+         (TENSOR_CORES ? 4LL * STORE_FLOATS : 0) + (long long)STAGES * N * ROW * elem +
+         4LL * STAGES * N;
+}
+
+__device__ __forceinline__ void store(void* out, long long i, float x, int out_bf16) {
+  if (out_bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(out)[i] = x;
+}
+
+template <typename TI, int R>
+__global__ void __launch_bounds__(GOSSIP_THREADS)
 enqueue_kernel(const float* __restrict__ w, const TI* __restrict__ pending,
-               TO* __restrict__ out, int J, int N, long long K) {
-  extern __shared__ float4 w_sh4[];  // [j][m][NP] = w[j][n][m], zero-padded in n
-  float* w_sh = reinterpret_cast<float*>(w_sh4);
-  const int rows = J * N;
-  for (int i = threadIdx.x; i < rows * NP; i += ENQ_THREADS) {
-    const int n = i % NP, jm = i / NP;
-    const int m = jm % N, j = jm / N;
-    w_sh[i] = n < N ? w[((long long)j * N + n) * N + m] : 0.f;
+               void* __restrict__ out, int out_bf16, int J, int N, long long K) {
+  constexpr int MB = R, WROW = weight_row(R), STEP = 32 / GOSSIP_GROUPS;
+  const int NK = weight_rows(N);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar_sh = reinterpret_cast<uint64_t*>(smem);                // full, empty: [2][4]
+  float* w_sh = reinterpret_cast<float*>(smem + RING_BARRIERS);        // [J][NK][WROW]
+  float* store_sh = w_sh + align4(J * NK * WROW);  // tensor cores: [warp][16][STORE_ROW]
+  TI* ring_sh = reinterpret_cast<TI*>(store_sh + (TENSOR_CORES ? STORE_FLOATS : 0));   // [STAGES][N][ROW]
+  int* off_sh = reinterpret_cast<int*>(ring_sh + STAGES * N * ROW);    // [STAGES][N]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = lane % GOSSIP_GROUPS;                       // receivers group * MB + r
+  const int first = warp * STEP * COLS + lane / GOSSIP_GROUPS;  // columns first + i * STEP
+  const Ring<STAGES, ROW, TI> pipe{ring_sh, off_sh, bar_sh, bar_sh + 4, N};
+  pipe.init();
+  __syncthreads();  // the ring's barriers
+  const int tiles = block_tiles<TILE>(K);
+  if (warp == GOSSIP_CONSUMERS / 32) {  // the producer
+    for (int t = 0; t < tiles; ++t) {
+      const long long c0 = tile_start<TILE>(t);
+      pipe.fill(t, pending + c0, K, (int)min((long long)TILE, K - c0));
+    }
+    return;
   }
-  __syncthreads();
+  // the consumers stage the weights while the first tiles land
+  for (int i = tid; i < J * NK * WROW; i += GOSSIP_CONSUMERS) {
+    const int m = staged_receiver(i % WROW, R), jn = i / WROW, j = jn / NK, n = jn - j * NK;
+    w_sh[i] = m >= 0 && m < N && n < N ? w[((long long)j * N + n) * N + m] : 0.f;
+  }
+  consumers_sync();
 
-  const long long stride = (long long)gridDim.x * ENQ_THREADS;
-  for (long long col = (long long)blockIdx.x * ENQ_THREADS + threadIdx.x;
-       col < K; col += stride) {
-    float p[NP];
-#pragma unroll
-    for (int n = 0; n < NP; ++n)
-      p[n] = n < N ? to_f32(pending[(long long)n * K + col]) : 0.f;
-
-#pragma unroll 1
-    for (int jm = 0; jm < rows; ++jm) {
-      const float4* wr = w_sh4 + jm * (NP / 4);
-      float acc = 0.f;
-#pragma unroll
-      for (int n4 = 0; n4 < NP / 4; ++n4) {
-        const float4 wv = wr[n4];
-        acc = fmaf(wv.x, p[4 * n4 + 0], acc);
-        acc = fmaf(wv.y, p[4 * n4 + 1], acc);
-        acc = fmaf(wv.z, p[4 * n4 + 2], acc);
-        acc = fmaf(wv.w, p[4 * n4 + 3], acc);
+  for (int t = 0; t < tiles; ++t) {
+    pipe.wait(t);
+    const long long c0 = tile_start<TILE>(t);
+    const int cols = (int)min((long long)TILE, K - c0);
+    const int s = t % STAGES;
+    if (warp * (TILE / 4) >= cols) {  // a warp with no column of the tile idles
+    } else if constexpr (TENSOR_CORES) {
+      for (int j = 0; j < J; ++j) {
+        float c[R][4][4] = {};
+        accumulate_tc(c, ring_sh + s * N * ROW + 32 * warp + lane / 4, off_sh + s * N,
+                      w_sh + j * NK * WROW + lane / 4, WROW, N);
+        float* buf = store_sh + warp * 16 * STORE_ROW;
+        store_tc(c, buf, N, cols - 32 * warp, [&](int m, int col, float v) {
+          store(out, ((long long)j * N + m) * K + c0 + 32 * warp + col, v, out_bf16);
+        });
       }
-      store(out + (long long)jm * K + col, acc);
+    } else {
+      for (int j = 0; j < J; ++j) {
+        float acc[MB][COLS] = {};
+        accumulate(acc, ring_sh + s * N * ROW + first, off_sh + s * N,
+                   w_sh + j * NK * WROW + group * lane_weights(MB), WROW, N);
+#pragma unroll
+        for (int r = 0; r < MB; ++r) {
+          const int m = group * MB + r;
+#pragma unroll
+          for (int i = 0; i < COLS; ++i) {
+            const int col = first + i * STEP;
+            if (m < N && col < cols)
+              store(out, ((long long)j * N + m) * K + c0 + col, acc[r][i], out_bf16);
+          }
+        }
+      }
+    }
+    pipe.release(t);
+  }
+}
+
+typedef cudaError_t (*enqueue_fn)(const float*, const void*, void*, int, int, int, long long,
+                                  size_t, cudaStream_t, int*);
+
+// Launch (or, with `info`, describe) one instance: info = {registers,
+// blocks per SM, blocks in the grid}.
+template <typename TI, int R>
+static cudaError_t run(const float* w, const void* pending, void* out, int out_bf16, int J,
+                       int N, long long K, size_t smem, cudaStream_t stream, int* info) {
+  int per_sm = 0;
+  const cudaError_t err = blocks_per_sm<&enqueue_kernel<TI, R>>(smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const unsigned grid = persistent_grid(per_sm, (K + TILE - 1) / TILE);
+  if (info) {
+    info[0] = registers<&enqueue_kernel<TI, R>>();
+    info[1] = per_sm;
+    info[2] = (int)grid;
+    return cudaSuccess;
+  }
+  enqueue_kernel<TI, R><<<grid, GOSSIP_THREADS, smem, stream>>>(
+      w, static_cast<const TI*>(pending), out, out_bf16, J, N, K);
+  return cudaGetLastError();
+}
+
+template <typename TI>
+static enqueue_fn pick(int N) {
+#define ENQ_CASE(r) \
+  case r:           \
+    return run<TI, r>;
+  if constexpr (TENSOR_CORES) {
+    switch (blocking(N)) {
+      ENQ_CASE(1) ENQ_CASE(2) ENQ_CASE(3) ENQ_CASE(4)
+      default:
+        return nullptr;
+    }
+  } else {
+    switch (blocking(N)) {
+      ENQ_CASE(1) ENQ_CASE(2) ENQ_CASE(3) ENQ_CASE(4) ENQ_CASE(5) ENQ_CASE(6) ENQ_CASE(7)
+      ENQ_CASE(8) ENQ_CASE(9) ENQ_CASE(10) ENQ_CASE(11) ENQ_CASE(12) ENQ_CASE(13) ENQ_CASE(14)
+      ENQ_CASE(15) ENQ_CASE(16)
+      default:
+        return nullptr;
     }
   }
+#undef ENQ_CASE
 }
 
-static int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&value, attr, dev);
-  return value;
-}
-
-static int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    sms = device_attr(cudaDevAttrMultiProcessorCount);
-    if (sms <= 0) sms = 1;
-  }
-  return sms;
-}
-
-template <typename TI, typename TO, int NP>
-static int launch_np(const float* w, const TI* pending, TO* out, int J, int N,
-                     long long K, cudaStream_t stream) {
-  const size_t smem = (size_t)J * N * NP * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        enqueue_kernel<TI, TO, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long want = (K + ENQ_THREADS - 1) / ENQ_THREADS;
-  const long long cap = (long long)sm_count() * ENQ_BLOCKS_PER_SM;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
-  enqueue_kernel<TI, TO, NP><<<blocks, ENQ_THREADS, smem, stream>>>(w, pending, out, J, N, K);
-  return (int)cudaGetLastError();
-}
-
-template <typename TI, typename TO>
-static int launch(const void* w, const void* pending, void* out, int J, int N,
-                  long long K, cudaStream_t stream) {
-  const float* wf = (const float*)w;
-  const TI* p = (const TI*)pending;
-  TO* o = (TO*)out;
-  switch (padded_n(N)) {
-    case 8: return launch_np<TI, TO, 8>(wf, p, o, J, N, K, stream);
-    case 16: return launch_np<TI, TO, 16>(wf, p, o, J, N, K, stream);
-    case 32: return launch_np<TI, TO, 32>(wf, p, o, J, N, K, stream);
-    default: return launch_np<TI, TO, 64>(wf, p, o, J, N, K, stream);
-  }
+static int dispatch(const void* w, const void* pending, void* out, int J, int N, long long K,
+                    int in_bf16, int out_bf16, void* stream, int* info) {
+  if (J < 1 || N < 1 || N > ENQ_MAX_N || K < 1) return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes(J, N, in_bf16 ? 2 : 4);
+  if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
+  const enqueue_fn fn = in_bf16 ? pick<__nv_bfloat16>(N) : pick<float>(N);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn((const float*)w, pending, out, out_bf16, J, N, K, (size_t)smem,
+                 (cudaStream_t)stream, info);
 }
 
 extern "C" {
 
 int enqueue_max_n() { return ENQ_MAX_N; }
 
-// Shared memory the kernel needs for J buckets of N clients, and the
-// most a block of this device may have.
-long long enqueue_smem_bytes(int J, int N) {
-  return (long long)J * N * padded_n(N) * (long long)sizeof(float);
+// Shared memory one block needs for J buckets of N clients with a
+// pending plane of 2- or 4-byte elements, and the most a block of this
+// device may have.
+long long enqueue_smem_bytes(int J, int N, int in_bf16) {
+  return smem_bytes(J, N, in_bf16 ? 2 : 4);
 }
-int enqueue_max_smem() { return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin); }
+int enqueue_max_smem() { return max_smem_optin(); }
 
 // Launches on `stream` and returns the CUDA error (0 on success).
 // w (J, N, N) f32, pending (N, K), out (J, N, K); device pointers.
-int enqueue_launch(const void* w, const void* pending, void* out, int J, int N,
-                   long long K, int in_bf16, int out_bf16, void* stream) {
-  if (J < 1 || N < 1 || N > ENQ_MAX_N || K < 1 ||
-      enqueue_smem_bytes(J, N) > enqueue_max_smem())
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (in_bf16)
-    return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(w, pending, out, J, N, K, st)
-                    : launch<__nv_bfloat16, float>(w, pending, out, J, N, K, st);
-  return out_bf16 ? launch<float, __nv_bfloat16>(w, pending, out, J, N, K, st)
-                  : launch<float, float>(w, pending, out, J, N, K, st);
+int enqueue_launch(const void* w, const void* pending, void* out, int J, int N, long long K,
+                   int in_bf16, int out_bf16, void* stream) {
+  return dispatch(w, pending, out, J, N, K, in_bf16, out_bf16, stream, nullptr);
+}
+
+// The instance a launch of this shape takes, without launching:
+// info = {registers per thread, blocks per SM, blocks in the grid}.
+int enqueue_info(int J, int N, long long K, int in_bf16, int* info) {
+  return dispatch(nullptr, nullptr, nullptr, J, N, K, in_bf16, 0, nullptr, info);
 }
 
 }  // extern "C"

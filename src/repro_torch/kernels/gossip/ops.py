@@ -25,9 +25,62 @@ RING_DTYPES = (torch.float32, torch.bfloat16)
 MIX_DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.lru_cache(maxsize=None)
-def _drain_lib() -> ctypes.CDLL:
-    lib = build.load("drain")
+# the ring of csrc/drain.cu and csrc/enqueue.cu (and csrc/stream.cuh):
+# computing threads per block, receiver groups per warp (receivers padded
+# to a multiple), columns per lane and per ring stage, elements per staged
+# row, stages
+CONSUMERS = 128
+GROUPS = 4
+COLS = 4
+TILE = CONSUMERS // GROUPS * COLS
+STAGED_ROW = TILE + 8
+STAGES = 3
+RING_BARRIERS = 64  # bytes of the ring's mbarriers (full and empty, 4 stages)
+STORE_FLOATS = CONSUMERS // 32 * 16 * 40  # the tensor-core product's store buffers
+
+
+def _pad(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def _weight_row(m: int) -> int:
+    """Floats per staged weight row of the CUDA-core product: `GROUPS`
+    lanes' receivers, each lane's ceil(M / GROUPS) padded to a float4."""
+    return GROUPS * _pad(-(-m // GROUPS), 4)
+
+
+def drain_smem_bytes(j: int, n: int, m: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of ``csrc/drain.cu`` (its tensor-core
+    product) needs: the ring's barriers, every bucket's weights (senders
+    padded to 8, receivers to 16-receiver tiles, plus 8 floats up to 32
+    receivers), the warps' store buffers, `STAGES` payload tiles of N
+    staged rows, their row offsets, the live-bucket list and flags. The
+    kernel's ``drain_smem_bytes`` computes the same."""
+    elem = torch.finfo(dtype).bits // 8
+    tiles = -(-m // 16)
+    wrow = 16 * tiles + (8 if tiles <= 2 else 0)
+    return (RING_BARRIERS + 4 * j * _pad(n, 8) * wrow + 4 * STORE_FLOATS
+            + STAGES * n * (STAGED_ROW * elem + 4) + 12 * j)
+
+
+def enqueue_smem_bytes(j: int, n: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of ``csrc/enqueue.cu`` (its CUDA-core
+    product) needs: the ring's barriers, the J (N, N) weight matrices
+    (`_weight_row`), `STAGES` pending tiles of N staged rows and their row
+    offsets. The kernel's ``enqueue_smem_bytes`` computes the same."""
+    elem = torch.finfo(dtype).bits // 8
+    return RING_BARRIERS + 4 * j * n * _weight_row(n) + STAGES * n * (STAGED_ROW * elem + 4)
+
+
+def check_smem(need: int, limit: int, what: str) -> None:
+    """Raise when a block would need more shared memory than it may have."""
+    if need > limit:
+        raise ValueError(f"{what} need {need} bytes of shared memory, more than the "
+                         f"{limit} a block has")
+
+
+def bind_drain(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/drain.cu`` (or a variant)."""
     lib.drain_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -36,7 +89,30 @@ def _drain_lib() -> ctypes.CDLL:
     for fn in ("drain_max_j", "drain_max_n", "drain_max_m"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    if hasattr(lib, "drain_info"):  # the designs with a persistent grid
+        lib.drain_max_smem.argtypes = []
+        lib.drain_max_smem.restype = ctypes.c_int
+        lib.drain_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.drain_smem_bytes.restype = ctypes.c_longlong
+        lib.drain_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.drain_info.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _drain_lib() -> ctypes.CDLL:
+    return bind_drain(build.load("drain"))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_smem(kernel: str, device: int) -> int:
+    """The shared memory a block may opt into on `device` (bytes), as the
+    library of `kernel` (``drain`` or ``enqueue``) reads it; read once,
+    since the wrappers check it before every launch."""
+    lib = _drain_lib() if kernel == "drain" else _enqueue_lib()
+    with torch.cuda.device(device):
+        return getattr(lib, f"{kernel}_max_smem")()
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,19 +127,27 @@ def _mix_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _enqueue_lib() -> ctypes.CDLL:
-    lib = build.load("enqueue")
+def bind_enqueue(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/enqueue.cu`` (or a variant)."""
     lib.enqueue_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.enqueue_launch.restype = ctypes.c_int
-    lib.enqueue_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.enqueue_smem_bytes.restype = ctypes.c_longlong
     for fn in ("enqueue_max_n", "enqueue_max_smem"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    if hasattr(lib, "enqueue_info"):  # the designs with a persistent grid
+        lib.enqueue_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.enqueue_smem_bytes.restype = ctypes.c_longlong
+        lib.enqueue_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.enqueue_info.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _enqueue_lib() -> ctypes.CDLL:
+    return bind_enqueue(build.load("enqueue"))
 
 
 def _check(w_stack, ring, slots):
@@ -115,7 +199,6 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
         raise ValueError(f"no drain kernel for device {ring.device}")
     lib = _drain_lib()
     j_total, n, m = w_stack.shape
-    k = ring.shape[2]
     if (j_total > lib.drain_max_j() or n > lib.drain_max_n()
             or m > lib.drain_max_m()):
         raise ValueError(
@@ -124,17 +207,32 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
             f"{(j_total, n, m)}")
     if not ring.is_contiguous():
         raise ValueError("ring must be contiguous")
+    with torch.cuda.device(ring.device):
+        limit = _max_smem("drain", ring.device.index)
+        check_smem(drain_smem_bytes(j_total, n, m, ring.dtype), limit,
+                   f"drain kernel: {j_total} buckets of {n} x {m} weights")
+        out = launch_drain(lib, w_stack, ring, slots)
+    gossip_drain.launches += 1
+    return out
+
+
+def launch_drain(lib: ctypes.CDLL, w_stack: torch.Tensor, ring: torch.Tensor,
+                 slots: Sequence[int]) -> torch.Tensor:
+    """One launch of a bound drain library `lib` on the current stream,
+    uncounted (`gossip_drain` checks its inputs, calls this and counts);
+    w_stack (J, N, M), ring (S, N, K), slots the J ring rows. Returns the
+    f32 (M, K) aggregate; raises on a CUDA error."""
+    j_total, n, m = w_stack.shape
+    k = ring.shape[2]
     w = w_stack.to(torch.float32).contiguous()
     out = torch.empty((m, k), dtype=torch.float32, device=ring.device)
     c_slots = (ctypes.c_int * max(j_total, 1))(*slots)
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        err = lib.drain_launch(
-            w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots, j_total,
-            n, m, k, int(ring.dtype == torch.bfloat16), stream)
+    stream = torch.cuda.current_stream(ring.device).cuda_stream
+    err = lib.drain_launch(
+        w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots, j_total,
+        n, m, k, int(ring.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"drain kernel launch failed: CUDA error {err}")
-    gossip_drain.launches += 1
     return out
 
 
@@ -256,26 +354,35 @@ def gossip_enqueue(w_stack: torch.Tensor, pending: torch.Tensor, *,
         raise ValueError(f"no enqueue kernel for device {pending.device}")
     lib = _enqueue_lib()
     j_total, n, _ = w_stack.shape
-    k = pending.shape[1]
     if n > lib.enqueue_max_n():
         raise ValueError(f"enqueue kernel supports N <= {lib.enqueue_max_n()}, got N = {n}")
     if not pending.is_contiguous():
         raise ValueError("pending must be contiguous")
+    with torch.cuda.device(pending.device):
+        limit = _max_smem("enqueue", pending.device.index)
+        check_smem(enqueue_smem_bytes(j_total, n, pending.dtype), limit,
+                   f"enqueue kernel: {j_total} buckets of {n} clients")
+        out = launch_enqueue(lib, w_stack, pending, out_dtype)
+    gossip_enqueue.launches += 1
+    return out
+
+
+def launch_enqueue(lib: ctypes.CDLL, w_stack: torch.Tensor, pending: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of a bound enqueue library `lib` on the current stream,
+    uncounted (`gossip_enqueue` checks its inputs, calls this and
+    counts); w_stack (J, N, N), pending (N, K). Returns (J, N, K) in
+    `out_dtype`; raises on a CUDA error."""
+    j_total, n, _ = w_stack.shape
+    k = pending.shape[1]
     w = w_stack.to(torch.float32).contiguous()
     out = torch.empty((j_total, n, k), dtype=out_dtype, device=pending.device)
-    with torch.cuda.device(pending.device):
-        smem, limit = lib.enqueue_smem_bytes(j_total, n), lib.enqueue_max_smem()
-        if smem > limit:
-            raise ValueError(f"enqueue kernel: {j_total} buckets of {n} clients need "
-                             f"{smem} bytes of shared memory, more than the {limit} a "
-                             f"block has")
-        stream = torch.cuda.current_stream(pending.device).cuda_stream
-        err = lib.enqueue_launch(w.data_ptr(), pending.data_ptr(), out.data_ptr(),
-                                 j_total, n, k, int(pending.dtype == torch.bfloat16),
-                                 int(out_dtype == torch.bfloat16), stream)
+    stream = torch.cuda.current_stream(pending.device).cuda_stream
+    err = lib.enqueue_launch(w.data_ptr(), pending.data_ptr(), out.data_ptr(),
+                             j_total, n, k, int(pending.dtype == torch.bfloat16),
+                             int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"enqueue kernel launch failed: CUDA error {err}")
-    gossip_enqueue.launches += 1
     return out
 
 

@@ -9,6 +9,8 @@ port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -70,6 +72,108 @@ def test_kernel_rejects_what_it_cannot_hold(cuda_device):
     w, ring, slots = _case(cuda_device, 3, 8, 8, 64, 4, 3, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gossip_drain(w, ring.transpose(1, 2).contiguous().transpose(1, 2), slots)
+
+
+# the streamed drain's edges: payload rows at every 4- and 2-byte phase
+# (N = 5 rows of odd K), K under one tile, more senders than receivers,
+# and the largest staging (J = 7 buckets of 64 x 64 weights)
+STREAM_CASES = {
+    **{f"aligned-k{k}": (3, 5, 5, k, 4, 3) for k in (1, 3, 8, 4096, 4099)},
+    "senders-over-receivers": (3, 16, 8, 5000, 4, 3),
+    "largest-staging": (7, 64, 64, 4099, 8, 7),
+}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+@DTYPES
+def test_streamed_drain_edges(cuda_device, name, dtype):
+    w, ring, slots = _case(cuda_device, *STREAM_CASES[name], dtype, seed=len(name))
+    got = ops.gossip_drain(w, ring, slots)
+    torch.testing.assert_close(got, ops.gossip_drain_reference(w, ring, slots),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_drain_slots_out_of_order(cuda_device, dtype):
+    w, ring, _ = _case(cuda_device, 3, 25, 25, 4099, 4, 3, dtype, seed=1)
+    for slots in ([2, 0, 3], [1, 1, 0]):
+        torch.testing.assert_close(ops.gossip_drain(w, ring, slots),
+                                   ops.gossip_drain_reference(w, ring, slots),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_drain_empty_buckets_between_live_ones(cuda_device, dtype):
+    w, ring, slots = _case(cuda_device, 5, 25, 25, 4099, 6, 5, dtype, seed=2)
+    w[1] = 0.0
+    w[3] = 0.0
+    torch.testing.assert_close(ops.gossip_drain(w, ring, slots),
+                               ops.gossip_drain_reference(w, ring, slots),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_drain_refuses_above_its_shared_memory(cuda_device):
+    """The wrapper's reckoning is the kernel's, and a launch that needs
+    more shared memory than a block has raises before launching."""
+    lib = ops._drain_lib()
+    for j, n, m in ((3, 25, 25), (7, 64, 64), (3, 8, 16), (1, 5, 5)):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert ops.drain_smem_bytes(j, n, m, dtype) == lib.drain_smem_bytes(
+                j, n, m, int(dtype == torch.bfloat16))
+    w, ring, slots = _case(cuda_device, 8, 64, 64, 256, 8, 8, torch.float32)
+    before = ops.gossip_drain.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.gossip_drain(w, ring, slots)
+    assert ops.gossip_drain.launches == before
+
+
+def _canary(device, numel, dtype, pad=64):
+    """A buffer of `numel` + 2 * `pad` elements holding a bit pattern no
+    result takes, and its middle `numel` elements."""
+    buf = torch.full((numel + 2 * pad,), -12345.0, device=device).to(dtype)
+    return buf, buf[pad:pad + numel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4099])
+def test_drain_writes_nothing_past_its_output(cuda_device, k):
+    w, ring, slots = _case(cuda_device, 3, 5, 5, k, 4, 3, torch.float32)
+    buf, mid = _canary(cuda_device, 5 * k, torch.float32)
+    c_slots = (ctypes.c_int * 3)(*slots)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert ops._drain_lib().drain_launch(w.data_ptr(), ring.data_ptr(), mid.data_ptr(),
+                                         c_slots, 3, 5, 5, k, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((buf[:64] == -12345.0).all()) and bool((buf[-64:] == -12345.0).all())
+    assert torch.equal(mid.view(5, k), ops.gossip_drain(w, ring, slots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 4099])
+@pytest.mark.parametrize("pending_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_enqueue_bf16_output_writes_no_byte_past_a_row(cuda_device, k, pending_dtype):
+    """bf16 outputs at odd K end at every 2-byte phase; the kernel writes
+    exactly the J * N * K elements, equal to the wrapper's."""
+    w, pending = _enqueue_case(cuda_device, 3, 5, k, seed=k)
+    pending = pending.to(pending_dtype)
+    buf, mid = _canary(cuda_device, 3 * 5 * k, torch.bfloat16)
+    sentinel = buf[0].clone()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert ops._enqueue_lib().enqueue_launch(
+        w.data_ptr(), pending.data_ptr(), mid.data_ptr(), 3, 5, k,
+        int(pending_dtype == torch.bfloat16), 1, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((buf[:64] == sentinel).all()) and bool((buf[-64:] == sentinel).all())
+    want = ops.gossip_enqueue(w, pending, out_dtype=torch.bfloat16)
+    assert torch.equal(mid.view(3, 5, k), want)
+    torch.testing.assert_close(
+        want.float(), ops.gossip_enqueue_reference(w, pending, out_dtype=torch.float32)
+        .to(torch.bfloat16).float(), rtol=2.0 ** -8, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -171,6 +171,29 @@ def test_build_compiles_source_text_keyed_on_it(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
     other = build.build((), texts={"ssd_chunk-v": "// two\n"})["ssd_chunk-v"]
     assert other != lib and other.read_text() == "// two\n"
+    # a device header on the include path keys every build too: an edit
+    # to it rebuilds the same text
+    header = tmp_path / "stream.cuh"
+    header.write_text("// header one\n")
+    monkeypatch.setattr(build, "headers", lambda: [header])
+    first = build.build((), texts={"ssd_chunk-v": "// two\n"})["ssd_chunk-v"]
+    assert first != other and first.read_text() == "// two\n"
+    header.write_text("// header two\n")
+    second = build.build((), texts={"ssd_chunk-v": "// two\n"})["ssd_chunk-v"]
+    assert second != first and second.exists()
+
+
+def test_build_includes_and_keys_on_the_shared_header():
+    """drain.cu and enqueue.cu include ``gossip/csrc/stream.cuh``: the
+    nvcc command has its directory on the include path (variant texts are
+    built from ``build/``), and the library key covers its text."""
+    header = build.KERNELS / "gossip" / "csrc" / "stream.cuh"
+    assert header in build.headers()
+    for name in ("drain", "enqueue"):
+        assert '#include "stream.cuh"' in build.source_path(name).read_text()
+        cmd = build.nvcc_command("nvcc", name, build.BUILD_DIR / "x.so")
+        assert f"-I{header.parent}" in cmd
+        assert cmd.index(f"-I{header.parent}") < cmd.index("-o")
 
 
 def test_build_without_nvcc_raises(monkeypatch):
