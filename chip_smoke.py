@@ -11,13 +11,19 @@ Phases (any failure exits non-zero):
                (the drain in f32 and bf16 at every case: payload rows at
                every alignment, K under one tile, more senders than
                receivers, slots out of order, empty buckets between live
-               ones, the largest staging; the mix also past 2^31
-               elements, and in bf16; the SSD
+               ones, the largest staging; the wide route at N = M in
+               {65, 100, 256} x K in {1, 4099, 146,447}, rectangular
+               across 64 both ways, J in {8, 16} at N = M = 64; the mix
+               also past 2^31 elements, in bf16, and on its wide route
+               at N in {65, 100, 256}; the SSD
                intra-chunk step at the mamba2 trainer's shape in bf16, with
                groups, with Q != N in f32, under strong decays in f32 and
                bf16, ragged against the MMA tiles and at Q = N = 256); the
-               bucketed enqueue driven at the JAX package's own test cases
-               and the windowed path's width, one launch per call;
+               bucketed enqueue driven at the JAX package's own test cases,
+               the windowed path's width and its wide route (N past 64,
+               J in {8, 16} at N = 64), one launch per call; each
+               wrapper's shared-memory reckoning and route against the
+               kernel's own;
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -48,9 +54,24 @@ Phases (any failure exits non-zero):
                and the kernel on the inputs of every SSD call of the
                plain run within 1e-4; the kernel run's steps are profiled
                (device idle share, SSD and mix time);
+  10. wide window - `draco_window` at N = 100 clients for 50 windows
+               through the drain kernel (its wide route) and through the
+               plain drain: one launch per window, final params within
+               1e-4, the same acceptances;
+  11. baselines - sync-symm, sync-push, async-symm and async-push at the
+               fig3 EMNIST setup, each for the rounds matching 300 DRACO
+               windows of local compute: one mix launch per round, the
+               final accuracy against its floor, the steady round under
+               the sync detector and its device idle share, 50 rounds
+               through the mix kernel against the plain mix (1e-4); then
+               sync-symm at N = 100 (the mix's wide route);
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
-               (where there is one), at its main path's shapes.
+               (where there is one), at its main path's shapes; the wide
+               routes (drain at N = M = 100 and 256, mix at N = 100 and
+               256, enqueue at N = 100) and the baselines' mix at N = 25
+               beside both bounds (f32 rate and split-TF32 tensor cores).
+               Phase 9 runs last, after 10 and 11.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -64,7 +85,8 @@ run one diagnostic instead: the first times variants of ssd_chunk.cu
 (`repro_torch.kernels.ssd.variants`) at the trainer's shape; the second
 variants of drain.cu and enqueue.cu (`repro_torch.kernels.gossip.variants`;
 ``baseline`` is the same kernel's source under TREE, say the parent
-commit unpacked) at the windowed path's shapes; the third
+commit unpacked) at the windowed path's shapes and, for the drain, the
+wide route's at N = 100; the third
 runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
@@ -152,26 +174,64 @@ ENQ_MAIN = (3, 25, 146_447)  # J = D - 1 buckets, N clients, K = Dflat of EMNIST
 ENQ_PATH = [(1, 16, 256), (3, 16, 256), (7, 16, 256), (3, 25, 192), (3, 7, 192),
             (3, 8, 513), (4, 10, 96), (1, 25, 146_447), (3, 25, 146_447),
             (7, 25, 146_447)]
+# the gossip kernels' wide route (csrc/stream.cuh): clients past 64, at K
+# under one tile, ragged, and the EMNIST plane's width
+WIDE_N, WIDE_K = (65, 100, 256), (1, 4099, 146_447)
+ENQ_WIDE = [(3, n, k) for n in WIDE_N for k in (4099, 146_447)] + [(8, 64, 4099),
+                                                                  (16, 64, 4099)]
+# a bf16 sum of the wide route (split-TF32 products, within ~2^-21 of the
+# plain version's f32 sum) rounds to the bf16 value next to the plain
+# version's where the sum lies near a rounding tie: one bf16 step, at most
+# 2^-7 of the value
+WIDE_BF16_RTOL = 2.0 ** -7
+WIDE_CLIENTS = 100  # phase 10: draco past the drain's narrow route
+# phase 11: the fig3 EMNIST setup (benchmarks/fig3_convergence.py:61-85),
+# each baseline for the rounds matching FIG3_WINDOWS DRACO windows of local
+# compute; each final accuracy must reach its floor, 0.8 x the smallest
+# final accuracy of the JAX reference over 3 seeds on the CPU at the same
+# setup (scripts/fig3_reference_floors.py: 0.5525, 0.5525, 0.5489, 0.9008)
+FIG3_WINDOWS = 300
+BASELINE_FLOORS = {"sync-symm": 0.44, "sync-push": 0.44, "async-symm": 0.43,
+                   "async-push": 0.72}
+BASELINE_STEADY, BASELINE_PLAIN_ROUNDS, BASELINE_WIDE_ROUNDS = 30, 50, 5
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def emnist_config():
+def paper_config(rate, num_clients=None):
+    """(DracoConfig, mlp Task) at `repro_torch.configs.draco_paper.EMNIST`:
+    its clients (or `num_clients`), the cycle, the wireless channel with
+    its message size and Gamma_max 10 s, its lr, batch and B, Psi = 6, D =
+    4, P = 50, and Poisson rates lambda_grad = lambda_tx = `rate`."""
+    from repro_torch.configs.draco_paper import EMNIST
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.protocol import DracoConfig
     from repro_torch.tasks import get_task
 
-    # the reference's examples/quickstart.py at configs/draco_paper.py:EMNIST
     cfg = DracoConfig(
-        num_clients=25, lr=0.05, local_batches=1, batch_size=64,
-        lambda_grad=0.3, lambda_tx=0.3, unify_period=50, psi=6,
+        num_clients=num_clients or EMNIST.num_clients, lr=EMNIST.lr,
+        local_batches=EMNIST.local_batches, batch_size=EMNIST.batch_size,
+        lambda_grad=rate, lambda_tx=rate, unify_period=50, psi=6,
         topology="cycle", max_delay_windows=4,
-        channel=ChannelConfig(message_bytes=596_776, gamma_max=10.0))
-    task = get_task("mlp", input_dim=784, hidden=(160, 100), num_classes=47,
-                    per_client=1000)
+        channel=ChannelConfig(message_bytes=EMNIST.message_bytes, gamma_max=10.0))
+    task = get_task("mlp", input_dim=EMNIST.input_dim, hidden=EMNIST.hidden,
+                    num_classes=EMNIST.num_classes, per_client=EMNIST.samples_per_client)
     return cfg, task
+
+
+def emnist_config(num_clients=None):
+    """The reference's examples/quickstart.py: EMNIST at lambda 0.3."""
+    return paper_config(0.3, num_clients)
+
+
+def fig3_config(num_clients=None):
+    """benchmarks/fig3_convergence.py:setup("emnist"): EMNIST at its own
+    lambda_grad (0.1) for both rates."""
+    from repro_torch.configs.draco_paper import EMNIST
+
+    return paper_config(EMNIST.lambda_grad, num_clients)
 
 
 def drain_case(torch, j, n, m, k, s, live, dtype, seed, slots=None):
@@ -201,6 +261,16 @@ def bound_ms(j_live, j, n, m, k, elem_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tc_bound_ms(moved, flops, elem_bytes):
+    """The bound of the same work with its product on the tensor cores as
+    the wide route runs it: `moved` bytes over the memory rate against the
+    split-TF32 products (three per useful FMA for an f32 payload, two for
+    bf16) over the TF32 rate."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 if elem_bytes == 4 else 2) * flops / TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def mix_case(torch, n, k, dtype, seed):
     """q (N, N) row-stochastic f32 and deltas (N, K) in `dtype`."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -219,7 +289,7 @@ def mix_bound_ms(n, k, elem_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mix_against_plain(torch, ops, q, deltas, got):
+def mix_against_plain(torch, ops, q, deltas, got, rtol=RTOL):
     """(max |kernel - plain|, agree?) over column slices, so that a
     multi-GB plane needs no second full-size plain result."""
     worst, ok = 0.0, True
@@ -227,7 +297,7 @@ def mix_against_plain(torch, ops, q, deltas, got):
         want = ops.gossip_mix_reference(q, deltas[:, lo:lo + SLICE]).float()
         part = got[:, lo:lo + SLICE].float()
         worst = max(worst, float((part - want).abs().max()))
-        ok = ok and bool(torch.allclose(part, want, rtol=RTOL, atol=ATOL))
+        ok = ok and bool(torch.allclose(part, want, rtol=rtol, atol=ATOL))
         ok = ok and bool(torch.isfinite(part).all())
     return worst, ok
 
@@ -325,19 +395,31 @@ DRAIN_CASES = {
     "slots [2, 0, 3] K=4099": (3, 25, 25, 4099, 4, 3, (2, 0, 3)),
     "live 0, 2, 4 of J=5 K=4099": (5, 25, 25, 4099, 6, (0, 2, 4), None),
     "largest staging J=7 N=M=64 K=4099": (7, 64, 64, 4099, 8, 7, None),
+    # the wide route: N = M past 64, rectangular across 64 both ways, and
+    # bucket sets whose weights overflow the narrow route's block
+    **{f"wide N=M={n} K={k}": (3, n, n, k, 4, 3, None) for n in WIDE_N for k in WIDE_K},
+    "wide N=100 M=40 K=4099": (3, 100, 40, 4099, 4, 3, None),
+    "wide N=40 M=100 K=4099": (3, 40, 100, 4099, 4, 3, None),
+    "J=8 N=M=64 K=4099": (8, 64, 64, 4099, 9, 8, None),
+    "J=16 N=M=64 K=4099": (16, 64, 64, 4099, 17, 16, None),
 }
+ROUTES = {"narrow": 0, "wide": 1, None: -1}
 
 
 def phase_kernels(torch):
     from repro_torch.kernels.gossip import ops
 
     lib = ops._drain_lib()
+    limit = ops._max_smem("drain", 0)
     worst = 0.0
     for i, (label, (j, n, m, k, s, live, slots)) in enumerate(DRAIN_CASES.items()):
         for dtype in (torch.float32, torch.bfloat16):
-            need = ops.drain_smem_bytes(j, n, m, dtype)
-            if need != lib.drain_smem_bytes(j, n, m, int(dtype == torch.bfloat16)):
-                raise AssertionError(f"drain shared memory reckoned apart: {label}")
+            bf16 = int(dtype == torch.bfloat16)
+            route = ops.drain_route(j, n, m, dtype, limit)
+            if ops.drain_smem_bytes(j, n, m, dtype) != lib.drain_smem_bytes(j, n, m, bf16) \
+                    or ops.wide_smem_bytes(j, n, dtype) != lib.drain_wide_smem_bytes(j, n, bf16) \
+                    or ROUTES[route] != lib.drain_route(j, n, m, bf16):
+                raise AssertionError(f"drain shared memory or route reckoned apart: {label}")
             w, ring, slots_ = drain_case(torch, j, n, m, k, s, live, dtype, seed=i, slots=slots)
             got = ops.gossip_drain(w, ring, slots_)
             ref = ops.gossip_drain_reference(w, ring, slots_)
@@ -346,7 +428,7 @@ def phase_kernels(torch):
             ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
             worst = max(worst, err)
             name = f"{label} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-            log(f"  drain {name}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            log(f"  drain {name} ({route}): max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
             if not ok or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"drain kernel disagrees with its plain version: {name}")
     log(f"phase 2 kernels: gossip_drain max_abs_err={worst:.3e} "
@@ -484,14 +566,24 @@ def phase_mix_kernels(torch):
               ("N=25 K=513 bf16", 25, 513, torch.bfloat16),
               (f"N={BIG_MIX[0]} K={BIG_MIX[1]} f32 (N*K > 2^31)", *BIG_MIX,
                torch.float32)]
+    cases += [(f"wide N={n} K={k} {name}", n, k, dtype) for n in WIDE_N for k in WIDE_K
+              for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    lib, limit = ops._mix_lib(), ops._max_smem("mix", 0)
     worst = 0.0
     for i, (label, n, k, dtype) in enumerate(cases):
         q, deltas = mix_case(torch, n, k, dtype, seed=1000 + i)
+        bf16 = int(dtype == torch.bfloat16)
+        if ops.mix_route(n) == "wide" and (
+                ops.wide_smem_bytes(1, n, dtype) != lib.mix_wide_smem_bytes(n, bf16)
+                or ops.wide_smem_bytes(1, n, dtype) > limit):
+            raise AssertionError(f"mix shared memory reckoned apart: {label}")
         got = ops.gossip_mix(q, deltas)
         torch.cuda.synchronize()
         if got.dtype != dtype or tuple(got.shape) != (n, k):
             raise AssertionError(f"mix kernel returned {got.dtype} {tuple(got.shape)}")
-        err, ok = mix_against_plain(torch, ops, q, deltas, got)
+        wide_bf16 = bf16 and ops.mix_route(n) == "wide"
+        err, ok = mix_against_plain(torch, ops, q, deltas, got,
+                                    rtol=WIDE_BF16_RTOL if wide_bf16 else RTOL)
         worst = max(worst, err)
         if n * k > 10**6 or not ok:
             log(f"  mix {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
@@ -500,7 +592,8 @@ def phase_mix_kernels(torch):
         del q, deltas, got
     torch.cuda.empty_cache()
     log(f"phase 2 kernels: gossip_mix max_abs_err={worst:.3e} (tolerance "
-        f"rtol={RTOL} atol={ATOL}) over {len(cases)} cases")
+        f"rtol={RTOL} atol={ATOL}; the wide route in bf16 rtol={WIDE_BF16_RTOL}) over "
+        f"{len(cases)} cases")
     return worst
 
 
@@ -624,6 +717,18 @@ def phase_enqueue(torch):
     w, p16 = enqueue_case(torch, *ENQ_MAIN, torch.bfloat16, 3100)
     calls.append(("J=3 N=25 K=146447 bf16 -> f32", (w, p16), torch.float32))
     calls.append(("J=3 N=25 K=146447 bf16 -> bf16", (w, p16), torch.bfloat16))
+    for i, (j, n, k) in enumerate(ENQ_WIDE):  # the wide route
+        args = enqueue_case(torch, j, n, k, torch.float32, 3200 + i)
+        calls.append((f"wide J={j} N={n} K={k} f32", args, torch.float32))
+    w, p16 = enqueue_case(torch, 3, 100, 4099, torch.bfloat16, 3300)
+    calls.append(("wide J=3 N=100 K=4099 bf16 -> f32", (w, p16), torch.float32))
+    lib, limit = ops._enqueue_lib(), ops._max_smem("enqueue", 0)
+    for label, (w, pending), _ in calls:
+        j, n, bf16 = w.shape[0], w.shape[1], int(pending.dtype == torch.bfloat16)
+        route = ops.enqueue_route(j, n, pending.dtype, limit)
+        if ROUTES[route] != lib.enqueue_route(j, n, bf16) or ops.wide_smem_bytes(
+                j, n, pending.dtype) != lib.enqueue_wide_smem_bytes(j, n, bf16):
+            raise AssertionError(f"enqueue shared memory or route reckoned apart: {label}")
     reset_launches()
     outs = [ops.gossip_enqueue(*args, out_dtype=od) for _, args, od in calls]
     torch.cuda.synchronize()
@@ -643,7 +748,7 @@ def phase_enqueue(torch):
             ok = torch.equal(got, f32.to(torch.bfloat16)) and bool(torch.allclose(
                 got.float(), want.to(torch.bfloat16).float(), rtol=2.0 ** -8, atol=ATOL))
         ok = ok and bool(torch.isfinite(got).all()) and got.dtype == od
-        if pending.shape[1] > 10**5 or not ok:
+        if pending.shape[1] > 10**5 or label.startswith("wide") or not ok:
             log(f"  enqueue {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"enqueue kernel disagrees with its plain version: {label}")
@@ -1103,11 +1208,15 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
 
     libs = variants.build_variants(names, baseline)
     j, n, k = ENQ_MAIN
-    # and, to see what odd K costs, rows 16-byte aligned (K + 1 = 146,448)
+    # and, to see what odd K costs, rows 16-byte aligned (K + 1 = 146,448);
+    # the wide route at N = M = WIDE_CLIENTS, 3 and 1 live buckets
     shapes = {
         "drain": [(f"f32 live={live}", drain_case(torch, j, n, n, k, 4, live, torch.float32,
                                                   4200 + live)) for live in (3, 1)]
-        + [("f32 live=3 K+1", drain_case(torch, j, n, n, k + 1, 4, 3, torch.float32, 4210))],
+        + [("f32 live=3 K+1", drain_case(torch, j, n, n, k + 1, 4, 3, torch.float32, 4210))]
+        + [(f"wide N=M={WIDE_CLIENTS} f32 live={live}",
+            drain_case(torch, j, WIDE_CLIENTS, WIDE_CLIENTS, k, 4, live, torch.float32,
+                       4220 + live)) for live in (3, 1)],
         "enqueue": [("f32", enqueue_case(torch, j, n, k, torch.float32, 4300)),
                     ("f32 K+1", enqueue_case(torch, j, n, k + 1, torch.float32, 4310))],
     }
@@ -1117,6 +1226,10 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
              "enqueue": lambda a: ops.gossip_enqueue_reference(*a)}
     info = (ctypes.c_int * 3)()
     by_mode = flushes(torch)
+
+    def takes(name, label):  # an earlier tree's kernels may stop at 64 clients
+        return name != "baseline" or not label.startswith("wide")
+
     one = torch.empty(1, device="cuda")
     a, b, c = (torch.randn((n, k), device="cuda") for _ in range(3))
     for mode in modes:
@@ -1138,6 +1251,8 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
             if name not in variants.EXACT:
                 continue
             for label, args in cases:
+                if not takes(name, label):
+                    continue
                 got, want = launch[kernel](lib, args), plain[kernel](args)
                 err = float((got - want).abs().max())
                 log(f"{kernel} {name} {label}: max_abs_err={err:.3e}")
@@ -1146,13 +1261,14 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
                                          f"version")
         for mode in modes:
             for label, args in cases:
-                times = {name: [] for name in kernel_names}
+                runs = [name for name in kernel_names if takes(name, label)]
+                times = {name: [] for name in runs}
                 for rnd in range(3):
-                    for name in (kernel_names if rnd % 2 == 0 else kernel_names[::-1]):
+                    for name in (runs if rnd % 2 == 0 else runs[::-1]):
                         times[name].append(time_ms(
                             torch, lambda lib=libs[kernel][name]: launch[kernel](lib, args),
                             reps=40, flush=by_mode[mode]))
-                for name in kernel_names:
+                for name in runs:
                     log(f"flush={mode} {kernel} {label} {name}: median "
                         f"{statistics.median(times[name]):.4f} ms ("
                         + " ".join(f"{t:.4f}" for t in times[name]) + ")")
@@ -1219,6 +1335,265 @@ def phase_mix_times(torch, k):
                 bound_by=by), err
 
 
+def phase_wide_window(torch):
+    """`draco_window` at N = 100 clients (the EMNIST width): 50 windows
+    through the drain kernel (its wide route) with the launch count set to
+    0 before and read after, and 50 through the plain drain, from one
+    seed: one launch per window, final params within PATH_TOL, the same
+    acceptances."""
+    from repro_torch.api import make_context
+    from repro_torch.core import protocol
+    from repro_torch.kernels.gossip import ops
+
+    cfg, task = emnist_config(WIDE_CLIENTS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    params0 = task.init_params(gen)
+    data, _ = task.make_data(gen, cfg.num_clients)
+    ctx = make_context(cfg, task=task, data=data, params0=params0)
+    runs = {}
+    for name, drain in (("kernel", None), ("plain", ops.gossip_drain_reference)):
+        st = protocol.init_state(SEED + 11, cfg, params0)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = protocol.run_windows(st, cfg, ctx.q, ctx.adj, task, data,
+                                          PLAIN_WINDOWS, drain=drain)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "kernel":
+            launches = launch_counts()["drain"]
+            log(f"  N={cfg.num_clients}: {PLAIN_WINDOWS} windows in {wall:.3f} s "
+                f"({wall / PLAIN_WINDOWS * 1e3:.3f} ms/window with the first), "
+                f"{launches} drain launches")
+    if launches != PLAIN_WINDOWS:
+        raise AssertionError(f"drain launched {launches} times in {PLAIN_WINDOWS} windows")
+    worst = 0.0
+    for k in runs["kernel"].params:
+        a, b = runs["kernel"].params[k], runs["plain"].params[k]
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=PATH_TOL, atol=PATH_TOL) \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"N={cfg.num_clients}: kernel path and plain path differ in {k}")
+    accepted = int(runs["kernel"].total_accept.sum())
+    if not torch.equal(runs["kernel"].total_accept, runs["plain"].total_accept) or not accepted:
+        raise AssertionError("N=100: the paths accepted different (or no) messages")
+    log(f"phase 10 wide window: N={cfg.num_clients}, {PLAIN_WINDOWS} windows, kernel vs plain "
+        f"drain max |dparams| = {worst:.3e} (tolerance {PATH_TOL}); {accepted} messages "
+        f"accepted on both")
+    return worst
+
+
+def profile_rounds(torch, algo, st, ctx, rounds, steady_ms):
+    """Device busy share of `rounds` profiled rounds against the
+    unprofiled steady round (`steady_ms`); the mix's row. None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                st = algo.step(st, ctx)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+    except (RuntimeError, AttributeError) as exc:
+        log(f"    profiler: not measured ({exc})")
+        return None
+    busy = sum(r[0] for r in rows) / rounds
+    if busy <= 0:
+        log("    profiler: no device time recorded (not measured)")
+        return None
+    mix = sum(r[0] for r in rows if "mix_kernel" in r[1]) / rounds
+    share = busy / (steady_ms * 1e3)
+    log(f"    profiler over {rounds} rounds: device busy {busy:.1f} us/round, mix "
+        f"{mix:.2f} us/round; {100 * share:.2f}% busy, {100 - 100 * share:.2f}% idle")
+    return 1.0 - share
+
+
+def baseline_paths(torch, method, cfg, task, data, params0, rounds, seed):
+    """`rounds` rounds of `method` through the mix kernel and through the
+    plain mix, from one seed: (max |d eval params|, agree within PATH_TOL?)."""
+    from repro_torch.core import baselines
+    from repro_torch.kernels.gossip import ops
+
+    runs = {}
+    for name, mix in (("kernel", None), ("plain", ops.gossip_mix_reference)):
+        st = baselines.init_baseline_state(seed, cfg, params0)
+        st = baselines.run_baseline(method, st, cfg, task, data, rounds, mix=mix)
+        runs[name] = baselines.eval_params(method, st)
+    torch.cuda.synchronize()
+    worst, ok = 0.0, True
+    for k in runs["kernel"]:
+        a, b = runs["kernel"][k], runs["plain"][k]
+        worst = max(worst, float((a - b).abs().max()))
+        ok = ok and bool(torch.allclose(a, b, rtol=PATH_TOL, atol=PATH_TOL))
+        ok = ok and bool(torch.isfinite(a).all())
+    return worst, ok
+
+
+def phase_baselines(torch):
+    """The four baselines at the fig3 EMNIST setup: `simulate` for the
+    compute-matched rounds of FIG3_WINDOWS DRACO windows (one mix launch
+    per round, the accuracy floor), the steady round under the sync
+    detector and its device idle share, and 50 rounds of the kernel path
+    against the plain mix; then sync-symm at N = 100 (the mix's wide
+    route) for a few rounds, against its plain path too."""
+    from repro_torch.api import get_algorithm, make_context, simulate, steps_for_budget
+    from repro_torch.core.baselines import BASELINES
+
+    cfg, task = fig3_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    params0 = task.init_params(gen)
+    data, eval_data = task.make_data(gen, cfg.num_clients)
+    ctx = make_context(cfg, task=task, data=data, params0=params0)
+    budget = FIG3_WINDOWS * get_algorithm("draco").grads_per_step(cfg)
+    out, total = {}, 0
+    for i, method in enumerate(BASELINES):
+        algo = get_algorithm(method)
+        rounds = steps_for_budget(method, cfg, budget)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, trace = simulate(method, cfg, params0, data=data, num_steps=rounds, task=task,
+                                key=SEED + 21 + i, eval_every=rounds, eval_data=eval_data,
+                                ctx=ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["mix"]
+        total += launches
+        acc = float(trace.metrics["accuracy"][-1])
+        log(f"  {method}: {rounds} rounds in {wall:.3f} s with the eval, {launches} mix "
+            f"launches, final accuracy {acc:.4f} (floor {BASELINE_FLOORS[method]}), "
+            f"consensus {float(trace.metrics['consensus'][-1]):.6f}")
+        if launches != rounds:
+            raise AssertionError(f"{method}: mix launched {launches} times in {rounds} rounds")
+        if not all(np.isfinite(v).all() for v in trace.metrics.values()):
+            raise AssertionError(f"{method}: non-finite metrics")
+        if acc < BASELINE_FLOORS[method]:
+            raise AssertionError(f"{method}: final accuracy {acc} under its floor")
+        # the steady round, no host sync in the loop
+        st = algo.init(SEED + 30 + i, cfg, params0, device="cuda")
+        for _ in range(5):
+            st = algo.step(st, ctx)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                for _ in range(BASELINE_STEADY):
+                    st = algo.step(st, ctx)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        steady = (time.perf_counter() - t0) / BASELINE_STEADY * 1e3
+        syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+        log(f"    steady {steady:.3f} ms/round over {BASELINE_STEADY} rounds; host syncs in "
+            f"the loop: {len(syncs)}")
+        if syncs:
+            raise AssertionError(f"{method}: host sync inside the round loop: {syncs[0]}")
+        idle = profile_rounds(torch, algo, st, ctx, 10, steady)
+        err, ok = baseline_paths(torch, method, cfg, task, data, params0,
+                                 BASELINE_PLAIN_ROUNDS, SEED + 40 + i)
+        log(f"    {BASELINE_PLAIN_ROUNDS} rounds, kernel vs plain mix: max |d eval params| = "
+            f"{err:.3e} (tolerance {PATH_TOL})")
+        if not ok:
+            raise AssertionError(f"{method}: kernel path and plain path differ")
+        out[method] = dict(rounds=rounds, accuracy=acc, steady_ms=steady, idle=idle, err=err)
+    # past the mix's narrow route
+    cfg100, _ = fig3_config(WIDE_CLIENTS)
+    data100, eval100 = task.make_data(gen, WIDE_CLIENTS)
+    reset_launches()
+    state, trace = simulate("sync-symm", cfg100, params0, data=data100,
+                            num_steps=BASELINE_WIDE_ROUNDS, task=task, key=SEED + 50,
+                            eval_every=BASELINE_WIDE_ROUNDS, eval_data=eval100)
+    torch.cuda.synchronize()
+    launches = launch_counts()["mix"]
+    total += launches
+    err, ok = baseline_paths(torch, "sync-symm", cfg100, task, data100, params0,
+                             BASELINE_WIDE_ROUNDS, SEED + 51)
+    log(f"  sync-symm at N={WIDE_CLIENTS}: {launches} mix launches in {BASELINE_WIDE_ROUNDS} "
+        f"rounds, accuracy {float(trace.metrics['accuracy'][-1]):.4f}, kernel vs plain mix "
+        f"max |d eval params| = {err:.3e}")
+    if launches != BASELINE_WIDE_ROUNDS or not ok or not all(
+            np.isfinite(v).all() for v in trace.metrics.values()):
+        raise AssertionError(f"sync-symm at N={WIDE_CLIENTS} failed")
+    accs = ", ".join(f"{m} {r['accuracy']:.4f}" for m, r in out.items())
+    log(f"phase 11 baselines: final accuracies {accs}; {total} mix launches")
+    return out, total
+
+
+def phase_wide_times(torch):
+    """The wide route's times beside both bounds (the f32 rate and the
+    split-TF32 tensor cores), its plain version and one library call: the
+    drain at N = M = 100 and 256 (3 live f32 buckets), the mix at N = 100
+    and 256, the enqueue at J = 3, N = 100; and the baselines' mix at its
+    fig3 width (N = 25, the narrow route) beside torch.matmul. K =
+    146,447 f32 throughout; zero flush as in phase 9, read flush beside."""
+    from repro_torch.kernels.gossip import ops
+
+    by_mode = flushes(torch)
+    k = 146_447
+    rows = {}
+
+    def row(label, kern, read, plain, lib, moved, flops, elem):
+        bound, by = ((moved / HBM_BYTES_PER_S * 1e3, "bytes")
+                     if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS
+                     else (flops / F32_FLOPS * 1e3, "operations"))
+        tc, tc_by = tc_bound_ms(moved, flops, elem)
+        rows[label] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, tc_bound_ms=tc, tc_bound_by=tc_by)
+        log(f"  {label}: kernel {kern:.4f} ms (read flush {read:.4f}), bound {bound:.4f} ms "
+            f"({by}, f32 rate; {100 * bound / kern:.1f}%), tensor-core bound {tc:.4f} ms "
+            f"({tc_by}; {100 * tc / kern:.1f}%), plain {plain:.4f} ms, library {lib:.4f} ms")
+
+    for n in (100, 256):
+        w, ring, slots = drain_case(torch, 3, n, n, k, 4, 3, torch.float32, 500 + n)
+        slots_dev = torch.tensor(slots, device="cuda")
+        drain = lambda: ops.gossip_drain(w, ring, slots)  # noqa: E731
+        row(f"drain wide J=3 N=M={n} K={k} f32 3 live",
+            time_ms(torch, drain, reps=30, flush=by_mode["zero"]),
+            time_ms(torch, drain, reps=30, flush=by_mode["read"]),
+            time_ms(torch, lambda: ops.gossip_drain_reference(w, ring, slots), reps=20,
+                    flush=by_mode["zero"]),
+            time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ring[slots_dev]), reps=20,
+                    flush=by_mode["zero"]),
+            3 * n * k * 4 + 3 * n * n * 4 + n * k * 4, 2 * 3 * n * n * k, 4)
+        del w, ring
+    for n in (25, 100, 256):
+        q, deltas = mix_case(torch, n, k, torch.float32, seed=600 + n)
+        buf, qt = torch.empty_like(deltas), q.T
+        row(f"mix {'wide' if n > 64 else 'narrow (the baselines at fig3)'} N={n} K={k} f32",
+            time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=30, flush=by_mode["zero"]),
+            time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=30, flush=by_mode["read"]),
+            time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=20,
+                    flush=by_mode["zero"]),
+            time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=20,
+                    flush=by_mode["zero"]),
+            2 * n * k * 4 + n * n * 4, 2 * n * n * k, 4)
+        del q, deltas, buf
+    w, pending = enqueue_case(torch, 3, 100, k, torch.float32, 700)
+    buf, wt = torch.empty((3, 100, k), device="cuda"), w.transpose(1, 2)
+    row(f"enqueue wide J=3 N=100 K={k} f32",
+        time_ms(torch, lambda: ops.gossip_enqueue(w, pending), reps=30, flush=by_mode["zero"]),
+        time_ms(torch, lambda: ops.gossip_enqueue(w, pending), reps=30, flush=by_mode["read"]),
+        time_ms(torch, lambda: ops.gossip_enqueue_reference(w, pending), reps=20,
+                flush=by_mode["zero"]),
+        time_ms(torch, lambda: torch.matmul(wt, pending, out=buf), reps=20,
+                flush=by_mode["zero"]),
+        100 * k * 4 + 3 * 100 * k * 4 + 3 * 100 * 100 * 4, 2 * 3 * 100 * 100 * k, 4)
+    del w, pending, buf
+    torch.cuda.empty_cache()
+    info = (ctypes.c_int * 3)()
+    if ops._drain_lib().drain_info(3, 100, 100, k, 0, info) != 0:
+        raise AssertionError("drain_info failed")
+    log(f"  drain wide instance J=3 N=M=100 f32: {info[0]} registers, "
+        f"{ops.wide_smem_bytes(3, 100, torch.float32)} bytes of shared memory, {info[1]} "
+        f"blocks per SM, grid {info[2]}")
+    if ops._mix_lib().mix_info(100, k, 0, info) != 0:
+        raise AssertionError("mix_info failed")
+    log(f"  mix wide instance N=100 f32: {info[0]} registers, {info[1]} blocks per SM, "
+        f"grid {info[2]}")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
@@ -1275,9 +1650,13 @@ def main(argv=None) -> int:
     dflat, steady_s, busy_us, mix_us = phase_trainer_plain(torch)
     m_launches, m_step, m_peak = phase_mamba2(torch)
     m_dflat, m_steady, m_busy, m_kernels = phase_mamba2_plain(torch)
+    torch.cuda.empty_cache()
+    phase_wide_window(torch)
+    baseline_runs, baseline_launches = phase_baselines(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
+    phase_wide_times(torch)
     log("phase 9 times: done")
     kernels = [
         dict(name="gossip_drain", route="cuda",
@@ -1287,7 +1666,7 @@ def main(argv=None) -> int:
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
-             launches=mix_launches, max_abs_err=max(mix_err, mix_err_train),
+             launches=mix_launches + baseline_launches, max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/enqueue.cu",
@@ -1307,6 +1686,12 @@ def main(argv=None) -> int:
         f"steady; device busy {m_busy / 1e3:.3f} ms/step, ssd_chunk "
         f"{m_kernels['ssd_chunk'] / 1e3:.3f} ms/step, mix {m_kernels['mix'] / 1e3:.3f} "
         f"ms/step; peak {m_peak / 2**30:.2f} GiB")
+    for method, r in baseline_runs.items():
+        idle = "not measured" if r["idle"] is None else f"{100 * r['idle']:.2f}% idle"
+        log(f"baseline path ({method}, fig3 EMNIST): {r['rounds']} rounds, final accuracy "
+            f"{r['accuracy']:.4f}, {r['steady_ms']:.3f} ms/round steady, {idle}")
+    log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {baseline_launches} on "
+        f"the baselines'")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,10 @@ class Algorithm(Protocol):
     """`init(key, cfg, params0, task=None, *, device=None)` replicates one
     client's params into the method's state; `step(state, ctx,
     draws=None)` advances one round/window (`draws` injects its random
-    outcomes); `eval_params(state)` is the (N, ...) view metrics read;
-    `grads_per_step(cfg)` is the expected local gradient events per
-    client per step."""
+    outcomes); `step_index(state)` is the host-int count of steps the
+    state has taken (`window_idx`, `round_idx`); `eval_params(state)` is
+    the (N, ...) view metrics read; `grads_per_step(cfg)` is the expected
+    local gradient events per client per step."""
 
     name: str
 
@@ -24,6 +25,9 @@ class Algorithm(Protocol):
         ...
 
     def step(self, state, ctx, draws=None) -> Any:
+        ...
+
+    def step_index(self, state) -> int:
         ...
 
     def eval_params(self, state) -> Any:

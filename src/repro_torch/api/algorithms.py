@@ -1,11 +1,42 @@
-"""DRACO as a registered `Algorithm` (port of `repro.api.algorithms`;
-the four baselines wait for ROADMAP.md queue 1 item 7)."""
+"""DRACO and the paper's four Sec. 5 baselines as registered `Algorithm`s
+(port of `repro.api.algorithms`).
+
+Each is a thin adapter over the step functions of
+`repro_torch.core.protocol` and `repro_torch.core.baselines`. Push-sum
+de-biasing lives in `eval_params`, not in the step, as in the paper's
+evaluation. The event family (ROADMAP.md queue 1 item 11) is not ported.
+"""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
+
+import torch
 
 from repro_torch.api.algorithm import register_algorithm
+from repro_torch.core import baselines as baselines_lib
 from repro_torch.core import protocol as protocol_lib
+
+# Partial-participation probability of the async baselines (the fig3
+# compute matching assumes this value; the reference's default).
+P_ACTIVE = 0.5
+
+
+class View(NamedTuple):
+    """The world a step sees: the row-stochastic Q, its adjacency and
+    its Metropolis weights."""
+
+    q: torch.Tensor
+    adj: torch.Tensor
+    w_sym: Optional[torch.Tensor]
+
+
+def _view(ctx, t) -> View:
+    """The step-`t` world. The port has the frozen path only (the
+    context's graph at every step); scenario schedules wait for ROADMAP.md
+    queue 1 item 9."""
+    del t
+    return View(ctx.q, ctx.adj, ctx.w_sym)
 
 
 @register_algorithm("draco")
@@ -18,9 +49,13 @@ class Draco:
                                        device=device)
 
     def step(self, state, ctx, draws=None):
+        v = _view(ctx, state.window_idx)
         return protocol_lib.draco_window(
-            state, ctx.cfg, ctx.q, ctx.adj, ctx.task, ctx.data,
+            state, ctx.cfg, v.q, v.adj, ctx.task, ctx.data,
             spec=ctx.flat_spec, draws=draws)
+
+    def step_index(self, state) -> int:
+        return state.window_idx
 
     def eval_params(self, state):
         return state.params
@@ -28,3 +63,70 @@ class Draco:
     def grads_per_step(self, cfg):
         # P(>= 1 Poisson grad event in one superposition window)
         return 1.0 - math.exp(-cfg.lambda_grad * cfg.window)
+
+
+class _Baseline:
+    """Shared init, evaluation and pricing of the four baselines."""
+
+    # the baselines read cfg.lr only (through the local step); the
+    # Poisson-rate and Psi knobs are DRACO's
+    sweepable = ("lr",)
+
+    def init(self, key, cfg, params0, task=None, *, device=None):
+        return baselines_lib.init_baseline_state(key, cfg, params0, task=task,
+                                                 device=device)
+
+    def step_index(self, state) -> int:
+        return state.round_idx
+
+    def eval_params(self, state):
+        return baselines_lib.eval_params(self.name, state)
+
+    def grads_per_step(self, cfg):
+        return 1.0
+
+
+@register_algorithm("sync-symm")
+class SyncSymm(_Baseline):
+    """Synchronous D-SGD with symmetric Metropolis mixing."""
+
+    def step(self, state, ctx, draws=None):
+        v = _view(ctx, state.round_idx)
+        return baselines_lib.sync_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
+                                             ctx.data, draws=draws)
+
+
+@register_algorithm("sync-push")
+class SyncPush(_Baseline):
+    """Synchronous push-sum over the directed graph (gradient push)."""
+
+    def step(self, state, ctx, draws=None):
+        v = _view(ctx, state.round_idx)
+        return baselines_lib.sync_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
+                                             draws=draws)[0]
+
+
+@register_algorithm("async-symm")
+class AsyncSymm(_Baseline):
+    """Async partial participation + symmetric mixing among survivors."""
+
+    def step(self, state, ctx, draws=None):
+        v = _view(ctx, state.round_idx)
+        return baselines_lib.async_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
+                                              ctx.data, P_ACTIVE, draws=draws)
+
+    def grads_per_step(self, cfg):
+        return P_ACTIVE
+
+
+@register_algorithm("async-push")
+class AsyncPush(_Baseline):
+    """Async push-sum gossip (Digest-style half-mass pushes)."""
+
+    def step(self, state, ctx, draws=None):
+        v = _view(ctx, state.round_idx)
+        return baselines_lib.async_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
+                                              P_ACTIVE, draws=draws)[0]
+
+    def grads_per_step(self, cfg):
+        return P_ACTIVE

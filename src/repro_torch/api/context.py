@@ -1,10 +1,11 @@
 """`SimContext`: the immutable per-run simulation context.
 
-Port of `repro.api.context` with the fields this slice uses: the config,
-the task (or a bare batched loss), the row-stochastic Q and its
-adjacency, the federated shards and the flat-plane layout, all built
-once per run on the run's device. Scenario schedules, Metropolis
-weights, sweep overrides and event tapes wait for later slices.
+Port of `repro.api.context` with the fields the port uses: the config,
+the task (or a bare batched loss), the row-stochastic Q, its adjacency
+and its Metropolis weights (the symmetric baselines' mix), the federated
+shards and the flat-plane layout, all built once per run on the run's
+device. Scenario schedules, sweep overrides and event tapes wait for
+later slices (ROADMAP.md queue 1 items 9-11).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import flat as flat_lib
 from repro_torch.core.flat import FlatSpec
 from repro_torch.core.protocol import build_graph
+from repro_torch.core.topology import metropolis
 
 
 class SimContext(NamedTuple):
@@ -24,6 +26,7 @@ class SimContext(NamedTuple):
     adj: torch.Tensor  # (N, N) bool
     data: Any  # (xs (N, S, ...), ys (N, S))
     flat_spec: Optional[FlatSpec] = None
+    w_sym: Optional[torch.Tensor] = None  # (N, N) f32 Metropolis weights of adj
 
 
 def make_context(cfg, loss_fn=None, data=None, *, task=None, params0=None,
@@ -44,4 +47,4 @@ def make_context(cfg, loss_fn=None, data=None, *, task=None, params0=None,
     flat_spec = None
     if params0 is not None:
         flat_spec = flat_lib.spec_for(params0, cfg.num_clients)
-    return SimContext(cfg, task, q, adj, data, flat_spec)
+    return SimContext(cfg, task, q, adj, data, flat_spec, metropolis(adj))

@@ -55,7 +55,7 @@ def _run(algo, ctx, state, eval_data, num_steps: int, eval_every: int,
     steps, rows = [], []
     with torch.no_grad():
         for s in range(num_steps):
-            draws = None if draws_fn is None else draws_fn(state.window_idx)
+            draws = None if draws_fn is None else draws_fn(algo.step_index(state))
             state = algo.step(state, ctx, draws)
             if eval_every > 0 and (s + 1) % eval_every == 0:
                 steps.append(s + 1)
@@ -97,8 +97,9 @@ def simulate(
     to 0, so repeated calls see the same workload); `loss_fn` and
     `eval_fn` are batched over clients (see `repro_torch.tasks.base`);
     `graph_seed` seeds random topologies. ``device=None`` means CUDA and
-    raises without it. `draws_fn(window_idx)`, for tests, injects each
-    window's `WindowDraws`.
+    raises without it. `draws_fn(i)`, for tests, injects the draws of the
+    algorithm's step `i` (`algo.step_index`: the window index of `draco`,
+    the round index of a baseline): a `WindowDraws` or a `RoundDraws`.
     """
     from repro_torch.tasks import is_task
 

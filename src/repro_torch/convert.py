@@ -12,7 +12,11 @@ inputs:
     ring, ``w_ring``, ``delay_ring``, counters, window index and
     positions; the JAX key becomes a fresh generator seeded by `seed`);
   - `data_from_numpy`: ``(xs, ys)`` shards;
-  - `draws_from_numpy`: one window's draws -> `WindowDraws`.
+  - `draws_from_numpy`: one window's draws -> `WindowDraws`;
+  - `baseline_state_from_numpy`: the reference's `BaselineState` -> the
+    port's (params, push weights, round index, positions; a fresh
+    generator seeded by `seed` for the JAX key);
+  - `round_draws_from_numpy`: one baseline round's draws -> `RoundDraws`.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import as_generator, resolve_device
+from repro_torch.core.baselines import BaselineState, RoundDraws
 from repro_torch.core.flat import tree_from_items
 from repro_torch.core.protocol import DracoState, WindowDraws
 
@@ -67,6 +72,30 @@ def state_from_numpy(state, *, seed: int = 0, device=None) -> DracoState:
         generator=as_generator(seed, dev),
         positions=_tensor(get("positions"), dev, torch.float32),
     )
+
+
+def baseline_state_from_numpy(state, *, seed: int = 0, device=None) -> BaselineState:
+    """The reference's `BaselineState` (any object with its field names
+    as attributes or keys) -> the port's `BaselineState`."""
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, Mapping) else state.__getattribute__
+    return BaselineState(
+        params=params_from_numpy(get("params"), dev),
+        push_weight=_tensor(get("push_weight"), dev, torch.float32),
+        round_idx=int(np.asarray(get("round_idx"))),
+        generator=as_generator(seed, dev),
+        positions=_tensor(get("positions"), dev, torch.float32),
+    )
+
+
+def round_draws_from_numpy(draws: Mapping, device=None) -> RoundDraws:
+    """Mapping with the `RoundDraws` field names -> `RoundDraws`."""
+    dev = resolve_device(device)
+    fading = draws.get("fading")
+    return RoundDraws(
+        active=_tensor(draws["active"], dev, torch.bool),
+        batch_idx=_tensor(draws["batch_idx"], dev, torch.int64),
+        fading=None if fading is None else _tensor(fading, dev, torch.float32))
 
 
 def data_from_numpy(data, device=None):

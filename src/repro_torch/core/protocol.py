@@ -199,6 +199,16 @@ def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
         for path, new, (_, old) in zip(paths, cur, items))
 
 
+def local_step(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
+    """Local updates by workload representation (the reference's
+    `local_step`): a bare batched loss or a `Task` with plain SGD runs
+    `local_updates`; a `Task` with another optimizer raises
+    `NotImplementedError` (its `make_optimizer`; ROADMAP.md queue 1 item
+    8), since the port has no optimizer plane yet. Returns the Delta dict
+    (N, ...)."""
+    return local_updates(params, grad_mask, cfg, task, data, batch_idx)
+
+
 def _psi_accept(success, accept_count, psi: int, perm):
     """Per-(sender, receiver) acceptance under the Psi cap.
 
@@ -310,8 +320,8 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                                arrivals)
 
     # --- 2. gradient events ------------------------------------------------
-    delta = local_updates(params, draws.grad_mask, cfg, task, data,
-                          draws.batch_idx)
+    delta = local_step(params, draws.grad_mask, cfg, task, data,
+                       draws.batch_idx)
     pending = state.pending + flat_lib.ravel_clients(delta)
     if cfg.apply_self_update:
         params = flat_lib.tree_map(lambda p, dl: p + dl.to(p.dtype), params,

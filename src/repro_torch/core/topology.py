@@ -69,3 +69,23 @@ def row_stochastic(adj: torch.Tensor, weights=None) -> torch.Tensor:
         a = a * weights
     deg = a.sum(dim=1, keepdim=True)
     return torch.where(deg > 0, a / torch.clamp(deg, min=1e-9), 0.0)
+
+
+def metropolis(adj: torch.Tensor) -> torch.Tensor:
+    """Symmetric doubly stochastic Metropolis-Hastings weights (N, N) f32
+    of the undirected graph ``adj | adj.T``, on `adj`'s device: ``1 / (1 +
+    max(deg_i, deg_j))`` on each edge and the rest of each row on the
+    diagonal (the sync-symm and async-symm baselines).
+
+    Each row's off-diagonal mass is summed column by column, in order,
+    as XLA's CPU row reduction adds up to 32 terms, so the diagonal is
+    the reference's to the bit there (and wherever a row has two
+    nonzero terms, as on the cycle); above 32 XLA changes its order."""
+    a = adj | adj.T
+    deg = a.sum(dim=1)
+    w = torch.where(a, 1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :]).to(torch.float32)),
+                    0.0)
+    total = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+    for j in range(w.shape[1]):
+        total = total + w[:, j]
+    return w + torch.diag(1.0 - total)

@@ -49,6 +49,21 @@
 //    (output rows are misaligned like payload rows).
 //  - The J slot indices travel by value in the launch; the weights and
 //    ring are read in place, with no gather copy.
+//
+// Routes. The design above stages every bucket's (N, M) weights in one
+// block, so it takes N, M <= 64 and as many buckets as a block's shared
+// memory holds (J = 7 at N = M = 64 in f32). Any other shape takes the
+// wide route of stream.cuh (wide_kernel): receivers in groups of at most
+// 64 and senders in chunks of 32, each unit's weight block staged through
+// the ring beside its payload chunk, the accumulators kept across the units
+// of a (tile, receiver group), all-zero weight blocks left out. Both run
+// on the tensor cores. `route` picks one from the shape and the block
+// limit alone; drain_route tells the wrapper which.
+//
+// Bound of the wide route (PERF.md). At N = M = 100, 3 live buckets, K =
+// 146,447 f32, it reads 175.7 MB and writes 58.6 MB (70 us at 3.35 TB/s);
+// the 8.79 GFLOP of useful FMAs take 131 us at 67 TFLOP/s on the CUDA
+// cores, so it runs them on the tensor cores like the narrow route.
 #include "stream.cuh"
 
 constexpr int STAGES = 3;  // payload tiles in the ring
@@ -58,8 +73,10 @@ constexpr int COLS = 4;    // columns per lane
 constexpr int TILE = GOSSIP_CONSUMERS / GOSSIP_GROUPS * COLS;  // columns per ring stage
 constexpr int ROW = TILE + 8;  // elements per staged row: the tile and the largest shift
 #define DRAIN_MAX_J 256  // slot indices passed by value (1 KB of launch parameters)
-#define DRAIN_MAX_N 64
+#define DRAIN_MAX_N 64   // the narrow route's senders and receivers
 #define DRAIN_MAX_M 64
+
+static_assert(DRAIN_MAX_J <= WIDE_MAX_S, "the wide route takes every bucket");
 
 struct DrainSlots {
   int s[DRAIN_MAX_J];
@@ -254,13 +271,38 @@ static drain_fn pick(int M) {
 #undef DRAIN_CASE
 }
 
+// 0: the narrow route (every bucket's weights in one block); 1: the wide
+// route; -1: neither takes this shape.
+static int route(int J, int N, int M, int ring_is_bf16) {
+  if (J < 0 || J > DRAIN_MAX_J || N < 1 || M < 1) return -1;
+  const int elem = ring_is_bf16 ? 2 : 4;
+  if (N <= DRAIN_MAX_N && M <= DRAIN_MAX_M && smem_bytes(J, N, M, elem) <= max_smem_optin())
+    return 0;
+  return wide_smem_bytes(J, N, elem) <= max_smem_optin() ? 1 : -1;
+}
+
 static int dispatch(const void* w_stack, const void* ring, void* out, const int* slots, int J,
                     int N, int M, long long K, int ring_is_bf16, void* stream, int* info) {
-  if (J < 0 || J > DRAIN_MAX_J || N < 1 || N > DRAIN_MAX_N || M < 1 || M > DRAIN_MAX_M ||
-      K < 1)
-    return (int)cudaErrorInvalidValue;
+  const int r = K < 1 ? -1 : route(J, N, M, ring_is_bf16);
+  if (r < 0) return (int)cudaErrorInvalidValue;
+  if (r == 1) {
+    WideArgs a;
+    a.w = (const float*)w_stack;
+    a.w_stride = (long long)N * M;
+    a.p = ring;
+    a.p_stride = (long long)N * K;
+    a.out = out;
+    a.S = J;
+    a.N = N;
+    a.M = M;
+    a.K = K;
+    a.per_source = 0;
+    a.skip = 1;
+    a.out_bf16 = 0;
+    for (int j = 0; j < WIDE_MAX_S; ++j) a.slot[j] = j < J ? slots[j] : 0;
+    return wide_dispatch(a, ring_is_bf16, (cudaStream_t)stream, info);
+  }
   const long long smem = smem_bytes(J, N, M, ring_is_bf16 ? 2 : 4);
-  if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
   DrainSlots s;
   for (int j = 0; j < DRAIN_MAX_J; ++j) s.s[j] = j < J ? slots[j] : 0;
   const drain_fn fn = ring_is_bf16 ? pick<__nv_bfloat16>(M) : pick<float>(M);
@@ -272,12 +314,15 @@ static int dispatch(const void* w_stack, const void* ring, void* out, const int*
 extern "C" {
 
 int drain_max_j() { return DRAIN_MAX_J; }
-int drain_max_n() { return DRAIN_MAX_N; }
-int drain_max_m() { return DRAIN_MAX_M; }
 int drain_max_smem() { return max_smem_optin(); }
 long long drain_smem_bytes(int J, int N, int M, int ring_is_bf16) {
   return smem_bytes(J, N, M, ring_is_bf16 ? 2 : 4);
 }
+long long drain_wide_smem_bytes(int J, int N, int ring_is_bf16) {
+  return wide_smem_bytes(J, N, ring_is_bf16 ? 2 : 4);
+}
+// The route a launch of this shape takes: 0 narrow, 1 wide, -1 none.
+int drain_route(int J, int N, int M, int ring_is_bf16) { return route(J, N, M, ring_is_bf16); }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `slots` is a host array of J ring rows; pointers are device pointers.

@@ -41,6 +41,14 @@
 //    `tensor-cores`) computes faster but its stores cost more here, where
 //    the outputs are three times the drain's (PERF.md).
 //  - 64-bit offsets for every row offset and column index.
+//
+// The wide route (stream.cuh's wide_kernel) takes N > 64 and bucket sets
+// whose J weight matrices do not fit a block at once (J = 8 at N = 64 in
+// f32): per bucket, receivers in groups of at most 64 and senders in
+// chunks of 32, the pending chunk and the bucket's weight block staged together,
+// the product on the tensor cores (split TF32), each bucket stored after
+// its last chunk. It reads the pending plane once per bucket (the narrow
+// route reads it once for all J).
 #include "stream.cuh"
 
 constexpr int STAGES = 3;  // pending tiles in the ring
@@ -49,7 +57,7 @@ constexpr bool TENSOR_CORES = false;  // the product on the tensor cores (stream
 constexpr int COLS = 4;    // columns per lane
 constexpr int TILE = GOSSIP_CONSUMERS / GOSSIP_GROUPS * COLS;  // columns per ring stage
 constexpr int ROW = TILE + 8;  // elements per staged row: the tile and the largest shift
-#define ENQ_MAX_N 64
+#define ENQ_MAX_N 64  // the narrow route's clients
 
 static_assert(!TENSOR_CORES || TILE == GOSSIP_CONSUMERS, "a warp's 32 columns per stage");
 
@@ -204,11 +212,37 @@ static enqueue_fn pick(int N) {
 #undef ENQ_CASE
 }
 
+// 0: the narrow route (every bucket's weights in one block); 1: the wide
+// route; -1: neither takes this shape.
+static int route(int J, int N, int in_bf16) {
+  if (J < 1 || J > WIDE_MAX_S || N < 1) return -1;
+  const int elem = in_bf16 ? 2 : 4;
+  if (N <= ENQ_MAX_N && smem_bytes(J, N, elem) <= max_smem_optin()) return 0;
+  return wide_smem_bytes(J, N, elem) <= max_smem_optin() ? 1 : -1;
+}
+
 static int dispatch(const void* w, const void* pending, void* out, int J, int N, long long K,
                     int in_bf16, int out_bf16, void* stream, int* info) {
-  if (J < 1 || N < 1 || N > ENQ_MAX_N || K < 1) return (int)cudaErrorInvalidValue;
+  const int r = K < 1 ? -1 : route(J, N, in_bf16);
+  if (r < 0) return (int)cudaErrorInvalidValue;
+  if (r == 1) {
+    WideArgs a;
+    a.w = (const float*)w;
+    a.w_stride = (long long)N * N;
+    a.p = pending;
+    a.p_stride = 0;
+    a.out = out;
+    a.S = J;
+    a.N = N;
+    a.M = N;
+    a.K = K;
+    a.per_source = 1;
+    a.skip = 0;
+    a.out_bf16 = out_bf16;
+    for (int s = 0; s < WIDE_MAX_S; ++s) a.slot[s] = 0;
+    return wide_dispatch(a, in_bf16, (cudaStream_t)stream, info);
+  }
   const long long smem = smem_bytes(J, N, in_bf16 ? 2 : 4);
-  if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
   const enqueue_fn fn = in_bf16 ? pick<__nv_bfloat16>(N) : pick<float>(N);
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn((const float*)w, pending, out, out_bf16, J, N, K, (size_t)smem,
@@ -217,7 +251,6 @@ static int dispatch(const void* w, const void* pending, void* out, int J, int N,
 
 extern "C" {
 
-int enqueue_max_n() { return ENQ_MAX_N; }
 
 // Shared memory one block needs for J buckets of N clients with a
 // pending plane of 2- or 4-byte elements, and the most a block of this
@@ -226,6 +259,11 @@ long long enqueue_smem_bytes(int J, int N, int in_bf16) {
   return smem_bytes(J, N, in_bf16 ? 2 : 4);
 }
 int enqueue_max_smem() { return max_smem_optin(); }
+long long enqueue_wide_smem_bytes(int J, int N, int in_bf16) {
+  return wide_smem_bytes(J, N, in_bf16 ? 2 : 4);
+}
+// The route a launch of this shape takes: 0 narrow, 1 wide, -1 none.
+int enqueue_route(int J, int N, int in_bf16) { return route(J, N, in_bf16); }
 
 // Launches on `stream` and returns the CUDA error (0 on success).
 // w (J, N, N) f32, pending (N, K), out (J, N, K); device pointers.

@@ -27,7 +27,8 @@
 //    block stages Q in shared memory once and then streams columns.
 //  - Q is staged as NP x NP, zero-padded, where NP in {8, 16, 32, 64}
 //    is a template parameter: the NP accumulators of a thread live in
-//    registers with static indices, as in drain.cu. N > 64 is refused.
+//    registers with static indices, as in drain.cu. N > 64 takes the wide
+//    route below.
 //  - No padding copy: the reference's wrapper pads N to 8 and K to 512
 //    (ops.py:54-55); at the trainer's shape that copy alone would be
 //    another 24.7 GB. The ragged edge of K is masked by the loop bound
@@ -39,16 +40,20 @@
 //    has up to 8 independent loads in flight.
 //  Scalar 4-byte (f32) and 2-byte (bf16) loads; 16-byte vector loads,
 //  TMA and a tuned grid are left for a later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//
+// The wide route (N > 64): stream.cuh's wide_kernel with one source, Q as
+// its weights and deltas as its payload: receivers in groups of at most
+// 64 and senders in chunks of 32, each unit's Q block staged beside its payload
+// chunk, the product on the tensor cores (split TF32), the outputs in the
+// deltas' dtype. At N = 100, K = 146,447 f32 the mix moves 117 MB (35 us
+// at 3.35 TB/s) and needs 2.93 GFLOP (44 us at the f32 rate).
+#include "stream.cuh"
 
-#define MIX_MAX_N 64
+#define MIX_MAX_N 64  // the one-thread-per-column route
 #define MIX_THREADS 256
 #define MIX_BLOCKS_PER_SM 8
 #define MIX_CHUNK 8
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
@@ -98,17 +103,6 @@ mix_kernel(const float* __restrict__ q, const T* __restrict__ deltas,
   }
 }
 
-static int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  return sms;
-}
-
 template <typename T>
 static void launch(const float* q, const T* deltas, T* out, int N, long long K,
                    cudaStream_t stream) {
@@ -125,16 +119,47 @@ static void launch(const float* q, const T* deltas, T* out, int N, long long K,
     mix_kernel<T, 64><<<blocks, MIX_THREADS, 0, stream>>>(q, deltas, out, N, K);
 }
 
+// The wide route's arguments: one source, Q its weights, deltas its payload.
+static WideArgs wide_args(const void* q, const void* deltas, void* out, int N, long long K,
+                          int is_bf16) {
+  WideArgs a;
+  a.w = (const float*)q;
+  a.w_stride = 0;
+  a.p = deltas;
+  a.p_stride = 0;
+  a.out = out;
+  a.S = 1;
+  a.N = N;
+  a.M = N;
+  a.K = K;
+  a.per_source = 0;
+  a.skip = 0;
+  a.out_bf16 = is_bf16;
+  for (int s = 0; s < WIDE_MAX_S; ++s) a.slot[s] = 0;
+  return a;
+}
+
 extern "C" {
 
-int mix_max_n() { return MIX_MAX_N; }
+long long mix_wide_smem_bytes(int N, int is_bf16) { return wide_smem_bytes(1, N, is_bf16 ? 2 : 4); }
+int mix_max_smem() { return max_smem_optin(); }
+
+// The wide route's instance for N > 64, without launching: info =
+// {registers per thread, blocks per SM, blocks in the grid}.
+int mix_info(int N, long long K, int is_bf16, int* info) {
+  if (N <= MIX_MAX_N) return (int)cudaErrorInvalidValue;
+  return wide_dispatch(wide_args(nullptr, nullptr, nullptr, N, K, is_bf16), is_bf16, nullptr,
+                       info);
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // q (N, N) f32, deltas and out (N, K) of one dtype; device pointers.
 int mix_launch(const void* q, const void* deltas, void* out, int N,
                long long K, int is_bf16, void* stream) {
-  if (N < 1 || N > MIX_MAX_N || K < 1) return (int)cudaErrorInvalidValue;
+  if (N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (N > MIX_MAX_N)
+    return wide_dispatch(wide_args(q, deltas, out, N, K, is_bf16), is_bf16, st, nullptr);
   if (is_bf16)
     launch<__nv_bfloat16>((const float*)q, (const __nv_bfloat16*)deltas,
                           (__nv_bfloat16*)out, N, K, st);

@@ -299,7 +299,7 @@ static int max_smem_optin() {
 // memory that fit one SM for this kernel instance, computed once per
 // instance and size; opts the instance in above 48 KB first. 0 when the
 // block does not fit.
-template <auto KERNEL>
+template <auto KERNEL, int THREADS = GOSSIP_THREADS>
 static cudaError_t blocks_per_sm(size_t smem, int* blocks) {
   static size_t opted = 48 * 1024, cached_smem = 0;
   static int cached = -1;
@@ -311,7 +311,7 @@ static cudaError_t blocks_per_sm(size_t smem, int* blocks) {
   }
   if (cached < 0 || smem != cached_smem) {
     const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, KERNEL, GOSSIP_THREADS, smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, KERNEL, THREADS, smem);
     if (err != cudaSuccess) {
       cached = -1;
       return err;
@@ -334,4 +334,361 @@ template <auto KERNEL>
 static int registers() {
   cudaFuncAttributes attr;
   return cudaFuncGetAttributes(&attr, KERNEL) == cudaSuccess ? attr.numRegs : -1;
+}
+
+// ---------------------------------------------------------------------------
+// The wide route: any number of senders N and receivers M, for the shapes
+// the narrow instances above cannot hold (N or M above 64, or more buckets'
+// weights than a block's shared memory takes at once). One kernel serves
+// the drain, the mix and the enqueue:
+//
+//     out_s (M, K) [+]= sum over the units of source s of W^T P
+//
+// where source s is a bucket (the drain, the enqueue) or the one plane
+// (the mix), W its (N, M) f32 weights at w + s * w_stride and P its (N, K)
+// payload at p + slot[s] * p_stride. The drain sums every source into one
+// f32 output; the enqueue writes source s to out + s * M * K; the mix is
+// one source.
+//  - Receivers in G groups of at most WIDE (balanced: ceil(M / G) each)
+//    and senders in chunks of WIDE_K (the last one short). Block b keeps
+//    one receiver group, b % G, and walks column tiles of WIDE_TILE
+//    round-robin with the other blocks of its group.
+//  - A unit is (column tile, source, sender chunk). Each unit's payload
+//    chunk (<= WIDE_K rows x WIDE_TILE columns) and its weight block (the
+//    chunk's senders x the group's receivers, <= WIDE_K x WIDE f32) go
+//    into one stage of a WIDE_STAGES ring: each row's 16-byte-aligned
+//    superset (rows of either may start at any element) in 16-byte
+//    cp.async chunks spread over the block's four warps, one commit group
+//    a unit, the copies of unit v + 2 in flight while unit v is reduced. A
+//    row's element shift follows from its address, so the warps compute
+//    it and no offsets are staged; each thread copies the same row of
+//    every unit, so its row offsets are computed once. Two blocks share
+//    an SM (~90 KB of shared memory each), so that one block's copies,
+//    index arithmetic and stores run under the other's products: a single
+//    block per SM waited on its own (PERF.md). Shared memory no longer
+//    grows with N, M or J, except a 4-byte entry per (source, chunk) in
+//    the unit list.
+//  - The accumulators stay in registers across the units of one (tile,
+//    group): sources in order (the drain's stack order, oldest first),
+//    ascending sender chunks within a source, the reference's f32 order.
+//    The product runs on the tensor cores as the narrow drain's does
+//    (split TF32, three products; two for a bf16 payload), each split term
+//    issued for all 16-receiver x 8-column tiles before the next, so that
+//    no MMA waits on the one before it.
+//  - With `skip`, a (source, chunk) whose weight block for this group is
+//    all zero is left out: the block finds those in a prologue, from the
+//    weights alone (exact for finite payloads: such a block adds +-0).
+#define WIDE 64                      // receivers per group, at most
+#define WIDE_K 32                    // senders per chunk (the last one short)
+#define WIDE_TILE GOSSIP_CONSUMERS   // columns per unit: 32 per consumer warp
+#define WIDE_ROW (WIDE_TILE + 8)     // payload elements per staged row: the tile and a shift
+#define WIDE_WROW 72                 // floats per staged weight row: 64 and a shift, 8 banks apart
+#define WIDE_STAGES 3                // units in the ring
+#define WIDE_THREADS GOSSIP_CONSUMERS  // four warps, each 32 columns of a unit
+static_assert(WIDE_THREADS % WIDE_K == 0, "whole threads per staged row");
+#define WIDE_MAX_S 256               // sources (slot indices passed by value)
+
+struct WideArgs {
+  const float* w;       // source s: (N, M) at w + s * w_stride
+  long long w_stride;
+  const void* p;        // source s: (N, K) at p + slot[s] * p_stride
+  long long p_stride;
+  void* out;            // (M, K), or (S, M, K) with per_source
+  int S, N, M;
+  long long K;
+  int per_source;       // store each source on its own (the enqueue)
+  int skip;             // leave out all-zero weight blocks (the drain)
+  int out_bf16;         // the outputs' element type
+  int slot[WIDE_MAX_S];
+};
+
+// receiver groups and their width, balanced over the M receivers
+__host__ __device__ constexpr int wide_parts(int m) { return (m + WIDE - 1) / WIDE; }
+__host__ __device__ constexpr int wide_part(int m) {
+  return (m + wide_parts(m) - 1) / wide_parts(m);
+}
+// sender chunks of the N senders
+__host__ __device__ constexpr int wide_chunks(int n) { return (n + WIDE_K - 1) / WIDE_K; }
+
+// Dynamic shared memory of one wide block: the warps' store buffers,
+// WIDE_STAGES stages of payload and weight rows, and the unit list.
+static long long wide_smem_bytes(int S, int N, int elem) {
+  return 4LL * STORE_FLOATS +
+         (long long)WIDE_STAGES * WIDE_K * (WIDE_ROW * elem + 4 * WIDE_WROW) +
+         4LL * align4(S * wide_chunks(N));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// One thread's share of a unit's copies: row WIDE_THREADS / WIDE_K of
+// the stage (tid / 4) and every fourth 16-byte chunk of it from tid % 4.
+// `src` is row 0's first element plus this thread's row offset, in bytes;
+// the row's 16-byte-aligned superset of `cols` elements goes to dst (the
+// row's first byte in the stage). The row offset is fixed for a kernel,
+// so a unit costs a thread a few instructions a chunk.
+template <int ROWB, typename T>
+__device__ __forceinline__ void wide_copy(unsigned char* dst, uintptr_t src, int cols) {
+  constexpr int CHUNKS = ROWB / 16, PER = WIDE_THREADS / WIDE_K;
+  const int first = threadIdx.x % PER;
+  const unsigned head = (unsigned)(src & 15);
+  const int chunks = (int)((head + cols * (unsigned)sizeof(T) + 15) >> 4);
+  const unsigned char* from = reinterpret_cast<const unsigned char*>(src - head);
+#pragma unroll
+  for (int j = 0; j < (CHUNKS + PER - 1) / PER; ++j) {
+    const int c = first + PER * j;
+    if (c < chunks) cp_async16(dst + 16 * c, from + 16 * c);
+  }
+}
+
+// acc += W^T P over one staged unit of `rows` senders, as accumulate_tc.
+// `tile` is the stage's payload at the warp's first column + g, `w` its
+// weights at receiver g; row k's element shift is ((s0 + k * dk) & 15) /
+// sizeof(T) for the payload (s0 the byte phase of row 0, dk that of a row
+// stride) and likewise (ws0, wdk) for the weights. Senders past `rows`
+// count as zero in both operands.
+template <int R, typename T>
+__device__ __forceinline__ void accumulate_wide(float (&c)[R][4][4], const T* tile, unsigned s0,
+                                                unsigned dk, const float* w, unsigned ws0,
+                                                unsigned wdk, int rows) {
+  const int t = threadIdx.x & 3;
+  for (int k0 = 0; k0 < rows; k0 += 8) {
+    const bool v1 = k0 + t < rows, v2 = k0 + t + 4 < rows;
+    const int k1 = v1 ? k0 + t : 0, k2 = v2 ? k0 + t + 4 : 0;  // rows inside the stage
+    const T* row1 = tile + k1 * WIDE_ROW + ((s0 + k1 * dk) & 15) / sizeof(T);
+    const T* row2 = tile + k2 * WIDE_ROW + ((s0 + k2 * dk) & 15) / sizeof(T);
+    const float* w1 = w + k1 * WIDE_WROW + ((ws0 + k1 * wdk) & 15) / 4;
+    const float* w2 = w + k2 * WIDE_WROW + ((ws0 + k2 * wdk) & 15) / 4;
+    uint32_t bh[4][2], bl[4][2];  // column g of each 8-column tile, senders k1, k2
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      split_tf32(v1 ? to_f32(row1[8 * q]) : 0.f, bh[q][0], bl[q][0]);
+      split_tf32(v2 ? to_f32(row2[8 * q]) : 0.f, bh[q][1], bl[q][1]);
+    }
+    uint32_t ah[R][4], al[R][4];  // receivers g, g + 8 of senders k1, k2
+#pragma unroll
+    for (int mt = 0; mt < R; ++mt) {
+      split_tf32(v1 ? w1[16 * mt] : 0.f, ah[mt][0], al[mt][0]);
+      split_tf32(v1 ? w1[16 * mt + 8] : 0.f, ah[mt][1], al[mt][1]);
+      split_tf32(v2 ? w2[16 * mt] : 0.f, ah[mt][2], al[mt][2]);
+      split_tf32(v2 ? w2[16 * mt + 8] : 0.f, ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(c[mt][q], al[mt], bh[q][0], bh[q][1]);
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma_tf32(c[mt][q], ah[mt], bl[q][0], bl[q][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tf32(c[mt][q], ah[mt], bh[q][0], bh[q][1]);
+  }
+}
+
+__device__ __forceinline__ void wide_store(void* out, long long i, float x, int out_bf16) {
+  if (out_bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(out)[i] = x;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(WIDE_THREADS, 2) wide_kernel(const WideArgs a) {
+  const int N = a.N, M = a.M, C = wide_chunks(N), CH = WIDE_K;
+  const int G = wide_parts(M), GM = wide_part(M);
+  const long long K = a.K;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  float* wbuf_sh = reinterpret_cast<float*>(wide_smem);     // [warp][16][STORE_ROW]
+  T* p_sh = reinterpret_cast<T*>(wbuf_sh + STORE_FLOATS);   // [WIDE_STAGES][WIDE_K][WIDE_ROW]
+  float* w_sh = reinterpret_cast<float*>(p_sh + WIDE_STAGES * WIDE_K * WIDE_ROW);  // [..][WIDE_WROW]
+  // [S * C]: the live (source, chunk)s as source << 16 | chunk
+  int* unit_sh = reinterpret_cast<int*>(w_sh + WIDE_STAGES * WIDE_K * WIDE_WROW);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = blockIdx.x % G, g0 = group * GM, gm = min(GM, M - g0);
+  const int gblock = blockIdx.x / G, gblocks = gridDim.x / G;
+
+  for (int i = tid; i < a.S * C; i += WIDE_THREADS) unit_sh[i] = a.skip ? 0 : 1;
+  __syncthreads();
+  if (a.skip) {  // flag each (source, chunk) with a nonzero weight for this group
+    constexpr int ROWS = 8;  // weight rows a warp has in flight, two loads a lane each
+    for (int s = 0; s < a.S; ++s) {
+      const float* ws = a.w + s * a.w_stride + g0;
+      for (int n0 = warp * ROWS; n0 < N; n0 += ROWS * WIDE_THREADS / 32) {
+        float lo[ROWS], hi[ROWS];  // every load issued before any is tested
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+          const float* row = ws + (long long)min(n0 + q, N - 1) * M;
+          lo[q] = row[min(lane, gm - 1)];
+          hi[q] = row[min(lane + 32, gm - 1)];
+        }
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+          const bool nz = n0 + q < N && ((lane < gm && lo[q] != 0.f) ||
+                                         (lane + 32 < gm && hi[q] != 0.f));
+          if (__any_sync(0xffffffffu, nz) && lane == 0) unit_sh[s * C + (n0 + q) / CH] = 1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  int units = 0;  // the live (source, chunk)s in order, the same in every thread
+  for (int i = 0; i < a.S * C; ++i) units += unit_sh[i];
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0, u = 0; i < a.S * C; ++i)
+      if (unit_sh[i]) unit_sh[u++] = i / C << 16 | i % C;
+  }
+  __syncthreads();
+
+  const long long tiles = (K + WIDE_TILE - 1) / WIDE_TILE;
+  const int my_tiles = (int)((tiles - gblock + gblocks - 1) / gblocks);
+  const T* P = static_cast<const T*>(a.p);
+  float c[R][4][4] = {};
+  float* wbuf = wbuf_sh + warp * 16 * STORE_ROW;
+  if (units == 0) {  // nothing reaches this group: its outputs are zeros
+    for (int t = 0; t < my_tiles; ++t) {
+      const long long c0 = (gblock + (long long)t * gblocks) * WIDE_TILE + 32 * warp;
+      store_tc(c, wbuf, gm, (int)min((long long)32, K - c0), [&](int m, int col, float v) {
+        wide_store(a.out, (long long)(g0 + m) * K + c0 + col, v, a.out_bf16);
+      });
+    }
+    return;
+  }
+  const int total = my_tiles * units;
+  // this thread's row of every stage, and its offsets in the payload and
+  // the weights, in bytes
+  const int crow = tid / (WIDE_THREADS / WIDE_K);
+  const long long prow = (long long)crow * K * (long long)sizeof(T), wrow = 4LL * crow * M;
+  const long long tile_step = (long long)gblocks * WIDE_TILE;
+  // the units in order, v = (tile, live (source, chunk)): the next one to
+  // copy, WIDE_STAGES - 1 units past the one being reduced
+  int in_u = 0, in_st = 0;
+  long long in_c0 = (long long)gblock * WIDE_TILE;
+  // its payload rows and weight rows into stage in_st, one commit group
+  auto issue = [&](int v) {
+    if (v < total) {
+      const int i = unit_sh[in_u], s = i >> 16, n0 = (i & 0xffff) * CH;
+      const long long c0 = in_c0;
+      const int st = in_st;
+      if (++in_u == units) {
+        in_u = 0;
+        in_c0 += tile_step;
+      }
+      if (++in_st == WIDE_STAGES) in_st = 0;
+      if (crow < N - n0) {
+        wide_copy<WIDE_ROW * (int)sizeof(T), T>(
+            reinterpret_cast<unsigned char*>(p_sh + (st * WIDE_K + crow) * WIDE_ROW),
+            reinterpret_cast<uintptr_t>(P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) +
+                prow,
+            (int)min((long long)WIDE_TILE, K - c0));
+        wide_copy<WIDE_WROW * 4, float>(
+            reinterpret_cast<unsigned char*>(w_sh + (st * WIDE_K + crow) * WIDE_WROW),
+            reinterpret_cast<uintptr_t>(a.w + s * a.w_stride + (long long)n0 * M + g0) + wrow,
+            gm);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int v = 0; v < WIDE_STAGES - 1; ++v) issue(v);
+  const unsigned pdk = (unsigned)((K * (long long)sizeof(T)) & 15), wdk = (unsigned)((M * 4) & 15);
+  int u = 0, st = 0;
+  long long c0 = (long long)gblock * WIDE_TILE;
+  for (int v = 0; v < total; ++v) {
+    const int i = unit_sh[u], s = i >> 16, n0 = (i & 0xffff) * CH;
+    cp_async_wait<WIDE_STAGES - 2>();  // this thread's copies of unit v have landed
+    __syncthreads();  // everyone's; and unit v - 1's stage is free again
+    issue(v + WIDE_STAGES - 1);
+    if (c0 + 32 * warp < K) {  // a warp with no column of the tile idles
+      const unsigned s0 = (unsigned)(reinterpret_cast<uintptr_t>(
+                              P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) & 15);
+      const unsigned ws0 = (unsigned)(reinterpret_cast<uintptr_t>(
+                               a.w + s * a.w_stride + (long long)n0 * M + g0) & 15);
+      accumulate_wide(c, p_sh + st * WIDE_K * WIDE_ROW + 32 * warp + lane / 4, s0, pdk,
+                      w_sh + st * WIDE_K * WIDE_WROW + lane / 4, ws0, wdk, min(CH, N - n0));
+    }
+    if (u + 1 == units || (a.per_source && unit_sh[u + 1] >> 16 != s)) {
+      const long long base =
+          (a.per_source ? (long long)s * M * K : 0) + (long long)g0 * K + c0 + 32 * warp;
+      store_tc(c, wbuf, gm, (int)min((long long)32, K - c0 - 32 * warp),
+               [&](int m, int col, float x) {
+                 wide_store(a.out, base + (long long)m * K + col, x, a.out_bf16);
+               });
+#pragma unroll
+      for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+    }
+    if (++u == units) {
+      u = 0;
+      c0 += tile_step;
+    }
+    if (++st == WIDE_STAGES) st = 0;
+  }
+  cp_async_wait<0>();
+}
+
+// The wide grid: G receiver groups x the blocks of each group, as many as
+// fit the card at once (at least one per group), no more than the tiles.
+static unsigned wide_grid(int per_sm, int M, long long K) {
+  const long long groups = wide_parts(M), tiles = (K + WIDE_TILE - 1) / WIDE_TILE;
+  long long each = (long long)per_sm * sm_count() / groups;
+  each = each < 1 ? 1 : (each > tiles ? tiles : each);
+  return (unsigned)(groups * each);
+}
+
+// Launch (or, with `info`, describe: registers, blocks per SM, grid) the
+// wide route for `a`, with elements of type T in the payload.
+template <typename T, int R>
+static cudaError_t wide_run(const WideArgs& a, size_t smem, cudaStream_t stream, int* info) {
+  int per_sm = 0;
+  const cudaError_t err = blocks_per_sm<&wide_kernel<T, R>, WIDE_THREADS>(smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const unsigned grid = wide_grid(per_sm, a.M, a.K);
+  if (info) {
+    info[0] = registers<&wide_kernel<T, R>>();
+    info[1] = per_sm;
+    info[2] = (int)grid;
+    return cudaSuccess;
+  }
+  wide_kernel<T, R><<<grid, WIDE_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The wide route for `a` (a payload of 2- or 4-byte elements): refuses
+// what a block cannot hold, else launches or describes the instance of
+// its receiver blocking.
+static int wide_dispatch(const WideArgs& a, int in_bf16, cudaStream_t stream, int* info) {
+  if (a.S < 0 || a.S > WIDE_MAX_S || a.N < 1 || a.M < 1 || a.K < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = wide_smem_bytes(a.S, a.N, in_bf16 ? 2 : 4);
+  if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
+  cudaError_t (*fn)(const WideArgs&, size_t, cudaStream_t, int*) = nullptr;
+  switch ((wide_part(a.M) + 15) / 16) {
+#define WIDE_CASE(r) \
+  case r:            \
+    fn = in_bf16 ? wide_run<__nv_bfloat16, r> : wide_run<float, r>; \
+    break;
+    WIDE_CASE(1) WIDE_CASE(2) WIDE_CASE(3) WIDE_CASE(4)
+#undef WIDE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)fn(a, (size_t)smem, stream, info);
 }

@@ -9,6 +9,14 @@ version (`gossip_drain_reference`, `gossip_mix_reference`,
 `gossip_enqueue_reference`). There is no fallback from a kernel to its
 plain version. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
+
+Routes. Each source has a narrow route, tuned for N (and M) <= 64 with
+every weight matrix in one block, and the wide route of
+``csrc/stream.cuh`` (receivers in groups of at most 64, senders in chunks
+of 32, each weight block staged beside its payload chunk) for every other
+shape. The route follows from the shape and the block's shared-memory
+limit alone (`drain_route`, `enqueue_route`, `mix_route`); the sources
+pick the same one (``<kernel>_route``).
 """
 from __future__ import annotations
 
@@ -37,6 +45,17 @@ STAGED_ROW = TILE + 8
 STAGES = 3
 RING_BARRIERS = 64  # bytes of the ring's mbarriers (full and empty, 4 stages)
 STORE_FLOATS = CONSUMERS // 32 * 16 * 40  # the tensor-core product's store buffers
+# the wide route (csrc/stream.cuh): receivers per group at most, senders
+# per chunk, columns per unit, elements per staged payload row, floats per
+# staged weight row, stages, sources; the narrow routes' widths
+WIDE = 64
+WIDE_K = 32
+WIDE_TILE = CONSUMERS
+WIDE_ROW = WIDE_TILE + 8
+WIDE_WROW = 72
+WIDE_STAGES = 3
+WIDE_MAX_S = 256
+NARROW_MAX = 64
 
 
 def _pad(x: int, to: int) -> int:
@@ -72,6 +91,54 @@ def enqueue_smem_bytes(j: int, n: int, dtype: torch.dtype) -> int:
     return RING_BARRIERS + 4 * j * n * _weight_row(n) + STAGES * n * (STAGED_ROW * elem + 4)
 
 
+def wide_parts(m: int) -> int:
+    """Receiver groups of the wide route for `m` receivers: at most `WIDE`
+    each, balanced."""
+    return -(-m // WIDE)
+
+
+def wide_chunks(n: int) -> int:
+    """Sender chunks of the wide route for `n` senders: `WIDE_K` each, the
+    last one short."""
+    return -(-n // WIDE_K)
+
+
+def wide_smem_bytes(sources: int, n: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the wide route needs: the warps' store
+    buffers, `WIDE_STAGES` stages of `WIDE_K`
+    payload rows (`WIDE_ROW` elements) and weight rows (`WIDE_WROW` f32),
+    and one 4-byte unit entry per (source, sender chunk). The sources'
+    ``<kernel>_wide_smem_bytes`` compute the same."""
+    elem = torch.finfo(dtype).bits // 8
+    return (4 * STORE_FLOATS + WIDE_STAGES * WIDE_K * (WIDE_ROW * elem + 4 * WIDE_WROW)
+            + 4 * _pad(sources * wide_chunks(n), 4))
+
+
+def drain_route(j: int, n: int, m: int, dtype: torch.dtype, limit: int):
+    """``"narrow"`` when N, M <= 64 and every bucket's weights fit a
+    block of `limit` bytes, else ``"wide"`` when its block fits, else
+    None (as ``csrc/drain.cu``'s ``route``)."""
+    if not 0 <= j <= WIDE_MAX_S:
+        return None
+    if n <= NARROW_MAX and m <= NARROW_MAX and drain_smem_bytes(j, n, m, dtype) <= limit:
+        return "narrow"
+    return "wide" if wide_smem_bytes(j, n, dtype) <= limit else None
+
+
+def enqueue_route(j: int, n: int, dtype: torch.dtype, limit: int):
+    """As `drain_route`, for ``csrc/enqueue.cu`` (N receivers = N senders)."""
+    if not 1 <= j <= WIDE_MAX_S:
+        return None
+    if n <= NARROW_MAX and enqueue_smem_bytes(j, n, dtype) <= limit:
+        return "narrow"
+    return "wide" if wide_smem_bytes(j, n, dtype) <= limit else None
+
+
+def mix_route(n: int) -> str:
+    """``csrc/mix.cu``'s route: one thread per column up to N = 64."""
+    return "narrow" if n <= NARROW_MAX else "wide"
+
+
 def check_smem(need: int, limit: int, what: str) -> None:
     """Raise when a block would need more shared memory than it may have."""
     if need > limit:
@@ -86,9 +153,13 @@ def bind_drain(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p]
     lib.drain_launch.restype = ctypes.c_int
-    for fn in ("drain_max_j", "drain_max_n", "drain_max_m"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
+    lib.drain_max_j.argtypes = []
+    lib.drain_max_j.restype = ctypes.c_int
+    if hasattr(lib, "drain_route"):  # the designs with a wide route
+        lib.drain_route.argtypes = [ctypes.c_int] * 4
+        lib.drain_route.restype = ctypes.c_int
+        lib.drain_wide_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.drain_wide_smem_bytes.restype = ctypes.c_longlong
     if hasattr(lib, "drain_info"):  # the designs with a persistent grid
         lib.drain_max_smem.argtypes = []
         lib.drain_max_smem.restype = ctypes.c_int
@@ -108,9 +179,9 @@ def _drain_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _max_smem(kernel: str, device: int) -> int:
     """The shared memory a block may opt into on `device` (bytes), as the
-    library of `kernel` (``drain`` or ``enqueue``) reads it; read once,
+    library of `kernel` (``drain``, ``enqueue`` or ``mix``) reads it; read once,
     since the wrappers check it before every launch."""
-    lib = _drain_lib() if kernel == "drain" else _enqueue_lib()
+    lib = {"drain": _drain_lib, "enqueue": _enqueue_lib, "mix": _mix_lib}[kernel]()
     with torch.cuda.device(device):
         return getattr(lib, f"{kernel}_max_smem")()
 
@@ -122,8 +193,13 @@ def _mix_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.mix_launch.restype = ctypes.c_int
-    lib.mix_max_n.argtypes = []
-    lib.mix_max_n.restype = ctypes.c_int
+    lib.mix_max_smem.argtypes = []
+    lib.mix_max_smem.restype = ctypes.c_int
+    lib.mix_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mix_wide_smem_bytes.restype = ctypes.c_longlong
+    lib.mix_info.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
+    lib.mix_info.restype = ctypes.c_int
     return lib
 
 
@@ -133,15 +209,19 @@ def bind_enqueue(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.enqueue_launch.restype = ctypes.c_int
-    for fn in ("enqueue_max_n", "enqueue_max_smem"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
+    lib.enqueue_max_smem.argtypes = []
+    lib.enqueue_max_smem.restype = ctypes.c_int
     if hasattr(lib, "enqueue_info"):  # the designs with a persistent grid
         lib.enqueue_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.enqueue_smem_bytes.restype = ctypes.c_longlong
         lib.enqueue_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.enqueue_info.restype = ctypes.c_int
+    if hasattr(lib, "enqueue_route"):  # the designs with a wide route
+        lib.enqueue_route.argtypes = [ctypes.c_int] * 3
+        lib.enqueue_route.restype = ctypes.c_int
+        lib.enqueue_wide_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.enqueue_wide_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -189,7 +269,9 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
     (M, K) aggregate, accumulated oldest bucket first.
 
     CUDA tensors launch ``csrc/drain.cu`` (counted in
-    ``gossip_drain.launches``); CPU tensors take `gossip_drain_reference`.
+    ``gossip_drain.launches``), on the route `drain_route` names for the
+    shape (any N and M; J <= 256); CPU tensors take
+    `gossip_drain_reference`.
     """
     slots = _host_slots(slots)
     _check(w_stack, ring, slots)
@@ -199,18 +281,15 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
         raise ValueError(f"no drain kernel for device {ring.device}")
     lib = _drain_lib()
     j_total, n, m = w_stack.shape
-    if (j_total > lib.drain_max_j() or n > lib.drain_max_n()
-            or m > lib.drain_max_m()):
-        raise ValueError(
-            f"drain kernel supports J <= {lib.drain_max_j()}, N <= "
-            f"{lib.drain_max_n()}, M <= {lib.drain_max_m()}; got (J, N, M) = "
-            f"{(j_total, n, m)}")
+    if j_total > lib.drain_max_j():
+        raise ValueError(f"drain kernel supports J <= {lib.drain_max_j()}, got J = {j_total}")
     if not ring.is_contiguous():
         raise ValueError("ring must be contiguous")
     with torch.cuda.device(ring.device):
         limit = _max_smem("drain", ring.device.index)
-        check_smem(drain_smem_bytes(j_total, n, m, ring.dtype), limit,
-                   f"drain kernel: {j_total} buckets of {n} x {m} weights")
+        if drain_route(j_total, n, m, ring.dtype, limit) is None:
+            check_smem(wide_smem_bytes(j_total, n, ring.dtype), limit,
+                       f"drain kernel: {j_total} buckets of {n} senders")
         out = launch_drain(lib, w_stack, ring, slots)
     gossip_drain.launches += 1
     return out
@@ -280,8 +359,8 @@ def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     accumulated in f32 in sender order. No padding copy is made.
 
     CUDA tensors launch ``csrc/mix.cu`` (counted in
-    ``gossip_mix.launches``; N <= 64, deltas contiguous); CPU tensors
-    take `gossip_mix_reference`.
+    ``gossip_mix.launches``; any N, on the route `mix_route` names;
+    deltas contiguous); CPU tensors take `gossip_mix_reference`.
     """
     _check_mix(q, deltas)
     if deltas.device.type == "cpu":
@@ -290,13 +369,14 @@ def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no mix kernel for device {deltas.device}")
     lib = _mix_lib()
     n, k = deltas.shape
-    if n > lib.mix_max_n():
-        raise ValueError(f"mix kernel supports N <= {lib.mix_max_n()}, got N = {n}")
     if not deltas.is_contiguous():
         raise ValueError("deltas must be contiguous")
     q32 = q.to(torch.float32).contiguous()
     out = torch.empty_like(deltas)
     with torch.cuda.device(deltas.device):
+        if mix_route(n) == "wide":
+            check_smem(wide_smem_bytes(1, n, deltas.dtype),
+                       _max_smem("mix", deltas.device.index), f"mix kernel: {n} clients")
         stream = torch.cuda.current_stream(deltas.device).cuda_stream
         err = lib.mix_launch(q32.data_ptr(), deltas.data_ptr(), out.data_ptr(),
                              n, k, int(deltas.dtype == torch.bfloat16), stream)
@@ -342,8 +422,8 @@ def gossip_enqueue(w_stack: torch.Tensor, pending: torch.Tensor, *,
     accumulated in f32 in sender order. No padding copy is made.
 
     CUDA tensors launch ``csrc/enqueue.cu`` (counted in
-    ``gossip_enqueue.launches``; N <= 64, pending contiguous, the J
-    weight matrices within a block's shared memory); CPU tensors take
+    ``gossip_enqueue.launches``; any N and 1 <= J <= 256, on the route
+    `enqueue_route` names; pending contiguous); CPU tensors take
     `gossip_enqueue_reference`.
     """
     out_dtype = pending.dtype if out_dtype is None else out_dtype
@@ -354,14 +434,15 @@ def gossip_enqueue(w_stack: torch.Tensor, pending: torch.Tensor, *,
         raise ValueError(f"no enqueue kernel for device {pending.device}")
     lib = _enqueue_lib()
     j_total, n, _ = w_stack.shape
-    if n > lib.enqueue_max_n():
-        raise ValueError(f"enqueue kernel supports N <= {lib.enqueue_max_n()}, got N = {n}")
+    if not 1 <= j_total <= WIDE_MAX_S:
+        raise ValueError(f"enqueue kernel supports 1 <= J <= {WIDE_MAX_S}, got J = {j_total}")
     if not pending.is_contiguous():
         raise ValueError("pending must be contiguous")
     with torch.cuda.device(pending.device):
         limit = _max_smem("enqueue", pending.device.index)
-        check_smem(enqueue_smem_bytes(j_total, n, pending.dtype), limit,
-                   f"enqueue kernel: {j_total} buckets of {n} clients")
+        if enqueue_route(j_total, n, pending.dtype, limit) is None:
+            check_smem(wide_smem_bytes(j_total, n, pending.dtype), limit,
+                       f"enqueue kernel: {j_total} buckets of {n} clients")
         out = launch_enqueue(lib, w_stack, pending, out_dtype)
     gossip_enqueue.launches += 1
     return out

@@ -12,8 +12,9 @@ stages the weights and streams the payload ring with no FMAs and no
 stores, ``no-fma`` streams the ring and stores without the FMAs,
 ``no-stores`` drops the stores only, ``compute-only`` copies no payload
 (each stage keeps its row offsets) and times the product and the
-stores, and ``one-term`` keeps one split term of the tensor-core
-product. The others keep the arithmetic and are held to the plain
+stores, ``one-term`` keeps one split term of the tensor-core
+product, and ``wide-no-mma`` and ``wide-no-copy`` drop the wide route's
+product or its copies. The others keep the arithmetic and are held to the plain
 version like the kernel itself: ``stages-1`` to ``stages-4`` set the
 ring's depth, and ``cuda-cores`` (the drain) or ``tensor-cores`` (the
 enqueue) takes the kernel's other product. A name that does not apply to a kernel is
@@ -58,6 +59,19 @@ _COMMON = {
                   "        if constexpr (sizeof(T) == 4) mma_tf32(c[mt][q], ah, bl[q][0], bl[q][1]);\n",
                   "")],
 }
+# the wide route (stream.cuh's wide_kernel): no product, no payload or
+# weight copies (each stage still arrives)
+_COMMON.update({
+    "wide-no-mma": [("      accumulate_wide(c, p_sh", "      if (K < 0) accumulate_wide(c, p_sh")],
+    "wide-no-copy": [("    if (c < chunks) cp_async16(",
+                      "    if (cols < 0 && c < chunks) cp_async16(")],
+    "wide-no-issue": [("    if (v < total) {\n", "    if (v < total && K < 0) {\n")],
+    "wide-no-store": [("      store_tc(c, wbuf, gm, (int)min((long long)32, K - c0 - 32 * warp),",
+                       "      if (K < 0) store_tc(c, wbuf, gm, (int)min((long long)32, "
+                       "K - c0 - 32 * warp),")],
+    "wide-no-scan": [("unit_sh[i] = a.skip ? 0 : 1;", "unit_sh[i] = 1;"),
+                     ("  if (a.skip) {  // flag", "  if (K < 0) {  // flag")],
+})
 _TC_STORES = [("store_tc(c, buf", "if (K < 0) store_tc(c, buf")]
 _STORES = {"drain": [("if (m < M && col < cols) out[", "if (K < 0 && m < M && col < cols) out[")]
            + _TC_STORES,

@@ -32,6 +32,9 @@ CASES = {
 }
 
 
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -66,12 +69,85 @@ def test_kernel_matches_plain_version(cuda_device, name, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_hold(cuda_device):
+    """N = 65 is no longer refused (the wide route takes it, against the
+    plain version); a strided ring and more than 256 buckets are."""
     w, ring, slots = _case(cuda_device, 3, 65, 65, 64, 4, 3, torch.float32)
-    with pytest.raises(ValueError, match="N <= 64"):
-        ops.gossip_drain(w, ring, slots)
+    torch.testing.assert_close(ops.gossip_drain(w, ring, slots),
+                               ops.gossip_drain_reference(w, ring, slots),
+                               rtol=1e-5, atol=1e-5)
     w, ring, slots = _case(cuda_device, 3, 8, 8, 64, 4, 3, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gossip_drain(w, ring.transpose(1, 2).contiguous().transpose(1, 2), slots)
+    w = torch.zeros((1, 1, 1), device=cuda_device).expand(257, 4, 4)
+    with pytest.raises(ValueError, match="J <= 256"):
+        ops.gossip_drain(w, torch.zeros((1, 4, 8), device=cuda_device), [0] * 257)
+
+
+# the wide route (csrc/stream.cuh): clients past 64 at K under one tile,
+# ragged and the EMNIST plane's width; rectangular across 64 both ways;
+# bucket sets whose weights do not fit one block (J = 8, 16 at 64)
+WIDE_N = (65, 100, 256)
+WIDE_K = (1, 4099, 146_447)
+WIDE_DRAIN = {
+    **{f"n{n}-k{k}": (3, n, n, k, 4, 3) for n in WIDE_N for k in WIDE_K},
+    "rect-n100-m40": (3, 100, 40, 4099, 4, 3),
+    "rect-n40-m100": (3, 40, 100, 4099, 4, 3),
+    "rect-n65-m130": (3, 65, 130, 4099, 4, 2),
+    "j8-n64": (8, 64, 64, 4099, 9, 8),
+    "j16-n64": (16, 64, 64, 4099, 17, 11),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_DRAIN))
+@DTYPES
+def test_wide_drain_matches_plain_version(cuda_device, name, dtype):
+    j, n, m, k, s, live = WIDE_DRAIN[name]
+    w, ring, slots = _case(cuda_device, j, n, m, k, s, live, dtype, seed=len(name))
+    route = ops.drain_route(j, n, m, dtype, ops._max_smem("drain", 0))
+    assert ops._drain_lib().drain_route(j, n, m, int(dtype == torch.bfloat16)) == \
+        {"narrow": 0, "wide": 1}[route]
+    # J = 8 bf16 buckets of 64 x 64 still fit the narrow route's block
+    assert route == ("narrow" if (j, dtype) == (8, torch.bfloat16) else "wide")
+    before = ops.gossip_drain.launches
+    got = ops.gossip_drain(w, ring, slots)
+    torch.cuda.synchronize()
+    assert ops.gossip_drain.launches == before + 1
+    torch.testing.assert_close(got, ops.gossip_drain_reference(w, ring, slots),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_wide_drain_sparse_and_empty_blocks(cuda_device, dtype):
+    """A cycle's weights leave most (bucket, chunk, group) blocks empty at
+    N = 200; an all-empty drain writes zeros."""
+    n, k = 200, 4099
+    q = torch.zeros((n, n), device=cuda_device)
+    idx = torch.arange(n, device=cuda_device)
+    q[idx, (idx + 1) % n] = 0.5
+    q[idx, (idx - 1) % n] = 0.5
+    w = torch.stack([q, torch.zeros_like(q), q * 0.5])
+    ring = torch.randn((4, n, k), device=cuda_device).to(dtype)
+    torch.testing.assert_close(ops.gossip_drain(w, ring, [1, 2, 3]),
+                               ops.gossip_drain_reference(w, ring, [1, 2, 3]),
+                               rtol=1e-5, atol=1e-5)
+    zero = ops.gossip_drain(torch.zeros_like(w), ring, [1, 2, 3])
+    assert torch.equal(zero, torch.zeros((n, k), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_wide_drain_writes_nothing_past_its_output(cuda_device):
+    j, n, k = 3, 65, 4099
+    w, ring, slots = _case(cuda_device, j, n, n, k, 4, 3, torch.float32)
+    buf, mid = _canary(cuda_device, n * k, torch.float32)
+    c_slots = (ctypes.c_int * j)(*slots)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert ops._drain_lib().drain_launch(w.data_ptr(), ring.data_ptr(), mid.data_ptr(),
+                                         c_slots, j, n, n, k, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((buf[:64] == -12345.0).all()) and bool((buf[-64:] == -12345.0).all())
+    assert torch.equal(mid.view(n, k), ops.gossip_drain(w, ring, slots))
 
 
 # the streamed drain's edges: payload rows at every 4- and 2-byte phase
@@ -82,7 +158,6 @@ STREAM_CASES = {
     "senders-over-receivers": (3, 16, 8, 5000, 4, 3),
     "largest-staging": (7, 64, 64, 4099, 8, 7),
 }
-DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
 
 @pytest.mark.cuda
@@ -118,17 +193,27 @@ def test_drain_empty_buckets_between_live_ones(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_drain_refuses_above_its_shared_memory(cuda_device):
-    """The wrapper's reckoning is the kernel's, and a launch that needs
-    more shared memory than a block has raises before launching."""
+    """The wrapper's reckoning and route are the kernel's, J = 8 at N = M
+    = 64 (past the narrow route's block) takes the wide route, and a
+    launch that needs more shared memory than even a wide block has (a
+    unit list of 256 buckets x 140 sender chunks) raises before launching."""
     lib = ops._drain_lib()
-    for j, n, m in ((3, 25, 25), (7, 64, 64), (3, 8, 16), (1, 5, 5)):
+    limit = ops._max_smem("drain", 0)
+    for j, n, m in ((3, 25, 25), (7, 64, 64), (8, 64, 64), (3, 8, 16), (1, 5, 5),
+                    (3, 65, 65), (3, 100, 40), (16, 256, 256), (0, 100, 100)):
         for dtype in (torch.float32, torch.bfloat16):
-            assert ops.drain_smem_bytes(j, n, m, dtype) == lib.drain_smem_bytes(
-                j, n, m, int(dtype == torch.bfloat16))
-    w, ring, slots = _case(cuda_device, 8, 64, 64, 256, 8, 8, torch.float32)
+            bf16 = int(dtype == torch.bfloat16)
+            assert ops.drain_smem_bytes(j, n, m, dtype) == lib.drain_smem_bytes(j, n, m, bf16)
+            assert ops.wide_smem_bytes(j, n, dtype) == lib.drain_wide_smem_bytes(j, n, bf16)
+            assert {"narrow": 0, "wide": 1, None: -1}[ops.drain_route(j, n, m, dtype, limit)] \
+                == lib.drain_route(j, n, m, bf16)
+    assert ops.drain_route(8, 64, 64, torch.float32, limit) == "wide"
+    n = 4449
+    w = torch.zeros((1, 1, 1), device=cuda_device).expand(256, n, 8)
+    ring = torch.zeros((1, n, 8), device=cuda_device)
     before = ops.gossip_drain.launches
     with pytest.raises(ValueError, match="shared memory"):
-        ops.gossip_drain(w, ring, slots)
+        ops.gossip_drain(w, ring, [0] * 256)
     assert ops.gossip_drain.launches == before
 
 
@@ -248,9 +333,11 @@ def test_mix_kernel_past_2_to_the_31_elements(cuda_device):
 
 @pytest.mark.cuda
 def test_mix_kernel_rejects_what_it_cannot_hold(cuda_device):
+    """N = 65 is no longer refused (the wide route, against the plain
+    version); a strided plane is."""
     q, deltas = _mix_case(cuda_device, 65, 16, torch.float32)
-    with pytest.raises(ValueError, match="N <= 64"):
-        ops.gossip_mix(q, deltas)
+    torch.testing.assert_close(ops.gossip_mix(q, deltas), ops.gossip_mix_reference(q, deltas),
+                               rtol=1e-5, atol=1e-5)
     q, deltas = _mix_case(cuda_device, 4, 16, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gossip_mix(q, deltas.T.contiguous().T)
@@ -351,15 +438,115 @@ def test_enqueue_kernel_bf16(cuda_device, n, k):
 
 @pytest.mark.cuda
 def test_enqueue_kernel_rejects_what_it_cannot_hold(cuda_device):
-    w, pending = _enqueue_case(cuda_device, 3, 65, 16)
-    with pytest.raises(ValueError, match="N <= 64"):
-        ops.gossip_enqueue(w, pending)
-    w, pending = _enqueue_case(cuda_device, 15, 64, 16)  # 245,760 bytes of weights
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.gossip_enqueue(w, pending)
+    """N = 65 and J = 15 at N = 64 (245,760 bytes of weights, past the
+    narrow route's block) are no longer refused: the wide route takes
+    them, against the plain version. A strided plane and J = 0 are."""
+    for j, n in ((3, 65), (15, 64)):
+        w, pending = _enqueue_case(cuda_device, j, n, 16)
+        torch.testing.assert_close(ops.gossip_enqueue(w, pending),
+                                   ops.gossip_enqueue_reference(w, pending),
+                                   rtol=1e-5, atol=1e-5)
     w, pending = _enqueue_case(cuda_device, 3, 4, 16)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gossip_enqueue(w, pending.T.contiguous().T)
+    with pytest.raises(ValueError, match="1 <= J"):
+        ops.gossip_enqueue(w[:0], pending)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", WIDE_N)
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_mix_matches_plain_version(cuda_device, n, k, dtype):
+    q, deltas = _mix_case(cuda_device, n, k, dtype, seed=n + k)
+    before = ops.gossip_mix.launches
+    got = ops.gossip_mix(q, deltas)
+    torch.cuda.synchronize()
+    assert ops.gossip_mix.launches == before + 1 and got.dtype == dtype
+    want = ops.gossip_mix_reference(q, deltas)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        # the split-TF32 product's f32 sums are within ~2^-21 of the plain
+        # version's, not equal to them, so where the f32 sum lies near a
+        # bf16 rounding tie the two round to neighbouring bf16 values: one
+        # bf16 step apart, at most 2^-7 of the value
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+        torch.testing.assert_close(got.float(), ops.gossip_mix_reference(
+            q, deltas.float()), rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,n", [(3, 65), (3, 100), (3, 256), (8, 64), (16, 64)])
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_enqueue_matches_plain_version(cuda_device, j, n, k, dtype):
+    w, pending = _enqueue_case(cuda_device, j, n, k, seed=j * n + k)
+    pending = pending.to(dtype)
+    route = ops.enqueue_route(j, n, dtype, ops._max_smem("enqueue", 0))
+    assert ops._enqueue_lib().enqueue_route(j, n, int(dtype == torch.bfloat16)) == \
+        {"narrow": 0, "wide": 1}[route]
+    assert route == ("narrow" if (j, dtype) == (8, torch.bfloat16) else "wide")
+    out32 = ops.gossip_enqueue(w, pending, out_dtype=torch.float32)
+    torch.testing.assert_close(
+        out32, ops.gossip_enqueue_reference(w, pending, out_dtype=torch.float32),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(ops.gossip_enqueue(w, pending, out_dtype=torch.bfloat16),
+                       out32.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wide_reckoning_matches_the_sources(cuda_device):
+    """The mix's and the enqueue's wide shared memory and routes, the
+    sources' against Python's."""
+    mix, enq = ops._mix_lib(), ops._enqueue_lib()
+    limit = ops._max_smem("enqueue", 0)
+    assert limit == ops._max_smem("mix", 0) == ops._max_smem("drain", 0)
+    for n in (65, 100, 256, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = int(dtype == torch.bfloat16)
+            assert ops.wide_smem_bytes(1, n, dtype) == mix.mix_wide_smem_bytes(n, bf16)
+    for j, n in ((3, 25), (7, 64), (8, 64), (15, 64), (3, 65), (256, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = int(dtype == torch.bfloat16)
+            assert ops.wide_smem_bytes(j, n, dtype) == enq.enqueue_wide_smem_bytes(j, n, bf16)
+            assert ops.enqueue_smem_bytes(j, n, dtype) == enq.enqueue_smem_bytes(j, n, bf16)
+            assert {"narrow": 0, "wide": 1, None: -1}[ops.enqueue_route(j, n, dtype, limit)] \
+                == enq.enqueue_route(j, n, bf16)
+
+
+@pytest.mark.cuda
+def test_simulate_baseline_launches_the_mix_once_per_round(cuda_device):
+    from repro_torch.api import simulate
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.protocol import DracoConfig
+
+    cfg = DracoConfig(num_clients=8, channel=ChannelConfig())
+    for method in ("sync-symm", "sync-push", "async-symm", "async-push"):
+        ops.gossip_mix.launches = 0
+        state, trace = simulate(method, cfg, task="mlp", num_steps=12, key=0, eval_every=5)
+        assert ops.gossip_mix.launches == 12
+        assert state.params["w0"].is_cuda and state.round_idx == 12
+        assert list(trace.step) == [5, 10, 12]
+        assert all(np.isfinite(v).all() for v in trace.metrics.values())
+
+
+@pytest.mark.cuda
+def test_simulate_past_64_clients(cuda_device):
+    """draco at N = 100 launches the (wide) drain once per window, and
+    sync-symm at N = 100 the (wide) mix once per round."""
+    from repro_torch.api import simulate
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.protocol import DracoConfig
+
+    cfg = DracoConfig(num_clients=100, lambda_grad=0.5, lambda_tx=0.5, psi=3,
+                      unify_period=10, channel=ChannelConfig())
+    ops.gossip_drain.launches = ops.gossip_mix.launches = 0
+    _, trace = simulate("draco", cfg, task="mlp", num_steps=6, key=0, eval_every=3)
+    assert ops.gossip_drain.launches == 6
+    _, trace2 = simulate("sync-symm", cfg, task="mlp", num_steps=4, key=0, eval_every=2)
+    assert ops.gossip_mix.launches == 4
+    assert all(np.isfinite(v).all() for t in (trace, trace2) for v in t.metrics.values())
 
 
 # ssd_chunk: (Bb, H, G, nc, Q, N, P, A scale): mamba2's block widths with

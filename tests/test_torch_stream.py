@@ -68,13 +68,97 @@ def test_the_tested_cases_fit_one_block(depth, n, dtype):
 
 
 def test_refusal_above_the_block_limit():
+    """J = 8 f32 buckets of 64 x 64 (and J = 15 in the enqueue) overflow
+    the narrow route's block, so the wide route takes them; the wrappers
+    refuse only what a wide block cannot hold either (a unit list of 256
+    buckets x 140 sender chunks)."""
     need = ops.drain_smem_bytes(8, 64, 64, torch.float32)
     assert need == 246_688 > H100_SMEM
     with pytest.raises(ValueError, match="246688 bytes of shared memory, more than the 232448"):
         ops.check_smem(need, H100_SMEM, "drain kernel: 8 buckets of 64 x 64 weights")
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.check_smem(ops.enqueue_smem_bytes(15, 64, torch.float32), H100_SMEM, "enqueue")
+    assert ops.drain_route(8, 64, 64, torch.float32, H100_SMEM) == "wide"
+    assert ops.drain_route(7, 64, 64, torch.float32, H100_SMEM) == "narrow"
+    assert ops.enqueue_smem_bytes(15, 64, torch.float32) > H100_SMEM
+    assert ops.enqueue_route(15, 64, torch.float32, H100_SMEM) == "wide"
+    ops.check_smem(ops.wide_smem_bytes(15, 64, torch.float32), H100_SMEM, "enqueue")
+    assert ops.wide_smem_bytes(256, 4448, torch.float32) == H100_SMEM
+    assert ops.drain_route(256, 4448, 8, torch.float32, H100_SMEM) == "wide"
+    assert ops.drain_route(256, 4449, 8, torch.float32, H100_SMEM) is None
+    with pytest.raises(ValueError, match="233472 bytes of shared memory"):
+        ops.check_smem(ops.wide_smem_bytes(256, 4449, torch.float32), H100_SMEM, "drain")
     ops.check_smem(H100_SMEM, H100_SMEM, "at the limit")
+
+
+def test_wide_constants_match_the_header():
+    """The wide route's Python reckoning uses stream.cuh's own widths,
+    rows, stages and source cap, and each source exports its wide
+    reckoning and route."""
+    header = build.KERNELS / "gossip" / "csrc" / "stream.cuh"
+    assert ops.WIDE == _source_int(header, r"#define WIDE (\d+)")
+    assert ops.WIDE_K == _source_int(header, r"#define WIDE_K (\d+)")
+    assert "#define WIDE_TILE GOSSIP_CONSUMERS" in header.read_text()
+    assert ops.WIDE_TILE == ops.CONSUMERS
+    assert ops.WIDE_ROW - ops.WIDE_TILE == _source_int(
+        header, r"#define WIDE_ROW \(WIDE_TILE \+ (\d+)\)")
+    assert ops.WIDE_WROW == _source_int(header, r"#define WIDE_WROW (\d+)")
+    assert ops.WIDE_STAGES == _source_int(header, r"#define WIDE_STAGES (\d+)")
+    assert ops.WIDE_MAX_S == _source_int(header, r"#define WIDE_MAX_S (\d+)")
+    for name, narrow in (("drain", r"#define DRAIN_MAX_N (\d+)"),
+                         ("enqueue", r"#define ENQ_MAX_N (\d+)"),
+                         ("mix", r"#define MIX_MAX_N (\d+)")):
+        source = build.source_path(name)
+        assert ops.NARROW_MAX == _source_int(source, narrow)
+        assert f"{name}_wide_smem_bytes" in source.read_text()
+    assert ops.NARROW_MAX == _source_int(build.source_path("drain"), r"#define DRAIN_MAX_M (\d+)")
+
+
+@pytest.mark.parametrize("j,n,dtype,want", [
+    (3, 100, torch.float32, 90_160), (3, 100, torch.bfloat16, 64_048),
+    (1, 65, torch.float32, 90_128), (16, 64, torch.float32, 90_240),
+    (3, 256, torch.float32, 90_208), (0, 100, torch.float32, 90_112)])
+def test_wide_smem(j, n, dtype, want):
+    """Four warps' 16 x 40 store buffers, three
+    stages of 32 payload rows x 136 elements and 32 weight rows x 72 f32,
+    and a 4-byte entry per (bucket, 32-sender
+    chunk) padded to 4: no term grows with M, and N and J only through
+    the unit list."""
+    elem = 4 if dtype == torch.float32 else 2
+    assert ops.wide_smem_bytes(j, n, dtype) == want == (
+        4 * 4 * 16 * 40 + 3 * 32 * (136 * elem + 4 * 72)
+        + 4 * (-(-(j * -(-n // 32)) // 4) * 4))
+
+
+@pytest.mark.parametrize("n,parts,each", [(1, 1, 1), (64, 1, 64), (65, 2, 33), (100, 2, 50),
+                                          (128, 2, 64), (129, 3, 43), (256, 4, 64)])
+def test_wide_parts_are_balanced(n, parts, each):
+    """Receivers in groups of at most 64, balanced: ceil(n / 64) groups of
+    ceil(n / groups) (the header's wide_part); senders in chunks of 32,
+    the last one short."""
+    assert ops.wide_parts(n) == parts
+    assert -(-n // parts) == each <= ops.WIDE
+    assert (parts - 1) * each < n <= parts * each
+    assert ops.wide_chunks(n) == -(-n // 32) and ops.WIDE_K == 32
+
+
+@pytest.mark.parametrize("j,n,m,dtype,route", [
+    (3, 25, 25, torch.float32, "narrow"), (7, 64, 64, torch.float32, "narrow"),
+    (8, 64, 64, torch.float32, "wide"), (8, 64, 64, torch.bfloat16, "narrow"),
+    (16, 64, 64, torch.bfloat16, "wide"), (3, 65, 65, torch.float32, "wide"),
+    (3, 100, 40, torch.float32, "wide"), (3, 40, 100, torch.bfloat16, "wide"),
+    (0, 25, 25, torch.float32, "narrow"), (0, 100, 100, torch.float32, "wide"),
+    (257, 4, 4, torch.float32, None)])
+def test_drain_route_from_the_shape(j, n, m, dtype, route):
+    assert ops.drain_route(j, n, m, dtype, H100_SMEM) == route
+
+
+def test_enqueue_and_mix_routes_from_the_shape():
+    assert ops.enqueue_route(3, 25, torch.float32, H100_SMEM) == "narrow"
+    assert ops.enqueue_route(7, 64, torch.float32, H100_SMEM) == "narrow"
+    assert ops.enqueue_route(8, 64, torch.float32, H100_SMEM) == "wide"
+    assert ops.enqueue_route(3, 65, torch.bfloat16, H100_SMEM) == "wide"
+    assert ops.enqueue_route(0, 8, torch.float32, H100_SMEM) is None
+    assert [ops.mix_route(n) for n in (1, 4, 25, 64, 65, 100, 1000)] == \
+        ["narrow"] * 4 + ["wide"] * 3
 
 
 @pytest.mark.parametrize("kernel,edit", sorted(
