@@ -14,8 +14,11 @@ Phases (any failure exits non-zero):
                ones, the largest staging; the wide route at N = M in
                {65, 100, 256} x K in {1, 4099, 146,447}, rectangular
                across 64 both ways, J in {8, 16} at N = M = 64; the mix
-               also past 2^31 elements, in bf16, and on its wide route
-               at N in {65, 100, 256}; the SSD
+               on each of its routes and across their edges (N from 1 to
+               64 on the CUDA cores, 65 to 272 on the tensor cores, 273 and
+               1000 on the wide route), at K under one vector, odd and
+               ragged, past 2^31 elements, in bf16, and on a plane whose
+               rows start off four elements; the SSD
                intra-chunk step at the mamba2 trainer's shape in bf16, with
                groups, with Q != N in f32, under strong decays in f32 and
                bf16, ragged against the MMA tiles and at Q = N = 256); the
@@ -64,29 +67,33 @@ Phases (any failure exits non-zero):
                final accuracy against its floor, the steady round under
                the sync detector and its device idle share, 50 rounds
                through the mix kernel against the plain mix (1e-4); then
-               sync-symm at N = 100 (the mix's wide route);
+               sync-symm at N = 100 (the mix's tensor route) and, printed
+               and not held, each method's 50-round gap there;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
-               routes (drain at N = M = 100 and 256, mix at N = 100 and
-               256, enqueue at N = 100) and the baselines' mix at N = 25
-               beside both bounds (f32 rate and split-TF32 tensor cores).
-               Phase 9 runs last, after 10 and 11.
+               routes (drain at N = M = 100 and 256, enqueue at N = 100)
+               and the mix at N = 25, 100 and 256 beside both bounds (f32
+               rate and split-TF32 tensor cores); every mix row also beside
+               a device-to-device copy of the same plane (the stream's
+               floor). Phase 9 runs last, after 10 and 11.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
 without the repository's `src/` beside this file.
 
     python3 chip_smoke.py --ssd-variants [NAMES] [--flush zero,read,none]
-    python3 chip_smoke.py --gossip-variants [NAMES] [--baseline TREE]
+    python3 chip_smoke.py --gossip-variants [NAMES] [--baseline TREE] [--gossip-kernels K]
     python3 chip_smoke.py --trainer-controls
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
 (`repro_torch.kernels.ssd.variants`) at the trainer's shape; the second
-variants of drain.cu and enqueue.cu (`repro_torch.kernels.gossip.variants`;
+variants of drain.cu, enqueue.cu and mix.cu
+(`repro_torch.kernels.gossip.variants`, ``--gossip-kernels`` to choose;
 ``baseline`` is the same kernel's source under TREE, say the parent
-commit unpacked) at the windowed path's shapes and, for the drain, the
-wide route's at N = 100; the third
+commit unpacked) at the windowed path's shapes, for the drain also the
+wide route's at N = 100, and for the mix at N = 25, 100, 256 and 4
+(`MIX_VARIANT_SHAPES`); the third
 runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
@@ -129,8 +136,18 @@ TRAIN_STEPS, TRAIN_PLAIN_STEPS = 20, 3
 # |sum gap| / sum |p| where the paths are equal up to the order of f32 sums
 # (qwen2)
 TRAIN_PATH_RTOL = 1e-3
-MIX_N, MIX_K = (1, 3, 4, 5, 25, 64), (1, 511, 513, 146_447)
+# the mix: its narrow route at every receiver padding and across its
+# edges, K under one 4-column vector, ragged and odd; its tensor route at
+# the 64-receiver blocks' edges, two groups (129) and four (256), its last
+# N (272 in f32); stream.cuh's wide route past what a block's Q splits hold
+# (273 and 1000 clients); a plane that starts one element into its storage
+# (no row aligned to four elements, even at K = 4096)
+MIX_N, MIX_K = (1, 3, 4, 5, 8, 9, 16, 17, 25, 33, 64), (1, 3, 5, 511, 513, 4099, 146_447)
+MIX_WIDE_N = (65, 100, 104, 105, 128, 129, 256)
 BIG_MIX = (4, 536_870_919)  # N * K > 2^31
+# --gossip-variants: the mix at the baselines' width, at N = 100 and 256
+# (the tensor route) and at the trainer's N = 4 with K cut to 2^28
+MIX_VARIANT_SHAPES = ((25, 146_447), (100, 146_447), (256, 146_447), (4, 1 << 28))
 SLICE = 1 << 27  # columns per comparison slice of a multi-GB plane
 SPIN_CYCLES = 2_000_000  # about 1 ms of device clock, to cover host enqueue
 SEED = 0
@@ -561,39 +578,54 @@ def phase_plain(torch, ctx, params0, data):
 def phase_mix_kernels(torch):
     from repro_torch.kernels.gossip import ops
 
-    cases = [(f"N={n} K={k} f32", n, k, torch.float32) for n in MIX_N for k in MIX_K]
-    cases += [("N=4 K=146447 bf16", 4, 146_447, torch.bfloat16),
-              ("N=25 K=513 bf16", 25, 513, torch.bfloat16),
-              (f"N={BIG_MIX[0]} K={BIG_MIX[1]} f32 (N*K > 2^31)", *BIG_MIX,
-               torch.float32)]
-    cases += [(f"wide N={n} K={k} {name}", n, k, dtype) for n in WIDE_N for k in WIDE_K
-              for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"N={n} K={k} f32", n, k, f32, 0) for n in MIX_N for k in MIX_K]
+    cases += [(f"N={n} K={k} bf16", n, k, bf16, 0) for n in MIX_N for k in (5, 4099, 146_447)]
+    cases += [("N=25 K=513 bf16", 25, 513, bf16, 0)]
+    cases += [(f"N={BIG_MIX[0]} K={BIG_MIX[1]} f32 (N*K > 2^31)", *BIG_MIX, f32, 0)]
+    cases += [(f"N={n} K={k} {name}", n, k, dtype, 0) for n in MIX_WIDE_N for k in WIDE_K
+              for name, dtype in (("f32", f32), ("bf16", bf16))]
+    cases += [(f"N={n} K=4099 {name}", n, 4099, dtype, 0) for n in (272, 273, 1000)
+              for name, dtype in (("f32", f32), ("bf16", bf16))]
+    cases += [(f"rows off 16 bytes N={n} K={k} {name}", n, k, dtype, 1)
+              for n, k in ((4, 4096), (25, 4099), (100, 4099))
+              for name, dtype in (("f32", f32), ("bf16", bf16))]
     lib, limit = ops._mix_lib(), ops._max_smem("mix", 0)
+    shape = (ctypes.c_int * 2)()
     worst = 0.0
-    for i, (label, n, k, dtype) in enumerate(cases):
-        q, deltas = mix_case(torch, n, k, dtype, seed=1000 + i)
-        bf16 = int(dtype == torch.bfloat16)
-        if ops.mix_route(n) == "wide" and (
-                ops.wide_smem_bytes(1, n, dtype) != lib.mix_wide_smem_bytes(n, bf16)
-                or ops.wide_smem_bytes(1, n, dtype) > limit):
+    for i, (label, n, k, dtype, offset) in enumerate(cases):
+        is_bf16 = int(dtype == bf16)
+        route = ops.mix_route(n, dtype, limit)
+        if ops.MIX_ROUTES.index(route) != lib.mix_route(n, is_bf16):
+            raise AssertionError(f"mix route reckoned apart: {label}")
+        if route == "tensor" and (lib.mix_tensor_shape(n, is_bf16, shape) != 1
+                                  or tuple(shape) != ops.mix_tensor_shape(n, dtype, limit)):
+            raise AssertionError(f"mix receiver groups reckoned apart: {label}")
+        if route == "wide" and ops.wide_smem_bytes(1, n, dtype) != lib.mix_wide_smem_bytes(
+                n, is_bf16):
             raise AssertionError(f"mix shared memory reckoned apart: {label}")
+        q, deltas = mix_case(torch, n, k, dtype, seed=1000 + i)
+        if offset:  # the same plane one element into its storage
+            flat = torch.empty(n * k + offset, dtype=dtype, device="cuda")
+            flat[offset:].copy_(deltas.flatten())
+            deltas = flat[offset:].view(n, k)
         got = ops.gossip_mix(q, deltas)
         torch.cuda.synchronize()
         if got.dtype != dtype or tuple(got.shape) != (n, k):
             raise AssertionError(f"mix kernel returned {got.dtype} {tuple(got.shape)}")
-        wide_bf16 = bf16 and ops.mix_route(n) == "wide"
+        tc_bf16 = is_bf16 and route != "narrow"
         err, ok = mix_against_plain(torch, ops, q, deltas, got,
-                                    rtol=WIDE_BF16_RTOL if wide_bf16 else RTOL)
+                                    rtol=WIDE_BF16_RTOL if tc_bf16 else RTOL)
         worst = max(worst, err)
         if n * k > 10**6 or not ok:
-            log(f"  mix {label}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            log(f"  mix {label} ({route}): max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"mix kernel disagrees with its plain version: {label}")
         del q, deltas, got
     torch.cuda.empty_cache()
     log(f"phase 2 kernels: gossip_mix max_abs_err={worst:.3e} (tolerance "
-        f"rtol={RTOL} atol={ATOL}; the wide route in bf16 rtol={WIDE_BF16_RTOL}) over "
-        f"{len(cases)} cases")
+        f"rtol={RTOL} atol={ATOL}; the tensor and wide routes in bf16 rtol={WIDE_BF16_RTOL}) "
+        f"over {len(cases)} cases")
     return worst
 
 
@@ -1197,16 +1229,18 @@ def flushes(torch):
     return {"zero": buf, "read": ReadFlush(), "none": None}
 
 
-def gossip_variants(torch, names, baseline, modes=("zero",)):
-    """Times `repro_torch.kernels.gossip.variants` of drain.cu and
-    enqueue.cu at the windowed path's shapes (the drain with 3 and 1 live
-    f32 buckets, the enqueue at `ENQ_MAIN` f32), three rounds in turns
-    (forward, backward, forward) of `time_ms`' median of 40 launches
-    with the L2 flushed (`flushes`, each of `modes`), after holding the
-    variants that keep the arithmetic to the plain versions."""
+def gossip_variants(torch, names, baseline, modes=("zero",), kernels=None):
+    """Times `repro_torch.kernels.gossip.variants` of drain.cu, enqueue.cu
+    and mix.cu (each of `kernels`, default all) at their paths' shapes (the
+    drain with 3 and 1 live f32 buckets, the enqueue at `ENQ_MAIN` f32, the
+    mix at `MIX_VARIANT_SHAPES`), three rounds in turns (forward, backward,
+    forward) of `time_ms`' median of 40 launches with the L2 flushed
+    (`flushes`, each of `modes`), after holding the variants that keep the
+    arithmetic to the plain versions."""
     from repro_torch.kernels.gossip import ops, variants
 
-    libs = variants.build_variants(names, baseline)
+    kernels = tuple(kernels or variants.KERNELS)
+    libs = variants.build_variants(names, baseline, kernels)
     j, n, k = ENQ_MAIN
     # and, to see what odd K costs, rows 16-byte aligned (K + 1 = 146,448);
     # the wide route at N = M = WIDE_CLIENTS, 3 and 1 live buckets
@@ -1219,11 +1253,16 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
                        4220 + live)) for live in (3, 1)],
         "enqueue": [("f32", enqueue_case(torch, j, n, k, torch.float32, 4300)),
                     ("f32 K+1", enqueue_case(torch, j, n, k + 1, torch.float32, 4310))],
+        "mix": [(f"N={mn} K={mk} f32", mix_case(torch, mn, mk, torch.float32, 4400 + mn))
+                for mn, mk in MIX_VARIANT_SHAPES],
     }
+    shapes = {kernel: shapes[kernel] for kernel in kernels}
     launch = {"drain": lambda lib, a: ops.launch_drain(lib, *a),
-              "enqueue": lambda lib, a: ops.launch_enqueue(lib, *a, torch.float32)}
+              "enqueue": lambda lib, a: ops.launch_enqueue(lib, *a, torch.float32),
+              "mix": lambda lib, a: ops.launch_mix(lib, *a)}
     plain = {"drain": lambda a: ops.gossip_drain_reference(*a),
-             "enqueue": lambda a: ops.gossip_enqueue_reference(*a)}
+             "enqueue": lambda a: ops.gossip_enqueue_reference(*a),
+             "mix": lambda a: ops.gossip_mix_reference(*a)}
     info = (ctypes.c_int * 3)()
     by_mode = flushes(torch)
 
@@ -1243,9 +1282,14 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
         kernel_names = [name for name in names if name in libs[kernel]]
         for name in kernel_names:
             lib = libs[kernel][name]
-            has_info = hasattr(lib, f"{kernel}_info")
-            if has_info and (lib.drain_info(j, n, n, k, 0, info) if kernel == "drain"
-                             else lib.enqueue_info(j, n, k, 0, info)) == 0:
+            if kernel == "mix" and hasattr(lib, "mix_info"):
+                for mn, mk in MIX_VARIANT_SHAPES:
+                    if lib.mix_info(mn, mk, 0, info) == 0:
+                        log(f"mix {name} N={mn} K={mk}: {info[0]} registers, {info[1]} blocks "
+                            f"per SM, grid {info[2]}")
+            elif kernel != "mix" and hasattr(lib, f"{kernel}_info") and (
+                    lib.drain_info(j, n, n, k, 0, info) if kernel == "drain"
+                    else lib.enqueue_info(j, n, k, 0, info)) == 0:
                 log(f"{kernel} {name}: {info[0]} registers, {info[1]} blocks per SM, "
                     f"grid {info[2]}")
             if name not in variants.EXACT:
@@ -1253,12 +1297,18 @@ def gossip_variants(torch, names, baseline, modes=("zero",)):
             for label, args in cases:
                 if not takes(name, label):
                     continue
-                got, want = launch[kernel](lib, args), plain[kernel](args)
-                err = float((got - want).abs().max())
+                got = launch[kernel](lib, args)
+                if kernel == "mix":
+                    err, ok = mix_against_plain(torch, ops, *args, got)
+                else:
+                    want = plain[kernel](args)
+                    err = float((got - want).abs().max())
+                    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
                 log(f"{kernel} {name} {label}: max_abs_err={err:.3e}")
-                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                if not ok:
                     raise AssertionError(f"{kernel} variant {name} disagrees with the plain "
                                          f"version")
+                del got
         for mode in modes:
             for label, args in cases:
                 runs = [name for name in kernel_names if takes(name, label)]
@@ -1307,8 +1357,21 @@ def phase_times(torch):
     return out
 
 
+def mix_instance(torch, n, k):
+    """The mix's route and instance at (N, K) f32: registers, blocks per SM, grid."""
+    from repro_torch.kernels.gossip import ops
+
+    info = (ctypes.c_int * 3)()
+    if ops._mix_lib().mix_info(n, k, 0, info) != 0:
+        raise AssertionError("mix_info failed")
+    route = ops.mix_route(n, torch.float32, ops._max_smem("mix", 0))
+    return (f"{route} route, {info[0]} registers, {info[1]} blocks per SM, grid {info[2]}")
+
+
 def phase_mix_times(torch, k):
-    """The mix at the trainer's shape: N = 4 clients, K = Dflat, f32."""
+    """The mix at the trainer's shape: N = 4 clients, K = Dflat, f32; its
+    time after a zero and a read flush, the plain version, torch.matmul,
+    and a device-to-device copy of the same plane (the stream's floor)."""
     from repro_torch.kernels.gossip import ops
 
     n = 4
@@ -1321,14 +1384,17 @@ def phase_mix_times(torch, k):
         raise AssertionError("mix kernel disagrees with its plain version at the "
                              "trainer's shape")
     del got
-    kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10)
+    by_mode = flushes(torch)
+    kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10, flush=by_mode["zero"])
+    read = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10, flush=by_mode["read"])
     plain = time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=10)
     buf, qt = torch.empty_like(deltas), q.T
     lib = time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=10)
+    copy = time_ms(torch, lambda: buf.copy_(deltas), reps=10, flush=by_mode["zero"])
     bound, by = mix_bound_ms(n, k, 4)
-    log(f"  mix N={n} K={k} f32: kernel {kern:.4f} ms, bound {bound:.4f} ms ({by}, "
-        f"{100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, library "
-        f"matmul {lib:.4f} ms")
+    log(f"  mix N={n} K={k} f32 ({mix_instance(torch, n, k)}): kernel {kern:.4f} ms (read "
+        f"flush {read:.4f}), bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
+        f"plain {plain:.4f} ms, library matmul {lib:.4f} ms, copy of the plane {copy:.4f} ms")
     del q, deltas, buf
     torch.cuda.empty_cache()
     return dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -1434,8 +1500,9 @@ def phase_baselines(torch):
     compute-matched rounds of FIG3_WINDOWS DRACO windows (one mix launch
     per round, the accuracy floor), the steady round under the sync
     detector and its device idle share, and 50 rounds of the kernel path
-    against the plain mix; then sync-symm at N = 100 (the mix's wide
-    route) for a few rounds, against its plain path too."""
+    against the plain mix; then sync-symm at N = 100 (the mix's tensor
+    route) for a few rounds, against its plain path too, and each method
+    for 50 rounds at N = 100 beside the plain mix, printed."""
     from repro_torch.api import get_algorithm, make_context, simulate, steps_for_budget
     from repro_torch.core.baselines import BASELINES
 
@@ -1515,34 +1582,44 @@ def phase_baselines(torch):
     if launches != BASELINE_WIDE_ROUNDS or not ok or not all(
             np.isfinite(v).all() for v in trace.metrics.values()):
         raise AssertionError(f"sync-symm at N={WIDE_CLIENTS} failed")
+    # printed, not held: the tensor route's split-TF32 sums differ from the
+    # plain mix's f32 ones by ~1e-6 a call, and training amplifies that over
+    # the rounds (PERF.md, PR 17)
+    for method in BASELINES:
+        err, _ = baseline_paths(torch, method, cfg100, task, data100, params0,
+                                BASELINE_PLAIN_ROUNDS, SEED + 51)
+        log(f"  {method} at N={WIDE_CLIENTS}: {BASELINE_PLAIN_ROUNDS} rounds, kernel vs plain "
+            f"mix max |d eval params| = {err:.3e} (printed, not held)")
     accs = ", ".join(f"{m} {r['accuracy']:.4f}" for m, r in out.items())
     log(f"phase 11 baselines: final accuracies {accs}; {total} mix launches")
     return out, total
 
 
 def phase_wide_times(torch):
-    """The wide route's times beside both bounds (the f32 rate and the
-    split-TF32 tensor cores), its plain version and one library call: the
-    drain at N = M = 100 and 256 (3 live f32 buckets), the mix at N = 100
-    and 256, the enqueue at J = 3, N = 100; and the baselines' mix at its
-    fig3 width (N = 25, the narrow route) beside torch.matmul. K =
-    146,447 f32 throughout; zero flush as in phase 9, read flush beside."""
+    """Times past 64 clients beside both bounds (the f32 rate and the
+    split-TF32 tensor cores), the plain version and one library call: the
+    drain's wide route at N = M = 100 and 256 (3 live f32 buckets), the
+    enqueue's at J = 3, N = 100; and the mix at the baselines' fig3 width
+    (N = 25, its narrow route) and at N = 100 and 256 (its tensor route),
+    beside torch.matmul and a copy of the deltas. K = 146,447 f32
+    throughout; zero flush as in phase 9, read flush beside."""
     from repro_torch.kernels.gossip import ops
 
     by_mode = flushes(torch)
     k = 146_447
     rows = {}
 
-    def row(label, kern, read, plain, lib, moved, flops, elem):
+    def row(label, kern, read, plain, lib, moved, flops, elem, copy=None):
         bound, by = ((moved / HBM_BYTES_PER_S * 1e3, "bytes")
                      if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS
                      else (flops / F32_FLOPS * 1e3, "operations"))
         tc, tc_by = tc_bound_ms(moved, flops, elem)
         rows[label] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                           bound_by=by, tc_bound_ms=tc, tc_bound_by=tc_by)
+                           bound_by=by, tc_bound_ms=tc, tc_bound_by=tc_by, copy_ms=copy)
         log(f"  {label}: kernel {kern:.4f} ms (read flush {read:.4f}), bound {bound:.4f} ms "
             f"({by}, f32 rate; {100 * bound / kern:.1f}%), tensor-core bound {tc:.4f} ms "
-            f"({tc_by}; {100 * tc / kern:.1f}%), plain {plain:.4f} ms, library {lib:.4f} ms")
+            f"({tc_by}; {100 * tc / kern:.1f}%), plain {plain:.4f} ms, library {lib:.4f} ms"
+            + ("" if copy is None else f", copy of the deltas {copy:.4f} ms"))
 
     for n in (100, 256):
         w, ring, slots = drain_case(torch, 3, n, n, k, 4, 3, torch.float32, 500 + n)
@@ -1560,14 +1637,16 @@ def phase_wide_times(torch):
     for n in (25, 100, 256):
         q, deltas = mix_case(torch, n, k, torch.float32, seed=600 + n)
         buf, qt = torch.empty_like(deltas), q.T
-        row(f"mix {'wide' if n > 64 else 'narrow (the baselines at fig3)'} N={n} K={k} f32",
+        log(f"  mix N={n} K={k} f32: {mix_instance(torch, n, k)}")
+        row(f"mix N={n} K={k} f32{' (the baselines at fig3)' if n == 25 else ''}",
             time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=30, flush=by_mode["zero"]),
             time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=30, flush=by_mode["read"]),
             time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=20,
                     flush=by_mode["zero"]),
             time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=20,
                     flush=by_mode["zero"]),
-            2 * n * k * 4 + n * n * 4, 2 * n * n * k, 4)
+            2 * n * k * 4 + n * n * 4, 2 * n * n * k, 4,
+            copy=time_ms(torch, lambda: buf.copy_(deltas), reps=30, flush=by_mode["zero"]))
         del q, deltas, buf
     w, pending = enqueue_case(torch, 3, 100, k, torch.float32, 700)
     buf, wt = torch.empty((3, 100, k), device="cuda"), w.transpose(1, 2)
@@ -1587,10 +1666,6 @@ def phase_wide_times(torch):
     log(f"  drain wide instance J=3 N=M=100 f32: {info[0]} registers, "
         f"{ops.wide_smem_bytes(3, 100, torch.float32)} bytes of shared memory, {info[1]} "
         f"blocks per SM, grid {info[2]}")
-    if ops._mix_lib().mix_info(100, k, 0, info) != 0:
-        raise AssertionError("mix_info failed")
-    log(f"  mix wide instance N=100 f32: {info[0]} registers, {info[1]} blocks per SM, "
-        f"grid {info[2]}")
     return rows
 
 
@@ -1602,11 +1677,13 @@ def main(argv=None) -> int:
     parser.add_argument("--flush", default="zero", help="for --ssd-variants and "
                         "--gossip-variants: zero, read, none; comma-separated")
     parser.add_argument("--gossip-variants", nargs="?", const="", metavar="NAMES",
-                        help="only time variants of drain.cu and enqueue.cu (comma-"
+                        help="only time variants of drain.cu, enqueue.cu and mix.cu (comma-"
                              "separated; default: repro_torch.kernels.gossip.variants."
                              "DEFAULT, and baseline with --baseline)")
     parser.add_argument("--baseline", metavar="TREE", help="for --gossip-variants: a tree "
-                        "whose drain.cu and enqueue.cu are the baseline variant")
+                        "whose drain.cu, enqueue.cu and mix.cu are the baseline variant")
+    parser.add_argument("--gossip-kernels", default="drain,enqueue,mix",
+                        help="for --gossip-variants: which of drain, enqueue, mix")
     parser.add_argument("--trainer-controls", action="store_true",
                         help="only phase 8, with the control and planted-fault paths")
     args = parser.parse_args(argv)
@@ -1629,7 +1706,8 @@ def main(argv=None) -> int:
 
         names = (args.gossip_variants.split(",") if args.gossip_variants
                  else variants.DEFAULT + (["baseline"] if args.baseline else []))
-        gossip_variants(torch, names, args.baseline, args.flush.split(","))
+        gossip_variants(torch, names, args.baseline, args.flush.split(","),
+                        args.gossip_kernels.split(","))
         log(card_line())
         return 0
     if args.trainer_controls:

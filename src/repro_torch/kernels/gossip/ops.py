@@ -14,9 +14,10 @@ Routes. Each source has a narrow route, tuned for N (and M) <= 64 with
 every weight matrix in one block, and the wide route of
 ``csrc/stream.cuh`` (receivers in groups of at most 64, senders in chunks
 of 32, each weight block staged beside its payload chunk) for every other
-shape. The route follows from the shape and the block's shared-memory
-limit alone (`drain_route`, `enqueue_route`, `mix_route`); the sources
-pick the same one (``<kernel>_route``).
+shape; the mix has a tensor-core route between the two (`mix_route`).
+The route follows from the shape and the block's shared-memory limit
+alone (`drain_route`, `enqueue_route`, `mix_route`); the sources pick the
+same one (``<kernel>_route``).
 """
 from __future__ import annotations
 
@@ -134,9 +135,51 @@ def enqueue_route(j: int, n: int, dtype: torch.dtype, limit: int):
     return "wide" if wide_smem_bytes(j, n, dtype) <= limit else None
 
 
-def mix_route(n: int) -> str:
-    """``csrc/mix.cu``'s route: one thread per column up to N = 64."""
-    return "narrow" if n <= NARROW_MAX else "wide"
+# csrc/mix.cu's tensor route: columns per tile (two warpgroups of 64),
+# senders per staged unit, elements per staged row (a warpgroup's), stages,
+# 64-receiver blocks per group at most; the routes by their codes
+MIX_TC_TILE = 128
+MIX_TC_K = 32
+MIX_TC_ROW = 64 + 8
+MIX_TC_STAGES = 3
+MIX_TC_NB = 2
+MIX_TC_LD = 64 + 4  # floats per row of a warpgroup's output buffer
+MIX_ROUTES = ("narrow", "tensor", "wide")
+
+
+def mix_tensor_smem_bytes(n: int, nb: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the mix's tensor route needs: Q's hi and
+    lo splits for `nb` 64-receiver blocks (senders padded to 8, f32), and
+    for each of the two warpgroups a ring of `MIX_TC_STAGES` units of
+    `MIX_TC_K` staged rows and a 64 x `MIX_TC_LD` f32 output buffer
+    (``tensor_smem_bytes``)."""
+    elem = torch.finfo(dtype).bits // 8
+    return (2 * 4 * _pad(n, 8) * 64 * nb + 2 * MIX_TC_STAGES * MIX_TC_K * MIX_TC_ROW * elem
+            + 2 * 64 * MIX_TC_LD * 4)
+
+
+def mix_tensor_shape(n: int, dtype: torch.dtype, limit: int):
+    """The receiver groups of the mix's tensor route for `n` clients:
+    (group width, 64-receiver blocks) of the widest balanced group (at
+    most ``64 * MIX_TC_NB``) whose block fits `limit` bytes; None when
+    even one block of 64 does not (``tensor_shape``)."""
+    for groups in range(-(-n // (64 * MIX_TC_NB)), n + 1):
+        gw = -(-n // groups)
+        nb = -(-gw // 64)
+        if mix_tensor_smem_bytes(n, nb, dtype) <= limit:
+            return gw, nb
+        if nb == 1:
+            return None
+    return None
+
+
+def mix_route(n: int, dtype: torch.dtype, limit: int) -> str:
+    """``csrc/mix.cu``'s route: the CUDA cores up to N = 64, wgmma on the
+    tensor cores while a block holds a receiver group's Q splits (N <= 272
+    in f32, 328 in bf16 on an H100), stream.cuh's wide route past that."""
+    if n <= NARROW_MAX:
+        return "narrow"
+    return "tensor" if mix_tensor_shape(n, dtype, limit) else "wide"
 
 
 def check_smem(need: int, limit: int, what: str) -> None:
@@ -186,21 +229,32 @@ def _max_smem(kernel: str, device: int) -> int:
         return getattr(lib, f"{kernel}_max_smem")()
 
 
-@functools.lru_cache(maxsize=None)
-def _mix_lib() -> ctypes.CDLL:
-    lib = build.load("mix")
+def bind_mix(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/mix.cu`` (or a variant,
+    or an earlier design)."""
     lib.mix_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.mix_launch.restype = ctypes.c_int
     lib.mix_max_smem.argtypes = []
     lib.mix_max_smem.restype = ctypes.c_int
-    lib.mix_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mix_wide_smem_bytes.restype = ctypes.c_longlong
-    lib.mix_info.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                             ctypes.POINTER(ctypes.c_int)]
-    lib.mix_info.restype = ctypes.c_int
+    if hasattr(lib, "mix_info"):  # the designs with a wide route
+        lib.mix_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.mix_wide_smem_bytes.restype = ctypes.c_longlong
+        lib.mix_info.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int)]
+        lib.mix_info.restype = ctypes.c_int
+    if hasattr(lib, "mix_route"):  # the designs with a tensor route
+        lib.mix_route.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.mix_route.restype = ctypes.c_int
+        lib.mix_tensor_shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.mix_tensor_shape.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mix_lib() -> ctypes.CDLL:
+    return bind_mix(build.load("mix"))
 
 
 def bind_enqueue(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -360,7 +414,8 @@ def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch ``csrc/mix.cu`` (counted in
     ``gossip_mix.launches``; any N, on the route `mix_route` names;
-    deltas contiguous); CPU tensors take `gossip_mix_reference`.
+    deltas contiguous, its rows at any alignment); CPU tensors take
+    `gossip_mix_reference`.
     """
     _check_mix(q, deltas)
     if deltas.device.type == "cpu":
@@ -368,21 +423,31 @@ def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     if deltas.device.type != "cuda":
         raise ValueError(f"no mix kernel for device {deltas.device}")
     lib = _mix_lib()
-    n, k = deltas.shape
+    n = deltas.shape[0]
     if not deltas.is_contiguous():
         raise ValueError("deltas must be contiguous")
+    with torch.cuda.device(deltas.device):
+        limit = _max_smem("mix", deltas.device.index)
+        if mix_route(n, deltas.dtype, limit) == "wide":
+            check_smem(wide_smem_bytes(1, n, deltas.dtype), limit, f"mix kernel: {n} clients")
+        out = launch_mix(lib, q, deltas)
+    gossip_mix.launches += 1
+    return out
+
+
+def launch_mix(lib: ctypes.CDLL, q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """One launch of a bound mix library `lib` on the current stream,
+    uncounted (`gossip_mix` checks its inputs, calls this and counts); q
+    (N, N), deltas (N, K) contiguous. Returns (N, K) in ``deltas.dtype``;
+    raises on a CUDA error."""
+    n, k = deltas.shape
     q32 = q.to(torch.float32).contiguous()
     out = torch.empty_like(deltas)
-    with torch.cuda.device(deltas.device):
-        if mix_route(n) == "wide":
-            check_smem(wide_smem_bytes(1, n, deltas.dtype),
-                       _max_smem("mix", deltas.device.index), f"mix kernel: {n} clients")
-        stream = torch.cuda.current_stream(deltas.device).cuda_stream
-        err = lib.mix_launch(q32.data_ptr(), deltas.data_ptr(), out.data_ptr(),
-                             n, k, int(deltas.dtype == torch.bfloat16), stream)
+    stream = torch.cuda.current_stream(deltas.device).cuda_stream
+    err = lib.mix_launch(q32.data_ptr(), deltas.data_ptr(), out.data_ptr(),
+                         n, k, int(deltas.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"mix kernel launch failed: CUDA error {err}")
-    gossip_mix.launches += 1
     return out
 
 

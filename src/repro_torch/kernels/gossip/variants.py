@@ -1,7 +1,7 @@
-"""Variants of the gossip drain and enqueue kernels, to see where their
-time goes on the card.
+"""Variants of the gossip drain, enqueue and mix kernels, to see where
+their time goes on the card.
 
-A variant of kernel ``drain`` or ``enqueue`` is ``csrc/<kernel>.cu``
+A variant of kernel ``drain``, ``enqueue`` or ``mix`` is ``csrc/<kernel>.cu``
 with the named edits of ``EDITS[kernel]`` applied, several joined by
 ``+``; ``kernel`` is the source unchanged, and ``baseline`` is the same
 kernel's source from another tree (a previous design, say the parent
@@ -17,8 +17,13 @@ product, and ``wide-no-mma`` and ``wide-no-copy`` drop the wide route's
 product or its copies. The others keep the arithmetic and are held to the plain
 version like the kernel itself: ``stages-1`` to ``stages-4`` set the
 ring's depth, and ``cuda-cores`` (the drain) or ``tensor-cores`` (the
-enqueue) takes the kernel's other product. A name that does not apply to a kernel is
-skipped for it (`applies`).
+enqueue) takes the kernel's other product. The mix has its own edits
+(``MIX``): ``empty``, ``no-fma`` (no product: a sum in the narrow route's,
+no wgmma in the tensor route's), ``no-stores``, ``staging-only``,
+``one-term`` and ``no-copy`` (the tensor route's), and shapes that keep
+the arithmetic: ``narrow-ch-double`` and ``narrow-ch-half`` (twice and
+half the loads in flight in the narrow route). A name that does not
+apply to a kernel is skipped for it (`applies`).
 
 An edit is an exact (old text, new text) pair of the source; every edit
 must find its text (`variant_source` raises otherwise, and a CPU test
@@ -88,12 +93,38 @@ EDITS = {k: dict(_COMMON, **{"no-stores": stores, "staging-only": FMA + stores,
 for _k in EDITS:  # the ring's depth
     EDITS[_k].update({f"stages-{n}": _set(STAGES, n) for n in (1, 2, 4)})
 
+# the mix (csrc/mix.cu): its narrow route's product (the loads kept live by
+# a sum in its place) and stores, its tensor route's product, stores and
+# copies (behind tests the compiler cannot settle), and shapes that keep
+# the arithmetic
+_MIX_FMA = [("if (n0 + j < N) narrow_fma<NR, C>(acc, q_sh + (n0 + j) * NR, p[j]);",
+             "if (n0 + j < N) for (int i = 0; i < C; ++i) acc[0][i] += p[j][i];"),
+            ("    tensor_mma<T, NB>(acc, ring", "    if (K >> 62) tensor_mma<T, NB>(acc, ring")]
+_MIX_STORES = [("      if (m < N) {\n        T* orow", "      if ((K >> 62) && m < N) {\n        T* orow"),
+               ("      tensor_store<T, NB>(acc, buf", "      if (K >> 62) tensor_store<T, NB>(acc, buf")]
+MIX = {
+    "empty": [("if (K < 1) return;  // nothing to mix", "return;  // nothing to mix")],
+    "no-fma": _MIX_FMA,
+    "no-stores": _MIX_STORES,
+    "staging-only": _MIX_FMA + _MIX_STORES,
+    # the tensor route's product with its hi x hi term only (wrong by ~2^-11)
+    "one-term": [("        if constexpr (sizeof(T) == 4) wgmma_tf32(acc[b], al[ks], dh);\n"
+                  "        wgmma_tf32(acc[b], ah[ks], dl);\n", "")],
+    "no-copy": [("if (ch < (int)((head + bytes + 15) >> 4))",
+                 "if ((K >> 62) && ch < (int)((head + bytes + 15) >> 4))")],
+    "narrow-ch-double": [("return 16 / C;", "return 32 / C;")],
+    "narrow-ch-half": [("return 16 / C;", "return 8 / C;")],
+}
+EDITS["mix"] = MIX
+
 # variants that compute the kernel's function
 EXACT = {"kernel", "baseline", "stages-1", "stages-2", "stages-4", "cuda-cores",
-         "tensor-cores"}
+         "tensor-cores", "narrow-ch-double", "narrow-ch-half"}
 DEFAULT = ["kernel", "cuda-cores", "tensor-cores", "empty", "staging-only", "no-fma",
-           "no-stores", "compute-only", "one-term", "stages-1", "stages-2", "stages-4"]
-BIND = {"drain": ops.bind_drain, "enqueue": ops.bind_enqueue}
+           "no-stores", "compute-only", "one-term", "no-copy", "stages-1", "stages-2",
+           "stages-4", "narrow-ch-double", "narrow-ch-half"]
+BIND = {"drain": ops.bind_drain, "enqueue": ops.bind_enqueue, "mix": ops.bind_mix}
+KERNELS = tuple(BIND)
 
 
 def applies(kernel: str, name: str) -> bool:
@@ -123,7 +154,7 @@ def variant_source(kernel: str, name: str, baseline: Optional[Path] = None) -> s
 
 
 def build_variants(names: Sequence[str], baseline: Optional[Path] = None,
-                   kernels: Sequence[str] = ("drain", "enqueue"),
+                   kernels: Sequence[str] = KERNELS,
                    ) -> Dict[str, Dict[str, ctypes.CDLL]]:
     """kernel -> name -> the variant's library, bound for
     ``ops.launch_<kernel>``, for each name that `applies` to the kernel;

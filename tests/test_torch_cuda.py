@@ -331,6 +331,67 @@ def test_mix_kernel_past_2_to_the_31_elements(cuda_device):
                                    rtol=1e-5, atol=1e-5)
 
 
+# the mix's routes at their edges (csrc/mix.cu): the narrow route's
+# receivers padded to 4 and its ends, the tensor route's 64-receiver wgmma
+# blocks (65, 100, 104, 105, 128), two groups (129 in two of 65) and four
+# (256 in four of 64); K under one 4-column vector, odd and ragged, and the
+# EMNIST width
+MIX_EDGE_N = (1, 3, 4, 5, 8, 9, 25, 33, 64, 65, 100, 104, 105, 128, 129, 256)
+MIX_EDGE_K = (1, 3, 5, 4099, 146_447)
+
+
+def _mix_against_plain(got, q, deltas, route):
+    want = ops.gossip_mix_reference(q, deltas)
+    assert got.dtype == deltas.dtype and got.shape == deltas.shape
+    if deltas.dtype == torch.float32 or route == "narrow":
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-5, atol=1e-5)
+    else:  # split-TF32 f32 sums round to the neighbouring bf16 near a tie
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MIX_EDGE_N)
+@pytest.mark.parametrize("k", MIX_EDGE_K)
+@DTYPES
+def test_mix_routes_match_plain_version_at_their_edges(cuda_device, n, k, dtype):
+    q, deltas = _mix_case(cuda_device, n, k, dtype, seed=7 * n + k)
+    route = ops.mix_route(n, dtype, ops._max_smem("mix", 0))
+    assert route == ("narrow" if n <= 64 else "tensor")
+    assert ops._mix_lib().mix_route(n, int(dtype == torch.bfloat16)) == \
+        ops.MIX_ROUTES.index(route)
+    before = ops.gossip_mix.launches
+    got = ops.gossip_mix(q, deltas)
+    torch.cuda.synchronize()
+    assert ops.gossip_mix.launches == before + 1
+    _mix_against_plain(got, q, deltas, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(4, 4096), (4, 4099), (25, 4099), (100, 4099)])
+@DTYPES
+def test_mix_kernel_takes_rows_at_any_alignment(cuda_device, n, k, dtype):
+    """A contiguous plane one element into its storage: no row starts on
+    16 bytes, even where K would keep them all aligned."""
+    q, deltas = _mix_case(cuda_device, n, k, dtype, seed=n)
+    flat = torch.zeros(n * k + 1, dtype=dtype, device=cuda_device)
+    flat[1:].copy_(deltas.flatten())
+    shifted = flat[1:].view(n, k)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _mix_against_plain(ops.gossip_mix(q, shifted), q, shifted,
+                       ops.mix_route(n, dtype, ops._max_smem("mix", 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,route", [(272, 4099, "tensor"), (273, 4099, "wide"),
+                                       (1000, 4099, "wide")])
+def test_mix_kernel_takes_any_number_of_clients(cuda_device, n, k, route):
+    """The tensor route's last N (five groups of 55) and, past what a
+    block's Q splits hold, stream.cuh's wide route, at 1,000 clients too."""
+    q, deltas = _mix_case(cuda_device, n, k, torch.float32, seed=n)
+    assert ops.mix_route(n, torch.float32, ops._max_smem("mix", 0)) == route
+    _mix_against_plain(ops.gossip_mix(q, deltas), q, deltas, route)
+
+
 @pytest.mark.cuda
 def test_mix_kernel_rejects_what_it_cannot_hold(cuda_device):
     """N = 65 is no longer refused (the wide route, against the plain
@@ -502,10 +563,16 @@ def test_wide_reckoning_matches_the_sources(cuda_device):
     mix, enq = ops._mix_lib(), ops._enqueue_lib()
     limit = ops._max_smem("enqueue", 0)
     assert limit == ops._max_smem("mix", 0) == ops._max_smem("drain", 0)
-    for n in (65, 100, 256, 1000):
+    shape = (ctypes.c_int * 2)()
+    for n in (1, 25, 64, 65, 100, 129, 256, 272, 273, 328, 329, 1000):
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = int(dtype == torch.bfloat16)
             assert ops.wide_smem_bytes(1, n, dtype) == mix.mix_wide_smem_bytes(n, bf16)
+            route = ops.mix_route(n, dtype, limit)
+            assert mix.mix_route(n, bf16) == ops.MIX_ROUTES.index(route)
+            assert mix.mix_tensor_shape(n, bf16, shape) == (route == "tensor")
+            if route == "tensor":
+                assert tuple(shape) == ops.mix_tensor_shape(n, dtype, limit)
     for j, n in ((3, 25), (7, 64), (8, 64), (15, 64), (3, 65), (256, 256)):
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = int(dtype == torch.bfloat16)

@@ -1,9 +1,9 @@
 """The host side of the streamed gossip kernels (``csrc/drain.cu``,
-``csrc/enqueue.cu``, ``csrc/stream.cuh``): the shared-memory reckoning
-the wrappers check before a launch, its agreement with the sources'
-constants, and the variants that ``chip_smoke.py --gossip-variants``
-builds. The kernels themselves run only on the card
-(tests/test_torch_cuda.py and chip_smoke.py)."""
+``csrc/enqueue.cu``, ``csrc/mix.cu``, ``csrc/stream.cuh``): the routes and
+shared-memory reckoning the wrappers check before a launch, their
+agreement with the sources' constants, and the variants that
+``chip_smoke.py --gossip-variants`` builds. The kernels themselves run
+only on the card (tests/test_torch_cuda.py and chip_smoke.py)."""
 import re
 
 import pytest
@@ -152,13 +152,63 @@ def test_drain_route_from_the_shape(j, n, m, dtype, route):
 
 
 def test_enqueue_and_mix_routes_from_the_shape():
+    """The mix: the CUDA cores up to 64 clients, wgmma on the tensor cores
+    while a block holds a receiver group's Q splits (272 clients in f32,
+    328 in bf16, whose ring is half), stream.cuh's wide route past that."""
     assert ops.enqueue_route(3, 25, torch.float32, H100_SMEM) == "narrow"
     assert ops.enqueue_route(7, 64, torch.float32, H100_SMEM) == "narrow"
     assert ops.enqueue_route(8, 64, torch.float32, H100_SMEM) == "wide"
     assert ops.enqueue_route(3, 65, torch.bfloat16, H100_SMEM) == "wide"
     assert ops.enqueue_route(0, 8, torch.float32, H100_SMEM) is None
-    assert [ops.mix_route(n) for n in (1, 4, 25, 64, 65, 100, 1000)] == \
-        ["narrow"] * 4 + ["wide"] * 3
+    assert [ops.mix_route(n, torch.float32, H100_SMEM)
+            for n in (1, 4, 25, 64, 65, 100, 256, 272, 273, 1000)] == \
+        ["narrow"] * 4 + ["tensor"] * 4 + ["wide"] * 2
+    assert [ops.mix_route(n, torch.bfloat16, H100_SMEM) for n in (64, 281, 328, 329)] == \
+        ["narrow", "tensor", "tensor", "wide"]
+
+
+def test_mix_constants_match_the_source():
+    """The tensor route's Python reckoning uses mix.cu's own tile, unit,
+    row, stages, receiver blocks and output rows, and the route codes."""
+    source = build.source_path("mix")
+    text = source.read_text()
+    assert ops.MIX_TC_TILE == _source_int(source, r"constexpr int TC_TILE = (\d+);")
+    assert _source_int(source, r"#define TC_THREADS (\d+)") == 2 * ops.MIX_TC_TILE
+    assert ops.MIX_TC_K == _source_int(source, r"constexpr int TC_K = (\d+);")
+    assert ops.MIX_TC_ROW - 64 == _source_int(source, r"constexpr int TC_ROW = 64 \+ (\d+);")
+    assert ops.MIX_TC_STAGES == _source_int(source, r"constexpr int TC_STAGES = (\d+);")
+    assert ops.MIX_TC_NB == _source_int(source, r"constexpr int TC_NB = (\d+);")
+    assert ops.MIX_TC_LD == 64 + _source_int(source, r"constexpr int TC_LD = 64 \+ (\d+);")
+    assert "// 0 narrow, 1 tensor, 2 wide (ops.MIX_ROUTES)" in text
+    assert ops.MIX_ROUTES == ("narrow", "tensor", "wide")
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in text
+
+
+@pytest.mark.parametrize("n,shape,smem", [
+    (65, (65, 2), 163_840), (100, (100, 2), 196_608), (128, (128, 2), 221_184),
+    (129, (65, 2), 229_376), (256, (64, 1), 221_184), (272, (55, 1), 229_376)])
+def test_mix_tensor_groups_and_smem(n, shape, smem):
+    """One group of up to 128 receivers (two wgmma blocks of 64; each delta
+    read once), else balanced groups, each the widest whose block (Q's hi
+    and lo splits, senders padded to 8 x 64 per block, and per warpgroup
+    three stages of 32 rows x 72 f32 and a 64 x 68 f32 output buffer) fits
+    an H100 block: 256 in four groups of 64."""
+    gw, nb = ops.mix_tensor_shape(n, torch.float32, H100_SMEM)
+    assert (gw, nb) == shape and nb == -(-gw // 64) <= ops.MIX_TC_NB
+    groups = -(-n // gw)
+    assert (groups - 1) * gw < n <= groups * gw
+    assert ops.mix_tensor_smem_bytes(n, nb, torch.float32) == smem <= H100_SMEM
+    assert smem == 2 * 4 * (-(-n // 8) * 8) * 64 * nb + 2 * 3 * 32 * 72 * 4 + 2 * 64 * 68 * 4
+
+
+def test_mix_tensor_route_ends_where_q_does_not_fit():
+    """Past 272 clients in f32 (328 in bf16) not even one block of 64
+    receivers fits beside the rings; the bf16 rings are half the f32 ones."""
+    assert ops.mix_tensor_shape(273, torch.float32, H100_SMEM) is None
+    assert ops.mix_tensor_shape(329, torch.bfloat16, H100_SMEM) is None
+    assert ops.mix_tensor_shape(328, torch.bfloat16, H100_SMEM) == (55, 1)
+    assert ops.mix_tensor_smem_bytes(100, 2, torch.float32) - \
+        ops.mix_tensor_smem_bytes(100, 2, torch.bfloat16) == 2 * 3 * 32 * 72 * 2
 
 
 @pytest.mark.parametrize("kernel,edit", sorted(
@@ -169,6 +219,28 @@ def test_every_gossip_variant_edit_finds_its_text(kernel, edit):
     got = variants.variant_source(kernel, edit)
     assert got != variants.variant_source(kernel, "kernel")
     assert all(new in got for _, new in variants.EDITS[kernel][edit])
+
+
+def test_mix_variants_apply(tmp_path):
+    """The mix's own edits: the product and stores of both of its routes,
+    the tensor route's terms and copies, and shapes that keep the
+    arithmetic; the drain's ring and product edits do not apply to it, the
+    default list builds, and the baseline is the mix of another tree."""
+    assert variants.variant_source("mix", "kernel") == build.source_path("mix").read_text()
+    for name in variants.DEFAULT:
+        if variants.applies("mix", name):
+            variants.variant_source("mix", name)
+    assert not any(variants.applies("mix", name) for name in (
+        "compute-only", "stages-2", "cuda-cores", "tensor-cores", "wide-no-mma"))
+    assert variants.applies("mix", "no-fma+no-stores")
+    assert {"narrow-ch-double", "narrow-ch-half"} <= variants.EXACT
+    assert "acc[0][i] += p[j][i]" in variants.variant_source("mix", "no-fma")
+    assert variants.variant_source("mix", "no-stores").count("(K >> 62)") == 2  # both routes
+    assert variants.variant_source("mix", "one-term").count("wgmma_tf32(acc[b]") == 1
+    old = tmp_path / "src" / "repro_torch" / "kernels" / build.SOURCES["mix"]
+    old.parent.mkdir(parents=True)
+    old.write_text("// an earlier design\n")
+    assert variants.variant_source("mix", "baseline", tmp_path) == "// an earlier design\n"
 
 
 @pytest.mark.parametrize("kernel", ["drain", "enqueue"])
