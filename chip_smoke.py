@@ -69,6 +69,24 @@ Phases (any failure exits non-zero):
                through the mix kernel against the plain mix (1e-4); then
                sync-symm at N = 100 (the mix's tensor route) and, printed
                and not held, each method's 50-round gap there;
+  12. scenarios and optimizers - at phase 3's EMNIST setup, the rings of
+               `benchmarks/fig_dynamic.py`'s knobs (period 32): 240 windows
+               each under markov-edge-flip (churn 0.2), straggler-profile
+               (fraction 0.5, slowdown 10, duty 0.5) and random-waypoint;
+               tiny-lm (AdamW, warmup-cosine) under random-waypoint and
+               small-cnn (Nesterov momentum) under straggler-profile at
+               their default widths, 240 windows each (tiny-lm's
+               perplexity must fall, small-cnn's accuracy end above
+               chance);
+               every run one drain launch a window, finite params and
+               optimizer plane, the steady window under the sync detector
+               (0 host syncs) and its device idle share; 50 windows of
+               each new task through the kernel and the plain drain
+               (params and optimizer plane within 1e-4, the same
+               acceptances); the four baselines with momentum under
+               markov-edge-flip, 60 rounds (one mix launch a round), the
+               steady round (0 host syncs, idle share), 50 rounds through
+               the kernel against the plain mix (1e-4);
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -76,7 +94,7 @@ Phases (any failure exits non-zero):
                and the mix at N = 25, 100 and 256 beside both bounds (f32
                rate and split-TF32 tensor cores); every mix row also beside
                a device-to-device copy of the same plane (the stream's
-               floor). Phase 9 runs last, after 10 and 11.
+               floor). Phase 9 runs last, after 10, 11 and 12.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -211,6 +229,28 @@ FIG3_WINDOWS = 300
 BASELINE_FLOORS = {"sync-symm": 0.44, "sync-push": 0.44, "async-symm": 0.43,
                    "async-push": 0.72}
 BASELINE_STEADY, BASELINE_PLAIN_ROUNDS, BASELINE_WIDE_ROUNDS = 30, 50, 5
+# phase 12: scenarios and local optimizers at phase 3's EMNIST setup, with
+# benchmarks/fig_dynamic.py's knobs (rings of period 32)
+SCENARIO_WINDOWS, SCENARIO_STEADY, SCENARIO_ROUNDS = 240, 60, 60
+SCENARIOS = {
+    "markov-edge-flip": dict(steps=32, churn=0.2),
+    "straggler-profile": dict(steps=32, straggler_frac=0.5, slowdown=10.0, duty=0.5),
+    "random-waypoint": dict(steps=32),
+}
+# the new tasks at their default widths, each with its optimizer and
+# scenario (scripts/phase12_reference.py runs the JAX package at the same
+# setups). tiny-lm's perplexity must fall, small-cnn's accuracy end above
+# chance (0.2 for 5 classes). The latter is a thin margin: the JAX package
+# ends at 0.23-0.29 there while its clients' own-shard loss rises
+# (PERF.md, PR 18)
+NEW_TASKS = {
+    "tiny-lm": (dict(optimizer="adamw", schedule="warmup-cosine",
+                     schedule_kwargs={"warmup": 24, "total_steps": SCENARIO_WINDOWS}),
+                "random-waypoint"),
+    "small-cnn": (dict(optimizer="momentum", opt_kwargs={"nesterov": True}),
+                  "straggler-profile"),
+}
+SMALL_CNN_CHANCE = 0.2
 
 
 def log(msg):
@@ -1448,10 +1488,11 @@ def phase_wide_window(torch):
     return worst
 
 
-def profile_rounds(torch, algo, st, ctx, rounds, steady_ms):
-    """Device busy share of `rounds` profiled rounds against the
-    unprofiled steady round (`steady_ms`); the mix's row. None when the
-    profiler records no device time."""
+def profile_rounds(torch, algo, st, ctx, rounds, steady_ms, kernel="mix_kernel",
+                   unit="round"):
+    """Device busy share of `rounds` profiled steps against the
+    unprofiled steady step (`steady_ms`); the `kernel`'s row (the mix's
+    by default). None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
@@ -1467,10 +1508,11 @@ def profile_rounds(torch, algo, st, ctx, rounds, steady_ms):
     if busy <= 0:
         log("    profiler: no device time recorded (not measured)")
         return None
-    mix = sum(r[0] for r in rows if "mix_kernel" in r[1]) / rounds
+    mix = sum(r[0] for r in rows if kernel in r[1]) / rounds
     share = busy / (steady_ms * 1e3)
-    log(f"    profiler over {rounds} rounds: device busy {busy:.1f} us/round, mix "
-        f"{mix:.2f} us/round; {100 * share:.2f}% busy, {100 - 100 * share:.2f}% idle")
+    log(f"    profiler over {rounds} {unit}s: device busy {busy:.1f} us/{unit}, "
+        f"{kernel.split('_')[0]} {mix:.2f} us/{unit}; {100 * share:.2f}% busy, "
+        f"{100 - 100 * share:.2f}% idle")
     return 1.0 - share
 
 
@@ -1593,6 +1635,190 @@ def phase_baselines(torch):
     accs = ", ".join(f"{m} {r['accuracy']:.4f}" for m, r in out.items())
     log(f"phase 11 baselines: final accuracies {accs}; {total} mix launches")
     return out, total
+
+
+def steady_steps(torch, algo, st, ctx, steps):
+    """Five warm-up steps of `algo`, then `steps` under the sync detector:
+    ``(state, host ms/step, host syncs seen)``."""
+    for _ in range(5):
+        st = algo.step(st, ctx)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                st = algo.step(st, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    return st, ms, [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def scenario_windows(torch, cfg, task, ctx, params0, data, eval_data, seed, label):
+    """`SCENARIO_WINDOWS` DRACO windows of `simulate` under ``ctx.schedule``
+    with the drain's count set to 0 before and read after (one launch a
+    window, finite params and optimizer plane), then the steady window
+    under the sync detector (0 host syncs) and its device idle share."""
+    from repro_torch.api import get_algorithm, simulate
+    from repro_torch.core import flat as flat_lib
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, trace = simulate("draco", cfg, params0, data=data, num_steps=SCENARIO_WINDOWS,
+                            task=task, key=seed, eval_every=SCENARIO_WINDOWS,
+                            eval_data=eval_data, ctx=ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["drain"]
+    metric = float(trace.metrics[task.metric_name][-1])
+    finite = all(bool(torch.isfinite(p).all()) for p in flat_lib.tree_leaves(state.params)) \
+        and bool(torch.isfinite(state.opt_state).all())
+    log(f"  {label}: {SCENARIO_WINDOWS} windows in {wall:.3f} s with the eval, {launches} "
+        f"drain launches, final {task.metric_name} {metric:.4f}, "
+        f"{int(state.total_accept.sum())} messages accepted")
+    if launches != SCENARIO_WINDOWS:
+        raise AssertionError(f"{label}: drain launched {launches} times in "
+                             f"{SCENARIO_WINDOWS} windows")
+    if not finite or not np.isfinite(metric):
+        raise AssertionError(f"{label}: non-finite params, plane or metric")
+    algo = get_algorithm("draco")
+    st = algo.init(seed + 1, cfg, params0, task=task, device="cuda")
+    st, ms, syncs = steady_steps(torch, algo, st, ctx, SCENARIO_STEADY)
+    log(f"    steady {ms:.3f} ms/window over {SCENARIO_STEADY} windows; host syncs in the "
+        f"loop: {len(syncs)}")
+    if syncs:
+        raise AssertionError(f"{label}: host sync inside the window loop: {syncs[0]}")
+    idle = profile_rounds(torch, algo, st, ctx, 20, ms, kernel="drain_kernel", unit="window")
+    return dict(label=label, state=state, metric=metric, ms=ms, idle=idle,
+                launches=launches)
+
+
+def same_path(torch, a, b, what):
+    """Max |a - b| over two runs' params and optimizer planes; raises
+    unless within PATH_TOL and finite."""
+    worst = 0.0
+    from repro_torch.core import flat as flat_lib
+
+    pairs = [(path, x, y) for (path, x), y in zip(flat_lib.tree_items(a.params),
+                                                   flat_lib.tree_leaves(b.params))]
+    pairs.append(("opt_state", a.opt_state, b.opt_state))
+    for k, x, y in pairs:
+        worst = max(worst, float((x - y).abs().max())) if x.numel() else worst
+        if not torch.allclose(x, y, rtol=PATH_TOL, atol=PATH_TOL) \
+                or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{what}: kernel path and plain path differ in {k}")
+    return worst
+
+
+def phase_scenarios(torch):
+    """Phase 12: (a) the EMNIST windows under each scenario; (b) tiny-lm
+    (AdamW, warmup-cosine) and small-cnn (Nesterov momentum) at their
+    default widths under their scenarios; (c) 50 windows of each (b) run
+    through the drain kernel and through the plain drain; (d) the four
+    baselines with momentum under markov-edge-flip: one mix launch a
+    round, 0 host syncs, 50 rounds through the kernel against the plain
+    mix. Returns the drain and mix launches of the runs and their rows."""
+    from repro_torch.api import get_algorithm, make_context, simulate
+    from repro_torch.core import baselines, protocol
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.core.baselines import BASELINES
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.tasks import get_task
+
+    drain_total, mix_total, rows = 0, 0, []
+    cfg, mlp = emnist_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    params0 = mlp.init_params(gen)
+    data, eval_data = mlp.make_data(gen, cfg.num_clients)
+    for i, (name, knobs) in enumerate(SCENARIOS.items()):
+        ctx = make_context(cfg, task=mlp, data=data, params0=params0, scenario=name,
+                           scenario_key=SEED + 61 + i, scenario_kwargs=knobs)
+        r = scenario_windows(torch, cfg, mlp, ctx, params0, data, eval_data,
+                             SEED + 64 + i, f"EMNIST mlp/sgd, {name}")
+        drain_total += r["launches"]
+        rows.append(r)
+    for i, (name, (opt, scenario)) in enumerate(NEW_TASKS.items()):
+        task = get_task(name, **opt)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 70 + i)
+        p0 = task.init_params(gen)
+        tdata, tev = task.make_data(gen, cfg.num_clients)
+        ctx = make_context(cfg, task=task, data=tdata, params0=p0, scenario=scenario,
+                           scenario_key=SEED + 72 + i, scenario_kwargs=SCENARIOS[scenario])
+        with torch.no_grad():
+            before = float(task.eval_fn(flat_lib.tree_map(lambda v: v[None], p0), *tev).mean())
+            stacked = protocol.init_state(0, cfg, p0, device="cuda").params
+            loss0 = float(task.loss_fn(stacked, *tdata).mean())
+        r = scenario_windows(torch, cfg, task, ctx, p0, tdata, tev, SEED + 74 + i,
+                             f"{name} {task.opt_name}/{task.schedule}, {scenario}")
+        with torch.no_grad():
+            loss1 = float(task.loss_fn(r["state"].params, *tdata).mean())
+        log(f"    {task.metric_name} {before:.4f} -> {r['metric']:.4f}; mean own-shard loss "
+            f"{loss0:.4f} -> {loss1:.4f}")
+        if name == "tiny-lm" and not r["metric"] < before:
+            raise AssertionError(f"tiny-lm: perplexity {r['metric']} not below {before}")
+        if name == "small-cnn" and not r["metric"] > SMALL_CNN_CHANCE:
+            raise AssertionError(f"small-cnn: accuracy {r['metric']} not above chance")
+        drain_total += r["launches"]
+        rows.append(r)
+        runs = {}
+        for path, drain in (("kernel", None), ("plain", ops.gossip_drain_reference)):
+            st = protocol.init_state(SEED + 76 + i, cfg, p0, task=task)
+            runs[path] = protocol.run_windows(st, cfg, None, None, task, tdata, PLAIN_WINDOWS,
+                                              drain=drain, schedule=ctx.schedule)
+        torch.cuda.synchronize()
+        worst = same_path(torch, runs["kernel"], runs["plain"], name)
+        same = torch.equal(runs["kernel"].total_accept, runs["plain"].total_accept)
+        log(f"    {PLAIN_WINDOWS} windows, kernel vs plain drain: max |d params, plane| = "
+            f"{worst:.3e} (tolerance {PATH_TOL}); same acceptances {same}")
+        if not same:
+            raise AssertionError(f"{name}: the paths accepted different messages")
+    cfg3, mlp3 = fig3_config()
+    task = mlp3.with_optimizer("momentum")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    p0 = task.init_params(gen)
+    bdata, bev = task.make_data(gen, cfg3.num_clients)
+    ctx = make_context(cfg3, task=task, data=bdata, params0=p0, scenario="markov-edge-flip",
+                       scenario_key=SEED + 81, scenario_kwargs=SCENARIOS["markov-edge-flip"])
+    for i, method in enumerate(BASELINES):
+        algo = get_algorithm(method)
+        reset_launches()
+        state, trace = simulate(method, cfg3, p0, data=bdata, num_steps=SCENARIO_ROUNDS,
+                                task=task, key=SEED + 82 + i, eval_every=SCENARIO_ROUNDS,
+                                eval_data=bev, ctx=ctx)
+        torch.cuda.synchronize()
+        launches = launch_counts()["mix"]
+        mix_total += launches
+        acc = float(trace.metrics["accuracy"][-1])
+        log(f"  {method} mlp/momentum, markov-edge-flip: {SCENARIO_ROUNDS} rounds, {launches} "
+            f"mix launches, final accuracy {acc:.4f}")
+        if launches != SCENARIO_ROUNDS or not all(np.isfinite(v).all()
+                                                  for v in trace.metrics.values()):
+            raise AssertionError(f"{method}: {launches} mix launches in {SCENARIO_ROUNDS} "
+                                 f"rounds, or non-finite metrics")
+        st = algo.init(SEED + 86 + i, cfg3, p0, task=task, device="cuda")
+        st, ms, syncs = steady_steps(torch, algo, st, ctx, BASELINE_STEADY)
+        log(f"    steady {ms:.3f} ms/round over {BASELINE_STEADY} rounds; host syncs in the "
+            f"loop: {len(syncs)}")
+        if syncs:
+            raise AssertionError(f"{method}: host sync inside the round loop: {syncs[0]}")
+        idle = profile_rounds(torch, algo, st, ctx, 10, ms)
+        runs = {}
+        for path, mix in (("kernel", None), ("plain", ops.gossip_mix_reference)):
+            st = baselines.init_baseline_state(SEED + 90 + i, cfg3, p0, task=task)
+            runs[path] = baselines.run_baseline(method, st, cfg3, task, bdata,
+                                                BASELINE_PLAIN_ROUNDS, mix=mix,
+                                                schedule=ctx.schedule)
+        torch.cuda.synchronize()
+        worst = same_path(torch, runs["kernel"], runs["plain"], method)
+        log(f"    {BASELINE_PLAIN_ROUNDS} rounds, kernel vs plain mix: max |d params, plane| = "
+            f"{worst:.3e} (tolerance {PATH_TOL})")
+        rows.append(dict(label=f"{method} mlp/momentum, markov-edge-flip", metric=acc, ms=ms,
+                         idle=idle))
+    log(f"phase 12 scenarios: {drain_total} drain launches, {mix_total} mix launches")
+    return drain_total, mix_total, rows
 
 
 def phase_wide_times(torch):
@@ -1731,6 +1957,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_wide_window(torch)
     baseline_runs, baseline_launches = phase_baselines(torch)
+    scen_drain, scen_mix, scen_rows = phase_scenarios(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
@@ -1740,11 +1967,12 @@ def main(argv=None) -> int:
         dict(name="gossip_drain", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
-             launches=launches, max_abs_err=max_err, **times["f32", 3]),
+             launches=launches + scen_drain, max_abs_err=max_err, **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
-             launches=mix_launches + baseline_launches, max_abs_err=max(mix_err, mix_err_train),
+             launches=mix_launches + baseline_launches + scen_mix,
+             max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/enqueue.cu",
@@ -1768,8 +1996,15 @@ def main(argv=None) -> int:
         idle = "not measured" if r["idle"] is None else f"{100 * r['idle']:.2f}% idle"
         log(f"baseline path ({method}, fig3 EMNIST): {r['rounds']} rounds, final accuracy "
             f"{r['accuracy']:.4f}, {r['steady_ms']:.3f} ms/round steady, {idle}")
+    for r in scen_rows:
+        idle = "not measured" if r["idle"] is None else f"{100 * r['idle']:.2f}% idle"
+        unit = "window" if "launches" in r else "round"
+        log(f"scenario path ({r['label']}): {r['ms']:.3f} ms/{unit} steady, {idle}, final "
+            f"metric {r['metric']:.4f}")
+    log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
+        f"paths")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {baseline_launches} on "
-        f"the baselines'")
+        f"the baselines', {scen_mix} on the scenario baselines'")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,41 +2,33 @@
 (port of `repro.api.algorithms`).
 
 Each is a thin adapter over the step functions of
-`repro_torch.core.protocol` and `repro_torch.core.baselines`. Push-sum
-de-biasing lives in `eval_params`, not in the step, as in the paper's
-evaluation. The event family (ROADMAP.md queue 1 item 11) is not ported.
+`repro_torch.core.protocol` and `repro_torch.core.baselines`, handing
+them the step-t world (`_view`): the scenario schedule's snapshot when
+the context carries one, else the frozen graph. Push-sum de-biasing
+lives in `eval_params`, not in the step, as in the paper's evaluation.
+The event family (ROADMAP.md queue 1 item 11) is not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
-
-import torch
 
 from repro_torch.api.algorithm import register_algorithm
 from repro_torch.core import baselines as baselines_lib
 from repro_torch.core import protocol as protocol_lib
+from repro_torch.scenarios.base import Snapshot
 
 # Partial-participation probability of the async baselines (the fig3
 # compute matching assumes this value; the reference's default).
 P_ACTIVE = 0.5
 
 
-class View(NamedTuple):
-    """The world a step sees: the row-stochastic Q, its adjacency and
-    its Metropolis weights."""
-
-    q: torch.Tensor
-    adj: torch.Tensor
-    w_sym: Optional[torch.Tensor]
-
-
-def _view(ctx, t) -> View:
-    """The step-`t` world. The port has the frozen path only (the
-    context's graph at every step); scenario schedules wait for ROADMAP.md
-    queue 1 item 9."""
-    del t
-    return View(ctx.q, ctx.adj, ctx.w_sym)
+def _view(ctx, t: int) -> Snapshot:
+    """The step-`t` world: the schedule's ring rows (views, no device
+    work) when the context carries one, else the frozen graph with no
+    positions or rates (the steps' frozen path)."""
+    if ctx.schedule is None:
+        return Snapshot(ctx.q, ctx.adj, ctx.w_sym)
+    return ctx.schedule.at(t)
 
 
 @register_algorithm("draco")
@@ -52,7 +44,8 @@ class Draco:
         v = _view(ctx, state.window_idx)
         return protocol_lib.draco_window(
             state, ctx.cfg, v.q, v.adj, ctx.task, ctx.data,
-            spec=ctx.flat_spec, draws=draws)
+            spec=ctx.flat_spec, draws=draws, positions=v.positions,
+            compute_rate=v.compute_rate, tx_rate=v.tx_rate)
 
     def step_index(self, state) -> int:
         return state.window_idx
@@ -63,6 +56,11 @@ class Draco:
     def grads_per_step(self, cfg):
         # P(>= 1 Poisson grad event in one superposition window)
         return 1.0 - math.exp(-cfg.lambda_grad * cfg.window)
+
+
+def _scenario(v: Snapshot):
+    """The snapshot fields a baseline round takes (it has no tx rate)."""
+    return dict(positions=v.positions, compute_rate=v.compute_rate)
 
 
 class _Baseline:
@@ -93,7 +91,7 @@ class SyncSymm(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
-                                             ctx.data, draws=draws)
+                                             ctx.data, draws=draws, **_scenario(v))
 
 
 @register_algorithm("sync-push")
@@ -103,7 +101,7 @@ class SyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                             draws=draws)[0]
+                                             draws=draws, **_scenario(v))[0]
 
 
 @register_algorithm("async-symm")
@@ -113,7 +111,8 @@ class AsyncSymm(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
-                                              ctx.data, P_ACTIVE, draws=draws)
+                                              ctx.data, P_ACTIVE, draws=draws,
+                                              **_scenario(v))
 
     def grads_per_step(self, cfg):
         return P_ACTIVE
@@ -126,7 +125,7 @@ class AsyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                              P_ACTIVE, draws=draws)[0]
+                                              P_ACTIVE, draws=draws, **_scenario(v))[0]
 
     def grads_per_step(self, cfg):
         return P_ACTIVE

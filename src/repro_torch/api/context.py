@@ -3,9 +3,10 @@
 Port of `repro.api.context` with the fields the port uses: the config,
 the task (or a bare batched loss), the row-stochastic Q, its adjacency
 and its Metropolis weights (the symmetric baselines' mix), the federated
-shards and the flat-plane layout, all built once per run on the run's
-device. Scenario schedules, sweep overrides and event tapes wait for
-later slices (ROADMAP.md queue 1 items 9-11).
+shards, the flat-plane layout (with the optimizer plane's width), and an
+optional scenario `Schedule` whose step-t snapshot the steps read, all
+built once per run on the run's device. Sweep overrides and event tapes
+wait for later slices (ROADMAP.md queue 1 items 10-11).
 """
 from __future__ import annotations
 
@@ -24,18 +25,29 @@ class SimContext(NamedTuple):
     task: Any  # a `Task` or a bare batched loss callable
     q: torch.Tensor  # (N, N) f32 row-stochastic
     adj: torch.Tensor  # (N, N) bool
-    data: Any  # (xs (N, S, ...), ys (N, S))
+    data: Any  # (xs (N, S, ...), ys (N, S, ...))
     flat_spec: Optional[FlatSpec] = None
     w_sym: Optional[torch.Tensor] = None  # (N, N) f32 Metropolis weights of adj
+    schedule: Any = None  # a `repro_torch.scenarios.Schedule`, or None
 
 
 def make_context(cfg, loss_fn=None, data=None, *, task=None, params0=None,
-                 graph_seed: Optional[int] = None, device=None) -> SimContext:
+                 graph_seed: Optional[int] = None, scenario=None,
+                 scenario_key=None, scenario_kwargs=None, device=None) -> SimContext:
     """Build a `SimContext` from a `DracoConfig` on `device` (None means
-    CUDA). `params0` fixes the flat layout once per run; `graph_seed`
-    seeds random topologies. Pass the workload as `task=` (a `Task` or a
-    registry name) or a bare batched loss in the `loss_fn` position."""
-    from repro_torch.tasks import get_task
+    CUDA). `params0` fixes the flat layout once per run (and, for a task,
+    the width of its optimizer plane); `graph_seed` seeds random
+    topologies. Pass the workload as `task=` (a `Task` or a registry
+    name) or a bare batched loss in the `loss_fn` position.
+
+    `scenario` (a `repro_torch.scenarios` generator name or a built
+    `Schedule`) attaches time-varying rings: ``q``, ``adj`` and ``w_sym``
+    become its step-0 snapshot and the steps read ``schedule.at(t)``.
+    `scenario_key` seeds the generator (default `graph_seed`, so
+    ``"static"`` gives the frozen graph bit for bit); `scenario_kwargs`
+    are its knobs."""
+    from repro_torch.tasks import get_task, is_task
+    from repro_torch.tasks.base import opt_width
 
     if task is not None and loss_fn is not None and task is not loss_fn:
         raise ValueError("pass the workload as either task= or the loss_fn "
@@ -43,8 +55,26 @@ def make_context(cfg, loss_fn=None, data=None, *, task=None, params0=None,
     task = task if task is not None else loss_fn
     if isinstance(task, str):
         task = get_task(task)
-    q, adj = build_graph(cfg, seed=graph_seed, device=device)
+    schedule = None
+    if scenario is None:
+        if scenario_key is not None or scenario_kwargs:
+            # a forgotten scenario= would run the frozen graph silently
+            raise ValueError("scenario_key/scenario_kwargs given without scenario=")
+        q, adj = build_graph(cfg, seed=graph_seed, device=device)
+        w_sym = metropolis(adj)
+    else:
+        from repro_torch.scenarios import make_schedule
+
+        key = scenario_key if scenario_key is not None else graph_seed
+        schedule = make_schedule(scenario, cfg, key=key, device=device,
+                                 **(scenario_kwargs or {}))
+        if schedule.num_clients != cfg.num_clients:
+            raise ValueError(f"schedule is for {schedule.num_clients} clients, "
+                             f"cfg.num_clients={cfg.num_clients}")
+        q, adj, w_sym = schedule.q[0], schedule.adj[0], schedule.w_sym[0]
     flat_spec = None
     if params0 is not None:
         flat_spec = flat_lib.spec_for(params0, cfg.num_clients)
-    return SimContext(cfg, task, q, adj, data, flat_spec, metropolis(adj))
+        if is_task(task):
+            flat_spec = flat_spec.with_opt(opt_width(task, params0))
+    return SimContext(cfg, task, q, adj, data, flat_spec, w_sym, schedule)

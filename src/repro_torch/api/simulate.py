@@ -86,6 +86,9 @@ def simulate(
     ctx: Optional[SimContext] = None,
     state: Any = None,
     graph_seed: Optional[int] = None,
+    scenario=None,
+    scenario_key=None,
+    scenario_kwargs=None,
     device=None,
     draws_fn: Optional[Callable] = None,
 ):
@@ -96,7 +99,11 @@ def simulate(
     `task_key` are int seeds or `torch.Generator`s (`task_key` defaults
     to 0, so repeated calls see the same workload); `loss_fn` and
     `eval_fn` are batched over clients (see `repro_torch.tasks.base`);
-    `graph_seed` seeds random topologies. ``device=None`` means CUDA and
+    `graph_seed` seeds random topologies. `scenario` (a
+    `repro_torch.scenarios` generator name or a built `Schedule`), with
+    its `scenario_key` and `scenario_kwargs`, gives every step the
+    schedule's graph, positions and rates (see `make_context`); a
+    prebuilt `ctx` brings its own. ``device=None`` means CUDA and
     raises without it. `draws_fn(i)`, for tests, injects the draws of the
     algorithm's step `i` (`algo.step_index`: the window index of `draco`,
     the round index of a baseline): a `WindowDraws` or a `RoundDraws`.
@@ -113,7 +120,12 @@ def simulate(
     if ctx is None:
         data = tuple(t.to(dev) for t in data)
         ctx = make_context(cfg, workload, data, params0=params0,
-                           graph_seed=graph_seed, device=dev)
+                           graph_seed=graph_seed, scenario=scenario,
+                           scenario_key=scenario_key,
+                           scenario_kwargs=scenario_kwargs, device=dev)
+    elif scenario is not None:
+        raise ValueError("pass scenario to make_context when prebuilding ctx; "
+                         "a ctx already carries its schedule")
     elif ctx.cfg != cfg:
         raise ValueError("ctx.cfg differs from cfg; pass ctx._replace(cfg=cfg) "
                          "to reuse a context across config variants")

@@ -9,14 +9,18 @@ inputs:
   - `params_from_numpy`: a parameter pytree -> dict in jax flatten order
     (sorted keys at every level); bf16 leaves stay bf16, bit for bit;
   - `state_from_numpy`: the reference's `DracoState` -> the port's (the
-    ring, ``w_ring``, ``delay_ring``, counters, window index and
-    positions; the JAX key becomes a fresh generator seeded by `seed`);
-  - `data_from_numpy`: ``(xs, ys)`` shards;
+    ring, ``w_ring``, ``delay_ring``, counters, window index, positions
+    and the ``(N, Dopt)`` optimizer plane; the JAX key becomes a fresh
+    generator seeded by `seed`);
+  - `data_from_numpy`: ``(xs, ys)`` shards (integer inputs, tiny-lm's
+    tokens, stay integers);
   - `draws_from_numpy`: one window's draws -> `WindowDraws`;
   - `baseline_state_from_numpy`: the reference's `BaselineState` -> the
-    port's (params, push weights, round index, positions; a fresh
-    generator seeded by `seed` for the JAX key);
-  - `round_draws_from_numpy`: one baseline round's draws -> `RoundDraws`.
+    port's (params, push weights, round index, positions, optimizer
+    plane; a fresh generator seeded by `seed` for the JAX key);
+  - `round_draws_from_numpy`: one baseline round's draws -> `RoundDraws`;
+  - `schedule_from_numpy`: the reference's scenario `Schedule` -> the
+    port's.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch import as_generator, resolve_device
 from repro_torch.core.baselines import BaselineState, RoundDraws
 from repro_torch.core.flat import tree_from_items
 from repro_torch.core.protocol import DracoState, WindowDraws
+from repro_torch.scenarios.base import Schedule
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -55,14 +60,30 @@ def params_from_numpy(tree, device=None):
     return tree_from_items(items(tree, ()))
 
 
+def _getter(obj):
+    return obj.get if isinstance(obj, Mapping) else obj.__getattribute__
+
+
+def _opt_plane(get, n: int, dev) -> torch.Tensor:
+    """The reference's (N, Dopt) optimizer plane (an empty ``()`` or a
+    missing one is (N, 0))."""
+    try:
+        plane = get("opt_state")
+    except AttributeError:
+        plane = None
+    plane = np.asarray(() if plane is None else plane, np.float32)
+    return _tensor(plane.reshape(n, -1), dev, torch.float32)
+
+
 def state_from_numpy(state, *, seed: int = 0, device=None) -> DracoState:
     """The reference's `DracoState` (any object with its field names as
     attributes or keys) -> the port's `DracoState`."""
     dev = resolve_device(device)
-    get = state.get if isinstance(state, Mapping) else state.__getattribute__
+    get = _getter(state)
+    pending = _tensor(get("pending"), dev, torch.float32)
     return DracoState(
         params=params_from_numpy(get("params"), dev),
-        pending=_tensor(get("pending"), dev, torch.float32),
+        pending=pending,
         buffer=_tensor(get("buffer"), dev, torch.float32),
         w_ring=_tensor(get("w_ring"), dev, torch.float32),
         delay_ring=_tensor(get("delay_ring"), dev, torch.int32),
@@ -71,6 +92,7 @@ def state_from_numpy(state, *, seed: int = 0, device=None) -> DracoState:
         window_idx=int(np.asarray(get("window_idx"))),
         generator=as_generator(seed, dev),
         positions=_tensor(get("positions"), dev, torch.float32),
+        opt_state=_opt_plane(get, pending.shape[0], dev),
     )
 
 
@@ -78,13 +100,15 @@ def baseline_state_from_numpy(state, *, seed: int = 0, device=None) -> BaselineS
     """The reference's `BaselineState` (any object with its field names
     as attributes or keys) -> the port's `BaselineState`."""
     dev = resolve_device(device)
-    get = state.get if isinstance(state, Mapping) else state.__getattribute__
+    get = _getter(state)
+    push_weight = _tensor(get("push_weight"), dev, torch.float32)
     return BaselineState(
         params=params_from_numpy(get("params"), dev),
-        push_weight=_tensor(get("push_weight"), dev, torch.float32),
+        push_weight=push_weight,
         round_idx=int(np.asarray(get("round_idx"))),
         generator=as_generator(seed, dev),
         positions=_tensor(get("positions"), dev, torch.float32),
+        opt_state=_opt_plane(get, push_weight.shape[0], dev),
     )
 
 
@@ -99,10 +123,27 @@ def round_draws_from_numpy(draws: Mapping, device=None) -> RoundDraws:
 
 
 def data_from_numpy(data, device=None):
-    """``(xs, ys)`` -> (f32 tensor, int64 tensor) on `device`."""
+    """``(xs, ys)`` -> (f32 tensor, int64 tensor) on `device`; integer
+    inputs (token ids) become int64 too."""
     dev = resolve_device(device)
     xs, ys = data
-    return _tensor(xs, dev, torch.float32), _tensor(ys, dev, torch.int64)
+    x_dtype = torch.int64 if np.issubdtype(np.asarray(xs).dtype, np.integer) \
+        else torch.float32
+    return _tensor(xs, dev, x_dtype), _tensor(ys, dev, torch.int64)
+
+
+def schedule_from_numpy(schedule, device=None) -> Schedule:
+    """The reference's `Schedule` (any object with its field names as
+    attributes or keys) -> the port's, rings on `device`."""
+    dev = resolve_device(device)
+    get = _getter(schedule)
+    dtypes = {"adj": torch.bool}
+    fields = {}
+    for name in Schedule._fields:
+        ring = get(name)
+        fields[name] = None if ring is None else _tensor(
+            ring, dev, dtypes.get(name, torch.float32))
+    return Schedule(**fields)
 
 
 def draws_from_numpy(draws: Mapping, device=None) -> WindowDraws:

@@ -17,6 +17,12 @@ hand-written mix kernel (``kernels/gossip/csrc/mix.cu``) per round on
 the card. The weights are built on the device; nothing in a round reads
 the device.
 
+A `Task`'s local optimizer state rides ``BaselineState.opt_state`` (N,
+Dopt), as on `DracoState`. Every round takes a scenario schedule's step-t
+``positions`` (the channel's node coordinates, carried on) and
+``compute_rate`` (each client's participation probability is scaled by
+it; the sync rounds then draw a participation mask they otherwise skip).
+
 Randomness, as in `protocol`: a round's random outcomes are one
 `RoundDraws` record, drawn from the state's `torch.Generator` in
 production and injected by tests from the reference's key ladder.
@@ -31,7 +37,7 @@ from repro_torch import as_generator
 from repro_torch.core import channel as channel_lib
 from repro_torch.core import flat as flat_lib
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.protocol import DracoConfig, local_step
+from repro_torch.core.protocol import DracoConfig, local_step, opt_plane
 from repro_torch.core.topology import adjacency, metropolis
 from repro_torch.kernels.gossip import ops as gossip_ops
 
@@ -55,6 +61,7 @@ class BaselineState(NamedTuple):
     round_idx: int
     generator: torch.Generator
     positions: torch.Tensor  # (N, 2) node coordinates (channel model)
+    opt_state: Optional[torch.Tensor] = None  # (N, Dopt) f32 local optimizer plane
 
 
 def init_baseline_state(key, cfg: DracoConfig, params0, task=None, *,
@@ -63,9 +70,8 @@ def init_baseline_state(key, cfg: DracoConfig, params0, task=None, *,
 
     `key` is an int seed or a `torch.Generator`; it draws the node
     positions and then every round's draws. ``device=None`` means CUDA.
-    `task` is accepted for the reference's signature: with plain SGD
-    there is no optimizer plane to size."""
-    del task
+    `task` (a `Task`) sizes the optimizer plane; None or a bare loss
+    gives (N, 0)."""
     g = as_generator(key, device)
     dev = g.device
     n = cfg.num_clients
@@ -74,20 +80,25 @@ def init_baseline_state(key, cfg: DracoConfig, params0, task=None, *,
     pos = channel_lib.place_nodes(g, n, cfg.channel or ChannelConfig())
     return BaselineState(params=params,
                          push_weight=torch.ones((n,), dtype=torch.float32, device=dev),
-                         round_idx=0, generator=g, positions=pos)
+                         round_idx=0, generator=g, positions=pos,
+                         opt_state=opt_plane(task, params0, n, dev))
 
 
 def sample_round_draws(generator: torch.Generator, cfg: DracoConfig,
-                       num_samples: int, p_active: Optional[float] = None) -> RoundDraws:
+                       num_samples: int, p_active: Optional[float] = None,
+                       compute_rate=None) -> RoundDraws:
     """Draw one round's `RoundDraws` from `generator`, on its device.
     `p_active` is the participation probability of the async rounds;
-    None (the sync rounds) makes every client active without a draw.
-    `num_samples` is the per-client shard size the batch rows index."""
+    None (the sync rounds) makes every client active without a draw,
+    unless an (N,) `compute_rate` is given (then at probability 1,
+    scaled). `num_samples` is the per-client shard size the batch rows
+    index."""
     n, dev = cfg.num_clients, generator.device
-    if p_active is None:
+    if p_active is None and compute_rate is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
     else:
-        active = _participation(generator, n, p_active)
+        active = _participation(generator, n, 1.0 if p_active is None else p_active,
+                                compute_rate)
     batch_idx = torch.randint(0, num_samples, (n, cfg.local_batches, cfg.batch_size),
                               generator=generator, device=dev)
     fading = None
@@ -97,20 +108,23 @@ def sample_round_draws(generator: torch.Generator, cfg: DracoConfig,
     return RoundDraws(active, batch_idx, fading)
 
 
-def _link_success(state: BaselineState, cfg, adj, tx_mask, fading):
+def _link_success(state: BaselineState, cfg, adj, tx_mask, fading, positions=None):
     """This round's surviving directed links i -> j (N, N) bool, channel
-    drops included."""
+    drops included; `positions` (N, 2), when given, replace the state's."""
     if cfg.channel is not None and cfg.channel.enabled:
-        _, success = channel_lib.transmission_delays(fading, state.positions, tx_mask,
-                                                     cfg.channel)
+        pos = state.positions if positions is None else positions
+        _, success = channel_lib.transmission_delays(fading, pos, tx_mask, cfg.channel)
         return success & adj
     return adj & tx_mask[:, None]
 
 
-def _participation(generator: torch.Generator, n: int, p_base: float) -> torch.Tensor:
-    """Per-client participation mask (N,) bool at probability `p_base`
-    (the frozen path: no scenario rate scales it)."""
-    return torch.rand((n,), generator=generator, device=generator.device) < p_base
+def _participation(generator: torch.Generator, n: int, p_base: float,
+                   compute_rate=None) -> torch.Tensor:
+    """Per-client participation mask (N,) bool at probability `p_base`,
+    scaled by a schedule's (N,) `compute_rate` and clipped into [0, 1]
+    when one is given (stragglers show up less often)."""
+    p = p_base if compute_rate is None else torch.clamp(p_base * compute_rate, 0.0, 1.0)
+    return torch.rand((n,), generator=generator, device=generator.device) < p
 
 
 def _mix_rows(w, params, mix: Optional[Callable] = None):
@@ -123,12 +137,16 @@ def _mix_rows(w, params, mix: Optional[Callable] = None):
     return flat_lib.unravel_clients(mix(w.T, plane), spec)
 
 
-def _local(state, cfg, task, data, draws, p_active):
+def _local(state, cfg, task, data, draws, p_active, compute_rate):
+    """The round's draws, and its local step on the active clients:
+    ``(draws, params + Delta, opt_state)``."""
     if draws is None:
-        draws = sample_round_draws(state.generator, cfg, data[0].shape[1], p_active)
-    delta = local_step(state.params, draws.active, cfg, task, data, draws.batch_idx)
+        draws = sample_round_draws(state.generator, cfg, data[0].shape[1], p_active,
+                                   compute_rate)
+    delta, opt_state = local_step(state.params, draws.active, cfg, task, data,
+                                  draws.batch_idx, state.opt_state, state.round_idx)
     params = flat_lib.tree_map(lambda p, d: p + d.to(p.dtype), state.params, delta)
-    return draws, params
+    return draws, params, opt_state
 
 
 def push_split(succ: torch.Tensor) -> torch.Tensor:
@@ -155,105 +173,122 @@ def _de_bias(params, push_weight):
         .to(p.dtype), params)
 
 
-def _advance(state, params, push_weight=None):
-    kw = dict(params=params, round_idx=state.round_idx + 1)
+def _advance(state, params, opt_state, positions, push_weight=None):
+    """End of round: positions track mobility, when a schedule moves them."""
+    kw = dict(params=params, round_idx=state.round_idx + 1, opt_state=opt_state)
     if push_weight is not None:
         kw["push_weight"] = push_weight
+    if positions is not None:
+        kw["positions"] = positions
     return state._replace(**kw)
 
 
 def sync_symm_round(state: BaselineState, cfg, w_sym, adj, task, data, *,
-                    draws: Optional[RoundDraws] = None, mix=None) -> BaselineState:
+                    draws: Optional[RoundDraws] = None, mix=None, positions=None,
+                    compute_rate=None) -> BaselineState:
     """D-SGD with Metropolis weights `w_sym` (N, N); dropped links' mass
     folds into the self-loop. `task` is a `Task` or a bare batched loss;
     `draws` injects the round's `RoundDraws`; `mix` is the mix function
-    (`gossip_ops.gossip_mix` when None)."""
+    (`gossip_ops.gossip_mix` when None). A schedule's `compute_rate`
+    makes stragglers skip their local step (their params still mix);
+    `positions` move the channel's nodes."""
     n = cfg.num_clients
-    draws, params = _local(state, cfg, task, data, draws, None)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
-    succ = _link_success(state, cfg, adj, all_on, draws.fading)
+    succ = _link_success(state, cfg, adj, all_on, draws.fading, positions)
     succ = succ & succ.T  # symmetric methods need bidirectional links
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
     w = torch.where(succ & ~eye, w_sym, 0.0)
     # dropped links' weight folds back into the self-loop (w stays row-stochastic)
     w = torch.where(eye, 1.0 - w.sum(dim=1, keepdim=True), w)
-    return _advance(state, _mix_rows(w, params, mix))
+    return _advance(state, _mix_rows(w, params, mix), opt_state, positions)
 
 
 def sync_push_round(state: BaselineState, cfg, adj, task, data, *,
-                    draws: Optional[RoundDraws] = None, mix=None):
+                    draws: Optional[RoundDraws] = None, mix=None, positions=None,
+                    compute_rate=None):
     """Synchronous push-sum (stochastic gradient push, Assran et al.).
     Returns ``(state, de-biased params)``."""
     n = cfg.num_clients
-    draws, params = _local(state, cfg, task, data, draws, None)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
-    col_p = push_split(_link_success(state, cfg, adj, all_on, draws.fading))
+    col_p = push_split(_link_success(state, cfg, adj, all_on, draws.fading, positions))
     params = _mix_rows(col_p.T, params, mix)  # z_j = sum_i colP[i, j] z_i
     w = col_p.T @ state.push_weight
-    return _advance(state, params, w), _de_bias(params, w)
+    return _advance(state, params, opt_state, positions, w), _de_bias(params, w)
 
 
 def async_symm_round(state: BaselineState, cfg, w_sym, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                     mix=None) -> BaselineState:
+                     mix=None, positions=None, compute_rate=None) -> BaselineState:
     """Async decentralized SGD with a delay deadline: a random subset is
-    active each round (probability `p_active`); symmetric mixing among
-    the surviving links between active clients."""
+    active each round (probability `p_active`, scaled by a schedule's
+    `compute_rate`); symmetric mixing among the surviving links between
+    active clients."""
     n = cfg.num_clients
-    draws, params = _local(state, cfg, task, data, draws, p_active)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
+                                      compute_rate)
     active = draws.active
-    succ = _link_success(state, cfg, adj, active, draws.fading)
+    succ = _link_success(state, cfg, adj, active, draws.fading, positions)
     succ = succ & succ.T & active[:, None] & active[None, :]
     w = torch.where(succ, w_sym, 0.0)
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
     w = torch.where(eye, 1.0 - w.sum(dim=1, keepdim=True), w)
-    return _advance(state, _mix_rows(w, params, mix))
+    return _advance(state, _mix_rows(w, params, mix), opt_state, positions)
 
 
 def async_push_round(state: BaselineState, cfg, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                     mix=None):
+                     mix=None, positions=None, compute_rate=None):
     """Asynchronous push-sum gossip (Digest-style): active clients push
     half their mass, split across their successful out-neighbours.
     Returns ``(state, de-biased params)``."""
-    draws, params = _local(state, cfg, task, data, draws, p_active)
-    p = half_push_split(_link_success(state, cfg, adj, draws.active, draws.fading))
+    draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
+                                      compute_rate)
+    p = half_push_split(_link_success(state, cfg, adj, draws.active, draws.fading,
+                                      positions))
     params = _mix_rows(p.T, params, mix)
     w = p.T @ state.push_weight
-    return _advance(state, params, w), _de_bias(params, w)
+    return _advance(state, params, opt_state, positions, w), _de_bias(params, w)
 
 
 def baseline_round(method: str, state: BaselineState, cfg, w_sym, adj, task, data,
                    p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                   mix=None) -> BaselineState:
+                   mix=None, positions=None, compute_rate=None) -> BaselineState:
     """One round of `method` (one of `BASELINES`); returns the next state."""
+    kw = dict(draws=draws, mix=mix, positions=positions, compute_rate=compute_rate)
     if method == "sync-symm":
-        return sync_symm_round(state, cfg, w_sym, adj, task, data, draws=draws, mix=mix)
+        return sync_symm_round(state, cfg, w_sym, adj, task, data, **kw)
     if method == "sync-push":
-        return sync_push_round(state, cfg, adj, task, data, draws=draws, mix=mix)[0]
+        return sync_push_round(state, cfg, adj, task, data, **kw)[0]
     if method == "async-symm":
-        return async_symm_round(state, cfg, w_sym, adj, task, data, p_active,
-                                draws=draws, mix=mix)
+        return async_symm_round(state, cfg, w_sym, adj, task, data, p_active, **kw)
     if method == "async-push":
-        return async_push_round(state, cfg, adj, task, data, p_active, draws=draws,
-                                mix=mix)[0]
+        return async_push_round(state, cfg, adj, task, data, p_active, **kw)[0]
     raise ValueError(method)
 
 
 def run_baseline(method: str, state: BaselineState, cfg: DracoConfig, task, data,
                  num_rounds: int, *, graph_seed: Optional[int] = None,
-                 draws_fn=None, mix=None) -> BaselineState:
+                 draws_fn=None, mix=None, schedule=None) -> BaselineState:
     """`num_rounds` rounds of `method` in a Python loop (the reference
     scans). The graph and its Metropolis weights are built once on the
-    state's device; `draws_fn(round_idx)`, when given, injects each
-    round's `RoundDraws`; `mix` as in the rounds."""
-    dev = state.push_weight.device
-    adj = adjacency(cfg.topology, cfg.num_clients, seed=graph_seed, device=dev)
-    w_sym = metropolis(adj)
+    state's device, or, with a `repro_torch.scenarios.Schedule`, taken
+    with the positions and compute rates from ``schedule.at(round_idx)``
+    each round; `draws_fn(round_idx)`, when given, injects each round's
+    `RoundDraws`; `mix` as in the rounds."""
+    pos = rate = None
+    if schedule is None:
+        adj = adjacency(cfg.topology, cfg.num_clients, seed=graph_seed,
+                        device=state.push_weight.device)
+        w_sym = metropolis(adj)
     for _ in range(num_rounds):
+        if schedule is not None:
+            v = schedule.at(state.round_idx)
+            adj, w_sym, pos, rate = v.adj, v.w_sym, v.positions, v.compute_rate
         draws = None if draws_fn is None else draws_fn(state.round_idx)
-        state = baseline_round(method, state, cfg, w_sym, adj, task, data,
-                               draws=draws, mix=mix)
+        state = baseline_round(method, state, cfg, w_sym, adj, task, data, draws=draws,
+                               mix=mix, positions=pos, compute_rate=rate)
     return state
 
 

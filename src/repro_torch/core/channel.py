@@ -87,3 +87,22 @@ def transmission_delays(fading, pos, tx_mask, cfg: ChannelConfig):
     gamma = (cfg.message_bytes * 8) / torch.clamp(rate, min=1e-9) + dist / LIGHTSPEED
     success = (gamma <= cfg.gamma_max) & tx_mask[:, None]
     return gamma, success
+
+
+def geometric_adjacency(pos: torch.Tensor, max_range: float) -> torch.Tensor:
+    """Boolean links from channel geometry: i -> j iff dist(i, j) <=
+    max_range, zero diagonal (the random-waypoint scenario's graph)."""
+    n = pos.shape[0]
+    return (pairwise_dist(pos) <= max_range) & ~torch.eye(n, dtype=torch.bool,
+                                                         device=pos.device)
+
+
+def waypoint_step(pos: torch.Tensor, waypoints: torch.Tensor, speed: float):
+    """One random-waypoint hop: each node moves `speed` meters toward its
+    target, snapping onto targets within reach. Returns ``(new_pos (n,
+    2), arrived (n,) bool)``; the caller resamples arrived nodes' targets."""
+    d = waypoints - pos
+    dist = torch.sqrt((d * d).sum(dim=-1, keepdim=True))
+    arrived = dist[..., 0] <= speed
+    step = d / torch.clamp(dist, min=1e-9) * speed
+    return torch.where(arrived[:, None], waypoints, pos + step), arrived

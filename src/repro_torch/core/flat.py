@@ -28,8 +28,12 @@ class FlatSpec(NamedTuple):
 
     ``paths[i]`` is leaf ``i``'s key path in the (possibly nested) dict
     (the port's stand-in for a JAX treedef); ``offsets[i]:offsets[i] +
-    sizes[i]`` is its column range in the flat ``(N, dim)`` buffer. The
-    reference's ``opt_dim`` (optimizer plane) arrives with the optimizers.
+    sizes[i]`` is its column range in the flat ``(N, dim)`` buffer.
+
+    ``opt_dim`` is the per-client width of the task's local optimizer
+    state, its own ``(N, opt_dim)`` plane beside the parameters'
+    (momentum ``dim``, adamw ``2 * dim + 1``, plain SGD 0; see
+    `repro_torch.tasks.base.opt_width`). That plane is never gossiped.
     """
 
     paths: Tuple[Path, ...]
@@ -38,10 +42,16 @@ class FlatSpec(NamedTuple):
     offsets: Tuple[int, ...]
     sizes: Tuple[int, ...]  # per-client flat width of each leaf
     dim: int  # Dflat = sum(sizes)
+    opt_dim: int = 0  # Dopt = flat width of the local optimizer state
 
     @property
     def num_clients(self) -> int:
         return self.shapes[0][0] if self.shapes else 0
+
+    def with_opt(self, opt_dim: int) -> "FlatSpec":
+        """The same parameter layout with an optimizer plane of width
+        ``opt_dim`` beside it."""
+        return self._replace(opt_dim=int(opt_dim))
 
 
 def tree_items(tree, prefix: Path = ()):

@@ -28,14 +28,24 @@ the enqueue slot and the unify decision are host arithmetic, as they are
 static functions of the traced counter in JAX; nothing in a window reads
 the device.
 
-Deferred: the `Overrides`, scenario and legacy engines, and the local
-optimizer plane (plain SGD only).
+Workloads. A bare batched loss runs plain SGD (`local_updates`); a
+`Task` runs its own local optimizer (`task_local_updates`), whose state
+is the client-local ``(N, Dopt)`` f32 plane ``DracoState.opt_state``:
+never gossiped, and left alone by hub unification.
+
+Scenarios. `draco_window` takes a schedule's step-t ``positions``,
+``compute_rate`` and ``tx_rate`` (`repro_torch.scenarios`): the positions
+replace the state's for the channel (and are carried on), the rates
+scale each client's Poisson grad and transmission rates.
+
+Deferred: the `Overrides` and legacy engines.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from functools import lru_cache
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -46,6 +56,8 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.events import sample_event_masks
 from repro_torch.core.topology import adjacency, row_stochastic
 from repro_torch.kernels.gossip import ops as gossip_ops
+from repro_torch.optim import apply_updates
+from repro_torch.tasks.base import is_task, opt_layout, opt_width
 
 
 @dataclass(frozen=True)
@@ -109,6 +121,14 @@ class DracoState(NamedTuple):
     window_idx: int
     generator: torch.Generator
     positions: torch.Tensor  # (N, 2) node coordinates (channel model)
+    opt_state: Optional[torch.Tensor] = None  # (N, Dopt) f32 local optimizer plane
+
+
+def opt_plane(task, params0, n: int, device) -> torch.Tensor:
+    """Zero (N, Dopt) f32 optimizer plane for `task` (Dopt = 0 for a bare
+    loss or plain SGD: an empty column block)."""
+    return torch.zeros((n, opt_width(task, params0)), dtype=torch.float32,
+                       device=device)
 
 
 def init_state(key, cfg: DracoConfig, params0, task=None, *,
@@ -117,9 +137,8 @@ def init_state(key, cfg: DracoConfig, params0, task=None, *,
 
     `key` is an int seed or a `torch.Generator`; it draws the node
     positions and then every window's draws. ``device=None`` means CUDA.
-    `task` is accepted for the reference's signature: with plain SGD
-    there is no optimizer plane to size."""
-    del task
+    `task` (a `Task`) sizes the optimizer plane ``opt_state`` (momentum
+    Dflat, adamw 2 * Dflat + 1); None or a bare loss gives (N, 0)."""
     g = as_generator(key, device)
     dev = g.device
     n, d = cfg.num_clients, cfg.max_delay_windows
@@ -138,20 +157,31 @@ def init_state(key, cfg: DracoConfig, params0, task=None, *,
         window_idx=0,
         generator=g,
         positions=pos,
+        opt_state=opt_plane(task, params0, n, dev),
     )
 
 
+def _scaled(lam: float, rate: Optional[torch.Tensor]):
+    """A config rate, scaled per client by a schedule's (N,) ring row."""
+    return lam if rate is None else lam * rate
+
+
 def sample_window_draws(generator: torch.Generator, cfg: DracoConfig,
-                        num_samples: int) -> WindowDraws:
+                        num_samples: int, compute_rate=None,
+                        tx_rate=None) -> WindowDraws:
     """Draw one window's `WindowDraws` from `generator`, on its device.
 
-    `num_samples` is the per-client shard size the batch rows index."""
+    `num_samples` is the per-client shard size the batch rows index; the
+    (N,) `compute_rate` and `tx_rate`, when given, scale lambda_grad and
+    lambda_tx per client."""
     n, dev = cfg.num_clients, generator.device
-    grad_mask = sample_event_masks(generator, cfg.lambda_grad, cfg.window, n)
+    grad_mask = sample_event_masks(
+        generator, _scaled(cfg.lambda_grad, compute_rate), cfg.window, n)
     batch_idx = torch.randint(
         0, num_samples, (n, cfg.local_batches, cfg.batch_size),
         generator=generator, device=dev)
-    tx_mask = sample_event_masks(generator, cfg.lambda_tx, cfg.window, n)
+    tx_mask = sample_event_masks(
+        generator, _scaled(cfg.lambda_tx, tx_rate), cfg.window, n)
     fading = perm = None
     if cfg.channel is not None and cfg.channel.enabled:
         fading = torch.empty((n, n), dtype=torch.float32,
@@ -162,51 +192,109 @@ def sample_window_draws(generator: torch.Generator, cfg: DracoConfig,
     return WindowDraws(grad_mask, batch_idx, tx_mask, fading, perm)
 
 
-def _sgd_step(task, lr) -> Callable:
-    if task is not None and hasattr(task, "make_optimizer"):
-        return task.make_optimizer(lr)
-    return lambda p, g: p - lr * g
+def _batch(xs, ys, idx):
+    """Rows `idx` (N, b) of each client's shard: ``x (N, b, ...)`` and
+    ``y (N, b, ...)``, any trailing axes of either kept (tiny-lm's
+    targets are (N, S_shard, seq))."""
+    def take(a):
+        return torch.take_along_dim(
+            a, idx.reshape(tuple(idx.shape) + (1,) * (a.dim() - 2)), dim=1)
+
+    return take(xs), take(ys)
+
+
+def _grads(loss_fn, paths, leaves, x, y):
+    """Per-client gradients of a batched loss: one forward of all N
+    clients, the gradient of the summed (N,) losses."""
+    leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(flat_lib.tree_from_items(zip(paths, leaves)), x, y)
+        return torch.autograd.grad(loss.sum(), leaves)
+
+
+def _masked_delta(new, old, grad_mask):
+    gm = grad_mask.to(torch.float32)
+    return flat_lib.tree_map(
+        lambda a, b: (a - b) * gm.reshape((-1,) + (1,) * (b.dim() - 1)), new, old)
 
 
 def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
-    """Per-client B-batch local SGD; returns the Delta dict (N, ...).
+    """Per-client B-batch local SGD (``p - lr * g``) of a bare batched
+    loss; returns the Delta dict (N, ...).
 
     All N clients run in one batched forward per local batch. `task` is
-    a `Task` or a bare batched loss ``loss(params (N,...), x (N,b,...),
-    y (N,b)) -> (N,)``; the gradient of the summed per-client losses is
-    exactly each client's gradient of its own batch mean. `batch_idx`
-    (N, B, batch_size) picks the rows of each client's shard. Clients
-    outside `grad_mask` get a zero Delta, as in the reference."""
+    a bare batched loss ``loss(params (N,...), x (N,b,...), y (N,b,...))
+    -> (N,)`` (or a `Task`, whose loss runs under plain SGD); the
+    gradient of the summed per-client losses is exactly each client's
+    gradient of its own batch mean. `batch_idx` (N, B, batch_size) picks
+    the rows of each client's shard. Clients outside `grad_mask` get a
+    zero Delta, as in the reference."""
     xs, ys = data
     loss_fn = task.loss_fn if hasattr(task, "loss_fn") else task
-    step = _sgd_step(task, cfg.lr)
     items = flat_lib.tree_items(params)
     paths = [path for path, _ in items]
     cur = [leaf for _, leaf in items]
     for b in range(cfg.local_batches):
-        idx = batch_idx[:, b].long()
-        x = torch.take_along_dim(xs, idx.reshape(idx.shape + (1,) * (xs.dim() - 2)),
-                                 dim=1)
-        y = torch.take_along_dim(ys, idx, dim=1)
-        leaves = [leaf.detach().requires_grad_(True) for leaf in cur]
-        with torch.enable_grad():
-            loss = loss_fn(flat_lib.tree_from_items(zip(paths, leaves)), x, y)
-            grads = torch.autograd.grad(loss.sum(), leaves)
-        cur = [step(leaf.detach(), g) for leaf, g in zip(leaves, grads)]
-    gm = grad_mask.to(torch.float32)
-    return flat_lib.tree_from_items(
-        (path, (new - old) * gm.reshape((-1,) + (1,) * (old.dim() - 1)))
-        for path, new, (_, old) in zip(paths, cur, items))
+        x, y = _batch(xs, ys, batch_idx[:, b].long())
+        grads = _grads(loss_fn, paths, cur, x, y)
+        cur = [leaf - cfg.lr * g for leaf, g in zip(cur, grads)]
+    return _masked_delta(flat_lib.tree_from_items(zip(paths, cur)), params, grad_mask)
 
 
-def local_step(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
+@lru_cache(maxsize=None)
+def _opt_spec(task, spec: flat_lib.FlatSpec) -> flat_lib.FlatSpec:
+    """Client-stacked layout of `task`'s optimizer state for parameters
+    laid out as `spec` (host work, once per task and layout)."""
+    single = flat_lib.tree_from_items(
+        (path, torch.empty(shape[1:], dtype=dt, device="meta"))
+        for path, shape, dt in zip(spec.paths, spec.shapes, spec.dtypes))
+    layout = opt_layout(task, single)
+    return layout._replace(
+        shapes=tuple((spec.num_clients,) + s[1:] for s in layout.shapes))
+
+
+def task_local_updates(params, grad_mask, cfg: DracoConfig, task, data,
+                       batch_idx, opt_state, step: int):
+    """Per-client B-batch local updates through the task's optimizer.
+
+    Each local batch computes every client's gradient in one batched
+    forward and feeds it to the task's `repro_torch.optim` rule. The
+    optimizer state lives on the flat plane: `opt_state` (N, Dopt) f32 is
+    viewed as the optimizer's state dict (exact reshape) and raveled
+    back. Clients outside `grad_mask` fired no gradient event: their
+    Delta is zero and their `opt_state` row is kept as it was, bit for
+    bit. `step` (the host-int window or round index) feeds the lr
+    schedule, shared by the B batches. Returns ``(Delta dict (N, ...),
+    new opt_state (N, Dopt))``."""
+    xs, ys = data
+    opt = task.make_optimizer(cfg.lr)
+    # a plane of another width than the task's `opt_width` fails to reshape
+    state = flat_lib.unravel_clients(opt_state, _opt_spec(task, flat_lib.spec_of(params)))
+    paths = [path for path, _ in flat_lib.tree_items(params)]
+    cur = params
+    for b in range(cfg.local_batches):
+        x, y = _batch(xs, ys, batch_idx[:, b].long())
+        grads = _grads(task.loss_fn, paths, flat_lib.tree_leaves(cur), x, y)
+        upd, state = opt.update(flat_lib.tree_from_items(zip(paths, grads)), state,
+                                cur, step)
+        cur = apply_updates(cur, upd)
+    if opt_state.shape[1]:  # plain SGD keeps no state
+        opt_state = torch.where(grad_mask[:, None], flat_lib.ravel_clients(state),
+                                opt_state)
+    return _masked_delta(cur, params, grad_mask), opt_state
+
+
+def local_step(params, grad_mask, cfg: DracoConfig, task, data, batch_idx,
+               opt_state=None, step: int = 0):
     """Local updates by workload representation (the reference's
-    `local_step`): a bare batched loss or a `Task` with plain SGD runs
-    `local_updates`; a `Task` with another optimizer raises
-    `NotImplementedError` (its `make_optimizer`; ROADMAP.md queue 1 item
-    8), since the port has no optimizer plane yet. Returns the Delta dict
-    (N, ...)."""
-    return local_updates(params, grad_mask, cfg, task, data, batch_idx)
+    `local_step`): a bare batched loss (or None) runs `local_updates`
+    and passes `opt_state` (N, Dopt) through untouched; a `Task` runs
+    `task_local_updates` with its optimizer. Returns ``(Delta dict (N,
+    ...), opt_state)``."""
+    if not is_task(task):
+        return local_updates(params, grad_mask, cfg, task, data, batch_idx), opt_state
+    return task_local_updates(params, grad_mask, cfg, task, data, batch_idx,
+                              opt_state, step)
 
 
 def _psi_accept(success, accept_count, psi: int, perm):
@@ -244,14 +332,16 @@ def quantize_delays(gamma, window: float, max_delay_windows: int):
     return delay_w, deliverable
 
 
-def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws):
-    """Transmissions + channel + Psi cap. Returns (tx_mask (N,), w_eff
+def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws, positions=None):
+    """Transmissions + channel + Psi cap; `positions` (N, 2), when given,
+    replace the state's for the channel. Returns (tx_mask (N,), w_eff
     (N,N), delay_w (N,N) int32, accept_count, total_accept)."""
     n, D = cfg.num_clients, cfg.max_delay_windows
     tx_mask = draws.tx_mask
     if cfg.channel is not None and cfg.channel.enabled:
+        pos = state.positions if positions is None else positions
         gamma, success = channel_lib.transmission_delays(
-            draws.fading, state.positions, tx_mask, cfg.channel)
+            draws.fading, pos, tx_mask, cfg.channel)
         delay_w, deliverable = quantize_delays(gamma, cfg.window, D)
         success = success & deliverable & adj
     else:
@@ -278,13 +368,21 @@ def _unify(params, accept_count, widx: int, cfg, n: int):
 
 def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                  spec=None, *, draws: Optional[WindowDraws] = None,
+                 positions=None, compute_rate=None, tx_rate=None,
                  damping=None, drain=None) -> DracoState:
     """One superposition window; returns the next state.
 
     `q` (N, N) is the row-stochastic mixing matrix, `adj` (N, N) its
-    boolean adjacency; `task` a `Task` or a bare batched loss; `data`
-    the ``(xs (N, S, ...), ys (N, S))`` shards; `spec` the `FlatSpec`
+    boolean adjacency; `task` a `Task` (its optimizer's state on
+    ``state.opt_state`` (N, Dopt)) or a bare batched loss; `data` the
+    ``(xs (N, S, ...), ys (N, S, ...))`` shards; `spec` the `FlatSpec`
     (derived from ``state.params`` when omitted).
+
+    A scenario schedule's step-t snapshot comes in the keyword trio:
+    `positions` (N, 2) replace the state's node coordinates for this
+    window's channel and are carried on in the returned state;
+    `compute_rate` and `tx_rate` (N,) scale lambda_grad and lambda_tx
+    per client. None for all three is the frozen path.
 
     `draws` injects this window's `WindowDraws`; None draws them from
     ``state.generator``. `damping` is an optional age-indexed ``(D,)``
@@ -302,7 +400,8 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     if spec is None:
         spec = flat_lib.spec_of(state.params)
     if draws is None:
-        draws = sample_window_draws(state.generator, cfg, data[0].shape[1])
+        draws = sample_window_draws(state.generator, cfg, data[0].shape[1],
+                                    compute_rate, tx_rate)
     drain = gossip_ops.gossip_drain if drain is None else drain
 
     # --- 1. deliveries: fused delay-bucketed drain on the flat plane -------
@@ -320,8 +419,8 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                                arrivals)
 
     # --- 2. gradient events ------------------------------------------------
-    delta = local_step(params, draws.grad_mask, cfg, task, data,
-                       draws.batch_idx)
+    delta, opt_state = local_step(params, draws.grad_mask, cfg, task, data,
+                                  draws.batch_idx, state.opt_state, widx)
     pending = state.pending + flat_lib.ravel_clients(delta)
     if cfg.apply_self_update:
         params = flat_lib.tree_map(lambda p, dl: p + dl.to(p.dtype), params,
@@ -329,7 +428,7 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
 
     # --- 3. transmission events + channel ----------------------------------
     tx_mask, w_eff, delay_w, accept_count, total_accept = _tx_and_accept(
-        state, cfg, q, adj, draws)
+        state, cfg, q, adj, draws, positions)
 
     # enqueue in place. Safe: this window's drain read slots (widx - a) % D
     # for a in 1..D-1, which never include widx % D, and the broadcast that
@@ -348,23 +447,34 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     if cfg.unify_period > 0:
         params, accept_count = _unify(params, accept_count, widx, cfg, n)
 
-    return state._replace(params=params, pending=pending,
-                          accept_count=accept_count, total_accept=total_accept,
-                          window_idx=widx + 1)
+    return state._replace(
+        params=params, pending=pending, accept_count=accept_count,
+        total_accept=total_accept, window_idx=widx + 1,
+        positions=state.positions if positions is None else positions,
+        opt_state=opt_state)
 
 
 def run_windows(state: DracoState, cfg: DracoConfig, q, adj, task, data,
-                num_windows: int, *, draws_fn=None, drain=None) -> DracoState:
+                num_windows: int, *, draws_fn=None, drain=None,
+                schedule=None) -> DracoState:
     """`num_windows` windows in a Python loop (the reference scans).
 
     `q` (N, N) row-stochastic weights; `draws_fn(window_idx)`, when
     given, injects each window's `WindowDraws`; `drain` as in
-    `draco_window`."""
+    `draco_window`. A `repro_torch.scenarios.Schedule`, when given,
+    supplies each window's graph, positions and rates
+    (``schedule.at(window_idx)``) in place of `q` and `adj`."""
     spec = flat_lib.spec_of(state.params)
+    pos = compute_rate = tx_rate = None
     for _ in range(num_windows):
+        if schedule is not None:
+            v = schedule.at(state.window_idx)
+            q, adj, pos, compute_rate, tx_rate = (v.q, v.adj, v.positions,
+                                                  v.compute_rate, v.tx_rate)
         draws = None if draws_fn is None else draws_fn(state.window_idx)
-        state = draco_window(state, cfg, q, adj, task, data, spec,
-                             draws=draws, drain=drain)
+        state = draco_window(state, cfg, q, adj, task, data, spec, draws=draws,
+                             positions=pos, compute_rate=compute_rate,
+                             tx_rate=tx_rate, drain=drain)
     return state
 
 

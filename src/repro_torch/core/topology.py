@@ -89,3 +89,11 @@ def metropolis(adj: torch.Tensor) -> torch.Tensor:
     for j in range(w.shape[1]):
         total = total + w[:, j]
     return w + torch.diag(1.0 - total)
+
+
+def is_row_stochastic(q: torch.Tensor, atol: float = 1e-5) -> bool:
+    """Non-negative Q (N, N), zero diagonal, every nonzero row summing to
+    1 within `atol` (host check: validation and tests, not the loop)."""
+    rows = q.sum(dim=1)
+    ok_rows = torch.abs(torch.where(rows > atol, rows, 1.0) - 1.0) < atol
+    return bool((q >= -atol).all() & ok_rows.all() & (torch.diagonal(q) < atol).all())

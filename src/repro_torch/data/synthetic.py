@@ -2,8 +2,9 @@
 
 Port of `repro.data.synthetic`: class-conditional Gaussian mixtures with
 matched dimensionality and class counts, Dirichlet non-iid client
-partitions, and the 2-hidden-layer relu MLP that stands in for the
-paper's 0.57 MB CNN. Every draw comes from one `torch.Generator` (the
+partitions, uniform synthetic token streams for the language task, and
+the 2-hidden-layer relu MLP that stands in for the paper's 0.57 MB CNN.
+Every draw comes from one `torch.Generator` (the
 ``key`` argument: an int seed or a generator) on the run's device, so
 the data is made in bulk on the card.
 """
@@ -61,6 +62,15 @@ def federated_classification(key, num_clients: int, input_dim: int,
     test_x, test_y, _ = classification_task(g, test_size, input_dim,
                                             num_classes, noise, anchors=anchors)
     return (xs, ys), (test_x, test_y)
+
+
+def lm_token_batches(key, num_clients: int, per_client: int, seq_len: int,
+                     vocab: int, *, device=None) -> torch.Tensor:
+    """Uniform synthetic token shards (num_clients, per_client, seq_len)
+    int64, drawn on the generator's device."""
+    g = as_generator(key, device)
+    return torch.randint(0, vocab, (num_clients, per_client, seq_len),
+                         generator=g, device=g.device)
 
 
 def make_mlp(key, input_dim: int, hidden: tuple, num_classes: int, *,

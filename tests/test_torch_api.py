@@ -133,12 +133,13 @@ def test_task_grad_cost_and_metric_match_reference(name, kw):
 
 
 def test_task_registry():
-    assert {"mlp", "linear-softmax"} <= set(list_tasks())
+    assert set(list_tasks()) == {"linear-softmax", "mlp", "small-cnn", "tiny-lm"}
     assert get_task("mlp", hidden=[8, 8]) is get_task("mlp", hidden=(8, 8))
+    lm = get_task("tiny-lm")
+    assert (lm.name, lm.metric_name, lm.opt_name) == ("tiny-lm", "perplexity", "sgd")
+    assert get_task("mlp", optimizer="adamw") == get_task("mlp").with_optimizer("adamw")
     with pytest.raises(KeyError):
-        get_task("tiny-lm")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        get_task("mlp", optimizer="adamw")
+        get_task("resnet")
 
 
 def test_task_builders_on_cpu():

@@ -288,6 +288,10 @@ def test_fig3_rounds_are_compute_matched():
 
 
 def test_local_step_takes_plain_sgd_and_raises_for_other_optimizers():
+    """A plain-SGD task's local step is the bare-loss SGD step bit for
+    bit, with an empty optimizer plane; another optimizer (which raised
+    before the optimizers were ported) now runs and moves its plane on
+    the firing clients only."""
     from repro_torch.tasks import get_task
 
     _, tcfg = _cfgs(3, batch_size=4)
@@ -298,14 +302,17 @@ def test_local_step_takes_plain_sgd_and_raises_for_other_optimizers():
     params = {k: v.unsqueeze(0).repeat((3,) + (1,) * v.dim()) for k, v in params0.items()}
     idx = torch.randint(0, 8, (3, 1, 4), generator=g)
     mask = torch.tensor([True, False, True])
-    got = tp.local_step(params, mask, tcfg, task, (xs, ys), idx)
-    want = tp.local_updates(params, mask, tcfg, task, (xs, ys), idx)
+    empty = torch.zeros((3, 0))
+    got, plane = tp.local_step(params, mask, tcfg, task, (xs, ys), idx, empty, 0)
+    want = tp.local_updates(params, mask, tcfg, task.loss_fn, (xs, ys), idx)
     for k in want:
         assert torch.equal(got[k], want[k])
-    assert not got["w0"][1].any()
+    assert not got["w0"][1].any() and plane is empty
     adamw = dataclasses.replace(task, opt_name="adamw")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tp.local_step(params, mask, tcfg, adamw, (xs, ys), idx)
+    plane0 = torch.zeros((3, 2 * 43 + 1))
+    got, plane = tp.local_step(params, mask, tcfg, adamw, (xs, ys), idx, plane0, 0)
+    assert not got["w0"][1].any() and got["w0"][0].abs().sum() > 0
+    assert torch.equal(plane[1], plane0[1]) and float(plane[0, 43]) == 1.0  # t ticked
 
 
 def test_baseline_state_and_draws_carry_across():

@@ -49,7 +49,8 @@ def test_module_list_covers_the_slice():
                 "models.model", "models.registry", "core.mixing",
                 "launch.steps", "launch.train", "checkpoint.ckpt",
                 "configs.mamba2_2p7b", "models.ssm", "kernels.ssd.ops",
-                "kernels.ssd.ref"):
+                "kernels.ssd.ref", "optim.optimizers", "scenarios.base",
+                "scenarios.generators"):
         assert f"repro_torch.{mod}" in names
 
 
