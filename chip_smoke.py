@@ -26,7 +26,10 @@ Phases (any failure exits non-zero):
                the windowed path's width and its wide route (N past 64,
                J in {8, 16} at N = 64), one launch per call; each
                wrapper's shared-memory reckoning and route against the
-               kernel's own;
+               kernel's own; the drain's seed axis (R in {1, 2, 4, 8} at
+               the EMNIST plane and R = 2 on the wide route, live sets
+               differing per seed, one seed with none live): one launch,
+               each row equal to a solo launch, within 1e-5 of plain;
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -87,6 +90,23 @@ Phases (any failure exits non-zero):
                markov-edge-flip, 60 rounds (one mix launch a round), the
                steady round (0 host syncs, idle share), 50 rounds through
                the kernel against the plain mix (1e-4);
+  13. sweep  - `simulate_sweep` over benchmarks/fig4_psi_sweep.py's grid
+               (Psi in {1, 2, 4, 8, 24}) x 4 seeds x 120 windows at the fig3
+               EMNIST setup: one drain launch per batched window (the
+               drain's seed axis), the (5, 4, 6) trace, finite params, each
+               Psi's seed-mean accuracy against its floor
+               (scripts/fig4_reference_floors.py); the steady batched
+               window under the sync detector beside a solo window, idle
+               shares; row (Psi 4, seed 1) against the solo `simulate`
+               over 50 windows (1e-4, equal acceptances);
+  14. events - draco-event, fedasync-gossip (poly) and event-triggered on
+               one 300 s tape at the same setup: one drain launch per
+               valid event, none per padding row, 0 host syncs (one per TX
+               row for event-triggered, which suppresses some), accuracy
+               floors; draco-event through `simulate_events`; ms per
+               event and idle share; 300 events through the kernel and
+               the plain drain (1e-4, equal counters); fedasync-window
+               240 windows, one drain a window, against the plain drain;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -94,7 +114,9 @@ Phases (any failure exits non-zero):
                and the mix at N = 25, 100 and 256 beside both bounds (f32
                rate and split-TF32 tensor cores); every mix row also beside
                a device-to-device copy of the same plane (the stream's
-               floor). Phase 9 runs last, after 10, 11 and 12.
+               floor); the drain's seed axis at R = 4 beside R solo
+               launches, its bound (R x the solo drain's), the einsum and
+               the plain version. Phase 9 runs last, after 10 to 14.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -251,6 +273,32 @@ NEW_TASKS = {
                   "straggler-profile"),
 }
 SMALL_CNN_CHANCE = 0.2
+# phase 2, the drain's seed axis: (R, J, N, M, K, ring rows) at the EMNIST
+# plane for R in {1, 2, 4, 8} and the wide route at N = M = 100; seed r has
+# (r + 3) % (J + 1) live buckets, so every R >= 2 has a seed with none live
+SEED_DRAIN_CASES = {**{f"R={r} J=3 N=M=25 K=146447": (r, 3, 25, 25, 146_447, 4)
+                       for r in (1, 2, 4, 8)},
+                    "wide R=2 J=3 N=M=100 K=146447": (2, 3, 100, 100, 146_447, 4)}
+SEED_TIMES_R = 4  # phase 9's seed-axis row, every seed 3 live
+# phase 13: benchmarks/fig4_psi_sweep.py's grid at fig3_config(), 4 seeds,
+# 120 windows (the reference runs 600) with an eval every 20. Each Psi's
+# seed-mean final accuracy must reach 0.8 x the smallest final accuracy
+# of the JAX reference over 2 setups x 4 seeds on the CPU
+# (scripts/fig4_reference_floors.py: 0.0400, 0.0852, 0.1296, 0.2861,
+# 0.3414; PERF.md PR 19)
+SWEEP_PSIS, SWEEP_SEEDS, SWEEP_WINDOWS, SWEEP_EVAL = (1, 2, 4, 8, 24), 4, 120, 20
+SWEEP_FLOORS = {1: 0.032, 2: 0.0681, 4: 0.1037, 8: 0.2289, 24: 0.2731}
+SWEEP_ROW_PSI, SWEEP_ROW_SEED, SWEEP_STEADY = 4, 1, 30
+# phase 14: the event engine at fig3_config() as an EventConfig (poly
+# staleness, a = 0.5), one tape of horizon 300 s; the event-triggered
+# threshold (0.2: the JAX reference suppresses 64.3% of tape 0's TX rows,
+# 50.0% being empty backlogs) and the accuracy floors (0.8 x the smallest
+# over 3 tape seeds: 0.7260, 0.6918, 0.7210) from
+# scripts/fig4_reference_floors.py (PERF.md PR 19)
+EVENT_HORIZON, EVENT_TAPE_SEED, EVENT_PLAIN, EVENT_PROFILE = 300.0, 0, 300, 100
+EVENT_TRIGGER = 0.2
+EVENT_FLOORS = {"draco-event": 0.5808, "fedasync-gossip": 0.5535, "event-triggered": 0.5768}
+FEDASYNC_WINDOWS = 240
 
 
 def log(msg):
@@ -490,6 +538,51 @@ def phase_kernels(torch):
                 raise AssertionError(f"drain kernel disagrees with its plain version: {name}")
     log(f"phase 2 kernels: gossip_drain max_abs_err={worst:.3e} "
         f"(tolerance rtol={RTOL} atol={ATOL}) over {2 * len(DRAIN_CASES)} cases")
+    return worst
+
+
+def seed_drain_case(torch, r, j, n, m, k, s, dtype, seed, live=None):
+    """The seed axis: (R, J, N, M) weights and an (R, S, N, K) ring from R
+    `drain_case`s, seed i with ``live(i)`` live buckets (default ``(i + 3)
+    % (J + 1)``), the slots shared."""
+    live = live or (lambda i: (i + 3) % (j + 1))
+    parts = [drain_case(torch, j, n, m, k, s, live(i), dtype, seed=seed + i) for i in range(r)]
+    return (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+            parts[0][2])
+
+
+def phase_seed_kernels(torch):
+    """Phase 2, the drain's seed axis: one launch for R seeds whose live
+    sets differ (one with none live), each row equal to a solo launch on
+    it (max |diff| 0) and within RTOL/ATOL of the plain version, in f32
+    and bf16, on the narrow route (R in {1, 2, 4, 8}) and the wide one."""
+    from repro_torch.kernels.gossip import ops
+
+    worst = 0.0
+    for i, (label, (r, j, n, m, k, s)) in enumerate(SEED_DRAIN_CASES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"{label} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            w, ring, slots = seed_drain_case(torch, r, j, n, m, k, s, dtype, seed=900 + 10 * i)
+            before = ops.gossip_drain.launches
+            got = ops.gossip_drain(w, ring, slots)
+            launches = ops.gossip_drain.launches - before
+            solo_gap = max(float((got[q] - ops.gossip_drain(w[q], ring[q], slots)).abs().max())
+                           for q in range(r))
+            ref = ops.gossip_drain_reference(w, ring, slots)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL)) and launches == 1 \
+                and solo_gap == 0.0 and bool(torch.isfinite(got).all())
+            worst = max(worst, err)
+            log(f"  drain seed axis {name}: 1 launch, max |row - solo launch| = "
+                f"{solo_gap:.1e}, max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"drain seed axis: {name} ({launches} launches, solo gap "
+                                     f"{solo_gap}, error {err})")
+            del w, ring, got, ref
+    torch.cuda.empty_cache()
+    log(f"phase 2 kernels: gossip_drain seed axis max_abs_err={worst:.3e} over "
+        f"{2 * len(SEED_DRAIN_CASES)} cases, every row equal to its solo launch")
     return worst
 
 
@@ -1272,8 +1365,9 @@ def flushes(torch):
 def gossip_variants(torch, names, baseline, modes=("zero",), kernels=None):
     """Times `repro_torch.kernels.gossip.variants` of drain.cu, enqueue.cu
     and mix.cu (each of `kernels`, default all) at their paths' shapes (the
-    drain with 3 and 1 live f32 buckets, the enqueue at `ENQ_MAIN` f32, the
-    mix at `MIX_VARIANT_SHAPES`), three rounds in turns (forward, backward,
+    drain with 3 and 1 live f32 buckets, the enqueue at `ENQ_MAIN` f32, both
+    also on the wide route at N = WIDE_CLIENTS, the mix at
+    `MIX_VARIANT_SHAPES`), three rounds in turns (forward, backward,
     forward) of `time_ms`' median of 40 launches with the L2 flushed
     (`flushes`, each of `modes`), after holding the variants that keep the
     arithmetic to the plain versions."""
@@ -1292,7 +1386,9 @@ def gossip_variants(torch, names, baseline, modes=("zero",), kernels=None):
             drain_case(torch, j, WIDE_CLIENTS, WIDE_CLIENTS, k, 4, live, torch.float32,
                        4220 + live)) for live in (3, 1)],
         "enqueue": [("f32", enqueue_case(torch, j, n, k, torch.float32, 4300)),
-                    ("f32 K+1", enqueue_case(torch, j, n, k + 1, torch.float32, 4310))],
+                    ("f32 K+1", enqueue_case(torch, j, n, k + 1, torch.float32, 4310)),
+                    (f"wide N={WIDE_CLIENTS} f32",
+                     enqueue_case(torch, j, WIDE_CLIENTS, k, torch.float32, 4320))],
         "mix": [(f"N={mn} K={mk} f32", mix_case(torch, mn, mk, torch.float32, 4400 + mn))
                 for mn, mk in MIX_VARIANT_SHAPES],
     }
@@ -1307,7 +1403,9 @@ def gossip_variants(torch, names, baseline, modes=("zero",), kernels=None):
     by_mode = flushes(torch)
 
     def takes(name, label):  # an earlier tree's kernels may stop at 64 clients
-        return name != "baseline" or not label.startswith("wide")
+        return name != "baseline" or not label.startswith("wide") or all(
+            hasattr(libs[kernel][name], f"{kernel}_route") for kernel in libs
+            if name in libs[kernel])
 
     one = torch.empty(1, device="cuda")
     a, b, c = (torch.randn((n, k), device="cuda") for _ in range(3))
@@ -1821,6 +1919,274 @@ def phase_scenarios(torch):
     return drain_total, mix_total, rows
 
 
+def sweep_final(state):
+    """final_fn of phase 13: each row's params and message counters."""
+    return state.params, state.total_accept
+
+
+def phase_sweep(torch):
+    """Phase 13: benchmarks/fig4_psi_sweep.py's Psi grid through
+    `simulate_sweep` at fig3_config(): one drain launch per batched window,
+    the trace's shape, finite params, each Psi's seed-mean accuracy
+    against its floor; the steady batched window under the sync detector
+    beside R solo windows, its idle share; row (Psi 4, seed 1) for 50
+    windows against the solo `simulate`."""
+    from repro_torch.api import get_algorithm, make_context, simulate, simulate_sweep
+    from repro_torch.core import protocol
+
+    cfg, task = fig3_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 130)
+    params0 = task.init_params(gen)
+    data, eval_data = task.make_data(gen, cfg.num_clients)
+    grid = [cfg.replace(psi=p) for p in SWEEP_PSIS]
+    keys = [SEED + 131 + r for r in range(SWEEP_SEEDS)]
+    ctx = make_context(grid[0], task=task, data=data, params0=params0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    (params, accepted), trace = simulate_sweep(
+        "draco", grid, params0, data=data, num_steps=SWEEP_WINDOWS, task=task, keys=keys,
+        eval_every=SWEEP_EVAL, eval_data=eval_data, ctx=ctx, final_fn=sweep_final)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["drain"]
+    acc = trace.metrics["accuracy"]
+    windows = len(grid) * SWEEP_WINDOWS
+    log(f"  sweep: {len(grid)} Psi x {SWEEP_SEEDS} seeds x {SWEEP_WINDOWS} windows in "
+        f"{wall:.3f} s with the evals ({wall / windows * 1e3:.3f} ms per batched window), "
+        f"{launches} drain launches, trace {acc.shape}")
+    if launches != windows:
+        raise AssertionError(f"sweep: {launches} drain launches in {windows} batched windows")
+    if acc.shape != (len(grid), SWEEP_SEEDS, SWEEP_WINDOWS // SWEEP_EVAL):
+        raise AssertionError(f"sweep trace shape {acc.shape}")
+    if not all(bool(torch.isfinite(p).all()) for p in params.values()) \
+            or not np.isfinite(acc).all():
+        raise AssertionError("sweep: non-finite params or accuracies")
+    for g, psi in enumerate(SWEEP_PSIS):
+        mean = float(acc[g, :, -1].mean())
+        log(f"    Psi {psi:2d}: final accuracy by seed "
+            + " ".join(f"{a:.4f}" for a in acc[g, :, -1])
+            + f", seed mean {mean:.4f} (floor {SWEEP_FLOORS[psi]}), messages accepted "
+            f"{int(accepted[g].sum()) // SWEEP_SEEDS} per seed")
+        if mean < SWEEP_FLOORS[psi]:
+            raise AssertionError(f"sweep: Psi {psi} seed-mean accuracy {mean} below its floor")
+
+    # the steady batched window against R solo windows, in this call
+    g = SWEEP_PSIS.index(SWEEP_ROW_PSI)
+    ctx_g = ctx._replace(cfg=grid[g])
+    algo = get_algorithm("draco")
+    seeds_st = protocol.stack_seeds([algo.init(k, grid[g], params0, task=task) for k in keys])
+    seeds_st, ms, syncs = steady_steps(torch, algo, seeds_st, ctx_g, SWEEP_STEADY)
+    solo_st = algo.init(keys[0], grid[g], params0, task=task)
+    solo_st, solo_ms, solo_syncs = steady_steps(torch, algo, solo_st, ctx_g, SWEEP_STEADY)
+    log(f"    steady: {ms:.3f} ms per batched window of {SWEEP_SEEDS} seeds against "
+        f"{solo_ms:.3f} ms per solo window ({SWEEP_SEEDS} solo windows {SWEEP_SEEDS * solo_ms:.3f} "
+        f"ms, {SWEEP_SEEDS * solo_ms / ms:.2f}x); host syncs in the loops: {len(syncs)}, "
+        f"{len(solo_syncs)}")
+    if syncs or solo_syncs:
+        raise AssertionError(f"sweep: host sync inside the window loop: {(syncs + solo_syncs)[0]}")
+    idle = profile_rounds(torch, algo, seeds_st, ctx_g, 20, ms, kernel="drain_kernel",
+                          unit="batched window")
+    solo_idle = profile_rounds(torch, algo, solo_st, ctx_g, 20, solo_ms,
+                               kernel="drain_kernel", unit="solo window")
+
+    # row (Psi 4, seed 1) against the solo run
+    finals, _ = simulate_sweep("draco", grid[g], params0, data=data, num_steps=PLAIN_WINDOWS,
+                               task=task, keys=keys, ctx=ctx_g)
+    solo, _ = simulate("draco", grid[g], params0, data=data, num_steps=PLAIN_WINDOWS,
+                       task=task, key=keys[SWEEP_ROW_SEED], ctx=ctx_g)
+    torch.cuda.synchronize()
+    gap = max(float((finals.params[k][0, SWEEP_ROW_SEED] - solo.params[k]).abs().max())
+              for k in solo.params)
+    same = torch.equal(finals.total_accept[0, SWEEP_ROW_SEED], solo.total_accept)
+    log(f"    row (Psi {SWEEP_ROW_PSI}, seed {SWEEP_ROW_SEED}), {PLAIN_WINDOWS} windows against "
+        f"the solo simulate: max |d params| = {gap:.3e} (tolerance {PATH_TOL}); same "
+        f"acceptances {same}")
+    if gap > PATH_TOL or not same:
+        raise AssertionError("sweep: a grid row differs from its solo run")
+    log(f"phase 13 sweep: {launches} drain launches; Psi seed-mean final accuracies "
+        + ", ".join(f"{p} {float(acc[i, :, -1].mean()):.4f}" for i, p in enumerate(SWEEP_PSIS)))
+    return dict(launches=launches, ms=ms, solo_ms=solo_ms, idle=idle, solo_idle=solo_idle,
+                wall_ms=wall / windows * 1e3, gap=gap)
+
+
+def event_config(threshold):
+    """fig3_config() as an EventConfig: poly staleness (a = 0.5) and the
+    event-triggered threshold."""
+    import dataclasses
+
+    from repro_torch.events import EventConfig
+
+    cfg, task = fig3_config()
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return EventConfig(**fields, staleness="poly", staleness_a=0.5,
+                       trigger_threshold=threshold), task
+
+
+def phase_events(torch):
+    """Phase 14: draco-event, fedasync-gossip and event-triggered on one
+    300 s tape at the fig3 EMNIST setup, each under the sync detector (0
+    host syncs, one per TX row for event-triggered) with one drain launch
+    per valid event and none per padding row, final accuracy against its
+    floor; draco-event once more through `simulate_events`; 300 events
+    through the kernel and the plain drain; fedasync-window for 240
+    windows through both."""
+    from repro_torch.api import get_algorithm
+    from repro_torch.core import protocol
+    from repro_torch.events import events_context, run_events, simulate_events
+    from repro_torch.events.staleness import staleness_damping_vector, staleness_fn
+    from repro_torch.kernels.gossip import ops
+
+    cfg, task = event_config(EVENT_TRIGGER)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    params0 = task.init_params(gen)
+    data, eval_data = task.make_data(gen, cfg.num_clients)
+    ctx = events_context(cfg, task=task, data=data, params0=params0, horizon=EVENT_HORIZON,
+                         tape_seed=EVENT_TAPE_SEED)
+    tape = ctx.tape
+    counts = tape.counts()
+    log(f"  tape: {tape.num_valid} valid events of {tape.capacity} rows ({counts}), "
+        f"horizon {EVENT_HORIZON:.0f} s")
+    out, total = {}, 0
+    for i, name in enumerate(("draco-event", "fedasync-gossip", "event-triggered")):
+        algo = get_algorithm(name)
+        st = algo.init(SEED + 141, cfg, params0, task=task)
+        torch.cuda.synchronize()
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                for _ in range(tape.capacity):
+                    st = algo.step(st, ctx)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+        launches = launch_counts()["drain"]
+        total += launches
+        with torch.no_grad():
+            acc = float(task.eval_fn(st.params, *eval_data).mean())
+        sent = int(st.tx_sent.sum())
+        want_syncs = counts["tx"] if name == "event-triggered" else 0
+        log(f"  {name}: {tape.capacity} rows in {wall:.3f} s ({wall / tape.num_valid * 1e3:.3f} "
+            f"ms/event), {launches} drain launches, host syncs {len(syncs)} (expected "
+            f"{want_syncs}), {sent} broadcasts of {counts['tx']} TX rows, final accuracy "
+            f"{acc:.4f} (floor {EVENT_FLOORS[name]})")
+        if launches != tape.num_valid:
+            raise AssertionError(f"{name}: {launches} drain launches for {tape.num_valid} "
+                                 "valid events")
+        if len(syncs) != want_syncs:
+            raise AssertionError(f"{name}: {len(syncs)} host syncs, expected {want_syncs}")
+        if name == "event-triggered" and not sent < counts["tx"]:
+            raise AssertionError("event-triggered suppressed no TX row")
+        if not all(bool(torch.isfinite(p).all()) for p in st.params.values()) \
+                or acc < EVENT_FLOORS[name]:
+            raise AssertionError(f"{name}: non-finite params or accuracy {acc} below its floor")
+        out[name] = dict(ms=wall / tape.num_valid * 1e3, acc=acc, sent=sent, launches=launches)
+    # the entry point: draco-event through simulate_events, the same run
+    reset_launches()
+    st, trace = simulate_events("draco-event", cfg, params0, ctx=ctx, key=SEED + 141,
+                                eval_every=tape.capacity, eval_data=eval_data)
+    torch.cuda.synchronize()
+    launches = launch_counts()["drain"]
+    total += launches
+    acc = float(trace.metrics["accuracy"][-1])
+    log(f"  simulate_events('draco-event'): {launches} drain launches, final accuracy "
+        f"{acc:.4f} (the loop's {out['draco-event']['acc']:.4f})")
+    if launches != tape.num_valid or abs(acc - out["draco-event"]["acc"]) > 1e-6:
+        raise AssertionError("simulate_events differs from the step loop")
+    # steady ms per event and the device's idle share, over the tape's start
+    algo = get_algorithm("draco-event")
+    st = algo.init(SEED + 142, cfg, params0, task=task)
+    st, ms, _ = steady_steps(torch, algo, st, ctx, EVENT_PROFILE)
+    st = algo.init(SEED + 142, cfg, params0, task=task)
+    idle = profile_rounds(torch, algo, st, ctx, EVENT_PROFILE, ms, kernel="drain_kernel",
+                          unit="event")
+    # 300 events through the kernel and through the plain drain
+    runs = {}
+    damping = staleness_fn(cfg)
+    for path, drain in (("kernel", None), ("plain", ops.gossip_drain_reference)):
+        st = algo.init(SEED + 143, cfg, params0, task=task)
+        runs[path] = run_events(st, ctx, EVENT_PLAIN, damping=damping, drain=drain)
+    torch.cuda.synchronize()
+    gap = same_path(torch, runs["kernel"], runs["plain"], "fedasync-gossip events")
+    same = all(torch.equal(getattr(runs["kernel"], f), getattr(runs["plain"], f))
+               for f in ("total_accept", "tx_sent", "accept_count")) \
+        and runs["kernel"].tx_count == runs["plain"].tx_count
+    log(f"  fedasync-gossip, {EVENT_PLAIN} events, kernel vs plain drain: max |d params, plane| "
+        f"= {gap:.3e} (tolerance {PATH_TOL}); same counters {same}")
+    if not same:
+        raise AssertionError("events: the kernel and plain paths count differently")
+    # fedasync-window: 240 windows, one drain a window, against the plain drain
+    wcfg, wctx = cfg, ctx._replace(tape=None)
+    walgo = get_algorithm("fedasync-window")
+    st = walgo.init(SEED + 144, wcfg, params0, task=task)
+    reset_launches()
+    for _ in range(FEDASYNC_WINDOWS):
+        st = walgo.step(st, wctx)
+    torch.cuda.synchronize()
+    launches = launch_counts()["drain"]
+    total += launches
+    vec = staleness_damping_vector(wcfg, device="cuda")
+    plain = protocol.init_state(SEED + 144, wcfg, params0, task=task)
+    for _ in range(FEDASYNC_WINDOWS):
+        plain = protocol.draco_window(plain, wcfg, wctx.q, wctx.adj, task, data, wctx.flat_spec,
+                                      damping=vec, drain=ops.gossip_drain_reference)
+    torch.cuda.synchronize()
+    wgap = same_path(torch, st, plain, "fedasync-window")
+    with torch.no_grad():
+        wacc = float(task.eval_fn(st.params, *eval_data).mean())
+    log(f"  fedasync-window (poly): {FEDASYNC_WINDOWS} windows, {launches} drain launches, final "
+        f"accuracy {wacc:.4f}; kernel vs plain drain max |d params, plane| = {wgap:.3e}; same "
+        f"acceptances {torch.equal(st.total_accept, plain.total_accept)}")
+    if launches != FEDASYNC_WINDOWS or not torch.equal(st.total_accept, plain.total_accept):
+        raise AssertionError("fedasync-window: launches or acceptances off")
+    del runs, st, plain
+    torch.cuda.empty_cache()
+    log(f"phase 14 events: {total} drain launches; " + ", ".join(
+        f"{k} {v['acc']:.4f}" for k, v in out.items()) + f"; steady {ms:.3f} ms/event")
+    return dict(launches=total, ms=ms, idle=idle, runs=out, gap=gap, wgap=wgap)
+
+
+def phase_seed_times(torch):
+    """Phase 9's seed-axis row: the drain at R = 4 seeds of the EMNIST
+    plane, 3 live buckets each, against its bound (R times the solo
+    drain's bytes), the plain version and the einsum over the seed axis;
+    zero and read flushes, and R solo launches beside it."""
+    from repro_torch.kernels.gossip import ops
+
+    r, j, n, m, k, s = SEED_TIMES_R, 3, 25, 25, 146_447, 4
+    w, ring, slots = seed_drain_case(torch, r, j, n, m, k, s, torch.float32, 950,
+                                     live=lambda i: 3)
+    slots_dev = torch.tensor(slots, device="cuda")
+    by_mode = flushes(torch)
+    kern = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), flush=by_mode["zero"])
+    read = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), flush=by_mode["read"])
+
+    def solo():
+        for q in range(r):
+            ops.gossip_drain(w[q], ring[q], slots)
+
+    solos = time_ms(torch, solo, flush=by_mode["zero"])
+    plain = time_ms(torch, lambda: ops.gossip_drain_reference(w, ring, slots),
+                    flush=by_mode["zero"])
+    lib = time_ms(torch, lambda: torch.einsum("rjnm,rjnk->rmk", w, ring[:, slots_dev]),
+                  flush=by_mode["zero"])
+    one, by = bound_ms(3, j, n, m, k, 4)
+    bound = r * one
+    log(f"  drain seed axis R={r} J=3 N=M=25 K={k} f32, 3 live each: kernel {kern:.4f} ms "
+        f"(read flush {read:.4f}), bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of "
+        f"bound), {r} solo launches {solos:.4f} ms, plain {plain:.4f} ms, library einsum "
+        f"{lib:.4f} ms")
+    del w, ring
+    torch.cuda.empty_cache()
+    return dict(ms=kern, read_ms=read, solo_ms=solos, plain_ms=plain, library_ms=lib,
+                bound_ms=bound, bound_by=by)
+
+
 def phase_wide_times(torch):
     """Times past 64 clients beside both bounds (the f32 rate and the
     split-TF32 tensor cores), the plain version and one library call: the
@@ -1944,6 +2310,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(torch)
+    seed_err = phase_seed_kernels(torch)
     mix_err = phase_mix_kernels(torch)
     ssd_err = phase_ssd_kernels(torch)
     enq_launches, enq_err = phase_enqueue(torch)
@@ -1958,16 +2325,20 @@ def main(argv=None) -> int:
     phase_wide_window(torch)
     baseline_runs, baseline_launches = phase_baselines(torch)
     scen_drain, scen_mix, scen_rows = phase_scenarios(torch)
+    sweep = phase_sweep(torch)
+    events = phase_events(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
     phase_wide_times(torch)
+    phase_seed_times(torch)
     log("phase 9 times: done")
     kernels = [
         dict(name="gossip_drain", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
-             launches=launches + scen_drain, max_abs_err=max_err, **times["f32", 3]),
+             launches=launches + scen_drain + sweep["launches"] + events["launches"],
+             max_abs_err=max(max_err, seed_err), **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
@@ -2001,8 +2372,19 @@ def main(argv=None) -> int:
         unit = "window" if "launches" in r else "round"
         log(f"scenario path ({r['label']}): {r['ms']:.3f} ms/{unit} steady, {idle}, final "
             f"metric {r['metric']:.4f}")
+    idle = {k: "not measured" if v is None else f"{100 * v:.2f}% idle"
+            for k, v in (("batched", sweep["idle"]), ("solo", sweep["solo_idle"]),
+                         ("event", events["idle"]))}
+    log(f"sweep path (fig4 Psi grid, {SWEEP_SEEDS} seeds): {sweep['ms']:.3f} ms per batched "
+        f"window steady ({idle['batched']}) against {sweep['solo_ms']:.3f} ms per solo window "
+        f"({idle['solo']}); {sweep['wall_ms']:.3f} ms per batched window with the evals")
+    log(f"event path (fig3 EMNIST, {EVENT_HORIZON:.0f} s tape): {events['ms']:.3f} ms/event "
+        f"steady ({idle['event']}); " + ", ".join(
+            f"{k} {v['ms']:.3f} ms/event, accuracy {v['acc']:.4f}, {v['sent']} broadcasts"
+            for k, v in events["runs"].items()))
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
-        f"paths")
+        f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
+        f"engine's")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {baseline_launches} on "
         f"the baselines', {scen_mix} on the scenario baselines'")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

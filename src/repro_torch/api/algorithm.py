@@ -17,7 +17,13 @@ class Algorithm(Protocol):
     outcomes); `step_index(state)` is the host-int count of steps the
     state has taken (`window_idx`, `round_idx`); `eval_params(state)` is
     the (N, ...) view metrics read; `grads_per_step(cfg)` is the expected
-    local gradient events per client per step."""
+    local gradient events per client per step.
+
+    For `simulate_sweep` an algorithm also declares `sweepable`, the
+    config fields a grid row may re-bind, and `seed_axis`: True when its
+    `step` advances a seed-stacked `DracoState` (`protocol.stack_seeds`)
+    in one pass, False when the sweep runs the seeds one solo state after
+    another."""
 
     name: str
 

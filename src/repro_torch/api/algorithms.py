@@ -6,7 +6,12 @@ Each is a thin adapter over the step functions of
 them the step-t world (`_view`): the scenario schedule's snapshot when
 the context carries one, else the frozen graph. Push-sum de-biasing
 lives in `eval_params`, not in the step, as in the paper's evaluation.
-The event family (ROADMAP.md queue 1 item 11) is not ported.
+The event family registers in `repro_torch.events.algorithms`.
+
+Each declares the config fields a sweep may re-bind per grid row
+(`sweepable`), and whether it runs a sweep's seeds as one seed-stacked
+state (`seed_axis`: `draco`'s window takes the R seeds in one pass) or
+one solo state after another.
 """
 from __future__ import annotations
 
@@ -36,6 +41,10 @@ class Draco:
     """Paper Algorithm 1/2: decoupled Poisson grad/tx events, row-
     stochastic gossip with Psi cap, delay ring buffer, unification."""
 
+    # config fields a sweep may re-bind per grid row
+    sweepable = ("lr", "lambda_grad", "lambda_tx", "psi")
+    seed_axis = True
+
     def init(self, key, cfg, params0, task=None, *, device=None):
         return protocol_lib.init_state(key, cfg, params0, task=task,
                                        device=device)
@@ -45,7 +54,8 @@ class Draco:
         return protocol_lib.draco_window(
             state, ctx.cfg, v.q, v.adj, ctx.task, ctx.data,
             spec=ctx.flat_spec, draws=draws, positions=v.positions,
-            compute_rate=v.compute_rate, tx_rate=v.tx_rate)
+            compute_rate=v.compute_rate, tx_rate=v.tx_rate,
+            overrides=ctx.overrides)
 
     def step_index(self, state) -> int:
         return state.window_idx
@@ -58,9 +68,10 @@ class Draco:
         return 1.0 - math.exp(-cfg.lambda_grad * cfg.window)
 
 
-def _scenario(v: Snapshot):
-    """The snapshot fields a baseline round takes (it has no tx rate)."""
-    return dict(positions=v.positions, compute_rate=v.compute_rate)
+def _scenario(v: Snapshot, ctx):
+    """The snapshot fields a baseline round takes (it has no tx rate),
+    and the sweep row's lr."""
+    return dict(positions=v.positions, compute_rate=v.compute_rate, lr=_Baseline._lr(ctx))
 
 
 class _Baseline:
@@ -69,6 +80,7 @@ class _Baseline:
     # the baselines read cfg.lr only (through the local step); the
     # Poisson-rate and Psi knobs are DRACO's
     sweepable = ("lr",)
+    seed_axis = False
 
     def init(self, key, cfg, params0, task=None, *, device=None):
         return baselines_lib.init_baseline_state(key, cfg, params0, task=task,
@@ -76,6 +88,10 @@ class _Baseline:
 
     def step_index(self, state) -> int:
         return state.round_idx
+
+    @staticmethod
+    def _lr(ctx):
+        return None if ctx.overrides is None else ctx.overrides.lr
 
     def eval_params(self, state):
         return baselines_lib.eval_params(self.name, state)
@@ -91,7 +107,7 @@ class SyncSymm(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
-                                             ctx.data, draws=draws, **_scenario(v))
+                                             ctx.data, draws=draws, **_scenario(v, ctx))
 
 
 @register_algorithm("sync-push")
@@ -101,7 +117,7 @@ class SyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                             draws=draws, **_scenario(v))[0]
+                                             draws=draws, **_scenario(v, ctx))[0]
 
 
 @register_algorithm("async-symm")
@@ -112,7 +128,7 @@ class AsyncSymm(_Baseline):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
                                               ctx.data, P_ACTIVE, draws=draws,
-                                              **_scenario(v))
+                                              **_scenario(v, ctx))
 
     def grads_per_step(self, cfg):
         return P_ACTIVE
@@ -125,7 +141,7 @@ class AsyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                              P_ACTIVE, draws=draws, **_scenario(v))[0]
+                                              P_ACTIVE, draws=draws, **_scenario(v, ctx))[0]
 
     def grads_per_step(self, cfg):
         return P_ACTIVE

@@ -5,8 +5,11 @@ the task (or a bare batched loss), the row-stochastic Q, its adjacency
 and its Metropolis weights (the symmetric baselines' mix), the federated
 shards, the flat-plane layout (with the optimizer plane's width), and an
 optional scenario `Schedule` whose step-t snapshot the steps read, all
-built once per run on the run's device. Sweep overrides and event tapes
-wait for later slices (ROADMAP.md queue 1 items 10-11).
+built once per run on the run's device. Two slots are set by the engines
+that drive a context: `overrides` (a `repro_torch.core.protocol.Overrides`
+of one sweep row, set by `repro_torch.api.sweep`) and `tape` (the
+`repro_torch.events.EventTape` the continuous-time event engine walks,
+set by `repro_torch.events.events_context`); both are None otherwise.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ class SimContext(NamedTuple):
     flat_spec: Optional[FlatSpec] = None
     w_sym: Optional[torch.Tensor] = None  # (N, N) f32 Metropolis weights of adj
     schedule: Any = None  # a `repro_torch.scenarios.Schedule`, or None
+    overrides: Any = None  # a sweep row's `Overrides`, or None
+    tape: Any = None  # an `EventTape` (host numpy), or None
 
 
 def make_context(cfg, loss_fn=None, data=None, *, task=None, params0=None,

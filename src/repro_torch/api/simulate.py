@@ -18,6 +18,7 @@ from repro_torch import as_generator, resolve_device
 from repro_torch.api.algorithm import Algorithm, get_algorithm
 from repro_torch.api.context import SimContext, make_context
 from repro_torch.core import flat as flat_lib
+from repro_torch.core.protocol import seed_row
 
 
 class SimTrace(NamedTuple):
@@ -49,9 +50,21 @@ def _metrics(algo, state, eval_fn, eval_data, metric_name="accuracy"):
 
 
 def _run(algo, ctx, state, eval_data, num_steps: int, eval_every: int,
-         eval_fn, metric_name: str, draws_fn):
+         eval_fn, metric_name: str, draws_fn, seeds: int = 0):
     """`num_steps` protocol steps with metric rows at every multiple of
-    `eval_every` and a final row at `num_steps` if it is not one."""
+    `eval_every` and a final row at `num_steps` if it is not one.
+
+    ``seeds > 0`` runs a seed-stacked state of that many seeds (an
+    algorithm with a `seed_axis`): each metric is measured on each seed's
+    row (`protocol.seed_row`) as a solo run measures it, and the trace's
+    metrics are ``(seeds, num_evals)``."""
+    def measure(st):
+        if not seeds:
+            return _metrics(algo, st, eval_fn, eval_data, metric_name)
+        per_seed = [_metrics(algo, seed_row(st, r), eval_fn, eval_data, metric_name)
+                    for r in range(seeds)]
+        return {k: torch.stack([m[k] for m in per_seed]) for k in per_seed[0]}
+
     steps, rows = [], []
     with torch.no_grad():
         for s in range(num_steps):
@@ -59,13 +72,14 @@ def _run(algo, ctx, state, eval_data, num_steps: int, eval_every: int,
             state = algo.step(state, ctx, draws)
             if eval_every > 0 and (s + 1) % eval_every == 0:
                 steps.append(s + 1)
-                rows.append(_metrics(algo, state, eval_fn, eval_data, metric_name))
+                rows.append(measure(state))
         if eval_every > 0 and num_steps % eval_every:
             steps.append(num_steps)
-            rows.append(_metrics(algo, state, eval_fn, eval_data, metric_name))
+            rows.append(measure(state))
     if not rows:
         return state, SimTrace(np.zeros((0,), np.int32), {})
-    metrics = {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in rows[0]}
+    metrics = {k: np.moveaxis(torch.stack([r[k] for r in rows]).cpu().numpy(), 0, -1)
+               for k in rows[0]}
     return state, SimTrace(np.asarray(steps, np.int32), metrics)
 
 

@@ -20,7 +20,13 @@ inputs:
     plane; a fresh generator seeded by `seed` for the JAX key);
   - `round_draws_from_numpy`: one baseline round's draws -> `RoundDraws`;
   - `schedule_from_numpy`: the reference's scenario `Schedule` -> the
-    port's.
+    port's;
+  - `event_state_from_numpy`: the reference's `EventState` -> the port's
+    (rings, deadlines, send times, counters; ``tx_count``, the cursor
+    and the clock as host values; a fresh generator seeded by `seed`);
+  - `event_draws_from_numpy`: one event's draws -> `EventDraws`;
+  - `tape_from_numpy`: the reference's `EventTape` -> the port's (host
+    numpy arrays).
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from repro_torch import as_generator, resolve_device
 from repro_torch.core.baselines import BaselineState, RoundDraws
 from repro_torch.core.flat import tree_from_items
 from repro_torch.core.protocol import DracoState, WindowDraws
+from repro_torch.events.engine import EventDraws, EventState
+from repro_torch.events.tape import EventTape
 from repro_torch.scenarios.base import Schedule
 
 
@@ -156,3 +164,46 @@ def draws_from_numpy(draws: Mapping, device=None) -> WindowDraws:
         batch_idx=_tensor(draws["batch_idx"], dev, torch.int64),
         tx_mask=_tensor(draws["tx_mask"], dev, torch.bool),
         **opt)
+
+
+def event_state_from_numpy(state, *, seed: int = 0, device=None) -> EventState:
+    """The reference's `EventState` (any object with its field names as
+    attributes or keys) -> the port's `EventState`."""
+    dev = resolve_device(device)
+    get = _getter(state)
+    pending = _tensor(get("pending"), dev, torch.float32)
+    return EventState(
+        params=params_from_numpy(get("params"), dev),
+        pending=pending,
+        buffer=_tensor(get("buffer"), dev, torch.float32),
+        w_ring=_tensor(get("w_ring"), dev, torch.float32),
+        deadline_ring=_tensor(get("deadline_ring"), dev, torch.float32),
+        send_time=_tensor(get("send_time"), dev, torch.float32),
+        accept_count=_tensor(get("accept_count"), dev, torch.int32),
+        total_accept=_tensor(get("total_accept"), dev, torch.int32),
+        tx_sent=_tensor(get("tx_sent"), dev, torch.int32),
+        tx_count=int(np.asarray(get("tx_count"))),
+        event_idx=int(np.asarray(get("event_idx"))),
+        time=np.float32(np.asarray(get("time"))),
+        generator=as_generator(seed, dev),
+        positions=_tensor(get("positions"), dev, torch.float32),
+        opt_state=_opt_plane(get, pending.shape[0], dev),
+    )
+
+
+def event_draws_from_numpy(draws: Mapping, device=None) -> EventDraws:
+    """Mapping with (some of) the `EventDraws` field names -> `EventDraws`."""
+    dev = resolve_device(device)
+    return EventDraws(**{k: None if draws.get(k) is None else _tensor(draws[k], dev, dt)
+                         for k, dt in (("batch_idx", torch.int64),
+                                       ("fading", torch.float32))})
+
+
+def tape_from_numpy(tape) -> EventTape:
+    """The reference's `EventTape` (any object with its field names as
+    attributes or keys) -> the port's host-numpy tape, dtypes kept."""
+    get = _getter(tape)
+    return EventTape(t=np.asarray(get("t"), np.float32),
+                     client=np.asarray(get("client"), np.int32),
+                     kind=np.asarray(get("kind"), np.int32),
+                     valid=np.asarray(get("valid"), bool))

@@ -137,14 +137,15 @@ def _mix_rows(w, params, mix: Optional[Callable] = None):
     return flat_lib.unravel_clients(mix(w.T, plane), spec)
 
 
-def _local(state, cfg, task, data, draws, p_active, compute_rate):
-    """The round's draws, and its local step on the active clients:
+def _local(state, cfg, task, data, draws, p_active, compute_rate, lr=None):
+    """The round's draws, and its local step on the active clients (`lr`,
+    when given, overriding ``cfg.lr``: a sweep row's):
     ``(draws, params + Delta, opt_state)``."""
     if draws is None:
         draws = sample_round_draws(state.generator, cfg, data[0].shape[1], p_active,
                                    compute_rate)
     delta, opt_state = local_step(state.params, draws.active, cfg, task, data,
-                                  draws.batch_idx, state.opt_state, state.round_idx)
+                                  draws.batch_idx, state.opt_state, state.round_idx, lr=lr)
     params = flat_lib.tree_map(lambda p, d: p + d.to(p.dtype), state.params, delta)
     return draws, params, opt_state
 
@@ -185,15 +186,16 @@ def _advance(state, params, opt_state, positions, push_weight=None):
 
 def sync_symm_round(state: BaselineState, cfg, w_sym, adj, task, data, *,
                     draws: Optional[RoundDraws] = None, mix=None, positions=None,
-                    compute_rate=None) -> BaselineState:
+                    compute_rate=None, lr=None) -> BaselineState:
     """D-SGD with Metropolis weights `w_sym` (N, N); dropped links' mass
     folds into the self-loop. `task` is a `Task` or a bare batched loss;
     `draws` injects the round's `RoundDraws`; `mix` is the mix function
     (`gossip_ops.gossip_mix` when None). A schedule's `compute_rate`
     makes stragglers skip their local step (their params still mix);
-    `positions` move the channel's nodes."""
+    `positions` move the channel's nodes; `lr` overrides ``cfg.lr`` (the
+    same in every round function)."""
     n = cfg.num_clients
-    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
     succ = _link_success(state, cfg, adj, all_on, draws.fading, positions)
     succ = succ & succ.T  # symmetric methods need bidirectional links
@@ -206,11 +208,11 @@ def sync_symm_round(state: BaselineState, cfg, w_sym, adj, task, data, *,
 
 def sync_push_round(state: BaselineState, cfg, adj, task, data, *,
                     draws: Optional[RoundDraws] = None, mix=None, positions=None,
-                    compute_rate=None):
+                    compute_rate=None, lr=None):
     """Synchronous push-sum (stochastic gradient push, Assran et al.).
     Returns ``(state, de-biased params)``."""
     n = cfg.num_clients
-    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
     col_p = push_split(_link_success(state, cfg, adj, all_on, draws.fading, positions))
     params = _mix_rows(col_p.T, params, mix)  # z_j = sum_i colP[i, j] z_i
@@ -220,14 +222,15 @@ def sync_push_round(state: BaselineState, cfg, adj, task, data, *,
 
 def async_symm_round(state: BaselineState, cfg, w_sym, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                     mix=None, positions=None, compute_rate=None) -> BaselineState:
+                     mix=None, positions=None, compute_rate=None,
+                     lr=None) -> BaselineState:
     """Async decentralized SGD with a delay deadline: a random subset is
     active each round (probability `p_active`, scaled by a schedule's
     `compute_rate`); symmetric mixing among the surviving links between
     active clients."""
     n = cfg.num_clients
     draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
-                                      compute_rate)
+                                      compute_rate, lr)
     active = draws.active
     succ = _link_success(state, cfg, adj, active, draws.fading, positions)
     succ = succ & succ.T & active[:, None] & active[None, :]
@@ -239,12 +242,12 @@ def async_symm_round(state: BaselineState, cfg, w_sym, adj, task, data,
 
 def async_push_round(state: BaselineState, cfg, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                     mix=None, positions=None, compute_rate=None):
+                     mix=None, positions=None, compute_rate=None, lr=None):
     """Asynchronous push-sum gossip (Digest-style): active clients push
     half their mass, split across their successful out-neighbours.
     Returns ``(state, de-biased params)``."""
     draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
-                                      compute_rate)
+                                      compute_rate, lr)
     p = half_push_split(_link_success(state, cfg, adj, draws.active, draws.fading,
                                       positions))
     params = _mix_rows(p.T, params, mix)

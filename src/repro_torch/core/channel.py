@@ -52,7 +52,7 @@ def place_nodes(generator: torch.Generator, n: int,
 
 def pairwise_dist(pos: torch.Tensor) -> torch.Tensor:
     """(n, n) Euclidean distances, clamped to 1 m (no singular path loss)."""
-    diff = pos[:, None, :] - pos[None, :, :]
+    diff = pos[..., :, None, :] - pos[..., None, :, :]
     d = torch.sqrt((diff * diff).sum(dim=-1))
     return torch.clamp(d, min=1.0)
 
@@ -67,8 +67,8 @@ def interference(dist, p_rx, tx_mask, cfg: ChannelConfig) -> torch.Tensor:
     rounding.
     """
     close = dist <= cfg.interference_radius_frac * cfg.radius  # [n, j]
-    contrib = torch.where(close & tx_mask[:, None], p_rx, 0.0)
-    interf = contrib.sum(dim=0)[None, :] - contrib
+    contrib = torch.where(close & tx_mask[..., :, None], p_rx, 0.0)
+    interf = contrib.sum(dim=-2)[..., None, :] - contrib
     return torch.clamp(interf, min=0.0)
 
 
@@ -78,14 +78,15 @@ def transmission_delays(fading, pos, tx_mask, cfg: ChannelConfig):
     `fading` (n, n) is the link's exp(1) Rayleigh draw (the reference
     draws it from its key here); `tx_mask` (n,) marks the concurrently
     transmitting nodes, which interfere. Entry [i, j] is the link i -> j;
-    success = Gamma <= gamma_max and i transmits.
+    success = Gamma <= gamma_max and i transmits. Leading seed axes of
+    `fading`, `pos` and `tx_mask` ride along.
     """
     dist = pairwise_dist(pos)
     p_rx = cfg.tx_power_w * fading * dist ** (-cfg.path_loss_exp)
     sinr = p_rx / (interference(dist, p_rx, tx_mask, cfg) + cfg.noise_w)
     rate = cfg.bandwidth_hz * torch.log2(1.0 + sinr)
     gamma = (cfg.message_bytes * 8) / torch.clamp(rate, min=1e-9) + dist / LIGHTSPEED
-    success = (gamma <= cfg.gamma_max) & tx_mask[:, None]
+    success = (gamma <= cfg.gamma_max) & tx_mask[..., :, None]
     return gamma, success
 
 

@@ -128,8 +128,10 @@ def ravel_clients(tree, dtype=torch.float32) -> torch.Tensor:
 
 def unravel_clients(flat: torch.Tensor, spec: FlatSpec):
     """`flat` (N, Dflat) matrix -> nested dict per ``spec``, dtypes
-    restored. Leaves are views of `flat` where no cast is needed."""
+    restored. Leaves are views of `flat` where no cast is needed. Leading
+    axes of `flat` (a seed axis: (R, N, Dflat)) lead every leaf."""
+    lead = tuple(flat.shape[:-2])
     return tree_from_items(
-        (path, flat[:, off:off + size].reshape(shape).to(dtype))
+        (path, flat[..., off:off + size].reshape(lead + shape).to(dtype))
         for path, shape, dtype, off, size in zip(
             spec.paths, spec.shapes, spec.dtypes, spec.offsets, spec.sizes))

@@ -38,11 +38,23 @@ Scenarios. `draco_window` takes a schedule's step-t ``positions``,
 replace the state's for the channel (and are carried on), the rates
 scale each client's Poisson grad and transmission rates.
 
-Deferred: the `Overrides` and legacy engines.
+Sweeps. `Overrides` re-binds the sweepable fields (lr, lambda_grad,
+lambda_tx, psi) for one row of a config grid (`repro_torch.api.sweep`).
+Rows run one after another on the host, so an override is a Python
+number and a row equals the solo run with ``cfg.replace(field=value)``
+exactly. The seed axis: `stack_seeds` stacks R solo states (each from
+its own seed's `init_state`) into one whose tensors carry a leading R
+axis and whose generator is the R generators; `draco_window` advances
+such a state in one pass, the drain in one launch for all seeds
+(`gossip_ops.gossip_drain`'s seed axis), each seed drawing from its own
+generator exactly as its solo run does. `seed_row` views seed r.
+
+Deferred: the legacy (pre-fusion) engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Any, Dict, NamedTuple, Optional
@@ -95,6 +107,28 @@ class DracoConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+class Overrides(NamedTuple):
+    """Per-row re-bindings of sweepable `DracoConfig` fields.
+
+    The sweep engine (`repro_torch.api.sweep`) sets one per grid row;
+    None fields keep the config's value, so an all-None `Overrides` is
+    the plain config path. Values are Python numbers: rows run one after
+    another on the host, so the lr stays a host f32 (the schedules'
+    numpy arithmetic) and psi a host int. `psi` follows the config
+    convention: values <= 0 mean unbounded reception."""
+
+    lr: Optional[float] = None
+    lambda_grad: Optional[float] = None
+    lambda_tx: Optional[float] = None
+    psi: Optional[int] = None
+
+
+def rebound(cfg, overrides: Optional[Overrides], name: str):
+    """``cfg.<name>``, or the override's value when it sets one."""
+    value = None if overrides is None else getattr(overrides, name)
+    return getattr(cfg, name) if value is None else value
 
 
 class WindowDraws(NamedTuple):
@@ -166,36 +200,55 @@ def _scaled(lam: float, rate: Optional[torch.Tensor]):
     return lam if rate is None else lam * rate
 
 
-def sample_window_draws(generator: torch.Generator, cfg: DracoConfig,
-                        num_samples: int, compute_rate=None,
-                        tx_rate=None) -> WindowDraws:
+def sample_window_draws(generator, cfg: DracoConfig, num_samples: int,
+                        compute_rate=None, tx_rate=None,
+                        overrides: Optional[Overrides] = None) -> WindowDraws:
     """Draw one window's `WindowDraws` from `generator`, on its device.
 
     `num_samples` is the per-client shard size the batch rows index; the
     (N,) `compute_rate` and `tx_rate`, when given, scale lambda_grad and
-    lambda_tx per client."""
+    lambda_tx per client; `overrides` re-binds lambda_grad, lambda_tx and
+    psi (a permutation is drawn only under a cap, psi > 0). A tuple of R
+    generators (a seed-stacked state's) gives each seed's draws, drawn as
+    its solo run draws them, stacked on a leading R axis."""
+    if isinstance(generator, tuple):
+        return stack_draws([sample_window_draws(g, cfg, num_samples, compute_rate,
+                                                tx_rate, overrides) for g in generator])
     n, dev = cfg.num_clients, generator.device
     grad_mask = sample_event_masks(
-        generator, _scaled(cfg.lambda_grad, compute_rate), cfg.window, n)
+        generator, _scaled(rebound(cfg, overrides, "lambda_grad"), compute_rate),
+        cfg.window, n)
     batch_idx = torch.randint(
         0, num_samples, (n, cfg.local_batches, cfg.batch_size),
         generator=generator, device=dev)
     tx_mask = sample_event_masks(
-        generator, _scaled(cfg.lambda_tx, tx_rate), cfg.window, n)
+        generator, _scaled(rebound(cfg, overrides, "lambda_tx"), tx_rate), cfg.window, n)
     fading = perm = None
     if cfg.channel is not None and cfg.channel.enabled:
         fading = torch.empty((n, n), dtype=torch.float32,
                              device=dev).exponential_(generator=generator)
-    if cfg.psi > 0:
+    # repro-lint: disable-next-line=TRACED-PY-BRANCH(an Overrides holds Python numbers re-bound per sweep row on the host, never tensors: psi is a host int)
+    if rebound(cfg, overrides, "psi") > 0:
         # argsort of uniform keys: a uniform permutation drawn on the device
         perm = torch.argsort(torch.rand((n,), generator=generator, device=dev))
     return WindowDraws(grad_mask, batch_idx, tx_mask, fading, perm)
 
 
+def stack_draws(draws):
+    """R seeds' draws records (`WindowDraws`, or any named tuple of
+    tensors and Nones) -> one with a leading R axis on each field."""
+    return type(draws[0])(*(None if f[0] is None else torch.stack(f) for f in zip(*draws)))
+
+
 def _batch(xs, ys, idx):
-    """Rows `idx` (N, b) of each client's shard: ``x (N, b, ...)`` and
-    ``y (N, b, ...)``, any trailing axes of either kept (tiny-lm's
-    targets are (N, S_shard, seq))."""
+    """Rows `idx` (L, b) of each client's shard: ``x (L, b, ...)`` and
+    ``y (L, b, ...)``, any trailing axes of either kept (tiny-lm's
+    targets are (N, S_shard, seq)). Row i reads client ``i % N``'s shard,
+    so a seed-stacked step's R * N rows read the N shards R times over."""
+    if idx.shape[0] != xs.shape[0]:
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None] % xs.shape[0]
+        return xs[rows, idx], ys[rows, idx]
+
     def take(a):
         return torch.take_along_dim(
             a, idx.reshape(tuple(idx.shape) + (1,) * (a.dim() - 2)), dim=1)
@@ -218,7 +271,8 @@ def _masked_delta(new, old, grad_mask):
         lambda a, b: (a - b) * gm.reshape((-1,) + (1,) * (b.dim() - 1)), new, old)
 
 
-def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
+def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx, *,
+                  lr=None):
     """Per-client B-batch local SGD (``p - lr * g``) of a bare batched
     loss; returns the Delta dict (N, ...).
 
@@ -228,8 +282,10 @@ def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
     gradient of the summed per-client losses is exactly each client's
     gradient of its own batch mean. `batch_idx` (N, B, batch_size) picks
     the rows of each client's shard. Clients outside `grad_mask` get a
-    zero Delta, as in the reference."""
+    zero Delta, as in the reference. `lr`, when given, overrides
+    ``cfg.lr`` (a sweep row's)."""
     xs, ys = data
+    lr = cfg.lr if lr is None else lr
     loss_fn = task.loss_fn if hasattr(task, "loss_fn") else task
     items = flat_lib.tree_items(params)
     paths = [path for path, _ in items]
@@ -237,7 +293,7 @@ def local_updates(params, grad_mask, cfg: DracoConfig, task, data, batch_idx):
     for b in range(cfg.local_batches):
         x, y = _batch(xs, ys, batch_idx[:, b].long())
         grads = _grads(loss_fn, paths, cur, x, y)
-        cur = [leaf - cfg.lr * g for leaf, g in zip(cur, grads)]
+        cur = [leaf - lr * g for leaf, g in zip(cur, grads)]
     return _masked_delta(flat_lib.tree_from_items(zip(paths, cur)), params, grad_mask)
 
 
@@ -254,7 +310,7 @@ def _opt_spec(task, spec: flat_lib.FlatSpec) -> flat_lib.FlatSpec:
 
 
 def task_local_updates(params, grad_mask, cfg: DracoConfig, task, data,
-                       batch_idx, opt_state, step: int):
+                       batch_idx, opt_state, step: int, *, lr=None):
     """Per-client B-batch local updates through the task's optimizer.
 
     Each local batch computes every client's gradient in one batched
@@ -264,10 +320,11 @@ def task_local_updates(params, grad_mask, cfg: DracoConfig, task, data,
     back. Clients outside `grad_mask` fired no gradient event: their
     Delta is zero and their `opt_state` row is kept as it was, bit for
     bit. `step` (the host-int window or round index) feeds the lr
-    schedule, shared by the B batches. Returns ``(Delta dict (N, ...),
-    new opt_state (N, Dopt))``."""
+    schedule, shared by the B batches; `lr`, when given, overrides
+    ``cfg.lr`` in the rebuilt optimizer (a sweep row's). Returns ``(Delta
+    dict (N, ...), new opt_state (N, Dopt))``."""
     xs, ys = data
-    opt = task.make_optimizer(cfg.lr)
+    opt = task.make_optimizer(cfg.lr if lr is None else lr)
     # a plane of another width than the task's `opt_width` fails to reshape
     state = flat_lib.unravel_clients(opt_state, _opt_spec(task, flat_lib.spec_of(params)))
     paths = [path for path, _ in flat_lib.tree_items(params)]
@@ -285,16 +342,17 @@ def task_local_updates(params, grad_mask, cfg: DracoConfig, task, data,
 
 
 def local_step(params, grad_mask, cfg: DracoConfig, task, data, batch_idx,
-               opt_state=None, step: int = 0):
+               opt_state=None, step: int = 0, *, lr=None):
     """Local updates by workload representation (the reference's
     `local_step`): a bare batched loss (or None) runs `local_updates`
     and passes `opt_state` (N, Dopt) through untouched; a `Task` runs
-    `task_local_updates` with its optimizer. Returns ``(Delta dict (N,
-    ...), opt_state)``."""
+    `task_local_updates` with its optimizer. `lr` overrides ``cfg.lr``.
+    Returns ``(Delta dict (N, ...), opt_state)``."""
     if not is_task(task):
-        return local_updates(params, grad_mask, cfg, task, data, batch_idx), opt_state
+        return (local_updates(params, grad_mask, cfg, task, data, batch_idx, lr=lr),
+                opt_state)
     return task_local_updates(params, grad_mask, cfg, task, data, batch_idx,
-                              opt_state, step)
+                              opt_state, step, lr=lr)
 
 
 def _psi_accept(success, accept_count, psi: int, perm):
@@ -302,16 +360,20 @@ def _psi_accept(success, accept_count, psi: int, perm):
 
     Senders take priority in the order `perm`; receiver j accepts while
     its period count + rank < psi. psi <= 0 is unbounded and uses no
-    permutation. Returns (accept mask (N,N), new accept_count)."""
+    permutation. Returns (accept mask (N,N), new accept_count). Leading
+    seed axes ride along: success (..., N, N), accept_count and perm
+    (..., N)."""
     arrivals = success.to(torch.int32)
     if psi <= 0:
-        return success, accept_count + arrivals.sum(dim=0, dtype=torch.int32)
-    inv = torch.argsort(perm)
-    s_perm = arrivals[perm]  # senders reordered by priority
-    rank = torch.cumsum(s_perm, dim=0, dtype=torch.int32) - s_perm
-    ok_perm = (rank + accept_count[None, :] < psi) & (s_perm > 0)
-    ok = ok_perm[inv]
-    new_count = accept_count + ok.sum(dim=0, dtype=torch.int32)
+        return success, accept_count + arrivals.sum(dim=-2, dtype=torch.int32)
+    perm = perm.long()
+    inv = torch.argsort(perm, dim=-1)
+    # senders reordered by priority
+    s_perm = torch.take_along_dim(arrivals, perm[..., :, None], dim=-2)
+    rank = torch.cumsum(s_perm, dim=-2, dtype=torch.int32) - s_perm
+    ok_perm = (rank + accept_count[..., None, :] < psi) & (s_perm > 0)
+    ok = torch.take_along_dim(ok_perm, inv[..., :, None], dim=-2)
+    new_count = accept_count + ok.sum(dim=-2, dtype=torch.int32)
     return ok & success, new_count
 
 
@@ -332,10 +394,12 @@ def quantize_delays(gamma, window: float, max_delay_windows: int):
     return delay_w, deliverable
 
 
-def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws, positions=None):
+def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws, positions=None, psi=None):
     """Transmissions + channel + Psi cap; `positions` (N, 2), when given,
-    replace the state's for the channel. Returns (tx_mask (N,), w_eff
-    (N,N), delay_w (N,N) int32, accept_count, total_accept)."""
+    replace the state's for the channel; `psi` overrides ``cfg.psi``.
+    Returns (tx_mask (N,), w_eff (N,N), delay_w (N,N) int32,
+    accept_count, total_accept), with a seed-stacked state's leading R
+    axis."""
     n, D = cfg.num_clients, cfg.max_delay_windows
     tx_mask = draws.tx_mask
     if cfg.channel is not None and cfg.channel.enabled:
@@ -345,44 +409,56 @@ def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws, positions=None):
         delay_w, deliverable = quantize_delays(gamma, cfg.window, D)
         success = success & deliverable & adj
     else:
-        success = adj & tx_mask[:, None]
+        success = adj & tx_mask[..., :, None]
         delay_w = torch.ones((n, n), dtype=torch.int32, device=q.device)
-    accept, accept_count = _psi_accept(success, state.accept_count, cfg.psi,
-                                       draws.perm)
+    accept, accept_count = _psi_accept(success, state.accept_count,
+                                       cfg.psi if psi is None else psi, draws.perm)
     # the cumulative counter survives the periodic accept_count reset
     total_accept = state.total_accept + (accept_count - state.accept_count)
     w_eff = q * accept.to(q.dtype)  # (sender, receiver)
     return tx_mask, w_eff, delay_w, accept_count, total_accept
 
 
-def _unify(params, accept_count, widx: int, cfg, n: int):
+def _unify(params, accept_count, widx: int, cfg, n: int, seeds: int = 0):
     """Every P windows (at ``(widx + 1) % P == 0``) every client adopts
     hub ``(widx // P) % n``'s params and accept counts reset. Pending
-    updates, the ring and total_accept are left alone."""
+    updates, the ring and total_accept are left alone. `seeds` is the
+    number of leading seed axes of the params (0 or 1): each seed adopts
+    its own hub row."""
     if (widx + 1) % cfg.unify_period != 0:
         return params, accept_count
     hub = (widx // max(cfg.unify_period, 1)) % n
-    params = flat_lib.tree_map(lambda x: x[hub].expand_as(x).clone(), params)
+    params = flat_lib.tree_map(
+        lambda x: x.select(seeds, hub).unsqueeze(seeds).expand_as(x).clone(), params)
     return params, torch.zeros_like(accept_count)
 
 
 def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                  spec=None, *, draws: Optional[WindowDraws] = None,
                  positions=None, compute_rate=None, tx_rate=None,
-                 damping=None, drain=None) -> DracoState:
+                 overrides: Optional[Overrides] = None, damping=None,
+                 drain=None) -> DracoState:
     """One superposition window; returns the next state.
 
     `q` (N, N) is the row-stochastic mixing matrix, `adj` (N, N) its
     boolean adjacency; `task` a `Task` (its optimizer's state on
     ``state.opt_state`` (N, Dopt)) or a bare batched loss; `data` the
-    ``(xs (N, S, ...), ys (N, S, ...))`` shards; `spec` the `FlatSpec`
-    (derived from ``state.params`` when omitted).
+    ``(xs (N, S, ...), ys (N, S, ...))`` shards; `spec` the per-client
+    `FlatSpec` (derived from ``state.params`` when omitted).
 
     A scenario schedule's step-t snapshot comes in the keyword trio:
     `positions` (N, 2) replace the state's node coordinates for this
     window's channel and are carried on in the returned state;
     `compute_rate` and `tx_rate` (N,) scale lambda_grad and lambda_tx
-    per client. None for all three is the frozen path.
+    per client. None for all three is the frozen path. `overrides`
+    re-binds lr, lambda_grad, lambda_tx and psi for a sweep row.
+
+    A seed-stacked state (`stack_seeds`: leading R axis, R generators)
+    runs all R seeds in one pass: the drain in one launch of the seed
+    axis, the local step over the R * N client rows, the channel, Psi
+    and unification on the stacked tensors; each seed's draws come from
+    its own generator as in its solo run (``draws`` then carries the R
+    axis too).
 
     `draws` injects this window's `WindowDraws`; None draws them from
     ``state.generator``. `damping` is an optional age-indexed ``(D,)``
@@ -397,11 +473,12 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     """
     n, D = cfg.num_clients, cfg.max_delay_windows
     widx = state.window_idx
+    lead = tuple(state.pending.shape[:-2])  # () or the seed axis (R,)
     if spec is None:
-        spec = flat_lib.spec_of(state.params)
+        spec = flat_lib.spec_of(state.params if not lead else seed_row(state, 0).params)
     if draws is None:
         draws = sample_window_draws(state.generator, cfg, data[0].shape[1],
-                                    compute_rate, tx_rate)
+                                    compute_rate, tx_rate, overrides)
     drain = gossip_ops.gossip_drain if drain is None else drain
 
     # --- 1. deliveries: fused delay-bucketed drain on the flat plane -------
@@ -411,24 +488,32 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     slots = [(widx - a) % D for a in ages]
     buckets = []
     for s, a in zip(slots, ages):
-        w = state.w_ring[s] * (state.delay_ring[s] == a).to(state.w_ring.dtype)
+        w = state.w_ring[..., s, :, :] * (state.delay_ring[..., s, :, :] == a).to(
+            state.w_ring.dtype)
         buckets.append(w if damping is None else w * damping[a])
-    arrivals_flat = drain(torch.stack(buckets), state.buffer, slots)
+    arrivals_flat = drain(torch.stack(buckets, dim=-3), state.buffer, slots)
     arrivals = flat_lib.unravel_clients(arrivals_flat, spec)
     params = flat_lib.tree_map(lambda p, a: p + a.to(p.dtype), state.params,
                                arrivals)
 
-    # --- 2. gradient events ------------------------------------------------
-    delta, opt_state = local_step(params, draws.grad_mask, cfg, task, data,
-                                  draws.batch_idx, state.opt_state, widx)
-    pending = state.pending + flat_lib.ravel_clients(delta)
+    # --- 2. gradient events: the R * N client rows in one pass -------------
+    rows = math.prod(lead) * n
+    delta, opt_state = local_step(
+        flat_lib.tree_map(lambda p: p.reshape((rows,) + tuple(p.shape[len(lead) + 1:])),
+                          params),
+        draws.grad_mask.reshape(rows), cfg, task, data,
+        draws.batch_idx.reshape((rows,) + tuple(draws.batch_idx.shape[-2:])),
+        state.opt_state.reshape(rows, state.opt_state.shape[-1]), widx,
+        lr=rebound(cfg, overrides, "lr"))
+    pending = state.pending + flat_lib.ravel_clients(delta).reshape(state.pending.shape)
+    opt_state = opt_state.reshape(state.opt_state.shape)
     if cfg.apply_self_update:
-        params = flat_lib.tree_map(lambda p, dl: p + dl.to(p.dtype), params,
-                                   delta)
+        params = flat_lib.tree_map(lambda p, dl: p + dl.reshape(p.shape).to(p.dtype),
+                                   params, delta)
 
     # --- 3. transmission events + channel ----------------------------------
     tx_mask, w_eff, delay_w, accept_count, total_accept = _tx_and_accept(
-        state, cfg, q, adj, draws, positions)
+        state, cfg, q, adj, draws, positions, rebound(cfg, overrides, "psi"))
 
     # enqueue in place. Safe: this window's drain read slots (widx - a) % D
     # for a in 1..D-1, which never include widx % D, and the broadcast that
@@ -436,22 +521,56 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     # takes a copy of `pending`, never a view, so clearing it below leaves
     # the stored broadcast intact.
     slot = widx % D
-    state.buffer[slot].copy_(pending)
-    state.w_ring[slot].copy_(w_eff)
-    state.delay_ring[slot].copy_(delay_w)
+    state.buffer[..., slot, :, :].copy_(pending)
+    state.w_ring[..., slot, :, :].copy_(w_eff)
+    state.delay_ring[..., slot, :, :].copy_(delay_w)
 
     # senders clear their pending backlog (Lemma A.1 backups are now sent)
-    pending.mul_((~tx_mask).to(torch.float32)[:, None])
+    pending.mul_((~tx_mask).to(torch.float32)[..., None])
 
     # --- 4. periodic unification -------------------------------------------
     if cfg.unify_period > 0:
-        params, accept_count = _unify(params, accept_count, widx, cfg, n)
+        params, accept_count = _unify(params, accept_count, widx, cfg, n, len(lead))
 
+    if positions is not None and lead:
+        positions = positions.expand(lead + tuple(positions.shape))
     return state._replace(
         params=params, pending=pending, accept_count=accept_count,
         total_accept=total_accept, window_idx=widx + 1,
         positions=state.positions if positions is None else positions,
         opt_state=opt_state)
+
+
+def stack_seeds(states) -> DracoState:
+    """R solo states (each made by its own seed's `init_state`, at one
+    window index) -> one seed-stacked state: each tensor with a leading R
+    axis (copies), the R generators as a tuple."""
+    states = list(states)
+    if not states or len({s.window_idx for s in states}) != 1:
+        raise ValueError("stack_seeds needs one or more states at one window index")
+
+    def stack(*xs):
+        return torch.stack(xs)
+
+    first = states[0]
+    return DracoState(
+        params=flat_lib.tree_map(stack, *[s.params for s in states]),
+        **{f: stack(*[getattr(s, f) for s in states])
+           for f in ("pending", "buffer", "w_ring", "delay_ring", "accept_count",
+                     "total_accept", "positions", "opt_state")},
+        window_idx=first.window_idx,
+        generator=tuple(s.generator for s in states))
+
+
+def seed_row(state: DracoState, r: int) -> DracoState:
+    """Seed `r` of a seed-stacked state, as a solo state of views."""
+    return DracoState(
+        params=flat_lib.tree_map(lambda p: p[r], state.params),
+        **{f: getattr(state, f)[r]
+           for f in ("pending", "buffer", "w_ring", "delay_ring", "accept_count",
+                     "total_accept", "positions", "opt_state")},
+        window_idx=state.window_idx,
+        generator=state.generator[r])
 
 
 def run_windows(state: DracoState, cfg: DracoConfig, q, adj, task, data,

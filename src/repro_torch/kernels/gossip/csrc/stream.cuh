@@ -378,6 +378,12 @@ static int registers() {
 //  - With `skip`, a (source, chunk) whose weight block for this group is
 //    all zero is left out: the block finds those in a prologue, from the
 //    weights alone (exact for finite payloads: such a block adds +-0).
+//  - The seed axis (the drain's, `R` > 1): R independent problems, seed
+//    r's weights, payloads and outputs `w_seed`, `p_seed`, `out_seed`
+//    elements after seed r - 1's. A group's blocks walk (seed, tile)
+//    pairs seed-major, so each block meets its seeds in runs and lists
+//    each run's live units from that seed's weights: every seed's units,
+//    order and arithmetic are those of a launch of its own.
 #define WIDE 64                      // receivers per group, at most
 #define WIDE_K 32                    // senders per chunk (the last one short)
 #define WIDE_TILE GOSSIP_CONSUMERS   // columns per unit: 32 per consumer warp
@@ -400,6 +406,10 @@ struct WideArgs {
   int skip;             // leave out all-zero weight blocks (the drain)
   int out_bf16;         // the outputs' element type
   int slot[WIDE_MAX_S];
+  // the seed axis (the drain's): R independent problems, seed r's weights,
+  // payloads and outputs these many elements after seed r - 1's
+  int R = 1;
+  long long w_seed = 0, p_seed = 0, out_seed = 0;
 };
 
 // receiver groups and their width, balanced over the M receivers
@@ -506,7 +516,7 @@ __device__ __forceinline__ void wide_store(void* out, long long i, float x, int 
     static_cast<float*>(out)[i] = x;
 }
 
-template <typename T, int R>
+template <typename T, int R, bool SEEDS>
 __global__ void __launch_bounds__(WIDE_THREADS, 2) wide_kernel(const WideArgs a) {
   const int N = a.N, M = a.M, C = wide_chunks(N), CH = WIDE_K;
   const int G = wide_parts(M), GM = wide_part(M);
@@ -520,133 +530,153 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) wide_kernel(const WideArgs a)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int group = blockIdx.x % G, g0 = group * GM, gm = min(GM, M - g0);
   const int gblock = blockIdx.x / G, gblocks = gridDim.x / G;
+  const long long tiles = (K + WIDE_TILE - 1) / WIDE_TILE;
 
-  for (int i = tid; i < a.S * C; i += WIDE_THREADS) unit_sh[i] = a.skip ? 0 : 1;
-  __syncthreads();
-  if (a.skip) {  // flag each (source, chunk) with a nonzero weight for this group
-    constexpr int ROWS = 8;  // weight rows a warp has in flight, two loads a lane each
-    for (int s = 0; s < a.S; ++s) {
-      const float* ws = a.w + s * a.w_stride + g0;
-      for (int n0 = warp * ROWS; n0 < N; n0 += ROWS * WIDE_THREADS / 32) {
-        float lo[ROWS], hi[ROWS];  // every load issued before any is tested
+  // One seed's work for this group (its weights W, payloads P and first
+  // output element ob): this block's tiles t0 + t * gblocks, t < my_tiles.
+  auto wide_seed = [&](const float* __restrict__ W, const T* __restrict__ P, long long ob,
+                       long long t0, int my_tiles) {
+
+    for (int i = tid; i < a.S * C; i += WIDE_THREADS) unit_sh[i] = a.skip ? 0 : 1;
+    __syncthreads();
+    if (a.skip) {  // flag each (source, chunk) with a nonzero weight for this group
+      constexpr int ROWS = 8;  // weight rows a warp has in flight, two loads a lane each
+      for (int s = 0; s < a.S; ++s) {
+        const float* ws = W + s * a.w_stride + g0;
+        for (int n0 = warp * ROWS; n0 < N; n0 += ROWS * WIDE_THREADS / 32) {
+          float lo[ROWS], hi[ROWS];  // every load issued before any is tested
 #pragma unroll
-        for (int q = 0; q < ROWS; ++q) {
-          const float* row = ws + (long long)min(n0 + q, N - 1) * M;
-          lo[q] = row[min(lane, gm - 1)];
-          hi[q] = row[min(lane + 32, gm - 1)];
-        }
+          for (int q = 0; q < ROWS; ++q) {
+            const float* row = ws + (long long)min(n0 + q, N - 1) * M;
+            lo[q] = row[min(lane, gm - 1)];
+            hi[q] = row[min(lane + 32, gm - 1)];
+          }
 #pragma unroll
-        for (int q = 0; q < ROWS; ++q) {
-          const bool nz = n0 + q < N && ((lane < gm && lo[q] != 0.f) ||
-                                         (lane + 32 < gm && hi[q] != 0.f));
-          if (__any_sync(0xffffffffu, nz) && lane == 0) unit_sh[s * C + (n0 + q) / CH] = 1;
+          for (int q = 0; q < ROWS; ++q) {
+            const bool nz = n0 + q < N && ((lane < gm && lo[q] != 0.f) ||
+                                           (lane + 32 < gm && hi[q] != 0.f));
+            if (__any_sync(0xffffffffu, nz) && lane == 0) unit_sh[s * C + (n0 + q) / CH] = 1;
+          }
         }
       }
+      __syncthreads();
+    }
+    int units = 0;  // the live (source, chunk)s in order, the same in every thread
+    for (int i = 0; i < a.S * C; ++i) units += unit_sh[i];
+    __syncthreads();
+    if (tid == 0) {
+      for (int i = 0, u = 0; i < a.S * C; ++i)
+        if (unit_sh[i]) unit_sh[u++] = i / C << 16 | i % C;
     }
     __syncthreads();
-  }
-  int units = 0;  // the live (source, chunk)s in order, the same in every thread
-  for (int i = 0; i < a.S * C; ++i) units += unit_sh[i];
-  __syncthreads();
-  if (tid == 0) {
-    for (int i = 0, u = 0; i < a.S * C; ++i)
-      if (unit_sh[i]) unit_sh[u++] = i / C << 16 | i % C;
-  }
-  __syncthreads();
 
-  const long long tiles = (K + WIDE_TILE - 1) / WIDE_TILE;
-  const int my_tiles = (int)((tiles - gblock + gblocks - 1) / gblocks);
-  const T* P = static_cast<const T*>(a.p);
-  float c[R][4][4] = {};
-  float* wbuf = wbuf_sh + warp * 16 * STORE_ROW;
-  if (units == 0) {  // nothing reaches this group: its outputs are zeros
-    for (int t = 0; t < my_tiles; ++t) {
-      const long long c0 = (gblock + (long long)t * gblocks) * WIDE_TILE + 32 * warp;
-      store_tc(c, wbuf, gm, (int)min((long long)32, K - c0), [&](int m, int col, float v) {
-        wide_store(a.out, (long long)(g0 + m) * K + c0 + col, v, a.out_bf16);
-      });
-    }
-    return;
-  }
-  const int total = my_tiles * units;
-  // this thread's row of every stage, and its offsets in the payload and
-  // the weights, in bytes
-  const int crow = tid / (WIDE_THREADS / WIDE_K);
-  const long long prow = (long long)crow * K * (long long)sizeof(T), wrow = 4LL * crow * M;
-  const long long tile_step = (long long)gblocks * WIDE_TILE;
-  // the units in order, v = (tile, live (source, chunk)): the next one to
-  // copy, WIDE_STAGES - 1 units past the one being reduced
-  int in_u = 0, in_st = 0;
-  long long in_c0 = (long long)gblock * WIDE_TILE;
-  // its payload rows and weight rows into stage in_st, one commit group
-  auto issue = [&](int v) {
-    if (v < total) {
-      const int i = unit_sh[in_u], s = i >> 16, n0 = (i & 0xffff) * CH;
-      const long long c0 = in_c0;
-      const int st = in_st;
-      if (++in_u == units) {
-        in_u = 0;
-        in_c0 += tile_step;
+    float c[R][4][4] = {};
+    float* wbuf = wbuf_sh + warp * 16 * STORE_ROW;
+    if (units == 0) {  // nothing reaches this group: its outputs are zeros
+      for (int t = 0; t < my_tiles; ++t) {
+        const long long c0 = (t0 + (long long)t * gblocks) * WIDE_TILE + 32 * warp;
+        store_tc(c, wbuf, gm, (int)min((long long)32, K - c0), [&](int m, int col, float v) {
+          wide_store(a.out, ob + (long long)(g0 + m) * K + c0 + col, v, a.out_bf16);
+        });
       }
-      if (++in_st == WIDE_STAGES) in_st = 0;
-      if (crow < N - n0) {
-        wide_copy<WIDE_ROW * (int)sizeof(T), T>(
-            reinterpret_cast<unsigned char*>(p_sh + (st * WIDE_K + crow) * WIDE_ROW),
-            reinterpret_cast<uintptr_t>(P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) +
-                prow,
-            (int)min((long long)WIDE_TILE, K - c0));
-        wide_copy<WIDE_WROW * 4, float>(
-            reinterpret_cast<unsigned char*>(w_sh + (st * WIDE_K + crow) * WIDE_WROW),
-            reinterpret_cast<uintptr_t>(a.w + s * a.w_stride + (long long)n0 * M + g0) + wrow,
-            gm);
-      }
+      return;
     }
-    cp_async_commit();
+    const int total = my_tiles * units;
+    // this thread's row of every stage, and its offsets in the payload and
+    // the weights, in bytes
+    const int crow = tid / (WIDE_THREADS / WIDE_K);
+    const long long prow = (long long)crow * K * (long long)sizeof(T), wrow = 4LL * crow * M;
+    const long long tile_step = (long long)gblocks * WIDE_TILE;
+    // the units in order, v = (tile, live (source, chunk)): the next one to
+    // copy, WIDE_STAGES - 1 units past the one being reduced
+    int in_u = 0, in_st = 0;
+    long long in_c0 = t0 * WIDE_TILE;
+    // its payload rows and weight rows into stage in_st, one commit group
+    auto issue = [&](int v) {
+      if (v < total) {
+        const int i = unit_sh[in_u], s = i >> 16, n0 = (i & 0xffff) * CH;
+        const long long c0 = in_c0;
+        const int st = in_st;
+        if (++in_u == units) {
+          in_u = 0;
+          in_c0 += tile_step;
+        }
+        if (++in_st == WIDE_STAGES) in_st = 0;
+        if (crow < N - n0) {
+          wide_copy<WIDE_ROW * (int)sizeof(T), T>(
+              reinterpret_cast<unsigned char*>(p_sh + (st * WIDE_K + crow) * WIDE_ROW),
+              reinterpret_cast<uintptr_t>(P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) +
+                  prow,
+              (int)min((long long)WIDE_TILE, K - c0));
+          wide_copy<WIDE_WROW * 4, float>(
+              reinterpret_cast<unsigned char*>(w_sh + (st * WIDE_K + crow) * WIDE_WROW),
+              reinterpret_cast<uintptr_t>(W + s * a.w_stride + (long long)n0 * M + g0) + wrow,
+              gm);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int v = 0; v < WIDE_STAGES - 1; ++v) issue(v);
+    const unsigned pdk = (unsigned)((K * (long long)sizeof(T)) & 15), wdk = (unsigned)((M * 4) & 15);
+    int u = 0, st = 0;
+    long long c0 = t0 * WIDE_TILE;
+    for (int v = 0; v < total; ++v) {
+      const int i = unit_sh[u], s = i >> 16, n0 = (i & 0xffff) * CH;
+      cp_async_wait<WIDE_STAGES - 2>();  // this thread's copies of unit v have landed
+      __syncthreads();  // everyone's; and unit v - 1's stage is free again
+      issue(v + WIDE_STAGES - 1);
+      if (c0 + 32 * warp < K) {  // a warp with no column of the tile idles
+        const unsigned s0 = (unsigned)(reinterpret_cast<uintptr_t>(
+                                P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) & 15);
+        const unsigned ws0 = (unsigned)(reinterpret_cast<uintptr_t>(
+                                 W + s * a.w_stride + (long long)n0 * M + g0) & 15);
+        accumulate_wide(c, p_sh + st * WIDE_K * WIDE_ROW + 32 * warp + lane / 4, s0, pdk,
+                        w_sh + st * WIDE_K * WIDE_WROW + lane / 4, ws0, wdk, min(CH, N - n0));
+      }
+      if (u + 1 == units || (a.per_source && unit_sh[u + 1] >> 16 != s)) {
+        const long long base = ob + (a.per_source ? (long long)s * M * K : 0) +
+                               (long long)g0 * K + c0 + 32 * warp;
+        store_tc(c, wbuf, gm, (int)min((long long)32, K - c0 - 32 * warp),
+                 [&](int m, int col, float x) {
+                   wide_store(a.out, base + (long long)m * K + col, x, a.out_bf16);
+                 });
+#pragma unroll
+        for (int mt = 0; mt < R; ++mt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+      }
+      if (++u == units) {
+        u = 0;
+        c0 += tile_step;
+      }
+      if (++st == WIDE_STAGES) st = 0;
+    }
+    cp_async_wait<0>();
   };
-  for (int v = 0; v < WIDE_STAGES - 1; ++v) issue(v);
-  const unsigned pdk = (unsigned)((K * (long long)sizeof(T)) & 15), wdk = (unsigned)((M * 4) & 15);
-  int u = 0, st = 0;
-  long long c0 = (long long)gblock * WIDE_TILE;
-  for (int v = 0; v < total; ++v) {
-    const int i = unit_sh[u], s = i >> 16, n0 = (i & 0xffff) * CH;
-    cp_async_wait<WIDE_STAGES - 2>();  // this thread's copies of unit v have landed
-    __syncthreads();  // everyone's; and unit v - 1's stage is free again
-    issue(v + WIDE_STAGES - 1);
-    if (c0 + 32 * warp < K) {  // a warp with no column of the tile idles
-      const unsigned s0 = (unsigned)(reinterpret_cast<uintptr_t>(
-                              P + a.slot[s] * a.p_stride + (long long)n0 * K + c0) & 15);
-      const unsigned ws0 = (unsigned)(reinterpret_cast<uintptr_t>(
-                               a.w + s * a.w_stride + (long long)n0 * M + g0) & 15);
-      accumulate_wide(c, p_sh + st * WIDE_K * WIDE_ROW + 32 * warp + lane / 4, s0, pdk,
-                      w_sh + st * WIDE_K * WIDE_WROW + lane / 4, ws0, wdk, min(CH, N - n0));
+
+  if constexpr (SEEDS) {
+    // the group's (seed, tile) pairs seed * tiles + tile, this block taking
+    // gblock, + gblocks, ... in order, so its seeds come in runs
+    for (long long v0 = gblock; v0 < a.R * tiles;) {
+      const int seed = (int)(v0 / tiles);
+      const int my_tiles = (int)(((seed + 1) * tiles - v0 + gblocks - 1) / gblocks);
+      __syncthreads();  // the previous run's unit list and stages are free
+      wide_seed(a.w + seed * a.w_seed, static_cast<const T*>(a.p) + seed * a.p_seed,
+                seed * a.out_seed, v0 - seed * tiles, my_tiles);
+      v0 += (long long)my_tiles * gblocks;
     }
-    if (u + 1 == units || (a.per_source && unit_sh[u + 1] >> 16 != s)) {
-      const long long base =
-          (a.per_source ? (long long)s * M * K : 0) + (long long)g0 * K + c0 + 32 * warp;
-      store_tc(c, wbuf, gm, (int)min((long long)32, K - c0 - 32 * warp),
-               [&](int m, int col, float x) {
-                 wide_store(a.out, base + (long long)m * K + col, x, a.out_bf16);
-               });
-#pragma unroll
-      for (int mt = 0; mt < R; ++mt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
-    }
-    if (++u == units) {
-      u = 0;
-      c0 += tile_step;
-    }
-    if (++st == WIDE_STAGES) st = 0;
+  } else {
+    wide_seed(a.w, static_cast<const T*>(a.p), 0, gblock,
+              (int)((tiles - gblock + gblocks - 1) / gblocks));
   }
-  cp_async_wait<0>();
 }
 
 // The wide grid: G receiver groups x the blocks of each group, as many as
 // fit the card at once (at least one per group), no more than the tiles.
-static unsigned wide_grid(int per_sm, int M, long long K) {
-  const long long groups = wide_parts(M), tiles = (K + WIDE_TILE - 1) / WIDE_TILE;
+static unsigned wide_grid(int per_sm, int M, long long K, int seeds) {
+  const long long groups = wide_parts(M), tiles = seeds * ((K + WIDE_TILE - 1) / WIDE_TILE);
   long long each = (long long)per_sm * sm_count() / groups;
   each = each < 1 ? 1 : (each > tiles ? tiles : each);
   return (unsigned)(groups * each);
@@ -654,20 +684,20 @@ static unsigned wide_grid(int per_sm, int M, long long K) {
 
 // Launch (or, with `info`, describe: registers, blocks per SM, grid) the
 // wide route for `a`, with elements of type T in the payload.
-template <typename T, int R>
+template <typename T, int R, bool SEEDS>
 static cudaError_t wide_run(const WideArgs& a, size_t smem, cudaStream_t stream, int* info) {
   int per_sm = 0;
-  const cudaError_t err = blocks_per_sm<&wide_kernel<T, R>, WIDE_THREADS>(smem, &per_sm);
+  const cudaError_t err = blocks_per_sm<&wide_kernel<T, R, SEEDS>, WIDE_THREADS>(smem, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;
-  const unsigned grid = wide_grid(per_sm, a.M, a.K);
+  const unsigned grid = wide_grid(per_sm, a.M, a.K, a.R);
   if (info) {
-    info[0] = registers<&wide_kernel<T, R>>();
+    info[0] = registers<&wide_kernel<T, R, SEEDS>>();
     info[1] = per_sm;
     info[2] = (int)grid;
     return cudaSuccess;
   }
-  wide_kernel<T, R><<<grid, WIDE_THREADS, smem, stream>>>(a);
+  wide_kernel<T, R, SEEDS><<<grid, WIDE_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -675,7 +705,7 @@ static cudaError_t wide_run(const WideArgs& a, size_t smem, cudaStream_t stream,
 // what a block cannot hold, else launches or describes the instance of
 // its receiver blocking.
 static int wide_dispatch(const WideArgs& a, int in_bf16, cudaStream_t stream, int* info) {
-  if (a.S < 0 || a.S > WIDE_MAX_S || a.N < 1 || a.M < 1 || a.K < 1)
+  if (a.S < 0 || a.S > WIDE_MAX_S || a.N < 1 || a.M < 1 || a.K < 1 || a.R < 1)
     return (int)cudaErrorInvalidValue;
   const long long smem = wide_smem_bytes(a.S, a.N, in_bf16 ? 2 : 4);
   if (smem > max_smem_optin()) return (int)cudaErrorInvalidValue;
@@ -683,7 +713,8 @@ static int wide_dispatch(const WideArgs& a, int in_bf16, cudaStream_t stream, in
   switch ((wide_part(a.M) + 15) / 16) {
 #define WIDE_CASE(r) \
   case r:            \
-    fn = in_bf16 ? wide_run<__nv_bfloat16, r> : wide_run<float, r>; \
+    fn = a.R > 1 ? (in_bf16 ? wide_run<__nv_bfloat16, r, true> : wide_run<float, r, true>) \
+                 : (in_bf16 ? wide_run<__nv_bfloat16, r, false> : wide_run<float, r, false>); \
     break;
     WIDE_CASE(1) WIDE_CASE(2) WIDE_CASE(3) WIDE_CASE(4)
 #undef WIDE_CASE

@@ -196,6 +196,13 @@ def bind_drain(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p]
     lib.drain_launch.restype = ctypes.c_int
+    if hasattr(lib, "drain_launch_seeds"):  # the designs with a seed axis
+        lib.drain_launch_seeds.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.drain_launch_seeds.restype = ctypes.c_int
     lib.drain_max_j.argtypes = []
     lib.drain_max_j.restype = ctypes.c_int
     if hasattr(lib, "drain_route"):  # the designs with a wide route
@@ -285,20 +292,24 @@ def _enqueue_lib() -> ctypes.CDLL:
 
 
 def _check(w_stack, ring, slots):
-    if w_stack.dim() != 3 or ring.dim() != 3:
-        raise ValueError(f"w_stack must be (J, N, M) and ring (S, N, K); got "
+    if w_stack.dim() not in (3, 4) or ring.dim() != w_stack.dim():
+        raise ValueError(f"w_stack must be (J, N, M) and ring (S, N, K), or with a leading "
+                         f"seed axis (R, J, N, M) and (R, S, N, K); got "
                          f"{tuple(w_stack.shape)} and {tuple(ring.shape)}")
     if ring.dtype not in RING_DTYPES:
         raise TypeError(f"ring dtype {ring.dtype} not supported; the drain "
                         f"takes {RING_DTYPES}")
-    j_total, n, _ = w_stack.shape
-    if ring.shape[1] != n:
-        raise ValueError(f"w_stack has {n} senders, ring has {ring.shape[1]}")
+    if w_stack.dim() == 4 and (w_stack.shape[0] != ring.shape[0] or w_stack.shape[0] < 1):
+        raise ValueError(f"w_stack has {w_stack.shape[0]} seeds, ring has {ring.shape[0]}; "
+                         "the seed axis needs at least one on both")
+    j_total, n, _ = w_stack.shape[-3:]
+    if ring.shape[-2] != n:
+        raise ValueError(f"w_stack has {n} senders, ring has {ring.shape[-2]}")
     if len(slots) != j_total:
         raise ValueError(f"{len(slots)} slots for {j_total} weight buckets")
-    if any(not 0 <= s < ring.shape[0] for s in slots):
+    if any(not 0 <= s < ring.shape[-3] for s in slots):
         raise IndexError(f"slots {list(slots)} out of range for a ring of "
-                         f"{ring.shape[0]} rows")
+                         f"{ring.shape[-3]} rows")
     if w_stack.device != ring.device:
         raise ValueError(f"w_stack on {w_stack.device}, ring on {ring.device}")
 
@@ -322,10 +333,15 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
     ring rows aligned with ``w_stack``, as host integers. Returns the f32
     (M, K) aggregate, accumulated oldest bucket first.
 
-    CUDA tensors launch ``csrc/drain.cu`` (counted in
+    The seed axis: w_stack (R, J, N, M) and ring (R, S, N, K) give the
+    (R, M, K) drains ``out[r] = sum_j w_stack[r, j]^T @ ring[r,
+    slots[j]]`` in one launch, the slots shared by the R seeds; row r
+    equals the drain of ``(w_stack[r], ring[r])`` bit for bit.
+
+    CUDA tensors launch ``csrc/drain.cu`` (one launch, counted in
     ``gossip_drain.launches``), on the route `drain_route` names for the
-    shape (any N and M; J <= 256); CPU tensors take
-    `gossip_drain_reference`.
+    shape (any N and M; J <= 256; a block's shared memory does not grow
+    with R); CPU tensors take `gossip_drain_reference`.
     """
     slots = _host_slots(slots)
     _check(w_stack, ring, slots)
@@ -334,7 +350,7 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
     if ring.device.type != "cuda":
         raise ValueError(f"no drain kernel for device {ring.device}")
     lib = _drain_lib()
-    j_total, n, m = w_stack.shape
+    j_total, n, m = w_stack.shape[-3:]
     if j_total > lib.drain_max_j():
         raise ValueError(f"drain kernel supports J <= {lib.drain_max_j()}, got J = {j_total}")
     if not ring.is_contiguous():
@@ -353,17 +369,27 @@ def launch_drain(lib: ctypes.CDLL, w_stack: torch.Tensor, ring: torch.Tensor,
                  slots: Sequence[int]) -> torch.Tensor:
     """One launch of a bound drain library `lib` on the current stream,
     uncounted (`gossip_drain` checks its inputs, calls this and counts);
-    w_stack (J, N, M), ring (S, N, K), slots the J ring rows. Returns the
-    f32 (M, K) aggregate; raises on a CUDA error."""
-    j_total, n, m = w_stack.shape
-    k = ring.shape[2]
+    w_stack (J, N, M), ring (S, N, K), slots the J ring rows, or the seed
+    axis (R, J, N, M) and (R, S, N, K) through ``drain_launch_seeds``.
+    Returns the f32 (M, K) or (R, M, K) aggregate; raises on a CUDA
+    error, and on a seed axis for a library without one."""
+    j_total, n, m = w_stack.shape[-3:]
+    k = ring.shape[-1]
     w = w_stack.to(torch.float32).contiguous()
-    out = torch.empty((m, k), dtype=torch.float32, device=ring.device)
+    out = torch.empty(tuple(w_stack.shape[:-3]) + (m, k), dtype=torch.float32,
+                      device=ring.device)
     c_slots = (ctypes.c_int * max(j_total, 1))(*slots)
     stream = torch.cuda.current_stream(ring.device).cuda_stream
-    err = lib.drain_launch(
-        w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots, j_total,
-        n, m, k, int(ring.dtype == torch.bfloat16), stream)
+    bf16 = int(ring.dtype == torch.bfloat16)
+    if w_stack.dim() == 3:
+        err = lib.drain_launch(w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots,
+                               j_total, n, m, k, bf16, stream)
+    elif hasattr(lib, "drain_launch_seeds"):
+        err = lib.drain_launch_seeds(
+            w.data_ptr(), ring.data_ptr(), out.data_ptr(), c_slots, w_stack.shape[0],
+            j_total, n, m, k, w[0].numel(), ring[0].numel(), out[0].numel(), bf16, stream)
+    else:
+        raise ValueError("this drain library has no seed axis")
     if err != 0:
         raise RuntimeError(f"drain kernel launch failed: CUDA error {err}")
     return out
@@ -380,10 +406,15 @@ def gossip_drain_reference(w_stack: torch.Tensor, ring: torch.Tensor,
     GEMM per stored broadcast, oldest first, skipping buckets with no
     edge (exact: an all-zero bucket adds an exact +-0 matrix). The skip
     test reads the weights on the host; on a CUDA tensor that is a device
-    read, which is why the main path never calls this on the card.
+    read, which is why the main path never calls this on the card. With
+    the seed axis, (R, J, N, M) and (R, S, N, K), the same loop for each
+    seed, stacked to (R, M, K).
     """
     slots = _host_slots(slots)
     _check(w_stack, ring, slots)
+    if w_stack.dim() == 4:
+        return torch.stack([gossip_drain_reference(w, p, slots)
+                            for w, p in zip(w_stack, ring)])
     m, k = w_stack.shape[2], ring.shape[2]
     out = torch.zeros((m, k), dtype=torch.float32, device=ring.device)
     for j, s in enumerate(slots):

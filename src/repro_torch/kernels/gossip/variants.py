@@ -5,8 +5,9 @@ A variant of kernel ``drain``, ``enqueue`` or ``mix`` is ``csrc/<kernel>.cu``
 with the named edits of ``EDITS[kernel]`` applied, several joined by
 ``+``; ``kernel`` is the source unchanged, and ``baseline`` is the same
 kernel's source from another tree (a previous design, say the parent
-commit unpacked), built beside it. Some edits compute wrong results on
-purpose and serve only to time a part of the kernel: ``empty`` returns
+commit unpacked), with that tree's shared header, built beside it. Some
+edits compute wrong results on purpose and serve only to time a part of
+the kernel: ``empty`` returns
 on entry (an empty launch of the persistent grid), ``staging-only``
 stages the weights and streams the payload ring with no FMAs and no
 stores, ``no-fma`` streams the ring and stores without the FMAs,
@@ -78,7 +79,8 @@ _COMMON.update({
                      ("  if (a.skip) {  // flag", "  if (K < 0) {  // flag")],
 })
 _TC_STORES = [("store_tc(c, buf", "if (K < 0) store_tc(c, buf")]
-_STORES = {"drain": [("if (m < M && col < cols) out[", "if (K < 0 && m < M && col < cols) out[")]
+_STORES = {"drain": [("if (m < M && col < cols) out_r[",
+                       "if (K < 0 && m < M && col < cols) out_r[")]
            + _TC_STORES,
            "enqueue": [("if (m < N && col < cols)", "if (K < 0 && m < N && col < cols)")]
            + _TC_STORES}
@@ -139,8 +141,11 @@ def variant_source(kernel: str, name: str, baseline: Optional[Path] = None) -> s
     if name == "baseline":
         if baseline is None:
             raise ValueError("the baseline variant needs a tree to take the source from")
-        return (Path(baseline) / "src" / "repro_torch" / "kernels"
-                / build.SOURCES[kernel]).read_text()
+        path = Path(baseline) / "src" / "repro_torch" / "kernels" / build.SOURCES[kernel]
+        source, header = path.read_text(), path.with_name("stream.cuh")
+        if INCLUDE in source and header.exists():  # that tree's header, not this one's
+            source = source.replace(INCLUDE, header.read_text().replace("#pragma once\n", ""))
+        return source
     source = build.source_path(kernel).read_text()
     if name != "kernel":
         header = build.source_path(kernel).with_name("stream.cuh").read_text()

@@ -17,7 +17,8 @@ update rule and an eval metric; a `Task` bundles them:
   - ``make_optimizer(lr)`` -> a `repro_torch.optim.Optimizer` whose
     per-client state rides the flat ``(N, Dopt)`` plane next to the
     ``(N, Dflat)`` payloads (`repro_torch.core.protocol.task_local_updates`);
-  - ``grad_cost``: relative MFLOPs of one local gradient event.
+  - ``grad_cost``: relative MFLOPs of one local gradient event;
+  - ``sweepable``: what a sweep row may re-bind (the lr).
 
 Tasks register with `register_task` and are cached by `get_task`, so the
 same arguments give the same object. Everything downstream also takes a
@@ -50,6 +51,9 @@ class Task:
     opt_kwargs: Tuple[Tuple[str, Any], ...] = ()  # (beta, b1, ...) frozen
     schedule_kwargs: Tuple[Tuple[str, Any], ...] = ()
     grad_cost: float = 1.0  # relative MFLOPs of one local gradient event
+    # optimizer hyperparameters a sweep may re-bind per grid row (passed to
+    # make_optimizer): the lr that seeds the schedule
+    sweepable: Tuple[str, ...] = ("lr",)
 
     def make_optimizer(self, lr: float) -> optim.Optimizer:
         """The local update rule, with `lr` seeding the schedule."""

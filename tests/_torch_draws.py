@@ -18,7 +18,10 @@ outcomes as the reference window:
   - priority: ``permutation(k_psi, N)`` (`protocol.py:305`), psi > 0.
 
 `round_draws` does the same for a baseline round
-(`repro.core.baselines`), for `repro_torch.convert.round_draws_from_numpy`.
+(`repro.core.baselines`), for `repro_torch.convert.round_draws_from_numpy`;
+`seed_draws_chains` gives a sweep's per-seed window chains; `event_draws`
+one event of `repro.events.engine.event_step` (its 4-way key split), for
+`repro_torch.convert.event_draws_from_numpy`.
 """
 import jax
 import numpy as np
@@ -117,5 +120,39 @@ def round_draws_chain(key, cfg, method, num_samples, num_rounds, schedule=None):
     for r in range(num_rounds):
         rate = None if schedule is None else schedule.at(r).compute_rate
         draws, key = round_draws(key, cfg, method, num_samples, compute_rate=rate)
+        out.append(draws)
+    return out
+
+
+def seed_draws_chains(keys, cfg, num_samples, num_windows, schedule=None):
+    """Per-seed draws chains of a sweep row: ``[draws_chain(k_r, ...)]``
+    from each seed's reference state key (of a state at window 0)."""
+    return [draws_chain(k, cfg, num_samples, num_windows, schedule) for k in keys]
+
+
+def event_draws(key, cfg, num_samples):
+    """One valid event's draws from the reference state's `key`, as
+    `event_step` splits it (`engine.py:145-146`): ``split(key, 4)`` ->
+    k_next, k_gsel, k_chan, _; the batch rows of all N clients from
+    k_gsel (`local_step`'s ladder), the fading ``exponential(k_chan, (N,
+    N))`` with the channel on. Returns ``(draws dict, next key)``; both
+    fields are given whatever the kind (the port reads the one it needs)."""
+    k_next, k_gsel, k_chan, _ = jax.random.split(key, 4)
+    draws = {"batch_idx": np.asarray(_batch_rows(k_gsel, cfg, num_samples))}
+    if cfg.channel is not None and cfg.channel.enabled:
+        draws["fading"] = np.asarray(jax.random.exponential(k_chan, (cfg.num_clients,) * 2))
+    return draws, k_next
+
+
+def event_draws_chain(key, cfg, num_samples, tape):
+    """Draws of every row of the reference's `tape` from the state key
+    (None for padding rows, which split no key)."""
+    valid = np.asarray(tape.valid)
+    out = []
+    for e in range(valid.shape[0]):
+        if not valid[e]:
+            out.append(None)
+            continue
+        draws, key = event_draws(key, cfg, num_samples)
         out.append(draws)
     return out

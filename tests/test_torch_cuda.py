@@ -117,6 +117,53 @@ def test_wide_drain_matches_plain_version(cuda_device, name, dtype):
                                rtol=1e-5, atol=1e-5)
 
 
+def _seed_case(device, r, j, n, m, k, s, dtype):
+    """The seed axis: (R, J, N, M) weights whose live buckets differ per
+    seed (seed 0 has none live, seed i the first i % (J + 1)) and an
+    (R, S, N, K) ring, as the sweep's batched window gives it."""
+    parts = [_case(device, j, n, m, k, s, i % (j + 1), dtype, seed=10 + i) for i in range(r)]
+    return (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+            parts[0][2])
+
+
+# (R, J, N, M, K, ring rows): the sweep's EMNIST plane at R in {1, 2, 4,
+# 8}, K under one tile, and the wide route at N = M = 100
+SEED_CASES = {
+    **{f"emnist-r{r}": (r, 3, 25, 25, 146_447, 4) for r in (1, 2, 4, 8)},
+    "k-under-a-tile-r3": (3, 3, 7, 7, 100, 4),
+    "wide-n100-r2": (2, 3, 100, 100, 4099, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SEED_CASES))
+@DTYPES
+def test_seed_axis_drain_equals_solo_launches(cuda_device, name, dtype):
+    """One launch for R seeds: row r equals a solo launch on row r bit for
+    bit, and the plain version within 1e-5."""
+    r, j, n, m, k, s = SEED_CASES[name]
+    w, ring, slots = _seed_case(cuda_device, r, j, n, m, k, s, dtype)
+    before = ops.gossip_drain.launches
+    got = ops.gossip_drain(w, ring, slots)
+    torch.cuda.synchronize()
+    assert ops.gossip_drain.launches == before + 1
+    assert got.shape == (r, m, k) and got.dtype == torch.float32
+    for i in range(r):
+        assert torch.equal(got[i], ops.gossip_drain(w[i], ring[i], slots)), i
+    assert not got[0].any()  # seed 0 has no live bucket
+    torch.testing.assert_close(got, ops.gossip_drain_reference(w, ring, slots),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_seed_axis_drain_refuses_mismatched_seeds(cuda_device):
+    w, ring, slots = _seed_case(cuda_device, 2, 3, 8, 8, 256, 4, torch.float32)
+    with pytest.raises(ValueError, match="seeds"):
+        ops.gossip_drain(w, ring[:1], slots)
+    with pytest.raises(ValueError, match="seeds"):
+        ops.gossip_drain(w[:0], ring[:0], slots)
+
+
 @pytest.mark.cuda
 @DTYPES
 def test_wide_drain_sparse_and_empty_blocks(cuda_device, dtype):

@@ -202,3 +202,37 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.os, "access", lambda *args: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+@pytest.mark.parametrize("seeds", [1, 3])
+def test_drain_seed_axis_matches_vmapped_reference(seeds):
+    """The seed axis (R, J, N, M) x (R, S, N, K): the reference's sweep
+    vmaps its drain over seeds (a leading grid axis of the Pallas call);
+    the port's plain version, with per-seed live sets (seed 0 has none),
+    is each seed's own drain and matches the vmapped reference."""
+    cases = [_case(j=3, n=7, m=7, k=300, s=4, seed=20 + r,
+                   empty=(0, 1, 2) if r == 0 else ()) for r in range(seeds)]
+    w = np.stack([c[0] for c in cases])
+    ring = np.stack([c[1] for c in cases])
+    slots = cases[0][2]
+    got = tops.gossip_drain(torch.as_tensor(w), torch.as_tensor(ring), slots)
+    assert got.shape == (seeds, 7, 300) and got.dtype == torch.float32
+    for r in range(seeds):
+        assert torch.equal(got[r], tops.gossip_drain(torch.as_tensor(w[r]),
+                                                     torch.as_tensor(ring[r]), slots))
+    assert not got[0].any()
+    ref = jax.vmap(lambda wr, pr: jops.gossip_drain(wr, pr, jnp.asarray(slots), use_kernel=True,
+                                                   interpret=True, block_d=128))(
+        jnp.asarray(w), jnp.asarray(ring))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_drain_seed_axis_checks_its_shapes():
+    w, ring, slots = _case(j=3, n=4, m=4, k=16, s=4)
+    w4, ring4 = torch.as_tensor(w)[None].repeat(2, 1, 1, 1), torch.as_tensor(ring)[None]
+    with pytest.raises(ValueError, match="seeds"):
+        tops.gossip_drain(w4, ring4, slots)
+    with pytest.raises(ValueError, match="seed axis"):
+        tops.gossip_drain(w4, torch.as_tensor(ring), slots)
+    with pytest.raises(ValueError, match="seeds"):
+        tops.gossip_drain(w4[:0], ring4[:0], slots)

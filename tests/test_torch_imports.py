@@ -50,7 +50,9 @@ def test_module_list_covers_the_slice():
                 "launch.steps", "launch.train", "checkpoint.ckpt",
                 "configs.mamba2_2p7b", "models.ssm", "kernels.ssd.ops",
                 "kernels.ssd.ref", "optim.optimizers", "scenarios.base",
-                "scenarios.generators"):
+                "scenarios.generators", "api.sweep", "events", "events.config",
+                "events.tape", "events.staleness", "events.engine", "events.replay",
+                "events.algorithms", "events.driver"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -61,8 +63,9 @@ def no_cuda():
 
 
 def _entry_points():
-    from repro_torch.api import simulate
+    from repro_torch.api import simulate, simulate_sweep
     from repro_torch.core import protocol
+    from repro_torch.events import init_event_state, simulate_events
     from repro_torch.configs.base import get_reduced
     from repro_torch.data import synthetic
     from repro_torch.launch import train
@@ -74,6 +77,12 @@ def _entry_points():
     return {
         "simulate": lambda: simulate("draco", cfg, task="linear-softmax",
                                      num_steps=1, key=0),
+        "simulate_sweep": lambda: simulate_sweep("draco", [cfg, cfg.replace(psi=2)],
+                                                 task="linear-softmax", num_steps=1,
+                                                 keys=[0, 1]),
+        "simulate_events": lambda: simulate_events("draco-event", cfg, task="linear-softmax",
+                                                   horizon=5.0, key=0),
+        "init_event_state": lambda: init_event_state(0, cfg, {"w": torch.zeros(2)}),
         "init_state": lambda: protocol.init_state(0, cfg, {"w": torch.zeros(2)}),
         "build_graph": lambda: protocol.build_graph(cfg),
         "federated_classification": lambda: synthetic.federated_classification(
@@ -92,7 +101,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("entry", [
     "build_graph", "federated_classification", "init_params", "init_state",
-    "make_batches", "make_mlp", "simulate", "task.init_params", "task.make_data",
+    "make_batches", "make_mlp", "simulate", "simulate_sweep", "simulate_events",
+    "init_event_state", "task.init_params", "task.make_data",
     "train.main", "init_params[mamba2]", "train.main[mamba2]"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
