@@ -17,8 +17,9 @@ Phases (any failure exits non-zero):
                on each of its routes and across their edges (N from 1 to
                64 on the CUDA cores, 65 to 272 on the tensor cores, 273 and
                1000 on the wide route), at K under one vector, odd and
-               ragged, past 2^31 elements, in bf16, and on a plane whose
-               rows start off four elements; the SSD
+               ragged, past 2^31 elements, at the vlm trainer's plane (2
+               x 3,231,797,250: past 2^31 columns, K % 4 = 2), in bf16,
+               and on a plane whose rows start off four elements; the SSD
                intra-chunk step at the mamba2 trainer's shape in bf16, with
                groups, with Q != N in f32, under strong decays in f32 and
                bf16, ragged against the MMA tiles and at Q = N = 256); the
@@ -107,6 +108,29 @@ Phases (any failure exits non-zero):
                event and idle share; 300 events through the kernel and
                the plain drain (1e-4, equal counters); fedasync-window
                240 windows, one drain a window, against the plain drain;
+  15-18. families - the trainer `main` on the other model families at
+               their published widths, 2 clients, 5 steps each, Psi 1, a
+               unification after step 3 (`FAMILY_PHASES`): 15 olmoe-1b-7b
+               (moe, 64 experts top-8, 8 of 16 layers), 16 zamba2-2.7b
+               (hybrid: all 54 Mamba2 blocks at 2 x 512 tokens, the shared
+               attention + MLP block after every 6), 17 llama-3.2-vision-
+               11b (vlm: 10 of 40 layers, cross-attention to 1,600 patch
+               embeddings behind a tanh gate), 18 musicgen-large (audio:
+               all 48 layers, frame embeddings in), each cut in depth only
+               as far as the card's memory forces: finite losses, the
+               first near ln V, one mix launch per step, for zamba2 two
+               SSD-kernel launches per Mamba2 block, client and step, peak
+               device memory; 15 and 16 also 3 steps through the plain
+               versions against 3 through the kernels (olmoe at 6 layers
+               under phase 6's rule; zamba2 at 6 layers under phase 8's
+               control rule, a leaf kind pooled over the Mamba2 blocks,
+               against the largest of 3 controls, the kernel shadowing
+               every SSD call of the plain run; the same rule must reject
+               three planted faults: the SSD kernel's one-term variant,
+               the mix with Q^T, the mix leaving its last 2^22 columns
+               zero), 17 and 18 a
+               profiled step; s/step, idle share and the kernels' device
+               time per step printed;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -116,7 +140,7 @@ Phases (any failure exits non-zero):
                a device-to-device copy of the same plane (the stream's
                floor); the drain's seed axis at R = 4 beside R solo
                launches, its bound (R x the solo drain's), the einsum and
-               the plain version. Phase 9 runs last, after 10 to 14.
+               the plain version. Phase 9 runs last, after 10 to 18.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -125,6 +149,8 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --ssd-variants [NAMES] [--flush zero,read,none]
     python3 chip_smoke.py --gossip-variants [NAMES] [--baseline TREE] [--gossip-kernels K]
     python3 chip_smoke.py --trainer-controls
+    python3 chip_smoke.py --families
+    python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
 (`repro_torch.kernels.ssd.variants`) at the trainer's shape; the second
@@ -137,7 +163,10 @@ wide route's at N = 100, and for the mix at N = 25, 100, 256 and 4
 runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
-run's SSD calls.
+run's SSD calls; the fourth runs the build and phases 15-18 alone; the
+fifth phase 16's comparison at other zamba2 depths, block by block (the
+only run that reproduces the measurement behind `FAMILY_CONTROLS`;
+exits 1 when the rule fails at any depth).
 """
 from __future__ import annotations
 
@@ -185,6 +214,9 @@ TRAIN_PATH_RTOL = 1e-3
 MIX_N, MIX_K = (1, 3, 4, 5, 8, 9, 16, 17, 25, 33, 64), (1, 3, 5, 511, 513, 4099, 146_447)
 MIX_WIDE_N = (65, 100, 104, 105, 128, 129, 256)
 BIG_MIX = (4, 536_870_919)  # N * K > 2^31
+# the vlm trainer's plane (phase 17: llama-3.2-vision-11b at 10 layers, 2
+# clients): K past 2^31 and K % 4 = 2, the narrow route without vectors
+VLM_MIX = (2, 3_231_797_250)
 # --gossip-variants: the mix at the baselines' width, at N = 100 and 256
 # (the tensor route) and at the trainer's N = 4 with K cut to 2^28
 MIX_VARIANT_SHAPES = ((25, 146_447), (100, 146_447), (256, 146_447), (4, 1 << 28))
@@ -210,11 +242,58 @@ CONTROL_MARGIN = 1.1
 # split terms (within SSD_REL_TOL) and one (a planted fault)
 CONTROL_VARIANTS = ("two-term", "one-term")
 SSD_REL_TOL = 1e-4  # kernel against plain, relative to the largest |Y| (|S|)
+# phases 15-18, (label, arch, layers kept, layers of the comparison, seq):
+# the other families at their published widths with 2 clients, cut in
+# depth only where one card's memory forces it. Bytes per parameter: bf16
+# params and the f32 delta and mixed planes, 20 at the mix (14 while a
+# client's bf16 gradient lives; olmoe at 6 layers, 2.72 B params, peaked
+# at 50.99 GiB on an H100 80GB against 50.7 reckoned); the phase 15 and 16
+# comparisons keep the plain run's params (4 B) beside the kernel run's
+# 20. olmoe-1b-7b's 16 layers need ~129 GiB: 8 (3.56 B params, ~66.4
+# GiB), its comparison 6 (~60.8 GiB with the plain run's params);
+# zamba2-2.7b all 54 (2.42 B, ~45 GiB), its comparison one group of 6
+# (see `FAMILY_CONTROLS`); llama-3.2-vision-11b two groups of 5 of its 40
+# layers (3.32 B, ~61.8 GiB; three groups ~82.9 GiB); musicgen-large all
+# 48 (3.23 B, ~60.2 GiB). Batch 2 per client; 512 tokens for zamba2 (4
+# SSD chunks of 128), 128 for the others
+FAMILY_PHASES = (("15 moe", "olmoe-1b-7b", 8, 6, 128),
+                 ("16 hybrid", "zamba2-2.7b", 54, 6, 512),
+                 ("17 vlm", "llama-3.2-vision-11b", 10, 10, 128),
+                 ("18 audio", "musicgen-large", 48, 48, 128))
+FAMILY_STEPS, FAMILY_PLAIN_STEPS, FAMILY_PROFILE_STEPS = 5, 3, 3
+# phase 16's comparison: zamba2 at one group (6 Mamba2 blocks and one
+# application of the shared block), each leaf against the largest of 3
+# controls, the 6 block positions' leaves of a kind pooled into one (as
+# mamba2's leaves stack all its blocks). On an H100 80GB, at 12 to 54
+# layers the 3-step trajectories are chaotic: one 2^-23 control moves the
+# loss by up to 1.6e-3 and its most moved leaf by 0.8-1.45 of the leaf's
+# own change, so no rule sees the kernel there; at 6 layers by <= 1.1e-4
+# and 0.34. There a leaf of
+# one block holds 80 f32 values (a_log) or a few bf16 flips (conv_w) and
+# its ratio is one noisy sample: unpooled, the kernel exceeded 1.1 x one
+# control in 2 of 66 leaves and the largest of 3 in 1 (a_log of block 5,
+# whose 3-step change is ~1 f32 ulp a value); pooled, the kernel is within
+# 0.96 x the largest of 3 and 1.26 x one control (`--hybrid-depths`;
+# PERF.md)
+FAMILY_CONTROLS = 3
+# phase 16's planted faults, each a kernel path that its rule must
+# reject: the SSD kernel's forward with one bf16 term of each split
+# (`CONTROL_VARIANTS`' one-term, about 2^-9 of each operand), the mix
+# reading Q^T for Q (a transposed weight index), the mix leaving its last
+# `MIX_FAULT_TAIL` columns zero (a dropped last pass over the plane)
+MIX_FAULT_TAIL = 1 << 22
+
+
+def pool_ssm_positions(leaf):
+    """``groups/<i>:ssm/...`` -> ``groups/*:ssm/...``: one leaf per kind
+    over every Mamba2 block of a group."""
+    return re.sub(r"^groups/\d+:ssm/", "groups/*:ssm/", leaf)
 # (Bb, H, G, nc, Q, N, P, A scale, dtype): the trainer's shape (batch 2, 512
 # tokens, 80 heads, one group), grouped, f32 with Q != N and a ragged P,
 # decays that overflow exp above the diagonal unless masked first (f32
 # and, through the tensor cores, bf16), Q, N and P ragged against the
-# MMA tiles, and the bf16 kernel's largest Q = N = 256
+# MMA tiles, the bf16 kernel's largest Q = N = 256, and zamba2's trainer
+# shape (state 64)
 SSD_MAIN = (2, 80, 1, 4, 128, 128, 64, 1.0, "bfloat16")
 SSD_CASES = {
     "trainer shape bf16": SSD_MAIN,
@@ -224,7 +303,9 @@ SSD_CASES = {
     "strong decay A=-80h dt+1 bf16": (2, 80, 1, 4, 128, 128, 64, 80.0, "bfloat16"),
     "ragged Q=72 N=24 P=40 bf16": (2, 6, 2, 3, 72, 24, 40, 1.0, "bfloat16"),
     "Q=N=256 bf16": (1, 8, 1, 2, 256, 256, 64, 1.0, "bfloat16"),
+    "zamba2 trainer shape bf16 N=64": (2, 80, 1, 4, 128, 64, 64, 1.0, "bfloat16"),
 }
+SSD_ZAMBA2 = SSD_CASES["zamba2 trainer shape bf16 N=64"]
 # gossip_enqueue's path: the JAX package's own cases
 # (tests/test_kernels_gossip_bucketed.py) and the windowed path's width
 ENQ_MAIN = (3, 25, 146_447)  # J = D - 1 buckets, N clients, K = Dflat of EMNIST
@@ -396,10 +477,11 @@ def mix_bound_ms(n, k, elem_bytes):
 
 def mix_against_plain(torch, ops, q, deltas, got, rtol=RTOL):
     """(max |kernel - plain|, agree?) over column slices, so that a
-    multi-GB plane needs no second full-size plain result."""
+    multi-GB plane needs no second full-size plain result; each slice
+    copied dense first (a row stride past 2^31 is no GEMM's)."""
     worst, ok = 0.0, True
     for lo in range(0, deltas.shape[1], SLICE):
-        want = ops.gossip_mix_reference(q, deltas[:, lo:lo + SLICE]).float()
+        want = ops.gossip_mix_reference(q, deltas[:, lo:lo + SLICE].contiguous()).float()
         part = got[:, lo:lo + SLICE].float()
         worst = max(worst, float((part - want).abs().max()))
         ok = ok and bool(torch.allclose(part, want, rtol=rtol, atol=ATOL))
@@ -456,10 +538,13 @@ def card_line():
 
 
 def phase_build():
+    """Every kernel source, and the one-term variant of ssd_chunk.cu that
+    phase 16 plants (`MIX_FAULT_TAIL`), one nvcc each, all together."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import variants
 
     t0 = time.perf_counter()
-    paths = build.build()
+    paths = build.build(texts={"ssd_chunk-one-term": variants.variant_source("one-term")})
     log(f"phase 1 build: {len(paths)} CUDA source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, path in paths.items():
@@ -716,6 +801,8 @@ def phase_mix_kernels(torch):
     cases += [(f"N={n} K={k} bf16", n, k, bf16, 0) for n in MIX_N for k in (5, 4099, 146_447)]
     cases += [("N=25 K=513 bf16", 25, 513, bf16, 0)]
     cases += [(f"N={BIG_MIX[0]} K={BIG_MIX[1]} f32 (N*K > 2^31)", *BIG_MIX, f32, 0)]
+    cases += [(f"N={VLM_MIX[0]} K={VLM_MIX[1]} f32 (the vlm plane: K > 2^31, K % 4 = 2)",
+               *VLM_MIX, f32, 0)]
     cases += [(f"N={n} K={k} {name}", n, k, dtype, 0) for n in MIX_WIDE_N for k in WIDE_K
               for name, dtype in (("f32", f32), ("bf16", bf16))]
     cases += [(f"N={n} K=4099 {name}", n, 4099, dtype, 0) for n in (272, 273, 1000)
@@ -755,6 +842,8 @@ def phase_mix_kernels(torch):
         if not ok:
             raise AssertionError(f"mix kernel disagrees with its plain version: {label}")
         del q, deltas, got
+        if n * k > 10**9:
+            torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log(f"phase 2 kernels: gossip_mix max_abs_err={worst:.3e} (tolerance "
         f"rtol={RTOL} atol={ATOL}; the tensor and wide routes in bf16 rtol={WIDE_BF16_RTOL}) "
@@ -932,22 +1021,25 @@ def phase_enqueue(torch):
 
 
 def phase_new_times(torch):
-    """ssd_chunk at the mamba2 trainer's shape, the enqueue at the
-    windowed path's width: kernel, plain version, library call, bound."""
+    """ssd_chunk at the zamba2 and mamba2 trainers' shapes (the latter's
+    returned), the enqueue at the windowed path's width: kernel, plain
+    version, library call, bound."""
     from repro_torch.kernels.gossip import ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
-    args = ssd_case(torch, *SSD_MAIN, seed=4000)
-    kern = time_ms(torch, lambda: ssd_ops.ssd_chunk(*args), reps=30, flush=flush)
-    plain = time_ms(torch, lambda: ssd_chunk_ref(*args), reps=30, flush=flush)
-    bound, by = ssd_bound_ms(args)
-    ssd = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by)
-    log(f"  ssd_chunk {tuple(args[2].shape)} bf16: kernel {kern:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), plain {plain:.4f} ms, "
-        f"library: none (no one PyTorch call computes the masked SSD step)")
-    del args
+    for shape in (SSD_ZAMBA2, SSD_MAIN):
+        args = ssd_case(torch, *shape, seed=4000)
+        kern = time_ms(torch, lambda: ssd_ops.ssd_chunk(*args), reps=30, flush=flush)
+        plain = time_ms(torch, lambda: ssd_chunk_ref(*args), reps=30, flush=flush)
+        bound, by = ssd_bound_ms(args)
+        ssd = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by)
+        log(f"  ssd_chunk {tuple(args[2].shape)} N={shape[5]} bf16: kernel {kern:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), plain "
+            f"{plain:.4f} ms, library: none (no one PyTorch call computes the masked SSD "
+            f"step)")
+        del args
     j, n, k = ENQ_MAIN
     w, pending = enqueue_case(torch, j, n, k, torch.float32, 4100)
     kern = time_ms(torch, lambda: ops.gossip_enqueue(w, pending), flush=flush)
@@ -1039,21 +1131,94 @@ def leaf_gaps(flat_lib, params, ref):
     return out
 
 
+def check_trainer_paths(runs, gaps, moved, control, faults=()):
+    """Holds every path's losses and per-leaf gaps against the plain
+    path's, by the rules `compare_trainer_paths` states. The control
+    paths are the gaps named ``control...``; each leaf is held against
+    the largest of theirs. The rule must pass the kernel path and reject
+    each path named in `faults`."""
+    lp = runs["plain"]
+    log(f"  plain path losses {' '.join(f'{x:.6f}' for x in lp)}")
+    rel, loss_gaps, sums = {}, {}, {}
+    for name in gaps:
+        loss_gaps[name] = [abs(a - b) / abs(b) for a, b in zip(runs[name], lp)]
+        sums[name] = {k: abs(d) / max(m, 1e-30) for k, (d, _, m) in gaps[name].items()}
+        worst_sum = max(sums[name], key=sums[name].get)
+        line = (f"  {name} path losses {' '.join(f'{x:.6f}' for x in runs[name])}; "
+                f"relative loss gap by step "
+                f"{' '.join(f'{x:.3e}' for x in loss_gaps[name])}; largest per-leaf "
+                f"|sum gap| / sum|p| {sums[name][worst_sum]:.3e} ({worst_sum})")
+        if moved:
+            rel[name] = {k: g / moved[k] if moved[k] else (math.inf if g else 0.0)
+                         for k, (_, g, _) in gaps[name].items()}
+            worst = max(rel[name], key=rel[name].get)
+            line += (f"; largest per-leaf sum|gap| / sum|p_plain - p_init| "
+                     f"{rel[name][worst]:.3e} ({worst})")
+        log(line)
+    if moved:
+        log(f"  per leaf, sum|gap| / sum|p_plain - p_init| by path ({', '.join(rel)})"
+            + (f"; the kernel's held within {CONTROL_MARGIN} x the largest control's"
+               if control else ""))
+        for k in sorted(moved):
+            log(f"    {k}: " + " ".join(f"{r[k]:.3e}" for r in rel.values())
+                + f" (sum|p_plain - p_init| {moved[k]:.6e})")
+    controls = [n for n in rel if n.startswith("control")]
+
+    def rejected(name):
+        """Why the rule rejects path `name` ("" when it passes)."""
+        if max(loss_gaps[name]) > TRAIN_PATH_RTOL:
+            return "their losses"
+        if not control:
+            return ", ".join(k for k, v in sums[name].items() if v > TRAIN_PATH_RTOL)
+        return ", ".join(k for k in moved
+                         if rel[name][k] > CONTROL_MARGIN * max(rel[n][k] for n in controls))
+
+    why = {name: rejected(name) for name in ["kernel", *faults]}
+    for name in faults:
+        log(f"  planted {name}: " + (f"rejected ({why[name]})" if why[name]
+                                     else "NOT rejected"))
+    if why["kernel"]:
+        raise AssertionError(f"trainer kernel path and plain path differ in {why['kernel']}")
+    missed = [name for name in faults if not why[name]]
+    if missed:
+        raise AssertionError(f"the trainer-path rule passes planted faults {missed}")
+
+
+def pool_leaves(values, key):
+    """Leaf name -> value (a float or a tuple of floats), summed over the
+    leaves `key` maps to one name."""
+    out = {}
+    for leaf, v in values.items():
+        k = key(leaf)
+        if k not in out:
+            out[k] = v
+        elif isinstance(v, tuple):
+            out[k] = tuple(a + b for a, b in zip(out[k], v))
+        else:
+            out[k] += v
+    return out
+
+
 def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
-                          control=None, others=()):
-    """`steps` trainer steps from one seed through the plain versions
-    (`plain`: keyword arguments of `train_step`) and through the kernels;
-    the kernel run times its first step unprofiled and profiles the
-    others. The plain run's parameters stay on the card as the reference.
+                          control=None, others=(), pool=None, faults=()):
+    """`steps` (at least 3) trainer steps from one seed through the plain
+    versions (`plain`: keyword arguments of `train_step`) and through the
+    kernels; the kernel run takes its first step to warm up (the
+    allocator grows to the step's planes there), times its second
+    unprofiled and profiles the others. The plain run's parameters stay on the card as the reference.
+    With `plain` None only the kernel path runs, timed and profiled.
 
     The paths agree when every step's loss is within `TRAIN_PATH_RTOL`
     and every leaf is. Without `control`, by |sum p_kernel - sum p_plain|
     / sum |p_plain| <= `TRAIN_PATH_RTOL` (paths equal up to the order of
     f32 sums). With `control` (keyword arguments of a third path, the
-    plain one with an f32-level change), by each leaf's gap over its own
-    change, sum |p - p_plain| / sum |p_plain - p_init|: the kernel's
-    within `CONTROL_MARGIN` times the control's. `others` are further
-    (name, keyword arguments) paths printed leaf by leaf and not held.
+    plain one with an f32-level change, or a list of such paths), by each
+    leaf's gap over its own change, sum |p - p_plain| / sum |p_plain -
+    p_init|: the kernel's within `CONTROL_MARGIN` times the largest
+    control's. `pool` (leaf name -> name) sums the leaves it maps to one
+    name first. `others` are further (name, keyword arguments) paths
+    printed leaf by leaf and not held; `faults` such paths that the rule
+    must reject.
     Returns Dflat, the unprofiled step (s), the device busy time per step
     and each of `kernel_rows`' device time per step (us)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1071,8 +1236,10 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
                               8 * args.batch_per_client, args.seq, device="cuda")
     gen = torch.Generator(device="cuda")
     runs, gaps, out, ref = {}, {}, {}, None
-    paths = [("plain", plain), ("kernel", {})]
-    paths += ([("control", control)] if control else []) + list(others)
+    paths = ([("plain", plain)] if plain is not None else []) + [("kernel", {})]
+    controls = [control] if isinstance(control, dict) else list(control or [])
+    paths += [("control" + (f" {i + 1}" if i else ""), kw) for i, kw in enumerate(controls)]
+    paths += list(others) + list(faults)
     for name, kw in paths:
         params = train.init_client_params(SEED, cfg, n, "cuda")
         out["dflat"] = flat_lib.spec_of(params).dim
@@ -1090,21 +1257,26 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = step(0, params)
-        torch.cuda.synchronize()
         if name == "kernel":
-            out["steady_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params = step(1, params)
+            torch.cuda.synchronize()
+            out["steady_s"] = time.perf_counter() - t1
+            log(f"  kernel path: first step {t1 - t0:.4f} s (warm-up), second "
+                f"{out['steady_s']:.4f} s")
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    for i in range(1, steps):
+                    for i in range(2, steps):
                         params = step(i, params)
                     torch.cuda.synchronize()
-                    out["profiled_s"] = (time.perf_counter() - t0) / (steps - 1)
+                    out["profiled_s"] = (time.perf_counter() - t0) / (steps - 2)
                 out["rows"] = device_rows(prof)
             except (RuntimeError, AttributeError) as exc:
                 log(f"  profiler: not measured ({exc})")
-                for i in range(1, steps):
+                for i in range(2, steps):
                     params = step(i, params)
         else:
             for i in range(1, steps):
@@ -1117,65 +1289,36 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
         del params
         torch.cuda.empty_cache()
     moved = {}
-    if control or others:
+    if control or others or faults:
         init = train.init_client_params(SEED, cfg, n, "cuda")
         moved = {k: v[1] for k, v in leaf_gaps(flat_lib, ref, init).items()}
         del init
     del ref
     torch.cuda.empty_cache()
-    lp = runs["plain"]
-    log(f"  plain path losses {' '.join(f'{x:.6f}' for x in lp)}")
-    rel, loss_gaps = {}, {}
-    for name in gaps:
-        loss_gaps[name] = [abs(a - b) / abs(b) for a, b in zip(runs[name], lp)]
-        sums = {k: abs(d) / max(m, 1e-30) for k, (d, _, m) in gaps[name].items()}
-        worst_sum = max(sums, key=sums.get)
-        line = (f"  {name} path losses {' '.join(f'{x:.6f}' for x in runs[name])}; "
-                f"relative loss gap by step "
-                f"{' '.join(f'{x:.3e}' for x in loss_gaps[name])}; largest per-leaf "
-                f"|sum gap| / sum|p| {sums[worst_sum]:.3e} ({worst_sum})")
-        if moved:
-            rel[name] = {k: g / moved[k] if moved[k] else (math.inf if g else 0.0)
-                         for k, (_, g, _) in gaps[name].items()}
-            worst = max(rel[name], key=rel[name].get)
-            line += (f"; largest per-leaf sum|gap| / sum|p_plain - p_init| "
-                     f"{rel[name][worst]:.3e} ({worst})")
-        log(line)
-        if name == "kernel" and not control and sums[worst_sum] > TRAIN_PATH_RTOL:
-            raise AssertionError(f"trainer kernel path and plain path differ in {worst_sum}")
-    if max(loss_gaps["kernel"]) > TRAIN_PATH_RTOL:
-        raise AssertionError("trainer kernel path and plain path differ in their losses")
-    if moved:
-        log(f"  per leaf, sum|gap| / sum|p_plain - p_init| by path ({', '.join(rel)})"
-            + (f"; the kernel's held within {CONTROL_MARGIN} x the control's"
-               if control else ""))
-        for k in sorted(moved):
-            log(f"    {k}: " + " ".join(f"{r[k]:.3e}" for r in rel.values())
-                + f" (sum|p_plain - p_init| {moved[k]:.6e})")
-        if control:
-            over = [k for k in moved if rel["kernel"][k] > CONTROL_MARGIN * rel["control"][k]]
-            if over:
-                raise AssertionError(f"trainer kernel path and plain path differ beyond "
-                                     f"the control in {over}")
+    if pool is not None:
+        gaps = {name: pool_leaves(g, pool) for name, g in gaps.items()}
+        moved = pool_leaves(moved, pool)
+    if plain is not None:
+        check_trainer_paths(runs, gaps, moved, control, [name for name, _ in faults])
     rows = out.get("rows") or []
-    busy_us = sum(r[0] for r in rows) / (steps - 1)
-    per_kernel = {k: sum(r[0] for r in rows if key in r[1]) / (steps - 1)
+    busy_us = sum(r[0] for r in rows) / (steps - 2)
+    per_kernel = {k: sum(r[0] for r in rows if key in r[1]) / (steps - 2)
                   for k, key in kernel_rows.items()}
     steady_us = out["steady_s"] * 1e6
     if busy_us > 0:
         share = busy_us / steady_us
-        log(f"  profiler over {steps - 1} steps: device busy "
+        log(f"  profiler over {steps - 2} step(s): device busy "
             f"{busy_us / 1e3:.3f} ms/step ({out['profiled_s'] * 1e3:.3f} ms/step wall "
             f"under the profiler); against the unprofiled step "
             f"({steady_us / 1e3:.3f} ms): {100 * share:.2f}% busy, "
             f"{100 - 100 * share:.2f}% idle; "
             + ", ".join(f"{k} kernel {v / 1e3:.3f} ms/step" for k, v in per_kernel.items()))
         for dev, key, count in sorted(rows, reverse=True)[:10]:
-            log(f"    {dev / 1e3 / (steps - 1):9.3f} ms/step  {count:6d}x  {key[:90]}")
+            log(f"    {dev / 1e3 / (steps - 2):9.3f} ms/step  {count:6d}x  {key[:90]}")
     else:
         log("  profiler: no device time recorded (not measured)")
-    log(f"phase {label}: kernel path and plain path agree; "
-        f"{out['steady_s']:.4f} s/step unprofiled")
+    log(f"phase {label}: " + ("kernel path and plain path agree; " if plain else "")
+        + f"{out['steady_s']:.4f} s/step unprofiled")
     return out["dflat"], out["steady_s"], busy_us, per_kernel
 
 
@@ -1211,18 +1354,23 @@ def phase_mamba2(torch):
     return launches, s_step, peak
 
 
-def control_chunk_fn(torch):
+CONTROL_HASHES = (2654435761, 2246822519, 3266489917)  # one sign pattern per control
+
+
+def control_chunk_fn(torch, salt=0):
     """`ssd_chunk_ref` with each element of Y and S scaled by 1 +- 2^-23,
-    the sign a hash of the element's index: an f32-level change of the
-    outputs, as a reordering of the sums makes, and the same in the
-    forward and in its remat recompute."""
+    the sign a hash of the element's index (`CONTROL_HASHES[salt]`): an
+    f32-level change of the outputs, as a reordering of the sums makes,
+    and the same in the forward and in its remat recompute."""
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    mult = CONTROL_HASHES[salt]
 
     def chunk_fn(*args):
         out = []
         for t in ssd_chunk_ref(*args):
             idx = torch.arange(t.numel(), device=t.device).view(t.shape)
-            sign = ((idx * 2654435761) >> 15 & 1) * 2 - 1
+            sign = ((idx * mult) >> 15 & 1) * 2 - 1
             out.append(t * (1 + 2.0 ** -23 * sign))
         return tuple(out)
 
@@ -1252,29 +1400,42 @@ def shadowed_ssd_chunk_ref(torch, shadows):
 
 
 def phase_mamba2_plain(torch, controls=False):
-    """Phase 8. The plain run checks the kernel on the inputs of every SSD
-    call it makes (`shadowed_ssd_chunk_ref`) within `SSD_REL_TOL`; the
-    control is the plain path with `control_chunk_fn`. With `controls`,
-    the kernel's forward built from `CONTROL_VARIANTS` of its source also
-    trains and shadows, printed and not held."""
-    from repro_torch.kernels.gossip import ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
-
-    shadows, others = {"kernel": ssd_ops.ssd_chunk}, []
+    """Phase 8. With `controls`, the kernel's forward built from
+    `CONTROL_VARIANTS` of its source also trains and shadows, printed and
+    not held."""
+    others, shadows = [], {}
     if controls:
+        from repro_torch.kernels.ssd import ops as ssd_ops
         from repro_torch.kernels.ssd import variants
 
         libs = variants.build_variants(CONTROL_VARIANTS)
         for v in CONTROL_VARIANTS:
             shadows[f"variant {v}"] = lambda *a, lib=libs[v]: ssd_ops.launch(lib, *a)
             others.append((f"variant {v}", dict(chunk_fn=variants.chunk_fn(libs[v]))))
-    chunk_fn, errs = shadowed_ssd_chunk_ref(torch, shadows)
+    return compare_ssd_trainer_paths(torch, MAMBA_ARGS, mamba2_config(), MAMBA_PLAIN_STEPS,
+                                     "8 mamba2 plain", shadows, others)
+
+
+def compare_ssd_trainer_paths(torch, argv, cfg, steps, label, shadows=None, others=(),
+                              controls=1, pool=None, faults=()):
+    """`compare_trainer_paths` for a model with SSD blocks: the plain path
+    (plain SSD step and plain mix) checks the kernel on the inputs of
+    every SSD call it makes (`shadowed_ssd_chunk_ref`) within
+    `SSD_REL_TOL`; each of the `controls` control paths is the plain path
+    with `control_chunk_fn` (its own sign pattern); `pool` and `faults`
+    as in `compare_trainer_paths`. `shadows` and `others` add further shadows
+    and paths, not held."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    chunk_fn, errs = shadowed_ssd_chunk_ref(torch, {"kernel": ssd_ops.ssd_chunk,
+                                                    **(shadows or {})})
     result = compare_trainer_paths(
-        torch, MAMBA_ARGS, mamba2_config(), MAMBA_PLAIN_STEPS,
-        dict(mix=ops.gossip_mix_reference, chunk_fn=chunk_fn),
-        {"mix": "mix_kernel", "ssd_chunk": "ssd_chunk_kernel"}, "8 mamba2 plain",
-        control=dict(mix=ops.gossip_mix_reference, chunk_fn=control_chunk_fn(torch)),
-        others=others)
+        torch, argv, cfg, steps, dict(mix=ops.gossip_mix_reference, chunk_fn=chunk_fn),
+        {"mix": "mix_kernel", "ssd_chunk": "ssd_chunk_kernel"}, label,
+        control=[dict(mix=ops.gossip_mix_reference, chunk_fn=control_chunk_fn(torch, salt))
+                 for salt in range(controls)],
+        others=others, pool=pool, faults=faults)
     for name, e in errs.items():
         worst = float(torch.stack(e).max())
         log(f"  {name} on the plain run's {len(e) // 2} SSD calls: largest |error| "
@@ -1284,6 +1445,118 @@ def phase_mamba2_plain(torch, controls=False):
             raise AssertionError("ssd_chunk disagrees with its plain version on the "
                                  "trainer's inputs")
     return result
+
+
+def hybrid_depths(torch, depths):
+    """Phase 16's kernel-vs-plain comparison at each of `depths` zamba2
+    layers, every block's leaves apart against `FAMILY_CONTROLS`
+    controls (the measurement behind `FAMILY_CONTROLS`' choice of depth
+    and pooling); a depth whose rule fails is reported and the next one
+    run. Returns the depths that failed."""
+    from repro_torch.configs.base import get_config
+
+    argv = family_args("zamba2-2.7b", 512)
+    failed = []
+    for layers in depths:
+        cfg = get_config("zamba2-2.7b").with_(num_layers=layers)
+        log(f"zamba2 at {layers} layers:")
+        try:
+            compare_ssd_trainer_paths(torch, argv, cfg, FAMILY_PLAIN_STEPS,
+                                      f"16 at {layers} layers", controls=FAMILY_CONTROLS)
+        except AssertionError as exc:
+            log(f"  not held at {layers} layers: {exc}")
+            failed.append(layers)
+        torch.cuda.empty_cache()
+    return failed
+
+
+def planted_faults(torch):
+    """Phase 16's planted faults (`MIX_FAULT_TAIL`): (name, keyword
+    arguments of `train_step`) paths."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import variants
+
+    one_term = variants.build_variants(["one-term"])["one-term"]
+
+    def transposed(q, deltas):
+        return ops.gossip_mix(q.T.contiguous(), deltas)
+
+    def tail_dropped(q, deltas):
+        out = ops.gossip_mix(q, deltas)
+        out[:, -MIX_FAULT_TAIL:] = 0
+        return out
+
+    return [("fault ssd one-term", dict(chunk_fn=variants.chunk_fn(one_term))),
+            ("fault mix transposed", dict(mix=transposed)),
+            ("fault mix tail dropped", dict(mix=tail_dropped))]
+
+
+def family_args(arch, seq, steps=FAMILY_STEPS):
+    return ["--arch", arch, "--clients", "2", "--batch-per-client", "2", "--seq", str(seq),
+            "--steps", str(steps), "--unify-every", "3", "--psi", "1", "--log-every",
+            str(steps)]
+
+
+def phase_families(torch):
+    """Phases 15-18 (`FAMILY_PHASES`): each family through
+    `repro_torch.launch.train.main` (`run_trainer`: losses, one mix launch
+    per step, peak memory), its launches checked (zamba2: two `ssd_chunk`
+    launches per Mamba2 block, client and step, forward and remat; no
+    other kernel on any of these paths), then the moe trainer's kernel
+    path against its plain mix under phase 6's rule (the paths are equal
+    up to the order of f32 sums: the MoE's gathers and their backwards
+    are deterministic), the hybrid's against the plain mix and plain SSD
+    step under phase 8's control rule at one group, each leaf (a kind
+    pooled over the group's Mamba2 blocks) against the largest of
+    `FAMILY_CONTROLS` controls (the split-bf16 SSD kernel makes no leaf
+    equal after bf16 rounding flips, and deeper the trajectories are
+    chaotic: see `FAMILY_CONTROLS`; the kernel shadows every SSD call of
+    the plain run; the rule must reject each planted fault of
+    `planted_faults`), and the vlm and audio trainers' kernel paths timed
+    and profiled alone, each at the depth its tuple names. Returns label -> dict of the launches,
+    s/step, steady s/step, peak bytes, device busy us/step and per-kernel
+    us/step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.models.model import block_pattern
+
+    rows = {}
+    for label, arch, layers, plain_layers, seq in FAMILY_PHASES:
+        cfg = get_config(arch).with_(num_layers=layers)
+        plain_cfg = cfg.with_(num_layers=plain_layers)
+        argv = family_args(arch, seq)
+        clients = int(argv[argv.index("--clients") + 1])
+        launches, s_step, peak = run_trainer(torch, argv, cfg, FAMILY_STEPS, label)
+        pattern, n_groups = block_pattern(cfg)
+        ssm_blocks = pattern.count("ssm") * n_groups
+        want = FAMILY_STEPS * ssm_blocks * clients * (2 if cfg.remat else 1)
+        if launches["ssd_chunk"] != want or launches["drain"] or launches["enqueue"]:
+            raise AssertionError(f"phase {label}: launches {launches}, expected "
+                                 f"{want} ssd_chunk and no drain or enqueue")
+        if ssm_blocks:
+            log(f"  ssd_chunk launches {launches['ssd_chunk']} = {FAMILY_STEPS} steps x "
+                f"{ssm_blocks} Mamba2 blocks x {clients} clients x 2 (forward, remat)")
+        if cfg.family == "hybrid":
+            result = compare_ssd_trainer_paths(torch, argv, plain_cfg, FAMILY_PLAIN_STEPS,
+                                               f"{label} plain", controls=FAMILY_CONTROLS,
+                                               pool=pool_ssm_positions,
+                                               faults=planted_faults(torch))
+        elif cfg.family == "moe":
+            result = compare_trainer_paths(
+                torch, argv, plain_cfg, FAMILY_PLAIN_STEPS,
+                dict(mix=ops.gossip_mix_reference), {"mix": "mix_kernel"}, f"{label} plain")
+        else:
+            result = compare_trainer_paths(torch, argv, plain_cfg, FAMILY_PROFILE_STEPS, None,
+                                           {"mix": "mix_kernel"}, f"{label} profile")
+        dflat, steady_s, busy_us, per_kernel = result
+        if cfg.family == "vlm" and dflat != VLM_MIX[1]:
+            raise AssertionError(f"the vlm plane has {dflat} columns; phase 2 holds the mix "
+                                 f"at VLM_MIX's {VLM_MIX[1]}")
+        rows[label] = dict(cfg=cfg, plain_layers=plain_layers, launches=launches,
+                           s_step=s_step, steady_s=steady_s, peak=peak, dflat=dflat,
+                           busy_us=busy_us, kernels=per_kernel)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_variants(torch, names, flushes):
@@ -2261,6 +2534,21 @@ def phase_wide_times(torch):
     return rows
 
 
+def log_families(rows):
+    """One summary line per family trainer of phases 15-18."""
+    for label, r in rows.items():
+        cfg = r["cfg"]
+        share = r["busy_us"] / (r["steady_s"] * 1e6)
+        idle = f"{100 - 100 * share:.2f}% idle" if r["busy_us"] > 0 else "idle not measured"
+        log(f"trainer path ({cfg.name}, phase {label}, {cfg.num_layers} layers): "
+            f"{r['s_step']:.4f} s/step over {FAMILY_STEPS} steps with init; at "
+            f"{r['plain_layers']} layers (Dflat {r['dflat']}) {r['steady_s']:.4f} s/step "
+            f"steady, device busy {r['busy_us'] / 1e3:.3f} "
+            f"ms/step ({idle}), " + ", ".join(f"{k} {v / 1e3:.3f} ms/step"
+                                              for k, v in r["kernels"].items())
+            + f"; peak {r['peak'] / 2**30:.2f} GiB")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
@@ -2278,6 +2566,12 @@ def main(argv=None) -> int:
                         help="for --gossip-variants: which of drain, enqueue, mix")
     parser.add_argument("--trainer-controls", action="store_true",
                         help="only phase 8, with the control and planted-fault paths")
+    parser.add_argument("--families", action="store_true",
+                        help="only phases 15-18, the other model families' trainers")
+    parser.add_argument("--hybrid-depths", metavar="LAYERS",
+                        help="only phase 16's comparison at these zamba2 depths "
+                             "(comma-separated multiples of 6), leaf by leaf; exits 1 "
+                             "when the rule fails at any")
     args = parser.parse_args(argv)
     import torch
 
@@ -2307,6 +2601,16 @@ def main(argv=None) -> int:
         phase_mamba2_plain(torch, controls=True)
         log(card_line())
         return 0
+    if args.families:
+        phase_build()
+        log_families(phase_families(torch))
+        log(card_line())
+        return 0
+    if args.hybrid_depths:
+        phase_build()
+        failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
+        log(card_line())
+        return 1 if failed else 0
     t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(torch)
@@ -2327,6 +2631,7 @@ def main(argv=None) -> int:
     scen_drain, scen_mix, scen_rows = phase_scenarios(torch)
     sweep = phase_sweep(torch)
     events = phase_events(torch)
+    families = phase_families(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
@@ -2342,7 +2647,8 @@ def main(argv=None) -> int:
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
-             launches=mix_launches + baseline_launches + scen_mix,
+             launches=(mix_launches + m_launches["mix"] + baseline_launches + scen_mix
+                       + sum(r["launches"]["mix"] for r in families.values())),
              max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
@@ -2352,7 +2658,9 @@ def main(argv=None) -> int:
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd/ssd.py:47",
-             launches=m_launches["ssd_chunk"], max_abs_err=ssd_err, **ssd_times)]
+             launches=(m_launches["ssd_chunk"]
+                       + sum(r["launches"]["ssd_chunk"] for r in families.values())),
+             max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
     log(f"trainer path (qwen2-1.5b): {s_step:.4f} s/step over {TRAIN_STEPS} steps with "
@@ -2363,6 +2671,7 @@ def main(argv=None) -> int:
         f"steady; device busy {m_busy / 1e3:.3f} ms/step, ssd_chunk "
         f"{m_kernels['ssd_chunk'] / 1e3:.3f} ms/step, mix {m_kernels['mix'] / 1e3:.3f} "
         f"ms/step; peak {m_peak / 2**30:.2f} GiB")
+    log_families(families)
     for method, r in baseline_runs.items():
         idle = "not measured" if r["idle"] is None else f"{100 * r['idle']:.2f}% idle"
         log(f"baseline path ({method}, fig3 EMNIST): {r['rounds']} rounds, final accuracy "
@@ -2385,8 +2694,13 @@ def main(argv=None) -> int:
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
         f"engine's")
-    log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {baseline_launches} on "
-        f"the baselines', {scen_mix} on the scenario baselines'")
+    log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
+        f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
+        f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"
+                                    for r in families.values()))
+    log(f"ssd_chunk launches: {m_launches['ssd_chunk']} on mamba2's trainer path, "
+        + ", ".join(f"{r['launches']['ssd_chunk']} on {r['cfg'].name}'s"
+                    for r in families.values() if r["launches"]["ssd_chunk"]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

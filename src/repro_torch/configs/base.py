@@ -3,11 +3,11 @@
 Port of `repro.configs.base` (a module with no JAX in it, copied so that
 the port imports nothing of the JAX package): `ModelConfig` with its
 analytic `param_count`, the CLI aliases, `get_config` and `get_reduced`.
-Each architecture is a module ``repro_torch.configs.<id>`` exporting
-``CONFIG`` (the published scale) and ``reduced()`` (a CPU-sized variant
-of the same family). The dense (``qwen2_1p5b``) and ssm
-(``mamba2_2p7b``) families are ported so far; the other architectures
-come with their families.
+Each of the ten architectures of `ARCH_IDS` is a module
+``repro_torch.configs.<id>`` exporting ``CONFIG`` (the published scale)
+and ``reduced()`` (a CPU-sized variant of the same family), field for
+field the reference's. `ShapeConfig` and `SHAPES` are the reference's
+input shapes; `all_configs` maps every id to its config.
 """
 from __future__ import annotations
 
@@ -148,6 +148,34 @@ class ModelConfig:
         return dense + L * self.experts_per_token * 3 * d * self.d_ff
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+ARCH_IDS = (
+    "mamba2_2p7b",
+    "qwen3_moe_30b_a3b",
+    "stablelm_3b",
+    "zamba2_2p7b",
+    "qwen2p5_32b",
+    "qwen2_1p5b",
+    "yi_34b",
+    "olmoe_1b_7b",
+    "llama3p2_vision_11b",
+    "musicgen_large",
+)
+
 # CLI-facing ids (dashes) -> module names
 ARCH_ALIASES = {
     "mamba2-2.7b": "mamba2_2p7b",
@@ -165,14 +193,10 @@ ARCH_ALIASES = {
 
 def _arch_module(arch: str):
     mod_name = ARCH_ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
-    try:
-        return importlib.import_module(f"repro_torch.configs.{mod_name}")
-    except ModuleNotFoundError as exc:
-        if exc.name != f"repro_torch.configs.{mod_name}":
-            raise
-        raise ValueError(
-            f"architecture {arch!r} is not ported to repro_torch yet (its "
-            f"family comes with a later slice)") from None
+    if mod_name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}; known: "
+                         f"{', '.join(sorted(ARCH_ALIASES))}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -181,3 +205,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _arch_module(arch).reduced()
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

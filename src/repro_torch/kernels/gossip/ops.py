@@ -485,13 +485,26 @@ def launch_mix(lib: ctypes.CDLL, q: torch.Tensor, deltas: torch.Tensor) -> torch
 gossip_mix.launches = 0
 
 
+REFERENCE_MIX_COLUMNS = 1 << 27  # columns per GEMM of a plane past them
+
+
 def gossip_mix_reference(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
-    """Plain version of `gossip_mix`: one f32 GEMM, q (N, N), deltas
-    (N, K) -> ``(q^T @ deltas)`` cast to ``deltas.dtype``. The main path
-    never calls it on the card."""
+    """Plain version of `gossip_mix`: f32 GEMMs, q (N, N), deltas (N, K)
+    -> ``(q^T @ deltas)`` cast to ``deltas.dtype``. A plane of more than
+    `REFERENCE_MIX_COLUMNS` columns is mixed a slice of columns at a time
+    into one output (cuBLAS takes no GEMM dimension of 2^31 or more, and
+    every output column is its own dot over N, so slicing changes no
+    sum). The main path never calls it on the card."""
     _check_mix(q, deltas)
-    out = q.to(torch.float32).T @ deltas.to(torch.float32)
-    return out.to(deltas.dtype)
+    qt = q.to(torch.float32).T
+    k = deltas.shape[1]
+    if k <= REFERENCE_MIX_COLUMNS:
+        return (qt @ deltas.to(torch.float32)).to(deltas.dtype)
+    out = torch.empty_like(deltas)
+    for lo in range(0, k, REFERENCE_MIX_COLUMNS):
+        part = deltas[:, lo:lo + REFERENCE_MIX_COLUMNS].to(torch.float32).contiguous()
+        out[:, lo:lo + REFERENCE_MIX_COLUMNS] = qt @ part
+    return out
 
 
 def _check_enqueue(w_stack, pending, out_dtype):

@@ -22,6 +22,8 @@ Examples:
       --reduced --device cpu --steps 12 --clients 4 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
       --reduced --device cpu --steps 12 --clients 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --reduced --device cpu --steps 3     # also zamba2-2.7b, musicgen-large, ...
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 20 --clients 4 --psi 1 --unify-every 10     # on the card
 """
@@ -57,15 +59,27 @@ def stream_seed(seed: int, stream: int, step: int = 0) -> int:
 
 def make_batches(key, cfg, n_clients: int, per_client: int, seq: int,
                  device=None):
-    """Synthetic LM token shards per client: ``{"tokens": (N, P, S)}``
-    int64, uniform over the vocabulary."""
-    if cfg.embeds_in or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"synthetic batches for the {cfg.family!r} family are not ported yet")
+    """Synthetic LM shards per client, as the reference's `make_batches`:
+    ``{"tokens": (N, P, S)}`` int64 uniform over the vocabulary; an
+    ``embeds_in`` model (audio) gets ``{"embeds": (N, P, S, d)}`` N(0, 1)
+    in ``cfg.dtype`` and ``"labels": (N, P, S)`` in its place; a vlm also
+    ``"cross_embeds": (N, P, num_patch_tokens, d)`` N(0, 1) in
+    ``cfg.dtype``. Drawn from one generator in that order."""
     gen = as_generator(key, device)
-    tokens = torch.randint(0, cfg.vocab_size, (n_clients, per_client, seq),
-                           generator=gen, device=gen.device)
-    return {"tokens": tokens}
+    dev = gen.device
+    shape = (n_clients, per_client, seq)
+    data = {}
+    if cfg.embeds_in:
+        data["embeds"] = torch.randn(shape + (cfg.d_model,), generator=gen,
+                                     device=dev).to(cfg.torch_dtype)
+        data["labels"] = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    else:
+        data["tokens"] = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    if cfg.family == "vlm":
+        data["cross_embeds"] = torch.randn(
+            (n_clients, per_client, cfg.num_patch_tokens, cfg.d_model), generator=gen,
+            device=dev).to(cfg.torch_dtype)
+    return data
 
 
 def select_batch(data, idx: int, batch_per_client: int):
@@ -108,28 +122,38 @@ def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
                mix: Optional[mixing.MixFn] = None, chunk_fn=None):
     """One DRACO step on one device; returns ``(params, mean loss)``.
 
-    params: dict of (N, ...) leaves, updated in place; batch
-    ``{"tokens": (N, B, S)}``; q_eff (N, N) this step's masked weights.
+    params: dict of (N, ...) leaves, updated in place; batch a dict of
+    (N, B, ...) tensors (`make_batches`' keys), each sliced per client;
+    q_eff (N, N) this step's masked weights. The leaves of
+    `M.unused_leaves` (an audio model's token embedding) get a zero
+    gradient, as in the reference; any other leaf the loss does not reach
+    raises.
     For each client in turn: `lm_loss` and its gradient, ``-lr * g`` in
     the leaf's dtype written into that client's row of the f32 delta
     plane. Then one `mix_plane` (the gossip-mix kernel, or `mix`) and
     ``p += mixed.to(p.dtype)`` leaf by leaf. The loss is the mean of the
     clients' f32 losses, as a 0-d tensor (no host read). `chunk_fn`
-    replaces the SSD intra-chunk kernel of an ssm model (see
+    replaces the SSD intra-chunk kernel of an ssm or hybrid model (see
     `M.apply_model`)."""
     spec = flat_lib.spec_of(params)
     n = spec.num_clients
     plane = torch.empty((n, spec.dim), dtype=torch.float32, device=q_eff.device)
+    unused = M.unused_leaves(cfg)
     losses = []
     for i in range(n):
         p_i = flat_lib.tree_map(lambda p: p[i].detach().requires_grad_(), params)
         loss = M.lm_loss(p_i, cfg, {k: v[i] for k, v in batch.items()},
                          chunk_fn=chunk_fn)
-        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(p_i))
-        for g, off, size in zip(grads, spec.offsets, spec.sizes):
+        items = list(zip(flat_lib.tree_items(p_i), spec.offsets, spec.sizes))
+        used = [(leaf, off, size) for (path, leaf), off, size in items if path not in unused]
+        grads = torch.autograd.grad(loss, [leaf for leaf, _, _ in used])
+        for g, (_, off, size) in zip(grads, used):
             plane[i, off:off + size].copy_(g.reshape(-1).mul_(_in_dtype(-lr, g.dtype)))
+        for (path, _), off, size in items:
+            if path in unused:
+                plane[i, off:off + size].zero_()
         losses.append(loss.detach())
-        del p_i, loss, grads
+        del p_i, loss, grads, items, used
     mixed = mixing.mix_plane(q_eff, plane, mix)
     del plane
     with torch.no_grad():
@@ -171,10 +195,10 @@ def parse_args(argv=None):
 
 
 def check_seq(cfg, seq: int) -> None:
-    """An ssm model's SSD runs in chunks of ``min(ssm_chunk, seq)``
-    tokens, so `seq` must be a multiple of ``ssm_chunk`` or no longer
-    than it (the reference asserts this in ``ssd_chunked``)."""
-    if cfg.family == "ssm" and seq > cfg.ssm_chunk and seq % cfg.ssm_chunk:
+    """An ssm or hybrid model's SSD runs in chunks of ``min(ssm_chunk,
+    seq)`` tokens, so `seq` must be a multiple of ``ssm_chunk`` or no
+    longer than it (the reference asserts this in ``ssd_chunked``)."""
+    if cfg.family in ("ssm", "hybrid") and seq > cfg.ssm_chunk and seq % cfg.ssm_chunk:
         raise ValueError(
             f"--seq {seq} does not fit {cfg.name}'s SSD chunk of {cfg.ssm_chunk} "
             f"tokens: give a multiple of {cfg.ssm_chunk}, or at most {cfg.ssm_chunk}")

@@ -1,7 +1,8 @@
 """Model registry: one build/apply/loss surface over the unified decoder.
 
-Port of `repro.models.registry` for training; the decode fields come
-with serving.
+Port of `repro.models.registry` for training, the same surface for all
+ten architectures of `ARCH_IDS`; the decode fields (``init_decode_state``,
+``decode_step``, ``init_cross_kv``) come with serving (ROADMAP item 13).
 """
 from __future__ import annotations
 

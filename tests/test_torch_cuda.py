@@ -1,7 +1,8 @@
 """repro_torch on the card: the drain, mix, enqueue and SSD intra-chunk
 kernels against their plain versions, the windowed main path launching
 the drain once per window, and the trainer launching the mix once per
-step and, on an ssm model, the SSD kernel once per block and client.
+step and, on an ssm or hybrid model, the SSD kernel once per block and
+client, for every model family.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -842,6 +843,52 @@ def test_mamba2_trainer_kernel_path_matches_plain_path(cuda_device):
                                             q_eff, cfg, 3e-3, mix=mix, chunk_fn=chunk_fn)
             losses.append(float(loss))
         runs[name] = (losses, params)
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(runs["kernel"][1]), tree_leaves(runs["plain"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+FAMILIES = ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "zamba2-2.7b", "llama-3.2-vision-11b",
+            "musicgen-large")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_trainer_kernel_path_matches_plain_path(cuda_device, arch):
+    """A reduced moe, hybrid, vlm or audio model (f32): 3 trainer steps
+    through the mix kernel (and the SSD kernel) against 3 through their
+    plain versions; one mix launch per step, and for zamba2 one SSD
+    launch per Mamba2 block, client and step (remat off)."""
+    from repro_torch.api import make_context
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.core.flat import tree_leaves
+    from repro_torch.core.protocol import DracoConfig
+    from repro_torch.launch import train
+    from repro_torch.models.model import block_pattern
+
+    cfg = get_reduced(arch)
+    seq = 2 * cfg.ssm_chunk if cfg.family == "hybrid" else 32
+    q = make_context(DracoConfig(num_clients=4, channel=None), device=cuda_device).q
+    data = train.make_batches(1, cfg, 4, 8, seq, device=cuda_device)
+    runs = {}
+    for name, mix, chunk_fn in (("kernel", None, None),
+                                ("plain", ops.gossip_mix_reference, ssd_chunk_ref)):
+        params = train.init_client_params(0, cfg, 4, cuda_device)
+        gen = torch.Generator(device=cuda_device)
+        ops.gossip_mix.launches = ssd_ops.ssd_chunk.launches = 0
+        losses = []
+        for step in range(3):
+            gen.manual_seed(step)
+            q_eff = train.mixing_weights(q, 1, generator=gen)
+            params, loss = train.train_step(params, train.select_batch(data, step, 2),
+                                            q_eff, cfg, 3e-3, mix=mix, chunk_fn=chunk_fn)
+            losses.append(float(loss))
+        if name == "kernel":
+            pattern, n_groups = block_pattern(cfg)
+            assert ops.gossip_mix.launches == 3
+            assert ssd_ops.ssd_chunk.launches == 3 * pattern.count("ssm") * n_groups * 4
+        runs[name] = (losses, params)
+    assert np.isfinite(runs["kernel"][0]).all()
     np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0], rtol=1e-5, atol=1e-5)
     for a, b in zip(tree_leaves(runs["kernel"][1]), tree_leaves(runs["plain"][1])):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

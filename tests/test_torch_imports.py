@@ -52,7 +52,11 @@ def test_module_list_covers_the_slice():
                 "kernels.ssd.ref", "optim.optimizers", "scenarios.base",
                 "scenarios.generators", "api.sweep", "events", "events.config",
                 "events.tape", "events.staleness", "events.engine", "events.replay",
-                "events.algorithms", "events.driver"):
+                "events.algorithms", "events.driver", "models.moe",
+                "configs.olmoe_1b_7b", "configs.qwen3_moe_30b_a3b",
+                "configs.zamba2_2p7b", "configs.llama3p2_vision_11b",
+                "configs.musicgen_large", "configs.stablelm_3b",
+                "configs.qwen2p5_32b", "configs.yi_34b"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -96,14 +100,26 @@ def _entry_points():
         "init_params[mamba2]": lambda: model.init_params(0, get_reduced("mamba2-2.7b")),
         "train.main[mamba2]": lambda: train.main(["--arch", "mamba2-2.7b", "--reduced",
                                                   "--steps", "1", "--seq", "32"]),
+        **{f"init_params[{a}]": lambda a=a: model.init_params(0, get_reduced(a))
+           for a in NEW_FAMILIES},
+        **{f"make_batches[{a}]": lambda a=a: train.make_batches(0, get_reduced(a), 2, 2, 4)
+           for a in NEW_FAMILIES},
+        **{f"train.main[{a}]": lambda a=a: train.main(["--arch", a, "--reduced",
+                                                       "--steps", "1", "--seq", "32"])
+           for a in NEW_FAMILIES},
     }
+
+
+NEW_FAMILIES = ("olmoe-1b-7b", "zamba2-2.7b", "llama-3.2-vision-11b", "musicgen-large")
 
 
 @pytest.mark.parametrize("entry", [
     "build_graph", "federated_classification", "init_params", "init_state",
     "make_batches", "make_mlp", "simulate", "simulate_sweep", "simulate_events",
     "init_event_state", "task.init_params", "task.make_data",
-    "train.main", "init_params[mamba2]", "train.main[mamba2]"])
+    "train.main", "init_params[mamba2]", "train.main[mamba2]",
+    *(f"{e}[{a}]" for e in ("init_params", "make_batches", "train.main")
+      for a in NEW_FAMILIES)])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[entry]()

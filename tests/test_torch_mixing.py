@@ -79,6 +79,21 @@ def test_mix_ref_matches_reference_oracle():
         **TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_reference_in_column_slices_equals_one_gemm(monkeypatch, dtype):
+    """A plane wider than `REFERENCE_MIX_COLUMNS` (olmoe's trainer plane
+    on the card has 2.7e9 columns, past cuBLAS's 2^31) is mixed in column
+    slices, the last one ragged: the same numbers as one GEMM."""
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.random((3, 3)).astype(np.float32))
+    deltas = torch.as_tensor(rng.standard_normal((3, 1000)).astype(np.float32)).to(dtype)
+    want = tops.gossip_mix_reference(q, deltas)
+    monkeypatch.setattr(tops, "REFERENCE_MIX_COLUMNS", 64)
+    got = tops.gossip_mix_reference(q, deltas)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_mix_wrapper_rejects_what_it_cannot_take():
     q, deltas = _case(4, 10)
     with pytest.raises(ValueError, match=r"\(N, N\)"):
