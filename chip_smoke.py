@@ -131,6 +131,18 @@ Phases (any failure exits non-zero):
                zero), 17 and 18 a
                profiled step; s/step, idle share and the kernels' device
                time per step printed;
+  19. entry points - (a) 50 windows of the legacy engine
+               (`draco_window_legacy`) and 50 of the fused window through the
+               drain kernel at benchmarks/torch_run.py's draco_window shape
+               (the fig3 EMNIST setup, N = 25, D = 8), from one seed on one
+               draws record: params within 1e-4, equal acceptances, one
+               drain launch a window, ms per window of both; (b) every
+               benchmarks/torch_run.py bench at quick=True (its JSON and
+               results/ files in a temporary directory): its rows printed
+               and finite, launches of the drain, mix and ssd_chunk
+               kernels wherever the bench reaches them; (c) every
+               examples/torch_*.py at a reduced size (`EXAMPLES`), holding
+               its own assertions; the phase's time printed;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -140,7 +152,11 @@ Phases (any failure exits non-zero):
                a device-to-device copy of the same plane (the stream's
                floor); the drain's seed axis at R = 4 beside R solo
                launches, its bound (R x the solo drain's), the einsum and
-               the plain version. Phase 9 runs last, after 10 to 18.
+               the plain version; the mix at the olmoe, musicgen and vlm
+               trainers' planes (N = 2, f32, `FAMILY_MIX_PLANES`) beside
+               its plain version and `torch.matmul` (or cuBLAS's refusal
+               past 2^31 - 1 columns and the product over dense slices).
+               Phase 9 runs last, after 10 to 19.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -150,6 +166,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --gossip-variants [NAMES] [--baseline TREE] [--gossip-kernels K]
     python3 chip_smoke.py --trainer-controls
     python3 chip_smoke.py --families
+    python3 chip_smoke.py --entry-points
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -164,9 +181,9 @@ runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
 run's SSD calls; the fourth runs the build and phases 15-18 alone; the
-fifth phase 16's comparison at other zamba2 depths, block by block (the
-only run that reproduces the measurement behind `FAMILY_CONTROLS`;
-exits 1 when the rule fails at any depth).
+fifth the build and phase 19 alone; the sixth phase 16's comparison at other zamba2 depths, block by block (the only
+run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
+when the rule fails at any depth).
 """
 from __future__ import annotations
 
@@ -304,6 +321,7 @@ SSD_CASES = {
     "ragged Q=72 N=24 P=40 bf16": (2, 6, 2, 3, 72, 24, 40, 1.0, "bfloat16"),
     "Q=N=256 bf16": (1, 8, 1, 2, 256, 256, 64, 1.0, "bfloat16"),
     "zamba2 trainer shape bf16 N=64": (2, 80, 1, 4, 128, 64, 64, 1.0, "bfloat16"),
+    "bench_ssd shape f32 N=64": (2, 16, 1, 8, 128, 64, 64, 1.0, "float32"),
 }
 SSD_ZAMBA2 = SSD_CASES["zamba2 trainer shape bf16 N=64"]
 # gossip_enqueue's path: the JAX package's own cases
@@ -380,6 +398,24 @@ EVENT_HORIZON, EVENT_TAPE_SEED, EVENT_PLAIN, EVENT_PROFILE = 300.0, 0, 300, 100
 EVENT_TRIGGER = 0.2
 EVENT_FLOORS = {"draco-event": 0.5808, "fedasync-gossip": 0.5535, "event-triggered": 0.5768}
 FEDASYNC_WINDOWS = 240
+# phase 19: the entry points. (a) benchmarks/torch_run.py's draco_window
+# bench at its full shape (the fig3 EMNIST setup, N = 25, D = 8): the
+# legacy engine against the fused window, from one seed on shared draws
+ENTRY_WINDOWS, ENTRY_WARMUP = 50, 5
+ENTRY_DEPTH = 8
+# (b) the kernels each torch_run bench reaches (at quick=True); (c) each
+# example's reduced arguments and the kernels it reaches
+BENCH_KERNELS = {"gossip": ("mix",), "ssd": ("ssd_chunk",), "draco_window": ("drain",),
+                 "simulate_fused": ("drain",), "sweep": ("drain",), "tasks": ("drain",),
+                 "events": ("drain",), "fig3": ("drain", "mix"), "fig4": ("drain",),
+                 "fig_dynamic": ("drain",)}
+EXAMPLES = {"quickstart": (["--windows", "120"], ("drain",)),
+            "dynamic_topology": (["--windows", "60"], ("drain",)),
+            "event_timeline": (["--horizon", "20"], ("drain",)),
+            "seed_sweep": (["--windows", "40"], ("drain",)),
+            "task_zoo": (["--windows", "40"], ("drain",)),
+            "train_lm_federated": (["--reduced", "--steps", "6", "--seq", "64"], ("mix",)),
+            "wireless_sim": ([], ("drain",))}
 
 
 def log(msg):
@@ -2534,6 +2570,198 @@ def phase_wide_times(torch):
     return rows
 
 
+def phase_entry_legacy(torch):
+    """Phase 19 (a): `ENTRY_WINDOWS` windows of the legacy engine and of the
+    fused window (the drain kernel) at benchmarks/torch_run.py's
+    draco_window shape, from one seed on one draws record: params within
+    `PATH_TOL`, equal acceptances, one drain launch per fused window."""
+    from benchmarks.torch_fig3_convergence import setup
+    from repro_torch.core import protocol
+
+    cfg, train, _, params0, loss, _, key = setup("emnist", device="cuda")
+    cfg = cfg.replace(max_delay_windows=ENTRY_DEPTH)
+    q, adj = protocol.build_graph(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 190)
+    draws = [protocol.sample_window_draws(gen, cfg, train[0].shape[1])
+             for _ in range(ENTRY_WINDOWS)]
+    # warm both engines up on throwaway states (the first windows pay the
+    # allocator's growth and the libraries' first calls)
+    protocol.run_windows(protocol.init_state(key + 1, cfg, params0), cfg, q, adj, loss,
+                         train, ENTRY_WARMUP)
+    protocol.run_windows_legacy(protocol.init_state_legacy(key + 1, cfg, params0), cfg, q,
+                                adj, loss, train, ENTRY_WARMUP)
+    fused = protocol.init_state(key, cfg, params0)
+    legacy = protocol.init_state_legacy(key, cfg, params0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = protocol.run_windows(fused, cfg, q, adj, loss, train, ENTRY_WINDOWS,
+                                 draws_fn=lambda w: draws[w])
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    launches = launch_counts()["drain"]
+    t0 = time.perf_counter()
+    legacy = protocol.run_windows_legacy(legacy, cfg, q, adj, loss, train, ENTRY_WINDOWS,
+                                         draws_fn=lambda w: draws[w])
+    torch.cuda.synchronize()
+    t_legacy = time.perf_counter() - t0
+    gap = max(float((fused.params[k] - legacy.params[k]).abs().max()) for k in legacy.params)
+    ok = all(torch.allclose(fused.params[k], legacy.params[k], rtol=PATH_TOL, atol=PATH_TOL)
+             for k in legacy.params)
+    same = torch.equal(fused.total_accept, legacy.total_accept)
+    ms_f, ms_l = t_fused / ENTRY_WINDOWS * 1e3, t_legacy / ENTRY_WINDOWS * 1e3
+    log(f"  legacy against fused: N={cfg.num_clients}, D={ENTRY_DEPTH}, {ENTRY_WINDOWS} "
+        f"windows on shared draws: max |d params| = {gap:.3e} (tolerance {PATH_TOL}); same "
+        f"acceptances {same} ({int(fused.total_accept.sum())} messages); {launches} drain "
+        f"launches; fused {ms_f:.3f} ms/window, legacy {ms_l:.3f} ms/window")
+    if launches != ENTRY_WINDOWS:
+        raise AssertionError(f"fused window: {launches} drain launches in {ENTRY_WINDOWS}")
+    if not ok or not same:
+        raise AssertionError("the legacy engine and the fused window differ")
+    return dict(launches=launches, ms_fused=ms_f, ms_legacy=ms_l, gap=gap)
+
+
+def entry_run(torch, label, call, kernels):
+    """`call()` with every launch count set to 0 just before and read just
+    after, its standard output captured and echoed indented; raises
+    unless it launched each of `kernels`. Returns (printed lines, launch
+    counts, seconds)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    printed = out.getvalue().splitlines()
+    for line in printed[-12:]:
+        log(f"    {line}")
+    idle = [k for k in kernels if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"{label} launched no {idle} kernel: {counts}")
+    log(f"  {label}: ok in {wall:.2f} s; launches drain {counts['drain']}, mix "
+        f"{counts['mix']}, ssd_chunk {counts['ssd_chunk']}")
+    return printed, counts, wall
+
+
+def phase_entry_benches(torch, out_dir):
+    """Phase 19 (b): every benchmarks/torch_run.py bench at quick=True on
+    the card, its files under `out_dir`: rows printed and finite, and
+    launches of each kernel the bench reaches."""
+    from benchmarks import torch_common, torch_run
+
+    totals = {"drain": 0, "mix": 0, "ssd_chunk": 0}
+    for name, fn in torch_run.BENCHES.items():
+        torch_common.RESULTS.clear()
+        printed, counts, _ = entry_run(
+            torch, f"bench {name}", lambda fn=fn: fn(quick=True, device="cuda",
+                                                     out_dir=out_dir),
+            BENCH_KERNELS[name])
+        rows = dict(torch_common.RESULTS)
+        missing = [r for r in rows if not any(line.startswith(f"{r},") for line in printed)]
+        if not rows or missing or not torch_common.finite(rows):
+            raise AssertionError(f"bench {name}: rows {rows}, not printed {missing}")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+def phase_entry_examples(torch):
+    """Phase 19 (c): every examples/torch_*.py at its reduced size
+    (`EXAMPLES`), holding its own assertions, with launches of each kernel
+    it reaches."""
+    import importlib.util
+
+    totals = {"drain": 0, "mix": 0, "ssd_chunk": 0}
+    for name, (args, kernels) in EXAMPLES.items():
+        path = os.path.join(HERE, "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _, counts, _ = entry_run(torch, " ".join(["example", name] + args),
+                                 lambda module=module, args=args: module.main(args), kernels)
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+def phase_entry_points(torch):
+    """Phase 19: (a) legacy against fused, (b) every torch_run bench, (c)
+    every torch example; their files go to a temporary directory. Returns
+    the launches of each kernel over (a)-(c) and (a)'s numbers."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    legacy = phase_entry_legacy(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        benches = phase_entry_benches(torch, tmp)
+    examples = phase_entry_examples(torch)
+    launches = {k: benches[k] + examples[k] for k in benches}
+    launches["drain"] += legacy["launches"]
+    log(f"phase 19 entry points: {time.perf_counter() - t0:.1f} s; legacy "
+        f"{legacy['ms_legacy']:.3f} ms/window against fused {legacy['ms_fused']:.3f}; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return dict(legacy, launches=launches)
+
+
+FAMILY_MIX_PLANES = (("olmoe-1b-7b", 6), ("musicgen-large", 48),
+                     ("llama-3.2-vision-11b", 10))  # the planes of phases 15-18's profiles
+
+
+def family_mix_times(torch):
+    """The mix at the new families' trainer planes (`FAMILY_MIX_PLANES`, N
+    = 2, f32, K = the model's Dflat at that depth): the kernel (zero
+    flush), its plain version (which mixes a plane past 2^27 columns in
+    dense slices) and the library: one `torch.matmul` over the whole
+    plane where cuBLAS takes it, else its refusal and `torch.matmul`
+    over the plain version's dense slices. Returns one row per plane."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.flat import tree_leaves
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.models import model as M
+
+    flush = flushes(torch)["zero"]
+    rows = []
+    for arch, layers in FAMILY_MIX_PLANES:
+        params = M.init_params(SEED, get_config(arch).with_(num_layers=layers), "cuda")
+        k = sum(p.numel() for p in tree_leaves(params))
+        del params
+        torch.cuda.empty_cache()
+        q, deltas = mix_case(torch, 2, k, torch.float32, seed=11)
+        kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10, flush=flush)
+        plain = time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=5)
+        qt, refusal = q.T.contiguous(), None
+        try:
+            out = torch.matmul(qt, deltas)
+            torch.cuda.synchronize()
+            del out
+            lib = time_ms(torch, lambda: torch.matmul(qt, deltas), reps=5)
+        except RuntimeError as exc:
+            refusal = str(exc).splitlines()[0][:160]
+
+            def sliced():
+                for lo in range(0, k, SLICE):
+                    torch.matmul(qt, deltas[:, lo:lo + SLICE].contiguous())
+
+            lib = time_ms(torch, sliced, reps=5)
+        bound, by = mix_bound_ms(2, k, 4)
+        log(f"  mix N=2 K={k} f32 ({arch}, {layers} layers, K % 4 = {k % 4}): kernel "
+            f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
+            f"plain {plain:.4f} ms, library "
+            + (f"torch.matmul {lib:.4f} ms" if refusal is None else
+               f"refused by cuBLAS ({refusal}); torch.matmul over dense {SLICE}-column "
+               f"slices {lib:.4f} ms"))
+        rows.append(dict(arch=arch, k=k, ms=kern, plain_ms=plain, library_ms=lib,
+                         refused=refusal, bound_ms=bound))
+        del q, deltas
+        torch.cuda.empty_cache()
+    return rows
+
+
 def log_families(rows):
     """One summary line per family trainer of phases 15-18."""
     for label, r in rows.items():
@@ -2568,6 +2796,8 @@ def main(argv=None) -> int:
                         help="only phase 8, with the control and planted-fault paths")
     parser.add_argument("--families", action="store_true",
                         help="only phases 15-18, the other model families' trainers")
+    parser.add_argument("--entry-points", action="store_true",
+                        help="only phase 19, the benches, the legacy engine and the examples")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -2606,6 +2836,13 @@ def main(argv=None) -> int:
         log_families(phase_families(torch))
         log(card_line())
         return 0
+    if args.entry_points:
+        t_start = time.perf_counter()
+        phase_build()
+        phase_entry_points(torch)
+        log(f"chip_smoke --entry-points: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
     if args.hybrid_depths:
         phase_build()
         failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
@@ -2632,23 +2869,28 @@ def main(argv=None) -> int:
     sweep = phase_sweep(torch)
     events = phase_events(torch)
     families = phase_families(torch)
+    torch.cuda.empty_cache()
+    entry = phase_entry_points(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
     phase_wide_times(torch)
     phase_seed_times(torch)
+    family_mix_times(torch)
     log("phase 9 times: done")
     kernels = [
         dict(name="gossip_drain", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
-             launches=launches + scen_drain + sweep["launches"] + events["launches"],
+             launches=(launches + scen_drain + sweep["launches"] + events["launches"]
+                       + entry["launches"]["drain"]),
              max_abs_err=max(max_err, seed_err), **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
              launches=(mix_launches + m_launches["mix"] + baseline_launches + scen_mix
-                       + sum(r["launches"]["mix"] for r in families.values())),
+                       + sum(r["launches"]["mix"] for r in families.values())
+                       + entry["launches"]["mix"]),
              max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
@@ -2659,7 +2901,8 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd/ssd.py:47",
              launches=(m_launches["ssd_chunk"]
-                       + sum(r["launches"]["ssd_chunk"] for r in families.values())),
+                       + sum(r["launches"]["ssd_chunk"] for r in families.values())
+                       + entry["launches"]["ssd_chunk"]),
              max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
@@ -2691,16 +2934,21 @@ def main(argv=None) -> int:
         f"steady ({idle['event']}); " + ", ".join(
             f"{k} {v['ms']:.3f} ms/event, accuracy {v['acc']:.4f}, {v['sent']} broadcasts"
             for k, v in events["runs"].items()))
+    log(f"entry points (phase 19): legacy engine {entry['ms_legacy']:.3f} ms/window against "
+        f"the fused window {entry['ms_fused']:.3f} ms/window (N = 25, D = {ENTRY_DEPTH}, "
+        f"{ENTRY_WINDOWS} windows, max |d params| {entry['gap']:.3e})")
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
-        f"engine's")
+        f"engine's, {entry['launches']['drain']} on the entry points'")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
         f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"
-                                    for r in families.values()))
+                                    for r in families.values())
+        + f", {entry['launches']['mix']} on the entry points'")
     log(f"ssd_chunk launches: {m_launches['ssd_chunk']} on mamba2's trainer path, "
         + ", ".join(f"{r['launches']['ssd_chunk']} on {r['cfg'].name}'s"
-                    for r in families.values() if r["launches"]["ssd_chunk"]))
+                    for r in families.values() if r["launches"]["ssd_chunk"])
+        + f", {entry['launches']['ssd_chunk']} on the entry points'")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,7 +35,8 @@ from repro_torch.api import algorithms  # noqa: F401
 from repro_torch.events import events_context, simulate_events  # noqa: E402
 
 __all__ = [
-    "Algorithm", "SimContext", "SimTrace", "consensus_distance", "events_context",
+    "Algorithm", "SimContext", "SimTrace", "algorithms", "consensus_distance",
+    "events_context",
     "get_algorithm", "list_algorithms", "make_context", "register_algorithm",
     "resolve_workload", "simulate", "simulate_events", "simulate_sweep", "stack_configs",
     "steps_for_budget", "SweepTrace",

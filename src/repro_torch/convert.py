@@ -12,6 +12,10 @@ inputs:
     ring, ``w_ring``, ``delay_ring``, counters, window index, positions
     and the ``(N, Dopt)`` optimizer plane; the JAX key becomes a fresh
     generator seeded by `seed`);
+  - `legacy_state_from_numpy`: the reference's `DracoStateLegacy` -> the
+    port's (per-leaf params, pending and ring buffers, counters, window
+    index, the positions drawn at init and the optimizer plane; a fresh
+    generator seeded by `seed`);
   - `data_from_numpy`: ``(xs, ys)`` shards (integer inputs, tiny-lm's
     tokens, stay integers);
   - `draws_from_numpy`: one window's draws -> `WindowDraws`;
@@ -38,7 +42,7 @@ import torch
 from repro_torch import as_generator, resolve_device
 from repro_torch.core.baselines import BaselineState, RoundDraws
 from repro_torch.core.flat import tree_from_items
-from repro_torch.core.protocol import DracoState, WindowDraws
+from repro_torch.core.protocol import DracoState, DracoStateLegacy, WindowDraws
 from repro_torch.events.engine import EventDraws, EventState
 from repro_torch.events.tape import EventTape
 from repro_torch.scenarios.base import Schedule
@@ -101,6 +105,25 @@ def state_from_numpy(state, *, seed: int = 0, device=None) -> DracoState:
         generator=as_generator(seed, dev),
         positions=_tensor(get("positions"), dev, torch.float32),
         opt_state=_opt_plane(get, pending.shape[0], dev),
+    )
+
+
+def legacy_state_from_numpy(state, *, seed: int = 0, device=None) -> DracoStateLegacy:
+    """The reference's `DracoStateLegacy` (any object with its field names
+    as attributes or keys) -> the port's `DracoStateLegacy`."""
+    dev = resolve_device(device)
+    get = _getter(state)
+    accept_count = _tensor(get("accept_count"), dev, torch.int32)
+    return DracoStateLegacy(
+        params=params_from_numpy(get("params"), dev),
+        pending=params_from_numpy(get("pending"), dev),
+        buffer=params_from_numpy(get("buffer"), dev),
+        accept_count=accept_count,
+        total_accept=_tensor(get("total_accept"), dev, torch.int32),
+        window_idx=int(np.asarray(get("window_idx"))),
+        generator=as_generator(seed, dev),
+        positions=_tensor(get("positions"), dev, torch.float32),
+        opt_state=_opt_plane(get, accept_count.shape[0], dev),
     )
 
 

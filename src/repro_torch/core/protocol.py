@@ -49,7 +49,13 @@ such a state in one pass, the drain in one launch for all seeds
 (`gossip_ops.gossip_drain`'s seed axis), each seed drawing from its own
 generator exactly as its solo run does. `seed_row` views seed r.
 
-Deferred: the legacy (pre-fusion) engine.
+The legacy engine. `DracoStateLegacy`, `init_state_legacy`,
+`draco_window_legacy` and `run_windows_legacy` port the reference's
+pre-fusion engine: per-leaf rings of already-mixed deltas, D-1 separate
+per-bucket contractions at enqueue time, no flat plane and no drain. It
+is the oracle of the fused window and the baseline of
+``benchmarks/torch_run.py``'s ``draco_window`` bench; it takes the same
+`WindowDraws` as `draco_window`, so one record drives both engines.
 """
 from __future__ import annotations
 
@@ -608,3 +614,148 @@ def build_graph(cfg: DracoConfig, seed: Optional[int] = None, *, device=None):
 def virtual_global_model(params):
     """x_bar = E_i[x^(i)] (Sec. 2.1) — evaluation only."""
     return flat_lib.tree_map(lambda p: p.mean(dim=0), params)
+
+
+# ---------------------------------------------------------------------------
+# The reference's seed engine (pre-fusion), the oracle of the fused window
+# (tests/test_torch_legacy.py) and the baseline of the draco_window bench.
+# Self-contained on purpose: it shares only `local_step` and `_psi_accept`
+# with `draco_window`, so the two are independent gossip engines. Do not
+# optimize.
+# ---------------------------------------------------------------------------
+
+
+class DracoStateLegacy(NamedTuple):
+    """The reference's seed-layout state: per-leaf dicts, no flat plane;
+    ``key`` replaced by a `torch.Generator`, ``window_idx`` a host int."""
+
+    params: Dict[str, Any]  # {name: (N, ...)}
+    pending: Dict[str, Any]  # {name: (N, ...)} accumulated untransmitted updates
+    buffer: Dict[str, Any]  # {name: (D, N, ...)} in-flight already-mixed deltas
+    accept_count: torch.Tensor  # (N,) int32 — accepted this period
+    total_accept: torch.Tensor  # (N,) int32 — accepted over the whole run
+    window_idx: int
+    generator: torch.Generator
+    positions: torch.Tensor  # (N, 2) node coordinates (channel model)
+    opt_state: Optional[torch.Tensor] = None  # (N, Dopt) f32 local optimizer plane
+
+
+def init_state_legacy(key, cfg: DracoConfig, params0, task=None, *,
+                      device=None) -> DracoStateLegacy:
+    """The legacy layout of `init_state`: params0 replicated across N
+    clients, zero per-leaf pending and ring buffers. `key` (an int seed
+    or a `torch.Generator`) draws the node positions first, as
+    `init_state` does, so one seed gives both engines the same positions
+    and window draws. `task` sizes the optimizer plane as in
+    `init_state`."""
+    g = as_generator(key, device)
+    dev = g.device
+    n, d = cfg.num_clients, cfg.max_delay_windows
+    params = flat_lib.tree_map(
+        lambda p: p.to(dev).unsqueeze(0).repeat((n,) + (1,) * p.dim()), params0)
+    pos = channel_lib.place_nodes(g, n, cfg.channel or ChannelConfig())
+    return DracoStateLegacy(
+        params=params,
+        pending=flat_lib.tree_map(torch.zeros_like, params),
+        buffer=flat_lib.tree_map(
+            lambda p: torch.zeros((d,) + tuple(p.shape), dtype=p.dtype, device=dev),
+            params),
+        accept_count=torch.zeros((n,), dtype=torch.int32, device=dev),
+        total_accept=torch.zeros((n,), dtype=torch.int32, device=dev),
+        window_idx=0,
+        generator=g,
+        positions=pos,
+        opt_state=opt_plane(task, params0, n, dev),
+    )
+
+
+def draco_window_legacy(state: DracoStateLegacy, cfg: DracoConfig, q, adj, loss_fn,
+                        data, *, draws: Optional[WindowDraws] = None) -> DracoStateLegacy:
+    """Seed window: D-1 per-bucket contractions of every leaf at enqueue
+    time; returns the next state.
+
+    `q` (N, N) row-stochastic weights, `adj` (N, N) its adjacency;
+    `loss_fn` a bare batched loss or a `Task`; `data` the shards. `draws`
+    injects this window's `WindowDraws` (the fields and order of
+    `draco_window`'s), None draws them from ``state.generator``. The
+    config's rates, Psi and lr are used as they are: no scenario and no
+    sweep override, as in the reference.
+
+    The ring slot being delivered is zeroed in place and the enqueue adds
+    into the other slots in place, so a state is consumed by the window
+    that advances it."""
+    n, D = cfg.num_clients, cfg.max_delay_windows
+    widx = state.window_idx
+    if draws is None:
+        draws = sample_window_draws(state.generator, cfg, data[0].shape[1])
+
+    # --- 1. deliveries: this window's ring slot, then cleared -----------
+    slot = widx % D
+    params = flat_lib.tree_map(lambda p, b: p + b[slot].to(p.dtype), state.params,
+                               state.buffer)
+    for b in flat_lib.tree_leaves(state.buffer):
+        b[slot].zero_()
+
+    # --- 2. gradient events ------------------------------------------------
+    delta, opt_state = local_step(params, draws.grad_mask, cfg, loss_fn, data,
+                                  draws.batch_idx, state.opt_state, widx)
+    pending = flat_lib.tree_map(lambda a, b: a + b, state.pending, delta)
+    if cfg.apply_self_update:
+        params = flat_lib.tree_map(lambda p, dl: p + dl.to(p.dtype), params, delta)
+
+    # --- 3. transmission events + channel ----------------------------------
+    tx_mask = draws.tx_mask
+    if cfg.channel is not None and cfg.channel.enabled:
+        gamma, success = channel_lib.transmission_delays(
+            draws.fading, state.positions, tx_mask, cfg.channel)
+        # compare and clip in float before the int cast: XLA saturates an
+        # out-of-range cast, torch wraps it (an outage's inf would become
+        # INT_MIN, a one-window delivery). A link spanning >= D windows
+        # cannot live in a depth-D ring: dropped, never delivered early.
+        delay_raw = torch.ceil(gamma / cfg.window)
+        delay_w = torch.clamp(delay_raw, 1, D - 1).to(torch.int32)
+        success = success & (delay_raw <= D - 1) & adj
+    else:
+        success = adj & tx_mask[:, None]
+        delay_w = torch.ones((n, n), dtype=torch.int32, device=q.device)
+    accept, accept_count = _psi_accept(success, state.accept_count, cfg.psi, draws.perm)
+    # the cumulative counter survives the periodic accept_count reset
+    total_accept = state.total_accept + (accept_count - state.accept_count)
+    w_eff = q * accept.to(q.dtype)  # (sender, receiver)
+
+    # enqueue into the ring, bucketed by relative delay: one contraction
+    # per bucket and leaf
+    for buf, pend in zip(flat_lib.tree_leaves(state.buffer), flat_lib.tree_leaves(pending)):
+        for d in range(1, D):
+            w_d = w_eff * (delay_w == d).to(q.dtype)
+            contrib = torch.einsum("nm,n...->m...", w_d, pend.to(torch.float32))
+            buf[(widx + d) % D] += contrib.to(buf.dtype)
+
+    # senders clear their pending backlog (Lemma A.1 backups are now sent)
+    keep = (~tx_mask).to(torch.float32)
+    pending = flat_lib.tree_map(
+        lambda pnd: pnd * keep.reshape((n,) + (1,) * (pnd.dim() - 1)), pending)
+
+    # --- 4. periodic unification -------------------------------------------
+    # repro-lint: disable-next-line=TRACED-PY-BRANCH(window_idx is a host int, never a tensor: the unify decision is host arithmetic)
+    if cfg.unify_period > 0 and (widx + 1) % cfg.unify_period == 0:
+        hub = (widx // cfg.unify_period) % n
+        params = flat_lib.tree_map(lambda x: x[hub].unsqueeze(0).expand_as(x).clone(),
+                                   params)
+        accept_count = torch.zeros_like(accept_count)
+
+    return DracoStateLegacy(
+        params=params, pending=pending, buffer=state.buffer, accept_count=accept_count,
+        total_accept=total_accept, window_idx=widx + 1, generator=state.generator,
+        positions=state.positions, opt_state=opt_state)
+
+
+def run_windows_legacy(state: DracoStateLegacy, cfg: DracoConfig, q, adj, loss_fn, data,
+                       num_windows: int, *, draws_fn=None) -> DracoStateLegacy:
+    """`num_windows` legacy windows in a Python loop (the reference
+    scans); `q` (N, N) row-stochastic, `draws_fn(window_idx)` injects each
+    window's `WindowDraws` when given."""
+    for _ in range(num_windows):
+        draws = None if draws_fn is None else draws_fn(state.window_idx)
+        state = draco_window_legacy(state, cfg, q, adj, loss_fn, data, draws=draws)
+    return state

@@ -1,8 +1,12 @@
-"""The port stands alone: importing every `repro_torch` module loads
-neither JAX nor the JAX package, and its entry points refuse to run on
-the CPU unless asked to."""
+"""The port stands alone: importing every `repro_torch` module, and every
+torch bench and example, loads neither JAX nor the JAX package; each
+subpackage exports the reference's names; the entry points refuse to run
+on the CPU unless asked to."""
+import ast
+import glob
 import os
 import pkgutil
+import importlib
 import subprocess
 import sys
 
@@ -12,6 +16,9 @@ import torch
 import repro_torch
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+# subpackages of the reference that the port has not ported yet
+NOT_PORTED = ("analysis", "sharding")
 
 
 def _modules():
@@ -36,6 +43,88 @@ def test_every_module_imports_without_jax_or_repro():
                          text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
+
+
+def _reference_all(package: str):
+    """``__all__`` of ``src/repro/<package>/__init__.py``, read with `ast`
+    (importing it would import JAX); None when it defines none."""
+    with open(os.path.join(SRC, "repro", package, "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return None
+
+
+def _reference_packages():
+    return sorted(p for p in os.listdir(os.path.join(SRC, "repro"))
+                  if os.path.isfile(os.path.join(SRC, "repro", p, "__init__.py")))
+
+
+def test_reference_packages_are_known():
+    """Every reference subpackage is either ported or named as not yet."""
+    ported = {name.split(".")[1] for name in _modules() if name.count(".") >= 1}
+    for package in _reference_packages():
+        assert package in ported or package in NOT_PORTED, package
+
+
+@pytest.mark.parametrize("package", [
+    "analysis", "api", "checkpoint", "configs", "core", "data", "events", "kernels",
+    "models", "optim", "scenarios", "sharding", "tasks"])
+def test_package_exports_the_reference_names(package):
+    if package in NOT_PORTED:
+        pytest.skip(f"repro.{package} is not ported yet")
+    assert package in _reference_packages()
+    names = _reference_all(package)
+    port = importlib.import_module(f"repro_torch.{package}")
+    if names is None:  # the reference exports nothing by name
+        return
+    missing = sorted(set(names) - set(getattr(port, "__all__", ())))
+    assert not missing, f"repro_torch.{package}.__all__ lacks {missing}"
+    for name in names:
+        assert getattr(port, name) is not None
+
+
+def test_f1_imports_work():
+    from repro_torch.configs import get_config
+    from repro_torch.core import DracoStateLegacy, draco_window, draco_window_legacy
+    from repro_torch.data import make_mlp
+    from repro_torch.tasks import opt_width
+
+    assert callable(draco_window) and callable(draco_window_legacy)
+    assert DracoStateLegacy._fields[0] == "params"
+    assert callable(get_config) and callable(make_mlp) and callable(opt_width)
+
+
+def _entry_scripts():
+    """The torch benches (as modules) and the torch examples (as files)."""
+    benches = sorted(f"benchmarks.{os.path.basename(p)[:-3]}"
+                     for p in glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py")))
+    examples = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+    return benches, examples
+
+
+def test_benches_and_examples_import_without_jax_or_repro():
+    benches, examples = _entry_scripts()
+    assert len(benches) >= 5 and len(examples) >= 7
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"for name in {benches!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'example_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             or m == 'benchmarks.common' or m == 'benchmarks.fig3_convergence')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.abspath(SRC), ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_module_list_covers_the_slice():
