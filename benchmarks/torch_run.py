@@ -7,7 +7,7 @@ fused engine (one drain-kernel launch per window) against the legacy
 per-bucket engine; `gossip` and `ssd` time the hand-written kernels
 against their plain versions, each row named by what ran (``kernel`` on
 the card, ``plain`` on the CPU, where the wrappers take the plain
-version). `decode` waits for the port's serving path.
+version); `decode` times one step of the serving path (no kernel).
 
 Prints ``name,us_per_call,derived`` CSV and mirrors the timings to
 ``BENCH_torch.json`` (name -> us_per_call). Every bench runs on CUDA
@@ -362,6 +362,24 @@ def bench_events(quick=False, device=None, out_dir="."):
     _write(out_dir, "BENCH_torch_events.json", rows)
 
 
+def bench_decode(quick=False, device=None, out_dir="."):
+    """Serving layer: single-token decode latency, reduced dense arch
+    (B = 4, a 128-position cache), each timed step from the same state
+    (the cache slot of position 1, rewritten in place)."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models import model as M
+
+    dev = resolve_device(device)
+    cfg = get_reduced("qwen2-1.5b")
+    params = M.init_params(0, cfg, dev)
+    B = 4
+    state = M.init_decode_state(cfg, B, 128, device=dev)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    _, state = M.decode_step(params, cfg, tok, state)  # warm
+    us = time_fn(lambda: M.decode_step(params, cfg, tok, state), iters=10)
+    emit("decode_step_reduced_qwen2", us, f"{B / us * 1e6:.0f}tok_s")
+
+
 def _write(out_dir, name, rows):
     if out_dir is None:
         return
@@ -383,6 +401,7 @@ BENCHES = {
     "fig3": bench_fig3,
     "fig4": bench_fig4,
     "fig_dynamic": bench_fig_dynamic,
+    "decode": bench_decode,
 }
 
 

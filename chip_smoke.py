@@ -143,6 +143,33 @@ Phases (any failure exits non-zero):
                kernels wherever the bench reaches them; (c) every
                examples/torch_*.py at a reduced size (`EXAMPLES`), holding
                its own assertions; the phase's time printed;
+  20. serving and long context - (a) `python -m repro_torch.launch.serve`'s
+               `main` at its (the reference's) defaults (batch 4, prompt
+               32, 16 new tokens) for qwen2-1.5b, mamba2-2.7b, zamba2-2.7b,
+               olmoe-1b-7b, llama-3.2-vision-11b (1,600 patch embeddings)
+               and musicgen-large at full width and depth in bf16: tokens
+               in range, ms per decode step, aggregate tok/s, device idle
+               share, peak memory, 0 host syncs in the decode loop under
+               the sync detector; (b) each in f32 (TF32 off), one at a
+               time, decoded over a 64-token prompt at batch 2 against
+               `apply_model` over it (for mamba2 and zamba2 the recurrence
+               against the `ssd_chunk` kernel's forward; the gap to the
+               plain SSD step's prefill printed), within 1e-2 of the
+               largest |logit|; qwen2 with a 64-slot ring over 200
+               tokens against windowed `apply_model`; (c)
+               `make_prefill_step` on qwen2-1.5b at prefill_32k's S =
+               32,768 (batch cut from 32 to 1) through the flash path: the
+               (B, S, V) logits finite, the first 4,096 positions against
+               full attention on that prefix within 0.1 of the largest
+               |logit| (bf16); (d) decode_32k (batch cut from 128 to 32,
+               from pos 32,760) and long_500k (qwen2's 8,192-slot ring and
+               mamba2's O(1) state from pos 524,000): ms per step, peak
+               memory, 0 host syncs; (e) the trainer `main` on qwen2-1.5b
+               at --seq 8192, 2 clients of batch 1, 3 steps, Psi 1 (one
+               mix launch a step, the first loss near ln V, peak memory,
+               s/step), then `lm_loss` at that shape with vocab_chunk 1024
+               against 0 (loss within 1e-3, each leaf's gradient within
+               2e-2 in L2), both peaks; the phase's time printed;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -156,7 +183,7 @@ Phases (any failure exits non-zero):
                trainers' planes (N = 2, f32, `FAMILY_MIX_PLANES`) beside
                its plain version and `torch.matmul` (or cuBLAS's refusal
                past 2^31 - 1 columns and the product over dense slices).
-               Phase 9 runs last, after 10 to 19.
+               Phase 9 runs last, after 10 to 20.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -167,6 +194,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --trainer-controls
     python3 chip_smoke.py --families
     python3 chip_smoke.py --entry-points
+    python3 chip_smoke.py --serving
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -181,7 +209,9 @@ runs phase 8 with further paths, printed and not held: the kernel's
 forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
 run's SSD calls; the fourth runs the build and phases 15-18 alone; the
-fifth the build and phase 19 alone; the sixth phase 16's comparison at other zamba2 depths, block by block (the only
+fifth the build and phase 19 alone; the sixth the build and phase 20
+alone; the seventh phase 16's comparison at other zamba2 depths, block
+by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
 when the rule fails at any depth).
 """
@@ -408,14 +438,15 @@ ENTRY_DEPTH = 8
 BENCH_KERNELS = {"gossip": ("mix",), "ssd": ("ssd_chunk",), "draco_window": ("drain",),
                  "simulate_fused": ("drain",), "sweep": ("drain",), "tasks": ("drain",),
                  "events": ("drain",), "fig3": ("drain", "mix"), "fig4": ("drain",),
-                 "fig_dynamic": ("drain",)}
+                 "fig_dynamic": ("drain",), "decode": ()}
 EXAMPLES = {"quickstart": (["--windows", "120"], ("drain",)),
             "dynamic_topology": (["--windows", "60"], ("drain",)),
             "event_timeline": (["--horizon", "20"], ("drain",)),
             "seed_sweep": (["--windows", "40"], ("drain",)),
             "task_zoo": (["--windows", "40"], ("drain",)),
             "train_lm_federated": (["--reduced", "--steps", "6", "--seq", "64"], ("mix",)),
-            "wireless_sim": ([], ("drain",))}
+            "wireless_sim": ([], ("drain",)),
+            "serve_batched": ([], ())}
 
 
 def log(msg):
@@ -2708,6 +2739,440 @@ def phase_entry_points(torch):
     return dict(legacy, launches=launches)
 
 
+# phase 20: serving and long context. (a) `python -m repro_torch.launch.serve`
+# at its (the reference's) defaults for one model of each family at full
+# width and depth; (b) each of them in f32, decoded over a prompt against
+# `apply_model` over it; (c) prefill_32k's length through the flash path;
+# (d) decode_32k and long_500k; (e) the trainer at --seq 8192 and the
+# chunked-vocab loss against the full one
+SERVE_ARCHS = ("qwen2-1.5b", "mamba2-2.7b", "zamba2-2.7b", "olmoe-1b-7b",
+               "llama-3.2-vision-11b", "musicgen-large")
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--new-tokens", "16"]
+SERVE_PROFILE = 1  # the timed and profiled short serve: 1 prompt token, 1 new one
+EXACT_BATCH, EXACT_PROMPT = 2, 64
+# decode against prefill, max |gap| over the largest |logit| (f32, TF32
+# off). On the CPU (scripts/decode_gap_reference.py) mamba2 drifts most:
+# 5.3e-6 at 2 reduced layers, 1.6e-4 at all 64, about 2.5x that at its
+# full SSM width (4.3e-5 against 2.2e-5 at 8 layers), so ~4e-4 at full
+# size; x25 for the card's other GEMM orders and the SSD kernel. (A first
+# bound of 1e-3, from the 2-layer gap alone, read 1.83e-3 for mamba2 on
+# the card.) A decode fault (a wrong slot, a stale state) moves the
+# logits by tens of percent.
+EXACT_REL_TOL = 1e-2
+RING_WINDOW, RING_TOKENS = 64, 200
+PREFILL_PREFIX = 4096
+PREFILL_BATCH = 1  # prefill_32k's batch of 32, cut to 1
+# bf16 flash path against bf16 full attention, max |gap| over the largest
+# |logit|: 2.2e-2 on the CPU at 28 reduced-width layers; x ~4.5
+BF16_REL_TOL = 0.1
+DECODE_BATCH = 32  # decode_32k's batch of 128, cut to 32 (~30 GB of cache)
+DECODE_STEPS = 8
+LONG_POS = 524_000
+LONG_TRAIN_STEPS = 3
+LONG_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "2", "--batch-per-client", "1",
+                   "--seq", "8192", "--steps", str(LONG_TRAIN_STEPS), "--psi", "1",
+                   "--log-every", str(LONG_TRAIN_STEPS)]
+VOCAB_CHUNK = 1024
+# chunked against full loss in bf16: the loss within 1e-3 of itself, each
+# leaf's gradient within 2e-2 in L2 (2.0e-3 on the CPU at reduced width)
+LOSS_REL_TOL, GRAD_REL_TOL = 1e-3, 2e-2
+
+
+def watched(torch, fn):
+    """`fn()` under the sync detector, the device synchronised after:
+    (result, seconds, host syncs seen)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, [str(w.message) for w in caught
+                       if "called a synchronizing" in str(w.message)]
+
+
+def device_busy_us(torch, fn):
+    """Device time of every kernel of one profiled `fn()`; None when the
+    profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(r[0] for r in device_rows(prof))
+    except (RuntimeError, AttributeError) as exc:
+        log(f"    profiler: not measured ({exc})")
+        return None
+    return busy if busy > 0 else None
+
+
+def idle_text(busy_us, wall_s):
+    return "idle not measured" if busy_us is None else \
+        f"{100 - 100 * busy_us / (wall_s * 1e6):.2f}% idle"
+
+
+def phase_serve(torch, dev):
+    """Phase 20 (a): `serve.main` at `SERVE_ARGS` for each of `SERVE_ARCHS`
+    at full width and depth, in its dtype. Its `serve_batch` call runs
+    under the sync detector (0 host syncs); then the same call again,
+    timed (ms per decode step, prompt steps included, and aggregate tok/s)
+    and a short serve (`SERVE_PROFILE` prompt and new tokens) timed and
+    profiled (device idle share)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    rows = {}
+    real = serve.serve_batch
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        held = {}
+
+        def first_call(cfg_, params, prompts, max_new, **kw):
+            call = lambda: real(cfg_, params, prompts, max_new, **kw)  # noqa: E731
+            toks, _, syncs = watched(torch, call)
+            held.update(call=call, syncs=syncs, steps=prompts.shape[1] + max_new,
+                        batch=prompts.shape[0], new=max_new,
+                        short=lambda: real(cfg_, params, prompts[:, :SERVE_PROFILE],
+                                           SERVE_PROFILE, **kw))
+            return toks
+
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        serve.serve_batch = first_call
+        try:
+            with contextlib.redirect_stdout(out):
+                toks = serve.main(["--arch", arch, *SERVE_ARGS, "--device", dev], cfg=cfg)
+        finally:
+            serve.serve_batch = real
+        for line in out.getvalue().splitlines():
+            log(f"    {line}")
+        _, wall, syncs = watched(torch, held["call"])
+        _, short_wall, short_syncs = watched(torch, held["short"])
+        busy = device_busy_us(torch, held["short"])
+        syncs += short_syncs
+        peak = torch.cuda.max_memory_allocated()
+        in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+        steps = held["steps"]
+        row = dict(dtype=cfg.dtype, batch=held["batch"], ms_step=wall / steps * 1e3,
+                   tok_s=held["batch"] * held["new"] / wall,
+                   busy_us=busy, wall=short_wall, peak=peak,
+                   syncs=len(held["syncs"]) + len(syncs))
+        log(f"  serve {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}): "
+            f"tokens {tuple(toks.shape)} in range {in_range}; {row['ms_step']:.3f} ms per "
+            f"decode step ({steps} steps of batch {held['batch']}), {row['tok_s']:.1f} tok/s "
+            f"aggregate; a serve of {2 * SERVE_PROFILE} steps: device busy "
+            f"{0 if busy is None else busy / 1e3:.3f} ms of {short_wall * 1e3:.3f} "
+            f"({idle_text(busy, short_wall)}); peak {peak / 2**30:.2f} GiB; host syncs in "
+            f"the decode loops {row['syncs']}; {time.perf_counter() - t0:.1f} s")
+        if row["syncs"] or not in_range:
+            raise AssertionError(f"serve {arch}: syncs {held['syncs'] + syncs}, "
+                                 f"tokens in range {in_range}")
+        rows[arch] = row
+        held.clear()
+        del toks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def prompt_batch(torch, cfg, gen, b, s, dev):
+    """Random prompt inputs: tokens (an embeds-in model: embeddings) and,
+    for a vlm, patch embeddings."""
+    if cfg.embeds_in:
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen, device=dev
+                                       ).to(cfg.torch_dtype)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        batch["cross_embeds"] = torch.randn((b, cfg.num_patch_tokens, cfg.d_model),
+                                            generator=gen, device=dev).to(cfg.torch_dtype)
+    return batch
+
+
+def decode_against_prefill(torch, cfg, params, batch, dev):
+    """`decode_step` over the prompt (under the sync detector) against
+    `apply_model` over it: (max |gap|, largest |logit|, host syncs, and
+    for an ssm or hybrid model the max |gap| to the prefill through the
+    plain SSD step, else None)."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    from repro_torch.models import model as M
+
+    with torch.no_grad():
+        full, _ = M.apply_model(params, cfg, batch)
+        plain = None
+        if cfg.family in ("ssm", "hybrid"):
+            plain, _ = M.apply_model(params, cfg, batch, chunk_fn=ssd_chunk_ref)
+    inputs = batch["embeds"] if cfg.embeds_in else batch["tokens"]
+    b, s = inputs.shape[:2]
+    state = M.init_decode_state(cfg, b, s, dev)
+    cross_kv = M.init_cross_kv(params, cfg, batch["cross_embeds"]) \
+        if cfg.family == "vlm" else None
+
+    def loop():
+        st, outs = state, []
+        for t in range(s):
+            x = inputs[:, t:t + 1] if cfg.embeds_in else inputs[:, t]
+            logits, st = M.decode_step(params, cfg, x, st, cross_kv)
+            outs.append(logits)
+        return torch.stack(outs, 1)
+
+    dec, _, syncs = watched(torch, loop)
+    plain_gap = None if plain is None else float((dec - plain).abs().max())
+    return float((dec - full).abs().max()), float(full.abs().max()), len(syncs), plain_gap
+
+
+def phase_exact(torch, dev):
+    """Phase 20 (b): each of `SERVE_ARCHS` in f32 (TF32 off; olmoe with a
+    capacity factor of E / k, so that no expert drops a prompt token),
+    one at a time: the decode over an `EXACT_PROMPT`-token prompt at batch
+    `EXACT_BATCH` against `apply_model` over it, within `EXACT_REL_TOL` of
+    the largest |logit| (mamba2 and zamba2: the recurrence against the
+    `ssd_chunk` kernel's forward); for qwen2 also a `RING_WINDOW`-slot ring
+    over `RING_TOKENS` tokens against windowed `apply_model`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    rows = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).with_(dtype="float32")
+        if cfg.family == "moe":
+            cfg = cfg.with_(capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+        params = M.init_params(gen, cfg)
+        cases = [(arch, cfg, prompt_batch(torch, cfg, gen, EXACT_BATCH, EXACT_PROMPT, dev))]
+        if arch == "qwen2-1.5b":
+            ring = cfg.with_(sliding_window=RING_WINDOW)
+            cases.append((f"{arch} ring of {RING_WINDOW}", ring,
+                          prompt_batch(torch, ring, gen, EXACT_BATCH, RING_TOKENS, dev)))
+        for label, c, batch in cases:
+            t0 = time.perf_counter()
+            gap, scale, syncs, plain_gap = decode_against_prefill(torch, c, params, batch, dev)
+            rows[label] = gap / scale
+            plain = "" if plain_gap is None else (
+                f"; against the prefill through the plain SSD step {plain_gap / scale:.3e}")
+            log(f"  decode against prefill, {label} ({c.num_layers} layers, f32, batch "
+                f"{EXACT_BATCH}, {next(iter(batch.values())).shape[1]} positions): max |gap| "
+                f"{gap:.3e}, largest |logit| {scale:.3e}, ratio {gap / scale:.3e} (bound "
+                f"{EXACT_REL_TOL}){plain}; host syncs {syncs}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not gap / scale <= EXACT_REL_TOL or syncs:
+                raise AssertionError(f"{label}: decode and prefill differ ({gap / scale:.3e})")
+        del params, cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_prefill(torch, dev, params, cfg):
+    """Phase 20 (c): `make_prefill_step` at prefill_32k's length (batch
+    `PREFILL_BATCH`), time and peak memory; `apply_model` at that length
+    (the flash path) finite, its first `PREFILL_PREFIX` positions against
+    `apply_model` on that prefix (full attention) and its last against
+    the step's, within `BF16_REL_TOL` of the largest |logit|."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    shape = SHAPES["prefill_32k"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 201)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len), generator=gen,
+                           device=dev)
+    prefill = steps.make_prefill_step(cfg, shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    peak_step = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, _ = M.apply_model(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_logits = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        prefix, _ = M.apply_model(params, cfg, {"tokens": tokens[:, :PREFILL_PREFIX]})
+    a, b = logits[:, :PREFILL_PREFIX].float(), prefix.float()
+    gap, scale = float((a - b).abs().max()), float(b.abs().max())
+    rms = float((a - b).norm() / b.norm())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    last_gap = float((last.float() - logits[:, -1].float()).abs().max())
+    last_scale = float(logits[:, -1].float().abs().max())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  prefill {cfg.name} (bf16) at S = {shape.seq_len}, batch {PREFILL_BATCH}: "
+        f"make_prefill_step {t_step:.3f} s (peak {peak_step / 2**30:.2f} GiB); apply_model "
+        f"with the (B, S, V) logits {t_logits:.3f} s, finite {finite} (peak with the "
+        f"{PREFILL_PREFIX}-token prefix {peak / 2**30:.2f} GiB); first {PREFILL_PREFIX} "
+        f"positions against full attention on the prefix: max |gap| {gap:.3e} of "
+        f"{scale:.3e} ({gap / scale:.3e}, bound {BF16_REL_TOL}), rms {rms:.3e}, argmax "
+        f"agreement {agree:.4f}; the step's last logits against apply_model's: "
+        f"{last_gap:.3e} of {last_scale:.3e}")
+    if not finite or not gap / scale <= BF16_REL_TOL or not last_gap / last_scale <= \
+            BF16_REL_TOL:
+        raise AssertionError("prefill: non-finite logits or flash against full too far")
+    del logits, prefix, a, b, last
+    torch.cuda.empty_cache()
+    return dict(s=t_step, peak=peak_step, rel=gap / scale)
+
+
+def decode_steps(torch, dev, params, cfg, shape_name, batch, pos, label):
+    """`DECODE_STEPS` serve steps (`make_serve_step` under `shape_name`)
+    from `pos` against a random cache: a warm-up pass, then one under the
+    sync detector; ms per step and peak memory."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import KVCache
+
+    shape = SHAPES[shape_name]
+    scfg = steps.serve_config(cfg, shape)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 202)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = M.init_decode_state(scfg, batch, shape.seq_len, dev)
+    for cache in state.caches.values():
+        for leaf in cache:
+            leaf.normal_(generator=gen)
+    state = state._replace(pos=torch.tensor(pos, dtype=torch.int32, device=dev))
+    tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen, device=dev)
+    step = steps.make_serve_step(cfg, shape)
+
+    def loop():
+        st, logits = state, None
+        for _ in range(DECODE_STEPS):
+            logits, st = step(params, tok, st)
+        return logits, st
+
+    loop()
+    (logits, st), wall, syncs = watched(torch, loop)
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(leaf.numel() * leaf.element_size()
+                      for cache in state.caches.values() for leaf in cache)
+    finite = bool(torch.isfinite(logits).all())
+    slots = [c.k.shape[2] for c in state.caches.values() if isinstance(c, KVCache)]
+    log(f"  {label}: {cfg.name} batch {batch}, pos {pos}..{pos + DECODE_STEPS - 1}, cache "
+        f"{cache_bytes / 1e9:.2f} GB ({f'{slots[0]} KV slots' if slots else 'SSM state'}, "
+        f"sliding window {scfg.sliding_window}): {wall / DECODE_STEPS * 1e3:.3f} ms per step; "
+        f"peak {peak / 2**30:.2f} GiB; finite {finite}; host syncs {len(syncs)}")
+    if not finite or syncs or int(st.pos) != pos + DECODE_STEPS:
+        raise AssertionError(f"{label}: finite {finite}, syncs {syncs}")
+    del state, st, logits
+    torch.cuda.empty_cache()
+    return dict(ms_step=wall / DECODE_STEPS * 1e3, peak=peak, cache=cache_bytes)
+
+
+def phase_long_train(torch, dev):
+    """Phase 20 (e): the trainer `main` at full width with --seq 8192 (the
+    flash path), then `lm_loss` with ``vocab_chunk`` `VOCAB_CHUNK` and 0 on
+    one client's parameters at that shape: losses and each leaf's
+    gradient within `LOSS_REL_TOL` and `GRAD_REL_TOL`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2-1.5b")
+    launches, s_step, peak = run_trainer(torch, LONG_TRAIN_ARGS + ["--device", dev], cfg,
+                                         LONG_TRAIN_STEPS, "20 (e)")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 203)
+    params = M.init_params(gen, cfg)
+    seq = int(LONG_TRAIN_ARGS[LONG_TRAIN_ARGS.index("--seq") + 1])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq), generator=gen, device=dev)}
+    runs = {}
+    for vc in (VOCAB_CHUNK, 0):
+        p = flat_lib.tree_map(lambda x: x.detach().requires_grad_(), params)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = M.lm_loss(p, cfg, batch, vocab_chunk=vc)
+        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(p))
+        torch.cuda.synchronize()
+        runs[vc] = dict(loss=float(loss.detach()), grads=grads, s=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated())
+        del p, loss
+    chunked, full = runs[VOCAB_CHUNK], runs[0]
+    loss_rel = abs(chunked["loss"] - full["loss"]) / abs(full["loss"])
+    grad_rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+                   for a, b in zip(chunked["grads"], full["grads"]) if float(b.norm()) > 0)
+    log(f"  lm_loss at S = {seq}, batch 1: vocab_chunk {VOCAB_CHUNK} loss "
+        f"{chunked['loss']:.6f} in {chunked['s']:.3f} s, peak {chunked['peak'] / 2**30:.2f} "
+        f"GiB; vocab_chunk 0 loss {full['loss']:.6f} in {full['s']:.3f} s, peak "
+        f"{full['peak'] / 2**30:.2f} GiB; loss gap {loss_rel:.3e} (bound {LOSS_REL_TOL}), "
+        f"largest leaf gradient gap {grad_rel:.3e} (bound {GRAD_REL_TOL})")
+    if not loss_rel <= LOSS_REL_TOL or not grad_rel <= GRAD_REL_TOL:
+        raise AssertionError("chunked-vocab loss against the full loss too far")
+    del runs, chunked, full, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, s_step=s_step, peak=peak, loss_rel=loss_rel,
+                grad_rel=grad_rel)
+
+
+def log_serving(r):
+    """Phase 20's summary lines."""
+    for arch, row in r["serve"].items():
+        log(f"serving path ({arch}, {row['dtype']}, batch {row['batch']}): {row['ms_step']:.3f} "
+            f"ms per decode step, "
+            f"{row['tok_s']:.1f} tok/s aggregate, {idle_text(row['busy_us'], row['wall'])}, "
+            f"peak {row['peak'] / 2**30:.2f} GiB")
+    log(f"long context: prefill {r['prefill']['s']:.3f} s at S = 32,768 (peak "
+        f"{r['prefill']['peak'] / 2**30:.2f} GiB); " + ", ".join(
+            f"{k} {v['ms_step']:.3f} ms/step (peak {v['peak'] / 2**30:.2f} GiB)"
+            for k, v in r["decode"].items())
+        + f"; trainer at --seq 8192 {r['train']['s_step']:.4f} s/step (peak "
+        f"{r['train']['peak'] / 2**30:.2f} GiB)")
+
+
+def phase_serving(torch, dev="cuda"):
+    """Phase 20: (a) serving at full width, (b) decode against prefill in
+    f32, (c) the 32k prefill, (d) decode at long contexts, (e) the
+    long-context trainer and the chunked loss. Returns the launches of
+    each kernel over the phase and its rows."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    reset_launches()
+    serve_rows = phase_serve(torch, dev)
+    log(f"phase 20 (a): {time.perf_counter() - t0:.1f} s")
+    exact = phase_exact(torch, dev)
+    log(f"phase 20 (b): {time.perf_counter() - t0:.1f} s")
+    cfg = get_config("qwen2-1.5b")
+    params = M.init_params(SEED + 204, cfg, dev)
+    prefill = phase_prefill(torch, dev, params, cfg)
+    log(f"phase 20 (c): {time.perf_counter() - t0:.1f} s")
+    decode = {"decode_32k": decode_steps(torch, dev, params, cfg, "decode_32k", DECODE_BATCH,
+                                         SHAPES["decode_32k"].seq_len - DECODE_STEPS,
+                                         "decode_32k")}
+    decode["long_500k"] = decode_steps(torch, dev, params, cfg, "long_500k", 1, LONG_POS,
+                                       "long_500k")
+    del params
+    torch.cuda.empty_cache()
+    mamba = get_config("mamba2-2.7b")
+    params = M.init_params(SEED + 205, mamba, dev)
+    decode["long_500k mamba2"] = decode_steps(torch, dev, params, mamba, "long_500k", 1,
+                                              LONG_POS, "long_500k")
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 20 (d): {time.perf_counter() - t0:.1f} s")
+    launches = launch_counts()
+    train = phase_long_train(torch, dev)
+    for k, v in train["launches"].items():
+        launches[k] += v
+    log(f"phase 20 serving and long context: {time.perf_counter() - t0:.1f} s; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return dict(launches=launches, serve=serve_rows, exact=exact, prefill=prefill,
+                decode=decode, train=train)
+
+
 FAMILY_MIX_PLANES = (("olmoe-1b-7b", 6), ("musicgen-large", 48),
                      ("llama-3.2-vision-11b", 10))  # the planes of phases 15-18's profiles
 
@@ -2798,6 +3263,8 @@ def main(argv=None) -> int:
                         help="only phases 15-18, the other model families' trainers")
     parser.add_argument("--entry-points", action="store_true",
                         help="only phase 19, the benches, the legacy engine and the examples")
+    parser.add_argument("--serving", action="store_true",
+                        help="only phase 20, serving and long context")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -2843,6 +3310,13 @@ def main(argv=None) -> int:
         log(f"chip_smoke --entry-points: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         return 0
+    if args.serving:
+        t_start = time.perf_counter()
+        phase_build()
+        log_serving(phase_serving(torch))
+        log(f"chip_smoke --serving: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
     if args.hybrid_depths:
         phase_build()
         failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
@@ -2871,6 +3345,8 @@ def main(argv=None) -> int:
     families = phase_families(torch)
     torch.cuda.empty_cache()
     entry = phase_entry_points(torch)
+    torch.cuda.empty_cache()
+    serving = phase_serving(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
@@ -2890,7 +3366,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/gossip/gossip.py:33",
              launches=(mix_launches + m_launches["mix"] + baseline_launches + scen_mix
                        + sum(r["launches"]["mix"] for r in families.values())
-                       + entry["launches"]["mix"]),
+                       + entry["launches"]["mix"] + serving["launches"]["mix"]),
              max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
@@ -2902,7 +3378,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/ssd/ssd.py:47",
              launches=(m_launches["ssd_chunk"]
                        + sum(r["launches"]["ssd_chunk"] for r in families.values())
-                       + entry["launches"]["ssd_chunk"]),
+                       + entry["launches"]["ssd_chunk"] + serving["launches"]["ssd_chunk"]),
              max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
@@ -2937,6 +3413,7 @@ def main(argv=None) -> int:
     log(f"entry points (phase 19): legacy engine {entry['ms_legacy']:.3f} ms/window against "
         f"the fused window {entry['ms_fused']:.3f} ms/window (N = 25, D = {ENTRY_DEPTH}, "
         f"{ENTRY_WINDOWS} windows, max |d params| {entry['gap']:.3e})")
+    log_serving(serving)
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
         f"engine's, {entry['launches']['drain']} on the entry points'")
@@ -2944,11 +3421,13 @@ def main(argv=None) -> int:
         f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"
                                     for r in families.values())
-        + f", {entry['launches']['mix']} on the entry points'")
+        + f", {entry['launches']['mix']} on the entry points', "
+        f"{serving['launches']['mix']} on the long-context trainer's")
     log(f"ssd_chunk launches: {m_launches['ssd_chunk']} on mamba2's trainer path, "
         + ", ".join(f"{r['launches']['ssd_chunk']} on {r['cfg'].name}'s"
                     for r in families.values() if r["launches"]["ssd_chunk"])
-        + f", {entry['launches']['ssd_chunk']} on the entry points'")
+        + f", {entry['launches']['ssd_chunk']} on the entry points', "
+        f"{serving['launches']['ssd_chunk']} on the f32 prefills of phase 20 (b)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

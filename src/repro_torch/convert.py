@@ -30,7 +30,10 @@ inputs:
     and the clock as host values; a fresh generator seeded by `seed`);
   - `event_draws_from_numpy`: one event's draws -> `EventDraws`;
   - `tape_from_numpy`: the reference's `EventTape` -> the port's (host
-    numpy arrays).
+    numpy arrays);
+  - `decode_state_from_numpy`: the reference's `DecodeState` (per-group
+    stacked `KVCache` and `SSMState` leaves, ``pos``) and its cross KV ->
+    the port's, dtypes kept (``pos`` an int32 0-d tensor).
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ from repro_torch.core.flat import tree_from_items
 from repro_torch.core.protocol import DracoState, DracoStateLegacy, WindowDraws
 from repro_torch.events.engine import EventDraws, EventState
 from repro_torch.events.tape import EventTape
+from repro_torch.models.attention import KVCache
+from repro_torch.models.model import DecodeState
+from repro_torch.models.ssm import SSMState
 from repro_torch.scenarios.base import Schedule
 
 
@@ -230,3 +236,20 @@ def tape_from_numpy(tape) -> EventTape:
                      client=np.asarray(get("client"), np.int32),
                      kind=np.asarray(get("kind"), np.int32),
                      valid=np.asarray(get("valid"), bool))
+
+
+def decode_state_from_numpy(state, cross_kv=None, device=None):
+    """The reference's `DecodeState` (any object with ``caches`` and
+    ``pos`` as attributes or keys; each cache a `KVCache` or `SSMState`
+    named tuple, or a mapping with its field names) and its cross KV
+    (``{"k", "v"}`` or None) -> ``(DecodeState, cross_kv)`` of the port."""
+    dev = resolve_device(device)
+    get = _getter(state)
+    caches = {}
+    for name, cache in get("caches").items():
+        cget = _getter(cache)
+        kind = KVCache if "k" in getattr(cache, "_fields", cache) else SSMState
+        caches[name] = kind(*(_tensor(cget(f), dev) for f in kind._fields))
+    pos = _tensor(get("pos"), dev, torch.int32)
+    cross = None if cross_kv is None else params_from_numpy(cross_kv, dev)
+    return DecodeState(caches=caches, pos=pos), cross

@@ -1,19 +1,33 @@
-"""GQA attention with fully materialized scores: causal self-attention
-and cross-attention.
+"""GQA attention: full, blocked (online softmax), flash, and decode.
 
-Port of the training part of `repro.models.attention`: `init_attention`
-(no QKV bias on a cross layer), `_proj_qkv` (keys and values from a
-separate ``kv_x``), `_sdpa_grouped` and `full_attention` (causal, with
-the optional `sliding_window` mask, or ``cross``: no RoPE and every key
-visible). Shapes: activations (B, S, d); heads (B, S, H, hd). The
-reference's blocked/flash path runs only at S >= 8192 and its decode
-attention belongs to serving; both come with ROADMAP item 13.
+Port of `repro.models.attention`: `init_attention` (no QKV bias on a
+cross layer), `_proj_qkv` (keys and values from a separate ``kv_x``),
+`_sdpa_grouped` and `full_attention` (causal, with the optional
+`sliding_window` mask, or ``cross``: no RoPE and every key visible);
+the long-sequence paths `blocked_attention` (its own online softmax over
+kv blocks, each step checkpointed) and `flash_self_attention` (through
+`repro_torch.models.flash`, what `apply_model` takes at S >= 8192); and
+the decode path: `KVCache`, `decode_attention` and
+`cross_decode_attention`.
+
+Shapes: activations (B, S, d); heads (B, S, H, hd). KV caches:
+
+  - full cache: k/v (B, C, Hkv, hd), the token at ``pos`` written to
+    slot ``min(pos, C - 1)``;
+  - ring cache: k/v (B, W, Hkv, hd), W = the sliding window, slot
+    ``pos % W`` (O(W) memory: dense models at long_500k).
+
+The port writes a decode step's keys and values into the cache in place
+(``index_copy_`` at a slot computed on the device from the 0-d ``pos``
+tensor), so a step copies no cache and reads nothing back to the host.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -57,6 +71,26 @@ def _proj_qkv(params, x, kv_x, cfg):
         _split_heads(k, cfg.num_kv_heads, hd),
         _split_heads(v, cfg.num_kv_heads, hd),
     )
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B, T, Hkv, hd) -> (B, T, Hkv * n_rep, hd): head h reads kv head
+    ``h // n_rep`` (``jnp.repeat`` along the head axis)."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=-2)
+
+
+def _sdpa(q, k, v, mask):
+    """q (B, S, H, hd), k/v (B, T, H, hd); mask broadcastable to
+    (B, 1, S, T). Scores and softmax in f32, probabilities cast to
+    ``v.dtype``."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
 def _sdpa_grouped(q, k, v, mask, n_rep: int):
@@ -108,3 +142,145 @@ def full_attention(params, x: torch.Tensor, cfg, positions=None,
     n_rep = cfg.num_heads // cfg.num_kv_heads
     out = _sdpa_grouped(q, k, v, mask, n_rep)
     return out.reshape(B, S, -1) @ params["wo"]
+
+
+def _rope_qkv(params, x, cfg):
+    """Self-attention q, k, v at positions 0..S-1 with the kv heads
+    repeated to the query heads: three (B, S, H, hd) tensors."""
+    S = x.shape[1]
+    q, k, v = _proj_qkv(params, x, x, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    return q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+
+
+def _blocked_kv_step(acc, m, l, q, k_j, v_j, mask, hd: int):
+    """One kv block of `blocked_attention`'s online softmax over every q
+    block at once: q (B, n_q, bq, H, hd), k_j/v_j (B, bk, H, hd), mask
+    (n_q, bq, bk); acc (B, n_q, H, bq, hd), m/l (B, n_q, H, bq) f32."""
+    s = torch.einsum("bnqhd,bkhd->bnhqk", q, k_j).to(torch.float32)
+    s = s / math.sqrt(hd)
+    s = torch.where(mask[None, :, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bnhqk,bkhd->bnhqd", p.to(v_j.dtype), v_j).to(torch.float32)
+    return acc, m_new, l_new
+
+
+def blocked_attention(params, x, cfg, block_q: int = 512, block_kv: int = 1024,
+                      sliding_window: int = 0, remat_steps: bool = True):
+    """Causal self-attention with an online softmax over kv blocks.
+
+    O(S * block_kv) score memory. The reference maps over q blocks and
+    scans the kv blocks inside; here the q blocks are a tensor axis (each
+    q block sees the kv blocks in the same order, so its sums are the
+    reference's) and the loop runs over every kv block, as the
+    reference's scan does. ``remat_steps`` checkpoints each kv step, so
+    the backward recomputes the block probabilities instead of saving
+    them (the reference's ``jax.checkpoint`` of the step)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H = cfg.num_heads
+    q, k, v = _rope_qkv(params, x, cfg)
+    n_q, n_kv = S // block_q, S // block_kv
+    qb = q.reshape(B, n_q, block_q, H, hd)
+    f32 = torch.float32
+    acc = torch.zeros((B, n_q, H, block_q, hd), dtype=f32, device=x.device)
+    m = torch.full((B, n_q, H, block_q), NEG_INF, dtype=f32, device=x.device)
+    l = torch.zeros((B, n_q, H, block_q), dtype=f32, device=x.device)
+    iq = torch.arange(S, device=x.device).reshape(n_q, block_q, 1)
+    for j in range(n_kv):
+        jk = (j * block_kv + torch.arange(block_kv, device=x.device)).reshape(1, 1, -1)
+        mask = jk <= iq
+        if sliding_window > 0:
+            mask = mask & (jk > iq - sliding_window)
+        k_j = k[:, j * block_kv:(j + 1) * block_kv]
+        v_j = v[:, j * block_kv:(j + 1) * block_kv]
+        if remat_steps and torch.is_grad_enabled():
+            acc, m, l = checkpoint(_blocked_kv_step, acc, m, l, qb, k_j, v_j, mask, hd,
+                                   use_reentrant=False)
+        else:
+            acc, m, l = _blocked_kv_step(acc, m, l, qb, k_j, v_j, mask, hd)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = torch.einsum("bnhqd->bnqhd", out).to(x.dtype)
+    return out.reshape(B, S, H * hd) @ params["wo"]
+
+
+def flash_self_attention(params, x, cfg, sliding_window: int = 0,
+                         block_q: int = 512, block_kv: int = 512):
+    """Causal self-attention through `flash.flash_attention` (O(S)
+    residual memory: the trainable long-sequence path), blocks
+    ``min(block, S)``."""
+    from repro_torch.models.flash import flash_attention
+
+    B, S, _ = x.shape
+    q, k, v = _rope_qkv(params, x, cfg)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          min(block_q, S), min(block_kv, S), sliding_window)
+    return out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Decode with a KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, C, Hkv, hd)
+    v: torch.Tensor
+    # a ring when C == the sliding window: slot = pos % C
+
+    @staticmethod
+    def init(batch, cache_len, n_kv, hd, dtype, device=None, lead=()):
+        """Zero k and v, two tensors (the port writes into them), with the
+        leading axes `lead` (a model's stacked groups) before the batch."""
+        shape = (*lead, batch, cache_len, n_kv, hd)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False):
+    """One-token decode. x (B, 1, d); pos a 0-d integer tensor (the
+    current position). Returns ``(out (B, 1, d), cache)``: this token's
+    key and value written into `cache` in place, at slot ``pos % C`` on a
+    ring (sliding-window attention, O(C) a token) and ``min(pos, C - 1)``
+    otherwise."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    q, k, v = _proj_qkv(params, x, x, cfg)
+    pos_arr = pos.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k = apply_rope(k, pos_arr, cfg.rope_theta)
+
+    C = cache.k.shape[1]
+    slot = torch.remainder(pos, C) if ring else torch.clamp(pos, max=C - 1)
+    index = slot.reshape(1).long()
+    cache.k.index_copy_(1, index, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, index, v.to(cache.v.dtype))
+
+    idx = torch.arange(C, device=x.device)
+    if ring:
+        valid = (idx <= slot) | (pos >= C)  # the whole ring once wrapped
+    else:
+        valid = idx <= pos
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    out = _sdpa_grouped(q, cache.k, cache.v, valid[None, None, None, :], n_rep)
+    return out.reshape(B, 1, -1) @ params["wo"], cache
+
+
+def cross_decode_attention(params, x, k_cache, v_cache, cfg):
+    """Cross-attention at decode: x (B, 1, d) against the static K/V of
+    the patch tokens, k_cache/v_cache (B, P, Hkv, hd)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = _split_heads(x @ params["wq"], cfg.num_heads, hd)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    kk, vv = _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep)
+    mask = torch.ones((1, 1, 1, kk.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, kk, vv, mask)
+    return out.reshape(B, 1, -1) @ params["wo"]

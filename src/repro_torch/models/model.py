@@ -25,23 +25,36 @@ loop over ``g`` here, and its ``jax.checkpoint`` (``cfg.remat``) is
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, with the
 shared block's weights passed in as inputs. Its ``sharding.axes.constrain``
 calls only place activations on a device mesh and do nothing on one
-device, so they are left out. Decode, the hidden-state output, blocked
-attention (S >= 8192) and the chunked-vocab loss (``vocab_chunk > 0``)
-come with ROADMAP item 13.
+device, so they are left out.
+
+At ``S >= blocked_attn_threshold`` (8192) the self-attention of every
+family but ssm takes the flash path (`attention.flash_self_attention`);
+cross-attention stays full. `lm_loss` with ``vocab_chunk > 0`` never
+holds the (B, S, V) logits: it runs the sequence in chunks of
+`vocab_chunk` positions, each under a checkpoint.
+
+Decode (`DecodeState`, `init_decode_state`, `init_cross_kv`,
+`decode_step`): one token against per-group stacked caches, a `KVCache`
+per attention sub-block (a ring of ``sliding_window`` slots when the
+context is longer than the window) and an `SSMState` per Mamba2 block.
+`decode_step` writes each group's caches in place, so a step copies no
+cache, and keeps ``pos`` a 0-d tensor on the device, so it reads nothing
+back to the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import as_generator
+from repro_torch import as_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import cross_entropy, dense_init, init_mlp, mlp, rms_norm
 from repro_torch.models.moe import init_moe, moe_block
-from repro_torch.models.ssm import init_ssm, ssm_block
+from repro_torch.models.ssm import SSMState, init_ssm, ssm_block, ssm_decode_step
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
@@ -142,10 +155,12 @@ def _unbind_groups(groups, n_groups: int):
     return groups.unbind(0)
 
 
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params, cfg, h):
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ _head(params, cfg)
 
 
 def unused_leaves(cfg: ModelConfig):
@@ -161,19 +176,23 @@ def _embed_inputs(params, cfg, batch):
     return params["embed"][batch["tokens"]]
 
 
-def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn):
+def _self_attention(ap, x, cfg, use_blocked):
+    if use_blocked:
+        return attn_lib.flash_self_attention(ap, x, cfg, sliding_window=cfg.sliding_window)
+    return attn_lib.full_attention(ap, x, cfg, sliding_window=cfg.sliding_window)
+
+
+def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked):
     """One sub-block; returns the new h (and the aux loss for ``moe``).
     `bp` is the group's sub-block, unused by ``shared``."""
     if kind == "shared":
         x = rms_norm(h, shared["norm_attn"], cfg.norm_eps)
-        h = h + attn_lib.full_attention(shared["attn"], x, cfg,
-                                        sliding_window=cfg.sliding_window)
+        h = h + _self_attention(shared["attn"], x, cfg, use_blocked)
         x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
         return h + mlp(shared["mlp"], x)
     x = rms_norm(h, bp["norm"], cfg.norm_eps)
     if kind == "attn":
-        return h + attn_lib.full_attention(bp["attn"], x, cfg,
-                                           sliding_window=cfg.sliding_window)
+        return h + _self_attention(bp["attn"], x, cfg, use_blocked)
     if kind == "mlp":
         return h + mlp(bp["mlp"], x)
     if kind == "moe":
@@ -187,22 +206,23 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn):
     raise ValueError(kind)
 
 
-def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None):
+def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
+                blocked_attn_threshold: int = 8192, return_hidden: bool = False):
     """Full-sequence forward: batch ``{"tokens": (B, S) int}`` (audio:
     ``{"embeds": (B, S, d)}``; vlm also ``"cross_embeds": (B, P, d)``) ->
     (logits (B, S, V), aux 0-d f32: the moe blocks' load-balance losses
     summed over groups, 0 for the other families).
 
+    Self-attention takes the flash path when ``S >= blocked_attn_threshold``
+    (not in the ssm family, which has none). `return_hidden` returns the
+    final-normed hidden states (B, S, d) in place of the logits.
     `chunk_fn` replaces the SSD intra-chunk step of the ssm blocks
     (default: the kernel; ``kernels.ssd.ref.ssd_chunk_ref`` is the plain
     path)."""
     pattern, n_groups = block_pattern(cfg)
     h = _embed_inputs(params, cfg, batch)
     S = h.shape[1]
-    if S >= 8192 and cfg.family != "ssm":
-        raise NotImplementedError(
-            "the reference switches to blocked attention at S >= 8192; "
-            "that path is ROADMAP item 13 and not ported yet")
+    use_blocked = S >= blocked_attn_threshold and cfg.family != "ssm"
     cross_embeds = batch.get("cross_embeds") if cfg.family == "vlm" else None
     if cross_embeds is not None:
         cross_embeds = cross_embeds.to(h.dtype)
@@ -211,7 +231,8 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, kind in enumerate(pattern):
             out = _apply_block(kind, gp.get(f"{i}:{kind}"), h, cfg, shared=shared,
-                               cross_embeds=cross_embeds, chunk_fn=chunk_fn)
+                               cross_embeds=cross_embeds, chunk_fn=chunk_fn,
+                               use_blocked=use_blocked)
             if kind == "moe":
                 h, a = out
                 aux = aux + a
@@ -227,6 +248,8 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None):
         else:
             h, aux = group_fn(h, gp, shared)
         aux_total = aux_total + aux
+    if return_hidden:
+        return rms_norm(h, params["final_norm"], cfg.norm_eps), aux_total
     return _logits(params, cfg, h), aux_total
 
 
@@ -244,10 +267,156 @@ def _labels_and_mask(batch):
     return labels, mask
 
 
-def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None):
-    """Next-token cross-entropy (mean over unmasked positions) plus aux,
-    from the full logits: the reference's ``vocab_chunk=0``, which is what
-    the trainer calls. `chunk_fn` as in `apply_model`."""
+def _chunk_nll(h_c, w, l_c, m_c):
+    """Summed masked NLL of one chunk: its (B, C, V) logits live only here."""
+    logits = (h_c @ w).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+    return ((logz - gold) * m_c).sum()
+
+
+def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None, vocab_chunk: int = 0,
+            blocked_attn_threshold: int = 8192):
+    """Next-token cross-entropy (mean over unmasked positions) plus aux.
+
+    ``vocab_chunk=0`` (what the trainer calls) takes the full logits.
+    ``vocab_chunk > 0`` never holds them: the hidden states run through
+    the head in chunks of `vocab_chunk` positions, each under a
+    checkpoint, so the backward recomputes a chunk's logits (logsumexp in
+    f32); S must be a multiple of `vocab_chunk`. `chunk_fn` and
+    `blocked_attn_threshold` as in `apply_model`."""
     labels, mask = _labels_and_mask(batch)
-    logits, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn)
-    return cross_entropy(logits, labels, mask) + aux
+    if vocab_chunk <= 0:
+        logits, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn,
+                                  blocked_attn_threshold=blocked_attn_threshold)
+        return cross_entropy(logits, labels, mask) + aux
+
+    h, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn,
+                         blocked_attn_threshold=blocked_attn_threshold,
+                         return_hidden=True)
+    w = _head(params, cfg)
+    S = h.shape[1]
+    C = vocab_chunk
+    if S % C:
+        raise ValueError(f"sequence length {S} is not a multiple of vocab_chunk {C}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // C):
+        sl = slice(c * C, (c + 1) * C)
+        if torch.is_grad_enabled():
+            nll = checkpoint(_chunk_nll, h[:, sl], w, labels[:, sl], mask[:, sl],
+                             use_reentrant=False)
+        else:
+            nll = _chunk_nll(h[:, sl], w, labels[:, sl], mask[:, sl])
+        tot = tot + nll
+        cnt = cnt + mask[:, sl].sum()
+    return tot / torch.clamp(cnt, min=1.0) + aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token, KV/SSM caches)
+# ---------------------------------------------------------------------------
+
+
+class DecodeState(NamedTuple):
+    caches: Any  # {"<i>:<kind>": KVCache | SSMState}, leaves (n_groups, B, ...)
+    pos: torch.Tensor  # 0-d int32 on the device: the current position
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
+                      device=None) -> DecodeState:
+    """Zero caches for serving `seq_len` positions: a ring of
+    ``sliding_window`` slots when the window is on and shorter than
+    `seq_len`, else `seq_len` slots; ``pos`` 0."""
+    dev = resolve_device(device)
+    pattern, n_groups = block_pattern(cfg)
+    dtype = cfg.torch_dtype
+    ring = cfg.sliding_window > 0 and seq_len > cfg.sliding_window
+    cache_len = cfg.sliding_window if ring else seq_len
+    caches = {}
+    for i, kind in enumerate(pattern):
+        if kind in ("attn", "shared"):
+            caches[f"{i}:{kind}"] = KVCache.init(
+                batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim, dtype,
+                device=dev, lead=(n_groups,))
+        elif kind == "ssm":
+            caches[f"{i}:{kind}"] = SSMState.init(batch, cfg, dtype, device=dev,
+                                                  lead=(n_groups,))
+    return DecodeState(caches=caches, pos=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def init_cross_kv(params, cfg: ModelConfig, patch_embeds):
+    """The cross-attention K/V of the patch embeddings (B, P, d), stacked
+    per group: ``{"k": (n_groups, B, P, Hkv, hd), "v": ...}``; None for a
+    model without cross-attention."""
+    pattern, n_groups = block_pattern(cfg)
+    idx = [i for i, k in enumerate(pattern) if k == "cross"]
+    if not idx:
+        return None
+    (i,) = idx
+    hd = cfg.resolved_head_dim
+    ks, vs = [], []
+    with torch.no_grad():
+        for gp in _unbind_groups(params["groups"], n_groups):
+            ap = gp[f"{i}:cross"]["attn"]
+            x = patch_embeds.to(ap["wk"].dtype)
+            ks.append((x @ ap["wk"]).reshape(*x.shape[:-1], cfg.num_kv_heads, hd))
+            vs.append((x @ ap["wv"]).reshape(*x.shape[:-1], cfg.num_kv_heads, hd))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
+                cross_kv=None):
+    """One decode step: token (B,) int or embedding (B, 1, d) (an
+    ``embeds_in`` model) -> ``(logits (B, V), DecodeState)``.
+
+    Every cache of `state` is updated in place, group by group (the
+    returned state holds the same tensors and ``pos + 1``), so pass each
+    state once. A model with cross-attention needs `cross_kv`
+    (`init_cross_kv`)."""
+    pattern, n_groups = block_pattern(cfg)
+    if "cross" in pattern and cross_kv is None:
+        raise ValueError(f"{cfg.name}: a vlm decode needs cross_kv (init_cross_kv)")
+    if cfg.embeds_in:
+        h = token_or_embed.to(cfg.torch_dtype)
+    else:
+        h = params["embed"][token_or_embed][:, None, :]
+    pos = state.pos
+    shared = params.get("shared")
+    for g, gp in enumerate(_unbind_groups(params["groups"], n_groups)):
+        for i, kind in enumerate(pattern):
+            name = f"{i}:{kind}"
+            if kind in ("attn", "shared"):
+                bp = shared if kind == "shared" else gp[name]
+                norm = bp["norm_attn"] if kind == "shared" else bp["norm"]
+                x = rms_norm(h, norm, cfg.norm_eps)
+                cache = state.caches[name]
+                view = KVCache(cache.k[g], cache.v[g])
+                ring = cfg.sliding_window > 0 and view.k.shape[1] == cfg.sliding_window
+                y, _ = attn_lib.decode_attention(bp["attn"], x, view, pos, cfg, ring=ring)
+                h = h + y
+                if kind == "shared":
+                    x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
+                    h = h + mlp(shared["mlp"], x)
+            elif kind == "mlp":
+                x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
+                h = h + mlp(gp[name]["mlp"], x)
+            elif kind == "moe":
+                x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
+                y, _ = moe_block(gp[name]["moe"], x, cfg)
+                h = h + y
+            elif kind == "ssm":
+                x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
+                st = state.caches[name]
+                y, _ = ssm_decode_step(gp[name]["ssm"], x, SSMState(st.conv[g], st.h[g]),
+                                       cfg)
+                h = h + y
+            elif kind == "cross":
+                x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
+                y = attn_lib.cross_decode_attention(gp[name]["attn"], x, cross_kv["k"][g],
+                                                    cross_kv["v"][g], cfg)
+                gate = torch.tanh(gp[name]["gate"].to(torch.float32)).to(y.dtype)
+                h = h + gate * y
+    logits = _logits(params, cfg, h)[:, 0, :]
+    return logits, DecodeState(caches=state.caches, pos=pos + 1)

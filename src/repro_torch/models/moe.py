@@ -6,8 +6,8 @@ tokens pass through the residual), gathered into an ``(E, C, d)`` buffer,
 run through the experts as three batched products over the stacked
 expert weights, and combined with their renormalised gates.
 
-The capacity is computed on the host from shapes only, so the layer
-reads nothing back from the device. Every index operation whose backward
+The capacity is computed on the host from shapes only and the expert
+counts on the device, so the layer reads nothing back from the device. Every index operation whose backward
 accumulates is written so that its sums are deterministic on the card:
 a token's k copies are an ``expand`` (backward: a sum over k), and the
 dispatch and combine are gathers whose only repeated index is the zero
@@ -62,7 +62,10 @@ def moe_block(params, x: torch.Tensor, cfg):
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     flat_e = eidx.reshape(-1)  # (T*k,), token-major
-    density = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * k)
+    # tokens per expert as a comparison sum: `bincount` reads its input's
+    # max back to the host on the card, a sync in every decode step
+    counts = (flat_e[:, None] == torch.arange(E, device=dev)).sum(0)
+    density = counts.to(torch.float32) / (T * k)
     aux = E * torch.sum(density * probs.mean(0)) * cfg.router_aux_weight
 
     # rank of each (token, slot) within its expert's queue, in token order

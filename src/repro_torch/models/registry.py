@@ -1,8 +1,8 @@
 """Model registry: one build/apply/loss surface over the unified decoder.
 
-Port of `repro.models.registry` for training, the same surface for all
-ten architectures of `ARCH_IDS`; the decode fields (``init_decode_state``,
-``decode_step``, ``init_cross_kv``) come with serving (ROADMAP item 13).
+Port of `repro.models.registry`, the same surface for all ten
+architectures of `ARCH_IDS`: init, apply, loss and the decode fields
+(``init_decode_state``, ``decode_step``, ``init_cross_kv``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ class Model:
     init: Callable  # (key, device=None) -> params
     apply: Callable  # (params, batch) -> (logits, aux)
     loss: Callable  # (params, batch) -> scalar
+    init_decode_state: Callable  # (batch, seq_len, device=None) -> DecodeState
+    decode_step: Callable  # (params, tok, state, cross_kv=None) -> (logits, state)
+    init_cross_kv: Callable  # (params, patch_embeds) -> cross kv or None
 
 
 def build_model(cfg_or_name) -> Model:
@@ -26,8 +29,13 @@ def build_model(cfg_or_name) -> Model:
     return Model(
         cfg=cfg,
         init=lambda key, device=None: M.init_params(key, cfg, device),
-        apply=lambda params, batch: M.apply_model(params, cfg, batch),
-        loss=lambda params, batch: M.lm_loss(params, cfg, batch),
+        apply=lambda params, batch, **kw: M.apply_model(params, cfg, batch, **kw),
+        loss=lambda params, batch, **kw: M.lm_loss(params, cfg, batch, **kw),
+        init_decode_state=lambda batch, seq_len, device=None: M.init_decode_state(
+            cfg, batch, seq_len, device),
+        decode_step=lambda params, tok, state, cross_kv=None: M.decode_step(
+            params, cfg, tok, state, cross_kv),
+        init_cross_kv=lambda params, patch_embeds: M.init_cross_kv(params, cfg, patch_embeds),
     )
 
 

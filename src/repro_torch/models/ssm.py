@@ -9,10 +9,12 @@ conv over xBC; SSD; gated RMSNorm(y * silu(z)); out_proj.
 ``ssd_chunked``), whose intra-chunk step is the hand-written Hopper
 kernel on the card, or its plain version `ssd_chunk_ref` on the CPU;
 `ssd_reference` (the sequential oracle) is kept beside it for the tests.
-The recurrent decode (``SSMState``, ``ssm_decode_step``) comes with
-serving.
+The recurrent decode (`SSMState`, `ssm_decode_step`, O(1) a token) runs
+no kernel and writes its new state into the given one in place.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -115,3 +117,57 @@ def ssm_block(params, x, cfg, *, chunk_fn=None):
     gate = F.silu(z.to(torch.float32)).to(y.dtype)
     y = rms_norm(y * gate, params["gnorm"], cfg.norm_eps)
     return y @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Decode (recurrent, O(1) a token)
+# ---------------------------------------------------------------------------
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor  # (B, W - 1, conv_ch): the last inputs of the conv
+    h: torch.Tensor  # (B, H, N, P) f32
+
+    @staticmethod
+    def init(batch, cfg, dtype, device=None, lead=()):
+        """Zero state, with the leading axes `lead` (a model's stacked
+        groups) before the batch."""
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return SSMState(
+            conv=torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, conv_ch), dtype=dtype,
+                             device=device),
+            h=torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                          dtype=torch.float32, device=device))
+
+
+def ssm_decode_step(params, x, state: SSMState, cfg):
+    """x (B, 1, d) -> ``(out (B, 1, d), state)``: the conv history and h
+    advanced by one token and written into `state` in place."""
+    B = x.shape[0]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    f32 = torch.float32
+    proj = x @ params["in_proj"]
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+    hist = torch.cat([state.conv, xBC], dim=1)  # (B, W, ch)
+    conv_out = torch.einsum("bwc,cw->bc", hist, params["conv_w"]) + params["conv_b"]
+    conv_out = F.silu(conv_out)[:, None, :]  # (B, 1, ch)
+
+    xs, B_, C_ = _split_xbc(conv_out, cfg)
+    xs = xs.reshape(B, H, P)
+    rep = H // G
+    Bh = torch.repeat_interleave(B_.reshape(B, G, N), rep, dim=1).to(f32)  # (B, H, N)
+    Ch = torch.repeat_interleave(C_.reshape(B, G, N), rep, dim=1).to(f32)
+    dt = F.softplus(dt_raw[:, 0].to(f32) + params["dt_bias"])  # (B, H)
+    A = -torch.exp(params["a_log"])
+    a = torch.exp(dt * A[None, :])  # (B, H)
+
+    h = state.h * a[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", Bh * dt[..., None], xs.to(f32))
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    y = y + xs.to(f32) * params["ssm_d"][None, :, None]
+    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
+    gate = F.silu(z.to(f32)).to(y.dtype)
+    y = rms_norm(y * gate, params["gnorm"], cfg.norm_eps)
+    state.conv.copy_(hist[:, 1:])
+    state.h.copy_(h)
+    return y @ params["out_proj"], state

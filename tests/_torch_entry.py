@@ -30,6 +30,7 @@ QUICK_ROWS = {
     "fig3": ["fig3_emnist_draco_final_acc"],
     "fig4": ["fig4_best_psi"],
     "fig_dynamic": ["fig_dynamic_churn_robustness", "fig_dynamic_straggler_robustness"],
+    "decode": ["decode_step_reduced_qwen2"],
 }
 # the reference's renamed rows: `gossip_mix_xla_25x149k` and
 # `ssd_chunked_T512` named themselves by the JAX backend

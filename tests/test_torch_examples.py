@@ -2,7 +2,8 @@
 each holding its own assertions, and each refusing to run without a card
 unless given ``--device cpu``.
 
-`torch_wireless_sim.py` runs at its full size (10 clients, 400 s): its
+`torch_serve_batched.py` serves 3 reduced qwen2 requests (its tokens
+must be in the vocabulary). `torch_wireless_sim.py` runs at its full size (10 clients, 400 s): its
 assertions (mean client accuracy above 0.3 on the exact timeline and on
 the windowed engine) are about that horizon. The trainer example runs
 the reduced qwen2 config for a few steps (its loss must fall).
@@ -27,6 +28,7 @@ REDUCED = {
     "task_zoo": ["--clients", "6", "--windows", "20"],
     "train_lm_federated": ["--reduced", "--steps", "4", "--seq", "32"],
     "wireless_sim": [],
+    "serve_batched": ["--requests", "3", "--max-prompt", "8", "--new-tokens", "4"],
 }
 
 
@@ -89,6 +91,15 @@ def test_train_lm_federated(capsys):
 def test_wireless_sim():
     exact, windowed = _example("wireless_sim").main(REDUCED["wireless_sim"] + CPU)
     assert exact > 0.3 and windowed > 0.3
+
+
+def test_serve_batched(capsys):
+    toks = _example("serve_batched").main(REDUCED["serve_batched"] + CPU)
+    assert toks.shape == (3, 4)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("== serving 3 requests")
+    assert sum(line.startswith("req ") for line in out) == 3
+    assert out[-1].startswith("aggregate:")
 
 
 @pytest.fixture

@@ -145,7 +145,8 @@ def test_module_list_covers_the_slice():
                 "configs.olmoe_1b_7b", "configs.qwen3_moe_30b_a3b",
                 "configs.zamba2_2p7b", "configs.llama3p2_vision_11b",
                 "configs.musicgen_large", "configs.stablelm_3b",
-                "configs.qwen2p5_32b", "configs.yi_34b"):
+                "configs.qwen2p5_32b", "configs.yi_34b", "models.flash",
+                "launch.serve"):
         assert f"repro_torch.{mod}" in names
 
 

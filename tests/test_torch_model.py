@@ -242,17 +242,32 @@ def test_registry_builds_the_same_surface():
     assert tm.init(0, device="cpu").keys() == jp.keys()
 
 
-def test_other_families_raise():
-    """A family the reference does not know raises; so does what stays
-    unported of the known ones: the blocked attention the reference
-    switches to at S >= 8192 (ROADMAP item 13)."""
+def test_other_families_raise(monkeypatch):
+    """A family the reference does not know raises. At S >= 8192, where
+    the reference switches to the flash path, the port takes it too: its
+    logits over the first 1024 positions equal the full-attention path's
+    over that prefix (causal attention sees no later position)."""
     cfg = tbase.get_reduced(ARCH)
     with pytest.raises(ValueError, match="unknown model family"):
         tmodel.block_pattern(cfg.with_(family="rnn"))
-    params = tmodel.init_params(0, cfg.with_(num_layers=1), device="cpu")
-    tokens = torch.zeros((1, 8192), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="blocked attention"):
-        tmodel.apply_model(params, cfg.with_(num_layers=1), {"tokens": tokens})
+    cfg1 = cfg.with_(num_layers=1)
+    params = tmodel.init_params(0, cfg1, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8192),
+                           generator=torch.Generator().manual_seed(0))
+    calls = []
+    flash = tattn.flash_self_attention
+
+    def spy(*args, **kw):
+        calls.append(args[1].shape[1])
+        return flash(*args, **kw)
+
+    monkeypatch.setattr(tattn, "flash_self_attention", spy)
+    with torch.no_grad():
+        long, _ = tmodel.apply_model(params, cfg1, {"tokens": tokens})
+        prefix, _ = tmodel.apply_model(params, cfg1, {"tokens": tokens[:, :1024]})
+    assert calls == [8192]
+    assert bool(torch.isfinite(long).all())
+    torch.testing.assert_close(long[:, :1024], prefix, **TOL)
 
 
 def test_bf16_params_carry_over_bit_for_bit():
