@@ -180,25 +180,25 @@ def ssd_forward(x, dt, A, B_, C_, D, chunk: int, *,
                          f"{Q}; the sequence must be a multiple of ssm_chunk or no "
                          f"longer than it")
     nc = T // Q
-    f32 = torch.float32
+    wide = torch.promote_types(x.dtype, torch.float32)  # f64 for an f64 model
     xh = x.reshape(Bb, nc, Q, H, P).permute(0, 3, 1, 2, 4)  # (Bb, H, nc, Q, P)
     Bg = B_.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4)  # (Bb, G, nc, Q, N)
     Cg = C_.reshape(Bb, nc, Q, G, N).permute(0, 3, 1, 2, 4)
-    dth = dt.to(f32).reshape(Bb, nc, Q, H).permute(0, 3, 1, 2).contiguous()
-    cums = torch.cumsum(dth * A.to(f32)[None, :, None, None], dim=-1)
+    dth = dt.to(wide).reshape(Bb, nc, Q, H).permute(0, 3, 1, 2).contiguous()
+    cums = torch.cumsum(dth * A.to(wide)[None, :, None, None], dim=-1)
 
     y_intra, s = (chunk_fn or ssd_chunk_autograd)(Cg, Bg, xh, cums, dth)
 
     chunk_decay = torch.exp(cums[..., -1])  # (Bb, H, nc)
-    h = torch.zeros((Bb, H, N, P), dtype=f32, device=x.device)
+    h = torch.zeros((Bb, H, N, P), dtype=wide, device=x.device)
     h_prev = []
     for c in range(nc):  # states[c] = states[c-1] * decay[c] + S[c]
         h_prev.append(h)
         h = h * chunk_decay[:, :, c, None, None] + s[:, :, c]
     h_prev = torch.stack(h_prev, dim=2)  # state before each chunk (Bb, H, nc, N, P)
     rep = H // G
-    y_inter = Cg.to(f32).unsqueeze(2) @ h_prev.reshape(Bb, G, rep, nc, N, P)
+    y_inter = Cg.to(wide).unsqueeze(2) @ h_prev.reshape(Bb, G, rep, nc, N, P)
     y_inter = y_inter.reshape(Bb, H, nc, Q, P) * torch.exp(cums)[..., None]
     y = (y_intra + y_inter).permute(0, 2, 3, 1, 4).reshape(Bb, T, H, P)
-    y = y + x.to(f32) * D[None, None, :, None]
+    y = y + x.to(wide) * D[None, None, :, None]
     return y.to(x.dtype)

@@ -21,8 +21,8 @@ def ssd_chunk_ref(C, B, x, cums, dt):
     mask is applied before the exp (-1e30), as in the reference, so the
     upper triangle neither overflows nor poisons a gradient.
     """
-    f32 = torch.float32
-    C, B, x = C.to(f32), B.to(f32), x.to(f32)
+    wide = torch.promote_types(x.dtype, torch.float32)  # f64 for an f64 model
+    C, B, x = C.to(wide), B.to(wide), x.to(wide)
     lead = x.shape[:-3]
     if C.dim() == 5:  # grouped: (Bb, G, 1, ...) against (Bb, G, rep, ...)
         bb, g = C.shape[:2]

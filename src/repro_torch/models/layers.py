@@ -23,11 +23,13 @@ def dense_init(generator: torch.Generator, shape, in_dim=None,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm over the last axis with a ``1 + scale`` gain (zero-init
-    scale is the identity gain), in f32, cast back to ``x.dtype``."""
-    x32 = x.to(torch.float32)
+    scale is the identity gain), in f32 (f64 for an f64 input), cast back
+    to ``x.dtype``."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(wide)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+    return (y * (1.0 + scale.to(wide))).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

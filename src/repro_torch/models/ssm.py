@@ -79,12 +79,12 @@ def ssd_reference(x, dt, A, B_, C_, D, chunk: int = 0):
     Bb, T, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     rep = H // G
-    f32 = torch.float32
-    Bh = torch.repeat_interleave(B_, rep, dim=2).to(f32)  # (B, T, H, N)
-    Ch = torch.repeat_interleave(C_, rep, dim=2).to(f32)
-    a = torch.exp(dt * A[None, None, :]).to(f32)  # (B, T, H)
-    dt32, x32 = dt.to(f32), x.to(f32)
-    h = torch.zeros((Bb, H, N, P), dtype=f32, device=x.device)
+    wide = torch.promote_types(x.dtype, torch.float32)  # f64 for an f64 model
+    Bh = torch.repeat_interleave(B_, rep, dim=2).to(wide)  # (B, T, H, N)
+    Ch = torch.repeat_interleave(C_, rep, dim=2).to(wide)
+    a = torch.exp(dt * A[None, None, :]).to(wide)  # (B, T, H)
+    dt32, x32 = dt.to(wide), x.to(wide)
+    h = torch.zeros((Bb, H, N, P), dtype=wide, device=x.device)
     ys = []
     for t in range(T):
         upd = (Bh[:, t] * dt32[:, t, :, None])[..., None] * x32[:, t, :, None, :]
@@ -109,12 +109,13 @@ def ssm_block(params, x, cfg, *, chunk_fn=None):
     xs = xs.reshape(B, S, H, P)
     B_ = B_.reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
     C_ = C_.reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
-    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
+    wide = torch.promote_types(x.dtype, torch.float32)  # f64 for an f64 model
+    dt = F.softplus(dt_raw.to(wide) + params["dt_bias"])
     A = -torch.exp(params["a_log"])
     chunk = min(cfg.ssm_chunk, S)
     y = ssd_forward(xs, dt, A, B_, C_, params["ssm_d"], chunk, chunk_fn=chunk_fn)
     y = y.reshape(B, S, cfg.d_inner)
-    gate = F.silu(z.to(torch.float32)).to(y.dtype)
+    gate = F.silu(z.to(wide)).to(y.dtype)
     y = rms_norm(y * gate, params["gnorm"], cfg.norm_eps)
     return y @ params["out_proj"]
 
@@ -126,7 +127,7 @@ def ssm_block(params, x, cfg, *, chunk_fn=None):
 
 class SSMState(NamedTuple):
     conv: torch.Tensor  # (B, W - 1, conv_ch): the last inputs of the conv
-    h: torch.Tensor  # (B, H, N, P) f32
+    h: torch.Tensor  # (B, H, N, P) f32 (f64 for an f64 model)
 
     @staticmethod
     def init(batch, cfg, dtype, device=None, lead=()):
@@ -137,7 +138,7 @@ class SSMState(NamedTuple):
             conv=torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, conv_ch), dtype=dtype,
                              device=device),
             h=torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                          dtype=torch.float32, device=device))
+                          dtype=torch.promote_types(dtype, torch.float32), device=device))
 
 
 def ssm_decode_step(params, x, state: SSMState, cfg):
@@ -145,7 +146,7 @@ def ssm_decode_step(params, x, state: SSMState, cfg):
     advanced by one token and written into `state` in place."""
     B = x.shape[0]
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    f32 = torch.float32
+    wide = torch.promote_types(x.dtype, torch.float32)  # f64 for an f64 model
     proj = x @ params["in_proj"]
     z, xBC, dt_raw = _split_proj(proj, cfg)
     hist = torch.cat([state.conv, xBC], dim=1)  # (B, W, ch)
@@ -155,18 +156,18 @@ def ssm_decode_step(params, x, state: SSMState, cfg):
     xs, B_, C_ = _split_xbc(conv_out, cfg)
     xs = xs.reshape(B, H, P)
     rep = H // G
-    Bh = torch.repeat_interleave(B_.reshape(B, G, N), rep, dim=1).to(f32)  # (B, H, N)
-    Ch = torch.repeat_interleave(C_.reshape(B, G, N), rep, dim=1).to(f32)
-    dt = F.softplus(dt_raw[:, 0].to(f32) + params["dt_bias"])  # (B, H)
+    Bh = torch.repeat_interleave(B_.reshape(B, G, N), rep, dim=1).to(wide)  # (B, H, N)
+    Ch = torch.repeat_interleave(C_.reshape(B, G, N), rep, dim=1).to(wide)
+    dt = F.softplus(dt_raw[:, 0].to(wide) + params["dt_bias"])  # (B, H)
     A = -torch.exp(params["a_log"])
     a = torch.exp(dt * A[None, :])  # (B, H)
 
     h = state.h * a[..., None, None] + torch.einsum(
-        "bhn,bhp->bhnp", Bh * dt[..., None], xs.to(f32))
+        "bhn,bhp->bhnp", Bh * dt[..., None], xs.to(wide))
     y = torch.einsum("bhn,bhnp->bhp", Ch, h)
-    y = y + xs.to(f32) * params["ssm_d"][None, :, None]
+    y = y + xs.to(wide) * params["ssm_d"][None, :, None]
     y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    gate = F.silu(z.to(f32)).to(y.dtype)
+    gate = F.silu(z.to(wide)).to(y.dtype)
     y = rms_norm(y * gate, params["gnorm"], cfg.norm_eps)
     state.conv.copy_(hist[:, 1:])
     state.h.copy_(h)

@@ -249,6 +249,31 @@ def test_decode_on_a_ring_matches_windowed_prefill():
     torch.testing.assert_close(logits, full, **PREFILL_TOL)
 
 
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_ssm_decode_in_f64_equals_prefill(chunk):
+    """In f64 the recurrent decode equals the chunked prefill (through the
+    plain intra-chunk step) to rounding, ~1e-14 of the largest |logit|:
+    the f32 gap held above is f32 rounding, not a decode fault."""
+    from repro_torch.core import flat
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    cfg = tbase.get_reduced("mamba2-2.7b").with_(dtype="float64", ssm_chunk=chunk)
+    params = flat.tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                           tmodel.init_params(0, cfg, "cpu"))
+    prompt = torch.as_tensor(_prompt(cfg, s=32))
+    with torch.no_grad():
+        full, _ = tmodel.apply_model(params, cfg, {"tokens": prompt}, chunk_fn=ssd_chunk_ref)
+        st = tmodel.init_decode_state(cfg, 2, 32, device="cpu")
+        outs = []
+        for t in range(32):
+            logits, st = tmodel.decode_step(params, cfg, prompt[:, t], st)
+            outs.append(logits)
+    assert all(c.h.dtype == torch.float64 for c in st.caches.values())
+    dec = torch.stack(outs, 1)
+    assert dec.dtype == full.dtype == torch.float64
+    assert float((dec - full).abs().max() / full.abs().max()) < 1e-12
+
+
 def test_vlm_decode_without_cross_kv_raises():
     _, tcfg, _, tp = _model("llama-3.2-vision-11b")
     st = tmodel.init_decode_state(tcfg, 1, 4, device="cpu")
