@@ -30,7 +30,11 @@ Phases (any failure exits non-zero):
                kernel's own; the drain's seed axis (R in {1, 2, 4, 8} at
                the EMNIST plane and R = 2 on the wide route, live sets
                differing per seed, one seed with none live): one launch,
-               each row equal to a solo launch, within 1e-5 of plain;
+               each row equal to a solo launch, within 1e-5 of plain; the
+               rectangular drain as the client mesh runs it (J 1, N_loc 2,
+               M 4 at qwen2-1.5b's full plane; J 3, N_loc 5, M 25 at the
+               fig4 window) in f32 and bf16, within 1e-5 of the largest
+               |value| of the plain version, compared in column slices;
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -174,6 +178,29 @@ Phases (any failure exits non-zero):
                5e-2 in L2, and no farther from an f32 copy's gradient
                than 2x the full loss's), both peaks; the phase's time
                printed;
+  21. client mesh - `repro_torch.launch.mesh` over spawned ranks: (a)
+               `gossip_drain_sharded` at the fig4 window (J 3, N = M 25, K
+               146,447) over nccl at one rank per card and over gloo at 5
+               ranks sharing the card (every gloo collective staged through
+               the host), each rank's rows within 1e-5 of the largest
+               |value| of the plain unsharded drain, one launch a rank, ms
+               per call and the collective's share; (b) `train.main
+               --mesh-backend gloo` on qwen2-1.5b at full width cut to
+               `MESH_LAYERS` of 28 layers, 4 clients, 2 steps and a
+               unification, every sender transmitting: dense (f32 and
+               bf16, over the complete graph) and none at 2 ranks, the
+               ring at 4; each step's mix probed: step 1's per-client
+               losses and delta rows (digests) bitwise equal to the
+               single-process trainer's (and step 2's in the none mode),
+               step 1's mixed plane against the mix kernel on the gathered
+               plane (`MESH_MIX_TOL`), every step's finite, s/step and
+               the collective's share,
+               one drain launch a rank and step in the dense modes; (c)
+               fig4's Psi grid (2 seeds, 30 windows) through
+               `simulate_sweep(mesh=)` over the 5 gloo ranks against the
+               unsharded sweep (params within 1e-4, the same
+               acceptances), ms per batched window and the collective's
+               share;
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -186,8 +213,10 @@ Phases (any failure exits non-zero):
                the plain version; the mix at the olmoe, musicgen and vlm
                trainers' planes (N = 2, f32, `FAMILY_MIX_PLANES`) beside
                its plain version and `torch.matmul` (or cuBLAS's refusal
-               past 2^31 - 1 columns and the product over dense slices).
-               Phase 9 runs last, after 10 to 20.
+               past 2^31 - 1 columns and the product over dense slices);
+               the rectangular drain at phase 2's two mesh shapes beside
+               its bound, the plain version, the einsum and phase 21's
+               collective. Phase 9 runs last, after 10 to 21.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -199,6 +228,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --families
     python3 chip_smoke.py --entry-points
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --mesh
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -214,7 +244,8 @@ forward built from `CONTROL_VARIANTS` of its source (a planted fault
 among them), training beside the kernel's path and shadowing the plain
 run's SSD calls; the fourth runs the build and phases 15-18 alone; the
 fifth the build and phase 19 alone; the sixth the build and phase 20
-alone; the seventh phase 16's comparison at other zamba2 depths, block
+alone; the seventh the build, phase 21 and the rectangular drain's
+phase 2 and 9 rows; the eighth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
 when the rule fails at any depth).
@@ -3383,6 +3414,486 @@ def log_families(rows):
             + f"; peak {r['peak'] / 2**30:.2f} GiB")
 
 
+# phase 2 and 9: the drain's rectangular route as the client mesh runs it,
+# (J, N_loc, M, K, ring rows): the mesh trainer's dense mix at qwen2-1.5b's
+# full plane (one bucket of each rank's 2 senders against the 4 receivers;
+# K is counted from the config's meta parameters) and the sharded fig4
+# window at 5 ranks (5 senders against 25 receivers)
+RECT_QWEN2, RECT_FIG4 = (1, 2, 4, None, 1), (3, 5, 25, 146_447, 4)
+# phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
+# drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
+# per card and over gloo at MESH_RANKS ranks sharing the card; (c) fig4's
+# Psi grid (SWEEP_PSIS) at the fig3 EMNIST setup, MESH_SWEEP_SEEDS seeds x
+# MESH_SWEEP_WINDOWS windows, in the same gloo world, against the unsharded
+# sweep in this process: params within PATH_TOL and the same acceptances
+MESH_DRAIN, MESH_RANKS, MESH_DRAIN_REPS = (3, 25, 146_447), 5, 10
+MESH_SWEEP_SEEDS, MESH_SWEEP_WINDOWS, MESH_SWEEP_EVAL = 2, 30, 10
+# (b) the mesh trainer `train.main --mesh-backend gloo` on qwen2-1.5b at full
+# width, 4 clients, 2 steps (a unification after the second), cut to
+# MESH_LAYERS of its 28 layers: gloo stages every collective through host
+# memory and the loopback, and the dense mix reduce-scatters a (4, K) f32
+# partial per rank (24.7 GB at 28 layers, K = 1,543,714,304; 5.2 GB at 2,
+# K = 327,000,576, of which the tied embedding is 233,373,696), then holds
+# step 1's mixed plane against the mix kernel on the gathered plane
+# (another pass of the plane through the host). Modes: (label, ranks,
+# argv)
+MESH_LAYERS = 2
+MESH_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "4", "--batch-per-client", "2",
+                   "--seq", "128", "--steps", "2", "--unify-every", "2", "--psi", "0",
+                   "--lambda-tx", "50", "--log-every", "1", "--mesh-backend", "gloo"]
+MESH_MODES = (("dense", 2, ["--mix", "dense", "--topology", "complete"]),
+              ("dense bf16", 2, ["--mix", "dense", "--mix-dtype", "bfloat16",
+                                 "--topology", "complete"]),
+              ("none", 2, ["--mix", "none"]),
+              ("ring", 4, ["--mix", "ring"]))
+# Every sender transmits (lambda_tx 50, Psi 0), and the dense modes mix
+# over the complete graph (weights 1/3), so that each receiver sums three
+# senders from two ranks: on the cycle (weights 1/2, every product exact)
+# a sum of two terms rounds alike in any order, and a window with one
+# sender per receiver sums nothing. Step 1's mixed plane against the mix
+# kernel on the gathered plane, relative to its largest |value|: f32 sums
+# re-associated (dense); the partials sent and summed in bf16 (dense
+# bf16); the ring's sum formed in the bf16 leaves' dtype, as the
+# reference's (ring); the delta itself (none)
+MESH_MIX_TOL = {"dense": 1e-5, "dense bf16": 1e-2, "ring": 1e-2, "none": 0.0}
+
+
+def rect_k(torch):
+    """qwen2-1.5b's per-client Dflat at full width and depth."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.launch import steps
+
+    params = steps.param_specs_abstract(get_config("qwen2-1.5b"))
+    return sum(p.numel() for p in flat_lib.tree_leaves(params))
+
+
+def rect_case(torch, shape, dtype, seed):
+    j, n, m, k, s = shape
+    return drain_case(torch, j, n, m, k if k else rect_k(torch), s, j, dtype, seed)
+
+
+def drain_against_plain(torch, ops, w, ring, slots, got):
+    """(max |kernel - plain|, largest |plain|, agree?) over column slices,
+    so that a multi-GB drain needs no second full-size plain result."""
+    worst = scale = 0.0
+    for lo in range(0, ring.shape[-1], SLICE):
+        want = ops.gossip_drain_reference(w, ring[..., lo:lo + SLICE].contiguous(), slots)
+        part = got[:, lo:lo + SLICE]
+        worst = max(worst, float((part - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        if not bool(torch.isfinite(part).all()):
+            return worst, scale, False
+    return worst, scale, True
+
+
+def phase_rect_kernels(torch):
+    """Phase 2: the drain's rectangular route at the client mesh's shapes
+    (`RECT_QWEN2`, `RECT_FIG4`) in f32 and bf16, against its plain version
+    in column slices, within RTOL of the largest |value|."""
+    from repro_torch.kernels.gossip import ops
+
+    worst = 0.0
+    for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4)):
+        for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+            w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
+            got = ops.gossip_drain(w, ring, slots)
+            err, scale, finite = drain_against_plain(torch, ops, w, ring, slots, got)
+            ok = finite and err <= RTOL * scale
+            worst = max(worst, err)
+            name = (f"rectangular {label} J={w.shape[0]} N={w.shape[1]} M={w.shape[2]} "
+                    f"K={ring.shape[-1]} {'bf16' if i else 'f32'}")
+            log(f"  drain {name}: max_abs_err={err:.3e} of largest |value| {scale:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"drain kernel disagrees with its plain version: {name}")
+            del w, ring, got
+            torch.cuda.empty_cache()
+    log(f"phase 2 kernels: rectangular drain max_abs_err={worst:.3e}")
+    return worst
+
+
+def phase_rect_times(torch, mesh):
+    """Phase 9's rectangular drain rows: kernel, plain (in `SLICE`-column
+    pieces at the qwen2 plane, where one plain call does not fit the
+    card), one library call (the product over the same buckets), the bound
+    (N_loc * K payload read, M * K f32 written), and the collective beside
+    them from phase 21 (its mean ms per call)."""
+    from repro_torch.kernels.gossip import ops
+
+    flush = flushes(torch)["zero"]
+    rows = {}
+    for label, shape, coll in (("qwen2 plane", RECT_QWEN2, mesh["train_collective_ms"]),
+                               ("fig4 window", RECT_FIG4, mesh["gloo_collective_ms"])):
+        w, ring, slots = rect_case(torch, shape, torch.float32, seed=2100)
+        j, n, m = w.shape
+        k = ring.shape[-1]
+        kern = time_ms(torch, lambda: ops.gossip_drain(w, ring, slots), reps=10, flush=flush)
+        plain = sum(time_ms(torch, lambda lo=lo: ops.gossip_drain_reference(
+            w, ring[..., lo:lo + SLICE], slots), reps=3, flush=flush)
+            for lo in range(0, k, SLICE))
+        # the buckets' ring rows in bucket order (the ring itself when it is)
+        ordered = ring if slots == list(range(ring.shape[0])) else ring[
+            torch.tensor(slots, device="cuda")]
+        lib = time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ordered), reps=10,
+                      flush=flush)
+        bound, by = bound_ms(j, j, n, m, k, 4)
+        rows[label] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, collective_ms=coll)
+        log(f"  drain rectangular {label} J={j} N_loc={n} M={m} K={k} f32: kernel "
+            f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
+            f"plain {plain:.4f} ms, library einsum {lib:.4f} ms; the mesh's collective "
+            f"{coll['ms']:.3f} ms per call ({coll['what']})")
+        del w, ring, ordered
+        torch.cuda.empty_cache()
+    return rows
+
+
+def row_digest(torch, row):
+    """Two int64 sums of a row's bit patterns (plain and position-weighted,
+    wrapping), equal for equal rows: a bitwise comparison of multi-GB rows
+    held in other processes."""
+    v = row.contiguous().view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=row.device)
+    weighted = torch.zeros((), dtype=torch.int64, device=row.device)
+    for lo in range(0, v.numel(), SLICE):
+        c = v[lo:lo + SLICE].to(torch.int64)
+        total += c.sum()
+        weighted += (c * torch.arange(lo + 1, lo + 1 + c.numel(), device=row.device)).sum()
+    return int(total), int(weighted)
+
+
+def mesh_probe(torch, mesh_box, record):
+    """Wrappers of `steps.mesh_mix` and `train.train_step_clients` (the
+    pieces `steps.make_train_step` composes) for a rank: each step records
+    its per-client losses, its delta rows' digests (`row_digest`), its
+    time and its collective's, and whether the mixed plane is finite; step
+    1 also holds the mixed plane against the mix kernel on the gathered
+    plane, column slice by slice (the check's own time and collectives
+    recorded apart). Step 1's inputs are the single-process trainer's bit
+    for bit, so there the mix kernel on the gathered plane is that
+    trainer's own mix."""
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import steps, train
+
+    real_mix, real_clients = steps.mesh_mix, train.train_step_clients
+
+    def mesh_mix(mesh, mix_mode="dense", mix_dtype=None, spec=None):
+        fn = real_mix(mesh, mix_mode, mix_dtype, spec)
+        mesh_box.append(mesh)
+
+        def mix(q_eff, plane):
+            torch.cuda.synchronize()
+            c0, t0 = mesh.collective_s, time.perf_counter()
+            mixed = fn(q_eff, plane)
+            torch.cuda.synchronize()
+            entry = dict(mix_s=time.perf_counter() - t0, collective_s=mesh.collective_s - c0,
+                         digests=[row_digest(torch, r) for r in plane])
+            c1, t1 = mesh.collective_s, time.perf_counter()
+            entry["finite"] = bool(torch.isfinite(mixed).all())
+            if not record:  # step 1: its inputs are the single-process trainer's
+                n = q_eff.shape[0]
+                q = q_eff
+                if mix_mode == "ring":
+                    q = torch.zeros_like(q_eff)
+                    idx = torch.arange(n, device=q.device)
+                    q[(idx - 1) % n, idx] = 0.5
+                    q[(idx + 1) % n, idx] = 0.5
+                sl = mesh.client_slice(n)
+                err = scale = 0.0
+                for lo in range(0, plane.shape[1], SLICE):
+                    part = plane[:, lo:lo + SLICE].contiguous()
+                    want = part if mix_mode == "none" else ops.gossip_mix(
+                        q, mesh.all_gather(part))[sl]
+                    err = max(err, float((mixed[:, lo:lo + SLICE] - want).abs().max()))
+                    scale = max(scale, float(want.abs().max()))
+                entry.update(err=err, scale=scale)
+            torch.cuda.synchronize()
+            entry.update(check_s=time.perf_counter() - t1,
+                         check_collective_s=mesh.collective_s - c1)
+            record.append(entry)
+            return mixed
+
+        return mix
+
+    def train_step_clients(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = real_clients(*args, **kw)
+        torch.cuda.synchronize()
+        record[-1].update(step_s=time.perf_counter() - t0, losses=losses.tolist())
+        return params, losses
+
+    return mesh_mix, train_step_clients
+
+
+def mesh_rank_train(rank, world, modes):
+    """Phase 21 (b) in one rank: `train.main` on the mesh for each mode of
+    `modes` (those of `MESH_MODES` with this world's size), probed
+    (`mesh_probe`); the drain launches counted from 0 around each run."""
+    import torch
+
+    import repro_torch  # noqa: F401  (TF32 off)
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import steps, train
+
+    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
+    out = {}
+    for label, argv in modes:
+        record, mesh_box = [], []
+        real = steps.mesh_mix, train.train_step_clients
+        steps.mesh_mix, train.train_step_clients = mesh_probe(torch, mesh_box, record)
+        torch.cuda.reset_peak_memory_stats()
+        ops.gossip_drain.launches = 0
+        t0 = time.perf_counter()
+        try:
+            losses = train.main(MESH_TRAIN_ARGS + argv, cfg=cfg)
+        finally:
+            steps.mesh_mix, train.train_step_clients = real
+        torch.cuda.synchronize()
+        out[label] = dict(losses=losses, launches=ops.gossip_drain.launches,
+                          wall=time.perf_counter() - t0, steps=record,
+                          peak=torch.cuda.max_memory_allocated(),
+                          staged=mesh_box[0].staged if mesh_box else None)
+    return out
+
+
+def mesh_reference(torch, cfg, none):
+    """The single-process trainer on phase 21 (b)'s inputs (its CLI
+    without --mesh-backend): per step, each client's loss and delta-row
+    digest, through the mix kernel (or, for the none mode, no mix)."""
+    from repro_torch.core import mixing
+    from repro_torch.launch import train
+
+    record, real = [], (mixing.mix_plane, train.train_step_clients)
+
+    def mix_plane(q_eff, plane, mix=None):
+        record.append(dict(digests=[row_digest(torch, r) for r in plane]))
+        return plane.clone() if none else real[0](q_eff, plane, mix)
+
+    def train_step_clients(*args, **kw):
+        params, losses = real[1](*args, **kw)
+        record[-1]["losses"] = losses.tolist()
+        return params, losses
+
+    argv = [a for a in MESH_TRAIN_ARGS if a != "--mesh-backend" and a != "gloo"]
+    mixing.mix_plane, train.train_step_clients = mix_plane, train_step_clients
+    try:
+        losses = train.main(argv, cfg=cfg)
+    finally:
+        mixing.mix_plane, train.train_step_clients = real
+    torch.cuda.empty_cache()
+    return losses, record
+
+
+def mesh_drain_run(torch, mesh):
+    """Phase 21 (a) in one rank: the sharded drain on this rank's senders
+    of `MESH_DRAIN` against the plain unsharded drain's rows (within RTOL
+    of the largest |value|), one launch; then `MESH_DRAIN_REPS` calls, the
+    mean ms per call and per collective."""
+    from repro_torch.kernels.gossip import ops
+
+    j, n, k = MESH_DRAIN
+    w, ring, slots = drain_case(torch, j, n, n, k, j + 1, j, torch.float32, seed=2200)
+    sl = mesh.client_slice(n)
+    w_loc, ring_loc = w[:, sl].contiguous(), ring[:, sl].contiguous()
+    ops.gossip_drain.launches = 0
+    got = ops.gossip_drain_sharded(w_loc, ring_loc, slots, mesh, ("data",))
+    launches = ops.gossip_drain.launches
+    want = ops.gossip_drain_reference(w, ring, slots)[sl]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    torch.cuda.synchronize()
+    c0, t0 = mesh.collective_s, time.perf_counter()
+    for _ in range(MESH_DRAIN_REPS):
+        ops.gossip_drain_sharded(w_loc, ring_loc, slots, mesh, ("data",))
+    torch.cuda.synchronize()
+    call = (time.perf_counter() - t0) / MESH_DRAIN_REPS * 1e3
+    coll = (mesh.collective_s - c0) / MESH_DRAIN_REPS * 1e3
+    return dict(err=err, scale=scale, finite=finite, launches=launches, call_ms=call,
+                collective_ms=coll, rows=(sl.start, sl.stop), staged=mesh.staged)
+
+
+def mesh_sweep_args(torch):
+    """Phase 21 (c)'s sweep: fig4's Psi grid at fig3_config(), made alike
+    in every process from one seed."""
+    cfg, task = fig3_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 210)
+    params0 = task.init_params(gen)
+    data, eval_data = task.make_data(gen, cfg.num_clients)
+    return dict(cfg_grid=[cfg.replace(psi=p) for p in SWEEP_PSIS], params0=params0, data=data,
+                num_steps=MESH_SWEEP_WINDOWS, task=task,
+                keys=[SEED + 211 + r for r in range(MESH_SWEEP_SEEDS)],
+                eval_every=MESH_SWEEP_EVAL, eval_data=eval_data, final_fn=sweep_final)
+
+
+def mesh_rank_drain(rank, world, backend, with_sweep):
+    """Phase 21 (a), and (c) with `with_sweep`, in one rank."""
+    import torch
+
+    import repro_torch  # noqa: F401  (TF32 off)
+    from repro_torch.api import simulate_sweep
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_sweep_mesh(backend=backend)
+    out = dict(drain=mesh_drain_run(torch, mesh), device=str(mesh.device))
+    if with_sweep:
+        args = mesh_sweep_args(torch)
+        torch.cuda.synchronize()
+        ops.gossip_drain.launches = 0
+        c0, t0 = mesh.collective_s, time.perf_counter()
+        (params, accepted), trace = simulate_sweep("draco", mesh=mesh, **args)
+        torch.cuda.synchronize()
+        out["sweep"] = dict(wall=time.perf_counter() - t0, collective_s=mesh.collective_s - c0,
+                            launches=ops.gossip_drain.launches,
+                            accuracy=trace.metrics["accuracy"],
+                            params=params if rank == 0 else None,
+                            accepted=accepted if rank == 0 else None)
+    return out
+
+
+def log_mesh(r):
+    """Phase 21's summary lines."""
+    for label, row in r["train"].items():
+        log(f"mesh trainer path ({label}, qwen2-1.5b at {MESH_LAYERS} layers, {row['ranks']} "
+            f"gloo ranks on one card): {row['s_step']:.4f} s/step, collective "
+            f"{100 * row['share']:.1f}% of the step, peak {row['peak'] / 2**30:.2f} GiB per rank")
+    sw = r["sweep"]
+    log(f"mesh sweep path (fig4 Psi grid over {MESH_RANKS} gloo ranks): {sw['ms']:.3f} ms per "
+        f"batched window with the evals (collective {100 * sw['share']:.1f}%) against "
+        f"{sw['plain_ms']:.3f} ms unsharded")
+
+
+def phase_mesh(torch):
+    """Phase 21: the client mesh (see `MESH_MODES` and the constants
+    above them). Returns its numbers for the kernels line and PERF.md."""
+    from repro_torch.api import simulate_sweep
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = {}
+
+    # (a) NCCL at one rank per card: the world of this machine's cards
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    nccl = mesh_lib.spawn_ranks(mesh_rank_drain, world, "nccl", False, backend="nccl",
+                                timeout=120, threads=0, deadline=600)
+    # (a) gloo at MESH_RANKS ranks sharing the card, with (c) the sweep
+    t1 = time.perf_counter()
+    gloo = mesh_lib.spawn_ranks(mesh_rank_drain, MESH_RANKS, "gloo", True, backend="gloo",
+                                timeout=300, threads=0, deadline=900)
+    t2 = time.perf_counter()
+    for label, outs, wall in (("nccl", nccl, t1 - t0), ("gloo", gloo, t2 - t1)):
+        worst = max(o["drain"]["err"] / max(o["drain"]["scale"], 1e-30) for o in outs)
+        ok = all(o["drain"]["finite"] and o["drain"]["launches"] == 1 for o in outs) \
+            and worst <= RTOL
+        d = outs[0]["drain"]
+        log(f"  sharded drain J={MESH_DRAIN[0]} N=M={MESH_DRAIN[1]} K={MESH_DRAIN[2]} over "
+            f"{len(outs)} {label} rank(s) on {outs[0]['device']} (staged through the host: "
+            f"{d['staged']}): max |err| / largest |value| {worst:.3e} (tolerance {RTOL}), one "
+            f"launch per rank; {d['call_ms']:.3f} ms per call, collective "
+            f"{d['collective_ms']:.3f} ms ({100 * d['collective_ms'] / d['call_ms']:.1f}%); "
+            f"world {wall:.1f} s with process start {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 21: the sharded drain over {label} disagrees")
+        res[f"{label}_collective_ms"] = dict(
+            ms=d["collective_ms"], what=f"{label} reduce-scatter of (25, 146447) f32 partials, "
+            f"{len(outs)} rank(s)")
+
+    # (c) against the unsharded sweep in this process
+    sweep = [o["sweep"] for o in gloo]
+    args = mesh_sweep_args(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    (params, accepted), trace = simulate_sweep("draco", **args)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    gap = max(float((sweep[0]["params"][k] - params[k]).abs().max()) for k in params)
+    same = torch.equal(sweep[0]["accepted"], accepted)
+    acc_gap = max(float(np.abs(s["accuracy"] - trace.metrics["accuracy"]).max()) for s in sweep)
+    windows = len(args["cfg_grid"]) * MESH_SWEEP_WINDOWS
+    s0 = sweep[0]
+    sweep_launches = sum(s["launches"] for s in sweep)
+    log(f"  sharded sweep: {len(SWEEP_PSIS)} Psi x {MESH_SWEEP_SEEDS} seeds x "
+        f"{MESH_SWEEP_WINDOWS} windows over {MESH_RANKS} gloo ranks, "
+        f"{s0['wall'] / windows * 1e3:.3f} ms per batched window with the evals (collective "
+        f"{100 * s0['collective_s'] / s0['wall']:.1f}%), against {plain_wall / windows * 1e3:.3f} "
+        f"ms unsharded; {sweep_launches} drain launches ({s0['launches']} per rank); max |d params| "
+        f"{gap:.3e} (tolerance {PATH_TOL}), same acceptances {same}, max |d accuracy| "
+        f"{acc_gap:.3e}")
+    if gap > PATH_TOL or not same or any(s["launches"] != windows for s in sweep):
+        raise AssertionError("phase 21: the sharded sweep differs from the unsharded one")
+    res["sweep"] = dict(ms=s0["wall"] / windows * 1e3, plain_ms=plain_wall / windows * 1e3,
+                        share=s0["collective_s"] / s0["wall"], gap=gap, acc_gap=acc_gap)
+    del params, sweep, gloo, nccl
+    torch.cuda.empty_cache()
+
+    # (b) the single-process references, then the mesh trainer's worlds
+    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
+    _, ref = mesh_reference(torch, cfg, none=False)
+    _, ref_none = mesh_reference(torch, cfg, none=True)
+    train_launches, rows = 0, {}
+    for ranks in sorted({r for _, r, _ in MESH_MODES}):
+        modes = [(label, argv) for label, r, argv in MESH_MODES if r == ranks]
+        t0 = time.perf_counter()
+        outs = mesh_lib.spawn_ranks(mesh_rank_train, ranks, modes, backend="gloo",
+                                    timeout=600, threads=0, deadline=1200)
+        log(f"  mesh trainer world of {ranks} gloo ranks: {time.perf_counter() - t0:.1f} s "
+            f"with process start")
+        for label, _ in modes:
+            runs = [o[label] for o in outs]
+            want = ref_none if label == "none" else ref
+            n_loc = 4 // ranks
+            for step in range(2):
+                entries = [r["steps"][step] for r in runs]
+                losses = [x for e in entries for x in e["losses"]]
+                digests = [d for e in entries for d in e["digests"]]
+                exact = losses == want[step]["losses"] and digests == want[step]["digests"]
+                held = step == 0 or label == "none"
+                err = max(e.get("err", 0.0) / max(e.get("scale", 1.0), 1e-30)
+                          for e in entries)
+                ok = all(e["finite"] for e in entries) and err <= MESH_MIX_TOL[label] \
+                    and (exact or not held)
+                e0 = entries[0]
+                step_s = e0["step_s"] - e0["check_s"]
+                log(f"  {label} ({ranks} ranks, {n_loc} clients each) step {step + 1}: losses "
+                    + " ".join(f"{x:.6f}" for x in losses)
+                    + f"; losses and delta rows bitwise equal to one process {exact}"
+                    + ("" if held else " (not held: its inputs carry step 1's mix)")
+                    + (f"; mixed plane against the mix kernel: max |err| / largest |value| "
+                       f"{err:.3e} (tolerance {MESH_MIX_TOL[label]})" if step == 0 else
+                       "; mixed plane finite")
+                    + f"; {step_s:.4f} s/step, "
+                    f"collective {e0['collective_s']:.4f} s ({100 * e0['collective_s'] / step_s:.1f}%)"
+                    f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"phase 21: mesh trainer {label} step {step + 1}")
+            launches = sum(r["launches"] for r in runs)
+            expect = 2 * ranks if label.startswith("dense") else 0
+            if launches != expect or not all(math.isfinite(x) for x in runs[0]["losses"]):
+                raise AssertionError(f"phase 21: {label} launched the drain {launches} times "
+                                     f"(expected {expect}) or lost finiteness")
+            train_launches += launches
+            steady = [r["steps"][1]["step_s"] - r["steps"][1]["check_s"] for r in runs]
+            rows[label] = dict(ranks=ranks, s_step=max(steady),
+                               share=runs[0]["steps"][1]["collective_s"] / steady[0],
+                               peak=max(r["peak"] for r in runs), launches=launches,
+                               collective_ms=runs[0]["steps"][1]["collective_s"] * 1e3)
+            log(f"  {label}: {launches} drain launches, peak {rows[label]['peak'] / 2**30:.2f} "
+                f"GiB per rank, {rows[label]['s_step']:.4f} s/step at step 2")
+    res["train"] = rows
+    res["train_collective_ms"] = dict(
+        ms=rows["dense"]["collective_ms"],
+        what=f"gloo reduce-scatter of the (4, K) f32 partial at {MESH_LAYERS} layers, 2 ranks")
+    res["launches"] = train_launches + sweep_launches
+    log(f"phase 21 mesh: {time.perf_counter() - t_start:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
@@ -3406,6 +3917,9 @@ def main(argv=None) -> int:
                         help="only phase 19, the benches, the legacy engine and the examples")
     parser.add_argument("--serving", action="store_true",
                         help="only phase 20, serving and long context")
+    parser.add_argument("--mesh", action="store_true",
+                        help="only phase 21, the client mesh (and phase 2's and 9's "
+                             "rectangular drain)")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -3458,6 +3972,16 @@ def main(argv=None) -> int:
         log(f"chip_smoke --serving: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         return 0
+    if args.mesh:
+        t_start = time.perf_counter()
+        phase_build()
+        phase_rect_kernels(torch)
+        mesh = phase_mesh(torch)
+        phase_rect_times(torch, mesh)
+        log_mesh(mesh)
+        log(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
     if args.hybrid_depths:
         phase_build()
         failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
@@ -3467,6 +3991,7 @@ def main(argv=None) -> int:
     phase_build()
     max_err = phase_kernels(torch)
     seed_err = phase_seed_kernels(torch)
+    rect_err = phase_rect_kernels(torch)
     mix_err = phase_mix_kernels(torch)
     ssd_err = phase_ssd_kernels(torch)
     enq_launches, enq_err = phase_enqueue(torch)
@@ -3488,11 +4013,14 @@ def main(argv=None) -> int:
     entry = phase_entry_points(torch)
     torch.cuda.empty_cache()
     serving = phase_serving(torch)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
     phase_wide_times(torch)
     phase_seed_times(torch)
+    phase_rect_times(torch, mesh)
     family_mix_times(torch)
     log("phase 9 times: done")
     kernels = [
@@ -3500,8 +4028,8 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
              launches=(launches + scen_drain + sweep["launches"] + events["launches"]
-                       + entry["launches"]["drain"]),
-             max_abs_err=max(max_err, seed_err), **times["f32", 3]),
+                       + entry["launches"]["drain"] + mesh["launches"]),
+             max_abs_err=max(max_err, seed_err, rect_err), **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
              replaces="src/repro/kernels/gossip/gossip.py:33",
@@ -3555,9 +4083,11 @@ def main(argv=None) -> int:
         f"the fused window {entry['ms_fused']:.3f} ms/window (N = 25, D = {ENTRY_DEPTH}, "
         f"{ENTRY_WINDOWS} windows, max |d params| {entry['gap']:.3e})")
     log_serving(serving)
+    log_mesh(mesh)
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
-        f"engine's, {entry['launches']['drain']} on the entry points'")
+        f"engine's, {entry['launches']['drain']} on the entry points', {mesh['launches']} on "
+        f"the client mesh's (its ranks' sum)")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
         f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"

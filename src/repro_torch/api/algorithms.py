@@ -44,6 +44,9 @@ class Draco:
     # config fields a sweep may re-bind per grid row
     sweepable = ("lr", "lambda_grad", "lambda_tx", "psi")
     seed_axis = True
+    # a client mesh (`repro_torch.launch.mesh.Mesh`) the windows run on, set
+    # by `simulate_sweep(mesh=)`'s adapter; None on one device
+    mesh = None
 
     def init(self, key, cfg, params0, task=None, *, device=None):
         return protocol_lib.init_state(key, cfg, params0, task=task,
@@ -53,9 +56,9 @@ class Draco:
         v = _view(ctx, state.window_idx)
         return protocol_lib.draco_window(
             state, ctx.cfg, v.q, v.adj, ctx.task, ctx.data,
-            spec=ctx.flat_spec, draws=draws, positions=v.positions,
-            compute_rate=v.compute_rate, tx_rate=v.tx_rate,
-            overrides=ctx.overrides)
+            spec=ctx.flat_spec if self.mesh is None else None, draws=draws,
+            positions=v.positions, compute_rate=v.compute_rate, tx_rate=v.tx_rate,
+            overrides=ctx.overrides, mesh=self.mesh)
 
     def step_index(self, state) -> int:
         return state.window_idx

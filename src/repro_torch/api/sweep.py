@@ -26,7 +26,18 @@ runs the grid along three axes over the driver loop of
   - **scenario axis.** A list of same-shape `Schedule`s, one per grid
     row.
 
-The client-axis sharding of the reference (``mesh=``) is not ported.
+Client-axis sharding: pass ``mesh=`` (a `repro_torch.launch.mesh.Mesh`,
+e.g. ``make_sweep_mesh(backend=...)``, one per rank of a world that runs
+the same call) and each rank holds N / ranks of the clients
+(`shard_grid_inputs`): its rows of the states and of the federated data
+shards. Every window drains through
+`repro_torch.kernels.gossip.ops.gossip_drain_sharded` (each rank's
+rectangular drain, one reduce-scatter over the receiver axis) and
+unifies by a broadcast from the hub's rank; the draws, the channel and
+Psi run N-wide on every rank; evaluation gathers every client's params.
+The finals are gathered N-wide on every rank, so a rank's result equals
+the unsharded call's up to f32 summation order. ``draco`` only: the
+other algorithms raise (ROADMAP item 21).
 """
 from __future__ import annotations
 
@@ -37,9 +48,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.api.algorithm import Algorithm, get_algorithm
+from repro_torch.api.algorithms import Draco
 from repro_torch.api.context import SimContext, make_context
 from repro_torch.api.simulate import SimTrace, _run, resolve_workload
-from repro_torch.core.protocol import Overrides, stack_draws, stack_seeds
+from repro_torch.core import flat as flat_lib
+from repro_torch.core.protocol import (Overrides, gather_state, shard_state, stack_draws,
+                                       stack_seeds)
+
+ROADMAP_MESH_BASELINES = "ROADMAP item 21"
 
 # Config fields the engine knows how to re-bind per grid row. An algorithm
 # declares which of these it consumes (`sweepable`); sweeping a field it
@@ -154,6 +170,46 @@ def _copy(v):
     return v
 
 
+class _MeshDraco(Draco):
+    """`draco` on a client mesh: each window on this rank's client slice
+    (`draco_window`'s `mesh`), evaluation on every client's params."""
+
+    name = "draco"
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def eval_params(self, state):
+        return flat_lib.tree_map(self.mesh.all_gather, state.params)
+
+
+def _client_sharding(x, num_clients: int, mesh):
+    """The index that keeps this rank's clients of `x`: its first axis of
+    size `num_clients`, sliced to ``mesh.client_slice(num_clients)``; None
+    when no axis has that size. N must divide by the client ranks
+    (`ValueError`), never replicated silently."""
+    for d in range(x.dim()):
+        if x.shape[d] == num_clients:
+            return (slice(None),) * d + (mesh.client_slice(num_clients),)
+    return None
+
+
+def shard_grid_inputs(states, data, num_clients: int, mesh):
+    """This rank's rows of the states (a `DracoState` or a list of them,
+    solo or seed-stacked; `protocol.shard_state`) and of the federated
+    data shards (each tensor's first N-sized axis, `_client_sharding`).
+    Returns ``(states, data)``; either may be None."""
+    rows = mesh.client_slice(num_clients)
+    if isinstance(states, (list, tuple)):
+        states = [shard_state(s, rows) for s in states]
+    elif states is not None:
+        states = shard_state(states, rows)
+    if data is not None:
+        idx = [_client_sharding(x, num_clients, mesh) for x in data]
+        data = tuple(x if i is None else x[i].contiguous() for x, i in zip(data, idx))
+    return states, data
+
+
 def simulate_sweep(
     algo: Union[str, Algorithm],
     cfg_grid,
@@ -177,6 +233,7 @@ def simulate_sweep(
     states: Optional[Sequence] = None,
     device=None,
     draws_fn: Optional[Callable] = None,
+    mesh=None,
 ):
     """Run a (config x scenario) x seed grid; returns ``(finals, SweepTrace)``.
 
@@ -204,6 +261,11 @@ def simulate_sweep(
       device: None means CUDA (raises without it); "cpu" on purpose.
       draws_fn: for tests, ``draws_fn(g, r, i)`` injects the draws of grid
         row g, seed r, step i (the algorithm's step index).
+      mesh: a client mesh (`repro_torch.launch.mesh.Mesh`) to run ``draco``
+        on, every rank of its world calling with the same arguments: each
+        rank holds N / ranks clients (see the module docstring); the
+        finals come back N-wide. Another algorithm raises
+        `NotImplementedError` (ROADMAP item 21).
 
     `finals` is `final_fn`'s output (or the final states) with leading
     (G, R) axes: tensors stacked, host numbers as numpy arrays (a
@@ -215,6 +277,10 @@ def simulate_sweep(
     dev = resolve_device(device)
     if isinstance(algo, str):
         algo = get_algorithm(algo)
+    if mesh is not None and type(algo) is not Draco:
+        raise NotImplementedError(
+            f"simulate_sweep(mesh=) runs draco only; {algo.name!r} on a client mesh is "
+            f"{ROADMAP_MESH_BASELINES}")
     cfgs = list(cfg_grid) if isinstance(cfg_grid, (list, tuple)) else [cfg_grid]
     base, overrides = stack_configs(cfgs)
     task, workload, params0, data, eval_data = resolve_workload(
@@ -288,6 +354,10 @@ def simulate_sweep(
 
     run = dict(eval_data=eval_data, num_steps=int(num_steps), eval_every=int(eval_every),
                eval_fn=eval_fn, metric_name=metric_name)
+    if mesh is not None:
+        _, data_loc = shard_grid_inputs(None, ctx.data, base.num_clients, mesh)
+        ctx = ctx._replace(data=data_loc)
+        algo = _MeshDraco(mesh)
     finals, traces = [], []
     for g in range(grid):
         ctx_g = ctx._replace(overrides=row_overrides(overrides, g if len(cfgs) > 1 else 0))
@@ -295,11 +365,15 @@ def simulate_sweep(
             ctx_g = ctx_g._replace(schedule=scheds[g])
         solo = ([_copy(s) for s in states] if states is not None else
                 [algo.init(k, base, params0, task=ctx.task, device=dev) for k in keys])
+        if mesh is not None:
+            solo, _ = shard_grid_inputs(solo, None, base.num_clients, mesh)
         if getattr(algo, "seed_axis", False):
             fn = None if draws_fn is None else (
                 lambda i, g=g: stack_draws([draws_fn(g, r, i) for r in range(num_rows)]))
             final, trace = _run(algo, ctx_g, stack_seeds(solo), draws_fn=fn,
                                 seeds=num_rows, **run)
+            if mesh is not None:
+                final = gather_state(final, mesh)
         else:
             outs = [_run(algo, ctx_g, st, draws_fn=None if draws_fn is None else (
                 lambda i, g=g, r=r: draws_fn(g, r, i)), **run) for r, st in enumerate(solo)]

@@ -1,13 +1,14 @@
 """Gossip aggregation: ``x_j += sum_i q[i, j] * delta_i``.
 
-Port of the single-device part of `repro.core.mixing`: the Psi cap on
-incoming edges, receive counts, and `mix_dense`, which ravels the
-per-client pytree to one (N, Dflat) plane, mixes it with one launch of
-the gossip-mix kernel (`kernels.gossip.ops.gossip_mix`) and unravels it
-back to the leaves' dtypes. The mesh lowering `mix_ring_shardmap` waits
-for `torch.distributed`.
+Port of `repro.core.mixing`: the Psi cap on incoming edges, receive
+counts, `mix_dense`, which ravels the per-client pytree to one (N,
+Dflat) plane, mixes it with one launch of the gossip-mix kernel
+(`kernels.gossip.ops.gossip_mix`) and unravels it back to the leaves'
+dtypes, and `mix_ring_shardmap`, the cycle's mix as neighbour exchanges
+between the ranks of a client mesh (`repro_torch.launch.mesh`).
 
-All functions take dicts whose leaves have a leading client axis N.
+All functions take dicts whose leaves have a leading client axis N (on
+a mesh, the rank's clients).
 """
 from __future__ import annotations
 
@@ -89,3 +90,52 @@ def add_plane_(params, plane: torch.Tensor, spec: FlatSpec):
     for leaf, off, size in zip(leaves, spec.offsets, spec.sizes):
         leaf.view(n, size).add_(plane[:, off:off + size].to(leaf.dtype))
     return params
+
+
+# ---------------------------------------------------------------------------
+# Ring lowering (cycle topology -> neighbour exchanges between ranks)
+# ---------------------------------------------------------------------------
+
+
+def mix_ring_shardmap(mesh, client_axes, deltas, w_fwd: float = 0.5, w_bwd: float = 0.5,
+                      gate_fwd=None, gate_bwd=None):
+    """Cycle gossip as neighbour exchanges on the mesh's client ranks.
+
+    Each client receives ``w_fwd * delta_{i-1} + w_bwd * delta_{i+1}``
+    (a directed ring if one weight is 0). `gate_fwd` and `gate_bwd` are
+    optional (N,) per-client multipliers (event or Psi masks) applied at
+    the *sender*, each cast to the leaf's dtype before the product, as in
+    the reference.
+
+    One client per rank, as the reference's ``shard_map`` body has (N ==
+    client ranks): `deltas` holds this rank's client, leaves (1, ...);
+    anything else raises `ValueError`. Every leaf, gated, is packed into
+    one buffer per direction, and one batch of point-to-point exchanges
+    (`Mesh.ring_exchange`) sends it to both neighbours and receives
+    theirs. The sum is formed in each leaf's dtype, as the reference's
+    is. Returns the mixed dict (this rank's client)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    axes = client_axes if isinstance(client_axes, tuple) else (client_axes,)
+    if axes != mesh_lib.client_axes(mesh):
+        raise ValueError(f"the ring runs over the mesh's client axes "
+                         f"{mesh_lib.client_axes(mesh)}, not {axes}")
+    items = flat_lib.tree_items(deltas)
+    rows = {leaf.shape[0] for _, leaf in items}
+    if rows != {1}:
+        raise ValueError(f"the ring mix holds one client per rank (N == {mesh.size} "
+                         f"client ranks); this rank holds {sorted(rows)}")
+    r = mesh.rank
+
+    def gated(gate):
+        if gate is None:
+            return [x for _, x in items]
+        return [x * gate[r].to(x.dtype) for _, x in items]
+
+    leaves = [x for _, x in items]
+    from_prev, from_next = mesh.ring_exchange(mesh_lib.pack(gated(gate_fwd)),
+                                               mesh_lib.pack(gated(gate_bwd)))
+    mixed = [(w_fwd * xf + w_bwd * xb).to(x.dtype) for x, xf, xb in
+             zip(leaves, mesh_lib.unpack(from_prev, leaves),
+                 mesh_lib.unpack(from_next, leaves))]
+    return flat_lib.tree_from_items(zip((p for p, _ in items), mixed))

@@ -425,17 +425,26 @@ def _tx_and_accept(state, cfg, q, adj, draws: WindowDraws, positions=None, psi=N
     return tx_mask, w_eff, delay_w, accept_count, total_accept
 
 
-def _unify(params, accept_count, widx: int, cfg, n: int, seeds: int = 0):
+def _unify(params, accept_count, widx: int, cfg, n: int, seeds: int = 0, mesh=None):
     """Every P windows (at ``(widx + 1) % P == 0``) every client adopts
     hub ``(widx // P) % n``'s params and accept counts reset. Pending
     updates, the ring and total_accept are left alone. `seeds` is the
     number of leading seed axes of the params (0 or 1): each seed adopts
-    its own hub row."""
+    its own hub row. On a `mesh` the params hold this rank's clients: the
+    rank holding the hub broadcasts its row (every leaf in one buffer)."""
     if (widx + 1) % cfg.unify_period != 0:
         return params, accept_count
     hub = (widx // max(cfg.unify_period, 1)) % n
-    params = flat_lib.tree_map(
-        lambda x: x.select(seeds, hub).unsqueeze(seeds).expand_as(x).clone(), params)
+    leaves = flat_lib.tree_leaves(params)
+    if mesh is None:
+        rows = [x.select(seeds, hub) for x in leaves]
+    else:
+        src = mesh.owner(hub, n)
+        local = hub - src * (n // mesh.size) if src == mesh.rank else 0
+        rows = mesh.broadcast_tensors([x.select(seeds, local) for x in leaves], src)
+    params = flat_lib.tree_from_items(
+        (path, row.unsqueeze(seeds).expand_as(x).clone())
+        for (path, x), row in zip(flat_lib.tree_items(params), rows))
     return params, torch.zeros_like(accept_count)
 
 
@@ -443,7 +452,7 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                  spec=None, *, draws: Optional[WindowDraws] = None,
                  positions=None, compute_rate=None, tx_rate=None,
                  overrides: Optional[Overrides] = None, damping=None,
-                 drain=None) -> DracoState:
+                 drain=None, mesh=None) -> DracoState:
     """One superposition window; returns the next state.
 
     `q` (N, N) is the row-stochastic mixing matrix, `adj` (N, N) its
@@ -473,6 +482,17 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     `gossip_ops.gossip_drain` when None; ``chip_smoke.py`` passes the
     plain version to hold the path against it.
 
+    `mesh` (a `repro_torch.launch.mesh.Mesh`) runs the window on a client
+    slice, ``mesh.client_slice(N)``: the state holds this rank's rows
+    (`shard_state`) of params, pending, the payload ring, opt_state, and
+    of the sender axis of ``w_ring`` and ``delay_ring`` (its senders
+    against all N receivers); accept counts and positions stay N-wide.
+    The draws, the channel and Psi are computed N-wide on every rank from
+    the same generator, so every rank takes the same decisions; `data`
+    holds the rank's shards; the drain is `gossip_drain_sharded` (each
+    rank's rectangular drain, one reduce-scatter) unless `drain` is
+    given; unification is a broadcast from the hub's rank.
+
     The enqueue writes ``state.buffer``, ``w_ring`` and ``delay_ring``
     in place (the returned state shares them), so a state is consumed by
     the window that advances it.
@@ -480,11 +500,18 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     n, D = cfg.num_clients, cfg.max_delay_windows
     widx = state.window_idx
     lead = tuple(state.pending.shape[:-2])  # () or the seed axis (R,)
+    sl = slice(0, n) if mesh is None else mesh.client_slice(n)  # this rank's clients
     if spec is None:
         spec = flat_lib.spec_of(state.params if not lead else seed_row(state, 0).params)
     if draws is None:
         draws = sample_window_draws(state.generator, cfg, data[0].shape[1],
                                     compute_rate, tx_rate, overrides)
+    if drain is None and mesh is not None:
+        from repro_torch.launch import mesh as mesh_lib
+
+        def drain(w, ring, slots):
+            return gossip_ops.gossip_drain_sharded(w, ring, slots, mesh,
+                                                   mesh_lib.client_axes(mesh))
     drain = gossip_ops.gossip_drain if drain is None else drain
 
     # --- 1. deliveries: fused delay-bucketed drain on the flat plane -------
@@ -503,12 +530,12 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
                                arrivals)
 
     # --- 2. gradient events: the R * N client rows in one pass -------------
-    rows = math.prod(lead) * n
+    rows = math.prod(lead) * (sl.stop - sl.start)
     delta, opt_state = local_step(
         flat_lib.tree_map(lambda p: p.reshape((rows,) + tuple(p.shape[len(lead) + 1:])),
                           params),
-        draws.grad_mask.reshape(rows), cfg, task, data,
-        draws.batch_idx.reshape((rows,) + tuple(draws.batch_idx.shape[-2:])),
+        draws.grad_mask[..., sl].reshape(rows), cfg, task, data,
+        draws.batch_idx[..., sl, :, :].reshape((rows,) + tuple(draws.batch_idx.shape[-2:])),
         state.opt_state.reshape(rows, state.opt_state.shape[-1]), widx,
         lr=rebound(cfg, overrides, "lr"))
     pending = state.pending + flat_lib.ravel_clients(delta).reshape(state.pending.shape)
@@ -528,15 +555,15 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
     # the stored broadcast intact.
     slot = widx % D
     state.buffer[..., slot, :, :].copy_(pending)
-    state.w_ring[..., slot, :, :].copy_(w_eff)
-    state.delay_ring[..., slot, :, :].copy_(delay_w)
+    state.w_ring[..., slot, :, :].copy_(w_eff[..., sl, :])
+    state.delay_ring[..., slot, :, :].copy_(delay_w[..., sl, :])
 
     # senders clear their pending backlog (Lemma A.1 backups are now sent)
-    pending.mul_((~tx_mask).to(torch.float32)[..., None])
+    pending.mul_((~tx_mask[..., sl]).to(torch.float32)[..., None])
 
     # --- 4. periodic unification -------------------------------------------
     if cfg.unify_period > 0:
-        params, accept_count = _unify(params, accept_count, widx, cfg, n, len(lead))
+        params, accept_count = _unify(params, accept_count, widx, cfg, n, len(lead), mesh)
 
     if positions is not None and lead:
         positions = positions.expand(lead + tuple(positions.shape))
@@ -577,6 +604,36 @@ def seed_row(state: DracoState, r: int) -> DracoState:
                      "total_accept", "positions", "opt_state")},
         window_idx=state.window_idx,
         generator=state.generator[r])
+
+
+# fields of a `DracoState` with a client axis, and where it lies past the
+# seed axis: the params' and pending's first, the ring's and (sender axis)
+# w_ring's and delay_ring's second
+_CLIENT_AXIS = {"pending": 0, "buffer": 1, "w_ring": 1, "delay_ring": 1, "opt_state": 0}
+
+
+def shard_state(state: DracoState, rows: slice) -> DracoState:
+    """The client slice `rows` of a state (solo or seed-stacked), as a
+    mesh window runs it (`draco_window`'s `mesh`): copies of those rows of
+    params, pending, the payload ring, opt_state and the sender axis of
+    ``w_ring`` and ``delay_ring``; accept counts, positions, the window
+    index and the generator as they are."""
+    lead = state.pending.dim() - 2
+
+    def take(x, axis):
+        return x.narrow(lead + axis, rows.start, rows.stop - rows.start).clone()
+
+    return state._replace(params=flat_lib.tree_map(lambda p: take(p, 0), state.params),
+                          **{f: take(getattr(state, f), a) for f, a in _CLIENT_AXIS.items()})
+
+
+def gather_state(state: DracoState, mesh) -> DracoState:
+    """Inverse of `shard_state` over a mesh: every client-sliced field
+    gathered N-wide from the client ranks (on every rank)."""
+    lead = state.pending.dim() - 2
+    return state._replace(
+        params=flat_lib.tree_map(lambda p: mesh.all_gather(p, lead), state.params),
+        **{f: mesh.all_gather(getattr(state, f), lead + a) for f, a in _CLIENT_AXIS.items()})
 
 
 def run_windows(state: DracoState, cfg: DracoConfig, q, adj, task, data,

@@ -1,7 +1,9 @@
 """Public wrappers of the gossip kernels (port of
 `repro.kernels.gossip.ops`): `gossip_drain` (delay-bucketed drain,
 ``csrc/drain.cu``), `gossip_mix` (row-stochastic mix, ``csrc/mix.cu``)
-and `gossip_enqueue` (eager delay-bucketed mix, ``csrc/enqueue.cu``).
+and `gossip_enqueue` (eager delay-bucketed mix, ``csrc/enqueue.cu``);
+`gossip_drain_sharded`, the drain over a client mesh (each rank's
+rectangular drain and one reduce-scatter).
 
 Backend by tensor placement, never by option: a CUDA tensor launches the
 hand-written Hopper kernel or raises; a CPU tensor takes the plain
@@ -363,6 +365,51 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
         out = launch_drain(lib, w_stack, ring, slots)
     gossip_drain.launches += 1
     return out
+
+
+def gossip_drain_sharded(w_stack: torch.Tensor, ring: torch.Tensor,
+                         slots: Sequence[int], mesh, client_axes=("data",), *,
+                         collective_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Client-sharded drain: this rank's drain tile, then one reduce-scatter.
+
+    Port of the reference's ``shard_map`` lowering. The ring is sharded
+    over the *sender* axis: on each rank, ring (S, N, K) holds the stored
+    broadcasts of its N senders (the rank's slice of the M clients, N =
+    M / ranks), and w_stack (J, N, M) their weights against every
+    receiver. The rank runs `gossip_drain` on that rectangular slice (on
+    a CUDA tensor the kernel's launch, counted in
+    ``gossip_drain.launches``), a partial (M, K) f32 aggregate over its
+    senders; one `Mesh.reduce_scatter` over the client ranks sums the
+    partials and leaves each rank its own receivers' rows, (M / ranks,
+    K). The seed axis rides along: (R, J, N, M) and (R, S, N, K) give
+    (R, M / ranks, K).
+
+    `collective_dtype` is the dtype the partials cross the ranks in:
+    ``torch.bfloat16`` rounds each partial to bf16 before the
+    reduce-scatter (half the bytes, sums in bf16); the result is f32
+    either way.
+
+    `mesh` is a `repro_torch.launch.mesh.Mesh`; `client_axes` names its
+    client axes, as the reference's argument does (a name or a tuple;
+    another axis than the mesh's client axes raises). M must divide by
+    the client ranks (`ValueError`, "divisible"). The per-receiver sum is
+    re-associated across ranks, so the result matches `gossip_drain` on
+    the whole ring up to f32 summation order.
+    """
+    from repro_torch.launch import mesh as mesh_lib
+
+    axes = client_axes if isinstance(client_axes, tuple) else (client_axes,)
+    if axes != mesh_lib.client_axes(mesh):
+        raise ValueError(f"the drain shards over the mesh's client axes "
+                         f"{mesh_lib.client_axes(mesh)}, not {axes}")
+    n = w_stack.shape[-1]
+    if n % mesh.size:
+        raise ValueError(f"client count {n} not divisible by mesh client size {mesh.size}")
+    if w_stack.shape[-2] * mesh.size != n:
+        raise ValueError(f"w_stack {tuple(w_stack.shape)}: a rank holds {n // mesh.size} "
+                         f"of the {n} senders")
+    partial = gossip_drain(w_stack, ring, slots).to(collective_dtype)
+    return mesh.reduce_scatter(partial, dim=-2).to(torch.float32)
 
 
 def launch_drain(lib: ctypes.CDLL, w_stack: torch.Tensor, ring: torch.Tensor,

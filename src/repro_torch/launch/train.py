@@ -1,7 +1,9 @@
-"""End-to-end DRACO trainer for a decoder LM on one device.
+"""End-to-end DRACO trainer for a decoder LM, on one device or a client mesh.
 
 Port of `repro.launch.train` with its single-device step
-(`train.py:119-129` of the reference): per-client local gradients of
+(`train.py:119-129` of the reference) and its mesh path (`:93-117`,
+``--mesh-backend`` under ``torchrun``: `steps.make_train_step` over the
+ranks' clients, see `main`): per-client local gradients of
 `lm_loss`, row-stochastic gossip (`mixing.mix_plane`, the flat form of
 `mix_dense`) under per-step event and Psi masks, periodic unification
 on a rotating hub, and checkpoints in the reference's layout. The graph and its row-stochastic
@@ -26,6 +28,9 @@ Examples:
       --reduced --device cpu --steps 3     # also zamba2-2.7b, musicgen-large, ...
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 20 --clients 4 --psi 1 --unify-every 10     # on the card
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --mesh-backend gloo --device cpu --reduced \
+      --steps 4 --clients 4 --seq 32 --mix dense   # 2 ranks of 2 clients
 """
 from __future__ import annotations
 
@@ -118,23 +123,12 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
-               mix: Optional[mixing.MixFn] = None, chunk_fn=None):
-    """One DRACO step on one device; returns ``(params, mean loss)``.
-
-    params: dict of (N, ...) leaves, updated in place; batch a dict of
-    (N, B, ...) tensors (`make_batches`' keys), each sliced per client;
-    q_eff (N, N) this step's masked weights. The leaves of
-    `M.unused_leaves` (an audio model's token embedding) get a zero
-    gradient, as in the reference; any other leaf the loss does not reach
-    raises.
-    For each client in turn: `lm_loss` and its gradient, ``-lr * g`` in
-    the leaf's dtype written into that client's row of the f32 delta
-    plane. Then one `mix_plane` (the gossip-mix kernel, or `mix`) and
-    ``p += mixed.to(p.dtype)`` leaf by leaf. The loss is the mean of the
-    clients' f32 losses, as a 0-d tensor (no host read). `chunk_fn`
-    replaces the SSD intra-chunk kernel of an ssm or hybrid model (see
-    `M.apply_model`)."""
+def train_step_clients(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
+                       mix: Optional[mixing.MixFn] = None, chunk_fn=None,
+                       blocked_attn_threshold: int = 8192, vocab_chunk: int = 0):
+    """`train_step` returning each client's loss: ``(params, losses (N,)
+    f32)``. The mesh step (`steps.make_train_step`) runs it on a rank's
+    clients with a collective `mix` and gathers the losses."""
     spec = flat_lib.spec_of(params)
     n = spec.num_clients
     plane = torch.empty((n, spec.dim), dtype=torch.float32, device=q_eff.device)
@@ -143,7 +137,8 @@ def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
     for i in range(n):
         p_i = flat_lib.tree_map(lambda p: p[i].detach().requires_grad_(), params)
         loss = M.lm_loss(p_i, cfg, {k: v[i] for k, v in batch.items()},
-                         chunk_fn=chunk_fn)
+                         chunk_fn=chunk_fn, blocked_attn_threshold=blocked_attn_threshold,
+                         vocab_chunk=vocab_chunk)
         items = list(zip(flat_lib.tree_items(p_i), spec.offsets, spec.sizes))
         used = [(leaf, off, size) for (path, leaf), off, size in items if path not in unused]
         grads = torch.autograd.grad(loss, [leaf for leaf, _, _ in used])
@@ -158,7 +153,32 @@ def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
     del plane
     with torch.no_grad():
         mixing.add_plane_(params, mixed, spec)
-    return params, torch.stack(losses).mean()
+    return params, torch.stack(losses)
+
+
+def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
+               mix: Optional[mixing.MixFn] = None, chunk_fn=None,
+               blocked_attn_threshold: int = 8192, vocab_chunk: int = 0):
+    """One DRACO step on one device; returns ``(params, mean loss)``.
+
+    params: dict of (N, ...) leaves, updated in place; batch a dict of
+    (N, B, ...) tensors (`make_batches`' keys), each sliced per client;
+    q_eff (N, N) this step's masked weights. The leaves of
+    `M.unused_leaves` (an audio model's token embedding) get a zero
+    gradient, as in the reference; any other leaf the loss does not reach
+    raises.
+    For each client in turn: `lm_loss` and its gradient, ``-lr * g`` in
+    the leaf's dtype written into that client's row of the f32 delta
+    plane. Then one `mix_plane` (the gossip-mix kernel, or `mix`) and
+    ``p += mixed.to(p.dtype)`` leaf by leaf. The loss is the mean of the
+    clients' f32 losses, as a 0-d tensor (no host read). `chunk_fn`
+    replaces the SSD intra-chunk kernel of an ssm or hybrid model (see
+    `M.apply_model`); `blocked_attn_threshold` and `vocab_chunk` go to
+    `M.lm_loss`."""
+    params, losses = train_step_clients(
+        params, batch, q_eff, cfg, lr, mix=mix, chunk_fn=chunk_fn,
+        blocked_attn_threshold=blocked_attn_threshold, vocab_chunk=vocab_chunk)
+    return params, losses.mean()
 
 
 def init_client_params(seed: int, cfg, n_clients: int, device=None):
@@ -178,8 +198,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch-per-client", type=int, default=2)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
-    # accepted as the reference's CLI does; its single-device step, like
-    # this one, always mixes densely (ring and none are mesh-step modes)
+    # the mesh step's gossip (--mesh-backend): dense, ring or none; one
+    # device always mixes densely, as the reference's single-device step
     ap.add_argument("--mix", default="dense", choices=["dense", "ring", "none"])
     ap.add_argument("--psi", type=int, default=0)
     ap.add_argument("--topology", default="cycle")
@@ -191,6 +211,12 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only when asked)")
+    ap.add_argument("--mesh-backend", default=None, choices=["nccl", "gloo"],
+                    help="train on a client mesh over the torchrun world with this "
+                         "backend: each rank holds clients / world of the clients")
+    ap.add_argument("--mix-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="the mesh step's dense mix dtype (bfloat16 halves the "
+                         "collective's bytes)")
     return ap.parse_args(argv)
 
 
@@ -204,19 +230,86 @@ def check_seq(cfg, seq: int) -> None:
             f"tokens: give a multiple of {cfg.ssm_chunk}, or at most {cfg.ssm_chunk}")
 
 
+def _mesh_setup(args):
+    """The mesh path's (mesh, device, whether this call started the
+    process group): the torchrun world laid over ("data", "model") as
+    (world, 1); on CUDA the drain kernel is built on rank 0 before the
+    others load it."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+
+    started = not dist.is_initialized()
+    mesh_lib.init_world(args.mesh_backend)
+    mesh = mesh_lib.make_mesh((dist.get_world_size(), 1), ("data", "model"),
+                              backend=args.mesh_backend, device=args.device)
+    if mesh.device.type == "cuda":
+        if mesh.rank == 0:
+            build.build(("drain",))
+        mesh.barrier()
+    return mesh, mesh.device, started
+
+
+def _save(args, step, params, mesh):
+    """A checkpoint in the reference's layout: on a mesh every leaf is
+    gathered N-wide and rank 0 writes it."""
+    if mesh is not None:
+        params = flat_lib.tree_map(mesh.all_gather, params)
+        if mesh.rank != 0:
+            return
+    ckpt_lib.save(args.ckpt_dir, step, params)
+    print(f"saved checkpoint @ {step}")
+
+
+def _restore(args, params, step, n, mesh):
+    """Restore step `step`; on a mesh every rank reads the N-wide file
+    and keeps its rows (ranks of one machine share its disk)."""
+    if mesh is None:
+        return ckpt_lib.restore(args.ckpt_dir, params, step)
+    template = flat_lib.tree_map(
+        lambda p: torch.empty((), dtype=p.dtype).expand((n,) + tuple(p.shape[1:])), params)
+    full = ckpt_lib.restore(args.ckpt_dir, template, step)
+    sl = mesh.client_slice(n)
+    return flat_lib.tree_map(lambda f, p: f[sl].to(p.device).contiguous(), full, params)
+
+
 def main(argv=None, *, cfg=None):
     """Run the trainer with the CLI's arguments. `cfg` trains that model
     config instead of the one ``--arch`` / ``--reduced`` name (for
     example a depth cut of it, ``get_config(arch).with_(num_layers=32)``).
-    Returns the per-step losses."""
+    Returns the per-step losses.
+
+    With ``--mesh-backend`` (under ``torchrun``) the clients are laid over
+    the world's ranks (`steps.make_train_step`): each rank initialises
+    its N / ranks clients, draws the data and every step's ``q_eff``
+    N-wide from the run's seeds (alike on every rank) and keeps its rows,
+    so the run is the single-process one with the mix as a collective;
+    checkpoints are gathered to rank 0 in the reference's layout. Every
+    rank returns the same losses (the mean over all N clients); rank 0
+    prints."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    if not args.mesh_backend:
+        return _train(args, cfg, None, resolve_device(args.device))
+    import torch.distributed as dist
+
+    mesh, dev, started = _mesh_setup(args)
+    try:
+        return _train(args, cfg, mesh, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, mesh, dev):
     if cfg is None:
         cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     check_seq(cfg, args.seq)
     n = args.clients
+    sl = slice(0, n) if mesh is None else mesh.client_slice(n)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
-    params = init_client_params(args.seed, cfg, n, dev)
+    params = init_client_params(args.seed, cfg, sl.stop - sl.start, dev)
     # protocol-plane context: the graph and Q built once, by the same
     # path as `repro_torch.api.simulate`
     proto_cfg = DracoConfig(num_clients=n, topology=args.topology,
@@ -228,15 +321,23 @@ def main(argv=None, *, cfg=None):
     data = make_batches(stream_seed(args.seed, STREAM_DATA), cfg, n,
                         per_client=8 * args.batch_per_client, seq=args.seq,
                         device=dev)
-    unify_fn = steps_lib.make_unify_step(cfg, None)
+    data = {k: v[sl] for k, v in data.items()}
+    if mesh is None:
+        def step_fn(params, batch, q_eff):
+            return train_step(params, batch, q_eff, cfg, args.lr)
+    else:
+        step_fn = steps_lib.make_train_step(cfg, mesh, lr=args.lr, mix_mode=args.mix,
+                                            psi=args.psi,
+                                            mix_dtype=getattr(torch, args.mix_dtype))
+    unify_fn = steps_lib.make_unify_step(cfg, mesh)
 
     start = 0
     if args.ckpt_dir:
         latest = ckpt_lib.latest_step(args.ckpt_dir)
         if latest is not None:
-            params = ckpt_lib.restore(args.ckpt_dir, params, latest)
+            params = _restore(args, params, latest, n, mesh)
             start = latest
-            print(f"restored step {latest}")
+            say(f"restored step {latest}")
 
     gen_ev = torch.Generator(device=dev)
     losses = []
@@ -246,20 +347,19 @@ def main(argv=None, *, cfg=None):
         q_eff = mixing_weights(q, args.psi, generator=gen_ev,
                                lambda_tx=args.lambda_tx)
         batch = select_batch(data, step, args.batch_per_client)
-        params, loss = train_step(params, batch, q_eff, cfg, args.lr)
+        params, loss = step_fn(params, batch, q_eff)
         losses.append(float(loss))
         if args.unify_every and (step + 1) % args.unify_every == 0:
             params = unify_fn(params, (step // args.unify_every) % n)
         if (step + 1) % args.log_every == 0:
             dt = time.time() - t0
-            print(f"step {step+1:5d} loss {np.mean(losses[-args.log_every:]):.4f} "
-                  f"({dt/args.log_every:.2f}s/step)")
+            say(f"step {step+1:5d} loss {np.mean(losses[-args.log_every:]):.4f} "
+                f"({dt/args.log_every:.2f}s/step)")
             t0 = time.time()
         if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            ckpt_lib.save(args.ckpt_dir, step + 1, params)
-            print(f"saved checkpoint @ {step+1}")
+            _save(args, step + 1, params, mesh)
 
-    print(f"final loss {np.mean(losses[-10:]):.4f} (first 10: {np.mean(losses[:10]):.4f})")
+    say(f"final loss {np.mean(losses[-10:]):.4f} (first 10: {np.mean(losses[:10]):.4f})")
     return losses
 
 

@@ -207,5 +207,19 @@ def test_unify_step_matches_reference(hub):
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(hub, jnp.int32))
     for g, w in zip(tflat.tree_leaves(got), jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tsteps.make_unify_step(None, mesh=object())
+    # on a one-rank mesh the hub's rank broadcasts its row to itself
+    got = tsteps.make_unify_step(None, mesh=_OneRank())(
+        convert.params_from_numpy(params, "cpu"), hub)
+    for g, w in zip(tflat.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+class _OneRank:
+    """The collectives a mesh unification calls, on a world of one rank."""
+    rank, size = 0, 1
+
+    def owner(self, client, n):
+        return 0
+
+    def broadcast_tensors(self, tensors, src):
+        return [x.clone() for x in tensors]
