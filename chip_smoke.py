@@ -33,8 +33,11 @@ Phases (any failure exits non-zero):
                each row equal to a solo launch, within 1e-5 of plain; the
                rectangular drain as the client mesh runs it (J 1, N_loc 2,
                M 4 at qwen2-1.5b's full plane; J 3, N_loc 5, M 25 at the
-               fig4 window) in f32 and bf16, within 1e-5 of the largest
-               |value| of the plain version, compared in column slices;
+               fig4 window; J 1, N_loc 1, M 64 at mamba2-2.7b's plane at 1
+               and 2 layers, phase 22's dense pair, M K past 2^31) in f32
+               and bf16, within 1e-5 of the largest |value| of the plain
+               version, compared in column slices; `ssd_chunk` also at
+               phase 22's mamba2 shapes (nc 32 at batch 1 and 4, nc 256);
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -216,7 +219,22 @@ Phases (any failure exits non-zero):
                past 2^31 - 1 columns and the product over dense slices);
                the rectangular drain at phase 2's two mesh shapes beside
                its bound, the plain version, the einsum and phase 21's
-               collective. Phase 9 runs last, after 10 to 21.
+               collective. Phase 9 runs last, after 10 to 22.
+  22. dry run - `python -m repro_torch.launch.dryrun`'s `lower_pair` on
+               `DRY_PAIRS` (two train pairs, a prefill and two decode
+               pairs, one rank's share of the client mesh at full width):
+               each reckoned on ``meta`` (FLOPs, bytes, each kernel's
+               work, the collective tally, the peak) and run with
+               ``--run`` (`dryrun.RUN_STEPS` steps after a warm-up, CUDA
+               events, the sync detector; the dense train pair at depths
+               1 and 2, extrapolated); each row printed; the reckoned peak
+               against `torch.cuda.max_memory_allocated` within
+               `DRY_PEAK_TOL` at every depth run and after extrapolating,
+               the train pairs' `useful_flops_ratio` (6 N T over the
+               counted FLOPs) inside `DRY_TRAIN_RATIO`, 0 host syncs, a
+               finite `roofline_fraction` and `bound_fraction` in (0, 1];
+               phase 2 holds the kernels at these pairs' shapes
+               (`RECT_DRY`, the "dry run" rows of `SSD_CASES`);
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -229,6 +247,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --entry-points
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --dryrun
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -245,7 +264,10 @@ among them), training beside the kernel's path and shadowing the plain
 run's SSD calls; the fourth runs the build and phases 15-18 alone; the
 fifth the build and phase 19 alone; the sixth the build and phase 20
 alone; the seventh the build, phase 21 and the rectangular drain's
-phase 2 and 9 rows; the eighth phase 16's comparison at other zamba2 depths, block
+phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
+and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
+the
+ninth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
 when the rule fails at any depth).
@@ -272,10 +294,6 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # growable segments keep the allocator from fragmenting around them
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores (f32 accumulation), dense
-TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 RTOL = ATOL = 1e-5  # kernel against its plain version: f32 sums reordered
 PATH_TOL = 1e-4  # 50 windows, kernel path against the plain-drain path
 WINDOWS, EVAL_EVERY, PLAIN_WINDOWS = 300, 100, 50
@@ -390,6 +408,11 @@ SSD_CASES = {
     # phase 20 (b)'s f32 prefills: one chunk of the 64-token prompt
     "mamba2 f32 prefill Q=64 N=128": (2, 80, 1, 1, 64, 128, 64, 1.0, "float32"),
     "zamba2 f32 prefill Q=64 N=64": (2, 80, 1, 1, 64, 64, 64, 1.0, "float32"),
+    # phase 22's mamba2 pairs: train_4k (32 chunks) at one sequence a rank
+    # (the ring pair) and four (the dense pair), prefill_32k (256) at one
+    "dry run train_4k nc=32 bf16": (1, 80, 1, 32, 128, 128, 64, 1.0, "bfloat16"),
+    "dry run train_4k Bb=4 nc=32 bf16": (4, 80, 1, 32, 128, 128, 64, 1.0, "bfloat16"),
+    "dry run prefill_32k nc=256 bf16": (1, 80, 1, 256, 128, 128, 64, 1.0, "bfloat16"),
 }
 SSD_ZAMBA2 = SSD_CASES["zamba2 trainer shape bf16 N=64"]
 # gossip_enqueue's path: the JAX package's own cases
@@ -543,23 +566,22 @@ def drain_case(torch, j, n, m, k, s, live, dtype, seed, slots=None):
     return w.float().contiguous(), ring, list(slots)
 
 
-def bound_ms(j_live, j, n, m, k, elem_bytes):
-    """Least time for one drain: each input byte read once, the output
-    written once, over the memory rate; f32 FMAs over the f32 rate."""
-    moved = j_live * n * k * elem_bytes + j * n * m * 4 + m * k * 4
-    flops = 2 * j_live * n * m * k
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(kernel, *shape, tensor_cores=None, **kw):
+    """(ms, "bytes" or "operations"): the least time of one call of
+    `kernel` (drain, mix, enqueue, ssd_chunk) at `shape`, its work from
+    `repro_torch.kernels.work` (each input read once, each output written
+    once; the products at their type's rate) at the H100 SXM's rates
+    (`repro_torch.launch.roofline.H100_SXM`). With `tensor_cores` (the
+    payload's element bytes), its products as the wide route runs them,
+    split-TF32 on the tensor cores."""
+    from repro_torch.kernels import work
+    from repro_torch.launch.roofline import H100_SXM
 
-
-def tc_bound_ms(moved, flops, elem_bytes):
-    """The bound of the same work with its product on the tensor cores as
-    the wide route runs it: `moved` bytes over the memory rate against the
-    split-TF32 products (three per useful FMA for an f32 payload, two for
-    bf16) over the TF32 rate."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (3 if elem_bytes == 4 else 2) * flops / TF32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    w = getattr(work, kernel)(*shape, **kw)
+    if tensor_cores is not None:
+        w = work.tensor_core(w, tensor_cores)
+    t, by = work.bound_s(w, H100_SXM)
+    return t * 1e3, by
 
 
 def mix_case(torch, n, k, dtype, seed):
@@ -569,15 +591,6 @@ def mix_case(torch, n, k, dtype, seed):
     q = q / q.sum(dim=1, keepdim=True)
     deltas = torch.randn((n, k), generator=g, device="cuda").to(dtype)
     return q, deltas
-
-
-def mix_bound_ms(n, k, elem_bytes):
-    """Least time for one mix: deltas read once, the output written once
-    and Q read once, over the memory rate; f32 FMAs over the f32 rate."""
-    moved = 2 * n * k * elem_bytes + n * n * 4
-    flops = 2 * n * n * k
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def mix_against_plain(torch, ops, q, deltas, got, rtol=RTOL):
@@ -979,35 +992,12 @@ def ssd_case(torch, bb, h, g, nc, q, n, p, decay, dtype, seed):
 
 
 def ssd_bound_ms(args):
-    """Least time for one ssd_chunk call on these inputs by any route on
-    this card that keeps each f32 operand to f32 accuracy (at least the
-    ~22 bits of a hi + lo TF32 pair): the larger of the bytes (each input
-    read once, B and C once per group, Y and S written once) over the
-    memory rate, and the necessary products at the tensor-core rates.
-    The lower triangle of C B^T multiplies bf16 inputs exactly into f32,
-    so it counts once at the bf16 rate. A product with one f32 operand
-    (the masked scores times X, S) takes that operand as two TF32 terms
-    or three bf16 terms, whichever is faster: min(2 / TF32, 3 / bf16 rate)
-    per flop, the bf16 three-term route on this card. With two f32
-    operands (f32 inputs) the split takes three TF32 or six bf16 products.
-    (The f32 rate outside the tensor cores is no floor: a tensor-core
-    kernel at f32 accuracy beats it.) At the trainer's shape this is the
-    bytes, 53.6 MB: 0.0160 ms against 0.0075 ms of products."""
+    """`bound_ms` of one ssd_chunk call on these inputs: the bytes against
+    the necessary products on the tensor cores at f32 accuracy
+    (`repro_torch.kernels.work.ssd_chunk`)."""
     C, B, x, cums, dt = args
     bb, g, nc, q, n = C.shape
-    h, p = x.shape[1], x.shape[4]
-    tri = q * (q + 1) // 2
-    cb_flops = 2 * bb * h * nc * tri * n
-    f32_flops = 2 * bb * h * nc * (tri * p + q * n * p)
-    if C.element_size() == 2:
-        t_ops = cb_flops / BF16_FLOPS + f32_flops * min(2 / TF32_FLOPS, 3 / BF16_FLOPS)
-    else:
-        t_ops = (cb_flops + f32_flops) * min(3 / TF32_FLOPS, 6 / BF16_FLOPS)
-    moved = ((C.numel() + B.numel() + x.numel()) * x.element_size()
-             + (cums.numel() + dt.numel()) * 4 + bb * h * nc * (q + n) * p * 4)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops *= 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms("ssd_chunk", bb, x.shape[1], g, nc, q, n, x.shape[4], x.element_size())
 
 
 def phase_ssd_kernels(torch):
@@ -1051,15 +1041,6 @@ def enqueue_case(torch, j, n, k, dtype, seed):
     w = torch.stack([q * (delay == b) for b in range(j)]).contiguous()
     pending = torch.randn((n, k), generator=g, device="cuda").to(dtype)
     return w, pending
-
-
-def enqueue_bound_ms(j, n, k, in_bytes, out_bytes):
-    """Least time for one enqueue: pending read once, the J outputs
-    written once, the weights read once; f32 FMAs over the f32 rate."""
-    moved = n * k * in_bytes + j * n * k * out_bytes + j * n * n * 4
-    flops = 2 * j * n * n * k
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_enqueue(torch):
@@ -1152,7 +1133,7 @@ def phase_new_times(torch):
     plain = time_ms(torch, lambda: ops.gossip_enqueue_reference(w, pending), flush=flush)
     buf, wt = torch.empty((j, n, k), device="cuda"), w.transpose(1, 2)
     lib = time_ms(torch, lambda: torch.matmul(wt, pending, out=buf), flush=flush)
-    bound, by = enqueue_bound_ms(j, n, k, 4, 4)
+    bound, by = bound_ms("enqueue", j, n, k, 4, 4)
     enq = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
     log(f"  enqueue J={j} N={n} K={k} f32: kernel {kern:.4f} ms (read flush {read:.4f}), "
         f"bound {bound:.4f} ms "
@@ -1863,7 +1844,7 @@ def phase_times(torch):
                             flush=by_mode["zero"])
             lib = time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ring[slots_dev].float()),
                           flush=by_mode["zero"])
-            bound, by = bound_ms(live, j, n, m, k, ring.element_size())
+            bound, by = bound_ms("drain", j, n, m, k, ring.element_size(), live=live)
             out[name, live] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
                                    bound_by=by)
             log(f"  drain J=3 N=M=25 K=146447 {name}, {live} live bucket(s): kernel "
@@ -1907,7 +1888,7 @@ def phase_mix_times(torch, k):
     buf, qt = torch.empty_like(deltas), q.T
     lib = time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=10)
     copy = time_ms(torch, lambda: buf.copy_(deltas), reps=10, flush=by_mode["zero"])
-    bound, by = mix_bound_ms(n, k, 4)
+    bound, by = bound_ms("mix", n, k, 4)
     log(f"  mix N={n} K={k} f32 ({mix_instance(torch, n, k)}): kernel {kern:.4f} ms (read "
         f"flush {read:.4f}), bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
         f"plain {plain:.4f} ms, library matmul {lib:.4f} ms, copy of the plane {copy:.4f} ms")
@@ -2553,7 +2534,7 @@ def phase_seed_times(torch):
                     flush=by_mode["zero"])
     lib = time_ms(torch, lambda: torch.einsum("rjnm,rjnk->rmk", w, ring[:, slots_dev]),
                   flush=by_mode["zero"])
-    one, by = bound_ms(3, j, n, m, k, 4)
+    one, by = bound_ms("drain", j, n, m, k, 4, live=3)
     bound = r * one
     log(f"  drain seed axis R={r} J=3 N=M=25 K={k} f32, 3 live each: kernel {kern:.4f} ms "
         f"(read flush {read:.4f}), bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of "
@@ -2579,11 +2560,9 @@ def phase_wide_times(torch):
     k = 146_447
     rows = {}
 
-    def row(label, kern, read, plain, lib, moved, flops, elem, copy=None):
-        bound, by = ((moved / HBM_BYTES_PER_S * 1e3, "bytes")
-                     if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS
-                     else (flops / F32_FLOPS * 1e3, "operations"))
-        tc, tc_by = tc_bound_ms(moved, flops, elem)
+    def row(label, kern, read, plain, lib, work, copy=None):
+        bound, by = bound_ms(*work)
+        tc, tc_by = bound_ms(*work, tensor_cores=4)
         rows[label] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
                            bound_by=by, tc_bound_ms=tc, tc_bound_by=tc_by, copy_ms=copy)
         log(f"  {label}: kernel {kern:.4f} ms (read flush {read:.4f}), bound {bound:.4f} ms "
@@ -2602,7 +2581,7 @@ def phase_wide_times(torch):
                     flush=by_mode["zero"]),
             time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ring[slots_dev]), reps=20,
                     flush=by_mode["zero"]),
-            3 * n * k * 4 + 3 * n * n * 4 + n * k * 4, 2 * 3 * n * n * k, 4)
+            ("drain", 3, n, n, k, 4))
         del w, ring
     for n in (25, 100, 256):
         q, deltas = mix_case(torch, n, k, torch.float32, seed=600 + n)
@@ -2615,8 +2594,7 @@ def phase_wide_times(torch):
                     flush=by_mode["zero"]),
             time_ms(torch, lambda: torch.matmul(qt, deltas, out=buf), reps=20,
                     flush=by_mode["zero"]),
-            2 * n * k * 4 + n * n * 4, 2 * n * n * k, 4,
-            copy=time_ms(torch, lambda: buf.copy_(deltas), reps=30, flush=by_mode["zero"]))
+            ("mix", n, k, 4), copy=time_ms(torch, lambda: buf.copy_(deltas), reps=30, flush=by_mode["zero"]))
         del q, deltas, buf
     w, pending = enqueue_case(torch, 3, 100, k, torch.float32, 700)
     buf, wt = torch.empty((3, 100, k), device="cuda"), w.transpose(1, 2)
@@ -2627,7 +2605,7 @@ def phase_wide_times(torch):
                 flush=by_mode["zero"]),
         time_ms(torch, lambda: torch.matmul(wt, pending, out=buf), reps=20,
                 flush=by_mode["zero"]),
-        100 * k * 4 + 3 * 100 * k * 4 + 3 * 100 * 100 * 4, 2 * 3 * 100 * 100 * k, 4)
+        ("enqueue", 3, 100, k, 4, 4))
     del w, pending, buf
     torch.cuda.empty_cache()
     info = (ctypes.c_int * 3)()
@@ -3385,7 +3363,7 @@ def family_mix_times(torch):
                     torch.matmul(qt, deltas[:, lo:lo + SLICE].contiguous())
 
             lib = time_ms(torch, sliced, reps=5)
-        bound, by = mix_bound_ms(2, k, 4)
+        bound, by = bound_ms("mix", 2, k, 4)
         log(f"  mix N=2 K={k} f32 ({arch}, {layers} layers, K % 4 = {k % 4}): kernel "
             f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
             f"plain {plain:.4f} ms, library "
@@ -3415,11 +3393,16 @@ def log_families(rows):
 
 
 # phase 2 and 9: the drain's rectangular route as the client mesh runs it,
-# (J, N_loc, M, K, ring rows): the mesh trainer's dense mix at qwen2-1.5b's
-# full plane (one bucket of each rank's 2 senders against the 4 receivers;
-# K is counted from the config's meta parameters) and the sharded fig4
-# window at 5 ranks (5 senders against 25 receivers)
-RECT_QWEN2, RECT_FIG4 = (1, 2, 4, None, 1), (3, 5, 25, 146_447, 4)
+# (J, N_loc, M, K, ring rows), K an (arch, layer groups) plane counted from
+# the config's meta parameters (None: every group): the mesh trainer's
+# dense mix at qwen2-1.5b's full plane (one bucket of each rank's 2
+# senders against the 4 receivers) and the sharded fig4 window at 5 ranks
+# (5 senders against 25 receivers). Phase 2 also holds phase 22's dense
+# train pair: one sender a rank against 64 receivers over mamba2-2.7b's
+# plane at 1 and 2 of its 64 layers (M K past 2^31; 40.3 and 49.9 GiB f32
+# out)
+RECT_QWEN2, RECT_FIG4 = (1, 2, 4, ("qwen2-1.5b", None), 1), (3, 5, 25, 146_447, 4)
+RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) for d in (1, 2)}
 # phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
 # drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
 # per card and over gloo at MESH_RANKS ranks sharing the card; (c) fig4's
@@ -3458,28 +3441,35 @@ MESH_MODES = (("dense", 2, ["--mix", "dense", "--topology", "complete"]),
 MESH_MIX_TOL = {"dense": 1e-5, "dense bf16": 1e-2, "ring": 1e-2, "none": 0.0}
 
 
-def rect_k(torch):
-    """qwen2-1.5b's per-client Dflat at full width and depth."""
+def rect_k(torch, arch, groups):
+    """`arch`'s per-client Dflat at full width, at `groups` layer groups
+    (None: its full depth)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import flat as flat_lib
     from repro_torch.launch import steps
 
-    params = steps.param_specs_abstract(get_config("qwen2-1.5b"))
+    cfg = get_config(arch)
+    if groups is not None:
+        cfg = steps.depth_config(cfg, groups)
+    params = steps.param_specs_abstract(cfg)
     return sum(p.numel() for p in flat_lib.tree_leaves(params))
 
 
 def rect_case(torch, shape, dtype, seed):
     j, n, m, k, s = shape
-    return drain_case(torch, j, n, m, k if k else rect_k(torch), s, j, dtype, seed)
+    return drain_case(torch, j, n, m, k if isinstance(k, int) else rect_k(torch, *k), s, j,
+                      dtype, seed)
 
 
 def drain_against_plain(torch, ops, w, ring, slots, got):
-    """(max |kernel - plain|, largest |plain|, agree?) over column slices,
-    so that a multi-GB drain needs no second full-size plain result."""
+    """(max |kernel - plain|, largest |plain|, agree?) over column slices
+    of at most 4 SLICE / M columns, so that a multi-GB drain needs no
+    second full-size plain result."""
     worst = scale = 0.0
-    for lo in range(0, ring.shape[-1], SLICE):
-        want = ops.gossip_drain_reference(w, ring[..., lo:lo + SLICE].contiguous(), slots)
-        part = got[:, lo:lo + SLICE]
+    cols = min(SLICE, SLICE * 4 // w.shape[-1])
+    for lo in range(0, ring.shape[-1], cols):
+        want = ops.gossip_drain_reference(w, ring[..., lo:lo + cols].contiguous(), slots)
+        part = got[:, lo:lo + cols]
         worst = max(worst, float((part - want).abs().max()))
         scale = max(scale, float(want.abs().max()))
         if not bool(torch.isfinite(part).all()):
@@ -3489,12 +3479,13 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`) in f32 and bf16, against its plain version
-    in column slices, within RTOL of the largest |value|."""
+    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`) in f32 and bf16, against its
+    plain version in column slices, within RTOL of the largest |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
-    for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4)):
+    for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
+                         *RECT_DRY.items()):
         for i, dtype in enumerate((torch.float32, torch.bfloat16)):
             w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
             got = ops.gossip_drain(w, ring, slots)
@@ -3537,7 +3528,7 @@ def phase_rect_times(torch, mesh):
             torch.tensor(slots, device="cuda")]
         lib = time_ms(torch, lambda: torch.einsum("jnm,jnk->mk", w, ordered), reps=10,
                       flush=flush)
-        bound, by = bound_ms(j, j, n, m, k, 4)
+        bound, by = bound_ms("drain", j, n, m, k, 4)
         rows[label] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
                            bound_by=by, collective_ms=coll)
         log(f"  drain rectangular {label} J={j} N_loc={n} M={m} K={k} f32: kernel "
@@ -3894,6 +3885,88 @@ def phase_mesh(torch):
     return res
 
 
+# phase 22: (arch, shape, client ranks W, mix mode). The dense mix's
+# partial plane, (W, Dflat) f32 on a rank, fits no card at full depth at
+# a W whose activations fit (the dry run's reckoning): the first train
+# pair runs the ring at full depth, the second the dense mix (the drain
+# kernel) at depths 1 and 2, extrapolated to 64 layers
+DRY_PAIRS = (("mamba2-2.7b", "train_4k", 256, "ring"),
+             ("mamba2-2.7b", "train_4k", 64, "dense"),
+             ("mamba2-2.7b", "prefill_32k", 32, "dense"),
+             ("qwen2-1.5b", "decode_32k", 16, "dense"),
+             ("mamba2-2.7b", "long_500k", 1, "dense"))
+# measured against reckoned peak, within 128 MiB + 0.1% of the reckoned:
+# the caching allocator rounds each block up (to 512 B, and a large block
+# keeps a remainder under 1 MiB unsplit) and may hold a block outside the
+# step's tensors (PR 24's readings: gaps of 0 to 67,109,372 bytes, the
+# latter one 64 MiB block); the meta run sees neither. Held at every depth
+# run, before and after the extrapolation
+DRY_PEAK_TOL = (1e-3, 128 << 20)  # relative, absolute (bytes)
+# 6 N T over the counted FLOPs of mamba2's train step at full width:
+# remat runs each block's forward twice (6/8), the SSD's own products add
+DRY_TRAIN_RATIO = (0.6, 0.95)
+
+
+def peak_gaps(row):
+    """[(what, measured, reckoned)] of one row's peaks: each depth run and,
+    extrapolated or not, the row's own."""
+    out = []
+    how = row["cost_correction"].get("measured", {})
+    for d, reckoned in zip((1, 2), how.get("reckoned_peaks", ())):
+        out.append((f"depth {d}", how[f"depth{d}"]["peak_bytes"], reckoned))
+    out.append((str(row["run_depth"]), row["measured_peak_bytes"],
+                row["reckoned_run_peak_bytes"]))
+    return out
+
+
+def phase_dryrun(torch):
+    """Phase 22: the dry run's pairs reckoned and run; returns the launch
+    counts of their runs."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    reset_launches()
+    rows, failures = [], []
+    for arch, shape, clients, mix in DRY_PAIRS:
+        row = dryrun.lower_pair(arch, shape, clients=clients, mix_mode=mix, run=True,
+                                verbose=False)
+        rows.append(row)
+        log(f"phase 22 row: {json.dumps(row)}")
+        peaks = []
+        for what, got, want in peak_gaps(row):
+            gap, tol = abs(got - want), DRY_PEAK_TOL[0] * want + DRY_PEAK_TOL[1]
+            peaks.append(f"{what} {got / 2**30:.3f} GiB measured, {want / 2**30:.3f} "
+                         f"reckoned, gap {gap} bytes (bound {tol:.0f})")
+            if gap > tol:
+                failures.append(f"{arch} x {shape} at {what}: peak gap {gap} > {tol:.0f}")
+        fracs = {k: row[k] for k in ("roofline_fraction", "bound_fraction")}
+        log(f"phase 22 dry run: {arch} x {shape} x {row['mesh']} ({mix}): "
+            f"{row['measured_s_per_step']:.6f} s/step against max(compute "
+            f"{row['t_compute_s']:.6f}, memory {row['t_memory_s']:.6f}) s, roofline_fraction "
+            f"{fracs['roofline_fraction']:.4f}; bound {row['t_bound_s']:.6f} s (model FLOPs, "
+            f"{row['necessary_bytes']} necessary bytes), bound_fraction "
+            f"{fracs['bound_fraction']:.4f}; peaks: {'; '.join(peaks)}; useful_flops_ratio "
+            f"{row['useful_flops_ratio']:.4f}; {row['host_syncs']} host syncs; reckoned in "
+            f"{row['t_compile_s']:.1f} s")
+        for name, frac in fracs.items():
+            if not (math.isfinite(frac) and 0 < frac <= 1):
+                failures.append(f"{arch} x {shape}: {name} {frac}")
+        if row["host_syncs"]:
+            failures.append(f"{arch} x {shape}: {row['host_syncs']} host syncs")
+        if row["mode"] == "train" and not (
+                DRY_TRAIN_RATIO[0] <= row["useful_flops_ratio"] <= DRY_TRAIN_RATIO[1]):
+            failures.append(f"{arch} x {shape}: useful_flops_ratio "
+                            f"{row['useful_flops_ratio']} outside {DRY_TRAIN_RATIO}")
+    launches = launch_counts()
+    if not (launches["ssd_chunk"] and launches["drain"]):
+        failures.append(f"a kernel of the dry run's pairs never launched: {launches}")
+    log(f"phase 22 dry run: {len(rows)} pairs in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    if failures:
+        raise RuntimeError("phase 22 dry run: " + "; ".join(failures))
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
@@ -3920,6 +3993,10 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", action="store_true",
                         help="only phase 21, the client mesh (and phase 2's and 9's "
                              "rectangular drain)")
+    parser.add_argument("--dryrun", action="store_true",
+                        help="only phase 22, the dry run's pairs reckoned and run (and "
+                             "phase 2's rectangular drain and ssd_chunk, which hold the "
+                             "kernels at its shapes)")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -3982,6 +4059,15 @@ def main(argv=None) -> int:
         log(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         return 0
+    if args.dryrun:
+        t_start = time.perf_counter()
+        phase_build()
+        phase_rect_kernels(torch)
+        phase_ssd_kernels(torch)
+        phase_dryrun(torch)
+        log(f"chip_smoke --dryrun: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
     if args.hybrid_depths:
         phase_build()
         failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
@@ -4015,6 +4101,8 @@ def main(argv=None) -> int:
     serving = phase_serving(torch)
     torch.cuda.empty_cache()
     mesh = phase_mesh(torch)
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
@@ -4028,7 +4116,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
              launches=(launches + scen_drain + sweep["launches"] + events["launches"]
-                       + entry["launches"]["drain"] + mesh["launches"]),
+                       + entry["launches"]["drain"] + mesh["launches"] + dry["drain"]),
              max_abs_err=max(max_err, seed_err, rect_err), **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
@@ -4047,7 +4135,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/ssd/ssd.py:47",
              launches=(m_launches["ssd_chunk"]
                        + sum(r["launches"]["ssd_chunk"] for r in families.values())
-                       + entry["launches"]["ssd_chunk"] + serving["launches"]["ssd_chunk"]),
+                       + entry["launches"]["ssd_chunk"] + serving["launches"]["ssd_chunk"]
+                       + dry["ssd_chunk"]),
              max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
@@ -4087,7 +4176,8 @@ def main(argv=None) -> int:
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
         f"engine's, {entry['launches']['drain']} on the entry points', {mesh['launches']} on "
-        f"the client mesh's (its ranks' sum)")
+        f"the client mesh's (its ranks' sum), {dry['drain']} on the dry run's dense train "
+        f"pair (phase 22)")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
         f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"
@@ -4098,7 +4188,8 @@ def main(argv=None) -> int:
         + ", ".join(f"{r['launches']['ssd_chunk']} on {r['cfg'].name}'s"
                     for r in families.values() if r["launches"]["ssd_chunk"])
         + f", {entry['launches']['ssd_chunk']} on the entry points', "
-        f"{serving['launches']['ssd_chunk']} on the f32 prefills of phase 20 (b)")
+        f"{serving['launches']['ssd_chunk']} on the f32 prefills of phase 20 (b), "
+        f"{dry['ssd_chunk']} on the dry run's mamba2 pairs (phase 22)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

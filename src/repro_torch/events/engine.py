@@ -206,6 +206,7 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
         sender = torch.arange(n, device=pending.device) == ci
         # suppression: the backlog's norm against the threshold, read on the
         # host (the one sync of event-triggered's TX rows)
+        # repro-lint: disable-next-line=TENSOR-PY-BRANCH(event-triggered reads its fire decision on the host once per TX row by design, PERF.md section 2; the other event modes pass trigger 0 and never reach the read)
         fire = trigger <= 0 or bool(
             pending[ci].square().sum() >= float(np.float32(trigger) ** 2))
         if fire:

@@ -10,7 +10,9 @@ hand-written Hopper kernel or raises; a CPU tensor takes the plain
 version (`gossip_drain_reference`, `gossip_mix_reference`,
 `gossip_enqueue_reference`). There is no fallback from a kernel to its
 plain version. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. A ``meta`` tensor (the dry run's) gets an empty
+result of the output's shape, and the drain and the mix report their
+work to `repro_torch.kernels.work`.
 
 Routes. Each source has a narrow route, tuned for N (and M) <= 64 with
 every weight matrix in one block, and the wide route of
@@ -29,7 +31,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.gossip.ref import gossip_enqueue_ref
 
 RING_DTYPES = (torch.float32, torch.bfloat16)
@@ -349,6 +351,13 @@ def gossip_drain(w_stack: torch.Tensor, ring: torch.Tensor,
     _check(w_stack, ring, slots)
     if ring.device.type == "cpu":
         return gossip_drain_reference(w_stack, ring, slots)
+    if ring.device.type == "meta":
+        j_total, n, m = w_stack.shape[-3:]
+        seeds = w_stack.shape[0] if w_stack.dim() == 4 else 1
+        work.record("gossip_drain", work.drain(j_total, n, m, ring.shape[-1],
+                                               ring.element_size(), seeds))
+        return ring.new_empty(tuple(w_stack.shape[:-3]) + (m, ring.shape[-1]),
+                              dtype=torch.float32)
     if ring.device.type != "cuda":
         raise ValueError(f"no drain kernel for device {ring.device}")
     lib = _drain_lib()
@@ -498,6 +507,9 @@ def gossip_mix(q: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     _check_mix(q, deltas)
     if deltas.device.type == "cpu":
         return gossip_mix_reference(q, deltas)
+    if deltas.device.type == "meta":
+        work.record("gossip_mix", work.mix(*deltas.shape, deltas.element_size()))
+        return torch.empty_like(deltas)
     if deltas.device.type != "cuda":
         raise ValueError(f"no mix kernel for device {deltas.device}")
     lib = _mix_lib()

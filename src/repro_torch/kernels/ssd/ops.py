@@ -5,6 +5,8 @@
 launches the hand-written Hopper kernel or raises, a CPU tensor takes
 the plain version `ssd_chunk_ref`; there is no fallback from the kernel
 to its plain version. It counts its launches in ``ssd_chunk.launches``.
+A ``meta`` tensor (the dry run's) gets empty results of the outputs'
+shapes and reports its work to `repro_torch.kernels.work`.
 `SSDChunk` makes it differentiable: its backward recomputes
 `ssd_chunk_ref` and differentiates that (the reference has no backward
 kernel either; its training path differentiates plain jnp).
@@ -19,7 +21,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
 SSD_DTYPES = (torch.float32, torch.bfloat16)
@@ -80,6 +82,12 @@ def ssd_chunk(C, B, x, cums, dt):
     _check_layout(C, B, x, cums, dt)
     if x.device.type == "cpu":
         return ssd_chunk_ref(C, B, x, cums, dt)
+    if x.device.type == "meta":
+        bb, g, nc, q, n = C.shape
+        h, p = x.shape[1], x.shape[4]
+        work.record("ssd_chunk", work.ssd_chunk(bb, h, g, nc, q, n, p, x.element_size()))
+        return (x.new_empty((bb, h, nc, q, p), dtype=torch.float32),
+                x.new_empty((bb, h, nc, n, p), dtype=torch.float32))
     y, s = launch(_lib(), C, B, x, cums, dt)
     ssd_chunk.launches += 1
     return y, s

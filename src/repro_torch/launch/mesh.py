@@ -78,6 +78,9 @@ def rank_device(backend: str, device=None) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
+COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange")
+
+
 class Mesh:
     """A named mesh over the ranks of the default process group.
 
@@ -87,23 +90,27 @@ class Mesh:
     ``size`` ranks in which this rank is ``rank``; the collectives below
     run over it. ``collective_s`` accumulates the wall seconds spent in
     them (on CUDA each is bracketed by a device sync, so it times the
-    collective and its staging, not the work queued before it)."""
+    collective and its staging, not the work queued before it).
+    ``collective_bytes`` and ``collective_counts`` tally, per kind of
+    `COLLECTIVES`, the bytes of each collective's result on this rank
+    (what it receives, as the reference reads from its HLO) and the
+    number of calls; `collective_tally` returns both in the reference's
+    ``collective_bytes`` shape.
+
+    `Mesh.dry` builds the same class without a process group: rank 0
+    of a world that does not exist, for the dry run. Its
+    collectives return results of the real shapes and dtypes, the rank's
+    own share (its block of a reduce-scatter, its tensor repeated for an
+    all-gather, copies for a broadcast or an exchange; on ``meta`` only
+    their allocations, so the dry run's byte counter sees no stand-in
+    traffic), and fill the tally; nothing is sent and no peer's data is
+    in them."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *, backend: str,
                  device=None):
         from torch.distributed.device_mesh import init_device_mesh
 
-        shape, axes = tuple(int(s) for s in shape), tuple(axes)
-        if len(shape) != len(axes):
-            raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
-        self.shape = dict(zip(axes, shape))
-        self.axis_names = axes
-        wide = {a: s for a, s in self.shape.items() if a not in client_axes(self) and s > 1}
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide} shard one model (tensor parallelism); only the "
-                f"client axes {client_axes(self)} are laid over ranks so far "
-                f"({ROADMAP_MODEL_AXIS})")
+        shape, axes = self._set_axes(shape, axes)
         if not dist.is_initialized():
             raise RuntimeError("no process group: call init_world(backend, ...) first")
         if dist.get_backend() != backend:
@@ -123,10 +130,51 @@ class Mesh:
         self.rank = dist.get_rank(self.group)
         self.size = dist.get_world_size(self.group)
         self.staged = backend == "gloo" and self.device.type == "cuda"
+        self.is_dry = False
+        self.reset_tally()
+
+    @classmethod
+    def dry(cls, shape: Sequence[int], axes: Sequence[str], *, device="meta") -> "Mesh":
+        """A world-less mesh of `shape` over `axes` standing for client
+        rank 0 on `device` (see the class docstring); the same "model"
+        axis check as a real mesh."""
+        mesh = cls.__new__(cls)
+        shape, _ = mesh._set_axes(shape, axes)
+        mesh.size = math.prod(mesh.shape[a] for a in client_axes(mesh))
+        mesh.backend, mesh.device, mesh.device_mesh, mesh.group = None, torch.device(device), \
+            None, None
+        mesh.rank, mesh.staged, mesh.is_dry = 0, False, True
+        mesh.reset_tally()
+        return mesh
+
+    def _set_axes(self, shape, axes):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = axes
+        wide = {a: s for a, s in self.shape.items() if a not in client_axes(self) and s > 1}
+        if wide:
+            raise NotImplementedError(
+                f"mesh axes {wide} shard one model (tensor parallelism); only the "
+                f"client axes {client_axes(self)} are laid over ranks so far "
+                f"({ROADMAP_MODEL_AXIS})")
+        return shape, axes
+
+    def reset_tally(self) -> None:
+        """Zero ``collective_s`` and the per-kind tally."""
         self.collective_s = 0.0
+        self.collective_bytes = {k: 0 for k in COLLECTIVES}
+        self.collective_counts = {k: 0 for k in COLLECTIVES}
+
+    def collective_tally(self) -> dict:
+        """``{kind: result bytes, ..., "_counts": {kind: calls}}`` since
+        the mesh was made or `reset_tally`."""
+        return {**self.collective_bytes, "_counts": dict(self.collective_counts)}
 
     def __repr__(self):
-        return (f"Mesh({self.shape}, backend={self.backend!r}, device={self.device}, "
+        world = "no world" if self.is_dry else f"backend={self.backend!r}"
+        return (f"Mesh({self.shape}, {world}, device={self.device}, "
                 f"client rank {self.rank} of {self.size})")
 
     # -- the rank's clients ----------------------------------------------
@@ -146,10 +194,25 @@ class Mesh:
 
     # -- collectives over the client group -------------------------------
 
-    def _run(self, fn: Callable, *tensors):
+    def _run(self, kind: str, fn: Callable, local: Callable, *tensors):
         """`fn` on `tensors` (staged to the host under gloo with CUDA
-        tensors), timed into ``collective_s``; returns `fn`'s tensors on
-        the rank's device."""
+        tensors), timed into ``collective_s`` and tallied under `kind`;
+        returns `fn`'s tensors on the rank's device. A dry mesh runs
+        `local`, the rank's share without peers, instead, untimed."""
+        out = local(*tensors) if self.is_dry else self._timed(fn, tensors)
+        self.collective_bytes[kind] += sum(t.numel() * t.element_size() for t in out)
+        self.collective_counts[kind] += 1
+        return out
+
+    @staticmethod
+    def _copy(t: torch.Tensor) -> torch.Tensor:
+        """A dry mesh's stand-in result: a copy of `t`, its allocation
+        alone on ``meta``."""
+        if t.is_meta:
+            return torch.empty_like(t, memory_format=torch.contiguous_format)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def _timed(self, fn: Callable, tensors):
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -177,7 +240,11 @@ class Mesh:
             _REDUCE_SCATTER(out, src, group=self.group)
             return (out,)
 
-        (out,) = self._run(scatter, x.movedim(dim, 0).contiguous())
+        def local(src):
+            k = src.shape[0] // self.size
+            return (self._copy(src[self.rank * k:(self.rank + 1) * k]),)
+
+        (out,) = self._run("reduce_scatter", scatter, local, x.movedim(dim, 0).contiguous())
         return out.movedim(0, dim).contiguous() if dim % x.dim() else out
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -188,7 +255,12 @@ class Mesh:
             _ALL_GATHER(out, src, group=self.group)
             return (out,)
 
-        (out,) = self._run(gather, x.movedim(dim, 0).contiguous())
+        def local(src):
+            if src.is_meta:
+                return (src.new_empty((src.shape[0] * self.size,) + tuple(src.shape[1:])),)
+            return (src.repeat((self.size,) + (1,) * (src.dim() - 1)),)
+
+        (out,) = self._run("all_gather", gather, local, x.movedim(dim, 0).contiguous())
         return out.movedim(0, dim).contiguous() if dim % x.dim() else out
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
@@ -199,7 +271,7 @@ class Mesh:
             dist.broadcast(t, src=dist.get_global_rank(self.group, src), group=self.group)
             return (t,)
 
-        return self._run(bcast, x)[0]
+        return self._run("broadcast", bcast, lambda t: (self._copy(t),), x)[0]
 
     def broadcast_tensors(self, tensors, src: int) -> list:
         """Client rank `src`'s `tensors` on every rank, bit for bit, in one
@@ -214,10 +286,13 @@ class Mesh:
         rank sent forward and what the next rank sent back."""
         if self.size == 1:
             return to_next.clone(), to_prev.clone()
-        nxt = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
-        prv = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+
+        def local(fwd, bwd):
+            return self._copy(fwd), self._copy(bwd)
 
         def exchange(fwd, bwd):
+            nxt = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
+            prv = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
             fwd, bwd = fwd.contiguous(), bwd.contiguous()
             from_prev, from_next = torch.empty_like(fwd), torch.empty_like(bwd)
             ops = [dist.P2POp(dist.isend, fwd, nxt, self.group, tag=0),
@@ -228,10 +303,11 @@ class Mesh:
                 work.wait()
             return from_prev, from_next
 
-        return self._run(exchange, to_next, to_prev)
+        return self._run("ring_exchange", exchange, local, to_next, to_prev)
 
     def barrier(self) -> None:
-        dist.barrier(group=self.group)
+        if not self.is_dry:
+            dist.barrier(group=self.group)
 
 
 def pack(tensors) -> torch.Tensor:

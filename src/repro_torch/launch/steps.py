@@ -310,6 +310,7 @@ def make_unify_step(cfg, mesh=None):
 
     @torch.no_grad()
     def unify_step(params, hub):
+        # repro-lint: disable-next-line=HOST-SYNC-IN-HOT-PATH(the trainer passes its rotating hub as a host int, which reads nothing; a 0-d tensor, the reference's argument, costs one read per unification, not per step)
         hub = int(hub)
         leaves = flat_lib.tree_leaves(params)
         if mesh is None:

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from _torch_draws import event_draws_chain
 from repro.core.channel import ChannelConfig as JChannel

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from test_torch_families import FAMILIES, _batch, _both, _params, _seq  # noqa: E402
 from test_torch_train import _jax_step  # noqa: E402

@@ -18,7 +18,7 @@ import repro_torch
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 # subpackages of the reference that the port has not ported yet
-NOT_PORTED = ("analysis",)
+NOT_PORTED = ()
 
 
 def _modules():
@@ -146,7 +146,12 @@ def test_module_list_covers_the_slice():
                 "configs.zamba2_2p7b", "configs.llama3p2_vision_11b",
                 "configs.musicgen_large", "configs.stablelm_3b",
                 "configs.qwen2p5_32b", "configs.yi_34b", "models.flash",
-                "launch.serve", "launch.mesh", "sharding.axes", "sharding.specs"):
+                "launch.serve", "launch.mesh", "sharding.axes", "sharding.specs",
+                "launch.dryrun", "launch.roofline", "kernels.work", "analysis",
+                "analysis.core", "analysis.__main__", "analysis.hotctx",
+                "analysis.tensorness", "analysis.rules", "analysis.rules.contracts",
+                "analysis.rules.hot", "analysis.rules.markers", "analysis.rules.rng",
+                "analysis.rules.tf32", "analysis.rules.trace"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro.core import mixing as jmixing
 from repro.kernels.gossip import ops as jops

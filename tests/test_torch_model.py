@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro.configs import base as jbase
 from repro.core import flat as jflat

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro import optim as joptim  # noqa: E402
 from repro.optim.optimizers import apply_updates as japply_updates  # noqa: E402

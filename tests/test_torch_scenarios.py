@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from _torch_draws import draws_chain, round_draws_chain  # noqa: E402
 from repro.api import get_algorithm as jget_algorithm  # noqa: E402

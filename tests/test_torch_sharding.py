@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 from jax.sharding import PartitionSpec as JP
 
 from repro.configs.base import SHAPES as JSHAPES

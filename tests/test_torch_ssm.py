@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro.configs.base import get_reduced as jget_reduced
 from repro.kernels.ssd.ops import ssd_forward_kernel

@@ -8,6 +8,7 @@ import re
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gossip import ops, variants

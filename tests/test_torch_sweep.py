@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from _torch_draws import seed_draws_chains
 from repro.api import simulate_sweep as jsimulate_sweep

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from _torch_draws import _batch_rows, draws_chain  # noqa: E402
 from repro.api import simulate as jsimulate  # noqa: E402

@@ -3,9 +3,10 @@ the CLI) against the JAX package, for the dense (qwen2) and ssm (mamba2)
 families.
 
 The JAX side of the trainer step is rebuilt here from `M.lm_loss`,
-`mixing.mix_dense` (through the Pallas mix kernel in interpret mode)
-and `steps.make_unify_step`, as the reference's `train.py:119-131`
-does; both sides get the same params (the reference's init), the same
+`mixing.mix_dense` (its default on the CPU, the einsum, as the
+reference's step calls it; tests/test_torch_mixing.py holds the port's
+mix against the Pallas mix kernel in interpret mode) and
+`steps.make_unify_step`, as the reference's `train.py:119-131` does; both sides get the same params (the reference's init), the same
 numpy tokens, the same tx masks and the same Psi tie-break noise.
 Three steps with one unification agree within 1e-4 (f32 sums of a
 gradient in another order, carried through three updates). A
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one CPU thread)
 
 from repro import checkpoint as jckpt
 from repro.api import make_context as jmake_context
@@ -47,7 +49,7 @@ def _jax_step(jcfg, lr):
 
         loss, grads = jax.vmap(jax.value_and_grad(client_loss))(params, batch)
         delta = jax.tree_util.tree_map(lambda g: -lr * g, grads)
-        add = jmixing.mix_dense(q_eff, delta, use_kernel=True, interpret=True)
+        add = jmixing.mix_dense(q_eff, delta)
         new_params = jax.tree_util.tree_map(
             lambda p, a: p + a.astype(p.dtype), params, add)
         return new_params, loss.mean()
