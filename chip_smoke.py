@@ -219,7 +219,7 @@ Phases (any failure exits non-zero):
                past 2^31 - 1 columns and the product over dense slices);
                the rectangular drain at phase 2's two mesh shapes beside
                its bound, the plain version, the einsum and phase 21's
-               collective. Phase 9 runs last, after 10 to 22.
+               collective. Phase 9 runs last, after 10 to 23.
   22. dry run - `python -m repro_torch.launch.dryrun`'s `lower_pair` on
                `DRY_PAIRS` (two train pairs, a prefill and two decode
                pairs, one rank's share of the client mesh at full width):
@@ -235,6 +235,26 @@ Phases (any failure exits non-zero):
                finite `roofline_fraction` and `bound_fraction` in (0, 1];
                phase 2 holds the kernels at these pairs' shapes
                (`RECT_DRY`, the "dry run" rows of `SSD_CASES`);
+  23. tensor parallelism - `repro_torch.sharding.tp` over a "model" axis,
+               ranks sharing the card over gloo as phase 21's: (a)
+               `train.main` on a (data 2, model 2) world, qwen2-1.5b at
+               full width and 2 of 28 layers, 4 clients, 2 steps of the
+               dense f32 mix and of none: step 1's per-client losses and
+               every leaf of the rank's blocks against the single-process
+               trainer on the same seeds (`TP_LOSS_TOL`, `TP_PARAM_TOL`),
+               the replicated leaves bit for bit equal across the model
+               ranks after both steps, one drain launch a rank a dense
+               step (phase 2 holds its J 1, N_loc 2, M 4 shape at one
+               model rank's plane, `RECT_TP`); the model axis's tally,
+               the staging seconds and the gathered-route leaves printed;
+               (b) a (1, 2) world: prefill and `TP_DECODE_STEPS` decode
+               steps of qwen2-1.5b at full width and depth in f32, batch
+               `TP_SERVE_BATCH`, the logits against one process within
+               `TP_SERVE_TOL` of the largest |logit|; (c) the dry run's
+               default mesh, the reference's (16, 16), for `TP_DRY`:
+               one rank's 1 / 16 share of qwen2.5-32b reckoned and run
+               at the depths its reckoned peak allows, each peak within
+               `DRY_PEAK_TOL`;
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -248,6 +268,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --dryrun
+    python3 chip_smoke.py --tp
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -266,8 +287,9 @@ fifth the build and phase 19 alone; the sixth the build and phase 20
 alone; the seventh the build, phase 21 and the rectangular drain's
 phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
 and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
-the
-ninth phase 16's comparison at other zamba2 depths, block
+the ninth the build, phase 2's rectangular drain, phase 23 and its
+drain shape's phase 9 row; the
+tenth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
 when the rule fails at any depth).
@@ -3402,6 +3424,9 @@ def log_families(rows):
 # plane at 1 and 2 of its 64 layers (M K past 2^31; 40.3 and 49.9 GiB f32
 # out)
 RECT_QWEN2, RECT_FIG4 = (1, 2, 4, ("qwen2-1.5b", None), 1), (3, 5, 25, 146_447, 4)
+# phase 23 (a)'s dense mix: each model rank's tile, qwen2-1.5b's plane at 2
+# layers as one of 2 model ranks holds it (K = 163,491,328)
+RECT_TP = (1, 2, 4, ("qwen2-1.5b", 2, 2), 1)
 RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) for d in (1, 2)}
 # phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
 # drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
@@ -3441,17 +3466,22 @@ MESH_MODES = (("dense", 2, ["--mix", "dense", "--topology", "complete"]),
 MESH_MIX_TOL = {"dense": 1e-5, "dense bf16": 1e-2, "ring": 1e-2, "none": 0.0}
 
 
-def rect_k(torch, arch, groups):
+def rect_k(torch, arch, groups, model=1):
     """`arch`'s per-client Dflat at full width, at `groups` layer groups
-    (None: its full depth)."""
+    (None: its full depth), as one of `model` ranks of "model" holds it."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import flat as flat_lib
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
+    from repro_torch.sharding.specs import tree_param_specs
 
     cfg = get_config(arch)
     if groups is not None:
         cfg = steps.depth_config(cfg, groups)
     params = steps.param_specs_abstract(cfg)
+    if model > 1:
+        mesh = mesh_lib.Mesh.dry((1, model), ("data", "model"))
+        params = steps.local_abstract(params, tree_param_specs(params, mesh=mesh), mesh)
     return sum(p.numel() for p in flat_lib.tree_leaves(params))
 
 
@@ -3479,13 +3509,14 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`) in f32 and bf16, against its
-    plain version in column slices, within RTOL of the largest |value|."""
+    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`) in f32 and bf16,
+    against its plain version in column slices, within RTOL of the
+    largest |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
     for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
-                         *RECT_DRY.items()):
+                         *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP)):
         for i, dtype in enumerate((torch.float32, torch.bfloat16)):
             w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
             got = ops.gossip_drain(w, ring, slots)
@@ -3504,18 +3535,30 @@ def phase_rect_kernels(torch):
     return worst
 
 
-def phase_rect_times(torch, mesh):
-    """Phase 9's rectangular drain rows: kernel, plain (in `SLICE`-column
-    pieces at the qwen2 plane, where one plain call does not fit the
-    card), one library call (the product over the same buckets), the bound
-    (N_loc * K payload read, M * K f32 written), and the collective beside
-    them from phase 21 (its mean ms per call)."""
+def rect_time_cases(mesh=None, tp=None):
+    """Phase 9's rectangular rows: (label, shape, the collective beside it)
+    of phase 21's results `mesh` and phase 23's `tp` (either may be None)."""
+    cases = []
+    if mesh is not None:
+        cases += [("qwen2 plane", RECT_QWEN2, mesh["train_collective_ms"]),
+                  ("fig4 window", RECT_FIG4, mesh["gloo_collective_ms"])]
+    if tp is not None:
+        cases.append(("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]))
+    return cases
+
+
+def phase_rect_times(torch, cases):
+    """Phase 9's rectangular drain rows of `cases` (`rect_time_cases`):
+    kernel, plain (in `SLICE`-column pieces at the qwen2 planes, where one
+    plain call does not fit the card), one library call (the product over
+    the same buckets), the bound (N_loc * K payload read, M * K f32
+    written), and the collective beside them from phase 21 or 23 (its mean
+    ms per call)."""
     from repro_torch.kernels.gossip import ops
 
     flush = flushes(torch)["zero"]
     rows = {}
-    for label, shape, coll in (("qwen2 plane", RECT_QWEN2, mesh["train_collective_ms"]),
-                               ("fig4 window", RECT_FIG4, mesh["gloo_collective_ms"])):
+    for label, shape, coll in cases:
         w, ring, slots = rect_case(torch, shape, torch.float32, seed=2100)
         j, n, m = w.shape
         k = ring.shape[-1]
@@ -3967,6 +4010,355 @@ def phase_dryrun(torch):
     return launches
 
 
+# phase 23: tensor parallelism over "model" (`repro_torch.sharding.tp`),
+# the ranks sharing the card over gloo as phase 21's (NCCL refuses two ranks
+# on one device). (a) `train.main` on a (data 2, model 2) world
+# (`TP_SHAPE`): phase 21 (b)'s run, 4 clients at 2 layers, each client now
+# over 2 ranks of "model"; its step 1 against the single-process trainer on
+# the same seeds. The ranks' bf16 products (other widths, other cuBLAS
+# tiles) and sums (re-associated across the model ranks) round otherwise,
+# so a leaf's largest gap is held within TP_PARAM_TOL of its largest |value|
+# and each client's loss within TP_LOSS_TOL (relative). Read on an H100
+# (PERF.md): 7.8e-5 for the losses; 1.7e-2 and 1.9e-2 for the params, at bk
+# and bv: a zero-init bias is its bf16 update alone, a sum over 256
+# positions that cancels to ~1e-5, so a few bf16 steps of its terms are
+# percents of it; a reduction left out (a bias gradient left partial) moves
+# a leaf by O(1) of itself
+TP_SHAPE = (2, 2)
+TP_MODES = (("dense", ["--mix", "dense", "--topology", "complete"]),
+            ("none", ["--mix", "none"]))
+TP_PARAM_TOL = 5e-2
+TP_LOSS_TOL = 1e-3
+# (b) serving on a (1, 2) world at qwen2-1.5b's full width and depth, in
+# f32 (phase 20's exact comparisons are in f32): the logits of a prefill
+# and of TP_DECODE_STEPS decode steps from an empty cache against one
+# process, within phase 20's 1e-4 of the largest |logit|
+TP_SERVE_SHAPE, TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_DECODE_STEPS = (1, 2), 4, 32, 4
+TP_SERVE_TOL = 1e-4
+# (c) the dry run at its default mesh, the reference's (16, 16): (arch,
+# shape, mix, blocked_threshold). At train_4k's 4,096 tokens the whole
+# scores of the gathered route's 40 heads (16 sequences a rank) do not fit
+# the card at one layer, so the pair takes the flash path from 1,024
+# tokens, the dry run's --train-attn-blocked (reckoned peaks: 93.6 GiB at
+# 64 layers, 43.5 and 44.3 at 1 and 2)
+TP_DRY = ("qwen2.5-32b", "train_4k", "ring", 1024)
+
+
+def tp_reference(torch, cfg, argv, none, path):
+    """The single-process trainer on phase 23 (a)'s inputs (its CLI
+    without --mesh-backend; `none`: the plane unmixed): step 1's
+    per-client losses, and its params saved to `path` on the host."""
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.core import mixing
+    from repro_torch.launch import train
+
+    real = (mixing.mix_plane, train.train_step_clients)
+    record = []
+
+    def mix_plane(q_eff, plane, mix=None):
+        return plane.clone() if none else real[0](q_eff, plane, mix)
+
+    def train_step_clients(*args, **kw):
+        params, losses = real[1](*args, **kw)
+        if not record:
+            torch.save(flat_lib.tree_map(lambda p: p.cpu(), params), path)
+            record.append(losses.tolist())
+        return params, losses
+
+    argv = [a for a in argv if a not in ("--mesh-backend", "gloo")] + ["--steps", "1"]
+    mixing.mix_plane, train.train_step_clients = mix_plane, train_step_clients
+    try:
+        train.main(argv, cfg=cfg)
+    finally:
+        mixing.mix_plane, train.train_step_clients = real
+    torch.cuda.empty_cache()
+    return record[0]
+
+
+def tp_rank_train(rank, world, modes):
+    """Phase 23 (a) in one rank: `train.main` on the (2, 2) mesh for each
+    (label, argv, reference path) of `modes`. Around each step of the
+    rank's clients: its time, the collectives' seconds, the model axis's
+    tally and the attention routes taken; after step 1 every leaf of the
+    rank's blocks against its block of the single-process params; after
+    each step the replicated leaves (no "model" in their spec) on the
+    host, for the parent to compare across the model ranks. The drain
+    launches are counted from 0 around each run."""
+    import torch
+
+    import repro_torch  # noqa: F401  (TF32 off)
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.kernels.gossip import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.sharding import tp as tp_lib
+    from repro_torch.sharding.specs import tree_param_specs
+
+    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
+    out = {}
+    for label, argv, ref_path in modes:
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        record, box = [], []
+        real_mix, real_clients = steps.mesh_mix, train.train_step_clients
+
+        def mesh_mix(mesh, *a, **k):
+            box.append(mesh)
+            return real_mix(mesh, *a, **k)
+
+        ref_leaves = dict(flat_lib.tree_items(ref))
+
+        def train_step_clients(*a, **k):
+            mesh = box[-1]
+            specs = dict(flat_lib.tree_items(tree_param_specs(ref, prefix=("data",),
+                                                              mesh=mesh)))
+            torch.cuda.synchronize()
+            c0, t0 = mesh.collective_s, time.perf_counter()
+            tally0, routes0 = mesh.collective_tally(), dict(mesh.tp_routes)
+            params, losses = real_clients(*a, **k)
+            torch.cuda.synchronize()
+            tally = mesh.collective_tally()
+            entry = dict(step_s=time.perf_counter() - t0, collective_s=mesh.collective_s - c0,
+                         losses=losses.tolist(),
+                         tally={kind: (tally["_counts"][kind] - tally0["_counts"][kind],
+                                       tally[kind] - tally0[kind])
+                                for kind in ("model_all_reduce", "model_all_gather",
+                                             "reduce_scatter")},
+                         routes={k: v - routes0[k] for k, v in mesh.tp_routes.items()},
+                         replicated={}, gaps={})
+            for path, leaf in flat_lib.tree_items(params):
+                if "model" not in specs[path]:
+                    entry["replicated"][path] = leaf.cpu()
+                if not record:  # step 1: against the single-process params
+                    want = tp_lib.block(ref_leaves[path], specs[path], mesh).to(leaf.device)
+                    entry["gaps"][path] = (float((leaf.float() - want.float()).abs().max()),
+                                           float(want.float().abs().max()))
+            record.append(entry)
+            return params, losses
+
+        # 4 clients on (2, 2): the reference's rule lays 4 ranks of 4 clients as (4, 1)
+        real_layout = train.mesh_layout
+        steps.mesh_mix, train.train_step_clients = mesh_mix, train_step_clients
+        train.mesh_layout = lambda world, clients: TP_SHAPE
+        torch.cuda.reset_peak_memory_stats()
+        ops.gossip_drain.launches = 0
+        try:
+            losses = train.main(MESH_TRAIN_ARGS + argv, cfg=cfg)
+        finally:
+            steps.mesh_mix, train.train_step_clients = real_mix, real_clients
+            train.mesh_layout = real_layout
+        torch.cuda.synchronize()
+        out[label] = dict(losses=losses, launches=ops.gossip_drain.launches, steps=record,
+                          coords=(box[0].rank, box[0].model_rank), staged=box[0].staged,
+                          peak=torch.cuda.max_memory_allocated())
+        del ref, ref_leaves
+    return out
+
+
+def tp_serve_inputs(torch):
+    """Phase 23 (b)'s config (f32), prompt and shapes, alike in every process."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+
+    cfg = get_config("qwen2-1.5b").with_(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 231)
+    prompt = torch.randint(0, cfg.vocab_size, (TP_SERVE_BATCH, TP_SERVE_PROMPT), generator=gen,
+                           device="cuda")
+    return (cfg, prompt, ShapeConfig("prefill", TP_SERVE_PROMPT, TP_SERVE_BATCH, "prefill"),
+            ShapeConfig("serve", TP_SERVE_PROMPT, TP_SERVE_BATCH, "decode"))
+
+
+def tp_serve(torch, mesh):
+    """Prefill and `TP_DECODE_STEPS` decode steps on `mesh` (None: one
+    process); the logits on the host and the times."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import tp as tp_lib
+
+    cfg, prompt, pshape, dshape = tp_serve_inputs(torch)
+    params = M.init_params(SEED + 230, cfg, "cuda", shard=tp_lib.sharder(mesh))
+    prefill_step = steps.make_prefill_step(cfg, pshape, mesh)
+    prefill_step(params, {"tokens": prompt})  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    serve = steps.make_serve_step(cfg, dshape, mesh)
+    state = M.init_decode_state(cfg, TP_SERVE_BATCH, TP_SERVE_PROMPT, device="cuda", mesh=mesh)
+    logits = []
+    for t in range(TP_DECODE_STEPS):
+        lg, state = serve(params, prompt[:, t], state)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return dict(prefill=prefill.cpu(), decode=torch.stack(logits, 1).cpu(),
+                prefill_s=t1 - t0, decode_s=(time.perf_counter() - t1) / TP_DECODE_STEPS,
+                heads=state.caches["0:attn"].k.shape[-2])
+
+
+def tp_rank_serve(rank, world):
+    """Phase 23 (b) in one rank of the (1, 2) world."""
+    import torch
+
+    import repro_torch  # noqa: F401  (TF32 off)
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(TP_SERVE_SHAPE, ("data", "model"), backend="gloo")
+    out = tp_serve(torch, mesh)
+    out.update(tally=mesh.collective_tally(), collective_s=mesh.collective_s,
+               routes=dict(mesh.tp_routes))
+    return out
+
+
+def phase_tp(torch):
+    """Phase 23 (see `TP_MODES` and the constants above them): returns
+    its numbers for the kernels line, phase 9 and PERF.md."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    res, failures = {}, []
+
+    # (a) the single-process references, then the (2, 2) world
+    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="tp-ref-") as root:
+        refs, modes = {}, []
+        for label, argv in TP_MODES:
+            path = os.path.join(root, f"{label}.pt")
+            refs[label] = tp_reference(torch, cfg, MESH_TRAIN_ARGS + argv, label == "none", path)
+            modes.append((label, argv, path))
+        t0 = time.perf_counter()
+        outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(TP_SHAPE), modes, backend="gloo",
+                                    timeout=600, threads=0, deadline=900)
+        log(f"  (a) tensor-parallel world {TP_SHAPE} of 4 gloo ranks: "
+            f"{time.perf_counter() - t0:.1f} s with process start")
+    launches, rows = 0, {}
+    for label, _ in TP_MODES:
+        runs = sorted((o[label] for o in outs), key=lambda r: r["coords"])
+        losses = [x for r in runs if r["coords"][1] == 0 for x in r["steps"][0]["losses"]]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, refs[label]))
+        ranked = sorted(((gap / max(scale, 1e-30), path, gap, scale)
+                         for r in runs for path, (gap, scale) in r["steps"][0]["gaps"].items()),
+                        key=lambda x: x[0], reverse=True)
+        worst = ranked[0]
+        weights = next(x for x in ranked if x[1][-1].startswith(("w", "embed")))
+        # every model rank of a client index: the same losses, and the
+        # replicated leaves bit for bit, after each step
+        first = {r["coords"][0]: r for r in runs if r["coords"][1] == 0}
+        equal = all(
+            r["steps"][step]["losses"] == first[r["coords"][0]]["steps"][step]["losses"]
+            and all(torch.equal(leaf, first[r["coords"][0]]["steps"][step]["replicated"][p])
+                    for p, leaf in r["steps"][step]["replicated"].items())
+            for r in runs for step in range(2))
+        n_repl = len(runs[0]["steps"][0]["replicated"])
+        expect = 2 * len(runs) if label == "dense" else 0
+        got = sum(r["launches"] for r in runs)
+        finite = all(math.isfinite(x) for r in runs for x in r["losses"])
+        ok = (loss_gap <= TP_LOSS_TOL and worst[0] <= TP_PARAM_TOL and equal
+              and got == expect and finite)
+        s2 = runs[0]["steps"][1]
+        log(f"  (a) {label}: step 1 losses " + " ".join(f"{x:.6f}" for x in losses)
+            + " against one process " + " ".join(f"{x:.6f}" for x in refs[label])
+            + f", largest relative gap {loss_gap:.3e} (tolerance {TP_LOSS_TOL}); params: the "
+            f"largest gap / largest |value| of a leaf {worst[0]:.3e} at {'/'.join(worst[1])} "
+            f"({worst[2]:.3e} of {worst[3]:.3e}; tolerance {TP_PARAM_TOL:.3e}), of a weight "
+            f"{weights[0]:.3e} at {'/'.join(weights[1])}; {n_repl} "
+            f"replicated leaves bit for bit equal across the model ranks after both steps "
+            f"{equal}; {got} drain launches (expected {expect}) {'ok' if ok else 'FAIL'}")
+        for step in range(2):
+            e = runs[0]["steps"][step]
+            log(f"  (a) {label} step {step + 1} (rank 0): {e['step_s']:.4f} s, collectives "
+                f"{e['collective_s']:.4f} s staged through the host "
+                f"({100 * e['collective_s'] / e['step_s']:.1f}%); model axis: "
+                + ", ".join(f"{k} {c} calls {b} bytes" for k, (c, b) in e["tally"].items())
+                + f"; attention routes {e['routes']}")
+        if not ok:
+            failures.append(f"(a) {label}")
+        launches += got
+        rows[label] = dict(s_step=max(r["steps"][1]["step_s"] for r in runs),
+                           collective_s=s2["collective_s"],
+                           share=s2["collective_s"] / s2["step_s"], tally=s2["tally"],
+                           routes=s2["routes"], peak=max(r["peak"] for r in runs),
+                           loss_gap=loss_gap, param_gap=worst[0])
+    res["train"] = rows
+    res["launches"] = launches
+    res["collective_ms"] = dict(
+        ms=1e3 * rows["dense"]["collective_s"],
+        what=f"gloo collectives of a {TP_SHAPE} dense step at {MESH_LAYERS} layers (the "
+        f"reduce-scatter of the (4, K) f32 partial and the model axis's), rank 0, a step")
+    torch.cuda.empty_cache()
+
+    # (b) serving on (1, 2) against one process
+    t0 = time.perf_counter()
+    outs = mesh_lib.spawn_ranks(tp_rank_serve, math.prod(TP_SERVE_SHAPE), backend="gloo",
+                                timeout=600, threads=0, deadline=600)
+    world_s = time.perf_counter() - t0
+    one = tp_serve(torch, None)
+    gaps = {k: max(rel_gap(o[k], one[k]) for o in outs) for k in ("prefill", "decode")}
+    ok = all(g <= TP_SERVE_TOL for g in gaps.values()) and all(
+        bool(torch.isfinite(o["decode"]).all()) for o in outs)
+    o0 = outs[0]
+    log(f"  (b) serving qwen2-1.5b (f32, full width and depth) on {TP_SERVE_SHAPE}: prefill "
+        f"{TP_SERVE_BATCH} x {TP_SERVE_PROMPT} {o0['prefill_s']:.4f} s (one process "
+        f"{one['prefill_s']:.4f}), decode {o0['decode_s'] * 1e3:.2f} ms/step (one process "
+        f"{one['decode_s'] * 1e3:.2f}); cache kv heads a rank {o0['heads']} of "
+        f"{one['heads']}; routes {o0['routes']}; model-axis calls "
+        f"{o0['tally']['_counts']['model_all_reduce']} all-reduce, "
+        f"{o0['tally']['_counts']['model_all_gather']} all-gather, collectives "
+        f"{o0['collective_s']:.3f} s; logits against one process, largest gap / largest "
+        f"|logit|: prefill {gaps['prefill']:.3e}, decode {gaps['decode']:.3e} (tolerance "
+        f"{TP_SERVE_TOL}); world {world_s:.1f} s with process start {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("(b) serving")
+    res["serve"] = dict(gaps=gaps, prefill_s=o0["prefill_s"], decode_s=o0["decode_s"],
+                        one_prefill_s=one["prefill_s"], one_decode_s=one["decode_s"])
+    del outs, one
+    torch.cuda.empty_cache()
+
+    # (c) the dry run's default mesh
+    arch, shape, mix, threshold = TP_DRY
+    row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
+                            verbose=False)
+    log(f"phase 23 (c) row: {json.dumps(row)}")
+    peaks = []
+    for what, got, want in peak_gaps(row):
+        gap, tol = abs(got - want), DRY_PEAK_TOL[0] * want + DRY_PEAK_TOL[1]
+        peaks.append(f"{what} {got / 2**30:.3f} GiB measured, {want / 2**30:.3f} reckoned, "
+                     f"gap {gap} bytes (bound {tol:.0f})")
+        if gap > tol:
+            failures.append(f"(c) peak gap {gap} > {tol:.0f} at {what}")
+    frac = row["bound_fraction"]
+    if not (math.isfinite(frac) and 0 < frac <= 1) or row["host_syncs"]:
+        failures.append(f"(c) bound_fraction {frac}, {row['host_syncs']} host syncs")
+    log(f"  (c) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
+        f"tokens): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
+        f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
+        f"{row['roofline_fraction']:.4f}; routes {row['tp_routes']}; model-axis bytes "
+        f"{row['coll_breakdown']['model_all_reduce']} all-reduce, "
+        f"{row['coll_breakdown']['model_all_gather']} all-gather; peaks: {'; '.join(peaks)}; "
+        f"{row['host_syncs']} host syncs; reckoned in {row['t_compile_s']:.1f} s")
+    res["dry"] = row
+    log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s")
+    if failures:
+        raise RuntimeError("phase 23: " + "; ".join(failures))
+    return res
+
+
+def log_tp(r):
+    """Phase 23's summary lines."""
+    for label, row in r["train"].items():
+        log(f"tensor-parallel trainer path ({label}, qwen2-1.5b at {MESH_LAYERS} layers on "
+            f"{TP_SHAPE}, 4 gloo ranks on one card): {row['s_step']:.4f} s/step, collectives "
+            f"{100 * row['share']:.1f}% of the step, peak {row['peak'] / 2**30:.2f} GiB per rank")
+    sv = r["serve"]
+    log(f"tensor-parallel serving path (qwen2-1.5b f32 on {TP_SERVE_SHAPE}): decode "
+        f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
+        f"process")
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
@@ -3997,6 +4389,9 @@ def main(argv=None) -> int:
                         help="only phase 22, the dry run's pairs reckoned and run (and "
                              "phase 2's rectangular drain and ssd_chunk, which hold the "
                              "kernels at its shapes)")
+    parser.add_argument("--tp", action="store_true",
+                        help="only phase 23, tensor parallelism over \"model\" (and phase 2's "
+                             "and 9's rectangular drain)")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -4054,7 +4449,7 @@ def main(argv=None) -> int:
         phase_build()
         phase_rect_kernels(torch)
         mesh = phase_mesh(torch)
-        phase_rect_times(torch, mesh)
+        phase_rect_times(torch, rect_time_cases(mesh=mesh))
         log_mesh(mesh)
         log(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -4066,6 +4461,16 @@ def main(argv=None) -> int:
         phase_ssd_kernels(torch)
         phase_dryrun(torch)
         log(f"chip_smoke --dryrun: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
+    if args.tp:
+        t_start = time.perf_counter()
+        phase_build()
+        phase_rect_kernels(torch)
+        tp = phase_tp(torch)
+        phase_rect_times(torch, rect_time_cases(tp=tp))
+        log_tp(tp)
+        log(f"chip_smoke --tp: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         return 0
     if args.hybrid_depths:
@@ -4103,12 +4508,14 @@ def main(argv=None) -> int:
     mesh = phase_mesh(torch)
     torch.cuda.empty_cache()
     dry = phase_dryrun(torch)
+    torch.cuda.empty_cache()
+    tp = phase_tp(torch)
     times = phase_times(torch)
     mix_times, mix_err_train = phase_mix_times(torch, dflat)
     ssd_times, enq_times = phase_new_times(torch)
     phase_wide_times(torch)
     phase_seed_times(torch)
-    phase_rect_times(torch, mesh)
+    phase_rect_times(torch, rect_time_cases(mesh, tp))
     family_mix_times(torch)
     log("phase 9 times: done")
     kernels = [
@@ -4116,7 +4523,8 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/gossip/csrc/drain.cu",
              replaces="src/repro/kernels/gossip/gossip.py:100",
              launches=(launches + scen_drain + sweep["launches"] + events["launches"]
-                       + entry["launches"]["drain"] + mesh["launches"] + dry["drain"]),
+                       + entry["launches"]["drain"] + mesh["launches"] + dry["drain"]
+                       + tp["launches"]),
              max_abs_err=max(max_err, seed_err, rect_err), **times["f32", 3]),
         dict(name="gossip_mix", route="cuda",
              source="src/repro_torch/kernels/gossip/csrc/mix.cu",
@@ -4173,11 +4581,13 @@ def main(argv=None) -> int:
         f"{ENTRY_WINDOWS} windows, max |d params| {entry['gap']:.3e})")
     log_serving(serving)
     log_mesh(mesh)
+    log_tp(tp)
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
         f"engine's, {entry['launches']['drain']} on the entry points', {mesh['launches']} on "
         f"the client mesh's (its ranks' sum), {dry['drain']} on the dry run's dense train "
-        f"pair (phase 22)")
+        f"pair (phase 22), {tp['launches']} on the tensor-parallel trainer's (phase 23, its "
+        f"ranks' sum)")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
         f"mamba2's, {baseline_launches} on the baselines', {scen_mix} on the scenario "
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"

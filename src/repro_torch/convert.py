@@ -33,7 +33,11 @@ inputs:
     numpy arrays);
   - `decode_state_from_numpy`: the reference's `DecodeState` (per-group
     stacked `KVCache` and `SSMState` leaves, ``pos``) and its cross KV ->
-    the port's, dtypes kept (``pos`` an int32 0-d tensor).
+    the port's, dtypes kept (``pos`` an int32 0-d tensor);
+  - `shard_params`: the reference's whole parameters -> one rank's
+    blocks of them on a ("data", "model") mesh, the layout
+    `tree_param_specs` gives (`gather_params` is its inverse, on every
+    rank).
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import torch
 
 from repro_torch import as_generator, resolve_device
 from repro_torch.core.baselines import BaselineState, RoundDraws
-from repro_torch.core.flat import tree_from_items
+from repro_torch.core.flat import tree_from_items, tree_items
 from repro_torch.core.protocol import DracoState, DracoStateLegacy, WindowDraws
 from repro_torch.events.engine import EventDraws, EventState
 from repro_torch.events.tape import EventTape
@@ -62,6 +66,67 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         return t.to(device=device, dtype=dtype or torch.bfloat16)
     return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def _specs(shapes, mesh, clients: bool):
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding.specs import tree_param_specs
+
+    caxes = mesh_lib.client_axes(mesh)
+    prefix = ((caxes if len(caxes) > 1 else caxes[0]),) if clients else ()
+    return tree_param_specs(shapes, prefix=prefix, mesh=mesh)
+
+
+def shard_params(tree, mesh, *, clients: bool = True):
+    """This rank's blocks of the whole parameters `tree` (a nested mapping
+    of arrays or tensors: client-stacked (N, ...) leaves when `clients`,
+    the one serving copy otherwise) on `mesh`: each leaf's spec from
+    `tree_param_specs` (the client axes on the first dim, the rules'
+    "model" dims, `filter_divisible` as in the reference) and its block
+    at this rank's client and model indices (`repro_torch.sharding.tp`),
+    bit for bit, on the mesh's device."""
+    from repro_torch.sharding import tp as tp_lib
+
+    def items(node, prefix):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                yield from items(node[k], prefix + (k,))
+        else:
+            yield prefix, node if isinstance(node, torch.Tensor) else _tensor(node, "cpu")
+
+    def copy(leaf, spec):  # a tensor of its own, never a view of `tree`'s
+        b = tp_lib.block(leaf, spec, mesh)
+        return torch.empty(b.shape, dtype=b.dtype, device=dev).copy_(b)
+
+    host = tree_from_items(items(tree, ()))
+    specs = _specs(host, mesh, clients)
+    dev = mesh.device
+    return tree_from_items((path, copy(leaf, spec))
+                           for (path, leaf), (_, spec) in zip(tree_items(host),
+                                                              tree_items(specs)))
+
+
+def gather_params(params, mesh, cfg, *, clients: bool = True):
+    """The inverse of `shard_params` on every rank: each leaf of this rank's
+    blocks `params` (of config `cfg`) all-gathered over "model" along its
+    sharded dims and over the client ranks along its first, leaf by leaf,
+    into host memory."""
+    from repro_torch.launch import steps
+
+    whole = steps.param_specs_abstract(cfg)
+    if clients:
+        n = tree_items(params)[0][1].shape[0] * mesh.size
+        whole = steps.stack_clients_abstract(whole, n)
+    specs = dict(tree_items(_specs(whole, mesh, clients)))
+    out = []
+    for path, leaf in tree_items(params):
+        for dim, ax in enumerate(specs[path]):
+            if ax == "model":
+                leaf = mesh.model_all_gather(leaf, dim)
+            elif ax is not None:
+                leaf = mesh.all_gather(leaf, dim)
+        out.append((path, leaf.cpu()))
+    return tree_from_items(out)
 
 
 def params_from_numpy(tree, device=None):

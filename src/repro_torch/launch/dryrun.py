@@ -14,13 +14,16 @@ world (`Mesh.dry`): same class and step code, result shapes on
 `Roofline.row()` plus the reference's extra keys is appended to
 ``results/dryrun.jsonl``.
 
-Layout. The reference's production mesh, (16, 16) over ("data",
-"model"), shards each model over a 16-way "model" axis, which the port
-does not have (ROADMAP item 20): the default mesh raises
-`NotImplementedError` here, as `launch/mesh.py::Mesh` does. ``--clients
+Layout. The default mesh is the reference's production mesh, (16, 16)
+over ("data", "model") ((2, 16, 16) with "pod"): 16 clients, each
+over a 16-way "model" axis, so a rank's share is one client's 1 / 16
+block of the model (`repro_torch.sharding.tp`). The port splits the
+dense family only over "model"; another family raises
+`NotImplementedError` there, naming its ROADMAP sub-item. ``--clients
 W`` takes the client mesh (W, 1) of `make_sweep_mesh` instead (W ranks,
 one client each; written ``"Wx1"`` in the row's ``mesh``), the layout the
-reference also has (``repro.launch.mesh``'s sweep mesh).
+reference also has (``repro.launch.mesh``'s sweep mesh), for every
+family.
 
 What the row holds:
   - ``flops_per_device`` / ``bytes_per_device``: the rank's share,
@@ -28,7 +31,9 @@ What the row holds:
     correct: ``cost_correction.method`` is ``"counted"``), each kernel as
     one op with its bound's work (``kernel_work``);
   - ``coll_bytes_per_device`` / ``coll_breakdown``: the dry mesh's tally
-    of result bytes per collective kind, its calls under ``"counts"``;
+    of result bytes per collective kind (the model axis's
+    ``model_all_reduce`` and ``model_all_gather`` among them), its calls
+    under ``"counts"``;
   - ``memory_analysis``: ``argument_size_in_bytes`` and
     ``output_size_in_bytes`` exact from the meta tensors,
     ``temp_size_in_bytes`` the peak live bytes of the tensors the step
@@ -47,7 +52,10 @@ What the row holds:
     eager bytes of ``t_memory_s`` shrink when ops are fused; these do
     not).
   - ``t_lower_s`` the time to build the step and its inputs,
-    ``t_compile_s`` the counted run's.
+    ``t_compile_s`` the counted run's;
+  - ``tp_routes``: the attention layers the counted run took on each
+    route over "model" (``heads``, ``gathered``) and the leaves the
+    gathered route all-gathered (`repro_torch.models.attention`).
 
 ``--run`` then runs the same share on one card (the dry mesh on CUDA:
 its collectives are the rank's local share, so the collective's time
@@ -65,6 +73,7 @@ and 2 (`steps.depth_config`), extrapolated ``c1 + (G - 1) (c2 - c1)``
 numbers as they are).
 
 Usage:
+  python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k --mix ring
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k --clients 16
   python -m repro_torch.launch.dryrun --all --clients 16
   python -m repro_torch.launch.dryrun --arch mamba2-2.7b --shape long_500k --clients 1 --run
@@ -97,9 +106,9 @@ RUN_SEED = 0  # the random weights and inputs of a --run
 
 
 def make_dry_mesh(clients: Optional[int], multi_pod: bool = False, device="meta"):
-    """(world-less `Mesh` standing for client rank 0, its name): the
-    reference's production mesh when `clients` is None (which raises,
-    ROADMAP item 20), else the client mesh (W, 1), with "pod" (2, W, 1)."""
+    """(world-less `Mesh` standing for client rank 0 and model rank 0, its
+    name): the reference's production mesh (16, 16) when `clients` is
+    None, else the client mesh (W, 1), with "pod" (2, W, 1)."""
     if clients is None:
         shape, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
             else ((16, 16), ("data", "model"))
@@ -118,14 +127,16 @@ def _rows(mesh, n: int, what: str) -> int:
     if n % mesh.size:
         raise NotImplementedError(
             f"{what} of {n} does not divide over the mesh's {mesh.size} client ranks; "
-            f"sharding another axis instead is {steps_lib.ROADMAP_CACHE_SEQ}")
+            f"sharding another axis instead is {mesh_lib.ROADMAP_CACHE_SEQ}")
     return n // mesh.size
 
 
 def _inputs(cfg, shape, mesh, device):
-    """The rank's share of the step's inputs: meta tensors on ``meta``,
-    random ones from `RUN_SEED` on a real device."""
+    """The rank's share of the step's inputs (its clients' rows, its
+    blocks of the params and its kv heads over "model"): meta tensors on
+    ``meta``, random ones from `RUN_SEED` on a real device."""
     from repro_torch.launch import train as train_lib
+    from repro_torch.sharding import tp as tp_lib
 
     meta = torch.device(device).type == "meta"
     gen = None if meta else torch.Generator(device=device).manual_seed(RUN_SEED)
@@ -135,20 +146,24 @@ def _inputs(cfg, shape, mesh, device):
         b = shape.global_batch // n  # train_batch_specs raises when it does not divide
         specs = steps_lib.train_batch_specs(cfg, shape, n)
         if meta:
-            params = steps_lib.stack_clients_abstract(steps_lib.param_specs_abstract(cfg),
-                                                      n_loc)
+            pspecs, _, _ = steps_lib.make_shardings(mesh, cfg, shape)
+            params = steps_lib.local_abstract(steps_lib.stack_clients_abstract(
+                steps_lib.param_specs_abstract(cfg), n), pspecs, mesh)
             batch = {k: _meta_like(v, n_loc) for k, v in specs.items()}
             q = torch.empty((n, n), dtype=torch.float32, device="meta")
         else:
-            params = train_lib.init_client_params(RUN_SEED, cfg, n_loc, device)
+            params = train_lib.init_client_params(RUN_SEED, cfg, n_loc, device, mesh)
             batch = train_lib.make_batches(gen, cfg, n_loc, b, shape.seq_len, device)
             q = torch.rand((n, n), generator=gen, device=device)
             q = q / q.sum(dim=1, keepdim=True)
         return params, batch, q
     scfg = steps_lib.serve_config(cfg, shape)
     rows = _rows(mesh, shape.global_batch, "the batch")
-    params = steps_lib.param_specs_abstract(scfg) if meta else M.init_params(RUN_SEED, scfg,
-                                                                             device)
+    if meta:
+        pspecs = steps_lib.serve_shardings(mesh, cfg, shape)[0]
+        params = steps_lib.local_abstract(steps_lib.param_specs_abstract(scfg), pspecs, mesh)
+    else:
+        params = M.init_params(RUN_SEED, scfg, device, shard=tp_lib.sharder(mesh))
 
     def embeds(*dims):
         if meta:
@@ -167,7 +182,7 @@ def _inputs(cfg, shape, mesh, device):
         if cfg.family == "vlm":
             batch["cross_embeds"] = embeds(rows, cfg.num_patch_tokens, cfg.d_model)
         return params, batch
-    state = M.init_decode_state(scfg, rows, shape.seq_len, device=device)
+    state = M.init_decode_state(scfg, rows, shape.seq_len, device=device, mesh=mesh)
     if cfg.embeds_in:
         tok = embeds(rows, 1, cfg.d_model)
     else:
@@ -182,12 +197,16 @@ def _inputs(cfg, shape, mesh, device):
 
 def build(cfg, shape, mesh, *, device="meta", mix_mode: str = "dense",
           psi: int = 0, mix_dtype=None, blocked_threshold: int = 8192,
-          vocab_chunk: int = 0, seq_parallel: bool = False):
+          vocab_chunk: int = 0, seq_parallel: bool = False, cache_shard: str = "kv_heads"):
     """``(step, args)``: the pair's step for the rank of `mesh` and that
     rank's inputs on `device`."""
     if seq_parallel:
         raise NotImplementedError("seq_parallel lays the residual stream's 'seq' axis on "
-                                  f"\"model\" ({mesh_lib.ROADMAP_MODEL_AXIS})")
+                                  f"\"model\" ({mesh_lib.ROADMAP_SEQ_PARALLEL})")
+    if cache_shard != "kv_heads" and mesh.model_size > 1:
+        raise NotImplementedError(
+            f"cache_shard={cache_shard!r} splits the cache's {cache_shard} over \"model\"; "
+            f"the port lays it over the kv heads only ({mesh_lib.ROADMAP_CACHE_SEQ})")
     if shape.mode == "train":
         md = torch.bfloat16 if mix_dtype == "bf16" else None
         step = steps_lib.make_train_step(cfg, mesh, mix_mode=mix_mode, psi=psi, mix_dtype=md,
@@ -224,6 +243,7 @@ def reckon(cfg, shape, mesh, **kw) -> dict:
                    "temp_size_in_bytes": w.temp_peak,
                    "generated_code_size_in_bytes": None},
         "peak": arg_bytes + w.temp_peak, "t_lower": t_lower, "t_count": t_count,
+        "tp_routes": dict(mesh.tp_routes),
     }
 
 
@@ -285,15 +305,16 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                clients: Optional[int] = None, run: bool = False, cfg=None):
     """Reckon (and with `run`, measure) one pair; returns its row.
     `cfg` replaces ``get_config(arch)`` (a reduced config in tests);
-    `cache_shard` is recorded: the client mesh has no "model" axis to
-    shard a cache over."""
+    `cache_shard` is recorded, and on a "model" axis larger than 1 any
+    value but 'kv_heads' raises (the port lays a cache over the kv heads
+    only)."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     mesh, mesh_name = make_dry_mesh(clients, multi_pod)
     _, n_groups = M.block_pattern(cfg)
     kw = dict(mix_mode=mix_mode, psi=psi, mix_dtype=mix_dtype,
               blocked_threshold=blocked_threshold, vocab_chunk=vocab_chunk,
-              seq_parallel=seq_parallel)
+              seq_parallel=seq_parallel, cache_shard=cache_shard)
     art = reckon(cfg, shape, mesh, **kw)
     corr_meta = {"method": "counted"}
     roof = Roofline(
@@ -331,6 +352,7 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
         "reckoned_peak_bytes": art["peak"],
         "necessary_bytes": necessary,
         "t_bound_s": t_bound,
+        "tp_routes": art["tp_routes"],
     })
     if run:
         measured, corr_meta["measured"] = run_pair(
@@ -347,6 +369,7 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"bytes/dev={row['bytes_per_device']:.3e} "
               f"coll/dev={row['coll_bytes_per_device']:.3e}")
         print(f"  collective schedule: {art['coll_counts']}")
+        print(f"  attention routes over \"model\": {art['tp_routes']}")
         print(f"  kernels: {art['kernels']}")
         print(f"  roofline: compute={roof.t_compute*1e3:.2f}ms memory={roof.t_memory*1e3:.2f}ms "
               f"collective={roof.t_collective*1e3:.2f}ms -> {roof.bottleneck}-bound")
@@ -419,7 +442,8 @@ def main(argv=None):
     ap.add_argument("--out", default="results/dryrun.jsonl")
     ap.add_argument("--clients", type=int, default=None,
                     help="the client mesh (W, 1): W ranks of one client each (default: "
-                         "the reference's (16, 16) production mesh, which raises)")
+                         "the reference's (16, 16) production mesh, 16 clients each over "
+                         "16 ranks of \"model\"; the dense family only)")
     ap.add_argument("--run", action="store_true",
                     help="also run the rank's share on the card and record its time")
     args = ap.parse_args(argv)

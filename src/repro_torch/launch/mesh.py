@@ -2,13 +2,16 @@
 
 The reference lays DRACO's clients over the mesh's "data" axis (or the
 flattened ("pod", "data") product) and each client's model over
-"model" (tensor parallelism by GSPMD). The port lays the client axis
-over ranks: a world of R ranks and N clients gives each rank N / R
-clients, and the mesh steps (`repro_torch.launch.steps`, the sharded
-drain, the ring mix, `simulate_sweep(mesh=)`) move rows between ranks
-with the collectives of `Mesh`. A "model" axis larger than 1 needs
-tensor parallelism written out by hand and raises `NotImplementedError`
-(ROADMAP item 20).
+"model" (tensor parallelism by GSPMD). The port lays both over ranks:
+a world of D x T ranks on a ("data", "model") mesh of N clients gives
+each rank N / D clients, and each of them as the rank's 1 / T share of
+one model (`repro_torch.sharding.tp`, Megatron-style tensor parallelism
+written by hand). The ranks of one model index form the client group,
+over which the mesh steps (`repro_torch.launch.steps`, the sharded
+drain, the ring mix, `simulate_sweep(mesh=)`) move rows with the
+collectives of `Mesh`; the ranks of one client index form the model
+group, over which the tensor-parallel operators all-reduce and
+all-gather (`Mesh.model_all_reduce`, `Mesh.model_all_gather`).
 
 Backends are explicit, never chosen for the caller and never fallen back
 from: ``nccl`` runs one rank per card; ``gloo`` runs on the CPU, and
@@ -36,7 +39,13 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-ROADMAP_MODEL_AXIS = "ROADMAP item 20"
+# the parts of ROADMAP item 20 (sharding inside one model) still to port,
+# each named where it raises
+ROADMAP_MOE = "ROADMAP item 20(b)"  # the moe expert axis over "model"
+ROADMAP_SSM = "ROADMAP item 20(c)"  # ssm/hybrid in_proj packing, per-head SSD
+ROADMAP_CROSS = "ROADMAP item 20(d)"  # the vlm's cross attention, the audio family
+ROADMAP_SEQ_PARALLEL = "ROADMAP item 20(e)"  # 'seq' over "model"
+ROADMAP_CACHE_SEQ = "ROADMAP item 20(f)"  # the cache over "data", cache_shard head_dim/seq
 
 # the collectives' current spellings (torch 2.13 deprecates the older ones)
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -78,7 +87,9 @@ def rank_device(backend: str, device=None) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange")
+COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange",
+               "model_all_reduce", "model_all_gather")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class Mesh:
@@ -125,10 +136,17 @@ class Mesh:
         caxes = client_axes(self)
         if len(caxes) == 1:
             self.group = self.device_mesh.get_group(caxes[0])
-        else:  # the flattened ("pod", "data") product: every rank, as "model" is 1
-            self.group = dist.new_group(self.device_mesh.mesh.flatten().tolist())
+        else:  # the flattened ("pod", "data") product of each model index
+            ranks = self.device_mesh.mesh.reshape(-1, self.shape.get("model", 1))
+            for m in range(ranks.shape[1]):  # every rank makes every group, in order
+                group = dist.new_group(ranks[:, m].tolist())
+                if dist.get_rank() in ranks[:, m].tolist():
+                    self.group = group
         self.rank = dist.get_rank(self.group)
         self.size = dist.get_world_size(self.group)
+        self.model_group = self.device_mesh.get_group("model") if "model" in axes else None
+        self.model_rank = dist.get_rank(self.model_group) if self.model_group else 0
+        self.model_size = dist.get_world_size(self.model_group) if self.model_group else 1
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.is_dry = False
         self.reset_tally()
@@ -136,13 +154,14 @@ class Mesh:
     @classmethod
     def dry(cls, shape: Sequence[int], axes: Sequence[str], *, device="meta") -> "Mesh":
         """A world-less mesh of `shape` over `axes` standing for client
-        rank 0 on `device` (see the class docstring); the same "model"
-        axis check as a real mesh."""
+        rank 0 and model rank 0 on `device` (see the class docstring)."""
         mesh = cls.__new__(cls)
         shape, _ = mesh._set_axes(shape, axes)
         mesh.size = math.prod(mesh.shape[a] for a in client_axes(mesh))
+        mesh.model_size = mesh.shape.get("model", 1)
         mesh.backend, mesh.device, mesh.device_mesh, mesh.group = None, torch.device(device), \
             None, None
+        mesh.model_group, mesh.model_rank = None, 0
         mesh.rank, mesh.staged, mesh.is_dry = 0, False, True
         mesh.reset_tally()
         return mesh
@@ -153,12 +172,9 @@ class Mesh:
             raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
         self.shape = dict(zip(axes, shape))
         self.axis_names = axes
-        wide = {a: s for a, s in self.shape.items() if a not in client_axes(self) and s > 1}
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide} shard one model (tensor parallelism); only the "
-                f"client axes {client_axes(self)} are laid over ranks so far "
-                f"({ROADMAP_MODEL_AXIS})")
+        other = set(axes) - set(client_axes(self)) - {"model"}
+        if other:
+            raise ValueError(f"mesh axes {sorted(other)} are neither client axes nor \"model\"")
         return shape, axes
 
     def reset_tally(self) -> None:
@@ -166,6 +182,7 @@ class Mesh:
         self.collective_s = 0.0
         self.collective_bytes = {k: 0 for k in COLLECTIVES}
         self.collective_counts = {k: 0 for k in COLLECTIVES}
+        self.tp_routes = {"heads": 0, "gathered": 0, "gathered_leaves": 0}
 
     def collective_tally(self) -> dict:
         """``{kind: result bytes, ..., "_counts": {kind: calls}}`` since
@@ -175,7 +192,8 @@ class Mesh:
     def __repr__(self):
         world = "no world" if self.is_dry else f"backend={self.backend!r}"
         return (f"Mesh({self.shape}, {world}, device={self.device}, "
-                f"client rank {self.rank} of {self.size})")
+                f"client rank {self.rank} of {self.size}, model rank {self.model_rank} of "
+                f"{self.model_size})")
 
     # -- the rank's clients ----------------------------------------------
 
@@ -309,6 +327,37 @@ class Mesh:
         if not self.is_dry:
             dist.barrier(group=self.group)
 
+    # -- collectives over the model group --------------------------------
+
+    def model_all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """`x` reduced (``"sum"`` or ``"max"``) over the model ranks, in its
+        own dtype; a new tensor. A dry mesh returns a copy."""
+        def reduce(t):
+            t = t.contiguous().clone()
+            dist.all_reduce(t, op=_OPS[op], group=self.model_group)
+            return (t,)
+
+        return self._run("model_all_reduce", reduce, lambda t: (self._copy(t),), x)[0]
+
+    def model_all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every model rank's `x` concatenated along `dim`, in model rank
+        order. A dry mesh repeats this rank's `x`."""
+        size = self.model_size
+
+        def gather(src):
+            out = torch.empty((src.shape[0] * size,) + tuple(src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            _ALL_GATHER(out, src, group=self.model_group)
+            return (out,)
+
+        def local(src):
+            if src.is_meta:
+                return (src.new_empty((src.shape[0] * size,) + tuple(src.shape[1:])),)
+            return (src.repeat((size,) + (1,) * (src.dim() - 1)),)
+
+        (out,) = self._run("model_all_gather", gather, local, x.movedim(dim, 0).contiguous())
+        return out.movedim(0, dim).contiguous() if dim % x.dim() else out
+
 
 def pack(tensors) -> torch.Tensor:
     """Tensors -> one uint8 buffer of their bytes, each padded to 8 so
@@ -341,8 +390,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
 
 def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl", device=None):
     """The reference's production layout: (16, 16) over ("data", "model"),
-    or (2, 16, 16) with "pod". Its 16-way "model" axis raises
-    `NotImplementedError` (ROADMAP item 20)."""
+    or (2, 16, 16) with "pod": 16 (32) clients, each over 16 ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, backend=backend, device=device)
@@ -350,8 +398,8 @@ def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl", devi
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), *, backend: str = "gloo",
                    device="cpu"):
-    """A small mesh for CPU tests (needs prod(shape) ranks); the default
-    (2, 2) has a "model" axis and raises, so tests pass (R, 1)."""
+    """A small mesh for CPU tests (needs prod(shape) ranks): by default
+    (2, 2), two clients each over two ranks."""
     return make_mesh(shape, axes, backend=backend, device=device)
 
 

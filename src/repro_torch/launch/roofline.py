@@ -13,8 +13,10 @@ that adds each aten op's input and output bytes (eager's device-memory
 traffic), each hand-written kernel as one op with the work its bound
 counts (`repro_torch.kernels.work`), and the collective bytes from the
 `Mesh`'s own tally (`collective_bytes`): the *result* bytes of every
-reduce-scatter, all-gather, broadcast and ring exchange, the per-rank
-receive volume, as the reference sums the results in its HLO. The same
+reduce-scatter, all-gather, broadcast and ring exchange over the client
+ranks and of every all-reduce and all-gather over the "model" ranks
+(tensor parallelism's, `repro_torch.sharding.tp`), the per-rank receive
+volume, as the reference sums the results in its HLO. The same
 dispatch mode tracks the live bytes of the tensors the step makes, whose
 peak is the dry run's ``temp_size_in_bytes``.
 
@@ -62,8 +64,10 @@ H100_SXM = Peaks(
 
 
 def collective_bytes(mesh) -> Dict[str, object]:
-    """Per-collective-kind result bytes a `Mesh` has tallied, and their
-    counts under ``"_counts"`` (the reference's dict shape)."""
+    """Per-collective-kind result bytes a `Mesh` has tallied (the client
+    axes' kinds and the model axis's ``model_all_reduce`` and
+    ``model_all_gather``), and their counts under ``"_counts"`` (the
+    reference's dict shape)."""
     return mesh.collective_tally()
 
 

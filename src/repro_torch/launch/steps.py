@@ -1,13 +1,15 @@
 """Step functions of the trainer and the server, and their abstract
 inputs (port of `repro.launch.steps`).
 
-``make_train_step``: one DRACO superposition window on a client mesh
-(`repro_torch.launch.mesh`): each rank holds N / ranks clients, runs
-their local gradient steps (`train.train_step_clients`), forms Delta on
-its rows of the f32 plane, and the row-stochastic gossip mix runs as a
-collective over the client ranks. Event and channel masks arrive as the
-per-window effective Q (``q_eff``), drawn N-wide and alike on every
-rank.
+``make_train_step``: one DRACO superposition window on a mesh
+(`repro_torch.launch.mesh`): each rank holds N / D clients of the D
+client ranks, each as its block of the model over the T ranks of
+"model" (`repro_torch.sharding.tp`), runs their local gradient steps
+(`train.train_step_clients`), forms Delta on its rows and columns of the
+f32 plane, and the row-stochastic gossip mix runs as a collective over
+the client ranks of its model index (a column block of the plane mixes
+on its own). Event and channel masks arrive as the per-window effective
+Q (``q_eff``), drawn N-wide and alike on every rank.
 
 ``make_unify_step`` is the trainer's periodic unification;
 ``serve_config``, ``make_prefill_step`` and ``make_serve_step`` are
@@ -20,7 +22,9 @@ The abstract inputs (``train_batch_specs``, ``serve_input_specs``,
 shapes and dtypes, no memory. The dtypes are the port's own: tokens and
 labels are int64 (the reference's int32), embeddings ``cfg.dtype``.
 ``make_shardings`` and ``serve_shardings`` return the matching trees of
-`PartitionSpec`s, the layout the reference's ``NamedSharding``s give.
+`PartitionSpec`s, the layout the reference's ``NamedSharding``s give;
+`local_abstract` turns abstract parameters and their specs into one
+rank's blocks, the shapes the steps take on that rank.
 """
 from __future__ import annotations
 
@@ -34,10 +38,9 @@ from repro_torch.core import mixing
 from repro_torch.kernels.gossip import ops as gossip_ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.sharding.specs import PartitionSpec as P
 from repro_torch.sharding.specs import filter_divisible, tree_param_specs
-
-ROADMAP_CACHE_SEQ = "ROADMAP item 20"
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +80,7 @@ def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig, n_clients: int):
 
 
 def serve_input_specs(cfg: ModelConfig, shape: ShapeConfig):
-    """Decode-step inputs: current token + cache state (+ cross KV)."""
+    """Decode-step inputs: current token + cache state (+ cross KV), whole."""
     B, S = shape.global_batch, shape.seq_len
     serve_cfg = serve_config(cfg, shape)
     state = M.init_decode_state(serve_cfg, B, S, device="meta")
@@ -135,10 +138,20 @@ def _client_ax(mesh):
     return caxes if len(caxes) > 1 else caxes[0]
 
 
+def local_abstract(params, specs, mesh):
+    """One rank's blocks of the abstract (meta) parameter dict `params`
+    under the matching `specs` (`make_shardings`' or `serve_shardings`'):
+    the shapes a step takes on that rank."""
+    return flat_lib.tree_map(
+        lambda t, s: _meta(tp_lib.local_shape(s, tuple(t.shape), mesh), t.dtype), params, specs)
+
+
 def make_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig):
     """(param specs (client-stacked), batch specs, q spec): every client
     leaf and batch leaf laid over the client axes on its first dim, Q
-    replicated."""
+    replicated; the params' core dims over "model" by the rules of
+    `repro_torch.sharding.specs` (`local_abstract` gives a rank's
+    shapes)."""
     cax = _client_ax(mesh)
     n_clients = mesh_lib.num_clients(mesh)
     params_abs = stack_clients_abstract(param_specs_abstract(cfg), n_clients)
@@ -165,11 +178,13 @@ def serve_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
     the serving config.
 
     cache_shard: 'kv_heads' shards the KV-head axis over "model" (falls
-    back to replicated when it does not divide), 'head_dim' the head_dim
-    axis, 'seq' the cache length axis. A batch that does not divide by
-    the client ranks shards the cache's sequence axis over "data" in the
-    reference; the port does not serve that way yet (`make_serve_step`
-    raises), but the spec says where it goes."""
+    back to replicated when it does not divide), as the port's serve step
+    lays its cache (`M.init_decode_state` with the mesh); 'head_dim' the
+    head_dim axis, 'seq' the cache length axis. A batch that does not
+    divide by the client ranks shards the cache's sequence axis over
+    "data" in the reference. The port serves neither of those ways yet
+    (`make_serve_step` raises, ROADMAP item 20(f)), but the specs say
+    where they go; `repro_torch.launch.dryrun` raises on them."""
     cax = _client_ax(mesh)
     B = shape.global_batch
     batch_shardable = B % mesh_lib.num_clients(mesh) == 0
@@ -272,8 +287,10 @@ def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
     loss)``.
 
     params and batch hold this rank's clients (``mesh.client_slice(N)``
-    of the N-wide ones); q_eff (N, N) is the whole window's weights,
-    alike on every rank. The step is `train.train_step_clients` over the
+    of the N-wide ones), the params as the rank's blocks of them
+    (`make_shardings`; `repro_torch.convert.shard_params` or
+    `train.init_client_params` with the mesh make them); q_eff (N, N) is
+    the whole window's weights, alike on every rank. The step is `train.train_step_clients` over the
     rank's clients with `mesh_mix`'s mix (`mix_mode` 'dense', 'ring' or
     'none'; `mix_dtype` the dense mix's dtype); params are updated in
     place. The loss is the mean over all N clients (the ranks' per-client
@@ -287,11 +304,15 @@ def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
         raise ValueError(f"mix_mode {mix_mode!r} not in {MIX_MODES}")
     del psi
 
+    tp_lib.check_family(cfg, mesh)
+    tp = tp_lib.context(mesh)
+
     def train_step(params, batch, q_eff):
         mix = mesh_mix(mesh, mix_mode, mix_dtype, flat_lib.spec_of(params))
-        params, losses = train_lib.train_step_clients(
-            params, batch, q_eff, cfg, lr, mix=mix, blocked_attn_threshold=blocked_threshold,
-            vocab_chunk=vocab_chunk)
+        with tp_lib.use(tp):
+            params, losses = train_lib.train_step_clients(
+                params, batch, q_eff, cfg, lr, mix=mix,
+                blocked_attn_threshold=blocked_threshold, vocab_chunk=vocab_chunk)
         return params, mesh.all_gather(losses).mean()
 
     return train_step
@@ -332,21 +353,34 @@ def _serving_rows(shape: ShapeConfig, mesh, what: str) -> None:
         raise NotImplementedError(
             f"the {what} splits the batch over the {mesh.size} client ranks; a batch "
             f"of {shape.global_batch} does not divide, and sharding the cache's "
-            f"sequence axis instead is {ROADMAP_CACHE_SEQ}")
+            f"sequence axis instead is {mesh_lib.ROADMAP_CACHE_SEQ}")
+
+
+def _whole_vocab(logits, cfg, tp):
+    """The logits over the whole vocabulary: the rank's block gathered
+    over the model ranks when it is one."""
+    if tp is None or logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return tp.gather(logits)
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """``prefill_step(params, batch) -> logits (B, V)`` at the last
     position: `apply_model` under `serve_config`, without gradients. On
     a mesh each rank prefills its ``mesh.client_slice(B)`` rows of the
-    batch and returns their logits (params replicated on every rank)."""
+    batch with its blocks of the one copy of the params
+    (`serve_shardings`) and returns their logits over the whole
+    vocabulary, gathered over "model" as the reference's are."""
     _serving_rows(shape, mesh, "prefill step")
+    tp_lib.check_family(cfg, mesh)
     scfg = serve_config(cfg, shape)
+    tp = tp_lib.context(mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = M.apply_model(params, scfg, batch)
-        return logits[:, -1, :]
+        with tp_lib.use(tp):
+            logits, _ = M.apply_model(params, scfg, batch)
+        return _whole_vocab(logits[:, -1, :], scfg, tp)
 
     return prefill_step
 
@@ -354,15 +388,21 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """``serve_step(params, tok, state, cross_kv=None) -> (logits, state)``:
     one `decode_step` under `serve_config` (its caches updated in place).
-    On a mesh each rank decodes its ``mesh.client_slice(B)`` rows: `tok`,
-    `state` and `cross_kv` hold those rows (a state from
-    ``init_decode_state(scfg, B / ranks, S)``), the logits are theirs. A
-    batch that does not divide by the client ranks raises
-    `NotImplementedError` (ROADMAP item 20)."""
+    On a mesh each rank decodes its ``mesh.client_slice(B)`` rows with its
+    blocks of the params (`serve_shardings`): `tok`, `state` and
+    `cross_kv` hold those rows (a state from ``init_decode_state(scfg,
+    B / ranks, S, mesh=mesh)``: the rank's kv heads where "model" divides
+    them), and the logits are theirs over the whole vocabulary, gathered
+    over "model". A batch that does not divide by the client ranks
+    raises `NotImplementedError` (ROADMAP item 20(f))."""
     _serving_rows(shape, mesh, "serve step")
+    tp_lib.check_family(cfg, mesh)
+    tp = tp_lib.context(mesh)
     scfg = serve_config(cfg, shape)
 
     def serve_step(params, tok, state, cross_kv=None):
-        return M.decode_step(params, scfg, tok, state, cross_kv)
+        with tp_lib.use(tp):
+            logits, state = M.decode_step(params, scfg, tok, state, cross_kv)
+        return _whole_vocab(logits, scfg, tp), state
 
     return serve_step

@@ -3,7 +3,9 @@
 Port of `repro.launch.train` with its single-device step
 (`train.py:119-129` of the reference) and its mesh path (`:93-117`,
 ``--mesh-backend`` under ``torchrun``: `steps.make_train_step` over the
-ranks' clients, see `main`): per-client local gradients of
+ranks' clients, each client over ``world / clients`` ranks of "model"
+when the world is a larger multiple of the clients, see `main`):
+per-client local gradients of
 `lm_loss`, row-stochastic gossip (`mixing.mix_plane`, the flat form of
 `mix_dense`) under per-step event and Psi masks, periodic unification
 on a rotating hub, and checkpoints in the reference's layout. The graph and its row-stochastic
@@ -31,6 +33,9 @@ Examples:
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.train --mesh-backend gloo --device cpu --reduced \
       --steps 4 --clients 4 --seq 32 --mix dense   # 2 ranks of 2 clients
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --mesh-backend gloo --device cpu --reduced \
+      --steps 4 --clients 2 --seq 32 --mix dense   # (2, 2): 2 clients, each over 2 ranks
 """
 from __future__ import annotations
 
@@ -181,10 +186,16 @@ def train_step(params, batch, q_eff: torch.Tensor, cfg, lr: float, *,
     return params, losses.mean()
 
 
-def init_client_params(seed: int, cfg, n_clients: int, device=None):
+def init_client_params(seed: int, cfg, n_clients: int, device=None, mesh=None):
     """One init (`init_params` from ``(seed, STREAM_INIT)``) copied to
-    every client: a dict of (N, ...) leaves."""
-    params0 = M.init_params(stream_seed(seed, STREAM_INIT), cfg, device)
+    every client: a dict of (N, ...) leaves. On a `mesh` with a "model"
+    axis, each leaf is the rank's block of that init, cut leaf by leaf
+    as it is drawn (`repro_torch.sharding.tp.shard_leaf`), so the whole
+    model is never on one rank."""
+    from repro_torch.sharding import tp as tp_lib
+
+    params0 = M.init_params(stream_seed(seed, STREAM_INIT), cfg, device,
+                            shard=tp_lib.sharder(mesh))
     return flat_lib.tree_map(
         lambda p: p[None].expand(n_clients, *p.shape).clone(), params0)
 
@@ -230,10 +241,20 @@ def check_seq(cfg, seq: int) -> None:
             f"tokens: give a multiple of {cfg.ssm_chunk}, or at most {cfg.ssm_chunk}")
 
 
+def mesh_layout(world: int, clients: int) -> tuple:
+    """The reference trainer's ("data", "model") layout of a world
+    (`src/repro/launch/train.py:93-97`): (clients, world / clients) when
+    the world is larger than the clients and a multiple of them, else
+    (world, 1)."""
+    if world > clients and world % clients == 0:
+        return clients, world // clients
+    return world, 1
+
+
 def _mesh_setup(args):
     """The mesh path's (mesh, device, whether this call started the
-    process group): the torchrun world laid over ("data", "model") as
-    (world, 1); on CUDA the drain kernel is built on rank 0 before the
+    process group): the torchrun world laid over ("data", "model") by
+    `mesh_layout`; on CUDA the drain kernel is built on rank 0 before the
     others load it."""
     import torch.distributed as dist
 
@@ -242,36 +263,45 @@ def _mesh_setup(args):
 
     started = not dist.is_initialized()
     mesh_lib.init_world(args.mesh_backend)
-    mesh = mesh_lib.make_mesh((dist.get_world_size(), 1), ("data", "model"),
-                              backend=args.mesh_backend, device=args.device)
+    mesh = mesh_lib.make_mesh(mesh_layout(dist.get_world_size(), args.clients),
+                              ("data", "model"), backend=args.mesh_backend, device=args.device)
     if mesh.device.type == "cuda":
-        if mesh.rank == 0:
+        if dist.get_rank() == 0:
             build.build(("drain",))
-        mesh.barrier()
+        dist.barrier()
     return mesh, mesh.device, started
 
 
-def _save(args, step, params, mesh):
+def _save(args, step, params, mesh, cfg):
     """A checkpoint in the reference's layout: on a mesh every leaf is
-    gathered N-wide and rank 0 writes it."""
+    gathered whole over "model" and N-wide over the clients
+    (`convert.gather_params`), and global rank 0 writes it."""
     if mesh is not None:
-        params = flat_lib.tree_map(mesh.all_gather, params)
-        if mesh.rank != 0:
+        import torch.distributed as dist
+
+        from repro_torch import convert
+
+        params = convert.gather_params(params, mesh, cfg)
+        if dist.get_rank() != 0:
             return
     ckpt_lib.save(args.ckpt_dir, step, params)
     print(f"saved checkpoint @ {step}")
 
 
-def _restore(args, params, step, n, mesh):
-    """Restore step `step`; on a mesh every rank reads the N-wide file
-    and keeps its rows (ranks of one machine share its disk)."""
+def _restore(args, params, step, n, mesh, cfg):
+    """Restore step `step`; on a mesh every rank reads the whole file
+    and keeps its blocks (`convert.shard_params`; ranks of one machine
+    share its disk)."""
     if mesh is None:
         return ckpt_lib.restore(args.ckpt_dir, params, step)
+    from repro_torch import convert
+    from repro_torch.launch import steps
+
     template = flat_lib.tree_map(
-        lambda p: torch.empty((), dtype=p.dtype).expand((n,) + tuple(p.shape[1:])), params)
+        lambda p: torch.empty((), dtype=p.dtype).expand(tuple(p.shape)),
+        steps.stack_clients_abstract(steps.param_specs_abstract(cfg), n))
     full = ckpt_lib.restore(args.ckpt_dir, template, step)
-    sl = mesh.client_slice(n)
-    return flat_lib.tree_map(lambda f, p: f[sl].to(p.device).contiguous(), full, params)
+    return convert.shard_params(full, mesh)
 
 
 def main(argv=None, *, cfg=None):
@@ -280,13 +310,15 @@ def main(argv=None, *, cfg=None):
     example a depth cut of it, ``get_config(arch).with_(num_layers=32)``).
     Returns the per-step losses.
 
-    With ``--mesh-backend`` (under ``torchrun``) the clients are laid over
-    the world's ranks (`steps.make_train_step`): each rank initialises
-    its N / ranks clients, draws the data and every step's ``q_eff``
-    N-wide from the run's seeds (alike on every rank) and keeps its rows,
-    so the run is the single-process one with the mix as a collective;
-    checkpoints are gathered to rank 0 in the reference's layout. Every
-    rank returns the same losses (the mean over all N clients); rank 0
+    With ``--mesh-backend`` (under ``torchrun``) the world's ranks are
+    laid over ("data", "model") by the reference's rule (`mesh_layout`)
+    and the clients over "data" (`steps.make_train_step`): each rank initialises its N / D
+    clients as its blocks of the one init, draws the data and every
+    step's ``q_eff`` N-wide from the run's seeds (alike on every rank)
+    and keeps its rows, so the run is the single-process one with the
+    model split over "model" and the mix as a collective; checkpoints are
+    gathered to global rank 0 in the reference's layout. Every rank
+    returns the same losses (the mean over all N clients); global rank 0
     prints."""
     args = parse_args(argv)
     if not args.mesh_backend:
@@ -307,9 +339,13 @@ def _train(args, cfg, mesh, dev):
     check_seq(cfg, args.seq)
     n = args.clients
     sl = slice(0, n) if mesh is None else mesh.client_slice(n)
-    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    first = mesh is None or (mesh.rank == 0 and mesh.model_rank == 0)
+    say = print if first else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh {mesh.shape}: {sl.stop - sl.start} client(s) a rank, each over "
+            f"{mesh.model_size} rank(s) of \"model\"")
 
-    params = init_client_params(args.seed, cfg, sl.stop - sl.start, dev)
+    params = init_client_params(args.seed, cfg, sl.stop - sl.start, dev, mesh)
     # protocol-plane context: the graph and Q built once, by the same
     # path as `repro_torch.api.simulate`
     proto_cfg = DracoConfig(num_clients=n, topology=args.topology,
@@ -335,7 +371,7 @@ def _train(args, cfg, mesh, dev):
     if args.ckpt_dir:
         latest = ckpt_lib.latest_step(args.ckpt_dir)
         if latest is not None:
-            params = _restore(args, params, latest, n, mesh)
+            params = _restore(args, params, latest, n, mesh, cfg)
             start = latest
             say(f"restored step {latest}")
 
@@ -357,7 +393,7 @@ def _train(args, cfg, mesh, dev):
                 f"({dt/args.log_every:.2f}s/step)")
             t0 = time.time()
         if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            _save(args, step + 1, params, mesh)
+            _save(args, step + 1, params, mesh, cfg)
 
     say(f"final loss {np.mean(losses[-10:]):.4f} (first 10: {np.mean(losses[:10]):.4f})")
     return losses

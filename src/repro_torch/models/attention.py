@@ -20,11 +20,30 @@ Shapes: activations (B, S, d); heads (B, S, H, hd). KV caches:
 The port writes a decode step's keys and values into the cache in place
 (``index_copy_`` at a slot computed on the device from the 0-d ``pos``
 tensor), so a step copies no cache and reads nothing back to the host.
+
+Tensor parallelism (`repro_torch.sharding.tp`). Given a `TP`, the
+self-attention paths run on the rank's share of the heads (`_layout`),
+on one of two routes:
+
+  - heads (Megatron): ``wq`` is sharded at whole heads. The input goes
+    through `TP.copy`, the rank computes its query heads against its kv
+    heads, and ``wo``'s rows finish with `TP.reduce`. A kv projection
+    that is replicated (its columns do not divide) or cut inside a head
+    (gathered, `TP.gather`) gives every kv head, through `TP.copy`,
+    since each rank's query heads use only some of them; the rank's query
+    heads then read their own kv group. The QKV biases are replicated
+    in storage, and each rank adds its slice of them through `TP.copy`,
+    so their gradients are summed over the ranks;
+  - gathered: ``wq``'s shard cuts a head. Every sharded projection is
+    gathered and the layer is computed whole on every rank.
+
+A decode cache holds the kv heads the rank computes: its own on the
+heads route with sharded kv, all of them otherwise.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -59,17 +78,95 @@ def _split_heads(x, n_heads, hd):
     return x.reshape(*x.shape[:-1], n_heads, hd)
 
 
-def _proj_qkv(params, x, kv_x, cfg):
+def _same(x):
+    return x
+
+
+class Layout(NamedTuple):
+    """How one rank computes an attention layer: ``params`` are the
+    projections as it multiplies them, ``hq`` and ``hkv`` the query and
+    kv heads it computes (and caches), ``pick`` selects from those kv
+    heads the ones its query heads read, ``n_rep`` query heads to each
+    picked kv head; ``x_op`` goes on the input, ``out_op`` on the output
+    product."""
+    params: dict
+    hq: int
+    hkv: int
+    pick: Callable
+    n_rep: int
+    x_op: Callable
+    out_op: Callable
+
+
+def _pick_kv(q0: int, hq: int, n_rep: int):
+    """For query heads ``q0 .. q0 + hq`` reading every kv head: a pick of
+    each one's kv head (the kv axis becomes the query heads'). Their kv
+    heads never form whole groups here: where ``n_rep`` divides the
+    rank's query heads, it divides the kv heads too, which then shard."""
+    def pick(t):
+        idx = torch.div(torch.arange(q0, q0 + hq, device=t.device), n_rep,
+                        rounding_mode="floor")
+        return t.index_select(-2, idx)
+
+    return pick
+
+
+def _layout(params, cfg, tp=None) -> Layout:
+    """The rank's `Layout` of one self-attention layer (see the module
+    docstring); the whole layer without `tp` or when nothing is sharded."""
     hd = cfg.resolved_head_dim
-    q = x @ params["wq"]
-    k = kv_x @ params["wk"]
-    v = kv_x @ params["wv"]
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    whole = Layout(params, nq, nkv, _same, nq // nkv, _same, _same)
+    q_cols, kv_cols = params["wq"].shape[-1], params["wk"].shape[-1]
+    if tp is None or q_cols == nq * hd:  # kv columns divide only where q's do
+        return whole
+    kv_sharded = kv_cols < nkv * hd
+    if q_cols % hd:  # a shard cuts a query head: the gathered route
+        names = ("wq", "wo", "wk", "wv") if kv_sharded else ("wq", "wo")
+        p = dict(params)
+        for name in names:
+            p[name] = tp.gather(params[name], dim=-2 if name == "wo" else -1)
+        tp.count("gathered", len(names))
+        return whole._replace(params=p)
+    hq = q_cols // hd
+    q0 = tp.rank * hq
+    p = {"wq": params["wq"], "wo": params["wo"]}
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        p["bq"] = tp.copy(params["bq"])[q0 * hd:(q0 + hq) * hd]
+    if kv_sharded and kv_cols % hd == 0:  # the rank's own kv heads
+        hkv = kv_cols // hd
+        p["wk"], p["wv"] = params["wk"], params["wv"]
+        if "bk" in params:
+            k0 = tp.rank * hkv
+            p["bk"], p["bv"] = (tp.copy(params[b])[k0 * hd:(k0 + hkv) * hd]
+                                for b in ("bk", "bv"))
+        tp.count("heads")
+        return Layout(p, hq, hkv, _same, hq // hkv, tp.copy, tp.reduce)
+    for name in ("wk", "wv"):  # every kv head, replicated or gathered
+        p[name] = tp.copy(tp.gather(params[name]) if kv_sharded else params[name])
+    if "bk" in params:
+        p["bk"], p["bv"] = tp.copy(params["bk"]), tp.copy(params["bv"])
+    tp.count("heads", 2 if kv_sharded else 0)
+    return Layout(p, hq, nkv, _pick_kv(q0, hq, nq // nkv), 1, tp.copy, tp.reduce)
+
+
+def _proj_qkv(params, x, kv_x, cfg, lay=None):
+    """q, k, v split into heads: (..., hq, hd), (..., hkv, hd) of the
+    `Layout` `lay` (the whole layer by default)."""
+    lay = _layout(params, cfg) if lay is None else lay
+    p, hd = lay.params, cfg.resolved_head_dim
+    same = kv_x is x
+    x = lay.x_op(x)
+    kv_x = x if same else lay.x_op(kv_x)
+    q = x @ p["wq"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (
-        _split_heads(q, cfg.num_heads, hd),
-        _split_heads(k, cfg.num_kv_heads, hd),
-        _split_heads(v, cfg.num_kv_heads, hd),
+        _split_heads(q, lay.hq, hd),
+        _split_heads(k, lay.hkv, hd),
+        _split_heads(v, lay.hkv, hd),
     )
 
 
@@ -124,12 +221,14 @@ def causal_mask(S: int, T: int, sliding_window: int = 0, device=None) -> torch.T
 
 def full_attention(params, x: torch.Tensor, cfg, positions=None,
                    kv_x=None, cross: bool = False,
-                   sliding_window: int = 0) -> torch.Tensor:
+                   sliding_window: int = 0, tp=None) -> torch.Tensor:
     """Causal self-attention (RoPE at `positions`, default ``0..S-1``),
     or with `cross` attention to every row of `kv_x` without RoPE; scores
-    fully materialized. x (B, S, d), kv_x (B, T, d) -> (B, S, d)."""
+    fully materialized. x (B, S, d), kv_x (B, T, d) -> (B, S, d). `tp`:
+    the rank's share (see the module docstring)."""
     B, S, _ = x.shape
-    q, k, v = _proj_qkv(params, x, kv_x if kv_x is not None else x, cfg)
+    lay = _layout(params, cfg, tp)
+    q, k, v = _proj_qkv(params, x, kv_x if kv_x is not None else x, cfg, lay)
     T = k.shape[1]
     if cross:
         mask = torch.ones((1, 1, S, T), dtype=torch.bool, device=x.device)
@@ -139,21 +238,20 @@ def full_attention(params, x: torch.Tensor, cfg, positions=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         mask = causal_mask(S, T, sliding_window, device=x.device)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    out = _sdpa_grouped(q, k, v, mask, n_rep)
-    return out.reshape(B, S, -1) @ params["wo"]
+    out = _sdpa_grouped(q, lay.pick(k), lay.pick(v), mask, lay.n_rep)
+    return lay.out_op(out.reshape(B, S, -1) @ lay.params["wo"])
 
 
-def _rope_qkv(params, x, cfg):
+def _rope_qkv(params, x, cfg, lay):
     """Self-attention q, k, v at positions 0..S-1 with the kv heads
-    repeated to the query heads: three (B, S, H, hd) tensors."""
+    repeated to the query heads: three (B, S, H, hd) tensors, H the
+    `Layout`'s query heads."""
     S = x.shape[1]
-    q, k, v = _proj_qkv(params, x, x, cfg)
+    q, k, v = _proj_qkv(params, x, x, cfg, lay)
     positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    return q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    return q, _repeat_kv(lay.pick(k), lay.n_rep), _repeat_kv(lay.pick(v), lay.n_rep)
 
 
 def _blocked_kv_step(acc, m, l, q, k_j, v_j, mask, hd: int):
@@ -173,7 +271,7 @@ def _blocked_kv_step(acc, m, l, q, k_j, v_j, mask, hd: int):
 
 
 def blocked_attention(params, x, cfg, block_q: int = 512, block_kv: int = 1024,
-                      sliding_window: int = 0, remat_steps: bool = True):
+                      sliding_window: int = 0, remat_steps: bool = True, tp=None):
     """Causal self-attention with an online softmax over kv blocks.
 
     O(S * block_kv) score memory. The reference maps over q blocks and
@@ -182,11 +280,13 @@ def blocked_attention(params, x, cfg, block_q: int = 512, block_kv: int = 1024,
     reference's) and the loop runs over every kv block, as the
     reference's scan does. ``remat_steps`` checkpoints each kv step, so
     the backward recomputes the block probabilities instead of saving
-    them (the reference's ``jax.checkpoint`` of the step)."""
+    them (the reference's ``jax.checkpoint`` of the step). `tp`: the
+    rank's share (see the module docstring)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H = cfg.num_heads
-    q, k, v = _rope_qkv(params, x, cfg)
+    lay = _layout(params, cfg, tp)
+    H = lay.hq
+    q, k, v = _rope_qkv(params, x, cfg, lay)
     n_q, n_kv = S // block_q, S // block_kv
     qb = q.reshape(B, n_q, block_q, H, hd)
     f32 = torch.float32
@@ -208,21 +308,22 @@ def blocked_attention(params, x, cfg, block_q: int = 512, block_kv: int = 1024,
             acc, m, l = _blocked_kv_step(acc, m, l, qb, k_j, v_j, mask, hd)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     out = torch.einsum("bnhqd->bnqhd", out).to(x.dtype)
-    return out.reshape(B, S, H * hd) @ params["wo"]
+    return lay.out_op(out.reshape(B, S, H * hd) @ lay.params["wo"])
 
 
 def flash_self_attention(params, x, cfg, sliding_window: int = 0,
-                         block_q: int = 512, block_kv: int = 512):
+                         block_q: int = 512, block_kv: int = 512, tp=None):
     """Causal self-attention through `flash.flash_attention` (O(S)
     residual memory: the trainable long-sequence path), blocks
-    ``min(block, S)``."""
+    ``min(block, S)``; `tp` as in `full_attention`."""
     from repro_torch.models.flash import flash_attention
 
     B, S, _ = x.shape
-    q, k, v = _rope_qkv(params, x, cfg)
+    lay = _layout(params, cfg, tp)
+    q, k, v = _rope_qkv(params, x, cfg, lay)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           min(block_q, S), min(block_kv, S), sliding_window)
-    return out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
+    return lay.out_op(out.transpose(1, 2).reshape(B, S, -1) @ lay.params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +332,7 @@ def flash_self_attention(params, x, cfg, sliding_window: int = 0,
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, C, Hkv, hd)
+    k: torch.Tensor  # (B, C, Hkv, hd); Hkv the rank's kv heads under tensor parallelism
     v: torch.Tensor
     # a ring when C == the sliding window: slot = pos % C
 
@@ -244,15 +345,17 @@ class KVCache(NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False):
+def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False, tp=None):
     """One-token decode. x (B, 1, d); pos a 0-d integer tensor (the
     current position). Returns ``(out (B, 1, d), cache)``: this token's
     key and value written into `cache` in place, at slot ``pos % C`` on a
     ring (sliding-window attention, O(C) a token) and ``min(pos, C - 1)``
-    otherwise."""
+    otherwise. `tp` as in `full_attention`; the cache holds the kv heads
+    of the rank's `Layout`."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device)
-    q, k, v = _proj_qkv(params, x, x, cfg)
+    lay = _layout(params, cfg, tp)
+    q, k, v = _proj_qkv(params, x, x, cfg, lay)
     pos_arr = pos.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
@@ -268,9 +371,9 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False):
         valid = (idx <= slot) | (pos >= C)  # the whole ring once wrapped
     else:
         valid = idx <= pos
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    out = _sdpa_grouped(q, cache.k, cache.v, valid[None, None, None, :], n_rep)
-    return out.reshape(B, 1, -1) @ params["wo"], cache
+    out = _sdpa_grouped(q, lay.pick(cache.k), lay.pick(cache.v), valid[None, None, None, :],
+                        lay.n_rep)
+    return lay.out_op(out.reshape(B, 1, -1) @ lay.params["wo"]), cache
 
 
 def cross_decode_attention(params, x, k_cache, v_cache, cfg):

@@ -3,6 +3,11 @@
 Port of `repro.models.layers`. Every function takes and returns tensors
 on the caller's device; RMSNorm and RoPE compute in f32 inside and cast
 back to the input's dtype, as the reference does.
+
+`mlp` and `token_nll` take a `repro_torch.sharding.tp.TP` for the rank's
+share of a model split over "model": `mlp` on the rank's columns of
+``w_gate`` and ``w_up`` and rows of ``w_down``, `token_nll` on the
+rank's block of the vocabulary.
 """
 from __future__ import annotations
 
@@ -61,23 +66,44 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype):
     }
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP. x (..., d) -> (..., d)."""
+def mlp(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU MLP. x (..., d) -> (..., d). With `tp`, the params are the
+    rank's ``d_ff`` block (column-parallel gate and up, row-parallel down):
+    `tp.copy` on the input, `tp.reduce` on the output."""
+    if tp is not None:
+        x = tp.copy(x)
     h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return out if tp is None else tp.reduce(out)
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-element negative log-likelihood: logits (..., V), labels (...,)."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logz - gold
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, tp=None) -> torch.Tensor:
+    """Per-element negative log-likelihood: logits (..., V), labels (...,),
+    in f32 (f64 for f64 logits).
+
+    With `tp`, `logits` are the rank's block of the vocabulary (ids
+    ``rank * V_loc`` onwards) and the result is the whole vocabulary's,
+    alike on every model rank: the max and the sum of exps are
+    reduced over the ranks, and the gold logit is taken on the rank that
+    holds it and summed."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz - gold
+    v_loc = logits.shape[-1]
+    m = tp.max(logits.amax(dim=-1))
+    logz = m + torch.log(tp.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = labels.long() - tp.rank * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    return logz - tp.reduce(torch.where(inside, gold, 0.0))
 
 
-def cross_entropy(logits, labels, mask=None) -> torch.Tensor:
-    """Mean token-level CE. logits (..., V) f32-safe; labels (...,) int."""
-    nll = token_nll(logits, labels)
+def cross_entropy(logits, labels, mask=None, tp=None) -> torch.Tensor:
+    """Mean token-level CE. logits (..., V) f32-safe; labels (...,) int;
+    `tp` as in `token_nll`."""
+    nll = token_nll(logits, labels, tp)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)

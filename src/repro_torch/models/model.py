@@ -40,6 +40,17 @@ context is longer than the window) and an `SSMState` per Mamba2 block.
 `decode_step` writes each group's caches in place, so a step copies no
 cache, and keeps ``pos`` a 0-d tensor on the device, so it reads nothing
 back to the host.
+
+Tensor parallelism. Under a `repro_torch.sharding.tp.use` context (the
+steps of `repro_torch.launch.steps` set it on a mesh whose "model" axis
+is larger than 1) the dense family runs on the rank's blocks of its
+leaves: attention on its heads (`attention.Layout`), the MLP on its
+``d_ff`` block, the embedding on its rows of the vocabulary (ids
+outside them masked, looked up, then summed over the ranks), the head
+into its block of the logits, and `lm_loss` through the vocab-parallel
+cross-entropy (`layers.token_nll`). `apply_model` and `decode_step` then
+return the rank's vocabulary block of the logits. Another family on
+such a mesh raises `NotImplementedError` naming its ROADMAP sub-item.
 """
 from __future__ import annotations
 
@@ -50,11 +61,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import as_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import flat as flat_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import cross_entropy, dense_init, init_mlp, mlp, rms_norm
+from repro_torch.models.layers import (cross_entropy, dense_init, init_mlp, mlp, rms_norm,
+                                       token_nll)
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.ssm import SSMState, init_ssm, ssm_block, ssm_decode_step
+from repro_torch.sharding import tp as tp_lib
 
 
 def block_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
@@ -78,7 +92,7 @@ def block_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def init_params(key, cfg: ModelConfig, device=None) -> Dict[str, Any]:
+def init_params(key, cfg: ModelConfig, device=None, shard=None) -> Dict[str, Any]:
     """Single-client parameters: ``{embed (V, d), final_norm (d,),
     groups {"0:attn": ..., "1:mlp": ...} with (n_groups, ...) leaves}``
     plus ``lm_head (d, V)`` when embeddings are untied and ``shared``
@@ -86,7 +100,11 @@ def init_params(key, cfg: ModelConfig, device=None) -> Dict[str, Any]:
 
     `key` is an int seed or a `torch.Generator` (see `as_generator`);
     the draws differ from the reference's threefry ones, the layout and
-    scales do not."""
+    scales do not. `shard(path, leaf) -> leaf` replaces each leaf as it
+    is drawn (each layer group's slice before the groups are stacked),
+    so that a rank keeps its block of every leaf without ever holding the
+    whole model (`repro_torch.sharding.tp.shard_leaf`); the draws are
+    the same."""
     gen = as_generator(key, device)
     pattern, n_groups = block_pattern(cfg)
     dtype = cfg.torch_dtype
@@ -118,15 +136,21 @@ def init_params(key, cfg: ModelConfig, device=None) -> Dict[str, Any]:
                 gp[name] = {}  # the weights live in params["shared"]
         return gp
 
-    per_group = [init_group() for _ in range(n_groups)]
+    def kept(prefix, tree):
+        if shard is None:
+            return tree
+        return flat_lib.tree_from_items((prefix + path, shard(prefix + path, leaf))
+                                        for path, leaf in flat_lib.tree_items(tree))[prefix[0]]
+
+    per_group = [kept(("groups",), init_group()) for _ in range(n_groups)]
     groups = _stack_groups(per_group)
     params = {
-        "embed": dense_init(gen, (cfg.vocab_size, d), d, dtype),
+        "embed": kept(("embed",), dense_init(gen, (cfg.vocab_size, d), d, dtype)),
         "groups": groups,
         "final_norm": zeros(d),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dtype)
+        params["lm_head"] = kept(("lm_head",), dense_init(gen, (d, cfg.vocab_size), d, dtype))
     if cfg.family == "hybrid":
         params["shared"] = {
             "norm_attn": zeros(d),
@@ -159,8 +183,21 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params, cfg, h):
-    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ _head(params, cfg)
+def _vocab_tp(params, cfg, tp):
+    """`tp` when the head holds the rank's block of the vocabulary, else None."""
+    return tp if tp is not None and _head(params, cfg).shape[-1] < cfg.vocab_size else None
+
+
+def _logits(params, cfg, h, tp=None):
+    """The head's logits: the rank's vocabulary block when it is sharded."""
+    x = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    vtp = _vocab_tp(params, cfg, tp)
+    return (x if vtp is None else vtp.copy(x)) @ _head(params, cfg)
+
+
+def _ff_tp(mp, cfg, tp):
+    """`tp` when the MLP's params `mp` are the rank's ``d_ff`` block."""
+    return tp if tp is not None and mp["w_gate"].shape[-1] < cfg.d_ff else None
 
 
 def unused_leaves(cfg: ModelConfig):
@@ -170,21 +207,38 @@ def unused_leaves(cfg: ModelConfig):
     return {("embed",)} if cfg.embeds_in and not cfg.tie_embeddings else set()
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed(params, cfg, ids, tp=None):
+    """The embedding rows of `ids`; with `tp` and the rows split over the
+    model ranks, each rank looks up the ids in its block (zeros for the
+    others) and the ranks' rows are summed."""
+    emb = params["embed"]
+    rows = emb.shape[0]
+    if tp is None or rows == cfg.vocab_size:
+        return emb[ids]
+    local = ids - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    h = emb[local.clamp(0, rows - 1)]
+    return tp.reduce(torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                                    device=h.device)))
+
+
+def _embed_inputs(params, cfg, batch, tp=None):
     if cfg.embeds_in:
         return batch["embeds"].to(cfg.torch_dtype)
-    return params["embed"][batch["tokens"]]
+    return _embed(params, cfg, batch["tokens"], tp)
 
 
-def _self_attention(ap, x, cfg, use_blocked):
+def _self_attention(ap, x, cfg, use_blocked, tp=None):
     if use_blocked:
-        return attn_lib.flash_self_attention(ap, x, cfg, sliding_window=cfg.sliding_window)
-    return attn_lib.full_attention(ap, x, cfg, sliding_window=cfg.sliding_window)
+        return attn_lib.flash_self_attention(ap, x, cfg, sliding_window=cfg.sliding_window,
+                                             tp=tp)
+    return attn_lib.full_attention(ap, x, cfg, sliding_window=cfg.sliding_window, tp=tp)
 
 
-def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked):
+def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked, tp=None):
     """One sub-block; returns the new h (and the aux loss for ``moe``).
-    `bp` is the group's sub-block, unused by ``shared``."""
+    `bp` is the group's sub-block, unused by ``shared``; `tp` the rank's
+    place on the model axis (dense blocks only)."""
     if kind == "shared":
         x = rms_norm(h, shared["norm_attn"], cfg.norm_eps)
         h = h + _self_attention(shared["attn"], x, cfg, use_blocked)
@@ -192,9 +246,9 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
         return h + mlp(shared["mlp"], x)
     x = rms_norm(h, bp["norm"], cfg.norm_eps)
     if kind == "attn":
-        return h + _self_attention(bp["attn"], x, cfg, use_blocked)
+        return h + _self_attention(bp["attn"], x, cfg, use_blocked, tp)
     if kind == "mlp":
-        return h + mlp(bp["mlp"], x)
+        return h + mlp(bp["mlp"], x, _ff_tp(bp["mlp"], cfg, tp))
     if kind == "moe":
         y, aux = moe_block(bp["moe"], x, cfg)
         return h + y, aux
@@ -218,9 +272,14 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
     final-normed hidden states (B, S, d) in place of the logits.
     `chunk_fn` replaces the SSD intra-chunk step of the ssm blocks
     (default: the kernel; ``kernels.ssd.ref.ssd_chunk_ref`` is the plain
-    path)."""
+    path).
+
+    Under a `repro_torch.sharding.tp.use` context the logits are the
+    rank's block of the vocabulary (see the module docstring)."""
     pattern, n_groups = block_pattern(cfg)
-    h = _embed_inputs(params, cfg, batch)
+    tp = tp_lib.current()
+    tp_lib.check_family(cfg, tp and tp.mesh)
+    h = _embed_inputs(params, cfg, batch, tp)
     S = h.shape[1]
     use_blocked = S >= blocked_attn_threshold and cfg.family != "ssm"
     cross_embeds = batch.get("cross_embeds") if cfg.family == "vlm" else None
@@ -232,7 +291,7 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
         for i, kind in enumerate(pattern):
             out = _apply_block(kind, gp.get(f"{i}:{kind}"), h, cfg, shared=shared,
                                cross_embeds=cross_embeds, chunk_fn=chunk_fn,
-                               use_blocked=use_blocked)
+                               use_blocked=use_blocked, tp=tp)
             if kind == "moe":
                 h, a = out
                 aux = aux + a
@@ -250,7 +309,7 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
         aux_total = aux_total + aux
     if return_hidden:
         return rms_norm(h, params["final_norm"], cfg.norm_eps), aux_total
-    return _logits(params, cfg, h), aux_total
+    return _logits(params, cfg, h, tp), aux_total
 
 
 def _labels_and_mask(batch):
@@ -267,9 +326,14 @@ def _labels_and_mask(batch):
     return labels, mask
 
 
-def _chunk_nll(h_c, w, l_c, m_c):
-    """Summed masked NLL of one chunk: its (B, C, V) logits live only here."""
-    logits = (h_c @ w).to(torch.float32)
+def _chunk_nll(h_c, w, l_c, m_c, tp=None):
+    """Summed masked NLL of one chunk, in f32 (f64 for an f64 model): its
+    (B, C, V) logits live only here (with `tp`, the rank's vocabulary
+    block of them)."""
+    logits = h_c @ w
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if tp is not None:
+        return (token_nll(logits, l_c, tp) * m_c).sum()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
     return ((logz - gold) * m_c).sum()
@@ -284,16 +348,21 @@ def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None, vocab_chunk: int 
     the head in chunks of `vocab_chunk` positions, each under a
     checkpoint, so the backward recomputes a chunk's logits (logsumexp in
     f32); S must be a multiple of `vocab_chunk`. `chunk_fn` and
-    `blocked_attn_threshold` as in `apply_model`."""
+    `blocked_attn_threshold` as in `apply_model`. Under a
+    `repro_torch.sharding.tp.use` context both forms take the
+    vocab-parallel cross-entropy on the rank's block of the logits."""
     labels, mask = _labels_and_mask(batch)
+    vtp = _vocab_tp(params, cfg, tp_lib.current())
     if vocab_chunk <= 0:
         logits, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn,
                                   blocked_attn_threshold=blocked_attn_threshold)
-        return cross_entropy(logits, labels, mask) + aux
+        return cross_entropy(logits, labels, mask, vtp) + aux
 
     h, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn,
                          blocked_attn_threshold=blocked_attn_threshold,
                          return_hidden=True)
+    if vtp is not None:
+        h = vtp.copy(h)
     w = _head(params, cfg)
     S = h.shape[1]
     C = vocab_chunk
@@ -304,10 +373,10 @@ def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None, vocab_chunk: int 
     for c in range(S // C):
         sl = slice(c * C, (c + 1) * C)
         if torch.is_grad_enabled():
-            nll = checkpoint(_chunk_nll, h[:, sl], w, labels[:, sl], mask[:, sl],
+            nll = checkpoint(_chunk_nll, h[:, sl], w, labels[:, sl], mask[:, sl], vtp,
                              use_reentrant=False)
         else:
-            nll = _chunk_nll(h[:, sl], w, labels[:, sl], mask[:, sl])
+            nll = _chunk_nll(h[:, sl], w, labels[:, sl], mask[:, sl], vtp)
         tot = tot + nll
         cnt = cnt + mask[:, sl].sum()
     return tot / torch.clamp(cnt, min=1.0) + aux
@@ -324,11 +393,15 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None) -> DecodeState:
+                      device=None, mesh=None) -> DecodeState:
     """Zero caches for serving `seq_len` positions: a ring of
     ``sliding_window`` slots when the window is on and shorter than
-    `seq_len`, else `seq_len` slots; ``pos`` 0."""
+    `seq_len`, else `seq_len` slots; ``pos`` 0. On a `mesh` whose
+    "model" axis divides the kv heads, a KV cache holds the rank's block
+    of them (the reference's ``cache_spec``), else all of them."""
     dev = resolve_device(device)
+    t = getattr(mesh, "model_size", 1) if mesh is not None else 1
+    n_kv = cfg.num_kv_heads // t if cfg.num_kv_heads % t == 0 else cfg.num_kv_heads
     pattern, n_groups = block_pattern(cfg)
     dtype = cfg.torch_dtype
     ring = cfg.sliding_window > 0 and seq_len > cfg.sliding_window
@@ -337,7 +410,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     for i, kind in enumerate(pattern):
         if kind in ("attn", "shared"):
             caches[f"{i}:{kind}"] = KVCache.init(
-                batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim, dtype,
+                batch, cache_len, n_kv, cfg.resolved_head_dim, dtype,
                 device=dev, lead=(n_groups,))
         elif kind == "ssm":
             caches[f"{i}:{kind}"] = SSMState.init(batch, cfg, dtype, device=dev,
@@ -374,14 +447,17 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
     Every cache of `state` is updated in place, group by group (the
     returned state holds the same tensors and ``pos + 1``), so pass each
     state once. A model with cross-attention needs `cross_kv`
-    (`init_cross_kv`)."""
+    (`init_cross_kv`). Under a `repro_torch.sharding.tp.use` context the
+    logits are the rank's block of the vocabulary."""
     pattern, n_groups = block_pattern(cfg)
+    tp = tp_lib.current()
+    tp_lib.check_family(cfg, tp and tp.mesh)
     if "cross" in pattern and cross_kv is None:
         raise ValueError(f"{cfg.name}: a vlm decode needs cross_kv (init_cross_kv)")
     if cfg.embeds_in:
         h = token_or_embed.to(cfg.torch_dtype)
     else:
-        h = params["embed"][token_or_embed][:, None, :]
+        h = _embed(params, cfg, token_or_embed, tp)[:, None, :]
     pos = state.pos
     shared = params.get("shared")
     for g, gp in enumerate(_unbind_groups(params["groups"], n_groups)):
@@ -394,14 +470,14 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 cache = state.caches[name]
                 view = KVCache(cache.k[g], cache.v[g])
                 ring = cfg.sliding_window > 0 and view.k.shape[1] == cfg.sliding_window
-                y, _ = attn_lib.decode_attention(bp["attn"], x, view, pos, cfg, ring=ring)
+                y, _ = attn_lib.decode_attention(bp["attn"], x, view, pos, cfg, ring=ring, tp=tp)
                 h = h + y
                 if kind == "shared":
                     x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
                     h = h + mlp(shared["mlp"], x)
             elif kind == "mlp":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
-                h = h + mlp(gp[name]["mlp"], x)
+                h = h + mlp(gp[name]["mlp"], x, _ff_tp(gp[name]["mlp"], cfg, tp))
             elif kind == "moe":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
                 y, _ = moe_block(gp[name]["moe"], x, cfg)
@@ -418,5 +494,5 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                                                     cross_kv["v"][g], cfg)
                 gate = torch.tanh(gp[name]["gate"].to(torch.float32)).to(y.dtype)
                 h = h + gate * y
-    logits = _logits(params, cfg, h)[:, 0, :]
+    logits = _logits(params, cfg, h, tp)[:, 0, :]
     return logits, DecodeState(caches=state.caches, pos=pos + 1)

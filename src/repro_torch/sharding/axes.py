@@ -4,8 +4,10 @@ Model code may call ``constrain(x, 'batch', 'seq', 'heads', None)`` with
 *logical* axis names; the active `AxisRules` maps those to mesh axes.
 The port shards explicitly: the client axis is split over ranks by the
 mesh steps (`repro_torch.launch.steps`), each rank holding its clients'
-rows, and a "model" axis larger than 1 is not built yet (ROADMAP item
-20). So `constrain` never moves data and returns ``x`` itself, with or
+rows, and the "model" axis by the tensor-parallel operators of
+`repro_torch.sharding.tp`, which the model code calls where the rules'
+"heads", "kv_heads", "ff" and "vocab" names would place an activation.
+So `constrain` never moves data and returns ``x`` itself, with or
 without rules.
 """
 from __future__ import annotations
@@ -41,7 +43,7 @@ def default_rules(mesh) -> AxisRules:
             "clients": client_axes if multi_pod else "data",
             "batch": client_axes if multi_pod else "data",  # serving batch
             "seq": None,
-            "cache_seq": None,  # 'data' for long-context decode (ROADMAP item 20)
+            "cache_seq": None,  # 'data' for long-context decode (ROADMAP item 20(f))
             "heads": "model",
             "kv_heads": "model",
             "ff": "model",
@@ -60,12 +62,12 @@ def train_rules(mesh, seq_parallel: bool = False) -> AxisRules:
     and only model-parallel axes constrain.
 
     ``seq_parallel=True`` maps the residual stream's 'seq' axis onto
-    "model" (Megatron-style sequence parallelism), which needs tensor
-    parallelism inside one model: it raises `NotImplementedError`."""
+    "model" (Megatron-style sequence parallelism), which the port does not
+    lay yet: it raises `NotImplementedError`."""
     if seq_parallel:
         raise NotImplementedError(
-            "seq_parallel maps 'seq' onto the 'model' axis; sharding inside one "
-            "model is ROADMAP item 20, not ported yet")
+            "seq_parallel maps 'seq' onto the 'model' axis, which is ROADMAP item 20(e), "
+            "not ported yet")
     rules = dict(default_rules(mesh).rules)
     rules["batch"] = None
     rules["clients"] = None

@@ -15,10 +15,11 @@ Axes whose dim is not divisible by the mesh axis's size fall back to
 replicated. Leading stack axes (the client axis, the layer-group axis)
 are covered by ``prefix`` (padded with None up to the leaf's rank).
 
-These are pure functions of a leaf's path and shape. The port lays only
-the client axis over ranks (`repro_torch.launch.mesh`); the "model"
-entries describe the layout that tensor parallelism inside one model
-will take (ROADMAP item 20).
+These are pure functions of a leaf's path and shape. The port lays the
+client axes and "model" over ranks (`repro_torch.launch.mesh`): each
+rank holds the block of every leaf that its spec gives it
+(`repro_torch.sharding.tp.shard`), and the model code computes on those
+blocks (`repro_torch.sharding.tp`).
 """
 from __future__ import annotations
 

@@ -1,0 +1,200 @@
+"""Tensor parallelism over the mesh's "model" axis (the port's own).
+
+The reference lays each client's model over "model" with its sharding
+rules (`repro_torch.sharding.specs`) and lets GSPMD partition the
+computation. The port writes that partition out by hand, Megatron-style.
+Each rank holds the block of every leaf that the leaf's spec gives it
+(`block`, `shard_leaf`), and the model code computes on those blocks.
+The operators below join the ranks' partial results:
+
+  - `TP.copy`: identity forward, all-reduce of the gradient backward.
+    It goes before a column-parallel product, and on a replicated leaf
+    that the ranks use differently (the QKV biases, a replicated or
+    gathered kv projection read by the rank's own query heads);
+  - `TP.reduce`: all-reduce forward, identity backward. It goes after a
+    row-parallel product, and sums the vocab-parallel embedding and
+    loss;
+  - `TP.gather`: all-gather forward along a dim, the rank's own slice of
+    the gradient backward. It serves a leaf whose shard cuts an
+    attention head (`repro_torch.models.attention`'s gathered route).
+
+Each runs through the `Mesh`'s model collectives, so the mesh's tally
+counts them (``model_all_reduce``, ``model_all_gather``). `context`
+gives None for ``mesh=None`` and for a model size of 1, and model code
+given None runs the single-device path unchanged. Whether a leaf is
+sharded is read off its shape against the config's (a block is narrower
+than the whole), so the model code needs no spec tree.
+
+The steps (`repro_torch.launch.steps`) set the context for the model
+code with `use`; the model's entry points read it once (`current`) and
+pass it down explicitly, so a checkpointed block recomputed during the
+backward sees the same context.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.sharding.specs import param_spec
+
+_TLS = threading.local()
+
+
+def _family_item(family: str) -> Optional[str]:
+    from repro_torch.launch import mesh as mesh_lib
+
+    return {"moe": mesh_lib.ROADMAP_MOE, "ssm": mesh_lib.ROADMAP_SSM,
+            "hybrid": mesh_lib.ROADMAP_SSM, "vlm": mesh_lib.ROADMAP_CROSS,
+            "audio": mesh_lib.ROADMAP_CROSS}.get(family)
+
+
+def check_family(cfg, mesh) -> None:
+    """Raise `NotImplementedError`, naming its ROADMAP sub-item, for a
+    family other than dense on a mesh whose "model" axis is larger than 1."""
+    size = 1 if mesh is None else getattr(mesh, "model_size", 1)
+    item = _family_item(cfg.family)
+    if size > 1 and item is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) over a {size}-way \"model\" axis: tensor "
+            f"parallelism covers the dense family; the {cfg.family} family is {item}")
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_all_reduce(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.model_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.n, ctx.rank = dim, x.shape[dim], mesh.model_rank
+        return mesh.model_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class TP:
+    """This rank's place on the model axis of `mesh`: ``rank`` of
+    ``size``, and the operators over its model group."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.rank, self.size = mesh.model_rank, mesh.model_size
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(x, self.mesh)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(x, self.mesh)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return _Gather.apply(x, self.mesh, dim % x.dim())
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the model ranks, outside autograd."""
+        return self.mesh.model_all_reduce(x.detach(), op="max")
+
+    def count(self, route: str, leaves: int = 0) -> None:
+        """Tally one attention layer on `route`, and the leaves it gathered."""
+        self.mesh.tp_routes[route] += 1
+        self.mesh.tp_routes["gathered_leaves"] += leaves
+
+
+def context(mesh) -> Optional[TP]:
+    """The `TP` of `mesh`, or None for no mesh or a model size of 1."""
+    if mesh is None or getattr(mesh, "model_size", 1) == 1:
+        return None
+    return TP(mesh)
+
+
+def current() -> Optional[TP]:
+    return getattr(_TLS, "tp", None)
+
+
+@contextlib.contextmanager
+def use(tp: Optional[TP]):
+    """Make `tp` the model code's context (`current`) inside the block."""
+    prev = getattr(_TLS, "tp", None)
+    _TLS.tp = tp
+    try:
+        yield tp
+    finally:
+        _TLS.tp = prev
+
+
+# ---------------------------------------------------------------------------
+# Blocks of leaves
+# ---------------------------------------------------------------------------
+
+
+def _axis_index(mesh, ax) -> int:
+    from repro_torch.launch import mesh as mesh_lib
+
+    caxes = mesh_lib.client_axes(mesh)
+    if ax == "model":
+        return mesh.model_rank
+    if ax == (caxes if len(caxes) > 1 else caxes[0]):
+        return mesh.rank
+    raise ValueError(f"no rank index of mesh axis {ax!r} (client axes {caxes})")
+
+
+def _axis_size(mesh, ax) -> int:
+    names = ax if isinstance(ax, tuple) else (ax,)
+    n = 1
+    for a in names:
+        n *= mesh.shape[a]
+    return n
+
+
+def block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of `t` under `spec` (a view): along each dim laid
+    over mesh axes, its share at its index on them."""
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            k = t.shape[dim] // _axis_size(mesh, ax)
+            t = t.narrow(dim, _axis_index(mesh, ax) * k, k)
+    return t
+
+
+def local_shape(spec, shape, mesh) -> tuple:
+    """The shape of one rank's block of a `shape` leaf under `spec`."""
+    return tuple(d if ax is None else d // _axis_size(mesh, ax)
+                 for d, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def shard_leaf(path, leaf: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's model block of one leaf of `M.init_params` as it is
+    made (a single client's leaf, or one layer group's slice of a
+    stacked one: the rules' core dims are its last dims either way), a
+    contiguous copy, so that the whole leaf can be freed."""
+    spec = param_spec(path, tuple(leaf.shape), mesh)
+    return block(leaf, spec, mesh).contiguous()
+
+
+def sharder(mesh):
+    """`M.init_params`' ``shard`` for this rank of `mesh` (`shard_leaf`),
+    or None without a "model" axis larger than 1."""
+    if context(mesh) is None:
+        return None
+    return lambda path, leaf: shard_leaf(path, leaf, mesh)

@@ -1,0 +1,158 @@
+"""Rank functions of `tests/test_torch_tensor_parallel.py` (a helper, not
+a test module). Each runs in one process of a gloo world spawned by
+`repro_torch.launch.mesh.spawn_ranks`, on the CPU, laid over ("data",
+"model"), and returns what the test compares; this module imports no
+JAX, so a rank starts quickly.
+
+A world does every check of its layout in one run: the train step in
+each mix mode from the reference's whole parameters (`convert.shard_params`)
+back to whole ones (`convert.gather_params`), the round trip of those
+two, the prefill and serve steps, the vocab-parallel cross-entropy and
+the model's gradients in f64 against one process.
+"""
+import numpy as np
+import torch
+
+import _torch_dist as D
+from repro_torch import convert
+from repro_torch.configs.base import ShapeConfig, get_reduced
+from repro_torch.core import flat as flat_lib
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.models import layers
+from repro_torch.models import model as M
+from repro_torch.sharding import tp as tp_lib
+
+ARCH, N, LR = D.ARCH, D.N, D.LR
+SERVE_BATCH, SERVE_PROMPT = 4, 8
+CHUNK = 8  # lm_loss's vocab_chunk form over D.SEQ positions
+FLASH_FROM = 8  # apply_model's blocked_attn_threshold: the flash path at D.SEQ
+BLOCK = 8  # blocked_attention's q and kv blocks
+# (name, mix_mode, mix_dtype); the ring holds one client a data rank
+MODES = (("dense", "dense", None), ("dense-bf16", "dense", torch.bfloat16),
+         ("none", "none", None), ("ring", "ring", None))
+
+
+def numpy_tree(tree):
+    return flat_lib.tree_map(lambda t: t.numpy(), tree)
+
+
+def serve_inputs(seed=5):
+    """(prompt (SERVE_BATCH, SERVE_PROMPT) int64, its serving shape)."""
+    cfg = get_reduced(ARCH)
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)
+    return prompt, ShapeConfig("serve", SERVE_PROMPT + 2, SERVE_BATCH, "decode")
+
+
+def loss_inputs(seed=9):
+    """f64 logits (2, D.SEQ, V) and labels for the cross-entropy check."""
+    cfg = get_reduced(ARCH)
+    rng = np.random.default_rng(seed)
+    logits = torch.as_tensor(rng.standard_normal((2, D.SEQ, cfg.vocab_size)) * 3.0)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, D.SEQ)))
+    return logits, labels
+
+
+def _train(mesh, cfg, train, out):
+    for name, mode, md in MODES:
+        n = mesh.size if mode == "ring" else N
+        params = convert.shard_params(flat_lib.tree_map(lambda p: p[:n], train["params"]), mesh)
+        sl = mesh.client_slice(n)
+        batch = {"tokens": torch.as_tensor(train["tokens"][:n])[sl]}
+        step = steps.make_train_step(cfg, mesh, lr=LR, mix_mode=mode, mix_dtype=md)
+        mesh.reset_tally()
+        params, loss = step(params, batch, torch.as_tensor(train["q_eff"][:n, :n]))
+        out[f"train_{name}"] = dict(
+            loss=float(loss), local=params, tally=mesh.collective_tally(),
+            routes=dict(mesh.tp_routes), whole=convert.gather_params(params, mesh, cfg))
+
+
+def _serve(mesh, cfg, train, out):
+    prompt, shape = serve_inputs()
+    params0 = convert.shard_params(flat_lib.tree_map(lambda p: p[0], train["params"]), mesh,
+                                   clients=False)
+    rows = mesh.client_slice(SERVE_BATCH)
+    pshape = ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    out["prefill"] = steps.make_prefill_step(cfg, pshape, mesh)(params0,
+                                                               {"tokens": prompt[rows]})
+    serve = steps.make_serve_step(cfg, shape, mesh)
+    state = M.init_decode_state(cfg, rows.stop - rows.start, shape.seq_len, device="cpu",
+                                mesh=mesh)
+    logits = []
+    for t in range(SERVE_PROMPT):
+        lg, state = serve(params0, prompt[rows, t], state)
+        logits.append(lg)
+    out["serve"] = torch.stack(logits, dim=1)
+    out["cache_heads"] = state.caches["0:attn"].k.shape[-2]
+
+
+def attention_input(cfg, seed=3):
+    """An f64 (2, D.SEQ, d) input for the attention paths."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((2, D.SEQ, cfg.d_model), generator=gen, dtype=torch.float64)
+
+
+def _f64(mesh, cfg, train, out):
+    """lm_loss and its gradients in both loss forms and on the flash path,
+    in f64, the blocked attention's output, and the cross-entropy alone on
+    random logits, on the rank's blocks."""
+    from repro_torch.models import attention
+
+    tp = tp_lib.context(mesh)
+    cfg64 = cfg.with_(dtype="float64")
+    whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"])
+    batch = {"tokens": torch.as_tensor(train["tokens"][0])}
+    for name, kw in (("f64_0", {}), (f"f64_{CHUNK}", {"vocab_chunk": CHUNK}),
+                     ("f64_flash", {"blocked_attn_threshold": FLASH_FROM})):
+        params = flat_lib.tree_map(lambda p: p.requires_grad_(),
+                                   convert.shard_params(whole, mesh, clients=False))
+        with tp_lib.use(tp):
+            loss = M.lm_loss(params, cfg64, batch, **kw)
+        leaves = flat_lib.tree_leaves(params)
+        grads = flat_lib.tree_from_items(zip(
+            [p for p, _ in flat_lib.tree_items(params)], torch.autograd.grad(loss, leaves)))
+        out[name] = dict(loss=float(loss.detach()),
+                         grads=convert.gather_params(grads, mesh, cfg64, clients=False))
+    ap = M._unbind_groups(params["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
+    out["blocked"] = attention.blocked_attention(
+        flat_lib.tree_map(torch.Tensor.detach, ap), attention_input(cfg), cfg64,
+        block_q=BLOCK, block_kv=BLOCK, tp=tp)
+    logits, labels = loss_inputs()
+    if logits.shape[-1] % mesh.model_size:  # the vocabulary stays whole
+        return
+    mask = torch.ones(labels.shape, dtype=torch.float64)
+    mask[:, -1] = 0.0
+    v_loc = logits.shape[-1] // mesh.model_size
+    local = logits[..., mesh.model_rank * v_loc:(mesh.model_rank + 1) * v_loc]
+    local = local.clone().requires_grad_()
+    ce = layers.cross_entropy(local, labels, mask, tp)
+    (g,) = torch.autograd.grad(ce, [local])
+    out["ce"] = dict(loss=float(ce.detach()), grad=mesh.model_all_gather(g, -1))
+
+
+def _round_trip(mesh, cfg, train, out):
+    """shard_params then gather_params, client-stacked in f32 and bf16 and
+    the one serving copy: the whole trees back on every rank."""
+    f32 = train["params"]
+    bf16 = flat_lib.tree_map(lambda p: p.to(torch.bfloat16), f32)
+    one = flat_lib.tree_map(lambda p: p[0], f32)
+    out["round_trip"] = [
+        convert.gather_params(convert.shard_params(numpy_tree(f32), mesh), mesh, cfg),
+        convert.gather_params(convert.shard_params(bf16, mesh), mesh, cfg),
+        convert.gather_params(convert.shard_params(one, mesh, clients=False), mesh, cfg,
+                              clients=False)]
+
+
+def world(rank, world_size, shape, train):
+    """Every check of one ("data", "model") layout `shape`; returns this
+    rank's results."""
+    mesh = mesh_lib.make_test_mesh(shape)
+    cfg = get_reduced(ARCH)
+    out = {"coords": (mesh.rank, mesh.model_rank), "model_size": mesh.model_size}
+    _train(mesh, cfg, train, out)
+    _round_trip(mesh, cfg, train, out)
+    _serve(mesh, cfg, train, out)
+    _f64(mesh, cfg, train, out)
+    return out
+

@@ -171,8 +171,17 @@ def test_lower_pair_returns_every_key_of_the_reference_row():
 
 
 def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        dryrun.lower_pair("qwen2-1.5b", "decode_32k", verbose=False)
+    cfg = tbase.get_reduced("qwen2-1.5b")
+    row = dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, verbose=False)
+    assert row["mesh"] == "16x16" and row["n_devices"] == 256  # the reference's (16, 16)
+    assert row["coll_breakdown"]["counts"]["model_all_gather"] > 0  # 16 ways cut its heads
+    assert row["tp_routes"]["gathered"] == cfg.num_layers
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(c\)"):  # not dense
+        dryrun.lower_pair("mamba2-2.7b", "decode_32k", cfg=tbase.get_reduced("mamba2-2.7b"),
+                          verbose=False)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
+        dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, cache_shard="head_dim",
+                          verbose=False)
     with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
         dryrun.lower_pair("qwen2-1.5b", "decode_32k", clients=2, seq_parallel=True,
                           cfg=tbase.get_reduced("qwen2-1.5b"), verbose=False)

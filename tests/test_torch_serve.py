@@ -28,6 +28,7 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.models import registry as jregistry  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -173,6 +174,8 @@ def test_steps_on_a_mesh_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
             make(cfg, shape, mesh=_Ranks(3))
         assert callable(make(cfg, shape, mesh=_Ranks(4)))
+        # a "model" axis builds for the dense family
+        assert callable(make(cfg, shape, mesh=tmesh.Mesh.dry((4, 2), ("data", "model"))))
 
 
 @pytest.fixture

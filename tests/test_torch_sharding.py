@@ -185,10 +185,14 @@ class SizedMesh(OneMesh):
 
 
 def test_model_axis_and_unported_paths_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        mesh_lib.Mesh((2, 2), ("data", "model"), backend="gloo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        mesh_lib.make_production_mesh(multi_pod=True)
+    mesh = mesh_lib.Mesh.dry((2, 2), ("data", "model"))  # a "model" axis lays out now
+    assert (mesh.size, mesh.model_size, mesh.rank, mesh.model_rank) == (2, 2, 0, 0)
+    with pytest.raises(RuntimeError, match="no process group"):
+        mesh_lib.make_production_mesh(multi_pod=True)  # (2, 16, 16) needs its 512 ranks
+    pod = mesh_lib.Mesh.dry((2, 16, 16), ("pod", "data", "model"))
+    assert (pod.size, pod.model_size) == (32, 16)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(c\)"):  # not dense
+        steps.make_train_step(get_reduced("mamba2-2.7b"), pod)
     with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
         axes.train_rules(OneMesh(), seq_parallel=True)
     cfg = get_reduced("qwen2-1.5b")
