@@ -34,7 +34,10 @@ Phases (any failure exits non-zero):
                rectangular drain as the client mesh runs it (J 1, N_loc 2,
                M 4 at qwen2-1.5b's full plane; J 3, N_loc 5, M 25 at the
                fig4 window; J 1, N_loc 1, M 64 at mamba2-2.7b's plane at 1
-               and 2 layers, phase 22's dense pair, M K past 2^31) in f32
+               and 2 layers, phase 22's dense pair, M K past 2^31; J 1,
+               N_loc 2, M 4 and J 1, N_loc 2, M 2 at one model rank's
+               qwen2-1.5b and olmoe-1b-7b planes at 2 layers, phase 23's
+               (a) and (d)) in f32
                and bf16, within 1e-5 of the largest |value| of the plain
                version, compared in column slices; `ssd_chunk` also at
                phase 22's mamba2 shapes (nc 32 at batch 1 and 4, nc 256);
@@ -46,7 +49,7 @@ Phases (any failure exits non-zero):
                the kernel and through the plain drain: final params agree;
   5. trainer - the DRACO LM trainer `repro_torch.launch.train.main` at
                qwen2-1.5b's full width (28 layers, d_model 1536, vocab
-               151,936, bf16), 4 clients, 20 steps, Psi = 1, 2
+               151,936, bf16), 4 clients, 5 steps, Psi = 1, 2
                unifications: one mix launch per step, finite losses, the
                first near ln V, peak device memory;
   6. trainer plain - 3 trainer steps twice from one seed, through the mix
@@ -56,7 +59,7 @@ Phases (any failure exits non-zero):
   7. mamba2  - the trainer on mamba2-2.7b at full width (d_model 2560, 80
                SSD heads of 64, state 128, vocab 50,280, bf16) cut to 32 of
                its 64 layers (the 4 clients' planes of all 64 do not fit one
-               card), 4 clients, batch 2 x 512 tokens (4 SSD chunks), 10
+               card), 4 clients, batch 2 x 512 tokens (4 SSD chunks), 3
                steps: finite losses, the first near ln V, one mix launch per
                step, two SSD-kernel launches per block, client and step
                (forward and remat), peak device memory;
@@ -116,8 +119,8 @@ Phases (any failure exits non-zero):
                the plain drain (1e-4, equal counters); fedasync-window
                240 windows, one drain a window, against the plain drain;
   15-18. families - the trainer `main` on the other model families at
-               their published widths, 2 clients, 5 steps each, Psi 1, a
-               unification after step 3 (`FAMILY_PHASES`): 15 olmoe-1b-7b
+               their published widths, 2 clients, 2 steps each, Psi 1
+               (`FAMILY_PHASES`): 15 olmoe-1b-7b
                (moe, 64 experts top-8, 8 of 16 layers), 16 zamba2-2.7b
                (hybrid: all 54 Mamba2 blocks at 2 x 512 tokens, the shared
                attention + MLP block after every 6), 17 llama-3.2-vision-
@@ -151,10 +154,11 @@ Phases (any failure exits non-zero):
                examples/torch_*.py at a reduced size (`EXAMPLES`), holding
                its own assertions; the phase's time printed;
   20. serving and long context - (a) `python -m repro_torch.launch.serve`'s
-               `main` at its (the reference's) defaults (batch 4, prompt
-               32, 16 new tokens) for qwen2-1.5b, mamba2-2.7b, zamba2-2.7b,
-               olmoe-1b-7b, llama-3.2-vision-11b (1,600 patch embeddings)
-               and musicgen-large at full width and depth in bf16: tokens
+               `main` at batch 4, prompt 8, 8 new tokens (the reference's
+               defaults are 32 and 16) for qwen2-1.5b, mamba2-2.7b,
+               zamba2-2.7b, olmoe-1b-7b, llama-3.2-vision-11b (1,600 patch
+               embeddings) and musicgen-large at full width in bf16, each
+               cut to about a quarter of its layers (`SERVE_LAYERS`): tokens
                in range, ms per decode step, aggregate tok/s, device idle
                share of 4 steady decode steps, peak memory, 0 host syncs
                in the decode loops under the sync detector; (b) each in
@@ -174,7 +178,7 @@ Phases (any failure exits non-zero):
                from pos 32,760) and long_500k (qwen2's 8,192-slot ring and
                mamba2's O(1) state from pos 524,000): ms per step, peak
                memory, 0 host syncs; (e) the trainer `main` on qwen2-1.5b
-               at --seq 8192, 2 clients of batch 1, 3 steps, Psi 1 (one
+               at --seq 8192, 2 clients of batch 1, 1 step, Psi 1 (one
                mix launch a step, the first loss near ln V, peak memory,
                s/step), then `lm_loss` at that shape with vocab_chunk 1024
                against 0 (loss within 1e-3, each leaf's gradient within
@@ -189,12 +193,12 @@ Phases (any failure exits non-zero):
                |value| of the plain unsharded drain, one launch a rank, ms
                per call and the collective's share; (b) `train.main
                --mesh-backend gloo` on qwen2-1.5b at full width cut to
-               `MESH_LAYERS` of 28 layers, 4 clients, 2 steps and a
-               unification, every sender transmitting: dense (f32 and
-               bf16, over the complete graph) and none at 2 ranks, the
-               ring at 4; each step's mix probed: step 1's per-client
-               losses and delta rows (digests) bitwise equal to the
-               single-process trainer's (and step 2's in the none mode),
+               `MESH_LAYERS` of 28 layers, 4 clients, every sender
+               transmitting: dense (f32 and bf16, over the complete graph)
+               and none at 2 ranks, the ring at 4, one step each (none 2
+               and a unification); each step's mix probed: step 1's
+               per-client losses and delta rows (digests) bitwise equal to
+               the single-process trainer's (and step 2's in the none mode),
                step 1's mixed plane against the mix kernel on the gathered
                plane (`MESH_MIX_TOL`), every step's finite, s/step and
                the collective's share,
@@ -217,7 +221,7 @@ Phases (any failure exits non-zero):
                trainers' planes (N = 2, f32, `FAMILY_MIX_PLANES`) beside
                its plain version and `torch.matmul` (or cuBLAS's refusal
                past 2^31 - 1 columns and the product over dense slices);
-               the rectangular drain at phase 2's two mesh shapes beside
+               the rectangular drain at phase 2's mesh shapes (21, 23) beside
                its bound, the plain version, the einsum and phase 21's
                collective. Phase 9 runs last, after 10 to 23.
   22. dry run - `python -m repro_torch.launch.dryrun`'s `lower_pair` on
@@ -225,7 +229,7 @@ Phases (any failure exits non-zero):
                pairs, one rank's share of the client mesh at full width):
                each reckoned on ``meta`` (FLOPs, bytes, each kernel's
                work, the collective tally, the peak) and run with
-               ``--run`` (`dryrun.RUN_STEPS` steps after a warm-up, CUDA
+               ``--run`` (`dryrun.RUN_STEPS` step after a warm-up, CUDA
                events, the sync detector; the dense train pair at depths
                1 and 2, extrapolated); each row printed; the reckoned peak
                against `torch.cuda.max_memory_allocated` within
@@ -241,20 +245,28 @@ Phases (any failure exits non-zero):
                full width and 2 of 28 layers, 4 clients, 2 steps of the
                dense f32 mix and of none: step 1's per-client losses and
                every leaf of the rank's blocks against the single-process
-               trainer on the same seeds (`TP_LOSS_TOL`, `TP_PARAM_TOL`),
+               trainer on the same seeds (`TP_LOSS_TOL`; a weight within
+               `TP_WEIGHT_TOL`, a zero-init leaf within `TP_PARAM_TOL`),
                the replicated leaves bit for bit equal across the model
                ranks after both steps, one drain launch a rank a dense
                step (phase 2 holds its J 1, N_loc 2, M 4 shape at one
                model rank's plane, `RECT_TP`); the model axis's tally,
-               the staging seconds and the gathered-route leaves printed;
-               (b) a (1, 2) world: prefill and `TP_DECODE_STEPS` decode
-               steps of qwen2-1.5b at full width and depth in f32, batch
+               the staging seconds and the routes printed; (b) in (d)'s
+               (1, 2) world: prefill and `TP_DECODE_STEPS` decode steps of
+               qwen2-1.5b at full width and depth in f32, batch
                `TP_SERVE_BATCH`, the logits against one process within
                `TP_SERVE_TOL` of the largest |logit|; (c) the dry run's
-               default mesh, the reference's (16, 16), for `TP_DRY`:
-               one rank's 1 / 16 share of qwen2.5-32b reckoned and run
-               at the depths its reckoned peak allows, each peak within
-               `DRY_PEAK_TOL`;
+               default mesh, the reference's (16, 16), for `TP_DRY`: one
+               rank's 1 / 16 share of qwen2.5-32b (each rank its 3 of the
+               40 heads, the padded route) reckoned, its full-depth peak
+               within the card, and run at depths 1 and 2, each peak
+               within `DRY_PEAK_TOL`; (d) `train.main` on a (data 1,
+               model 2) world, olmoe-1b-7b (moe) at full width and 2 of
+               16 layers, 2 clients, 2 steps of the dense mix: (a)'s
+               checks, the router also within `TP_F32_TOL` of its step-1
+               update, 32 of the 64 experts a rank (phase 2 holds its
+               drain shape, `RECT_TP_MOE`); (e) as (c) for qwen3-moe-30b-
+               a3b (8 of 128 experts a rank);
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -268,7 +280,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --dryrun
-    python3 chip_smoke.py --tp
+    python3 chip_smoke.py --tp [--tp-faults]
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -288,7 +300,9 @@ alone; the seventh the build, phase 21 and the rectangular drain's
 phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
 and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
 the ninth the build, phase 2's rectangular drain, phase 23 and its
-drain shape's phase 9 row; the
+drain shapes' phase 9 rows (with ``--tp-faults``, then (a)'s and (d)'s
+checks against the planted faults of `TP_FAULTS`, each of which must
+fail them; ``--tp-faults`` alone runs only those); the
 tenth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
@@ -297,6 +311,7 @@ when the rule fails at any depth).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -320,9 +335,9 @@ RTOL = ATOL = 1e-5  # kernel against its plain version: f32 sums reordered
 PATH_TOL = 1e-4  # 50 windows, kernel path against the plain-drain path
 WINDOWS, EVAL_EVERY, PLAIN_WINDOWS = 300, 100, 50
 TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "4", "--batch-per-client", "2",
-              "--seq", "128", "--steps", "20", "--unify-every", "10", "--psi", "1",
+              "--seq", "128", "--steps", "5", "--unify-every", "2", "--psi", "1",
               "--log-every", "5"]
-TRAIN_STEPS, TRAIN_PLAIN_STEPS = 20, 3
+TRAIN_STEPS, TRAIN_PLAIN_STEPS = 5, 3
 # kernel path against the plain path: every step's loss, and per leaf
 # |sum gap| / sum |p| where the paths are equal up to the order of f32 sums
 # (qwen2)
@@ -350,9 +365,9 @@ SEED = 0
 # per parameter: 113 GB at 64 layers, 57 GB at 32)
 MAMBA_LAYERS = 32
 MAMBA_ARGS = ["--arch", "mamba2-2.7b", "--clients", "4", "--batch-per-client", "2",
-              "--seq", "512", "--steps", "10", "--unify-every", "10", "--psi", "1",
-              "--log-every", "5"]
-MAMBA_STEPS, MAMBA_PLAIN_STEPS = 10, 3
+              "--seq", "512", "--steps", "3", "--unify-every", "3", "--psi", "1",
+              "--log-every", "3"]
+MAMBA_STEPS, MAMBA_PLAIN_STEPS = 3, 3
 # mamba2's kernel path against its plain path, per leaf: sum |p - p_plain|
 # over the leaf's own 3-step change sum |p_plain - p_init|, the kernel's at
 # most this times the control's (the plain path with an f32-level change
@@ -382,7 +397,7 @@ FAMILY_PHASES = (("15 moe", "olmoe-1b-7b", 8, 6, 128),
                  ("16 hybrid", "zamba2-2.7b", 54, 6, 512),
                  ("17 vlm", "llama-3.2-vision-11b", 10, 10, 128),
                  ("18 audio", "musicgen-large", 48, 48, 128))
-FAMILY_STEPS, FAMILY_PLAIN_STEPS, FAMILY_PROFILE_STEPS = 5, 3, 3
+FAMILY_STEPS, FAMILY_PLAIN_STEPS, FAMILY_PROFILE_STEPS = 2, 3, 3
 # phase 16's comparison: zamba2 at one group (6 Mamba2 blocks and one
 # application of the shared block), each leaf against the largest of 3
 # controls, the 6 block positions' leaves of a kind pooled into one (as
@@ -536,6 +551,35 @@ def log(msg):
     print(msg, flush=True)
 
 
+PHASE_TIMES = []  # (label, wall seconds) of each phase the whole run timed
+
+
+def timed(label, fn, *args):
+    """`fn(*args)`, its wall time kept in `PHASE_TIMES`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_TIMES.append((label, time.perf_counter() - t0))
+    return out
+
+
+PROFILER = {"sessions": 0, "s": 0.0}  # the profiler's own set-up, tear-down and tables
+
+
+@contextlib.contextmanager
+def card_profile():
+    """`torch.profiler.profile` of the host and the card, its own seconds
+    (entering, leaving and `device_rows`' table) kept in `PROFILER`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    PROFILER["sessions"] += 1
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        PROFILER["s"] += time.perf_counter() - t0
+        yield prof
+        t0 = time.perf_counter()
+    PROFILER["s"] += time.perf_counter() - t0
+
+
 def paper_config(rate, num_clients=None):
     """(DracoConfig, mlp Task) at `repro_torch.configs.draco_paper.EMNIST`:
     its clients (or `num_clients`), the cycle, the wireless channel with
@@ -630,19 +674,27 @@ def mix_against_plain(torch, ops, q, deltas, got, rtol=RTOL):
 
 
 def device_rows(prof):
-    """(device us, kernel name, count) per kernel of a profiler run."""
+    """(device us, kernel name, count) per kernel of a profiler run, summed
+    over the run's raw device events (`key_averages` builds a Python
+    event for every host op first: seconds a session)."""
     from torch.autograd import DeviceType
 
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue  # CPU ops also carry their kernels' time
-        dev = getattr(evt, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev, evt.key, evt.count))
-    return rows
+    t0 = time.perf_counter()
+    rows = {}
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None:  # a torch without the raw results: the averaged table
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", 0.0)
+            if evt.device_type == DeviceType.CUDA and dev > 0:
+                rows[evt.key] = [dev, evt.count]
+    else:
+        for evt in results.events():
+            if evt.device_type() == DeviceType.CUDA and evt.duration_ns() > 0:
+                row = rows.setdefault(evt.name(), [0.0, 0])
+                row[0] += evt.duration_ns() / 1e3
+                row[1] += 1
+    PROFILER["s"] += time.perf_counter() - t0
+    return [(dev, name, count) for name, (dev, count) in rows.items()]
 
 
 def time_ms(torch, fn, reps=60, flush=None):
@@ -878,10 +930,8 @@ def phase_main(torch):
 def profile_windows(torch, protocol, st, cfg, ctx, task, data, steady_ms):
     """Device time by kernel over 20 profiled windows, and the device's
     busy share of an unprofiled steady window (`steady_ms`)."""
-    from torch.profiler import ProfilerActivity, profile
-
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             t0 = time.perf_counter()
             protocol.run_windows(st, cfg, ctx.q, ctx.adj, task, data, 20)
             torch.cuda.synchronize()
@@ -1329,8 +1379,6 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
     must reject.
     Returns Dflat, the unprofiled step (s), the device busy time per step
     and each of `kernel_rows`' device time per step (us)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.api import make_context
     from repro_torch.core import flat as flat_lib
     from repro_torch.core.protocol import DracoConfig
@@ -1374,8 +1422,7 @@ def compare_trainer_paths(torch, argv, cfg, steps, plain, kernel_rows, label,
             log(f"  kernel path: first step {t1 - t0:.4f} s (warm-up), second "
                 f"{out['steady_s']:.4f} s")
             try:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                with card_profile() as prof:
                     t0 = time.perf_counter()
                     for i in range(2, steps):
                         params = step(i, params)
@@ -1600,8 +1647,10 @@ def planted_faults(torch):
 
 
 def family_args(arch, seq, steps=FAMILY_STEPS):
+    """The family trainer's arguments: its timed run unifies the clients
+    after its last step (the comparisons call `train_step` alone)."""
     return ["--arch", arch, "--clients", "2", "--batch-per-client", "2", "--seq", str(seq),
-            "--steps", str(steps), "--unify-every", "3", "--psi", "1", "--log-every",
+            "--steps", str(steps), "--unify-every", str(steps), "--psi", "1", "--log-every",
             str(steps)]
 
 
@@ -1972,10 +2021,8 @@ def profile_rounds(torch, algo, st, ctx, rounds, steady_ms, kernel="mix_kernel",
     """Device busy share of `rounds` profiled steps against the
     unprofiled steady step (`steady_ms`); the `kernel`'s row (the mix's
     by default). None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             for _ in range(rounds):
                 st = algo.step(st, ctx)
             torch.cuda.synchronize()
@@ -2785,7 +2832,12 @@ def phase_entry_points(torch):
 # chunked-vocab loss against the full one
 SERVE_ARCHS = ("qwen2-1.5b", "mamba2-2.7b", "zamba2-2.7b", "olmoe-1b-7b",
                "llama-3.2-vision-11b", "musicgen-large")
-SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--new-tokens", "16"]
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "8", "--new-tokens", "8"]
+# phase 20 (a) serves each family at full width cut to about a quarter of
+# its depth (whole layer groups): the phase times serving and holds it
+# against nothing; phase 20 (b) compares at full depth
+SERVE_LAYERS = {"qwen2-1.5b": 7, "mamba2-2.7b": 16, "zamba2-2.7b": 12, "olmoe-1b-7b": 4,
+                "llama-3.2-vision-11b": 10, "musicgen-large": 12}
 SERVE_STEADY = 4  # decode steps after the prompt, timed, then as many profiled
 EXACT_BATCH, EXACT_PROMPT = 2, 64
 # decode against prefill, max |gap| over the largest |logit| (f32, TF32
@@ -2813,7 +2865,7 @@ BF16_REL_TOL = 0.1
 DECODE_BATCH = 32  # decode_32k's batch of 128, cut to 32 (~30 GB of cache)
 DECODE_STEPS = 8
 LONG_POS = 524_000
-LONG_TRAIN_STEPS = 3
+LONG_TRAIN_STEPS = 1
 LONG_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "2", "--batch-per-client", "1",
                    "--seq", "8192", "--steps", str(LONG_TRAIN_STEPS), "--psi", "1",
                    "--log-every", str(LONG_TRAIN_STEPS)]
@@ -2850,10 +2902,8 @@ def watched(torch, fn):
 def device_busy_us(torch, fn):
     """Device time of every kernel of one profiled `fn()`; None when the
     profiler records none."""
-    from torch.profiler import ProfilerActivity, profile
-
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             fn()
             torch.cuda.synchronize()
         busy = sum(r[0] for r in device_rows(prof))
@@ -2911,7 +2961,7 @@ def phase_serve(torch, dev):
     rows = {}
     real = serve.serve_batch
     for arch in SERVE_ARCHS:
-        cfg = get_config(arch)
+        cfg = get_config(arch).with_(num_layers=SERVE_LAYERS[arch])
         held = {}
 
         def first_call(cfg_, params, prompts, max_new, **kw):
@@ -2930,7 +2980,7 @@ def phase_serve(torch, dev):
         serve.serve_batch = first_call
         try:
             with contextlib.redirect_stdout(out):
-                toks = serve.main(["--arch", arch, *SERVE_ARGS, "--device", dev])
+                toks = serve.main(["--arch", arch, *SERVE_ARGS, "--device", dev], cfg=cfg)
         finally:
             serve.serve_batch = real
         for line in out.getvalue().splitlines():
@@ -3369,14 +3419,14 @@ def family_mix_times(torch):
         del params
         torch.cuda.empty_cache()
         q, deltas = mix_case(torch, 2, k, torch.float32, seed=11)
-        kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=10, flush=flush)
-        plain = time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=5)
+        kern = time_ms(torch, lambda: ops.gossip_mix(q, deltas), reps=5, flush=flush)
+        plain = time_ms(torch, lambda: ops.gossip_mix_reference(q, deltas), reps=2)
         qt, refusal = q.T.contiguous(), None
         try:
             out = torch.matmul(qt, deltas)
             torch.cuda.synchronize()
             del out
-            lib = time_ms(torch, lambda: torch.matmul(qt, deltas), reps=5)
+            lib = time_ms(torch, lambda: torch.matmul(qt, deltas), reps=2)
         except RuntimeError as exc:
             refusal = str(exc).splitlines()[0][:160]
 
@@ -3384,7 +3434,7 @@ def family_mix_times(torch):
                 for lo in range(0, k, SLICE):
                     torch.matmul(qt, deltas[:, lo:lo + SLICE].contiguous())
 
-            lib = time_ms(torch, sliced, reps=5)
+            lib = time_ms(torch, sliced, reps=2)
         bound, by = bound_ms("mix", 2, k, 4)
         log(f"  mix N=2 K={k} f32 ({arch}, {layers} layers, K % 4 = {k % 4}): kernel "
             f"{kern:.4f} ms, bound {bound:.4f} ms ({by}, {100 * bound / kern:.1f}% of bound), "
@@ -3427,6 +3477,9 @@ RECT_QWEN2, RECT_FIG4 = (1, 2, 4, ("qwen2-1.5b", None), 1), (3, 5, 25, 146_447, 
 # phase 23 (a)'s dense mix: each model rank's tile, qwen2-1.5b's plane at 2
 # layers as one of 2 model ranks holds it (K = 163,491,328)
 RECT_TP = (1, 2, 4, ("qwen2-1.5b", 2, 2), 1)
+# phase 23 (d)'s: olmoe-1b-7b's plane at 2 layers as one of 2 model ranks
+# holds it, 2 senders against 2 receivers on one client rank
+RECT_TP_MOE = (1, 2, 2, ("olmoe-1b-7b", 2, 2), 1)
 RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) for d in (1, 2)}
 # phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
 # drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
@@ -3437,23 +3490,24 @@ RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) f
 MESH_DRAIN, MESH_RANKS, MESH_DRAIN_REPS = (3, 25, 146_447), 5, 10
 MESH_SWEEP_SEEDS, MESH_SWEEP_WINDOWS, MESH_SWEEP_EVAL = 2, 30, 10
 # (b) the mesh trainer `train.main --mesh-backend gloo` on qwen2-1.5b at full
-# width, 4 clients, 2 steps (a unification after the second), cut to
-# MESH_LAYERS of its 28 layers: gloo stages every collective through host
-# memory and the loopback, and the dense mix reduce-scatters a (4, K) f32
-# partial per rank (24.7 GB at 28 layers, K = 1,543,714,304; 5.2 GB at 2,
-# K = 327,000,576, of which the tied embedding is 233,373,696), then holds
-# step 1's mixed plane against the mix kernel on the gathered plane
-# (another pass of the plane through the host). Modes: (label, ranks,
-# argv)
+# width, 4 clients, cut to MESH_LAYERS of its 28 layers: gloo stages every
+# collective through host memory and the loopback, and the dense mix
+# reduce-scatters a (4, K) f32 partial per rank (24.7 GB at 28 layers, K =
+# 1,543,714,304; 5.2 GB at 2, K = 327,000,576, of which the tied embedding
+# is 233,373,696), then holds step 1's mixed plane against the mix kernel
+# on the gathered plane (another pass of the plane through the host). The
+# none mode runs 2 steps (a unification after the second), its step 2 also
+# held bit for bit; the others 1, since their step 2 is held against
+# nothing (its inputs carry step 1's mix). Modes: (label, ranks, argv)
 MESH_LAYERS = 2
 MESH_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--clients", "4", "--batch-per-client", "2",
                    "--seq", "128", "--steps", "2", "--unify-every", "2", "--psi", "0",
                    "--lambda-tx", "50", "--log-every", "1", "--mesh-backend", "gloo"]
-MESH_MODES = (("dense", 2, ["--mix", "dense", "--topology", "complete"]),
+MESH_MODES = (("dense", 2, ["--mix", "dense", "--topology", "complete", "--steps", "1"]),
               ("dense bf16", 2, ["--mix", "dense", "--mix-dtype", "bfloat16",
-                                 "--topology", "complete"]),
+                                 "--topology", "complete", "--steps", "1"]),
               ("none", 2, ["--mix", "none"]),
-              ("ring", 4, ["--mix", "ring"]))
+              ("ring", 4, ["--mix", "ring", "--steps", "1"]))
 # Every sender transmits (lambda_tx 50, Psi 0), and the dense modes mix
 # over the complete graph (weights 1/3), so that each receiver sums three
 # senders from two ranks: on the cycle (weights 1/2, every product exact)
@@ -3509,14 +3563,15 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`) in f32 and bf16,
+    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`) in f32 and bf16,
     against its plain version in column slices, within RTOL of the
     largest |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
     for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
-                         *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP)):
+                         *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP),
+                         ("olmoe plane of one model rank", RECT_TP_MOE)):
         for i, dtype in enumerate((torch.float32, torch.bfloat16)):
             w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
             got = ops.gossip_drain(w, ring, slots)
@@ -3543,7 +3598,8 @@ def rect_time_cases(mesh=None, tp=None):
         cases += [("qwen2 plane", RECT_QWEN2, mesh["train_collective_ms"]),
                   ("fig4 window", RECT_FIG4, mesh["gloo_collective_ms"])]
     if tp is not None:
-        cases.append(("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]))
+        cases += [("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]),
+                  ("olmoe plane of one model rank", RECT_TP_MOE, tp["moe_collective_ms"])]
     return cases
 
 
@@ -3693,34 +3749,6 @@ def mesh_rank_train(rank, world, modes):
     return out
 
 
-def mesh_reference(torch, cfg, none):
-    """The single-process trainer on phase 21 (b)'s inputs (its CLI
-    without --mesh-backend): per step, each client's loss and delta-row
-    digest, through the mix kernel (or, for the none mode, no mix)."""
-    from repro_torch.core import mixing
-    from repro_torch.launch import train
-
-    record, real = [], (mixing.mix_plane, train.train_step_clients)
-
-    def mix_plane(q_eff, plane, mix=None):
-        record.append(dict(digests=[row_digest(torch, r) for r in plane]))
-        return plane.clone() if none else real[0](q_eff, plane, mix)
-
-    def train_step_clients(*args, **kw):
-        params, losses = real[1](*args, **kw)
-        record[-1]["losses"] = losses.tolist()
-        return params, losses
-
-    argv = [a for a in MESH_TRAIN_ARGS if a != "--mesh-backend" and a != "gloo"]
-    mixing.mix_plane, train.train_step_clients = mix_plane, train_step_clients
-    try:
-        losses = train.main(argv, cfg=cfg)
-    finally:
-        mixing.mix_plane, train.train_step_clients = real
-    torch.cuda.empty_cache()
-    return losses, record
-
-
 def mesh_drain_run(torch, mesh):
     """Phase 21 (a) in one rank: the sharded drain on this rank's senders
     of `MESH_DRAIN` against the plain unsharded drain's rows (within RTOL
@@ -3866,10 +3894,12 @@ def phase_mesh(torch):
     del params, sweep, gloo, nccl
     torch.cuda.empty_cache()
 
-    # (b) the single-process references, then the mesh trainer's worlds
+    # (b) the single-process references (shared with phase 23 (a)), then
+    # the mesh trainer's worlds
     cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
-    _, ref = mesh_reference(torch, cfg, none=False)
-    _, ref_none = mesh_reference(torch, cfg, none=True)
+    ref, _ = single_reference(torch, cfg, MESH_TRAIN_ARGS + ["--topology", "complete"], False,
+                              1)
+    ref_none, _ = single_reference(torch, cfg, MESH_TRAIN_ARGS, True, 2)
     train_launches, rows = 0, {}
     for ranks in sorted({r for _, r, _ in MESH_MODES}):
         modes = [(label, argv) for label, r, argv in MESH_MODES if r == ranks]
@@ -3882,7 +3912,7 @@ def phase_mesh(torch):
             runs = [o[label] for o in outs]
             want = ref_none if label == "none" else ref
             n_loc = 4 // ranks
-            for step in range(2):
+            for step in range(len(runs[0]["steps"])):
                 entries = [r["steps"][step] for r in runs]
                 losses = [x for e in entries for x in e["losses"]]
                 digests = [d for e in entries for d in e["digests"]]
@@ -3907,18 +3937,20 @@ def phase_mesh(torch):
                 if not ok:
                     raise AssertionError(f"phase 21: mesh trainer {label} step {step + 1}")
             launches = sum(r["launches"] for r in runs)
-            expect = 2 * ranks if label.startswith("dense") else 0
+            expect = len(runs[0]["steps"]) * ranks if label.startswith("dense") else 0
             if launches != expect or not all(math.isfinite(x) for x in runs[0]["losses"]):
                 raise AssertionError(f"phase 21: {label} launched the drain {launches} times "
                                      f"(expected {expect}) or lost finiteness")
             train_launches += launches
-            steady = [r["steps"][1]["step_s"] - r["steps"][1]["check_s"] for r in runs]
-            rows[label] = dict(ranks=ranks, s_step=max(steady),
-                               share=runs[0]["steps"][1]["collective_s"] / steady[0],
+            last = len(runs[0]["steps"])
+            steady = [r["steps"][-1]["step_s"] - r["steps"][-1]["check_s"] for r in runs]
+            rows[label] = dict(ranks=ranks, s_step=max(steady), step=last,
+                               share=runs[0]["steps"][-1]["collective_s"] / steady[0],
                                peak=max(r["peak"] for r in runs), launches=launches,
-                               collective_ms=runs[0]["steps"][1]["collective_s"] * 1e3)
+                               collective_ms=runs[0]["steps"][-1]["collective_s"] * 1e3)
             log(f"  {label}: {launches} drain launches, peak {rows[label]['peak'] / 2**30:.2f} "
-                f"GiB per rank, {rows[label]['s_step']:.4f} s/step at step 2")
+                f"GiB per rank, {rows[label]['s_step']:.4f} s/step at step {last} (its check's "
+                f"time left out)")
     res["train"] = rows
     res["train_collective_ms"] = dict(
         ms=rows["dense"]["collective_ms"],
@@ -4015,75 +4047,161 @@ def phase_dryrun(torch):
 # on one device). (a) `train.main` on a (data 2, model 2) world
 # (`TP_SHAPE`): phase 21 (b)'s run, 4 clients at 2 layers, each client now
 # over 2 ranks of "model"; its step 1 against the single-process trainer on
-# the same seeds. The ranks' bf16 products (other widths, other cuBLAS
-# tiles) and sums (re-associated across the model ranks) round otherwise,
-# so a leaf's largest gap is held within TP_PARAM_TOL of its largest |value|
-# and each client's loss within TP_LOSS_TOL (relative). Read on an H100
-# (PERF.md): 7.8e-5 for the losses; 1.7e-2 and 1.9e-2 for the params, at bk
-# and bv: a zero-init bias is its bf16 update alone, a sum over 256
-# positions that cancels to ~1e-5, so a few bf16 steps of its terms are
-# percents of it; a reduction left out (a bias gradient left partial) moves
-# a leaf by O(1) of itself
+# the same seeds (`single_reference`, phase 21's own run where phase 21 ran
+# first). The ranks' bf16 products (other widths, other cuBLAS tiles) and
+# sums (re-associated across the model ranks) round otherwise, so each
+# client's loss is held within TP_LOSS_TOL (relative) and a leaf's largest
+# gap within its bound of its largest |value|: a weight (`TP_WEIGHTS`)
+# within TP_WEIGHT_TOL, a zero-init leaf (a bias, a norm scale) within
+# TP_PARAM_TOL. Read on an H100 (PERF.md, PR 25): 7.8e-5 for the losses;
+# the weights 8.3e-4 to 1.7e-3; 1.7e-2 and 1.9e-2 at bk and bv: a zero-init
+# bias is its bf16 update alone, a sum over 256 positions that cancels to
+# ~1e-5, so a few bf16 steps of its terms are percents of it. Each bound is
+# ~2.6x its reading; a reduction left out (a gradient left partial) moves a
+# leaf by O(1) of itself, and a wrong partial sum on one weight shard that
+# moves it by 1e-2 of its largest |value| (`--tp-faults`) fails
+# TP_WEIGHT_TOL
 TP_SHAPE = (2, 2)
 TP_MODES = (("dense", ["--mix", "dense", "--topology", "complete"]),
             ("none", ["--mix", "none"]))
-TP_PARAM_TOL = 5e-2
 TP_LOSS_TOL = 1e-3
-# (b) serving on a (1, 2) world at qwen2-1.5b's full width and depth, in
+TP_WEIGHT_TOL = 4.5e-3
+TP_PARAM_TOL = 5e-2
+TP_WEIGHTS = ("w", "embed", "lm_head", "experts_", "router")  # a weight's leaf name begins so
+# (b) serving in (d)'s (1, 2) world at qwen2-1.5b's full width and depth, in
 # f32 (phase 20's exact comparisons are in f32): the logits of a prefill
 # and of TP_DECODE_STEPS decode steps from an empty cache against one
 # process, within phase 20's 1e-4 of the largest |logit|
 TP_SERVE_SHAPE, TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_DECODE_STEPS = (1, 2), 4, 32, 4
 TP_SERVE_TOL = 1e-4
 # (c) the dry run at its default mesh, the reference's (16, 16): (arch,
-# shape, mix, blocked_threshold). At train_4k's 4,096 tokens the whole
-# scores of the gathered route's 40 heads (16 sequences a rank) do not fit
-# the card at one layer, so the pair takes the flash path from 1,024
-# tokens, the dry run's --train-attn-blocked (reckoned peaks: 93.6 GiB at
-# 64 layers, 43.5 and 44.3 at 1 and 2)
-TP_DRY = ("qwen2.5-32b", "train_4k", "ring", 1024)
+# shape, mix, blocked_threshold), run at depths 1 and 2. qwen2.5-32b's 40
+# heads over 16 ranks: the padded route, 3 heads a rank (1 on rank 13, none
+# on 14 and 15); its full-depth reckoned peak must fit the card (67.7 GiB
+# reckoned on the CPU)
+TP_DRY = ("qwen2.5-32b", "train_4k", "ring", 8192)
+# (d) `train.main` on a (data 1, model 2) world, olmoe-1b-7b at full width
+# and TP_MOE_LAYERS of its 16 layers, 2 clients on the one client rank,
+# each over the 2 model ranks (one client alone would learn nothing: its
+# window's weights have no edge, so step 1 would leave every leaf at its
+# init), the dense mix (one drain launch a rank a step over a client group
+# of one, no client collective: phase 2 holds its J 1, N_loc 2, M 2 shape,
+# `RECT_TP_MOE`): step 1 against the single-process trainer under (a)'s
+# bounds (a zero-init leaf within TP_MOE_PARAM_TOL), the router (f32,
+# `TP_F32_TOL`) also against its step-1 update:
+# a bf16 step of the weights is a few times one update, so a router
+# gradient summed over the ranks (twice its update) shows only there; the
+# replicated leaves (the router, the norms) bit for bit equal across the
+# model ranks after both steps; TP_MOE_EXPERTS experts a rank in the tally
+TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_SHAPE, TP_MOE_EXPERTS = "olmoe-1b-7b", 2, (1, 2), 32
+TP_MOE_ARGS = ["--arch", TP_MOE_ARCH, "--clients", "2", "--mix", "dense", "--topology",
+               "complete"]
+# (d)'s readings (PERF.md, PR 26 calls 1-2): the weights as (a)'s (1.9e-3,
+# under TP_WEIGHT_TOL); a zero-init norm scale of the moe block 0.115-0.121
+# of its largest |value| (its update a sum over 256 positions that cancels
+# to ~1.5e-5, as (a)'s biases); the router 0.122-0.130 of its update. Each
+# bound ~2.6x its reading; an unreduced expert output moves that norm by
+# 0.86 of itself, a router gradient summed over the ranks the router by
+# 0.919 of its update
+TP_MOE_PARAM_TOL = 0.3
+TP_F32_TOL = 0.33  # an f32 leaf's largest gap over its largest step-1 update
+# (e) the dry run's (16, 16) pair of the moe family at depths 1 and 2:
+# 8 of qwen3-moe-30b-a3b's 128 experts a rank
+TP_DRY_MOE, TP_DRY_MOE_EXPERTS = ("qwen3-moe-30b-a3b", "train_4k", "ring", 8192), 8
+# `--tp-faults`: each planted in one run of (a) or (d), each must fail its
+# check. weight-shard: model rank 1 adds TP_FAULT_SHIFT of its largest
+# |value| to one element of its w_down shard after step 1; router-twice: a
+# `TP.copy` on the router, its gradient summed over the 2 model ranks;
+# unreduced: each rank's partial expert output left unreduced
+TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"))
+TP_FAULT_SHIFT = 1e-2
+
+_REFS = {}
 
 
-def tp_reference(torch, cfg, argv, none, path):
-    """The single-process trainer on phase 23 (a)'s inputs (its CLI
-    without --mesh-backend; `none`: the plane unmixed): step 1's
-    per-client losses, and its params saved to `path` on the host."""
+def single_reference(torch, cfg, argv, none, steps):
+    """The single-process trainer on `argv` (a mesh run's CLI without
+    --mesh-backend) for `steps` steps, its plane unmixed with `none`: per
+    step, each client's loss and delta-row digest (`row_digest`), and the
+    params after step 1 saved to a file on the host. Cached by config,
+    argv and `none`: phase 21 (b) and phase 23 (a) share one run. Returns
+    (record, path)."""
+    import tempfile
+
     from repro_torch.core import flat as flat_lib
     from repro_torch.core import mixing
     from repro_torch.launch import train
 
-    real = (mixing.mix_plane, train.train_step_clients)
-    record = []
+    key = (cfg, tuple(argv), none)
+    if key in _REFS and len(_REFS[key][0]) >= steps:
+        return _REFS[key]
+    if "dir" not in _REFS:
+        _REFS["dir"] = tempfile.TemporaryDirectory(prefix="refs-")
+    path = os.path.join(_REFS["dir"].name, f"ref{len(_REFS)}.pt")
+    record, real = [], (mixing.mix_plane, train.train_step_clients)
 
     def mix_plane(q_eff, plane, mix=None):
+        record.append(dict(digests=[row_digest(torch, r) for r in plane]))
         return plane.clone() if none else real[0](q_eff, plane, mix)
 
     def train_step_clients(*args, **kw):
         params, losses = real[1](*args, **kw)
-        if not record:
+        record[-1]["losses"] = losses.tolist()
+        if len(record) == 1:
             torch.save(flat_lib.tree_map(lambda p: p.cpu(), params), path)
-            record.append(losses.tolist())
         return params, losses
 
-    argv = [a for a in argv if a not in ("--mesh-backend", "gloo")] + ["--steps", "1"]
+    argv = [a for a in argv if a not in ("--mesh-backend", "gloo")] + ["--steps", str(steps)]
     mixing.mix_plane, train.train_step_clients = mix_plane, train_step_clients
     try:
         train.main(argv, cfg=cfg)
     finally:
         mixing.mix_plane, train.train_step_clients = real
     torch.cuda.empty_cache()
-    return record[0]
+    _REFS[key] = record, path
+    return record, path
 
 
-def tp_rank_train(rank, world, modes):
-    """Phase 23 (a) in one rank: `train.main` on the (2, 2) mesh for each
-    (label, argv, reference path) of `modes`. Around each step of the
-    rank's clients: its time, the collectives' seconds, the model axis's
-    tally and the attention routes taken; after step 1 every leaf of the
-    rank's blocks against its block of the single-process params; after
-    each step the replicated leaves (no "model" in their spec) on the
-    host, for the parent to compare across the model ranks. The drain
-    launches are counted from 0 around each run."""
+def plant(fault):
+    """Install `fault` of `TP_FAULTS` (moe's) in this process; returns the
+    function that removes it."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    if fault == "router-twice":
+        real = M.moe_block
+
+        def moe_block(p, x, cfg, tp=None, rows=None):
+            return real(dict(p, router=tp.copy(p["router"])) if tp else p, x, cfg, tp, rows)
+
+        M.moe_block = moe_block
+        return lambda: setattr(M, "moe_block", real)
+    if fault == "unreduced":
+        real = moe._Combine
+
+        class Combine(real):
+            @staticmethod
+            def forward(ctx, out_e, gate, dst, src, tp):
+                out = real.forward(ctx, out_e, gate, dst, src, None)  # the rank's part alone
+                ctx.tp = tp
+                return out
+
+        moe._Combine = Combine
+        return lambda: setattr(moe, "_Combine", real)
+    return lambda: None
+
+
+def tp_rank_train(rank, world, arch, layers, layout, modes, serve=False):
+    """Phase 23 (a) or (d) in one rank: `train.main` on the `layout` mesh,
+    `arch` at `layers` layers, for each (label, argv, reference path,
+    planted fault) of `modes`. Around each step of the rank's clients: its
+    time, the collectives' seconds, the model axis's tally, the routes and
+    experts taken; after step 1 every leaf of the rank's blocks against its
+    block of the single-process params; after each step the replicated
+    leaves (no "model" in their spec) on the host, for the parent to
+    compare across the model ranks. The drain launches are counted from 0
+    around each run. With `serve`, then (b) in the same world (its
+    ``"serve"`` entry)."""
     import torch
 
     import repro_torch  # noqa: F401  (TF32 off)
@@ -4094,9 +4212,9 @@ def tp_rank_train(rank, world, modes):
     from repro_torch.sharding import tp as tp_lib
     from repro_torch.sharding.specs import tree_param_specs
 
-    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
+    cfg = get_config(arch).with_(num_layers=layers)
     out = {}
-    for label, argv, ref_path in modes:
+    for label, argv, ref_path, fault in modes:
         ref = torch.load(ref_path, mmap=True, weights_only=True)
         record, box = [], []
         real_mix, real_clients = steps.mesh_mix, train.train_step_clients
@@ -4114,17 +4232,23 @@ def tp_rank_train(rank, world, modes):
             torch.cuda.synchronize()
             c0, t0 = mesh.collective_s, time.perf_counter()
             tally0, routes0 = mesh.collective_tally(), dict(mesh.tp_routes)
+            before = {} if record else {path: leaf.clone() for path, leaf in
+                                        flat_lib.tree_items(a[0]) if leaf.dtype == torch.float32}
             params, losses = real_clients(*a, **k)
             torch.cuda.synchronize()
+            if fault == "weight-shard" and not record and mesh.model_rank == 1:
+                w = params["groups"]["1:mlp"]["mlp"]["w_down"]
+                w.view(-1)[0] += TP_FAULT_SHIFT * w.abs().max()
             tally = mesh.collective_tally()
             entry = dict(step_s=time.perf_counter() - t0, collective_s=mesh.collective_s - c0,
                          losses=losses.tolist(),
                          tally={kind: (tally["_counts"][kind] - tally0["_counts"][kind],
                                        tally[kind] - tally0[kind])
                                 for kind in ("model_all_reduce", "model_all_gather",
-                                             "reduce_scatter")},
-                         routes={k: v - routes0[k] for k, v in mesh.tp_routes.items()},
-                         replicated={}, gaps={})
+                                             "model_reduce_scatter", "reduce_scatter")},
+                         routes={k: v if k == "experts" else v - routes0[k]
+                                 for k, v in mesh.tp_routes.items()},
+                         replicated={}, gaps={}, updates={})
             for path, leaf in flat_lib.tree_items(params):
                 if "model" not in specs[path]:
                     entry["replicated"][path] = leaf.cpu()
@@ -4132,18 +4256,22 @@ def tp_rank_train(rank, world, modes):
                     want = tp_lib.block(ref_leaves[path], specs[path], mesh).to(leaf.device)
                     entry["gaps"][path] = (float((leaf.float() - want.float()).abs().max()),
                                            float(want.float().abs().max()))
+                    if path in before:
+                        entry["updates"][path] = float((want - before[path]).abs().max())
             record.append(entry)
             return params, losses
 
-        # 4 clients on (2, 2): the reference's rule lays 4 ranks of 4 clients as (4, 1)
         real_layout = train.mesh_layout
         steps.mesh_mix, train.train_step_clients = mesh_mix, train_step_clients
-        train.mesh_layout = lambda world, clients: TP_SHAPE
+        # 4 clients on (2, 2): the reference's rule lays 4 ranks of 4 clients as (4, 1)
+        train.mesh_layout = lambda world, clients: layout
+        unplant = plant(fault)
         torch.cuda.reset_peak_memory_stats()
         ops.gossip_drain.launches = 0
         try:
             losses = train.main(MESH_TRAIN_ARGS + argv, cfg=cfg)
         finally:
+            unplant()
             steps.mesh_mix, train.train_step_clients = real_mix, real_clients
             train.mesh_layout = real_layout
         torch.cuda.synchronize()
@@ -4151,7 +4279,157 @@ def tp_rank_train(rank, world, modes):
                           coords=(box[0].rank, box[0].model_rank), staged=box[0].staged,
                           peak=torch.cuda.max_memory_allocated())
         del ref, ref_leaves
+    if serve:
+        torch.cuda.empty_cache()
+        out["serve"] = tp_rank_serve(rank, world)
     return out
+
+
+def tp_verdict(torch, runs, ref_losses, dense, experts=None, zero_tol=TP_PARAM_TOL):
+    """Phase 23 (a)'s or (d)'s checks of one mode's `runs` (each rank's
+    result) against the single-process step-1 losses `ref_losses`, a
+    zero-init leaf within `zero_tol`: (ok, the readings)."""
+    runs = sorted(runs, key=lambda r: r["coords"])
+    losses = [x for r in runs if r["coords"][1] == 0 for x in r["steps"][0]["losses"]]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    worst = {}
+    for r in runs:
+        e = r["steps"][0]
+        for path, (gap, scale) in e["gaps"].items():
+            kind = "weight" if path[-1].startswith(TP_WEIGHTS) else "other"
+            worst[kind] = max(worst.get(kind, (0.0,)), (gap / max(scale, 1e-30), path, gap,
+                                                        scale))
+            if path in e["updates"]:
+                upd = e["updates"][path]
+                worst["f32"] = max(worst.get("f32", (0.0,)), (gap / max(upd, 1e-30), path, gap,
+                                                              upd))
+    # every model rank of a client index: the same losses, and the
+    # replicated leaves bit for bit, after each step
+    first = {r["coords"][0]: r for r in runs if r["coords"][1] == 0}
+    equal = all(
+        r["steps"][step]["losses"] == first[r["coords"][0]]["steps"][step]["losses"]
+        and all(torch.equal(leaf, first[r["coords"][0]]["steps"][step]["replicated"][p])
+                for p, leaf in r["steps"][step]["replicated"].items())
+        for r in runs for step in range(len(r["steps"])))
+    launches = sum(r["launches"] for r in runs)
+    expect = sum(len(r["steps"]) for r in runs) if dense else 0
+    got_experts = {e["routes"]["experts"] for r in runs for e in r["steps"]}
+    finite = all(math.isfinite(x) for r in runs for x in r["losses"])
+    ok = (loss_gap <= TP_LOSS_TOL and worst["weight"][0] <= TP_WEIGHT_TOL
+          and worst.get("other", (0.0,))[0] <= zero_tol
+          and worst.get("f32", (0.0,))[0] <= TP_F32_TOL and equal and launches == expect
+          and finite and (experts is None or got_experts == {experts}))
+    return ok, dict(losses=losses, loss_gap=loss_gap, worst=worst, equal=equal,
+                    zero_tol=zero_tol, launches=launches, expect=expect,
+                    experts=sorted(got_experts),
+                    n_repl=len(runs[0]["steps"][0]["replicated"]), runs=runs)
+
+
+def log_verdict(tag, label, ok, v, ref_losses):
+    def leaf(kind, what, tol):
+        if kind not in v["worst"]:
+            return f"no {what}"
+        rel, path, gap, scale = v["worst"][kind]
+        return (f"of a {what} {rel:.3e} at {'/'.join(path)} ({gap:.3e} of {scale:.3e}; "
+                f"tolerance {tol:.3e})")
+
+    log(f"  ({tag}) {label}: step 1 losses " + " ".join(f"{x:.6f}" for x in v["losses"])
+        + " against one process " + " ".join(f"{x:.6f}" for x in ref_losses)
+        + f", largest relative gap {v['loss_gap']:.3e} (tolerance {TP_LOSS_TOL}); params: the "
+        f"largest gap / largest |value| {leaf('weight', 'weight', TP_WEIGHT_TOL)}, "
+        f"{leaf('other', 'zero-init leaf', v['zero_tol'])}; the largest gap / largest update "
+        f"{leaf('f32', 'f32 leaf', TP_F32_TOL)}; {v['n_repl']} replicated leaves bit for bit "
+        f"equal "
+        f"across the model ranks after every step {v['equal']}; {v['launches']} drain launches "
+        f"(expected {v['expect']}); experts a rank {v['experts']} {'ok' if ok else 'FAIL'}")
+
+
+def tp_train_rows(tag, label, v):
+    """Log each step of rank 0 of a verdict's runs; the mode's row for
+    PERF.md and phase 9."""
+    runs = v["runs"]
+    for step, e in enumerate(runs[0]["steps"]):
+        log(f"  ({tag}) {label} step {step + 1} (rank 0): {e['step_s']:.4f} s, collectives "
+            f"{e['collective_s']:.4f} s staged through the host "
+            f"({100 * e['collective_s'] / e['step_s']:.1f}%); model axis: "
+            + ", ".join(f"{k} {c} calls {b} bytes" for k, (c, b) in e["tally"].items())
+            + f"; routes {e['routes']}")
+    s2 = runs[0]["steps"][-1]
+    return dict(s_step=max(r["steps"][-1]["step_s"] for r in runs),
+                collective_s=s2["collective_s"], share=s2["collective_s"] / s2["step_s"],
+                tally=s2["tally"], routes=s2["routes"], peak=max(r["peak"] for r in runs),
+                loss_gap=v["loss_gap"], weight_gap=v["worst"]["weight"][0])
+
+
+def tp_reference_argv(argv):
+    """The single-process reference's CLI of a mesh run: its own without
+    the mix mode (one device mixes densely; `none` skips the mix)."""
+    out, skip = [], False
+    for a in argv:
+        if skip or a == "--mix":
+            skip = a == "--mix"
+            continue
+        out.append(a)
+    return out
+
+
+def tp_world(torch, tag, arch, layers, layout, modes, steps=1, serve=False):
+    """The single-process references and the world of (a) or (d): `modes`
+    (label, argv, fault), and (b) with `serve` (`tp_rank_train`); returns
+    (each rank's results, {label: step-1 losses of the reference})."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = get_config(arch).with_(num_layers=layers)
+    refs, rank_modes = {}, []
+    for label, argv, fault in modes:
+        record, path = single_reference(torch, cfg, tp_reference_argv(MESH_TRAIN_ARGS + argv),
+                                        "none" in argv, steps)
+        refs[label] = record[0]["losses"]
+        rank_modes.append((label, argv, path, fault))
+    t0 = time.perf_counter()
+    outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(layout), arch, layers, layout,
+                                rank_modes, serve, backend="gloo", timeout=600, threads=0,
+                                deadline=900)
+    log(f"  ({tag}) tensor-parallel world {layout} of {math.prod(layout)} gloo ranks: "
+        f"{time.perf_counter() - t0:.1f} s with process start")
+    return outs, refs
+
+
+def tp_dry(torch, tag, pair, failures):
+    """Phase 23 (c) or (e): the dry run's (16, 16) `pair` reckoned and run
+    at depths 1 and 2, each peak within `DRY_PEAK_TOL`; returns its row."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, mix, threshold = pair
+    row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
+                            by_depth=True, verbose=False)
+    log(f"phase 23 ({tag}) row: {json.dumps(row)}")
+    peaks = []
+    for what, got, want in peak_gaps(row):
+        gap, tol = abs(got - want), DRY_PEAK_TOL[0] * want + DRY_PEAK_TOL[1]
+        peaks.append(f"{what} {got / 2**30:.3f} GiB measured, {want / 2**30:.3f} reckoned, "
+                     f"gap {gap} bytes (bound {tol:.0f})")
+        if gap > tol:
+            failures.append(f"({tag}) peak gap {gap} > {tol:.0f} at {what}")
+    frac = row["bound_fraction"]
+    if not (math.isfinite(frac) and 0 < frac <= 1) or row["host_syncs"]:
+        failures.append(f"({tag}) bound_fraction {frac}, {row['host_syncs']} host syncs")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if row["reckoned_peak_bytes"] > total:
+        failures.append(f"({tag}) reckoned full-depth peak {row['reckoned_peak_bytes']} past "
+                        f"the card's {total} bytes")
+    coll = row["coll_breakdown"]
+    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
+        f"tokens): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
+        f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
+        f"{row['roofline_fraction']:.4f}, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
+        f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
+        f"{coll['model_all_gather']} all-gather, {coll['model_reduce_scatter']} "
+        f"reduce-scatter; full-depth reckoned peak {row['reckoned_peak_bytes'] / 2**30:.3f} "
+        f"GiB (the card {total / 2**30:.3f}); peaks: {'; '.join(peaks)}; "
+        f"{row['host_syncs']} host syncs; reckoned in {row['t_compile_s']:.1f} s")
+    return row
 
 
 def tp_serve_inputs(torch):
@@ -4211,90 +4489,45 @@ def tp_rank_serve(rank, world):
 def phase_tp(torch):
     """Phase 23 (see `TP_MODES` and the constants above them): returns
     its numbers for the kernels line, phase 9 and PERF.md."""
-    import tempfile
-
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch import mesh as mesh_lib
-
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
-    res, failures = {}, []
+    res, failures, rows, launches, served = {}, [], {}, 0, []
 
-    # (a) the single-process references, then the (2, 2) world
-    cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
-    with tempfile.TemporaryDirectory(prefix="tp-ref-") as root:
-        refs, modes = {}, []
-        for label, argv in TP_MODES:
-            path = os.path.join(root, f"{label}.pt")
-            refs[label] = tp_reference(torch, cfg, MESH_TRAIN_ARGS + argv, label == "none", path)
-            modes.append((label, argv, path))
+    # (a) the (2, 2) world of qwen2-1.5b, and (d) the (1, 2) world of olmoe,
+    # which then serves (b)
+    for tag, arch, layers, layout, modes, experts, zero_tol in (
+            ("a", "qwen2-1.5b", MESH_LAYERS, TP_SHAPE,
+             [(label, argv, None) for label, argv in TP_MODES], None, TP_PARAM_TOL),
+            ("d", TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_SHAPE, [("moe dense", TP_MOE_ARGS, None)],
+             TP_MOE_EXPERTS, TP_MOE_PARAM_TOL)):
         t0 = time.perf_counter()
-        outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(TP_SHAPE), modes, backend="gloo",
-                                    timeout=600, threads=0, deadline=900)
-        log(f"  (a) tensor-parallel world {TP_SHAPE} of 4 gloo ranks: "
-            f"{time.perf_counter() - t0:.1f} s with process start")
-    launches, rows = 0, {}
-    for label, _ in TP_MODES:
-        runs = sorted((o[label] for o in outs), key=lambda r: r["coords"])
-        losses = [x for r in runs if r["coords"][1] == 0 for x in r["steps"][0]["losses"]]
-        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, refs[label]))
-        ranked = sorted(((gap / max(scale, 1e-30), path, gap, scale)
-                         for r in runs for path, (gap, scale) in r["steps"][0]["gaps"].items()),
-                        key=lambda x: x[0], reverse=True)
-        worst = ranked[0]
-        weights = next(x for x in ranked if x[1][-1].startswith(("w", "embed")))
-        # every model rank of a client index: the same losses, and the
-        # replicated leaves bit for bit, after each step
-        first = {r["coords"][0]: r for r in runs if r["coords"][1] == 0}
-        equal = all(
-            r["steps"][step]["losses"] == first[r["coords"][0]]["steps"][step]["losses"]
-            and all(torch.equal(leaf, first[r["coords"][0]]["steps"][step]["replicated"][p])
-                    for p, leaf in r["steps"][step]["replicated"].items())
-            for r in runs for step in range(2))
-        n_repl = len(runs[0]["steps"][0]["replicated"])
-        expect = 2 * len(runs) if label == "dense" else 0
-        got = sum(r["launches"] for r in runs)
-        finite = all(math.isfinite(x) for r in runs for x in r["losses"])
-        ok = (loss_gap <= TP_LOSS_TOL and worst[0] <= TP_PARAM_TOL and equal
-              and got == expect and finite)
-        s2 = runs[0]["steps"][1]
-        log(f"  (a) {label}: step 1 losses " + " ".join(f"{x:.6f}" for x in losses)
-            + " against one process " + " ".join(f"{x:.6f}" for x in refs[label])
-            + f", largest relative gap {loss_gap:.3e} (tolerance {TP_LOSS_TOL}); params: the "
-            f"largest gap / largest |value| of a leaf {worst[0]:.3e} at {'/'.join(worst[1])} "
-            f"({worst[2]:.3e} of {worst[3]:.3e}; tolerance {TP_PARAM_TOL:.3e}), of a weight "
-            f"{weights[0]:.3e} at {'/'.join(weights[1])}; {n_repl} "
-            f"replicated leaves bit for bit equal across the model ranks after both steps "
-            f"{equal}; {got} drain launches (expected {expect}) {'ok' if ok else 'FAIL'}")
-        for step in range(2):
-            e = runs[0]["steps"][step]
-            log(f"  (a) {label} step {step + 1} (rank 0): {e['step_s']:.4f} s, collectives "
-                f"{e['collective_s']:.4f} s staged through the host "
-                f"({100 * e['collective_s'] / e['step_s']:.1f}%); model axis: "
-                + ", ".join(f"{k} {c} calls {b} bytes" for k, (c, b) in e["tally"].items())
-                + f"; attention routes {e['routes']}")
-        if not ok:
-            failures.append(f"(a) {label}")
-        launches += got
-        rows[label] = dict(s_step=max(r["steps"][1]["step_s"] for r in runs),
-                           collective_s=s2["collective_s"],
-                           share=s2["collective_s"] / s2["step_s"], tally=s2["tally"],
-                           routes=s2["routes"], peak=max(r["peak"] for r in runs),
-                           loss_gap=loss_gap, param_gap=worst[0])
+        outs, refs = tp_world(torch, tag, arch, layers, layout, modes,
+                              serve=layout == TP_SERVE_SHAPE)
+        for label, argv, _ in modes:
+            ok, v = tp_verdict(torch, [o[label] for o in outs], refs[label],
+                               "dense" in argv, experts, zero_tol)
+            log_verdict(tag, label, ok, v, refs[label])
+            rows[label] = tp_train_rows(tag, label, v)
+            if not ok:
+                failures.append(f"({tag}) {label}")
+            launches += v["launches"]
+        log(f"phase 23 ({tag}): {time.perf_counter() - t0:.1f} s")
+        served = [o["serve"] for o in outs if "serve" in o] or served
+        del outs
+        torch.cuda.empty_cache()
     res["train"] = rows
     res["launches"] = launches
     res["collective_ms"] = dict(
         ms=1e3 * rows["dense"]["collective_s"],
         what=f"gloo collectives of a {TP_SHAPE} dense step at {MESH_LAYERS} layers (the "
         f"reduce-scatter of the (4, K) f32 partial and the model axis's), rank 0, a step")
-    torch.cuda.empty_cache()
+    res["moe_collective_ms"] = dict(
+        ms=1e3 * rows["moe dense"]["collective_s"],
+        what=f"gloo collectives of a {TP_MOE_SHAPE} step of {TP_MOE_ARCH} at {TP_MOE_LAYERS} "
+        f"layers (the model axis's; a client group of one sends nothing), rank 0, a step")
 
-    # (b) serving on (1, 2) against one process
-    t0 = time.perf_counter()
-    outs = mesh_lib.spawn_ranks(tp_rank_serve, math.prod(TP_SERVE_SHAPE), backend="gloo",
-                                timeout=600, threads=0, deadline=600)
-    world_s = time.perf_counter() - t0
+    # (b) served in (d)'s world, against one process
+    outs = served
     one = tp_serve(torch, None)
     gaps = {k: max(rel_gap(o[k], one[k]) for o in outs) for k in ("prefill", "decode")}
     ok = all(g <= TP_SERVE_TOL for g in gaps.values()) and all(
@@ -4309,7 +4542,7 @@ def phase_tp(torch):
         f"{o0['tally']['_counts']['model_all_gather']} all-gather, collectives "
         f"{o0['collective_s']:.3f} s; logits against one process, largest gap / largest "
         f"|logit|: prefill {gaps['prefill']:.3e}, decode {gaps['decode']:.3e} (tolerance "
-        f"{TP_SERVE_TOL}); world {world_s:.1f} s with process start {'ok' if ok else 'FAIL'}")
+        f"{TP_SERVE_TOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("(b) serving")
     res["serve"] = dict(gaps=gaps, prefill_s=o0["prefill_s"], decode_s=o0["decode_s"],
@@ -4317,45 +4550,64 @@ def phase_tp(torch):
     del outs, one
     torch.cuda.empty_cache()
 
-    # (c) the dry run's default mesh
-    arch, shape, mix, threshold = TP_DRY
-    row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
-                            verbose=False)
-    log(f"phase 23 (c) row: {json.dumps(row)}")
-    peaks = []
-    for what, got, want in peak_gaps(row):
-        gap, tol = abs(got - want), DRY_PEAK_TOL[0] * want + DRY_PEAK_TOL[1]
-        peaks.append(f"{what} {got / 2**30:.3f} GiB measured, {want / 2**30:.3f} reckoned, "
-                     f"gap {gap} bytes (bound {tol:.0f})")
-        if gap > tol:
-            failures.append(f"(c) peak gap {gap} > {tol:.0f} at {what}")
-    frac = row["bound_fraction"]
-    if not (math.isfinite(frac) and 0 < frac <= 1) or row["host_syncs"]:
-        failures.append(f"(c) bound_fraction {frac}, {row['host_syncs']} host syncs")
-    log(f"  (c) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
-        f"tokens): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
-        f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
-        f"{row['roofline_fraction']:.4f}; routes {row['tp_routes']}; model-axis bytes "
-        f"{row['coll_breakdown']['model_all_reduce']} all-reduce, "
-        f"{row['coll_breakdown']['model_all_gather']} all-gather; peaks: {'; '.join(peaks)}; "
-        f"{row['host_syncs']} host syncs; reckoned in {row['t_compile_s']:.1f} s")
-    res["dry"] = row
+    # (c) and (e) the dry run's default mesh
+    t0 = time.perf_counter()
+    res["dry"] = row = tp_dry(torch, "c", TP_DRY, failures)
+    if row["tp_routes"]["heads"] or not row["tp_routes"]["padded"]:
+        failures.append(f"(c) routes {row['tp_routes']}: every layer on the padded route")
+    log(f"phase 23 (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["dry_moe"] = row = tp_dry(torch, "e", TP_DRY_MOE, failures)
+    if row["tp_routes"]["experts"] != TP_DRY_MOE_EXPERTS or not row["tp_routes"]["moe"]:
+        failures.append(f"(e) routes {row['tp_routes']}: {TP_DRY_MOE_EXPERTS} experts a rank")
+    log(f"phase 23 (e): {time.perf_counter() - t0:.1f} s")
     log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s")
     if failures:
         raise RuntimeError("phase 23: " + "; ".join(failures))
     return res
 
 
+def tp_faults(torch):
+    """`--tp-faults`: each of `TP_FAULTS` planted in its world, held by
+    (a)'s or (d)'s checks; returns the faults that passed them."""
+    passed = []
+    for tag, arch, layers, layout, argv, experts, zero_tol in (
+            ("a", "qwen2-1.5b", MESH_LAYERS, TP_SHAPE, TP_MODES[0][1], None, TP_PARAM_TOL),
+            ("d", TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_SHAPE, TP_MOE_ARGS, TP_MOE_EXPERTS,
+             TP_MOE_PARAM_TOL)):
+        modes = [(fault, argv, fault) for fault, where in TP_FAULTS if where == tag]
+        outs, refs = tp_world(torch, tag, arch, layers, layout, modes)
+        for fault, _, _ in modes:
+            ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault], True, experts,
+                               zero_tol)
+            log_verdict(tag, f"planted fault {fault}", ok, v, refs[fault])
+            log(f"  planted fault {fault}: {'PASSED the checks' if ok else 'rejected'}")
+            if ok:
+                passed.append(fault)
+        del outs
+        torch.cuda.empty_cache()
+    return passed
+
+
 def log_tp(r):
     """Phase 23's summary lines."""
     for label, row in r["train"].items():
-        log(f"tensor-parallel trainer path ({label}, qwen2-1.5b at {MESH_LAYERS} layers on "
-            f"{TP_SHAPE}, 4 gloo ranks on one card): {row['s_step']:.4f} s/step, collectives "
-            f"{100 * row['share']:.1f}% of the step, peak {row['peak'] / 2**30:.2f} GiB per rank")
+        what = (f"{TP_MOE_ARCH} at {TP_MOE_LAYERS} layers on {TP_MOE_SHAPE}, 2" if
+                label.startswith("moe") else f"qwen2-1.5b at {MESH_LAYERS} layers on "
+                f"{TP_SHAPE}, 4")
+        log(f"tensor-parallel trainer path ({label}, {what} gloo ranks on one card): "
+            f"{row['s_step']:.4f} s/step, collectives {100 * row['share']:.1f}% of the step, "
+            f"peak {row['peak'] / 2**30:.2f} GiB per rank")
     sv = r["serve"]
     log(f"tensor-parallel serving path (qwen2-1.5b f32 on {TP_SERVE_SHAPE}): decode "
         f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
         f"process")
+    for key in ("dry", "dry_moe"):
+        row = r[key]
+        log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}): "
+            f"{row['measured_s_per_step']:.6f} s/step at {row['run_depth']}, bound_fraction "
+            f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
+            f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
 
 
 
@@ -4392,6 +4644,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tp", action="store_true",
                         help="only phase 23, tensor parallelism over \"model\" (and phase 2's "
                              "and 9's rectangular drain)")
+    parser.add_argument("--tp-faults", action="store_true",
+                        help="only phase 23 (a)'s and (d)'s checks against planted faults "
+                             "(TP_FAULTS), after the rest of phase 23 with --tp; exits 1 "
+                             "when one passes them")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "
                              "(comma-separated multiples of 6), leaf by leaf; exits 1 "
@@ -4470,53 +4726,61 @@ def main(argv=None) -> int:
         tp = phase_tp(torch)
         phase_rect_times(torch, rect_time_cases(tp=tp))
         log_tp(tp)
-        log(f"chip_smoke --tp: {time.perf_counter() - t_start:.1f} s")
+        passed = tp_faults(torch) if args.tp_faults else []
+        log(f"chip_smoke --tp: {time.perf_counter() - t_start:.1f} s; planted faults that "
+            f"passed the checks: {passed or 'none'}")
         log(card_line())
-        return 0
+        return 1 if passed else 0
+    if args.tp_faults:
+        phase_build()
+        passed = tp_faults(torch)
+        log(f"chip_smoke --tp-faults: passed the checks: {passed or 'none'}")
+        log(card_line())
+        return 1 if passed else 0
     if args.hybrid_depths:
         phase_build()
         failed = hybrid_depths(torch, [int(x) for x in args.hybrid_depths.split(",")])
         log(card_line())
         return 1 if failed else 0
     t_start = time.perf_counter()
-    phase_build()
-    max_err = phase_kernels(torch)
-    seed_err = phase_seed_kernels(torch)
-    rect_err = phase_rect_kernels(torch)
-    mix_err = phase_mix_kernels(torch)
-    ssd_err = phase_ssd_kernels(torch)
-    enq_launches, enq_err = phase_enqueue(torch)
-    launches, ms_window, steady, ctx, params0, data = phase_main(torch)
-    phase_plain(torch, ctx, params0, data)
+    timed("1 build", phase_build)
+    max_err = timed("2 drain", phase_kernels, torch)
+    seed_err = timed("2 drain seed axis", phase_seed_kernels, torch)
+    rect_err = timed("2 drain rectangular", phase_rect_kernels, torch)
+    mix_err = timed("2 mix", phase_mix_kernels, torch)
+    ssd_err = timed("2 ssd_chunk", phase_ssd_kernels, torch)
+    enq_launches, enq_err = timed("2 enqueue", phase_enqueue, torch)
+    launches, ms_window, steady, ctx, params0, data = timed("3 main", phase_main, torch)
+    timed("4 plain", phase_plain, torch, ctx, params0, data)
     del ctx, params0, data
-    mix_launches, s_step, peak = phase_trainer(torch)
-    dflat, steady_s, busy_us, mix_us = phase_trainer_plain(torch)
-    m_launches, m_step, m_peak = phase_mamba2(torch)
-    m_dflat, m_steady, m_busy, m_kernels = phase_mamba2_plain(torch)
+    mix_launches, s_step, peak = timed("5 trainer", phase_trainer, torch)
+    dflat, steady_s, busy_us, mix_us = timed("6 trainer plain", phase_trainer_plain, torch)
+    m_launches, m_step, m_peak = timed("7 mamba2", phase_mamba2, torch)
+    m_dflat, m_steady, m_busy, m_kernels = timed("8 mamba2 plain", phase_mamba2_plain, torch)
     torch.cuda.empty_cache()
-    phase_wide_window(torch)
-    baseline_runs, baseline_launches = phase_baselines(torch)
-    scen_drain, scen_mix, scen_rows = phase_scenarios(torch)
-    sweep = phase_sweep(torch)
-    events = phase_events(torch)
-    families = phase_families(torch)
+    timed("10 wide window", phase_wide_window, torch)
+    baseline_runs, baseline_launches = timed("11 baselines", phase_baselines, torch)
+    scen_drain, scen_mix, scen_rows = timed("12 scenarios", phase_scenarios, torch)
+    sweep = timed("13 sweep", phase_sweep, torch)
+    events = timed("14 events", phase_events, torch)
+    families = timed("15-18 families", phase_families, torch)
     torch.cuda.empty_cache()
-    entry = phase_entry_points(torch)
+    entry = timed("19 entry points", phase_entry_points, torch)
     torch.cuda.empty_cache()
-    serving = phase_serving(torch)
+    serving = timed("20 serving", phase_serving, torch)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(torch)
+    mesh = timed("21 mesh", phase_mesh, torch)
     torch.cuda.empty_cache()
-    dry = phase_dryrun(torch)
+    dry = timed("22 dry run", phase_dryrun, torch)
     torch.cuda.empty_cache()
-    tp = phase_tp(torch)
-    times = phase_times(torch)
-    mix_times, mix_err_train = phase_mix_times(torch, dflat)
-    ssd_times, enq_times = phase_new_times(torch)
-    phase_wide_times(torch)
-    phase_seed_times(torch)
-    phase_rect_times(torch, rect_time_cases(mesh, tp))
-    family_mix_times(torch)
+    tp = timed("23 tensor parallelism", phase_tp, torch)
+    times = timed("9 drain, mix, enqueue, ssd_chunk times", phase_times, torch)
+    mix_times, mix_err_train = timed("9 mix times", phase_mix_times, torch, dflat)
+    ssd_times, enq_times = timed("9 ssd_chunk and enqueue times", phase_new_times, torch)
+    timed("9 wide times", phase_wide_times, torch)
+    timed("9 seed times", phase_seed_times, torch)
+    timed("9 rectangular times", phase_rect_times, torch, rect_time_cases(mesh, tp))
+    timed("9 family mix times", family_mix_times, torch)
     log("phase 9 times: done")
     kernels = [
         dict(name="gossip_drain", route="cuda",
@@ -4600,6 +4864,9 @@ def main(argv=None) -> int:
         + f", {entry['launches']['ssd_chunk']} on the entry points', "
         f"{serving['launches']['ssd_chunk']} on the f32 prefills of phase 20 (b), "
         f"{dry['ssd_chunk']} on the dry run's mamba2 pairs (phase 22)")
+    log("phase times: " + ", ".join(f"{label} {s:.1f} s" for label, s in PHASE_TIMES))
+    log(f"profiler: {PROFILER['sessions']} sessions, {PROFILER['s']:.1f} s of set-up, tear-down "
+        f"and tables")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

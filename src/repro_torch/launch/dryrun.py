@@ -18,8 +18,9 @@ Layout. The default mesh is the reference's production mesh, (16, 16)
 over ("data", "model") ((2, 16, 16) with "pod"): 16 clients, each
 over a 16-way "model" axis, so a rank's share is one client's 1 / 16
 block of the model (`repro_torch.sharding.tp`). The port splits the
-dense family only over "model"; another family raises
-`NotImplementedError` there, naming its ROADMAP sub-item. ``--clients
+dense and moe families over "model" (a moe rank runs E / 16 of the
+experts); another family raises `NotImplementedError` there, naming its
+ROADMAP sub-item. ``--clients
 W`` takes the client mesh (W, 1) of `make_sweep_mesh` instead (W ranks,
 one client each; written ``"Wx1"`` in the row's ``mesh``), the layout the
 reference also has (``repro.launch.mesh``'s sweep mesh), for every
@@ -32,7 +33,8 @@ What the row holds:
     one op with its bound's work (``kernel_work``);
   - ``coll_bytes_per_device`` / ``coll_breakdown``: the dry mesh's tally
     of result bytes per collective kind (the model axis's
-    ``model_all_reduce`` and ``model_all_gather`` among them), its calls
+    ``model_all_reduce``, ``model_all_gather`` and
+    ``model_reduce_scatter`` among them), its calls
     under ``"counts"``;
   - ``memory_analysis``: ``argument_size_in_bytes`` and
     ``output_size_in_bytes`` exact from the meta tensors,
@@ -54,23 +56,24 @@ What the row holds:
   - ``t_lower_s`` the time to build the step and its inputs,
     ``t_compile_s`` the counted run's;
   - ``tp_routes``: the attention layers the counted run took on each
-    route over "model" (``heads``, ``gathered``) and the leaves the
-    gathered route all-gathered (`repro_torch.models.attention`).
+    route over "model" (``heads``, ``padded``) and the leaves they
+    gathered (`repro_torch.models.attention`), the moe layers and the
+    experts the rank runs in one (`repro_torch.models.moe`).
 
 ``--run`` then runs the same share on one card (the dry mesh on CUDA:
 its collectives are the rank's local share, so the collective's time
 stays the roofline's and the row says ``collective_measured: false``):
-steady seconds per step by CUDA events after a warm-up step, the host
-syncs the CUDA sync detector saw in the timed loop (``host_syncs``), the
-peak of ``torch.cuda.max_memory_allocated`` while the steps run, above
+steady seconds per step by CUDA events over `RUN_STEPS` steps after a
+warm-up step, the host syncs the CUDA sync detector saw in the timed
+loop (``host_syncs``), the peak of ``torch.cuda.max_memory_allocated`` while the steps run, above
 what was allocated before the inputs, and ``roofline_fraction =
 max(t_compute, t_memory) / measured`` (how far the eager step is
 from its own traffic) and ``bound_fraction = t_bound_s / measured``
 (how far it is from the work itself). At full depth when the reckoned
-peak fits the card with headroom (`FIT_SHARE`); otherwise at depths 1
-and 2 (`steps.depth_config`), extrapolated ``c1 + (G - 1) (c2 - c1)``
-(``run_depth: [1, 2]``; ``--no-correct``: not extrapolated, the depth-2
-numbers as they are).
+peak fits the card with headroom (`FIT_SHARE`); otherwise, or with
+`lower_pair`'s ``by_depth``, at depths 1 and 2 (`steps.depth_config`),
+extrapolated ``c1 + (G - 1) (c2 - c1)`` (``run_depth: [1, 2]``; ``--no-correct``: not
+extrapolated, the depth-2 numbers as they are).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k --mix ring
@@ -101,7 +104,9 @@ from repro_torch.launch.roofline import (Roofline, collective_bytes, count_work,
 from repro_torch.models import model as M
 
 FIT_SHARE = 0.85  # a full-depth --run needs its reckoned peak under this share of the card
-RUN_STEPS = 3
+# timed steps after the warm-up step: they time the share and hold it
+# against nothing, and the peak is reached in the first
+RUN_STEPS = 1
 RUN_SEED = 0  # the random weights and inputs of a --run
 
 
@@ -302,8 +307,10 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                cost_correct: bool = True, mix_dtype=None,
                blocked_threshold: int = 8192, cache_shard: str = "kv_heads",
                vocab_chunk: int = 0, seq_parallel: bool = False,
-               clients: Optional[int] = None, run: bool = False, cfg=None):
+               clients: Optional[int] = None, run: bool = False, by_depth: bool = False,
+               cfg=None):
     """Reckon (and with `run`, measure) one pair; returns its row.
+    `by_depth`: run at depths 1 and 2 even where the full depth fits;
     `cfg` replaces ``get_config(arch)`` (a reduced config in tests);
     `cache_shard` is recorded, and on a "model" axis larger than 1 any
     value but 'kv_heads' raises (the port lays a cache over the kv heads
@@ -357,7 +364,7 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     if run:
         measured, corr_meta["measured"] = run_pair(
             cfg, shape, clients, roof, art, n_groups, multi_pod=multi_pod,
-            cost_correct=cost_correct, **kw)
+            cost_correct=cost_correct, by_depth=by_depth, **kw)
         row.update(measured)
         row["bound_fraction"] = t_bound / row["measured_s_per_step"]
     if verbose:
@@ -369,7 +376,7 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"bytes/dev={row['bytes_per_device']:.3e} "
               f"coll/dev={row['coll_bytes_per_device']:.3e}")
         print(f"  collective schedule: {art['coll_counts']}")
-        print(f"  attention routes over \"model\": {art['tp_routes']}")
+        print(f"  routes over \"model\": {art['tp_routes']}")
         print(f"  kernels: {art['kernels']}")
         print(f"  roofline: compute={roof.t_compute*1e3:.2f}ms memory={roof.t_memory*1e3:.2f}ms "
               f"collective={roof.t_collective*1e3:.2f}ms -> {roof.bottleneck}-bound")
@@ -383,13 +390,14 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     return row
 
 
-def run_pair(cfg, shape, clients, roof, art, n_groups, *, multi_pod, cost_correct, **kw):
+def run_pair(cfg, shape, clients, roof, art, n_groups, *, multi_pod, cost_correct,
+             by_depth=False, **kw):
     """`lower_pair`'s ``--run``: (the measured keys of the row, how they
     were measured)."""
     if not torch.cuda.is_available():
         raise RuntimeError("--run measures on a CUDA card and none is available")
     total = torch.cuda.get_device_properties(0).total_memory
-    if art["peak"] <= FIT_SHARE * total or n_groups < 2:
+    if n_groups < 2 or (art["peak"] <= FIT_SHARE * total and not by_depth):
         got = measure(cfg, shape, clients, multi_pod=multi_pod, **kw)
         depth, method, reckoned = "full", {"method": "full-depth"}, art["peak"]
     else:
@@ -443,7 +451,7 @@ def main(argv=None):
     ap.add_argument("--clients", type=int, default=None,
                     help="the client mesh (W, 1): W ranks of one client each (default: "
                          "the reference's (16, 16) production mesh, 16 clients each over "
-                         "16 ranks of \"model\"; the dense family only)")
+                         "16 ranks of \"model\"; the dense and moe families)")
     ap.add_argument("--run", action="store_true",
                     help="also run the rank's share on the card and record its time")
     args = ap.parse_args(argv)

@@ -11,7 +11,8 @@ over which the mesh steps (`repro_torch.launch.steps`, the sharded
 drain, the ring mix, `simulate_sweep(mesh=)`) move rows with the
 collectives of `Mesh`; the ranks of one client index form the model
 group, over which the tensor-parallel operators all-reduce and
-all-gather (`Mesh.model_all_reduce`, `Mesh.model_all_gather`).
+all-gather (`Mesh.model_all_reduce`, `Mesh.model_all_gather`,
+`Mesh.model_reduce_scatter`).
 
 Backends are explicit, never chosen for the caller and never fallen back
 from: ``nccl`` runs one rank per card; ``gloo`` runs on the CPU, and
@@ -41,7 +42,6 @@ import torch.distributed as dist
 
 # the parts of ROADMAP item 20 (sharding inside one model) still to port,
 # each named where it raises
-ROADMAP_MOE = "ROADMAP item 20(b)"  # the moe expert axis over "model"
 ROADMAP_SSM = "ROADMAP item 20(c)"  # ssm/hybrid in_proj packing, per-head SSD
 ROADMAP_CROSS = "ROADMAP item 20(d)"  # the vlm's cross attention, the audio family
 ROADMAP_SEQ_PARALLEL = "ROADMAP item 20(e)"  # 'seq' over "model"
@@ -88,7 +88,12 @@ def rank_device(backend: str, device=None) -> torch.device:
 
 
 COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange",
-               "model_all_reduce", "model_all_gather")
+               "model_all_reduce", "model_all_gather", "model_reduce_scatter")
+# `Mesh.tp_routes`: the attention layers on each route over "model" (the
+# heads route, whole heads; the padded route, a shard that cuts a head),
+# the leaves they gathered, the moe layers and the experts a rank runs in
+# one (`repro_torch.sharding.tp`)
+TP_ROUTES = ("heads", "padded", "gathered_leaves", "moe", "experts")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -182,7 +187,7 @@ class Mesh:
         self.collective_s = 0.0
         self.collective_bytes = {k: 0 for k in COLLECTIVES}
         self.collective_counts = {k: 0 for k in COLLECTIVES}
-        self.tp_routes = {"heads": 0, "gathered": 0, "gathered_leaves": 0}
+        self.tp_routes = {k: 0 for k in TP_ROUTES}
 
     def collective_tally(self) -> dict:
         """``{kind: result bytes, ..., "_counts": {kind: calls}}`` since
@@ -212,12 +217,13 @@ class Mesh:
 
     # -- collectives over the client group -------------------------------
 
-    def _run(self, kind: str, fn: Callable, local: Callable, *tensors):
+    def _run(self, kind: str, fn: Callable, local: Callable, *tensors, alone=False):
         """`fn` on `tensors` (staged to the host under gloo with CUDA
         tensors), timed into ``collective_s`` and tallied under `kind`;
         returns `fn`'s tensors on the rank's device. A dry mesh runs
-        `local`, the rank's share without peers, instead, untimed."""
-        out = local(*tensors) if self.is_dry else self._timed(fn, tensors)
+        `local`, the rank's share without peers, instead, untimed; so
+        does a group of one rank (`alone`), which has no peer to send to."""
+        out = local(*tensors) if self.is_dry or alone else self._timed(fn, tensors)
         self.collective_bytes[kind] += sum(t.numel() * t.element_size() for t in out)
         self.collective_counts[kind] += 1
         return out
@@ -262,7 +268,8 @@ class Mesh:
             k = src.shape[0] // self.size
             return (self._copy(src[self.rank * k:(self.rank + 1) * k]),)
 
-        (out,) = self._run("reduce_scatter", scatter, local, x.movedim(dim, 0).contiguous())
+        (out,) = self._run("reduce_scatter", scatter, local, x.movedim(dim, 0).contiguous(),
+                           alone=self.size == 1)
         return out.movedim(0, dim).contiguous() if dim % x.dim() else out
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -278,7 +285,8 @@ class Mesh:
                 return (src.new_empty((src.shape[0] * self.size,) + tuple(src.shape[1:])),)
             return (src.repeat((self.size,) + (1,) * (src.dim() - 1)),)
 
-        (out,) = self._run("all_gather", gather, local, x.movedim(dim, 0).contiguous())
+        (out,) = self._run("all_gather", gather, local, x.movedim(dim, 0).contiguous(),
+                           alone=self.size == 1)
         return out.movedim(0, dim).contiguous() if dim % x.dim() else out
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
@@ -356,6 +364,30 @@ class Mesh:
             return (src.repeat((size,) + (1,) * (src.dim() - 1)),)
 
         (out,) = self._run("model_all_gather", gather, local, x.movedim(dim, 0).contiguous())
+        return out.movedim(0, dim).contiguous() if dim % x.dim() else out
+
+    def model_reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """`x` summed over the model ranks, this rank's ``1 / model_size``
+        of axis `dim` kept (its block, in model rank order): the inverse
+        of `model_all_gather` for a gradient. A dry mesh returns a copy
+        of its block."""
+        size = self.model_size
+        if x.shape[dim] % size:
+            raise ValueError(f"axis {dim} of {tuple(x.shape)} does not divide by "
+                             f"{size} model ranks")
+
+        def scatter(src):
+            out = torch.empty((src.shape[0] // size,) + tuple(src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            _REDUCE_SCATTER(out, src, group=self.model_group)
+            return (out,)
+
+        def local(src):
+            k = src.shape[0] // size
+            return (self._copy(src[self.model_rank * k:(self.model_rank + 1) * k]),)
+
+        (out,) = self._run("model_reduce_scatter", scatter, local,
+                           x.movedim(dim, 0).contiguous())
         return out.movedim(0, dim).contiguous() if dim % x.dim() else out
 
 

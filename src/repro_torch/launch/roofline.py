@@ -169,6 +169,19 @@ _FREE = {
 # gathers read the rows they return, not their whole table
 _GATHERS = {_aten.embedding.default, _aten.index_select.default, _aten.index.Tensor,
             _aten.gather.default}
+# Under any dispatch mode autograd's formulas take their functional form
+# (`isTensorSubclassLike` holds): a gather's backward scatters into a fresh
+# zero tensor out of place, where eager scatters into it in place. Such an
+# op's output takes its fresh input's place
+_ZEROS = {_aten.new_zeros.default, _aten.zeros_like.default, _aten.zeros.default}
+_IN_PLACE_IN_EAGER = {_aten.scatter_add.default, _aten.index_put.default,
+                      _aten.index_add.default}
+# CUDA's softmax backward forms ``grad * output`` in a temporary while its
+# output lives, then runs its kernel on it (the meta kernel makes none):
+# the op's temporary bytes from its arguments
+_CARD_TEMPS = {_aten._softmax_backward_data.default:
+               lambda grad, output, *_: grad.numel() * torch.promote_types(
+                   grad.dtype, output.dtype).itemsize}
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -191,7 +204,11 @@ class _BytesAndLive(TorchDispatchMode):
     move nothing; a gather reads the rows it returns), and tracks the live bytes of the
     storages ops make on ``meta``: one ``weakref.finalize`` per storage
     (a storage's Python object lives as long as the storage, so the
-    finalizer runs when the last tensor on it dies), the peak kept."""
+    finalizer runs when the last tensor on it dies), the peak kept. An
+    op that eager runs in place on the zero tensor the op before made
+    (`_IN_PLACE_IN_EAGER`) hands that tensor's bytes to its output; one
+    whose card kernel makes a temporary (`_CARD_TEMPS`) counts it beside
+    its output at the peak."""
 
     def __init__(self, keep=()):
         super().__init__()
@@ -200,10 +217,22 @@ class _BytesAndLive(TorchDispatchMode):
         self.peak = 0
         self._known = {id(s) for s in keep}
         self._keep = list(keep)  # holds the pre-existing storages' ids valid
+        self._counted = set()  # storages whose bytes `live` holds
+        self._fresh = None  # the storage of the last op's zero tensor
 
     def _free(self, key, nbytes):
         self._known.discard(key)
-        self.live -= nbytes
+        if key in self._counted:
+            self._counted.discard(key)
+            self.live -= nbytes
+
+    def _hand_over(self, t):
+        """Stop counting `t`'s storage: an in-place-in-eager op's output
+        takes its place (see `_IN_PLACE_IN_EAGER`)."""
+        st = t.untyped_storage()
+        if id(st) in self._counted:
+            self._counted.discard(id(st))
+            self.live -= st.nbytes()
 
     def _track(self, out):
         for t in out:
@@ -214,6 +243,7 @@ class _BytesAndLive(TorchDispatchMode):
             if key in self._known:
                 continue
             self._known.add(key)
+            self._counted.add(key)
             nbytes = st.nbytes()
             self.live += nbytes
             weakref.finalize(st, self._free, key, nbytes)
@@ -223,6 +253,12 @@ class _BytesAndLive(TorchDispatchMode):
         kwargs = kwargs or {}
         result = func(*args, **kwargs)
         out = tensors_of(result)
+        fresh, self._fresh = self._fresh, None
+        if (func in _IN_PLACE_IN_EAGER and args and args[0].device.type == "meta"
+                and id(args[0].untyped_storage()) == fresh):
+            self._hand_over(args[0])
+        elif func in _ZEROS and len(out) == 1 and out[0].device.type == "meta":
+            self._fresh = id(out[0].untyped_storage())
         if func not in _FREE and not getattr(func, "is_view", False):
             outs = sum(tensor_bytes(t) for t in out)
             if func in _GATHERS:
@@ -231,6 +267,8 @@ class _BytesAndLive(TorchDispatchMode):
             else:
                 self.bytes += outs + sum(tensor_bytes(t) for t in tensors_of((args, kwargs)))
         self._track(out)
+        if func in _CARD_TEMPS and out and out[0].device.type == "meta":
+            self.peak = max(self.peak, self.live + _CARD_TEMPS[func](*args))
         return result
 
 

@@ -78,12 +78,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
     """Serve one random batch with the CLI's arguments; returns the
-    (B, new) tokens on the device."""
+    (B, new) tokens on the device. `cfg` replaces the ``--arch`` config
+    (a depth cut of it, say)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     gen = as_generator(args.seed, dev)
     params = M.init_params(gen, cfg)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

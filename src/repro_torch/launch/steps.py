@@ -370,15 +370,17 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     a mesh each rank prefills its ``mesh.client_slice(B)`` rows of the
     batch with its blocks of the one copy of the params
     (`serve_shardings`) and returns their logits over the whole
-    vocabulary, gathered over "model" as the reference's are."""
+    vocabulary, gathered over "model" as the reference's are. A moe
+    layer ranks its tokens' expert choices among the whole batch's
+    (`repro_torch.sharding.tp.Rows`), as the reference's does."""
     _serving_rows(shape, mesh, "prefill step")
     tp_lib.check_family(cfg, mesh)
     scfg = serve_config(cfg, shape)
-    tp = tp_lib.context(mesh)
+    tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        with tp_lib.use(tp):
+        with tp_lib.use(tp, rows):
             logits, _ = M.apply_model(params, scfg, batch)
         return _whole_vocab(logits[:, -1, :], scfg, tp)
 
@@ -397,11 +399,11 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     raises `NotImplementedError` (ROADMAP item 20(f))."""
     _serving_rows(shape, mesh, "serve step")
     tp_lib.check_family(cfg, mesh)
-    tp = tp_lib.context(mesh)
+    tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
     scfg = serve_config(cfg, shape)
 
     def serve_step(params, tok, state, cross_kv=None):
-        with tp_lib.use(tp):
+        with tp_lib.use(tp, rows):
             logits, state = M.decode_step(params, scfg, tok, state, cross_kv)
         return _whole_vocab(logits, scfg, tp), state
 

@@ -22,23 +22,29 @@ The port writes a decode step's keys and values into the cache in place
 tensor), so a step copies no cache and reads nothing back to the host.
 
 Tensor parallelism (`repro_torch.sharding.tp`). Given a `TP`, the
-self-attention paths run on the rank's share of the heads (`_layout`),
-on one of two routes:
+self-attention paths run on the rank's share of the query heads
+(`_layout`, `rank_heads`), on one of two routes:
 
-  - heads (Megatron): ``wq`` is sharded at whole heads. The input goes
-    through `TP.copy`, the rank computes its query heads against its kv
-    heads, and ``wo``'s rows finish with `TP.reduce`. A kv projection
-    that is replicated (its columns do not divide) or cut inside a head
-    (gathered, `TP.gather`) gives every kv head, through `TP.copy`,
-    since each rank's query heads use only some of them; the rank's query
-    heads then read their own kv group. The QKV biases are replicated
-    in storage, and each rank adds its slice of them through `TP.copy`,
-    so their gradients are summed over the ranks;
-  - gathered: ``wq``'s shard cuts a head. Every sharded projection is
-    gathered and the layer is computed whole on every rank.
+  - heads (Megatron): ``wq`` is sharded at whole heads, and the rank
+    multiplies its block;
+  - padded: ``wq``'s shard cuts a head. ``wq`` and ``wo`` are gathered
+    (`TP.gather_partial`: the gradient is reduce-scattered back) and the
+    rank slices out its ceil(H / T) heads' columns and rows, the
+    reference's padded split: the last ranks take fewer heads, or none
+    (a rank without heads still joins every collective, its output and
+    gradients zero).
 
-A decode cache holds the kv heads the rank computes: its own on the
-heads route with sharded kv, all of them otherwise.
+On both, the input goes through `TP.copy`, the rank computes its query
+heads against the kv heads they read, and ``wo``'s rows finish with
+`TP.reduce`. The kv heads are the rank's own block where ``wk``'s
+shard is whole heads; else the rank slices the ones its query heads
+read out of ``wk`` and ``wv``, gathered (`TP.gather_partial`) where
+their shard cuts a head and through `TP.copy` where they are
+replicated, and its query heads pick theirs from them. The QKV biases
+are replicated in storage, and each rank adds its slice of them through
+`TP.copy`, so their gradients are summed over the ranks.
+
+A decode cache holds the kv heads the rank computes (`rank_heads`).
 """
 from __future__ import annotations
 
@@ -98,14 +104,37 @@ class Layout(NamedTuple):
     out_op: Callable
 
 
-def _pick_kv(q0: int, hq: int, n_rep: int):
-    """For query heads ``q0 .. q0 + hq`` reading every kv head: a pick of
-    each one's kv head (the kv axis becomes the query heads'). Their kv
-    heads never form whole groups here: where ``n_rep`` divides the
-    rank's query heads, it divides the kv heads too, which then shard."""
+def rank_heads(cfg, rank: int, size: int, q_sharded: bool = True,
+               kv_whole_heads: bool = False):
+    """``(q0, hq, k0, hkv)``: the query heads ``q0 .. q0 + hq`` that model
+    rank `rank` of `size` computes, and the kv heads ``k0 .. k0 + hkv``
+    it computes (and caches) for them. Without `q_sharded` (``wq``'s
+    columns do not divide by `size`) the rank computes every head. Else
+    it takes ``c = ceil(H / size)`` query heads from ``rank * c`` on, as
+    GSPMD pads a head axis that does not divide: the last ranks may take
+    fewer or none. With `kv_whole_heads` (``wk``'s columns split at whole
+    heads, so the query heads split evenly too) the kv heads are the
+    rank's own block; else the ones its query heads read."""
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    if not q_sharded:
+        return 0, nq, 0, nkv
+    n_rep = nq // nkv
+    if kv_whole_heads:
+        hkv = nkv // size
+        return rank * hkv * n_rep, hkv * n_rep, rank * hkv, hkv
+    c = -(-nq // size)
+    q0 = min(rank * c, nq)
+    hq = min(c, nq - q0)
+    k0 = q0 // n_rep
+    return q0, hq, k0, -(-(q0 + hq) // n_rep) - k0 if hq else 0
+
+
+def _pick_kv(q0: int, hq: int, k0: int, n_rep: int):
+    """For query heads ``q0 .. q0 + hq`` reading kv heads from ``k0`` on:
+    a pick of each one's kv head (the kv axis becomes the query heads')."""
     def pick(t):
         idx = torch.div(torch.arange(q0, q0 + hq, device=t.device), n_rep,
-                        rounding_mode="floor")
+                        rounding_mode="floor") - k0
         return t.index_select(-2, idx)
 
     return pick
@@ -116,38 +145,39 @@ def _layout(params, cfg, tp=None) -> Layout:
     docstring); the whole layer without `tp` or when nothing is sharded."""
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    whole = Layout(params, nq, nkv, _same, nq // nkv, _same, _same)
+    n_rep = nq // nkv
+    whole = Layout(params, nq, nkv, _same, n_rep, _same, _same)
     q_cols, kv_cols = params["wq"].shape[-1], params["wk"].shape[-1]
     if tp is None or q_cols == nq * hd:  # kv columns divide only where q's do
         return whole
     kv_sharded = kv_cols < nkv * hd
-    if q_cols % hd:  # a shard cuts a query head: the gathered route
-        names = ("wq", "wo", "wk", "wv") if kv_sharded else ("wq", "wo")
-        p = dict(params)
-        for name in names:
-            p[name] = tp.gather(params[name], dim=-2 if name == "wo" else -1)
-        tp.count("gathered", len(names))
-        return whole._replace(params=p)
-    hq = q_cols // hd
-    q0 = tp.rank * hq
-    p = {"wq": params["wq"], "wo": params["wo"]}
+    kv_own = kv_sharded and kv_cols % hd == 0
+    q0, hq, k0, hkv = rank_heads(cfg, tp.rank, tp.size, True, kv_own)
+    qs, ks = slice(q0 * hd, (q0 + hq) * hd), slice(k0 * hd, (k0 + hkv) * hd)
+    gathered = 0
+    if q_cols % hd:  # a shard cuts a query head: the padded route
+        p = {"wq": tp.gather_partial(params["wq"])[..., qs],
+             "wo": tp.gather_partial(params["wo"], dim=-2)[..., qs, :]}
+        route, gathered = "padded", 2
+    else:
+        p = {"wq": params["wq"], "wo": params["wo"]}
+        route = "heads"
     if "bq" in params:
-        p["bq"] = tp.copy(params["bq"])[q0 * hd:(q0 + hq) * hd]
-    if kv_sharded and kv_cols % hd == 0:  # the rank's own kv heads
-        hkv = kv_cols // hd
-        p["wk"], p["wv"] = params["wk"], params["wv"]
-        if "bk" in params:
-            k0 = tp.rank * hkv
-            p["bk"], p["bv"] = (tp.copy(params[b])[k0 * hd:(k0 + hkv) * hd]
-                                for b in ("bk", "bv"))
-        tp.count("heads")
-        return Layout(p, hq, hkv, _same, hq // hkv, tp.copy, tp.reduce)
-    for name in ("wk", "wv"):  # every kv head, replicated or gathered
-        p[name] = tp.copy(tp.gather(params[name]) if kv_sharded else params[name])
+        p["bq"] = tp.copy(params["bq"])[qs]
+    for name in ("wk", "wv"):
+        if kv_own:
+            p[name] = params[name]
+        elif kv_sharded:  # cut inside a head: gathered, the rank's kv heads sliced
+            p[name] = tp.gather_partial(params[name])[..., ks]
+            gathered += 1
+        else:  # replicated
+            p[name] = tp.copy(params[name])[..., ks]
     if "bk" in params:
-        p["bk"], p["bv"] = tp.copy(params["bk"]), tp.copy(params["bv"])
-    tp.count("heads", 2 if kv_sharded else 0)
-    return Layout(p, hq, nkv, _pick_kv(q0, hq, nq // nkv), 1, tp.copy, tp.reduce)
+        p["bk"], p["bv"] = tp.copy(params["bk"])[ks], tp.copy(params["bv"])[ks]
+    tp.count(route, gathered)
+    if kv_own or (q0 % n_rep == 0 and hq % n_rep == 0):
+        return Layout(p, hq, hkv, _same, n_rep, tp.copy, tp.reduce)
+    return Layout(p, hq, hkv, _pick_kv(q0, hq, k0, n_rep), 1, tp.copy, tp.reduce)
 
 
 def _proj_qkv(params, x, kv_x, cfg, lay=None):

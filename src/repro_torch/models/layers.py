@@ -46,13 +46,17 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, half-split rotation. x (..., S, H, hd);
-    positions (..., S) int. Computed in f32, cast back to ``x.dtype``."""
+    positions (..., S) int. Computed in f32 (the angles always; the
+    rotation in f64 for an f64 model, as `rms_norm` and the SSM code,
+    so that f64 is an exact-arithmetic witness: a kv head's gradient
+    summed over the ranks that read it is then not rounded to f32 part
+    by part), cast back to ``x.dtype``."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(torch.promote_types(x.dtype, torch.float32)), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

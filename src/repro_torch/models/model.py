@@ -43,21 +43,22 @@ back to the host.
 
 Tensor parallelism. Under a `repro_torch.sharding.tp.use` context (the
 steps of `repro_torch.launch.steps` set it on a mesh whose "model" axis
-is larger than 1) the dense family runs on the rank's blocks of its
-leaves: attention on its heads (`attention.Layout`), the MLP on its
-``d_ff`` block, the embedding on its rows of the vocabulary (ids
-outside them masked, looked up, then summed over the ranks), the head
-into its block of the logits, and `lm_loss` through the vocab-parallel
-cross-entropy (`layers.token_nll`). `apply_model` and `decode_step` then
-return the rank's vocabulary block of the logits. Another family on
-such a mesh raises `NotImplementedError` naming its ROADMAP sub-item.
+is larger than 1) the dense and moe families run on the rank's blocks
+of their leaves: attention on its heads (`attention.Layout`), the MLP on
+its ``d_ff`` block, a moe layer on its experts (`moe.moe_block`), the
+embedding on its rows of the vocabulary (ids outside them masked,
+looked up, then summed over the ranks), the head into its block of the
+logits, and `lm_loss` through the vocab-parallel cross-entropy
+(`layers.token_nll`). `apply_model` and `decode_step` then return the
+rank's vocabulary block of the logits. Another family on such a mesh
+raises `NotImplementedError` naming its ROADMAP sub-item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import as_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -235,10 +236,12 @@ def _self_attention(ap, x, cfg, use_blocked, tp=None):
     return attn_lib.full_attention(ap, x, cfg, sliding_window=cfg.sliding_window, tp=tp)
 
 
-def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked, tp=None):
+def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked, tp=None,
+                 rows=None):
     """One sub-block; returns the new h (and the aux loss for ``moe``).
     `bp` is the group's sub-block, unused by ``shared``; `tp` the rank's
-    place on the model axis (dense blocks only)."""
+    place on the model axis (attention, mlp and moe blocks), `rows` its
+    place among client ranks that split the batch (moe blocks)."""
     if kind == "shared":
         x = rms_norm(h, shared["norm_attn"], cfg.norm_eps)
         h = h + _self_attention(shared["attn"], x, cfg, use_blocked)
@@ -250,7 +253,7 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
     if kind == "mlp":
         return h + mlp(bp["mlp"], x, _ff_tp(bp["mlp"], cfg, tp))
     if kind == "moe":
-        y, aux = moe_block(bp["moe"], x, cfg)
+        y, aux = moe_block(bp["moe"], x, cfg, tp, rows)
         return h + y, aux
     if kind == "ssm":
         return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn)
@@ -277,7 +280,7 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
     Under a `repro_torch.sharding.tp.use` context the logits are the
     rank's block of the vocabulary (see the module docstring)."""
     pattern, n_groups = block_pattern(cfg)
-    tp = tp_lib.current()
+    tp, rows = tp_lib.current(), tp_lib.current_rows()
     tp_lib.check_family(cfg, tp and tp.mesh)
     h = _embed_inputs(params, cfg, batch, tp)
     S = h.shape[1]
@@ -291,7 +294,7 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
         for i, kind in enumerate(pattern):
             out = _apply_block(kind, gp.get(f"{i}:{kind}"), h, cfg, shared=shared,
                                cross_embeds=cross_embeds, chunk_fn=chunk_fn,
-                               use_blocked=use_blocked, tp=tp)
+                               use_blocked=use_blocked, tp=tp, rows=rows)
             if kind == "moe":
                 h, a = out
                 aux = aux + a
@@ -301,9 +304,16 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     shared = params.get("shared")
+    # a moe group is recomputed whole: an early stop raises inside the
+    # forward of the op that packs the group's last saved tensor, there
+    # the expert combine's autograd function, whose apply turns it into a
+    # SystemError on torch 2.11 (the combine is the group's last product,
+    # so little else is recomputed)
+    early_stop = cfg.family != "moe"
     for gp in _unbind_groups(params["groups"], n_groups):
         if cfg.remat and torch.is_grad_enabled():
-            h, aux = checkpoint(group_fn, h, gp, shared, use_reentrant=False)
+            with set_checkpoint_early_stop(early_stop):
+                h, aux = checkpoint(group_fn, h, gp, shared, use_reentrant=False)
         else:
             h, aux = group_fn(h, gp, shared)
         aux_total = aux_total + aux
@@ -396,12 +406,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None, mesh=None) -> DecodeState:
     """Zero caches for serving `seq_len` positions: a ring of
     ``sliding_window`` slots when the window is on and shorter than
-    `seq_len`, else `seq_len` slots; ``pos`` 0. On a `mesh` whose
-    "model" axis divides the kv heads, a KV cache holds the rank's block
-    of them (the reference's ``cache_spec``), else all of them."""
+    `seq_len`, else `seq_len` slots; ``pos`` 0. On a `mesh` with a
+    "model" axis, a KV cache holds the kv heads the rank computes
+    (`attention.rank_heads`): its block of them where the axis divides
+    them (the reference's ``cache_spec``), else the ones its query heads
+    read."""
     dev = resolve_device(device)
     t = getattr(mesh, "model_size", 1) if mesh is not None else 1
-    n_kv = cfg.num_kv_heads // t if cfg.num_kv_heads % t == 0 else cfg.num_kv_heads
+    n_kv = cfg.num_kv_heads
+    if t > 1:
+        _, _, _, n_kv = attn_lib.rank_heads(
+            cfg, mesh.model_rank, t, cfg.num_heads * cfg.resolved_head_dim % t == 0,
+            cfg.num_kv_heads % t == 0)
     pattern, n_groups = block_pattern(cfg)
     dtype = cfg.torch_dtype
     ring = cfg.sliding_window > 0 and seq_len > cfg.sliding_window
@@ -450,7 +466,7 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
     (`init_cross_kv`). Under a `repro_torch.sharding.tp.use` context the
     logits are the rank's block of the vocabulary."""
     pattern, n_groups = block_pattern(cfg)
-    tp = tp_lib.current()
+    tp, rows = tp_lib.current(), tp_lib.current_rows()
     tp_lib.check_family(cfg, tp and tp.mesh)
     if "cross" in pattern and cross_kv is None:
         raise ValueError(f"{cfg.name}: a vlm decode needs cross_kv (init_cross_kv)")
@@ -480,7 +496,7 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 h = h + mlp(gp[name]["mlp"], x, _ff_tp(gp[name]["mlp"], cfg, tp))
             elif kind == "moe":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
-                y, _ = moe_block(gp[name]["moe"], x, cfg)
+                y, _ = moe_block(gp[name]["moe"], x, cfg, tp, rows)
                 h = h + y
             elif kind == "ssm":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)

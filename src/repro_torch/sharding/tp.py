@@ -9,17 +9,25 @@ The operators below join the ranks' partial results:
 
   - `TP.copy`: identity forward, all-reduce of the gradient backward.
     It goes before a column-parallel product, and on a replicated leaf
-    that the ranks use differently (the QKV biases, a replicated or
-    gathered kv projection read by the rank's own query heads);
+    that the ranks use differently (the QKV biases, a replicated kv
+    projection read by the rank's own query heads);
   - `TP.reduce`: all-reduce forward, identity backward. It goes after a
     row-parallel product, and sums the vocab-parallel embedding and
     loss;
   - `TP.gather`: all-gather forward along a dim, the rank's own slice of
-    the gradient backward. It serves a leaf whose shard cuts an
-    attention head (`repro_torch.models.attention`'s gathered route).
+    the gradient backward: for a whole computed alike on every rank (the
+    served logits over the whole vocabulary);
+  - `TP.gather_partial`: all-gather forward along a dim, a reduce-scatter
+    of the gradient backward: for a leaf whose shard cuts an attention
+    head, gathered so that each rank can slice out its own heads
+    (`repro_torch.models.attention`'s padded route). Each rank's
+    gradient of the gathered leaf is then partial (its heads' part), so
+    it is summed over the ranks and each keeps its slice.
 
-Each runs through the `Mesh`'s model collectives, so the mesh's tally
-counts them (``model_all_reduce``, ``model_all_gather``). `context`
+A moe layer's expert axis sums in its own dispatch and combine
+(`repro_torch.models.moe`). All of them run through the `Mesh`'s model
+collectives, so the mesh's tally counts them (``model_all_reduce``,
+``model_all_gather``, ``model_reduce_scatter``). `context`
 gives None for ``mesh=None`` and for a model size of 1, and model code
 given None runs the single-device path unchanged. Whether a leaf is
 sharded is read off its shape against the config's (a block is narrower
@@ -28,7 +36,9 @@ than the whole), so the model code needs no spec tree.
 The steps (`repro_torch.launch.steps`) set the context for the model
 code with `use`; the model's entry points read it once (`current`) and
 pass it down explicitly, so a checkpointed block recomputed during the
-backward sees the same context.
+backward sees the same context. The serving steps also set `Rows` where
+the client ranks split one batch: a moe layer's expert queues and
+capacity are the whole batch's (`repro_torch.models.moe`).
 """
 from __future__ import annotations
 
@@ -46,20 +56,22 @@ _TLS = threading.local()
 def _family_item(family: str) -> Optional[str]:
     from repro_torch.launch import mesh as mesh_lib
 
-    return {"moe": mesh_lib.ROADMAP_MOE, "ssm": mesh_lib.ROADMAP_SSM,
+    return {"ssm": mesh_lib.ROADMAP_SSM,
             "hybrid": mesh_lib.ROADMAP_SSM, "vlm": mesh_lib.ROADMAP_CROSS,
             "audio": mesh_lib.ROADMAP_CROSS}.get(family)
 
 
 def check_family(cfg, mesh) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP sub-item, for a
-    family other than dense on a mesh whose "model" axis is larger than 1."""
+    family other than dense and moe on a mesh whose "model" axis is
+    larger than 1."""
     size = 1 if mesh is None else getattr(mesh, "model_size", 1)
     item = _family_item(cfg.family)
     if size > 1 and item is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) over a {size}-way \"model\" axis: tensor "
-            f"parallelism covers the dense family; the {cfg.family} family is {item}")
+            f"parallelism covers the dense and moe families; the {cfg.family} family is "
+            f"{item}")
 
 
 class _Copy(torch.autograd.Function):
@@ -94,6 +106,17 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.mesh = dim, mesh
+        return mesh.model_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_reduce_scatter(g, ctx.dim), None, None
+
+
 class TP:
     """This rank's place on the model axis of `mesh`: ``rank`` of
     ``size``, and the operators over its model group."""
@@ -111,6 +134,9 @@ class TP:
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return _Gather.apply(x, self.mesh, dim % x.dim())
 
+    def gather_partial(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return _GatherPartial.apply(x, self.mesh, dim % x.dim())
+
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the model ranks, outside autograd."""
         return self.mesh.model_all_reduce(x.detach(), op="max")
@@ -120,6 +146,34 @@ class TP:
         self.mesh.tp_routes[route] += 1
         self.mesh.tp_routes["gathered_leaves"] += leaves
 
+    def count_moe(self, experts: int) -> None:
+        """Tally one moe layer, and the experts the rank runs in it."""
+        self.mesh.tp_routes["moe"] += 1
+        self.mesh.tp_routes["experts"] = experts
+
+
+class Rows:
+    """This rank's place among the client ranks of `mesh` when they split
+    one batch (the serving steps): ``rank`` of ``size``, each holding as
+    many rows. A moe layer ranks its tokens' expert choices among the
+    whole batch's (`gather`), as the reference's layer does over its
+    global batch."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every client rank's `x` concatenated along dim 0, in rank order."""
+        return self.mesh.all_gather(x, 0)
+
 
 def context(mesh) -> Optional[TP]:
     """The `TP` of `mesh`, or None for no mesh or a model size of 1."""
@@ -128,19 +182,31 @@ def context(mesh) -> Optional[TP]:
     return TP(mesh)
 
 
+def rows_context(mesh) -> Optional[Rows]:
+    """The `Rows` of `mesh`, or None for no mesh or one client rank."""
+    if mesh is None or mesh.size == 1:
+        return None
+    return Rows(mesh)
+
+
 def current() -> Optional[TP]:
     return getattr(_TLS, "tp", None)
 
 
+def current_rows() -> Optional[Rows]:
+    return getattr(_TLS, "rows", None)
+
+
 @contextlib.contextmanager
-def use(tp: Optional[TP]):
-    """Make `tp` the model code's context (`current`) inside the block."""
-    prev = getattr(_TLS, "tp", None)
-    _TLS.tp = tp
+def use(tp: Optional[TP], rows: Optional[Rows] = None):
+    """Make `tp` (and `rows`, for a batch split over the client ranks) the
+    model code's context (`current`, `current_rows`) inside the block."""
+    prev = getattr(_TLS, "tp", None), getattr(_TLS, "rows", None)
+    _TLS.tp, _TLS.rows = tp, rows
     try:
         yield tp
     finally:
-        _TLS.tp = prev
+        _TLS.tp, _TLS.rows = prev
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,13 @@ a test module). Each runs in one process of a gloo world spawned by
 "model"), and returns what the test compares; this module imports no
 JAX, so a rank starts quickly.
 
-A world does every check of its layout in one run: the train step in
-each mix mode from the reference's whole parameters (`convert.shard_params`)
-back to whole ones (`convert.gather_params`), the round trip of those
-two, the prefill and serve steps, the vocab-parallel cross-entropy and
-the model's gradients in f64 against one process.
+A world does every check of its layout in one run, for each of `ARCHS`
+(reduced qwen2, dense, and reduced qwen3-moe-30b-a3b, moe): the train
+step in each mix mode from the reference's whole parameters
+(`convert.shard_params`) back to whole ones (`convert.gather_params`),
+the round trip of those two, the prefill and serve steps, and the
+model's gradients in f64 against one process; and the vocab-parallel
+cross-entropy once.
 """
 import numpy as np
 import torch
@@ -24,6 +26,8 @@ from repro_torch.models import model as M
 from repro_torch.sharding import tp as tp_lib
 
 ARCH, N, LR = D.ARCH, D.N, D.LR
+MOE = "qwen3-moe-30b-a3b"  # reduced: 4 experts, top-2, 4 query heads over 2 kv heads
+ARCHS = (ARCH, MOE)
 SERVE_BATCH, SERVE_PROMPT = 4, 8
 CHUNK = 8  # lm_loss's vocab_chunk form over D.SEQ positions
 FLASH_FROM = 8  # apply_model's blocked_attn_threshold: the flash path at D.SEQ
@@ -33,12 +37,23 @@ MODES = (("dense", "dense", None), ("dense-bf16", "dense", torch.bfloat16),
          ("none", "none", None), ("ring", "ring", None))
 
 
+def train_inputs(seed=0):
+    """`_torch_dist.train_inputs`' tokens and ``q_eff``, and ``params``
+    for each of `ARCHS`: one init copied to the N clients."""
+    out = D.train_inputs(seed)
+    moe = M.init_params(seed, get_reduced(MOE), "cpu")
+    out["params"] = {ARCH: out["params"],
+                     MOE: flat_lib.tree_map(lambda p: p[None].expand(N, *p.shape).clone(), moe)}
+    return out
+
+
 def numpy_tree(tree):
     return flat_lib.tree_map(lambda t: t.numpy(), tree)
 
 
 def serve_inputs(seed=5):
-    """(prompt (SERVE_BATCH, SERVE_PROMPT) int64, its serving shape)."""
+    """(prompt (SERVE_BATCH, SERVE_PROMPT) int64, its serving shape); both
+    configs of `ARCHS` have a vocabulary of 512."""
     cfg = get_reduced(ARCH)
     gen = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)
@@ -57,7 +72,8 @@ def loss_inputs(seed=9):
 def _train(mesh, cfg, train, out):
     for name, mode, md in MODES:
         n = mesh.size if mode == "ring" else N
-        params = convert.shard_params(flat_lib.tree_map(lambda p: p[:n], train["params"]), mesh)
+        params = convert.shard_params(flat_lib.tree_map(lambda p: p[:n], train["params"][cfg.name]),
+                                      mesh)
         sl = mesh.client_slice(n)
         batch = {"tokens": torch.as_tensor(train["tokens"][:n])[sl]}
         step = steps.make_train_step(cfg, mesh, lr=LR, mix_mode=mode, mix_dtype=md)
@@ -70,9 +86,10 @@ def _train(mesh, cfg, train, out):
 
 def _serve(mesh, cfg, train, out):
     prompt, shape = serve_inputs()
-    params0 = convert.shard_params(flat_lib.tree_map(lambda p: p[0], train["params"]), mesh,
-                                   clients=False)
+    params0 = convert.shard_params(flat_lib.tree_map(lambda p: p[0], train["params"][cfg.name]),
+                                   mesh, clients=False)
     rows = mesh.client_slice(SERVE_BATCH)
+    mesh.reset_tally()
     pshape = ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
     out["prefill"] = steps.make_prefill_step(cfg, pshape, mesh)(params0,
                                                                {"tokens": prompt[rows]})
@@ -84,6 +101,7 @@ def _serve(mesh, cfg, train, out):
         lg, state = serve(params0, prompt[rows, t], state)
         logits.append(lg)
     out["serve"] = torch.stack(logits, dim=1)
+    out["serve_routes"] = dict(mesh.tp_routes)
     out["cache_heads"] = state.caches["0:attn"].k.shape[-2]
 
 
@@ -95,13 +113,12 @@ def attention_input(cfg, seed=3):
 
 def _f64(mesh, cfg, train, out):
     """lm_loss and its gradients in both loss forms and on the flash path,
-    in f64, the blocked attention's output, and the cross-entropy alone on
-    random logits, on the rank's blocks."""
+    in f64, and the blocked attention's output, on the rank's blocks."""
     from repro_torch.models import attention
 
     tp = tp_lib.context(mesh)
     cfg64 = cfg.with_(dtype="float64")
-    whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"])
+    whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"][cfg.name])
     batch = {"tokens": torch.as_tensor(train["tokens"][0])}
     for name, kw in (("f64_0", {}), (f"f64_{CHUNK}", {"vocab_chunk": CHUNK}),
                      ("f64_flash", {"blocked_attn_threshold": FLASH_FROM})):
@@ -118,6 +135,11 @@ def _f64(mesh, cfg, train, out):
     out["blocked"] = attention.blocked_attention(
         flat_lib.tree_map(torch.Tensor.detach, ap), attention_input(cfg), cfg64,
         block_q=BLOCK, block_kv=BLOCK, tp=tp)
+
+
+def _cross_entropy(mesh, out):
+    """The vocab-parallel cross-entropy alone on random f64 logits."""
+    tp = tp_lib.context(mesh)
     logits, labels = loss_inputs()
     if logits.shape[-1] % mesh.model_size:  # the vocabulary stays whole
         return
@@ -134,7 +156,7 @@ def _f64(mesh, cfg, train, out):
 def _round_trip(mesh, cfg, train, out):
     """shard_params then gather_params, client-stacked in f32 and bf16 and
     the one serving copy: the whole trees back on every rank."""
-    f32 = train["params"]
+    f32 = train["params"][cfg.name]
     bf16 = flat_lib.tree_map(lambda p: p.to(torch.bfloat16), f32)
     one = flat_lib.tree_map(lambda p: p[0], f32)
     out["round_trip"] = [
@@ -148,11 +170,14 @@ def world(rank, world_size, shape, train):
     """Every check of one ("data", "model") layout `shape`; returns this
     rank's results."""
     mesh = mesh_lib.make_test_mesh(shape)
-    cfg = get_reduced(ARCH)
     out = {"coords": (mesh.rank, mesh.model_rank), "model_size": mesh.model_size}
-    _train(mesh, cfg, train, out)
-    _round_trip(mesh, cfg, train, out)
-    _serve(mesh, cfg, train, out)
-    _f64(mesh, cfg, train, out)
+    for arch in ARCHS:
+        cfg = get_reduced(arch)
+        out[arch] = {}
+        _train(mesh, cfg, train, out[arch])
+        _round_trip(mesh, cfg, train, out[arch])
+        _serve(mesh, cfg, train, out[arch])
+        _f64(mesh, cfg, train, out[arch])
+    _cross_entropy(mesh, out)
     return out
 

@@ -175,7 +175,7 @@ def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
     row = dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, verbose=False)
     assert row["mesh"] == "16x16" and row["n_devices"] == 256  # the reference's (16, 16)
     assert row["coll_breakdown"]["counts"]["model_all_gather"] > 0  # 16 ways cut its heads
-    assert row["tp_routes"]["gathered"] == cfg.num_layers
+    assert row["tp_routes"]["padded"] == cfg.num_layers
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(c\)"):  # not dense
         dryrun.lower_pair("mamba2-2.7b", "decode_32k", cfg=tbase.get_reduced("mamba2-2.7b"),
                           verbose=False)
@@ -202,6 +202,31 @@ def test_temp_peak_tracks_live_storages():
     got = troof.count_work(step, x)
     assert got.temp_peak == 2 * 4096
     assert got.bytes == (4096 + 4096) + (4096 + 4096) + (4096 + 4)  # in + out per op
+
+
+def test_temp_peak_follows_the_cards_kernels():
+    """Two places where the meta run under the counters differs from the
+    card: under a dispatch mode a gather's backward scatters into its fresh
+    zero tensor out of place (the card in place: one buffer), and CUDA's
+    softmax backward forms ``grad * output`` in a temporary beside its
+    output (the meta kernel makes none)."""
+    n, v = 64, 1024
+    full = n * v * 4
+
+    def gather_grad(x, idx):
+        (g,) = torch.autograd.grad(torch.gather(x, 1, idx).sum(), [x])
+        return g
+
+    x = torch.empty((n, v), device="meta", requires_grad=True)
+    idx = torch.zeros((n, 1), dtype=torch.long, device="meta")
+    assert full <= troof.count_work(gather_grad, x, idx).temp_peak < full + 1024
+
+    def softmax_grad(x, go):
+        (g,) = torch.autograd.grad(torch.softmax(x, -1), [x], go)
+        return g
+
+    go = torch.empty((n, v), device="meta")
+    assert troof.count_work(softmax_grad, x, go).temp_peak == 3 * full  # y, dx, the temporary
 
 
 def test_no_tpu_constant_in_the_port():

@@ -26,7 +26,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models import registry as jregistry  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import as_generator, convert  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -93,6 +93,22 @@ def test_serve_main_runs_reduced_on_the_cpu(arch, capsys):
     assert toks.shape == (2, 4) and toks.device.type == "cpu"
     out = capsys.readouterr().out
     assert "generated (2, 4) tokens" in out and "tok/s aggregate" in out and "sample:" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "olmoe-1b-7b"])
+def test_serve_main_takes_a_depth_cut_config(arch):
+    """`main(argv, cfg=)` serves the given config (as `train.main` takes one):
+    the same tokens as the CLI's own config cut to the same depth."""
+    import torch
+
+    cfg = tbase.get_reduced(arch).with_(num_layers=1)
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
+            "5", "--new-tokens", "4"]
+    toks = tserve.main(argv, cfg=cfg)
+    gen = as_generator(0, "cpu")  # main's draws: the params, then the prompts
+    params = tmodel.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen, device="cpu")
+    assert torch.equal(toks, tserve.serve_batch(cfg, params, prompts, 4))
 
 
 def test_serve_main_defaults_are_the_reference_flags():

@@ -1,21 +1,24 @@
-"""Tensor parallelism over "model" for the dense family, in gloo worlds of
-4 ranks on the CPU, against the JAX package.
+"""Tensor parallelism over "model" for the dense and moe families, in gloo
+worlds of 4 ranks on the CPU, against the JAX package.
 
 Three worlds run once each (`_torch_tp.world`, spawned by
 `repro_torch.launch.mesh.spawn_ranks`), each doing every check of its
-layout: (2, 2), where reduced qwen2's 6 query and 2 kv heads split at
-whole heads (the heads route); (1, 4), where every attention shard cuts
-a head (the gathered route); and (1, 3), held against one process,
-where the query heads split whole but the 2 kv heads and the vocabulary
-of 512 do not divide, so each rank picks its query heads' kv heads out
-of all of them and the embedding, head and loss stay whole. The JAX
-side runs once, in one
-subprocess with four host devices and ``Auto`` meshes of the same
-layouts (jax 0.9's default ``Explicit`` axes make the reference's
-``constrain`` raise), started before the worlds so that both run at
-once: the reference's own `make_train_step` in each mix mode, and its
-prefill and serve steps at (2, 2), on the same params, tokens and
-``q_eff``.
+layout for reduced qwen2 (dense: 6 query and 2 kv heads) and reduced
+qwen3-moe-30b-a3b (moe: 4 experts, top-2, 4 query over 2 kv heads):
+(2, 2), where qwen2's heads split at whole heads (the heads route) and
+each rank runs 2 experts; (1, 4), where every qwen2 attention shard cuts
+a head (the padded route: ranks take 2, 2, 2 and 0 of the 6 heads) and
+each rank runs 1 expert; and (1, 3), held against one process, where
+qwen2's query heads split whole but the 2 kv heads and the vocabulary of
+512 do not divide, so each rank slices its query heads' kv heads out of
+all of them and the embedding, head and loss stay whole, and where the 4
+experts do not divide either, so every rank runs them all. The JAX side
+runs once, in one subprocess with four host devices and ``Auto`` meshes
+of the same layouts (jax 0.9's default ``Explicit`` axes make the
+reference's ``constrain`` raise), started before the worlds so that
+both run at once: the reference's own `make_train_step` in each mix
+mode, and its prefill and serve steps at (2, 2), on the same params,
+tokens and ``q_eff``.
 
 Tolerances: the f32 train steps within rtol/atol 1e-5 of the reference
 (f32 sums re-associated across ranks; 3e-8 read), the bf16 mix within
@@ -24,11 +27,12 @@ by one step of its value: here |delta| < 0.02, a step under 8e-5; 1.5e-5
 read), prefill and serve logits within 1e-5 (3.3e-6 read); the round trip of
 `shard_params` and `gather_params` and the replicated leaves across the
 model ranks exact; the f64 loss and gradients within 1e-10 of one
-process, 1e-6 at (1, 3), where the rank's query heads read their kv
-heads through a pick: the attention scores are f32 for every dtype (as
-the reference's), and the picked layout sums them in another order, so
-a score rounds to the other side of an f32 step now and then (3.5e-8 of
-the largest gradient read).
+process at every layout (the attention scores are f32 for every dtype,
+as the reference's, but each query head's are computed whole on one
+rank; RoPE and the norms compute in f64 for an f64 model, so a kv
+head's gradient summed over the ranks that read it is not rounded to f32
+part by part; 7e-16 read). A router gradient summed over the ranks (a
+`TP.copy` on the moe layer's input) would double it at (2, 2).
 """
 import math
 import os
@@ -87,16 +91,17 @@ def put(tree, sh):
     return jax.tree_util.tree_map(jax.device_put, tree, sh)
 
 
-cfg = get_reduced("qwen2-1.5b")
 out = {}
 modes = {"dense": ("dense", None), "dense-bf16": ("dense", jnp.bfloat16),
          "none": ("none", None), "ring": ("ring", None)}
-for layout in ((2, 2), (1, 4)):
+for arch, layout in [(a, l) for a in ("qwen2-1.5b", "qwen3-moe-30b-a3b")
+                     for l in ((2, 2), (1, 4))]:
+    cfg = get_reduced(arch)
     mesh = jax.make_mesh(layout, ("data", "model"), axis_types=auto)
-    tag = "x".join(map(str, layout))
+    tag = arch + "/" + "x".join(map(str, layout))
     for name, (mode, md) in modes.items():
         n = layout[0] if mode == "ring" else len(inp["tokens"])
-        params = nest("param/", slice(0, n))
+        params = nest(f"param/{arch}/", slice(0, n))
         tokens = jnp.asarray(inp["tokens"][:n], jnp.int32)
         _, b, s = tokens.shape
         param_sh, batch_sh, q_sh = steps.make_shardings(
@@ -112,14 +117,14 @@ for layout in ((2, 2), (1, 4)):
             out[f"{tag}/train/{name}/" + "/".join(p.key for p in path)] = np.asarray(leaf)
     if layout != (2, 2):
         continue
-    params0 = nest("param/", 0)
+    params0 = nest(f"param/{arch}/", 0)
     prompt = jnp.asarray(inp["prompt"], jnp.int32)
     B, L = prompt.shape
     pshape = ShapeConfig("prefill", L, B, "prefill")
     psh = steps.serve_shardings(mesh, cfg, pshape)[0]
     prefill = jax.jit(steps.make_prefill_step(cfg, pshape, mesh),
                       in_shardings=(psh, {"tokens": NamedSharding(mesh, P("data", None))}))
-    out["prefill"] = np.asarray(prefill(put(params0, psh), {"tokens": prompt}))
+    out[f"{arch}/prefill"] = np.asarray(prefill(put(params0, psh), {"tokens": prompt}))
     shape = ShapeConfig("serve", L + 2, B, "decode")
     param_sh, tok_sh, state_sh, _, scfg = steps.serve_shardings(mesh, cfg, shape)
     serve = jax.jit(steps.make_serve_step(cfg, shape, mesh),
@@ -130,7 +135,7 @@ for layout in ((2, 2), (1, 4)):
     for t in range(L):
         lg, state = serve(p0, jax.device_put(prompt[:, t], tok_sh), state)
         logits.append(np.asarray(lg))
-    out["serve"] = np.stack(logits, axis=1)
+    out[f"{arch}/serve"] = np.stack(logits, axis=1)
 np.savez(dst, **out)
 print("REFERENCE_OK")
 '''
@@ -138,7 +143,7 @@ print("REFERENCE_OK")
 
 @pytest.fixture(scope="module")
 def inputs():
-    return D.train_inputs()
+    return T.train_inputs()
 
 
 @pytest.fixture(scope="module")
@@ -148,8 +153,8 @@ def reference(inputs, tmp_path_factory):
     root = tmp_path_factory.mktemp("reference")
     arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"],
               "prompt": T.serve_inputs()[0].numpy()}
-    arrays.update({"param/" + "/".join(p): leaf.numpy()
-                   for p, leaf in flat_lib.tree_items(inputs["params"])})
+    arrays.update({f"param/{arch}/" + "/".join(p): leaf.numpy()
+                   for arch in T.ARCHS for p, leaf in flat_lib.tree_items(inputs["params"][arch])})
     np.savez(root / "in.npz", **arrays)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu",
@@ -188,18 +193,119 @@ def _close(got, want, tol, what):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=what)
 
 
+# the kv heads each model rank caches, in rank order (`attention.rank_heads`):
+# qwen2's 6 query heads read kv head h // 3; moe's 4 read h // 2
+CACHE_HEADS = {(T.ARCH, (2, 2)): [1, 1], (T.ARCH, (1, 4)): [1, 2, 1, 0],
+               (T.ARCH, (1, 3)): [1, 2, 1], (T.MOE, (2, 2)): [1, 1],
+               (T.MOE, (1, 4)): [1, 1, 1, 1], (T.MOE, (1, 3)): [2, 2, 2]}
+
+
+def _train_matches(worlds, reference, arch, layout, mode):
+    outs, ref = worlds[layout], reference()
+    tag = f"{arch}/{_tag(layout)}"
+    tol = 1e-4 if mode == "dense-bf16" else 1e-5
+    for o in outs:
+        _close(o[arch][f"train_{mode}"]["loss"], ref[f"{tag}/loss/{mode}"], 1e-5, "loss")
+    for o in outs:  # every rank gathers the same whole tree
+        for path, leaf in flat_lib.tree_items(o[arch][f"train_{mode}"]["whole"]):
+            _close(leaf.numpy(), ref[f"{tag}/train/{mode}/" + "/".join(path)], tol,
+                   "/".join(path))
+
+
+def _replicated_equal(worlds, inputs, arch, layout):
+    mesh = mesh_lib.Mesh.dry(layout, ("data", "model"))
+    kept = {path for path, spec in flat_lib.tree_items(tree_param_specs(
+        inputs["params"][arch], prefix=("data",), mesh=mesh)) if "model" not in spec}
+    for mode, _, _ in T.MODES:
+        by_data = {}
+        for o in worlds[layout]:
+            by_data.setdefault(o["coords"][0], []).append(o[arch][f"train_{mode}"]["local"])
+        for trees in by_data.values():
+            first = flat_lib.tree_items(trees[0])
+            for other in trees[1:]:
+                for (path, a), b in zip(first, flat_lib.tree_leaves(other)):
+                    assert torch.equal(a, b) == (path in kept), (mode, path)
+    return kept
+
+
+def _round_trip(worlds, inputs, arch, layout):
+    f32 = inputs["params"][arch]
+    wants = [f32, flat_lib.tree_map(lambda p: p.to(torch.bfloat16), f32),
+             flat_lib.tree_map(lambda p: p[0], f32)]
+    for o in worlds[layout]:
+        for got, want in zip(o[arch]["round_trip"], wants):
+            for (path, a), b in zip(flat_lib.tree_items(got), flat_lib.tree_leaves(want)):
+                assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+def _serving_matches_reference(worlds, reference, arch):
+    outs, ref = worlds[(2, 2)], reference()
+    by_rows = {o["coords"][0]: o[arch] for o in outs}  # model ranks return the same rows
+    for key in ("prefill", "serve"):
+        got = torch.cat([by_rows[r][key] for r in sorted(by_rows)])
+        _close(got.numpy(), ref[f"{arch}/{key}"], 1e-5, key)
+    assert [o[arch]["cache_heads"] for o in outs] == CACHE_HEADS[arch, (2, 2)] * 2
+
+
+def _serving_matches_one_device(worlds, inputs, arch, layout):
+    cfg = get_reduced(arch)
+    params0 = flat_lib.tree_map(lambda p: p[0], inputs["params"][arch])
+    prompt, shape = T.serve_inputs()
+    state = M.init_decode_state(cfg, T.SERVE_BATCH, shape.seq_len, device="cpu")
+    want = []
+    for t in range(T.SERVE_PROMPT):
+        lg, state = M.decode_step(params0, cfg, prompt[:, t], state)
+        want.append(lg)
+    outs = sorted(worlds[layout], key=lambda o: o["coords"][1])
+    for o in outs:
+        torch.testing.assert_close(o[arch]["serve"], torch.stack(want, dim=1), rtol=1e-5,
+                                   atol=1e-5)
+    assert [o[arch]["cache_heads"] for o in outs] == CACHE_HEADS[arch, layout]
+
+
+def _train_matches_one_device(worlds, inputs, arch, mode):
+    """(1, 3): the train step against the port's single-device step."""
+    cfg = get_reduced(arch)
+    params = flat_lib.tree_map(torch.clone, inputs["params"][arch])
+    mix = (lambda q, plane: plane) if mode == "none" else None
+    params, loss = ttrain.train_step(params, {"tokens": torch.as_tensor(inputs["tokens"])},
+                                     torch.as_tensor(inputs["q_eff"]), cfg, T.LR, mix=mix)
+    for o in worlds[(1, 3)]:
+        got = o[arch][f"train_{mode}"]
+        assert math.isclose(got["loss"], float(loss), rel_tol=1e-6)
+        for (path, a), b in zip(flat_lib.tree_items(got["whole"]), flat_lib.tree_leaves(params)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=str(path))
+
+
+def _f64_matches_one_device(worlds, inputs, arch, layout):
+    """lm_loss in both loss forms and on the flash path, its gradients, and
+    the blocked attention, in f64 against one process within 1e-10."""
+    from repro_torch.models import attention
+
+    cfg = get_reduced(arch).with_(dtype="float64")
+    whole = flat_lib.tree_map(lambda p: p[0].double(), inputs["params"][arch])
+    batch = {"tokens": torch.as_tensor(inputs["tokens"][0])}
+    for name, kw in (("f64_0", {}), (f"f64_{T.CHUNK}", {"vocab_chunk": T.CHUNK}),
+                     ("f64_flash", {"blocked_attn_threshold": T.FLASH_FROM})):
+        params = flat_lib.tree_map(lambda p: p.clone().requires_grad_(), whole)
+        loss = M.lm_loss(params, cfg, batch, **kw)
+        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(params))
+        for o in worlds[layout]:
+            got = o[arch][name]
+            assert math.isclose(got["loss"], float(loss.detach()), rel_tol=1e-12)
+            for (path, g), want in zip(flat_lib.tree_items(got["grads"]), grads):
+                torch.testing.assert_close(g, want, rtol=1e-10, atol=1e-10, msg=str(path))
+    ap = M._unbind_groups(whole["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
+    want = attention.blocked_attention(ap, T.attention_input(cfg), cfg, block_q=T.BLOCK,
+                                       block_kv=T.BLOCK)
+    for o in worlds[layout]:
+        torch.testing.assert_close(o[arch]["blocked"], want, rtol=1e-10, atol=1e-10)
+
+
 @pytest.mark.parametrize("layout", LAYOUTS, ids=_tag)
 @pytest.mark.parametrize("mode", [m for m, _, _ in T.MODES])
 def test_train_step_matches_reference(worlds, reference, layout, mode):
-    outs, ref = worlds[layout], reference()
-    tol = 1e-4 if mode == "dense-bf16" else 1e-5
-    for o in outs:
-        _close(o[f"train_{mode}"]["loss"], ref[f"{_tag(layout)}/loss/{mode}"], 1e-5,
-               "loss")
-    for o in outs:  # every rank gathers the same whole tree
-        for path, leaf in flat_lib.tree_items(o[f"train_{mode}"]["whole"]):
-            _close(leaf.numpy(), ref[f"{_tag(layout)}/train/{mode}/" + "/".join(path)], tol,
-                   "/".join(path))
+    _train_matches(worlds, reference, T.ARCH, layout, mode)
 
 
 @pytest.mark.parametrize("layout", WORLDS, ids=_tag)
@@ -208,113 +314,55 @@ def test_replicated_leaves_equal_across_model_ranks(worlds, inputs, layout):
     biases, and at (1, 3) wk, wv and the embedding) is bit for bit the same
     on every model rank after the step; a sharded one differs between
     them."""
-    mesh = mesh_lib.Mesh.dry(layout, ("data", "model"))
-    kept = {path for path, spec in flat_lib.tree_items(
-        tree_param_specs(inputs["params"], prefix=("data",), mesh=mesh)) if "model" not in spec}
-    outs = worlds[layout]
-    for mode, _, _ in T.MODES:
-        by_data = {}
-        for o in outs:
-            by_data.setdefault(o["coords"][0], []).append(o[f"train_{mode}"]["local"])
-        for trees in by_data.values():
-            first = flat_lib.tree_items(trees[0])
-            for other in trees[1:]:
-                for (path, a), b in zip(first, flat_lib.tree_leaves(other)):
-                    assert torch.equal(a, b) == (path in kept), (mode, path)
+    _replicated_equal(worlds, inputs, T.ARCH, layout)
 
 
 def test_routes_and_tally(worlds):
     """(2, 2) and (1, 3) take the heads route in every attention layer,
-    (1, 4) the gathered one with all four projections gathered; the
-    step's model collectives are tallied apart from the client ones."""
-    for layout, route in (((2, 2), "heads"), ((1, 4), "gathered"), ((1, 3), "heads")):
-        o = worlds[layout][0]["train_dense"]
+    (1, 4) the padded one with all four projections gathered, their
+    gradients reduce-scattered back; the step's model collectives are
+    tallied apart from the client ones."""
+    for layout, route in (((2, 2), "heads"), ((1, 4), "padded"), ((1, 3), "heads")):
+        o = worlds[layout][0][T.ARCH]["train_dense"]
         layers_run = 2 * (T.N // layout[0])  # 2 layers of each of the rank's clients
-        gathered = 4 * layers_run if route == "gathered" else 0
-        assert o["routes"] == {"heads": layers_run if route == "heads" else 0,
-                               "gathered": layers_run if route == "gathered" else 0,
-                               "gathered_leaves": gathered}
+        padded = route == "padded"
+        assert o["routes"] == {"heads": 0 if padded else layers_run,
+                               "padded": layers_run if padded else 0,
+                               "gathered_leaves": 4 * layers_run if padded else 0,
+                               "moe": 0, "experts": 0}
         counts = o["tally"]["_counts"]
         assert counts["model_all_reduce"] > 0 and counts["reduce_scatter"] == 1
-        assert (counts["model_all_gather"] > 0) == (route == "gathered")
+        assert (counts["model_all_gather"] > 0) == padded
+        assert (counts["model_reduce_scatter"] > 0) == padded
 
 
 @pytest.mark.parametrize("layout", WORLDS, ids=_tag)
 def test_shard_and_gather_round_trip(worlds, inputs, layout):
-    f32 = inputs["params"]
-    wants = [f32, flat_lib.tree_map(lambda p: p.to(torch.bfloat16), f32),
-             flat_lib.tree_map(lambda p: p[0], f32)]
-    for o in worlds[layout]:
-        for got, want in zip(o["round_trip"], wants):
-            for (path, a), b in zip(flat_lib.tree_items(got), flat_lib.tree_leaves(want)):
-                assert a.dtype == b.dtype and torch.equal(a, b), path
+    _round_trip(worlds, inputs, T.ARCH, layout)
 
 
 def test_prefill_and_serve_match_reference(worlds, reference):
-    outs, ref = worlds[(2, 2)], reference()
-    by_rows = {o["coords"][0]: o for o in outs}  # model ranks return the same rows
-    for key in ("prefill", "serve"):
-        got = torch.cat([by_rows[r][key] for r in sorted(by_rows)])
-        _close(got.numpy(), ref[key], 1e-5, key)
-    assert all(o["cache_heads"] == 1 for o in outs)  # 2 kv heads over 2 model ranks
+    _serving_matches_reference(worlds, reference, T.ARCH)  # 2 kv heads over 2 model ranks
 
 
 @pytest.mark.parametrize("layout", ((1, 4), (1, 3)), ids=_tag)
 def test_serve_on_one_client_rank_matches_one_device(worlds, inputs, layout):
-    cfg = get_reduced(T.ARCH)
-    params0 = flat_lib.tree_map(lambda p: p[0], inputs["params"])
-    prompt, shape = T.serve_inputs()
-    state = M.init_decode_state(cfg, T.SERVE_BATCH, shape.seq_len, device="cpu")
-    want = []
-    for t in range(T.SERVE_PROMPT):
-        lg, state = M.decode_step(params0, cfg, prompt[:, t], state)
-        want.append(lg)
-    for o in worlds[layout]:
-        torch.testing.assert_close(o["serve"], torch.stack(want, dim=1), rtol=1e-5, atol=1e-5)
-        assert o["cache_heads"] == cfg.num_kv_heads  # 2 kv heads do not divide by 4 or 3
+    """Each rank caches only the kv heads its query heads read (2 kv heads
+    do not divide by 4 or 3); at (1, 4) the last rank has no head."""
+    _serving_matches_one_device(worlds, inputs, T.ARCH, layout)
 
 
 @pytest.mark.parametrize("mode", ["dense", "none"])
 def test_picked_kv_heads_and_whole_vocab_match_one_device(worlds, inputs, mode):
-    """(1, 3): the train step against the port's single-device step."""
-    cfg = get_reduced(T.ARCH)
-    params = flat_lib.tree_map(torch.clone, inputs["params"])
-    mix = (lambda q, plane: plane) if mode == "none" else None
-    params, loss = ttrain.train_step(params, {"tokens": torch.as_tensor(inputs["tokens"])},
-                                     torch.as_tensor(inputs["q_eff"]), cfg, T.LR, mix=mix)
-    for o in worlds[(1, 3)]:
-        got = o[f"train_{mode}"]
-        assert math.isclose(got["loss"], float(loss), rel_tol=1e-6)
-        for (path, a), b in zip(flat_lib.tree_items(got["whole"]), flat_lib.tree_leaves(params)):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=str(path))
+    _train_matches_one_device(worlds, inputs, T.ARCH, mode)
 
 
 @pytest.mark.parametrize("layout", WORLDS, ids=_tag)
 def test_loss_forms_and_gradients_in_f64(worlds, inputs, layout):
     """The vocab-parallel cross-entropy in both loss forms, the flash and
     blocked attention, and the operators' gradients against one process,
-    in f64 (see the module docstring for (1, 3)'s bound)."""
-    from repro_torch.models import attention
-
-    tol = 1e-6 if layout == (1, 3) else 1e-10
-    cfg = get_reduced(T.ARCH).with_(dtype="float64")
-    whole = flat_lib.tree_map(lambda p: p[0].double(), inputs["params"])
-    batch = {"tokens": torch.as_tensor(inputs["tokens"][0])}
-    for name, kw in (("f64_0", {}), (f"f64_{T.CHUNK}", {"vocab_chunk": T.CHUNK}),
-                     ("f64_flash", {"blocked_attn_threshold": T.FLASH_FROM})):
-        params = flat_lib.tree_map(lambda p: p.clone().requires_grad_(), whole)
-        loss = M.lm_loss(params, cfg, batch, **kw)
-        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(params))
-        for o in worlds[layout]:
-            got = o[name]
-            assert math.isclose(got["loss"], float(loss.detach()), rel_tol=1e-12)
-            for (path, g), want in zip(flat_lib.tree_items(got["grads"]), grads):
-                torch.testing.assert_close(g, want, rtol=tol, atol=tol, msg=str(path))
-    ap = M._unbind_groups(whole["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
-    want = attention.blocked_attention(ap, T.attention_input(cfg), cfg, block_q=T.BLOCK,
-                                       block_kv=T.BLOCK)
-    for o in worlds[layout]:
-        torch.testing.assert_close(o["blocked"], want, rtol=tol, atol=tol)
+    in f64 (see the module docstring)."""
+    _f64_matches_one_device(worlds, inputs, T.ARCH, layout)
     logits, labels = T.loss_inputs()
     mask = torch.ones(labels.shape, dtype=torch.float64)
     mask[:, -1] = 0.0
@@ -327,6 +375,68 @@ def test_loss_forms_and_gradients_in_f64(worlds, inputs, layout):
             continue
         assert math.isclose(o["ce"]["loss"], float(ce), rel_tol=1e-12)
         torch.testing.assert_close(o["ce"]["grad"], g, rtol=1e-12, atol=1e-14)
+
+
+# -- the moe expert axis over "model" (reduced qwen3-moe-30b-a3b) ----------
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_tag)
+@pytest.mark.parametrize("mode", [m for m, _, _ in T.MODES])
+def test_moe_train_step_matches_reference(worlds, reference, layout, mode):
+    _train_matches(worlds, reference, T.MOE, layout, mode)
+
+
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_moe_replicated_leaves_equal_across_model_ranks(worlds, inputs, layout):
+    """The router and the norms (and at (1, 3), where neither the experts
+    nor the heads nor the vocabulary divide, every leaf) bit for bit the
+    same on every model rank after the step; the experts differ."""
+    kept = _replicated_equal(worlds, inputs, T.MOE, layout)
+    assert ("groups", "1:moe", "moe", "router") in kept
+    assert (("groups", "1:moe", "moe", "experts_up") in kept) == (layout == (1, 3))
+
+
+def test_moe_experts_and_routes_tally(worlds):
+    """Each rank runs E / T experts where T divides E = 4, all 4 at (1, 3);
+    the moe layers and the attention routes are tallied (moe's 4 query
+    heads split whole at 2 and 4 ways, its 2 kv heads gathered at 4)."""
+    for layout, experts in (((2, 2), 2), ((1, 4), 1), ((1, 3), 4)):
+        for o in worlds[layout]:
+            layers_run = T.N // layout[0]  # 1 moe layer of each of 2, for each client
+            routes = o[T.MOE]["train_dense"]["routes"]
+            heads = 0 if layout == (1, 3) else 2 * layers_run  # (1, 3): wq stays whole
+            assert routes == {"heads": heads, "padded": 0,
+                              "gathered_leaves": 2 * heads if layout == (1, 4) else 0,
+                              "moe": 2 * layers_run, "experts": experts}
+            assert o[T.MOE]["serve_routes"]["experts"] == experts
+            counts = o[T.MOE]["train_dense"]["tally"]["_counts"]
+            assert (counts["model_all_reduce"] > 0) == (layout != (1, 3))
+
+
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_moe_shard_and_gather_round_trip(worlds, inputs, layout):
+    _round_trip(worlds, inputs, T.MOE, layout)
+
+
+def test_moe_prefill_and_serve_match_reference(worlds, reference):
+    _serving_matches_reference(worlds, reference, T.MOE)
+
+
+@pytest.mark.parametrize("layout", ((1, 4), (1, 3)), ids=_tag)
+def test_moe_serve_on_one_client_rank_matches_one_device(worlds, inputs, layout):
+    _serving_matches_one_device(worlds, inputs, T.MOE, layout)
+
+
+@pytest.mark.parametrize("mode", ["dense", "none"])
+def test_moe_replicated_experts_match_one_device(worlds, inputs, mode):
+    _train_matches_one_device(worlds, inputs, T.MOE, mode)
+
+
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_moe_loss_and_gradients_in_f64(worlds, inputs, layout):
+    """The router's gradient among them: a `TP.copy` on the layer's input
+    or the router would sum its whole-on-every-rank gradient T times."""
+    _f64_matches_one_device(worlds, inputs, T.MOE, layout)
 
 
 def _jax_local_shapes(cfg, mesh):
@@ -350,12 +460,12 @@ def _jax_local_shapes(cfg, mesh):
     return out
 
 
-DENSE = [a for a in ARCH_IDS if get_config(a).family == "dense"]
+SPLIT = [a for a in ARCH_IDS if get_config(a).family in ("dense", "moe")]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SPLIT)
 def test_production_blocks_equal_the_reference(arch):
-    """At (16, 16) on ``meta``: the port's blocks of every dense config,
+    """At (16, 16) on ``meta``: the port's blocks of every dense and moe config,
     cut at init (`tp.shard_leaf`) and by the dry run (`local_abstract`),
     have the shapes of the reference's `tree_param_specs` shards."""
     from repro.configs.base import get_config as jget_config
@@ -375,10 +485,36 @@ def test_production_blocks_equal_the_reference(arch):
     assert set(want) == {p for p, _ in flat_lib.tree_items(dry)}
 
 
-NON_DENSE = [a for a in ARCH_IDS if get_config(a).family != "dense"]
+@pytest.mark.parametrize("arch", SPLIT)
+def test_every_attention_layer_at_16_ways_computes_its_own_heads(arch):
+    """At (16, 16) model rank 0 of every dense and moe config computes
+    ceil(H / 16) query heads, on the heads route where 16 divides H and
+    the padded one where it cuts a head; a moe rank runs E / 16 experts."""
+    from repro_torch.models import attention, moe
+
+    cfg = get_config(arch)
+    mesh = mesh_lib.Mesh.dry((16, 16), ("data", "model"))
+    tp = tp_lib.context(mesh)
+    params = M.init_params(steps._MetaGenerator(), cfg.with_(num_layers=1),
+                           shard=tp_lib.sharder(mesh))
+    kind = "1:moe" if cfg.family == "moe" else "1:mlp"
+    lay = attention._layout(params["groups"]["0:attn"]["attn"], cfg, tp)
+    assert lay.hq == -(-cfg.num_heads // 16) and lay.params["wq"].shape[-1] == \
+        lay.hq * cfg.resolved_head_dim
+    route = "heads" if cfg.num_heads % 16 == 0 else "padded"
+    assert mesh.tp_routes[route] == 1 and sum(mesh.tp_routes[r] for r in
+                                              ("heads", "padded")) == 1
+    if cfg.family == "moe":
+        x = torch.empty((1, 8, cfg.d_model), dtype=cfg.torch_dtype, device="meta")
+        moe.moe_block(flat_lib.tree_map(lambda t: t[0], params["groups"][kind]["moe"]), x,
+                      cfg, tp)
+        assert mesh.tp_routes["experts"] == cfg.num_experts // 16
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
+OTHER = [a for a in ARCH_IDS if get_config(a).family not in ("dense", "moe")]
+
+
+@pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_naming_their_item(arch):
     cfg = get_reduced(arch)
     mesh = mesh_lib.Mesh.dry((2, 2), ("data", "model"))
@@ -386,9 +522,9 @@ def test_other_families_raise_naming_their_item(arch):
     for make in (lambda: steps.make_train_step(cfg, mesh),
                  lambda: steps.make_prefill_step(cfg, shape, mesh),
                  lambda: steps.make_serve_step(cfg, shape, mesh)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([bcd]\)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([cd]\)"):
             make()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([bcd]\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([cd]\)"):
         dryrun.lower_pair(arch, "decode_32k", cfg=cfg, verbose=False)
     steps.make_train_step(cfg, mesh_lib.Mesh.dry((2, 1), ("data", "model")))  # clients only
 
