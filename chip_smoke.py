@@ -37,10 +37,15 @@ Phases (any failure exits non-zero):
                and 2 layers, phase 22's dense pair, M K past 2^31; J 1,
                N_loc 2, M 4 and J 1, N_loc 2, M 2 at one model rank's
                qwen2-1.5b and olmoe-1b-7b planes at 2 layers, phase 23's
-               (a) and (d)) in f32
+               (a) and (d); J 1, N_loc 2, M 2 at one model rank's
+               mamba2-2.7b plane at 2 layers and zamba2-2.7b's at 6,
+               phase 23's (f) and (g)) in f32
                and bf16, within 1e-5 of the largest |value| of the plain
                version, compared in column slices; `ssd_chunk` also at
-               phase 22's mamba2 shapes (nc 32 at batch 1 and 4, nc 256);
+               phase 22's mamba2 shapes (nc 32 at batch 1 and 4, nc 256)
+               and at phase 23's local ssm heads (40 of 80 in (f) and
+               (g), 5 in (h)'s (16, 16) share of train_4k, mamba2's and
+               zamba2's);
   3. main    - `simulate("draco", ...)` at the paper's EMNIST scale
                (25 clients, MLP 784-160-100-47, Psi = 6, wireless channel)
                for 300 windows: launches per window, accuracy, finiteness,
@@ -223,7 +228,9 @@ Phases (any failure exits non-zero):
                past 2^31 - 1 columns and the product over dense slices);
                the rectangular drain at phase 2's mesh shapes (21, 23) beside
                its bound, the plain version, the einsum and phase 21's
-               collective. Phase 9 runs last, after 10 to 23.
+               collective; `ssd_chunk` also at a (16, 16) rank's 5 local
+               heads of mamba2 x train_4k. Phase 9 runs last, after 10 to
+               23.
   22. dry run - `python -m repro_torch.launch.dryrun`'s `lower_pair` on
                `DRY_PAIRS` (two train pairs, a prefill and two decode
                pairs, one rank's share of the client mesh at full width):
@@ -266,7 +273,15 @@ Phases (any failure exits non-zero):
                checks, the router also within `TP_F32_TOL` of its step-1
                update, 32 of the 64 experts a rank (phase 2 holds its
                drain shape, `RECT_TP_MOE`); (e) as (c) for qwen3-moe-30b-
-               a3b (8 of 128 experts a rank);
+               a3b (8 of 128 experts a rank); (f) as (d) for mamba2-2.7b
+               at 2 of 64 layers, 40 of its 80 ssm heads a rank, its
+               zero-init and f32 leaves within `TP_SSM_TOLS`; (g) as (f)
+               for zamba2-2.7b at 6 of 54 layers in f32, 1 step without
+               remat (`TP_HYBRID_TOLS`), then served in f32 at that depth
+               against one process within `TP_SSM_SERVE_TOL` ((d), (f),
+               (g) and (b) in one (1, 2) world); (h) as (c) for mamba2-2.7b
+               (`TP_DRY_SSM`: 5 ssm heads a rank, the loss in chunks of
+               1,024 positions), and zamba2-2.7b's share reckoned;
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -299,10 +314,11 @@ fifth the build and phase 19 alone; the sixth the build and phase 20
 alone; the seventh the build, phase 21 and the rectangular drain's
 phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
 and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
-the ninth the build, phase 2's rectangular drain, phase 23 and its
-drain shapes' phase 9 rows (with ``--tp-faults``, then (a)'s and (d)'s
-checks against the planted faults of `TP_FAULTS`, each of which must
-fail them; ``--tp-faults`` alone runs only those); the
+the ninth the build, phase 2's rectangular drain and `ssd_chunk`
+checks, phase 23 and its drain shapes' phase 9 rows (with
+``--tp-faults``, then (a)'s, (d)'s and (f)'s checks against the planted
+faults of `TP_FAULTS`, each of which must fail them; ``--tp-faults``
+alone runs only those); the
 tenth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
@@ -450,8 +466,20 @@ SSD_CASES = {
     "dry run train_4k nc=32 bf16": (1, 80, 1, 32, 128, 128, 64, 1.0, "bfloat16"),
     "dry run train_4k Bb=4 nc=32 bf16": (4, 80, 1, 32, 128, 128, 64, 1.0, "bfloat16"),
     "dry run prefill_32k nc=256 bf16": (1, 80, 1, 256, 128, 128, 64, 1.0, "bfloat16"),
+    # phase 23's ranks over "model", each on its own ssm heads: (f) and (g)
+    # at 40 of 80 (2 x 128 tokens a client; (g) in f32), (g)'s f32 prefills
+    # of 4 x 32 tokens on a rank and in one process, (h)'s (16, 16) share
+    # of train_4k (16 sequences of 4,096 tokens, 5 heads) for mamba2 and
+    # zamba2
+    "tp (f) mamba2 H_loc=40 bf16": (2, 40, 1, 1, 128, 128, 64, 1.0, "bfloat16"),
+    "tp (g) zamba2 H_loc=40 N=64 f32": (2, 40, 1, 1, 128, 64, 64, 1.0, "float32"),
+    "tp (g) f32 prefill H_loc=40 Q=32 N=64": (4, 40, 1, 1, 32, 64, 64, 1.0, "float32"),
+    "tp (g) one-process f32 prefill Q=32 N=64": (4, 80, 1, 1, 32, 64, 64, 1.0, "float32"),
+    "tp (h) train_4k H_loc=5 nc=32 bf16": (16, 5, 1, 32, 128, 128, 64, 1.0, "bfloat16"),
+    "tp (h) zamba2 train_4k H_loc=5 N=64 bf16": (16, 5, 1, 32, 128, 64, 64, 1.0, "bfloat16"),
 }
 SSD_ZAMBA2 = SSD_CASES["zamba2 trainer shape bf16 N=64"]
+SSD_TP_LOCAL = SSD_CASES["tp (h) train_4k H_loc=5 nc=32 bf16"]
 # gossip_enqueue's path: the JAX package's own cases
 # (tests/test_kernels_gossip_bucketed.py) and the windowed path's width
 ENQ_MAIN = (3, 25, 146_447)  # J = D - 1 buckets, N clients, K = Dflat of EMNIST
@@ -1179,15 +1207,16 @@ def phase_enqueue(torch):
 
 
 def phase_new_times(torch):
-    """ssd_chunk at the zamba2 and mamba2 trainers' shapes (the latter's
-    returned), the enqueue at the windowed path's width: kernel, plain
-    version, library call, bound."""
+    """ssd_chunk at the zamba2 trainer's shape, at a (16, 16) rank's 5
+    local heads of mamba2 x train_4k and at the mamba2 trainer's shape
+    (the last returned), the enqueue at the windowed path's width: kernel,
+    plain version, library call, bound."""
     from repro_torch.kernels.gossip import ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # > the 50 MB L2
-    for shape in (SSD_ZAMBA2, SSD_MAIN):
+    for shape in (SSD_ZAMBA2, SSD_TP_LOCAL, SSD_MAIN):
         args = ssd_case(torch, *shape, seed=4000)
         kern = time_ms(torch, lambda: ssd_ops.ssd_chunk(*args), reps=30, flush=flush)
         plain = time_ms(torch, lambda: ssd_chunk_ref(*args), reps=30, flush=flush)
@@ -3480,6 +3509,11 @@ RECT_TP = (1, 2, 4, ("qwen2-1.5b", 2, 2), 1)
 # phase 23 (d)'s: olmoe-1b-7b's plane at 2 layers as one of 2 model ranks
 # holds it, 2 senders against 2 receivers on one client rank
 RECT_TP_MOE = (1, 2, 2, ("olmoe-1b-7b", 2, 2), 1)
+# phase 23 (f)'s and (g)'s: mamba2-2.7b's plane at 2 layers and zamba2-2.7b's
+# at 6 (one group) as one of 2 model ranks holds it, 2 senders against 2
+# receivers on one client rank
+RECT_TP_SSM = {"mamba2 plane of one model rank": (1, 2, 2, ("mamba2-2.7b", 2, 2), 1),
+               "zamba2 plane of one model rank": (1, 2, 2, ("zamba2-2.7b", 1, 2), 1)}
 RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) for d in (1, 2)}
 # phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
 # drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
@@ -3563,15 +3597,16 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`) in f32 and bf16,
-    against its plain version in column slices, within RTOL of the
-    largest |value|."""
+    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`, `RECT_TP_SSM`) in
+    f32 and bf16, against its plain version in column slices, within RTOL
+    of the largest |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
     for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
                          *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP),
-                         ("olmoe plane of one model rank", RECT_TP_MOE)):
+                         ("olmoe plane of one model rank", RECT_TP_MOE),
+                         *RECT_TP_SSM.items()):
         for i, dtype in enumerate((torch.float32, torch.bfloat16)):
             w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
             got = ops.gossip_drain(w, ring, slots)
@@ -3600,6 +3635,8 @@ def rect_time_cases(mesh=None, tp=None):
     if tp is not None:
         cases += [("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]),
                   ("olmoe plane of one model rank", RECT_TP_MOE, tp["moe_collective_ms"])]
+        cases += [(label, shape, tp["ssm_collective_ms"][label])
+                  for label, shape in RECT_TP_SSM.items()]
     return cases
 
 
@@ -4067,7 +4104,8 @@ TP_MODES = (("dense", ["--mix", "dense", "--topology", "complete"]),
 TP_LOSS_TOL = 1e-3
 TP_WEIGHT_TOL = 4.5e-3
 TP_PARAM_TOL = 5e-2
-TP_WEIGHTS = ("w", "embed", "lm_head", "experts_", "router")  # a weight's leaf name begins so
+# a weight's leaf name begins so
+TP_WEIGHTS = ("w", "embed", "lm_head", "experts_", "router", "in_proj", "out_proj", "conv_w")
 # (b) serving in (d)'s (1, 2) world at qwen2-1.5b's full width and depth, in
 # f32 (phase 20's exact comparisons are in f32): the logits of a prefill
 # and of TP_DECODE_STEPS decode steps from an empty cache against one
@@ -4105,15 +4143,76 @@ TP_MOE_ARGS = ["--arch", TP_MOE_ARCH, "--clients", "2", "--mix", "dense", "--top
 # 0.919 of its update
 TP_MOE_PARAM_TOL = 0.3
 TP_F32_TOL = 0.33  # an f32 leaf's largest gap over its largest step-1 update
+F32_EPS = 2.0 ** -23  # one rounding of an f32 value, relative
 # (e) the dry run's (16, 16) pair of the moe family at depths 1 and 2:
 # 8 of qwen3-moe-30b-a3b's 128 experts a rank
 TP_DRY_MOE, TP_DRY_MOE_EXPERTS = ("qwen3-moe-30b-a3b", "train_4k", "ring", 8192), 8
-# `--tp-faults`: each planted in one run of (a) or (d), each must fail its
-# check. weight-shard: model rank 1 adds TP_FAULT_SHIFT of its largest
+# `--tp-faults`: each planted in one run of (a), (d) or (f), each must fail
+# its check. weight-shard: model rank 1 adds TP_FAULT_SHIFT of its largest
 # |value| to one element of its w_down shard after step 1; router-twice: a
 # `TP.copy` on the router, its gradient summed over the 2 model ranks;
-# unreduced: each rank's partial expert output left unreduced
-TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"))
+# unreduced: each rank's partial expert output left unreduced;
+# norm-forward-only: a Mamba2 block's gated-norm sum of squares reduced
+# over the ranks forward only, its gradient left partial
+# (f) `train.main` on a (data 1, model 2) world as (d), mamba2-2.7b at full
+# width and 2 of its 64 layers (bf16), 2 clients, 2 steps of the dense mix:
+# (d)'s checks, a Mamba2 block's weights (in_proj, out_proj, conv_w) among
+# the weights, its zero-init leaves (conv_b, gnorm, dt_bias) within
+# TP_SSM_TOLS[0] of themselves and its f32 leaves (a_log, ssm_d, dt_bias)
+# within TP_SSM_TOLS[1] of their step-1 update; TP_SSM_HEADS ssm heads a
+# rank in the tally. Read on an H100 (PERF.md, PR 27 calls 1-2, the same
+# to the last digit): losses 3.7e-05, in_proj 2.2e-03 of its largest
+# |value|, gnorm 7.0e-02 of itself, dt_bias 3.4e-02 of its update; each
+# bound ~2.6x its reading. The gated norm's sum reduced forward only
+# (`--tp-faults`) moves dt_bias by 0.30 of itself and of its update. (g)
+# the same for zamba2-2.7b at 6 of its 54 layers (one group: 6 Mamba2
+# blocks and the shared block), in f32: in bf16 its step-1 gaps are a few
+# bf16 steps of each leaf (call 1: the embedding 1.2e-02 of its largest
+# |value|, a conv_b 0.52 of itself, the losses within 2.0e-04), phase 16's
+# chaotic one-group trajectories, so a bound read there would hold
+# nothing; in f32 (call 2) every leaf sits within 1.2e-04 of its update
+# (dt_bias) and the losses within 8.9e-08, and TP_HYBRID_TOLS is ~2.6x
+# that. Then serving in (g)'s world as (b): prefill and TP_DECODE_STEPS
+# decode steps in f32 at that depth against one process, within
+# TP_SSM_SERVE_TOL of the largest |logit| (calls 1-2: 2.1e-05 and
+# 4.0e-06). Phase 2 holds the drain at both planes (`RECT_TP_SSM`) and
+# `ssd_chunk` at their local heads. (d), (f), (g) and the servings of (b)
+# and (g) share one (1, 2) world: one start and one first step's warm-up
+# (~13 s a world) for all of them. (g) runs 1 step without remat (the
+# f32 gathers staged through the host were 95% of its step, twice over
+# with remat; (f) keeps both steps and remat). (tag, arch, layers, config
+# overrides, argv, zero-init bound, f32 bound)
+TP_SSM_HEADS = 40
+TP_SSM_TOLS, TP_HYBRID_TOLS = (0.18, 0.09), (3e-4, 3e-4)
+TP_SSM = (("f", "mamba2-2.7b", 2, None, [], *TP_SSM_TOLS),
+          ("g", "zamba2-2.7b", 6, {"dtype": "float32", "remat": False}, ["--steps", "1"],
+           *TP_HYBRID_TOLS))
+TP_SSM_SERVE = ("zamba2-2.7b", 6)
+TP_SSM_SERVE_TOL = 6e-5
+
+
+def tp_ssm_modes():
+    """(f)'s and (g)'s `tp_world` modes, and their checks by label."""
+    modes, checks = [], {}
+    for _, arch, layers, overrides, argv, zero_tol, f32_tol in TP_SSM:
+        label = f"{arch} dense"
+        modes.append((label, arch, layers, overrides, ["--arch", arch, "--clients", "2",
+                                                       "--mix", "dense", "--topology",
+                                                       "complete", *argv], None))
+        checks[label] = ({"ssm_heads": TP_SSM_HEADS}, zero_tol, f32_tol)
+    return modes, checks
+
+
+# (h) the dry run's (16, 16) pair of the ssm family, as (c): (arch, shape,
+# mix, blocked_threshold, vocab_chunk). mamba2's vocabulary of 50,280 does
+# not divide by 16, so each rank's loss holds the whole (16, 4,096, 50,280)
+# logits: 84.6 GiB reckoned with them at full depth, 39.2 in chunks of 1,024
+# positions (the CPU's reckoning); TP_DRY_SSM_HEADS ssm heads a rank. Then
+# zamba2-2.7b's share (`TP_DRY_HYBRID`) reckoned on `meta` and printed
+TP_DRY_SSM, TP_DRY_SSM_HEADS = ("mamba2-2.7b", "train_4k", "ring", 8192, 1024), 5
+TP_DRY_HYBRID = ("zamba2-2.7b", "train_4k", "ring", 8192, 0)
+TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"),
+             ("norm-forward-only", "f"))
 TP_FAULT_SHIFT = 1e-2
 
 _REFS = {}
@@ -4163,8 +4262,8 @@ def single_reference(torch, cfg, argv, none, steps):
 
 
 def plant(fault):
-    """Install `fault` of `TP_FAULTS` (moe's) in this process; returns the
-    function that removes it."""
+    """Install `fault` of `TP_FAULTS` (moe's or ssm's) in this process;
+    returns the function that removes it."""
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
@@ -4188,33 +4287,54 @@ def plant(fault):
 
         moe._Combine = Combine
         return lambda: setattr(moe, "_Combine", real)
+    if fault == "norm-forward-only":
+        from repro_torch.models import ssm
+
+        real = ssm._gated_norm
+
+        class ReduceOnly:  # `TP.reduce` forward, no `TP.copy` on its result
+            def __init__(self, tp):
+                self.reduce = tp.reduce
+
+            @staticmethod
+            def copy(x):
+                return x
+
+        def gated_norm(y, z, scale, cfg, tp=None):
+            return real(y, z, scale, cfg, tp and ReduceOnly(tp))
+
+        ssm._gated_norm = gated_norm
+        return lambda: setattr(ssm, "_gated_norm", real)
     return lambda: None
 
 
-def tp_rank_train(rank, world, arch, layers, layout, modes, serve=False):
-    """Phase 23 (a) or (d) in one rank: `train.main` on the `layout` mesh,
-    `arch` at `layers` layers, for each (label, argv, reference path,
-    planted fault) of `modes`. Around each step of the rank's clients: its
-    time, the collectives' seconds, the model axis's tally, the routes and
-    experts taken; after step 1 every leaf of the rank's blocks against its
-    block of the single-process params; after each step the replicated
-    leaves (no "model" in their spec) on the host, for the parent to
-    compare across the model ranks. The drain launches are counted from 0
-    around each run. With `serve`, then (b) in the same world (its
-    ``"serve"`` entry)."""
+def tp_rank_train(rank, world, layout, modes, serves=()):
+    """Phase 23's trainers in one rank of the `layout` mesh: for each
+    (label, arch, layers, config overrides, argv, reference path, planted
+    fault) of `modes`, `train.main` on `arch` at `layers` layers
+    (`tp_config`). Around each step of the rank's clients: its time, the
+    collectives' seconds, the model axis's tally, the routes, experts and
+    ssm heads taken; after step 1 every leaf of the rank's blocks against
+    its block of the single-process params; after each step the
+    replicated leaves (no "model" in their spec) on the host, for the
+    parent to compare across the model ranks. The drain launches are
+    counted from 0 around each run, the `ssd_chunk` launches from 0 over
+    the rank's whole work (``"ssd_chunk"``). Then each (arch, layers) of
+    `serves` served in the same world (``"serve"``, keyed by them)."""
     import torch
 
     import repro_torch  # noqa: F401  (TF32 off)
-    from repro_torch.configs.base import get_config
     from repro_torch.core import flat as flat_lib
     from repro_torch.kernels.gossip import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch import steps, train
     from repro_torch.sharding import tp as tp_lib
     from repro_torch.sharding.specs import tree_param_specs
 
-    cfg = get_config(arch).with_(num_layers=layers)
-    out = {}
-    for label, argv, ref_path, fault in modes:
+    out = {"serve": {}}
+    ssd_ops.ssd_chunk.launches = 0
+    for label, arch, layers, overrides, argv, ref_path, fault in modes:
+        cfg = tp_config(arch, layers, overrides)
         ref = torch.load(ref_path, mmap=True, weights_only=True)
         record, box = [], []
         real_mix, real_clients = steps.mesh_mix, train.train_step_clients
@@ -4246,7 +4366,7 @@ def tp_rank_train(rank, world, arch, layers, layout, modes, serve=False):
                                        tally[kind] - tally0[kind])
                                 for kind in ("model_all_reduce", "model_all_gather",
                                              "model_reduce_scatter", "reduce_scatter")},
-                         routes={k: v if k == "experts" else v - routes0[k]
+                         routes={k: v if k in ("experts", "ssm_heads") else v - routes0[k]
                                  for k, v in mesh.tp_routes.items()},
                          replicated={}, gaps={}, updates={})
             for path, leaf in flat_lib.tree_items(params):
@@ -4279,16 +4399,24 @@ def tp_rank_train(rank, world, arch, layers, layout, modes, serve=False):
                           coords=(box[0].rank, box[0].model_rank), staged=box[0].staged,
                           peak=torch.cuda.max_memory_allocated())
         del ref, ref_leaves
-    if serve:
         torch.cuda.empty_cache()
-        out["serve"] = tp_rank_serve(rank, world)
+    for serve in serves:
+        out["serve"][serve] = tp_rank_serve(rank, world, *serve)
+        torch.cuda.empty_cache()
+    out["ssd_chunk"] = ssd_ops.ssd_chunk.launches
     return out
 
 
-def tp_verdict(torch, runs, ref_losses, dense, experts=None, zero_tol=TP_PARAM_TOL):
-    """Phase 23 (a)'s or (d)'s checks of one mode's `runs` (each rank's
-    result) against the single-process step-1 losses `ref_losses`, a
-    zero-init leaf within `zero_tol`: (ok, the readings)."""
+def tp_verdict(torch, runs, ref_losses, dense, routes=None, zero_tol=TP_PARAM_TOL,
+               f32_tol=TP_F32_TOL):
+    """Phase 23 (a)'s, (d)'s, (f)'s or (g)'s checks of one mode's `runs`
+    (each rank's result) against the single-process step-1 losses
+    `ref_losses`, a zero-init leaf within `zero_tol` of its largest
+    |value|, an f32 leaf within `f32_tol` of its largest step-1 update
+    (unless the gap is one rounding of its largest |value|: an update
+    under a few steps of the value's spacing, as a_log's, is no yardstick
+    then), every step's `routes` entries (say the experts or ssm heads a
+    rank) as given: (ok, the readings)."""
     runs = sorted(runs, key=lambda r: r["coords"])
     losses = [x for r in runs if r["coords"][1] == 0 for x in r["steps"][0]["losses"]]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
@@ -4299,7 +4427,7 @@ def tp_verdict(torch, runs, ref_losses, dense, experts=None, zero_tol=TP_PARAM_T
             kind = "weight" if path[-1].startswith(TP_WEIGHTS) else "other"
             worst[kind] = max(worst.get(kind, (0.0,)), (gap / max(scale, 1e-30), path, gap,
                                                         scale))
-            if path in e["updates"]:
+            if path in e["updates"] and gap > F32_EPS * scale:
                 upd = e["updates"][path]
                 worst["f32"] = max(worst.get("f32", (0.0,)), (gap / max(upd, 1e-30), path, gap,
                                                               upd))
@@ -4313,15 +4441,15 @@ def tp_verdict(torch, runs, ref_losses, dense, experts=None, zero_tol=TP_PARAM_T
         for r in runs for step in range(len(r["steps"])))
     launches = sum(r["launches"] for r in runs)
     expect = sum(len(r["steps"]) for r in runs) if dense else 0
-    got_experts = {e["routes"]["experts"] for r in runs for e in r["steps"]}
+    got = {k: sorted({e["routes"][k] for r in runs for e in r["steps"]})
+           for k in (routes or {})}
     finite = all(math.isfinite(x) for r in runs for x in r["losses"])
     ok = (loss_gap <= TP_LOSS_TOL and worst["weight"][0] <= TP_WEIGHT_TOL
           and worst.get("other", (0.0,))[0] <= zero_tol
-          and worst.get("f32", (0.0,))[0] <= TP_F32_TOL and equal and launches == expect
-          and finite and (experts is None or got_experts == {experts}))
+          and worst.get("f32", (0.0,))[0] <= f32_tol and equal and launches == expect
+          and finite and all(got[k] == [v] for k, v in (routes or {}).items()))
     return ok, dict(losses=losses, loss_gap=loss_gap, worst=worst, equal=equal,
-                    zero_tol=zero_tol, launches=launches, expect=expect,
-                    experts=sorted(got_experts),
+                    zero_tol=zero_tol, f32_tol=f32_tol, launches=launches, expect=expect, routes=got,
                     n_repl=len(runs[0]["steps"][0]["replicated"]), runs=runs)
 
 
@@ -4338,10 +4466,10 @@ def log_verdict(tag, label, ok, v, ref_losses):
         + f", largest relative gap {v['loss_gap']:.3e} (tolerance {TP_LOSS_TOL}); params: the "
         f"largest gap / largest |value| {leaf('weight', 'weight', TP_WEIGHT_TOL)}, "
         f"{leaf('other', 'zero-init leaf', v['zero_tol'])}; the largest gap / largest update "
-        f"{leaf('f32', 'f32 leaf', TP_F32_TOL)}; {v['n_repl']} replicated leaves bit for bit "
+        f"{leaf('f32', 'f32 leaf', v['f32_tol'])}; {v['n_repl']} replicated leaves bit for bit "
         f"equal "
         f"across the model ranks after every step {v['equal']}; {v['launches']} drain launches "
-        f"(expected {v['expect']}); experts a rank {v['experts']} {'ok' if ok else 'FAIL'}")
+        f"(expected {v['expect']}); routes held {v['routes']} {'ok' if ok else 'FAIL'}")
 
 
 def tp_train_rows(tag, label, v):
@@ -4373,23 +4501,32 @@ def tp_reference_argv(argv):
     return out
 
 
-def tp_world(torch, tag, arch, layers, layout, modes, steps=1, serve=False):
-    """The single-process references and the world of (a) or (d): `modes`
-    (label, argv, fault), and (b) with `serve` (`tp_rank_train`); returns
-    (each rank's results, {label: step-1 losses of the reference})."""
+def tp_config(arch, layers, overrides=None):
+    """`arch` at full width and `layers` layers, with the config fields of
+    `overrides` (a dict, say the dtype) replaced."""
     from repro_torch.configs.base import get_config
+
+    return get_config(arch).with_(num_layers=layers, **(overrides or {}))
+
+
+def tp_world(torch, tag, layout, modes, steps=1, serves=()):
+    """The single-process references and one world of phase 23's trainers:
+    `modes` (label, arch, layers, config overrides, argv, fault) on the
+    `layout` mesh, then `serves` ((arch, layers) each) in the same world
+    (`tp_rank_train`); returns (each rank's results, {label: step-1
+    losses of the reference})."""
     from repro_torch.launch import mesh as mesh_lib
 
-    cfg = get_config(arch).with_(num_layers=layers)
     refs, rank_modes = {}, []
-    for label, argv, fault in modes:
-        record, path = single_reference(torch, cfg, tp_reference_argv(MESH_TRAIN_ARGS + argv),
+    for label, arch, layers, overrides, argv, fault in modes:
+        record, path = single_reference(torch, tp_config(arch, layers, overrides),
+                                        tp_reference_argv(MESH_TRAIN_ARGS + argv),
                                         "none" in argv, steps)
         refs[label] = record[0]["losses"]
-        rank_modes.append((label, argv, path, fault))
+        rank_modes.append((label, arch, layers, overrides, argv, path, fault))
     t0 = time.perf_counter()
-    outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(layout), arch, layers, layout,
-                                rank_modes, serve, backend="gloo", timeout=600, threads=0,
+    outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(layout), layout, rank_modes,
+                                tuple(serves), backend="gloo", timeout=600, threads=0,
                                 deadline=900)
     log(f"  ({tag}) tensor-parallel world {layout} of {math.prod(layout)} gloo ranks: "
         f"{time.perf_counter() - t0:.1f} s with process start")
@@ -4397,13 +4534,17 @@ def tp_world(torch, tag, arch, layers, layout, modes, steps=1, serve=False):
 
 
 def tp_dry(torch, tag, pair, failures):
-    """Phase 23 (c) or (e): the dry run's (16, 16) `pair` reckoned and run
-    at depths 1 and 2, each peak within `DRY_PEAK_TOL`; returns its row."""
+    """Phase 23 (c), (e) or (h): the dry run's (16, 16) `pair` ((arch,
+    shape, mix, blocked_threshold[, vocab_chunk])) reckoned and run at
+    depths 1 and 2, each peak within `DRY_PEAK_TOL`; returns its row, the
+    run's kernel launches under ``"launches"``."""
     from repro_torch.launch import dryrun
 
-    arch, shape, mix, threshold = pair
+    arch, shape, mix, threshold, chunk = (*pair, 0)[:5]
+    reset_launches()
     row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
-                            by_depth=True, verbose=False)
+                            by_depth=True, vocab_chunk=chunk, verbose=False)
+    row["launches"] = launch_counts()
     log(f"phase 23 ({tag}) row: {json.dumps(row)}")
     peaks = []
     for what, got, want in peak_gaps(row):
@@ -4421,22 +4562,26 @@ def tp_dry(torch, tag, pair, failures):
                         f"the card's {total} bytes")
     coll = row["coll_breakdown"]
     log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
-        f"tokens): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
+        f"tokens, loss in chunks of {chunk or 'all'} positions): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
         f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
         f"{row['roofline_fraction']:.4f}, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
         f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
         f"{coll['model_all_gather']} all-gather, {coll['model_reduce_scatter']} "
         f"reduce-scatter; full-depth reckoned peak {row['reckoned_peak_bytes'] / 2**30:.3f} "
         f"GiB (the card {total / 2**30:.3f}); peaks: {'; '.join(peaks)}; "
-        f"{row['host_syncs']} host syncs; reckoned in {row['t_compile_s']:.1f} s")
+        f"{row['host_syncs']} host syncs; reckoned in {row['t_compile_s']:.1f} s; launches "
+        f"{row['launches']}")
     return row
 
 
-def tp_serve_inputs(torch):
-    """Phase 23 (b)'s config (f32), prompt and shapes, alike in every process."""
+def tp_serve_inputs(torch, arch, layers):
+    """Phase 23 (b)'s or (g)'s config (f32, `layers` of `arch`'s layers or
+    all of them), prompt and shapes, alike in every process."""
     from repro_torch.configs.base import ShapeConfig, get_config
 
-    cfg = get_config("qwen2-1.5b").with_(dtype="float32")
+    cfg = get_config(arch).with_(dtype="float32")
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 231)
     prompt = torch.randint(0, cfg.vocab_size, (TP_SERVE_BATCH, TP_SERVE_PROMPT), generator=gen,
                            device="cuda")
@@ -4444,14 +4589,17 @@ def tp_serve_inputs(torch):
             ShapeConfig("serve", TP_SERVE_PROMPT, TP_SERVE_BATCH, "decode"))
 
 
-def tp_serve(torch, mesh):
-    """Prefill and `TP_DECODE_STEPS` decode steps on `mesh` (None: one
-    process); the logits on the host and the times."""
+def tp_serve(torch, mesh, arch="qwen2-1.5b", layers=None):
+    """Prefill and `TP_DECODE_STEPS` decode steps of `arch` at `layers`
+    layers on `mesh` (None: one process); the logits on the host, the
+    times, and the heads of each cache of group 0 (a KV cache's kv heads,
+    an SSM state's ssm heads)."""
     from repro_torch.launch import steps
     from repro_torch.models import model as M
+    from repro_torch.models.attention import KVCache
     from repro_torch.sharding import tp as tp_lib
 
-    cfg, prompt, pshape, dshape = tp_serve_inputs(torch)
+    cfg, prompt, pshape, dshape = tp_serve_inputs(torch, arch, layers)
     params = M.init_params(SEED + 230, cfg, "cuda", shard=tp_lib.sharder(mesh))
     prefill_step = steps.make_prefill_step(cfg, pshape, mesh)
     prefill_step(params, {"tokens": prompt})  # warm-up
@@ -4469,21 +4617,44 @@ def tp_serve(torch, mesh):
     torch.cuda.synchronize()
     return dict(prefill=prefill.cpu(), decode=torch.stack(logits, 1).cpu(),
                 prefill_s=t1 - t0, decode_s=(time.perf_counter() - t1) / TP_DECODE_STEPS,
-                heads=state.caches["0:attn"].k.shape[-2])
+                heads={name: c.k.shape[-2] if isinstance(c, KVCache) else c.h.shape[-3]
+                       for name, c in state.caches.items()})
 
 
-def tp_rank_serve(rank, world):
-    """Phase 23 (b) in one rank of the (1, 2) world."""
+def tp_rank_serve(rank, world, arch, layers):
+    """Phase 23 (b) or (g)'s serving in one rank of its (1, 2) world."""
     import torch
 
     import repro_torch  # noqa: F401  (TF32 off)
     from repro_torch.launch import mesh as mesh_lib
 
     mesh = mesh_lib.make_mesh(TP_SERVE_SHAPE, ("data", "model"), backend="gloo")
-    out = tp_serve(torch, mesh)
+    out = tp_serve(torch, mesh, arch, layers)
     out.update(tally=mesh.collective_tally(), collective_s=mesh.collective_s,
                routes=dict(mesh.tp_routes))
     return out
+
+
+def tp_served(torch, tag, outs, arch, layers, tol):
+    """(b)'s or (g)'s check: the served logits of `outs` (each rank's)
+    against one process within `tol` of the largest |logit|; (ok, row)."""
+    one = tp_serve(torch, None, arch, layers)
+    gaps = {k: max(rel_gap(o[k], one[k]) for o in outs) for k in ("prefill", "decode")}
+    ok = all(g <= tol for g in gaps.values()) and all(
+        bool(torch.isfinite(o["decode"]).all()) for o in outs)
+    o0 = outs[0]
+    log(f"  ({tag}) serving {arch} (f32, full width, {layers or 'all'} layers) on "
+        f"{TP_SERVE_SHAPE}: prefill {TP_SERVE_BATCH} x {TP_SERVE_PROMPT} {o0['prefill_s']:.4f} s "
+        f"(one process {one['prefill_s']:.4f}), decode {o0['decode_s'] * 1e3:.2f} ms/step (one "
+        f"process {one['decode_s'] * 1e3:.2f}); cache heads a rank {o0['heads']} of "
+        f"{one['heads']}; routes {o0['routes']}; model-axis calls "
+        f"{o0['tally']['_counts']['model_all_reduce']} all-reduce, "
+        f"{o0['tally']['_counts']['model_all_gather']} all-gather, collectives "
+        f"{o0['collective_s']:.3f} s; logits against one process, largest gap / largest "
+        f"|logit|: prefill {gaps['prefill']:.3e}, decode {gaps['decode']:.3e} (tolerance "
+        f"{tol}) {'ok' if ok else 'FAIL'}")
+    return ok, dict(gaps=gaps, prefill_s=o0["prefill_s"], decode_s=o0["decode_s"],
+                    one_prefill_s=one["prefill_s"], one_decode_s=one["decode_s"])
 
 
 def phase_tp(torch):
@@ -4491,28 +4662,34 @@ def phase_tp(torch):
     its numbers for the kernels line, phase 9 and PERF.md."""
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
-    res, failures, rows, launches, served = {}, [], {}, 0, []
+    res, failures, rows, launches, served = {}, [], {}, 0, {}
+    ssd_launches = 0
 
-    # (a) the (2, 2) world of qwen2-1.5b, and (d) the (1, 2) world of olmoe,
-    # which then serves (b)
-    for tag, arch, layers, layout, modes, experts, zero_tol in (
-            ("a", "qwen2-1.5b", MESH_LAYERS, TP_SHAPE,
-             [(label, argv, None) for label, argv in TP_MODES], None, TP_PARAM_TOL),
-            ("d", TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_SHAPE, [("moe dense", TP_MOE_ARGS, None)],
-             TP_MOE_EXPERTS, TP_MOE_PARAM_TOL)):
+    # (a) the (2, 2) world of qwen2-1.5b; the (1, 2) world of (d) olmoe,
+    # (f) mamba2 and (g) zamba2, which then serves (b) qwen2 and (g) zamba2
+    ssm_modes, checks = tp_ssm_modes()
+    checks.update({label: (None, TP_PARAM_TOL, TP_F32_TOL) for label, _ in TP_MODES})
+    checks["moe dense"] = ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL)
+    worlds = [("a", TP_SHAPE, [(label, "qwen2-1.5b", MESH_LAYERS, None, argv, None)
+                               for label, argv in TP_MODES], ()),
+              ("d, f, g", TP_MOE_SHAPE,
+               [("moe dense", TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS, None), *ssm_modes],
+               (("qwen2-1.5b", None), TP_SSM_SERVE))]
+    for tag, layout, modes, serves in worlds:
         t0 = time.perf_counter()
-        outs, refs = tp_world(torch, tag, arch, layers, layout, modes,
-                              serve=layout == TP_SERVE_SHAPE)
-        for label, argv, _ in modes:
+        outs, refs = tp_world(torch, tag, layout, modes, serves=serves)
+        for label, _, _, _, argv, _ in modes:
             ok, v = tp_verdict(torch, [o[label] for o in outs], refs[label],
-                               "dense" in argv, experts, zero_tol)
+                               "dense" in argv, *checks[label])
             log_verdict(tag, label, ok, v, refs[label])
             rows[label] = tp_train_rows(tag, label, v)
             if not ok:
                 failures.append(f"({tag}) {label}")
             launches += v["launches"]
+        ssd_launches += sum(o["ssd_chunk"] for o in outs)
+        for serve in serves:
+            served[serve] = [o["serve"][serve] for o in outs]
         log(f"phase 23 ({tag}): {time.perf_counter() - t0:.1f} s")
-        served = [o["serve"] for o in outs if "serve" in o] or served
         del outs
         torch.cuda.empty_cache()
     res["train"] = rows
@@ -4525,62 +4702,94 @@ def phase_tp(torch):
         ms=1e3 * rows["moe dense"]["collective_s"],
         what=f"gloo collectives of a {TP_MOE_SHAPE} step of {TP_MOE_ARCH} at {TP_MOE_LAYERS} "
         f"layers (the model axis's; a client group of one sends nothing), rank 0, a step")
+    res["ssm_collective_ms"] = {
+        label: dict(ms=1e3 * rows[f"{arch} dense"]["collective_s"],
+                    what=f"gloo collectives of a {TP_MOE_SHAPE} step of {arch} at {layers} "
+                    f"layers (the model axis's), rank 0, a step")
+        for label, (_, arch, layers, *_) in zip(RECT_TP_SSM, TP_SSM)}
 
-    # (b) served in (d)'s world, against one process
-    outs = served
-    one = tp_serve(torch, None)
-    gaps = {k: max(rel_gap(o[k], one[k]) for o in outs) for k in ("prefill", "decode")}
-    ok = all(g <= TP_SERVE_TOL for g in gaps.values()) and all(
-        bool(torch.isfinite(o["decode"]).all()) for o in outs)
-    o0 = outs[0]
-    log(f"  (b) serving qwen2-1.5b (f32, full width and depth) on {TP_SERVE_SHAPE}: prefill "
-        f"{TP_SERVE_BATCH} x {TP_SERVE_PROMPT} {o0['prefill_s']:.4f} s (one process "
-        f"{one['prefill_s']:.4f}), decode {o0['decode_s'] * 1e3:.2f} ms/step (one process "
-        f"{one['decode_s'] * 1e3:.2f}); cache kv heads a rank {o0['heads']} of "
-        f"{one['heads']}; routes {o0['routes']}; model-axis calls "
-        f"{o0['tally']['_counts']['model_all_reduce']} all-reduce, "
-        f"{o0['tally']['_counts']['model_all_gather']} all-gather, collectives "
-        f"{o0['collective_s']:.3f} s; logits against one process, largest gap / largest "
-        f"|logit|: prefill {gaps['prefill']:.3e}, decode {gaps['decode']:.3e} (tolerance "
-        f"{TP_SERVE_TOL}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("(b) serving")
-    res["serve"] = dict(gaps=gaps, prefill_s=o0["prefill_s"], decode_s=o0["decode_s"],
-                        one_prefill_s=one["prefill_s"], one_decode_s=one["decode_s"])
-    del outs, one
-    torch.cuda.empty_cache()
+    # (b) and (g)'s servings, in the (1, 2) world, against one process
+    res["serve"] = {}
+    for tag, (arch, layers), tol in (("b", ("qwen2-1.5b", None), TP_SERVE_TOL),
+                                     ("g", TP_SSM_SERVE, TP_SSM_SERVE_TOL)):
+        ok, res["serve"][arch] = tp_served(torch, tag, served[arch, layers], arch, layers, tol)
+        if not ok:
+            failures.append(f"({tag}) serving")
+        torch.cuda.empty_cache()
+    del served
 
-    # (c) and (e) the dry run's default mesh
+    # (c), (e) and (h) the dry run's default mesh
+    for tag, key, pair in (("c", "dry", TP_DRY), ("e", "dry_moe", TP_DRY_MOE),
+                           ("h", "dry_ssm", TP_DRY_SSM)):
+        t0 = time.perf_counter()
+        res[key] = row = tp_dry(torch, tag, pair, failures)
+        routes = row["tp_routes"]
+        if tag == "c" and (routes["heads"] or not routes["padded"]):
+            failures.append(f"(c) routes {routes}: every layer on the padded route")
+        if tag == "e" and (routes["experts"] != TP_DRY_MOE_EXPERTS or not routes["moe"]):
+            failures.append(f"(e) routes {routes}: {TP_DRY_MOE_EXPERTS} experts a rank")
+        if tag == "h" and (routes["ssm_heads"] != TP_DRY_SSM_HEADS or not routes["ssm"]
+                           or not row["launches"]["ssd_chunk"]):
+            failures.append(f"(h) routes {routes}, launches {row['launches']}: "
+                            f"{TP_DRY_SSM_HEADS} ssm heads a rank, ssd_chunk launched")
+        ssd_launches += row["launches"]["ssd_chunk"]
+        log(f"phase 23 ({tag}): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res["dry"] = row = tp_dry(torch, "c", TP_DRY, failures)
-    if row["tp_routes"]["heads"] or not row["tp_routes"]["padded"]:
-        failures.append(f"(c) routes {row['tp_routes']}: every layer on the padded route")
-    log(f"phase 23 (c): {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    res["dry_moe"] = row = tp_dry(torch, "e", TP_DRY_MOE, failures)
-    if row["tp_routes"]["experts"] != TP_DRY_MOE_EXPERTS or not row["tp_routes"]["moe"]:
-        failures.append(f"(e) routes {row['tp_routes']}: {TP_DRY_MOE_EXPERTS} experts a rank")
-    log(f"phase 23 (e): {time.perf_counter() - t0:.1f} s")
-    log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s")
+    res["dry_hybrid"] = row = tp_dry_reckon(TP_DRY_HYBRID)
+    if row["tp_routes"]["ssm_heads"] != TP_DRY_SSM_HEADS:
+        failures.append(f"(h) zamba2 routes {row['tp_routes']}")
+    log(f"phase 23 (h) zamba2: {time.perf_counter() - t0:.1f} s")
+    res["ssd_chunk"] = ssd_launches
+    log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s; ssd_chunk "
+        f"launches {ssd_launches} (the ssm worlds' ranks and (h)'s runs)")
     if failures:
         raise RuntimeError("phase 23: " + "; ".join(failures))
     return res
 
 
+def tp_dry_reckon(pair):
+    """(h)'s second part: the (16, 16) share of `pair` reckoned on ``meta``
+    alone, its row printed; returns the row."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, mix, threshold, chunk = pair
+    row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold,
+                            vocab_chunk=chunk, verbose=False)
+    log(f"phase 23 (h) reckoned row: {json.dumps(row)}")
+    coll = row["coll_breakdown"]
+    log(f"  (h) dry run {arch} x {shape} x {row['mesh']} ({mix}) reckoned on meta: full-depth "
+        f"peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, bound {row['t_bound_s']:.6f} s, "
+        f"useful_flops_ratio {row['useful_flops_ratio']:.3f}; routes {row['tp_routes']}; "
+        f"model-axis bytes {coll['model_all_reduce']} all-reduce, {coll['model_all_gather']} "
+        f"all-gather, {coll['model_reduce_scatter']} reduce-scatter; reckoned in "
+        f"{row['t_compile_s']:.1f} s")
+    return row
+
+
 def tp_faults(torch):
     """`--tp-faults`: each of `TP_FAULTS` planted in its world, held by
-    (a)'s or (d)'s checks; returns the faults that passed them."""
+    (a)'s, (d)'s or (f)'s checks; returns the faults that passed them."""
     passed = []
-    for tag, arch, layers, layout, argv, experts, zero_tol in (
-            ("a", "qwen2-1.5b", MESH_LAYERS, TP_SHAPE, TP_MODES[0][1], None, TP_PARAM_TOL),
-            ("d", TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_SHAPE, TP_MOE_ARGS, TP_MOE_EXPERTS,
-             TP_MOE_PARAM_TOL)):
-        modes = [(fault, argv, fault) for fault, where in TP_FAULTS if where == tag]
-        outs, refs = tp_world(torch, tag, arch, layers, layout, modes)
-        for fault, _, _ in modes:
-            ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault], True, experts,
-                               zero_tol)
-            log_verdict(tag, f"planted fault {fault}", ok, v, refs[fault])
+    ssm_modes, checks = tp_ssm_modes()
+    (_, arch, layers, overrides, argv, _), = [m for m in ssm_modes
+                                              if m[1] == TP_SSM[0][1]]  # (f)
+    ssm_check = checks[f"{arch} dense"]
+    runs = {"a": ("qwen2-1.5b", MESH_LAYERS, None, TP_MODES[0][1],
+                  (None, TP_PARAM_TOL, TP_F32_TOL)),
+            "d": (TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS,
+                  ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL)),
+            "f": (arch, layers, overrides, argv, ssm_check)}
+    for tags, layout in (("a", TP_SHAPE), ("df", TP_MOE_SHAPE)):
+        modes = [(fault, *runs[where][:4], fault) for fault, where in TP_FAULTS
+                 if where in tags]
+        outs, refs = tp_world(torch, ", ".join(tags), layout, modes)
+        for fault, where in TP_FAULTS:
+            if where not in tags:
+                continue
+            ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault], True,
+                               *runs[where][4])
+            log_verdict(where, f"planted fault {fault}", ok, v, refs[fault])
             log(f"  planted fault {fault}: {'PASSED the checks' if ok else 'rejected'}")
             if ok:
                 passed.append(fault)
@@ -4592,23 +4801,30 @@ def tp_faults(torch):
 def log_tp(r):
     """Phase 23's summary lines."""
     for label, row in r["train"].items():
-        what = (f"{TP_MOE_ARCH} at {TP_MOE_LAYERS} layers on {TP_MOE_SHAPE}, 2" if
-                label.startswith("moe") else f"qwen2-1.5b at {MESH_LAYERS} layers on "
-                f"{TP_SHAPE}, 4")
+        if label.startswith("moe"):
+            what = f"{TP_MOE_ARCH} at {TP_MOE_LAYERS} layers on {TP_MOE_SHAPE}, 2"
+        elif label in ("dense", "none"):
+            what = f"qwen2-1.5b at {MESH_LAYERS} layers on {TP_SHAPE}, 4"
+        else:
+            (_, arch, layers, *_), = [w for w in TP_SSM if label == f"{w[1]} dense"]
+            what = f"{arch} at {layers} layers on {TP_MOE_SHAPE}, 2"
         log(f"tensor-parallel trainer path ({label}, {what} gloo ranks on one card): "
             f"{row['s_step']:.4f} s/step, collectives {100 * row['share']:.1f}% of the step, "
             f"peak {row['peak'] / 2**30:.2f} GiB per rank")
-    sv = r["serve"]
-    log(f"tensor-parallel serving path (qwen2-1.5b f32 on {TP_SERVE_SHAPE}): decode "
-        f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
-        f"process")
-    for key in ("dry", "dry_moe"):
+    for arch, sv in r["serve"].items():
+        log(f"tensor-parallel serving path ({arch} f32 on {TP_SERVE_SHAPE}): decode "
+            f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
+            f"process")
+    for key in ("dry", "dry_moe", "dry_ssm"):
         row = r[key]
         log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}): "
             f"{row['measured_s_per_step']:.6f} s/step at {row['run_depth']}, bound_fraction "
             f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
             f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
-
+    row = r["dry_hybrid"]
+    log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}, reckoned): "
+        f"full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, useful_flops_ratio "
+        f"{row['useful_flops_ratio']:.3f}")
 
 
 def main(argv=None) -> int:
@@ -4643,9 +4859,9 @@ def main(argv=None) -> int:
                              "kernels at its shapes)")
     parser.add_argument("--tp", action="store_true",
                         help="only phase 23, tensor parallelism over \"model\" (and phase 2's "
-                             "and 9's rectangular drain)")
+                             "and 9's rectangular drain and phase 2's ssd_chunk)")
     parser.add_argument("--tp-faults", action="store_true",
-                        help="only phase 23 (a)'s and (d)'s checks against planted faults "
+                        help="only phase 23 (a)'s, (d)'s and (f)'s checks against planted faults "
                              "(TP_FAULTS), after the rest of phase 23 with --tp; exits 1 "
                              "when one passes them")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
@@ -4723,6 +4939,7 @@ def main(argv=None) -> int:
         t_start = time.perf_counter()
         phase_build()
         phase_rect_kernels(torch)
+        phase_ssd_kernels(torch)
         tp = phase_tp(torch)
         phase_rect_times(torch, rect_time_cases(tp=tp))
         log_tp(tp)
@@ -4808,7 +5025,7 @@ def main(argv=None) -> int:
              launches=(m_launches["ssd_chunk"]
                        + sum(r["launches"]["ssd_chunk"] for r in families.values())
                        + entry["launches"]["ssd_chunk"] + serving["launches"]["ssd_chunk"]
-                       + dry["ssd_chunk"]),
+                       + dry["ssd_chunk"] + tp["ssd_chunk"]),
              max_abs_err=ssd_err, **ssd_times)]
     log(f"windowed path: {ms_window:.3f} ms/window (300-window simulate, evals "
         f"included), {steady:.3f} ms/window steady")
@@ -4863,7 +5080,8 @@ def main(argv=None) -> int:
                     for r in families.values() if r["launches"]["ssd_chunk"])
         + f", {entry['launches']['ssd_chunk']} on the entry points', "
         f"{serving['launches']['ssd_chunk']} on the f32 prefills of phase 20 (b), "
-        f"{dry['ssd_chunk']} on the dry run's mamba2 pairs (phase 22)")
+        f"{dry['ssd_chunk']} on the dry run's mamba2 pairs (phase 22), {tp['ssd_chunk']} on "
+        f"the tensor-parallel ssm paths (phase 23 (f)-(h), the ranks' sum)")
     log("phase times: " + ", ".join(f"{label} {s:.1f} s" for label, s in PHASE_TIMES))
     log(f"profiler: {PROFILER['sessions']} sessions, {PROFILER['s']:.1f} s of set-up, tear-down "
         f"and tables")

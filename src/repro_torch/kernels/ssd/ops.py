@@ -88,6 +88,10 @@ def ssd_chunk(C, B, x, cums, dt):
         work.record("ssd_chunk", work.ssd_chunk(bb, h, g, nc, q, n, p, x.element_size()))
         return (x.new_empty((bb, h, nc, q, p), dtype=torch.float32),
                 x.new_empty((bb, h, nc, n, p), dtype=torch.float32))
+    if x.shape[1] == 0:  # a model rank without ssm heads: no work, no launch
+        bb, _, nc, q, n = C.shape
+        return (x.new_empty((bb, 0, nc, q, x.shape[4]), dtype=torch.float32),
+                x.new_empty((bb, 0, nc, n, x.shape[4]), dtype=torch.float32))
     y, s = launch(_lib(), C, B, x, cums, dt)
     ssd_chunk.launches += 1
     return y, s

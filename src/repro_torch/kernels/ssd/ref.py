@@ -26,9 +26,10 @@ def ssd_chunk_ref(C, B, x, cums, dt):
     lead = x.shape[:-3]
     if C.dim() == 5:  # grouped: (Bb, G, 1, ...) against (Bb, G, rep, ...)
         bb, g = C.shape[:2]
-        x = x.reshape(bb, g, -1, *x.shape[2:])
-        cums = cums.reshape(bb, g, -1, *cums.shape[2:])
-        dt = dt.reshape(bb, g, -1, *dt.shape[2:])
+        rep = x.shape[1] // g  # explicit: a rank without heads passes none
+        x = x.reshape(bb, g, rep, *x.shape[2:])
+        cums = cums.reshape(bb, g, rep, *cums.shape[2:])
+        dt = dt.reshape(bb, g, rep, *dt.shape[2:])
         C, B = C.unsqueeze(2), B.unsqueeze(2)
     Q = C.shape[-2]
     CB = C @ B.transpose(-1, -2)  # (..., Qi, Qj)

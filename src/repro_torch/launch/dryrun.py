@@ -18,9 +18,10 @@ Layout. The default mesh is the reference's production mesh, (16, 16)
 over ("data", "model") ((2, 16, 16) with "pod"): 16 clients, each
 over a 16-way "model" axis, so a rank's share is one client's 1 / 16
 block of the model (`repro_torch.sharding.tp`). The port splits the
-dense and moe families over "model" (a moe rank runs E / 16 of the
-experts); another family raises `NotImplementedError` there, naming its
-ROADMAP sub-item. ``--clients
+dense, moe, ssm and hybrid families over "model" (a moe rank runs E / 16
+of the experts, a Mamba2 block the rank's ceil(H / 16) ssm heads, with
+`ssd_chunk` at those local heads); the vlm and audio families raise
+`NotImplementedError` there, naming ROADMAP item 20(d). ``--clients
 W`` takes the client mesh (W, 1) of `make_sweep_mesh` instead (W ranks,
 one client each; written ``"Wx1"`` in the row's ``mesh``), the layout the
 reference also has (``repro.launch.mesh``'s sweep mesh), for every
@@ -58,7 +59,9 @@ What the row holds:
   - ``tp_routes``: the attention layers the counted run took on each
     route over "model" (``heads``, ``padded``) and the leaves they
     gathered (`repro_torch.models.attention`), the moe layers and the
-    experts the rank runs in one (`repro_torch.models.moe`).
+    experts the rank runs in one (`repro_torch.models.moe`), the Mamba2
+    blocks and the ssm heads the rank computes in one
+    (`repro_torch.models.ssm`).
 
 ``--run`` then runs the same share on one card (the dry mesh on CUDA:
 its collectives are the rank's local share, so the collective's time
@@ -451,7 +454,7 @@ def main(argv=None):
     ap.add_argument("--clients", type=int, default=None,
                     help="the client mesh (W, 1): W ranks of one client each (default: "
                          "the reference's (16, 16) production mesh, 16 clients each over "
-                         "16 ranks of \"model\"; the dense and moe families)")
+                         "16 ranks of \"model\"; every family but the vlm and audio)")
     ap.add_argument("--run", action="store_true",
                     help="also run the rank's share on the card and record its time")
     args = ap.parse_args(argv)

@@ -42,10 +42,10 @@ import torch.distributed as dist
 
 # the parts of ROADMAP item 20 (sharding inside one model) still to port,
 # each named where it raises
-ROADMAP_SSM = "ROADMAP item 20(c)"  # ssm/hybrid in_proj packing, per-head SSD
 ROADMAP_CROSS = "ROADMAP item 20(d)"  # the vlm's cross attention, the audio family
 ROADMAP_SEQ_PARALLEL = "ROADMAP item 20(e)"  # 'seq' over "model"
 ROADMAP_CACHE_SEQ = "ROADMAP item 20(f)"  # the cache over "data", cache_shard head_dim/seq
+ROADMAP_SSM_GROUPS = "ROADMAP item 20(g)"  # ssm groups a rank's heads read out of step
 
 # the collectives' current spellings (torch 2.13 deprecates the older ones)
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -91,9 +91,10 @@ COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange",
                "model_all_reduce", "model_all_gather", "model_reduce_scatter")
 # `Mesh.tp_routes`: the attention layers on each route over "model" (the
 # heads route, whole heads; the padded route, a shard that cuts a head),
-# the leaves they gathered, the moe layers and the experts a rank runs in
-# one (`repro_torch.sharding.tp`)
-TP_ROUTES = ("heads", "padded", "gathered_leaves", "moe", "experts")
+# the leaves the attention and Mamba2 layers gathered, the moe layers and
+# the experts a rank runs in one, the Mamba2 blocks and the ssm heads a
+# rank computes in one (`repro_torch.sharding.tp`)
+TP_ROUTES = ("heads", "padded", "gathered_leaves", "moe", "experts", "ssm", "ssm_heads")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 

@@ -4,7 +4,9 @@ inputs (port of `repro.launch.steps`).
 ``make_train_step``: one DRACO superposition window on a mesh
 (`repro_torch.launch.mesh`): each rank holds N / D clients of the D
 client ranks, each as its block of the model over the T ranks of
-"model" (`repro_torch.sharding.tp`), runs their local gradient steps
+"model" (`repro_torch.sharding.tp`; the dense, moe, ssm and hybrid
+families, while the vlm and audio raise `NotImplementedError` naming
+ROADMAP item 20(d)), runs their local gradient steps
 (`train.train_step_clients`), forms Delta on its rows and columns of the
 f32 plane, and the row-stochastic gossip mix runs as a collective over
 the client ranks of its model index (a column block of the plane mixes
@@ -297,7 +299,10 @@ def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
     losses gathered in client order), a 0-d tensor on every rank. The
     Psi cap lives in ``q_eff`` (`train.mixing_weights`); `psi` is the
     reference's argument, which its step does not read either.
-    `blocked_threshold` and `vocab_chunk` go to `M.lm_loss`."""
+    `blocked_threshold` and `vocab_chunk` go to `M.lm_loss`. On a
+    "model" axis larger than 1 the vlm and audio families raise
+    `NotImplementedError` (ROADMAP item 20(d)); a Mamba2 block computes
+    the rank's own ssm heads (`repro_torch.models.ssm`)."""
     from repro_torch.launch import train as train_lib
 
     if mix_mode not in MIX_MODES:
@@ -372,7 +377,9 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     (`serve_shardings`) and returns their logits over the whole
     vocabulary, gathered over "model" as the reference's are. A moe
     layer ranks its tokens' expert choices among the whole batch's
-    (`repro_torch.sharding.tp.Rows`), as the reference's does."""
+    (`repro_torch.sharding.tp.Rows`), as the reference's does; a Mamba2
+    block computes the rank's own ssm heads. The vlm and audio families
+    on a "model" axis larger than 1 raise (ROADMAP item 20(d))."""
     _serving_rows(shape, mesh, "prefill step")
     tp_lib.check_family(cfg, mesh)
     scfg = serve_config(cfg, shape)
@@ -394,9 +401,11 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     blocks of the params (`serve_shardings`): `tok`, `state` and
     `cross_kv` hold those rows (a state from ``init_decode_state(scfg,
     B / ranks, S, mesh=mesh)``: the rank's kv heads where "model" divides
-    them), and the logits are theirs over the whole vocabulary, gathered
-    over "model". A batch that does not divide by the client ranks
-    raises `NotImplementedError` (ROADMAP item 20(f))."""
+    them, its ssm heads and their conv channels), and the logits are
+    theirs over the whole vocabulary, gathered over "model". A batch that
+    does not divide by the client ranks raises `NotImplementedError`
+    (ROADMAP item 20(f)), and so do the vlm and audio families on a
+    "model" axis larger than 1 (item 20(d))."""
     _serving_rows(shape, mesh, "serve step")
     tp_lib.check_family(cfg, mesh)
     tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)

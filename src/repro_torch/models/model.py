@@ -43,15 +43,17 @@ back to the host.
 
 Tensor parallelism. Under a `repro_torch.sharding.tp.use` context (the
 steps of `repro_torch.launch.steps` set it on a mesh whose "model" axis
-is larger than 1) the dense and moe families run on the rank's blocks
-of their leaves: attention on its heads (`attention.Layout`), the MLP on
-its ``d_ff`` block, a moe layer on its experts (`moe.moe_block`), the
-embedding on its rows of the vocabulary (ids outside them masked,
-looked up, then summed over the ranks), the head into its block of the
-logits, and `lm_loss` through the vocab-parallel cross-entropy
-(`layers.token_nll`). `apply_model` and `decode_step` then return the
-rank's vocabulary block of the logits. Another family on such a mesh
-raises `NotImplementedError` naming its ROADMAP sub-item.
+is larger than 1) the dense, moe, ssm and hybrid families run on the
+rank's blocks of their leaves: attention on its heads
+(`attention.Layout`; the hybrid's shared block too), the MLP on its
+``d_ff`` block, a moe layer on its experts (`moe.moe_block`), a Mamba2
+block on its ssm heads (`ssm.ssm_block`), the embedding on its rows of
+the vocabulary (ids outside them masked, looked up, then summed over the
+ranks), the head into its block of the logits, and `lm_loss` through the
+vocab-parallel cross-entropy (`layers.token_nll`). `apply_model` and
+`decode_step` then return the rank's vocabulary block of the logits. The
+vlm and audio families on such a mesh raise `NotImplementedError`
+naming their ROADMAP sub-item.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (cross_entropy, dense_init, init_mlp, mlp, rms_norm,
                                        token_nll)
 from repro_torch.models.moe import init_moe, moe_block
-from repro_torch.models.ssm import SSMState, init_ssm, ssm_block, ssm_decode_step
+from repro_torch.models.ssm import (SSMState, init_ssm, rank_ssm_heads, ssm_block,
+                                   ssm_decode_step)
 from repro_torch.sharding import tp as tp_lib
 
 
@@ -153,12 +156,12 @@ def init_params(key, cfg: ModelConfig, device=None, shard=None) -> Dict[str, Any
     if not cfg.tie_embeddings:
         params["lm_head"] = kept(("lm_head",), dense_init(gen, (d, cfg.vocab_size), d, dtype))
     if cfg.family == "hybrid":
-        params["shared"] = {
+        params["shared"] = kept(("shared",), {
             "norm_attn": zeros(d),
             "attn": attn_lib.init_attention(gen, cfg),
             "norm_mlp": zeros(d),
             "mlp": init_mlp(gen, d, cfg.d_ff, dtype),
-        }
+        })
     return params
 
 
@@ -240,13 +243,13 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
                  rows=None):
     """One sub-block; returns the new h (and the aux loss for ``moe``).
     `bp` is the group's sub-block, unused by ``shared``; `tp` the rank's
-    place on the model axis (attention, mlp and moe blocks), `rows` its
-    place among client ranks that split the batch (moe blocks)."""
+    place on the model axis, `rows` its place among client ranks that
+    split the batch (moe blocks)."""
     if kind == "shared":
         x = rms_norm(h, shared["norm_attn"], cfg.norm_eps)
-        h = h + _self_attention(shared["attn"], x, cfg, use_blocked)
+        h = h + _self_attention(shared["attn"], x, cfg, use_blocked, tp)
         x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
-        return h + mlp(shared["mlp"], x)
+        return h + mlp(shared["mlp"], x, _ff_tp(shared["mlp"], cfg, tp))
     x = rms_norm(h, bp["norm"], cfg.norm_eps)
     if kind == "attn":
         return h + _self_attention(bp["attn"], x, cfg, use_blocked, tp)
@@ -256,7 +259,7 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
         y, aux = moe_block(bp["moe"], x, cfg, tp, rows)
         return h + y, aux
     if kind == "ssm":
-        return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn)
+        return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn, tp=tp)
     if kind == "cross":
         y = attn_lib.full_attention(bp["attn"], x, cfg, kv_x=cross_embeds, cross=True)
         return h + torch.tanh(bp["gate"].to(torch.float32)).to(y.dtype) * y
@@ -410,15 +413,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     "model" axis, a KV cache holds the kv heads the rank computes
     (`attention.rank_heads`): its block of them where the axis divides
     them (the reference's ``cache_spec``), else the ones its query heads
-    read."""
+    read; an `SSMState` holds the rank's ssm heads and the conv channels
+    they read (`ssm.rank_ssm_heads`)."""
     dev = resolve_device(device)
     t = getattr(mesh, "model_size", 1) if mesh is not None else 1
-    n_kv = cfg.num_kv_heads
-    if t > 1:
+    pattern, n_groups = block_pattern(cfg)
+    n_kv, ssm_heads, ssm_groups = cfg.num_kv_heads, None, None
+    if t > 1 and cfg.num_heads:
         _, _, _, n_kv = attn_lib.rank_heads(
             cfg, mesh.model_rank, t, cfg.num_heads * cfg.resolved_head_dim % t == 0,
             cfg.num_kv_heads % t == 0)
-    pattern, n_groups = block_pattern(cfg)
+    if t > 1 and "ssm" in pattern:
+        _, ssm_heads, _, ssm_groups = rank_ssm_heads(cfg, mesh.model_rank, t)
     dtype = cfg.torch_dtype
     ring = cfg.sliding_window > 0 and seq_len > cfg.sliding_window
     cache_len = cfg.sliding_window if ring else seq_len
@@ -430,7 +436,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                 device=dev, lead=(n_groups,))
         elif kind == "ssm":
             caches[f"{i}:{kind}"] = SSMState.init(batch, cfg, dtype, device=dev,
-                                                  lead=(n_groups,))
+                                                  lead=(n_groups,), heads=ssm_heads,
+                                                  groups=ssm_groups)
     return DecodeState(caches=caches, pos=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -490,7 +497,7 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 h = h + y
                 if kind == "shared":
                     x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
-                    h = h + mlp(shared["mlp"], x)
+                    h = h + mlp(shared["mlp"], x, _ff_tp(shared["mlp"], cfg, tp))
             elif kind == "mlp":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
                 h = h + mlp(gp[name]["mlp"], x, _ff_tp(gp[name]["mlp"], cfg, tp))
@@ -502,7 +509,7 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
                 st = state.caches[name]
                 y, _ = ssm_decode_step(gp[name]["ssm"], x, SSMState(st.conv[g], st.h[g]),
-                                       cfg)
+                                       cfg, tp)
                 h = h + y
             elif kind == "cross":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)

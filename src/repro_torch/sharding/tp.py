@@ -20,14 +20,19 @@ The operators below join the ranks' partial results:
   - `TP.gather_partial`: all-gather forward along a dim, a reduce-scatter
     of the gradient backward: for a leaf whose shard cuts an attention
     head, gathered so that each rank can slice out its own heads
-    (`repro_torch.models.attention`'s padded route). Each rank's
-    gradient of the gathered leaf is then partial (its heads' part), so
-    it is summed over the ranks and each keeps its slice.
+    (`repro_torch.models.attention`'s padded route), and for the
+    Mamba2 leaves whose block cuts across their packed parts
+    (`repro_torch.models.ssm`). Each rank's gradient of the gathered
+    leaf is then partial (its heads' part), so it is summed over the
+    ranks and each keeps its slice.
 
 A moe layer's expert axis sums in its own dispatch and combine
-(`repro_torch.models.moe`). All of them run through the `Mesh`'s model
-collectives, so the mesh's tally counts them (``model_all_reduce``,
-``model_all_gather``, ``model_reduce_scatter``). `context`
+(`repro_torch.models.moe`); a Mamba2 block's gated RMSNorm sums its
+squares over the ranks with ``copy(reduce(.))``, an all-reduce both
+ways (`repro_torch.models.ssm`). Every family but the vlm and audio
+splits over "model" (`check_family`). All of them run through the
+`Mesh`'s model collectives, so the mesh's tally counts them
+(``model_all_reduce``, ``model_all_gather``, ``model_reduce_scatter``). `context`
 gives None for ``mesh=None`` and for a model size of 1, and model code
 given None runs the single-device path unchanged. Whether a leaf is
 sharded is read off its shape against the config's (a block is narrower
@@ -53,25 +58,18 @@ from repro_torch.sharding.specs import param_spec
 _TLS = threading.local()
 
 
-def _family_item(family: str) -> Optional[str]:
+def check_family(cfg, mesh) -> None:
+    """Raise `NotImplementedError`, naming its ROADMAP sub-item, for the
+    vlm and audio families on a mesh whose "model" axis is larger than
+    1 (the dense, moe, ssm and hybrid families split over it)."""
     from repro_torch.launch import mesh as mesh_lib
 
-    return {"ssm": mesh_lib.ROADMAP_SSM,
-            "hybrid": mesh_lib.ROADMAP_SSM, "vlm": mesh_lib.ROADMAP_CROSS,
-            "audio": mesh_lib.ROADMAP_CROSS}.get(family)
-
-
-def check_family(cfg, mesh) -> None:
-    """Raise `NotImplementedError`, naming its ROADMAP sub-item, for a
-    family other than dense and moe on a mesh whose "model" axis is
-    larger than 1."""
     size = 1 if mesh is None else getattr(mesh, "model_size", 1)
-    item = _family_item(cfg.family)
-    if size > 1 and item is not None:
+    if size > 1 and cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) over a {size}-way \"model\" axis: tensor "
-            f"parallelism covers the dense and moe families; the {cfg.family} family is "
-            f"{item}")
+            f"parallelism covers the dense, moe, ssm and hybrid families; the "
+            f"{cfg.family} family is {mesh_lib.ROADMAP_CROSS}")
 
 
 class _Copy(torch.autograd.Function):
@@ -150,6 +148,13 @@ class TP:
         """Tally one moe layer, and the experts the rank runs in it."""
         self.mesh.tp_routes["moe"] += 1
         self.mesh.tp_routes["experts"] = experts
+
+    def count_ssm(self, heads: int, leaves: int = 0) -> None:
+        """Tally one Mamba2 block, the ssm heads the rank computes in it,
+        and the leaves it gathered."""
+        self.mesh.tp_routes["ssm"] += 1
+        self.mesh.tp_routes["ssm_heads"] = heads
+        self.mesh.tp_routes["gathered_leaves"] += leaves
 
 
 class Rows:

@@ -5,11 +5,13 @@ a test module). Each runs in one process of a gloo world spawned by
 JAX, so a rank starts quickly.
 
 A world does every check of its layout in one run, for each of `ARCHS`
-(reduced qwen2, dense, and reduced qwen3-moe-30b-a3b, moe): the train
-step in each mix mode from the reference's whole parameters
-(`convert.shard_params`) back to whole ones (`convert.gather_params`),
-the round trip of those two, the prefill and serve steps, and the
-model's gradients in f64 against one process; and the vocab-parallel
+(reduced qwen2, dense; reduced qwen3-moe-30b-a3b, moe; reduced
+mamba2-2.7b, ssm; reduced zamba2-2.7b, hybrid): the train step in each
+mix mode from the reference's whole parameters (`convert.shard_params`)
+back to whole ones (`convert.gather_params`), the round trip of those
+two, the prefill and serve steps, and the model's gradients in f64
+against one process (the ssm and hybrid models under remat, so that a
+recomputed block runs its collectives again); and the vocab-parallel
 cross-entropy once.
 """
 import numpy as np
@@ -23,11 +25,17 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import layers
 from repro_torch.models import model as M
+from repro_torch.models.attention import KVCache
 from repro_torch.sharding import tp as tp_lib
 
 ARCH, N, LR = D.ARCH, D.N, D.LR
 MOE = "qwen3-moe-30b-a3b"  # reduced: 4 experts, top-2, 4 query heads over 2 kv heads
-ARCHS = (ARCH, MOE)
+# reduced: 16 ssm heads of 32 channels, one group, state 32 (mamba2) and 16
+# (zamba2, whose one group of 2 Mamba2 blocks ends in the shared block of 4
+# heads)
+MAMBA, ZAMBA = "mamba2-2.7b", "zamba2-2.7b"
+SSM_ARCHS = (MAMBA, ZAMBA)
+ARCHS = (ARCH, MOE) + SSM_ARCHS
 SERVE_BATCH, SERVE_PROMPT = 4, 8
 CHUNK = 8  # lm_loss's vocab_chunk form over D.SEQ positions
 FLASH_FROM = 8  # apply_model's blocked_attn_threshold: the flash path at D.SEQ
@@ -41,9 +49,11 @@ def train_inputs(seed=0):
     """`_torch_dist.train_inputs`' tokens and ``q_eff``, and ``params``
     for each of `ARCHS`: one init copied to the N clients."""
     out = D.train_inputs(seed)
-    moe = M.init_params(seed, get_reduced(MOE), "cpu")
-    out["params"] = {ARCH: out["params"],
-                     MOE: flat_lib.tree_map(lambda p: p[None].expand(N, *p.shape).clone(), moe)}
+    out["params"] = {ARCH: out["params"]}
+    for arch in ARCHS[1:]:
+        one = M.init_params(seed, get_reduced(arch), "cpu")
+        out["params"][arch] = flat_lib.tree_map(
+            lambda p: p[None].expand(N, *p.shape).clone(), one)
     return out
 
 
@@ -102,7 +112,16 @@ def _serve(mesh, cfg, train, out):
         logits.append(lg)
     out["serve"] = torch.stack(logits, dim=1)
     out["serve_routes"] = dict(mesh.tp_routes)
-    out["cache_heads"] = state.caches["0:attn"].k.shape[-2]
+    # each cache's heads: a KV cache's kv heads, an SSM state's ssm heads
+    # (and its conv channels)
+    out["cache_heads"] = {name: (c.k.shape[-2],) if isinstance(c, KVCache) else
+                          (c.h.shape[-3], c.conv.shape[-1])
+                          for name, c in state.caches.items()}
+
+
+def arch_remat(cfg) -> bool:
+    """The f64 checks' remat: on for the ssm and hybrid models."""
+    return cfg.family in ("ssm", "hybrid")
 
 
 def attention_input(cfg, seed=3):
@@ -117,7 +136,7 @@ def _f64(mesh, cfg, train, out):
     from repro_torch.models import attention
 
     tp = tp_lib.context(mesh)
-    cfg64 = cfg.with_(dtype="float64")
+    cfg64 = cfg.with_(dtype="float64", remat=arch_remat(cfg))
     whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"][cfg.name])
     batch = {"tokens": torch.as_tensor(train["tokens"][0])}
     for name, kw in (("f64_0", {}), (f"f64_{CHUNK}", {"vocab_chunk": CHUNK}),
@@ -131,6 +150,8 @@ def _f64(mesh, cfg, train, out):
             [p for p, _ in flat_lib.tree_items(params)], torch.autograd.grad(loss, leaves)))
         out[name] = dict(loss=float(loss.detach()),
                          grads=convert.gather_params(grads, mesh, cfg64, clients=False))
+    if "0:attn" not in params["groups"]:
+        return
     ap = M._unbind_groups(params["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
     out["blocked"] = attention.blocked_attention(
         flat_lib.tree_map(torch.Tensor.detach, ap), attention_input(cfg), cfg64,
@@ -181,3 +202,27 @@ def world(rank, world_size, shape, train):
     _cross_entropy(mesh, out)
     return out
 
+
+
+def zero_heads(rank, world, shape, train):
+    """A (1, 5) world of reduced mamba2 under remat, in f64: 16 ssm heads
+    split 4, 4, 4, 4 and 0, so the last rank computes none; lm_loss and
+    its gradients, then `SERVE_PROMPT` decode steps, on each rank."""
+    mesh = mesh_lib.make_test_mesh(shape)
+    tp = tp_lib.context(mesh)
+    cfg = get_reduced(MAMBA).with_(dtype="float64", remat=True)
+    whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"][MAMBA])
+    params = flat_lib.tree_map(lambda p: p.requires_grad_(),
+                               convert.shard_params(whole, mesh, clients=False))
+    with tp_lib.use(tp):
+        loss = M.lm_loss(params, cfg, {"tokens": torch.as_tensor(train["tokens"][0])})
+    grads = torch.autograd.grad(loss, flat_lib.tree_leaves(params))
+    grads = flat_lib.tree_from_items(zip([p for p, _ in flat_lib.tree_items(params)], grads))
+    prompt, sshape = serve_inputs()
+    state = M.init_decode_state(cfg, SERVE_BATCH, sshape.seq_len, device="cpu", mesh=mesh)
+    serve = steps.make_serve_step(cfg, sshape, mesh)
+    params = flat_lib.tree_map(torch.Tensor.detach, params)
+    logits = [serve(params, prompt[:, t], state)[0] for t in range(SERVE_PROMPT)]
+    return dict(loss=float(loss.detach()), heads=state.caches["0:ssm"].h.shape[-3],
+                grads=convert.gather_params(grads, mesh, cfg, clients=False),
+                serve=torch.stack(logits, dim=1))

@@ -176,9 +176,12 @@ def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
     assert row["mesh"] == "16x16" and row["n_devices"] == 256  # the reference's (16, 16)
     assert row["coll_breakdown"]["counts"]["model_all_gather"] > 0  # 16 ways cut its heads
     assert row["tp_routes"]["padded"] == cfg.num_layers
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(c\)"):  # not dense
-        dryrun.lower_pair("mamba2-2.7b", "decode_32k", cfg=tbase.get_reduced("mamba2-2.7b"),
-                          verbose=False)
+    ssm = dryrun.lower_pair("mamba2-2.7b", "decode_32k", cfg=tbase.get_reduced("mamba2-2.7b"),
+                            verbose=False)  # 16 ssm heads over 16 ranks: one a rank
+    assert ssm["tp_routes"]["ssm"] == 2 and ssm["tp_routes"]["ssm_heads"] == 1
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(d\)"):  # audio
+        dryrun.lower_pair("musicgen-large", "decode_32k",
+                          cfg=tbase.get_reduced("musicgen-large"), verbose=False)
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
         dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, cache_shard="head_dim",
                           verbose=False)

@@ -1,24 +1,29 @@
-"""Tensor parallelism over "model" for the dense and moe families, in gloo
-worlds of 4 ranks on the CPU, against the JAX package.
+"""Tensor parallelism over "model" for the dense, moe, ssm and hybrid
+families, in gloo worlds of 4 ranks on the CPU, against the JAX package.
 
 Three worlds run once each (`_torch_tp.world`, spawned by
 `repro_torch.launch.mesh.spawn_ranks`), each doing every check of its
-layout for reduced qwen2 (dense: 6 query and 2 kv heads) and reduced
-qwen3-moe-30b-a3b (moe: 4 experts, top-2, 4 query over 2 kv heads):
-(2, 2), where qwen2's heads split at whole heads (the heads route) and
-each rank runs 2 experts; (1, 4), where every qwen2 attention shard cuts
-a head (the padded route: ranks take 2, 2, 2 and 0 of the 6 heads) and
-each rank runs 1 expert; and (1, 3), held against one process, where
-qwen2's query heads split whole but the 2 kv heads and the vocabulary of
-512 do not divide, so each rank slices its query heads' kv heads out of
-all of them and the embedding, head and loss stay whole, and where the 4
-experts do not divide either, so every rank runs them all. The JAX side
-runs once, in one subprocess with four host devices and ``Auto`` meshes
-of the same layouts (jax 0.9's default ``Explicit`` axes make the
-reference's ``constrain`` raise), started before the worlds so that
-both run at once: the reference's own `make_train_step` in each mix
-mode, and its prefill and serve steps at (2, 2), on the same params,
-tokens and ``q_eff``.
+layout for reduced qwen2 (dense: 6 query and 2 kv heads), reduced
+qwen3-moe-30b-a3b (moe: 4 experts, top-2, 4 query over 2 kv heads) and
+reduced mamba2-2.7b and zamba2-2.7b (ssm and hybrid: 16 ssm heads, one
+group; zamba2's shared block 4 heads): (2, 2), where qwen2's heads split
+at whole heads (the heads route), each rank runs 2 experts and computes
+8 ssm heads; (1, 4), where every qwen2 attention shard cuts a head (the
+padded route: ranks take 2, 2, 2 and 0 of the 6 heads), each rank runs
+1 expert and computes 4 ssm heads; and (1, 3), held against one process,
+where qwen2's query heads split whole but the 2 kv heads and the
+vocabulary of 512 do not divide, so each rank slices its query heads'
+kv heads out of all of them and the embedding, head and loss stay
+whole, where the 4 experts do not divide either, so every rank runs
+them all, and where the 16 ssm heads split 6, 6 and 4 (the padded
+split) out of replicated head leaves (mamba2's in_proj and conv still
+blocks, zamba2's whole). The JAX side runs once, in two subprocesses
+(the dense and moe archs, the ssm and hybrid ones) with four host
+devices each and ``Auto`` meshes of the same layouts (jax 0.9's default
+``Explicit`` axes make the reference's ``constrain`` raise), started
+before the worlds so that all run at once: the reference's own
+`make_train_step` in each mix mode, and its prefill and serve steps at
+(2, 2), on the same params, tokens and ``q_eff``.
 
 Tolerances: the f32 train steps within rtol/atol 1e-5 of the reference
 (f32 sums re-associated across ranks; 3e-8 read), the bf16 mix within
@@ -31,8 +36,14 @@ process at every layout (the attention scores are f32 for every dtype,
 as the reference's, but each query head's are computed whole on one
 rank; RoPE and the norms compute in f64 for an f64 model, so a kv
 head's gradient summed over the ranks that read it is not rounded to f32
-part by part; 7e-16 read). A router gradient summed over the ranks (a
-`TP.copy` on the moe layer's input) would double it at (2, 2).
+part by part; 7e-16 read). A wrong operator shows there: a router
+gradient summed over the ranks (a `TP.copy` on the moe layer's input)
+would double it at (2, 2); a Mamba2 block's gated-norm sum of squares
+reduced forward only (`TP.reduce` without its `TP.copy`) would leave
+each rank's gradient through the norm partial, its channels' share of
+the cross term alone; a `TP.copy` on B or C (computed whole on every
+rank) would sum their gradient over the ranks on top of the
+reduce-scatter that already does, counting it T times.
 """
 import math
 import os
@@ -87,6 +98,15 @@ def nest(prefix, rows=None):
     return tree
 
 
+def fill(tree, like):
+    """`tree` with the empty sub-blocks of `like` (zamba2's "2:shared",
+    which the npz cannot hold) put back."""
+    for key, v in like.items():
+        if isinstance(v, dict):
+            fill(tree.setdefault(key, {}), v)
+    return tree
+
+
 def put(tree, sh):
     return jax.tree_util.tree_map(jax.device_put, tree, sh)
 
@@ -94,14 +114,14 @@ def put(tree, sh):
 out = {}
 modes = {"dense": ("dense", None), "dense-bf16": ("dense", jnp.bfloat16),
          "none": ("none", None), "ring": ("ring", None)}
-for arch, layout in [(a, l) for a in ("qwen2-1.5b", "qwen3-moe-30b-a3b")
-                     for l in ((2, 2), (1, 4))]:
+for arch, layout in [(a, l) for a in sys.argv[4].split(",") for l in ((2, 2), (1, 4))]:
     cfg = get_reduced(arch)
+    like = jax.eval_shape(lambda k: M.init_params(k, cfg), jax.random.PRNGKey(0))
     mesh = jax.make_mesh(layout, ("data", "model"), axis_types=auto)
     tag = arch + "/" + "x".join(map(str, layout))
     for name, (mode, md) in modes.items():
         n = layout[0] if mode == "ring" else len(inp["tokens"])
-        params = nest(f"param/{arch}/", slice(0, n))
+        params = fill(nest(f"param/{arch}/", slice(0, n)), like)
         tokens = jnp.asarray(inp["tokens"][:n], jnp.int32)
         _, b, s = tokens.shape
         param_sh, batch_sh, q_sh = steps.make_shardings(
@@ -117,7 +137,7 @@ for arch, layout in [(a, l) for a in ("qwen2-1.5b", "qwen3-moe-30b-a3b")
             out[f"{tag}/train/{name}/" + "/".join(p.key for p in path)] = np.asarray(leaf)
     if layout != (2, 2):
         continue
-    params0 = nest(f"param/{arch}/", 0)
+    params0 = fill(nest(f"param/{arch}/", 0), like)
     prompt = jnp.asarray(inp["prompt"], jnp.int32)
     B, L = prompt.shape
     pshape = ShapeConfig("prefill", L, B, "prefill")
@@ -146,10 +166,14 @@ def inputs():
     return T.train_inputs()
 
 
+# the reference's archs, each set in a subprocess of its own, both at once
+REFERENCE_SETS = ((T.ARCH, T.MOE), T.SSM_ARCHS)
+
+
 @pytest.fixture(scope="module")
 def reference(inputs, tmp_path_factory):
-    """Starts the JAX subprocess; returns a function that waits for it and
-    loads its outputs."""
+    """Starts the JAX subprocesses (one for each of `REFERENCE_SETS`);
+    returns a function that waits for them and loads their outputs."""
     root = tmp_path_factory.mktemp("reference")
     arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"],
               "prompt": T.serve_inputs()[0].numpy()}
@@ -160,22 +184,29 @@ def reference(inputs, tmp_path_factory):
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([os.path.abspath(SRC),
                                            os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.Popen([sys.executable, "-c", REFERENCE, str(root / "in.npz"),
-                             str(root / "out.npz"), str(T.LR)], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = []
+    for i, archs in enumerate(REFERENCE_SETS):  # output to files: no pipe fills and stalls
+        with open(root / f"log{i}.txt", "w") as log:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", REFERENCE, str(root / "in.npz"), str(root / f"out{i}.npz"),
+                 str(T.LR), ",".join(archs)], env=env, stdout=log, stderr=subprocess.STDOUT),
+                i))
     loaded = {}
 
     def wait():
         if not loaded:
-            out, err = proc.communicate(timeout=300)
-            assert proc.returncode == 0 and "REFERENCE_OK" in out, err[-4000:]
-            loaded.update(np.load(root / "out.npz"))
+            for proc, i in procs:
+                proc.wait(timeout=300)
+                log = (root / f"log{i}.txt").read_text()
+                assert proc.returncode == 0 and "REFERENCE_OK" in log, log[-4000:]
+                loaded.update(np.load(root / f"out{i}.npz"))
         return loaded
 
     yield wait
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 @pytest.fixture(scope="module")
@@ -193,11 +224,34 @@ def _close(got, want, tol, what):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=what)
 
 
-# the kv heads each model rank caches, in rank order (`attention.rank_heads`):
-# qwen2's 6 query heads read kv head h // 3; moe's 4 read h // 2
-CACHE_HEADS = {(T.ARCH, (2, 2)): [1, 1], (T.ARCH, (1, 4)): [1, 2, 1, 0],
-               (T.ARCH, (1, 3)): [1, 2, 1], (T.MOE, (2, 2)): [1, 1],
-               (T.MOE, (1, 4)): [1, 1, 1, 1], (T.MOE, (1, 3)): [2, 2, 2]}
+# the heads each model rank caches, in rank order: a KV cache's kv heads
+# (`attention.rank_heads`: qwen2's 6 query heads read kv head h // 3, moe's
+# 4 read h // 2, zamba2's shared block's 4 their own, all of them at (1, 3)
+# where its wq does not split) and an SSM state's ssm heads
+# (`ssm.rank_ssm_heads`: ceil(16 / T) a rank, 6, 6 and 4 at (1, 3))
+_SSM_HEADS = {(2, 2): [8, 8], (1, 4): [4, 4, 4, 4], (1, 3): [6, 6, 4]}
+CACHE_HEADS = {(T.ARCH, (2, 2)): {"0:attn": [1, 1]},
+               (T.ARCH, (1, 4)): {"0:attn": [1, 2, 1, 0]},
+               (T.ARCH, (1, 3)): {"0:attn": [1, 2, 1]},
+               (T.MOE, (2, 2)): {"0:attn": [1, 1]},
+               (T.MOE, (1, 4)): {"0:attn": [1, 1, 1, 1]},
+               (T.MOE, (1, 3)): {"0:attn": [2, 2, 2]},
+               **{(T.MAMBA, lay): {"0:ssm": h} for lay, h in _SSM_HEADS.items()},
+               **{(T.ZAMBA, lay): {"0:ssm": h, "2:shared": kv} for (lay, h), kv in
+                  zip(_SSM_HEADS.items(), ([2, 2], [1, 1, 1, 1], [4, 4, 4]))}}
+
+
+def _cache_heads(outs, arch, want):
+    """Each cache's heads on the ranks `outs` against `want` ({cache:
+    heads per rank}); an SSM state's conv channels are its heads' x and
+    the B and C of its one group."""
+    cfg = get_reduced(arch)
+    for name, heads in want.items():
+        got = [o[arch]["cache_heads"][name] for o in outs]
+        assert [g[0] for g in got] == heads, (arch, name, got)
+        if name.endswith(":ssm"):
+            assert [g[1] for g in got] == [h * cfg.ssm_head_dim + 2 * cfg.ssm_state
+                                           for h in heads], (arch, name, got)
 
 
 def _train_matches(worlds, reference, arch, layout, mode):
@@ -244,7 +298,7 @@ def _serving_matches_reference(worlds, reference, arch):
     for key in ("prefill", "serve"):
         got = torch.cat([by_rows[r][key] for r in sorted(by_rows)])
         _close(got.numpy(), ref[f"{arch}/{key}"], 1e-5, key)
-    assert [o[arch]["cache_heads"] for o in outs] == CACHE_HEADS[arch, (2, 2)] * 2
+    _cache_heads(outs, arch, {k: v * 2 for k, v in CACHE_HEADS[arch, (2, 2)].items()})
 
 
 def _serving_matches_one_device(worlds, inputs, arch, layout):
@@ -260,7 +314,7 @@ def _serving_matches_one_device(worlds, inputs, arch, layout):
     for o in outs:
         torch.testing.assert_close(o[arch]["serve"], torch.stack(want, dim=1), rtol=1e-5,
                                    atol=1e-5)
-    assert [o[arch]["cache_heads"] for o in outs] == CACHE_HEADS[arch, layout]
+    _cache_heads(outs, arch, CACHE_HEADS[arch, layout])
 
 
 def _train_matches_one_device(worlds, inputs, arch, mode):
@@ -295,6 +349,8 @@ def _f64_matches_one_device(worlds, inputs, arch, layout):
             assert math.isclose(got["loss"], float(loss.detach()), rel_tol=1e-12)
             for (path, g), want in zip(flat_lib.tree_items(got["grads"]), grads):
                 torch.testing.assert_close(g, want, rtol=1e-10, atol=1e-10, msg=str(path))
+    if "0:attn" not in whole["groups"]:
+        return
     ap = M._unbind_groups(whole["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
     want = attention.blocked_attention(ap, T.attention_input(cfg), cfg, block_q=T.BLOCK,
                                        block_kv=T.BLOCK)
@@ -329,7 +385,7 @@ def test_routes_and_tally(worlds):
         assert o["routes"] == {"heads": 0 if padded else layers_run,
                                "padded": layers_run if padded else 0,
                                "gathered_leaves": 4 * layers_run if padded else 0,
-                               "moe": 0, "experts": 0}
+                               "moe": 0, "experts": 0, "ssm": 0, "ssm_heads": 0}
         counts = o["tally"]["_counts"]
         assert counts["model_all_reduce"] > 0 and counts["reduce_scatter"] == 1
         assert (counts["model_all_gather"] > 0) == padded
@@ -407,7 +463,8 @@ def test_moe_experts_and_routes_tally(worlds):
             heads = 0 if layout == (1, 3) else 2 * layers_run  # (1, 3): wq stays whole
             assert routes == {"heads": heads, "padded": 0,
                               "gathered_leaves": 2 * heads if layout == (1, 4) else 0,
-                              "moe": 2 * layers_run, "experts": experts}
+                              "moe": 2 * layers_run, "experts": experts, "ssm": 0,
+                              "ssm_heads": 0}
             assert o[T.MOE]["serve_routes"]["experts"] == experts
             counts = o[T.MOE]["train_dense"]["tally"]["_counts"]
             assert (counts["model_all_reduce"] > 0) == (layout != (1, 3))
@@ -439,6 +496,130 @@ def test_moe_loss_and_gradients_in_f64(worlds, inputs, layout):
     _f64_matches_one_device(worlds, inputs, T.MOE, layout)
 
 
+# -- the ssm and hybrid families over "model" (reduced mamba2-2.7b, zamba2-2.7b)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_tag)
+@pytest.mark.parametrize("mode", [m for m, _, _ in T.MODES])
+def test_ssm_train_step_matches_reference(worlds, reference, arch, layout, mode):
+    _train_matches(worlds, reference, arch, layout, mode)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_ssm_replicated_leaves_equal_across_model_ranks(worlds, inputs, arch, layout):
+    """The norms (and at (1, 3), where neither the 16 heads nor d_inner nor
+    the vocabulary divide, every leaf but mamba2's in_proj and conv)
+    bit for bit the same on every model rank after the step; a block
+    differs between them."""
+    kept = _replicated_equal(worlds, inputs, arch, layout)
+    ssm = ("groups", "0:ssm", "ssm")
+    assert (ssm + ("a_log",) in kept) == (layout == (1, 3))
+    assert (ssm + ("in_proj",) in kept) == (layout == (1, 3) and arch == T.ZAMBA)
+
+
+def test_ssm_heads_and_routes_tally(worlds):
+    """Each rank computes ceil(16 / T) ssm heads in each Mamba2 block: their
+    in_proj, conv_w and conv_b gathered wherever those are blocks (every
+    layout but zamba2's (1, 3), where they stay whole); zamba2's shared
+    block takes the heads route where its 4 heads split."""
+    for layout in WORLDS:
+        o = worlds[layout][0]
+        clients = T.N // layout[0]
+        for arch, blocks in ((T.MAMBA, 2), (T.ZAMBA, 2)):
+            routes = o[arch]["train_dense"]["routes"]
+            cut = not (arch == T.ZAMBA and layout == (1, 3))
+            shared = clients if arch == T.ZAMBA and layout != (1, 3) else 0
+            assert routes == {"heads": shared, "padded": 0,
+                              "gathered_leaves": 3 * blocks * clients if cut else 0,
+                              "moe": 0, "experts": 0, "ssm": blocks * clients,
+                              "ssm_heads": -(-16 // layout[1])}, (arch, layout, routes)
+            counts = o[arch]["train_dense"]["tally"]["_counts"]
+            assert counts["model_all_reduce"] > 0
+            assert (counts["model_reduce_scatter"] > 0) == cut
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_ssm_shard_and_gather_round_trip(worlds, inputs, arch, layout):
+    _round_trip(worlds, inputs, arch, layout)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+def test_ssm_prefill_and_serve_match_reference(worlds, reference, arch):
+    """The reference's conv state holds a uniform block of conv_ch a rank,
+    the port's the rank's own heads' channels: the same values for the
+    heads each computes, and the same logits."""
+    _serving_matches_reference(worlds, reference, arch)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("layout", ((1, 4), (1, 3)), ids=_tag)
+def test_ssm_serve_on_one_client_rank_matches_one_device(worlds, inputs, arch, layout):
+    _serving_matches_one_device(worlds, inputs, arch, layout)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("mode", ["dense", "none"])
+def test_ssm_padded_heads_match_one_device(worlds, inputs, arch, mode):
+    """(1, 3): 6, 6 and 4 heads a rank from replicated head leaves (and
+    zamba2's whole in_proj and conv) against one process."""
+    _train_matches_one_device(worlds, inputs, arch, mode)
+
+
+@pytest.mark.parametrize("arch", T.SSM_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_ssm_loss_and_gradients_in_f64(worlds, inputs, arch, layout):
+    """Under remat, so that each rank recomputes its blocks' gathers and
+    norm sums in the backward. The gated norm's sum reduced forward only
+    would leave each rank's norm gradient partial; a `TP.copy` on B or C
+    would count their gradient T times."""
+    _f64_matches_one_device(worlds, inputs, arch, layout)
+
+
+def test_ssm_rank_without_heads_matches_one_device(inputs):
+    """(1, 5): ranks of 4, 4, 4, 4 and 0 ssm heads (ceil(16 / 5) = 4), the
+    last joining every collective on empty slices (and reading the last
+    group); f64 loss and gradients under remat, and f64 decode, within
+    1e-10 of one process."""
+    outs = mesh_lib.spawn_ranks(T.zero_heads, 5, (1, 5), inputs, backend="gloo", timeout=60,
+                                deadline=240)
+    assert [o["heads"] for o in outs] == [4, 4, 4, 4, 0]
+    cfg = get_reduced(T.MAMBA).with_(dtype="float64")
+    whole = flat_lib.tree_map(lambda p: p[0].double().requires_grad_(),
+                              inputs["params"][T.MAMBA])
+    loss = M.lm_loss(whole, cfg, {"tokens": torch.as_tensor(inputs["tokens"][0])})
+    grads = torch.autograd.grad(loss, flat_lib.tree_leaves(whole))
+    prompt, shape = T.serve_inputs()
+    state = M.init_decode_state(cfg, T.SERVE_BATCH, shape.seq_len, device="cpu")
+    whole = flat_lib.tree_map(torch.Tensor.detach, whole)
+    want = torch.stack([M.decode_step(whole, cfg, prompt[:, t], state)[0]
+                        for t in range(T.SERVE_PROMPT)], dim=1)
+    for o in outs:
+        assert math.isclose(o["loss"], float(loss.detach()), rel_tol=1e-12)
+        for (path, g), w in zip(flat_lib.tree_items(o["grads"]), grads):
+            torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=str(path))
+        torch.testing.assert_close(o["serve"], want, rtol=1e-10, atol=1e-10)
+
+
+def test_ssm_heads_and_groups_of_each_rank():
+    """`rank_ssm_heads`: the padded split, a rank without heads reading the
+    last group, and groups a rank's heads read out of step raising
+    (ROADMAP item 20(g))."""
+    from repro_torch.models import ssm
+
+    cfg = get_reduced(T.MAMBA)  # 16 heads, one group
+    assert [ssm.rank_ssm_heads(cfg, r, 3) for r in range(3)] == [
+        (0, 6, 0, 1), (6, 6, 0, 1), (12, 4, 0, 1)]
+    assert ssm.rank_ssm_heads(cfg, 4, 5) == (16, 0, 0, 1)
+    grouped = cfg.with_(ssm_groups=4)  # 4 heads a group
+    assert ssm.rank_ssm_heads(grouped, 1, 2) == (8, 8, 2, 2)
+    assert ssm.rank_ssm_heads(grouped, 1, 4) == (4, 4, 1, 1)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(g\)"):
+        ssm.rank_ssm_heads(grouped, 0, 3)  # heads 0..5 read groups 0 and 1 out of step
+
+
 def _jax_local_shapes(cfg, mesh):
     """The reference's blocks at (16, 16): its `tree_param_specs` over the
     client-stacked abstract params, each dim divided by its axes' size."""
@@ -460,12 +641,14 @@ def _jax_local_shapes(cfg, mesh):
     return out
 
 
-SPLIT = [a for a in ARCH_IDS if get_config(a).family in ("dense", "moe")]
+SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SPLIT = [a for a in ARCH_IDS if get_config(a).family in SPLIT_FAMILIES]
 
 
 @pytest.mark.parametrize("arch", SPLIT)
 def test_production_blocks_equal_the_reference(arch):
-    """At (16, 16) on ``meta``: the port's blocks of every dense and moe config,
+    """At (16, 16) on ``meta``: the port's blocks of every config split over
+    "model" (zamba2's shared block among them),
     cut at init (`tp.shard_leaf`) and by the dry run (`local_abstract`),
     have the shapes of the reference's `tree_param_specs` shards."""
     from repro.configs.base import get_config as jget_config
@@ -485,20 +668,23 @@ def test_production_blocks_equal_the_reference(arch):
     assert set(want) == {p for p, _ in flat_lib.tree_items(dry)}
 
 
-@pytest.mark.parametrize("arch", SPLIT)
+@pytest.mark.parametrize("arch", [a for a in SPLIT if get_config(a).num_heads])
 def test_every_attention_layer_at_16_ways_computes_its_own_heads(arch):
-    """At (16, 16) model rank 0 of every dense and moe config computes
-    ceil(H / 16) query heads, on the heads route where 16 divides H and
-    the padded one where it cuts a head; a moe rank runs E / 16 experts."""
+    """At (16, 16) model rank 0 of every config with attention split over
+    "model" (zamba2's in its shared block) computes ceil(H / 16) query
+    heads, on the heads route where 16 divides H and the padded one where
+    it cuts a head; a moe rank runs E / 16 experts."""
     from repro_torch.models import attention, moe
 
     cfg = get_config(arch)
     mesh = mesh_lib.Mesh.dry((16, 16), ("data", "model"))
     tp = tp_lib.context(mesh)
-    params = M.init_params(steps._MetaGenerator(), cfg.with_(num_layers=1),
+    one = cfg.shared_attn_every if cfg.family == "hybrid" else 1
+    params = M.init_params(steps._MetaGenerator(), cfg.with_(num_layers=one),
                            shard=tp_lib.sharder(mesh))
     kind = "1:moe" if cfg.family == "moe" else "1:mlp"
-    lay = attention._layout(params["groups"]["0:attn"]["attn"], cfg, tp)
+    ap = params["shared"] if cfg.family == "hybrid" else params["groups"]["0:attn"]
+    lay = attention._layout(ap["attn"], cfg, tp)
     assert lay.hq == -(-cfg.num_heads // 16) and lay.params["wq"].shape[-1] == \
         lay.hq * cfg.resolved_head_dim
     route = "heads" if cfg.num_heads % 16 == 0 else "padded"
@@ -511,7 +697,41 @@ def test_every_attention_layer_at_16_ways_computes_its_own_heads(arch):
         assert mesh.tp_routes["experts"] == cfg.num_experts // 16
 
 
-OTHER = [a for a in ARCH_IDS if get_config(a).family not in ("dense", "moe")]
+@pytest.mark.parametrize("arch", [a for a in SPLIT if get_config(a).family in ("ssm", "hybrid")])
+def test_every_ssm_layer_at_16_ways_computes_its_own_heads(arch):
+    """At (16, 16) model rank 0 of mamba2-2.7b and zamba2-2.7b computes 5 of
+    the 80 ssm heads in a Mamba2 block: 901 (mamba2) or 773 (zamba2)
+    in_proj columns out of its gathered block, `ssd_chunk` on ``meta`` at
+    H_loc 5, and a partial output of the whole width."""
+    from repro_torch.kernels import work
+    from repro_torch.models import ssm
+
+    cfg = get_config(arch)
+    mesh = mesh_lib.Mesh.dry((16, 16), ("data", "model"))
+    tp = tp_lib.context(mesh)
+    params = M.init_params(steps._MetaGenerator(), steps.depth_config(cfg, 1),
+                           shard=tp_lib.sharder(mesh))
+    bp = flat_lib.tree_map(lambda t: t[0], params["groups"]["0:ssm"]["ssm"])
+    heads, P, N = 5, cfg.ssm_head_dim, cfg.ssm_state
+    assert ssm.rank_ssm_heads(cfg, 0, 16) == (0, heads, 0, 1)
+    lay, h, g = ssm._layout(bp, cfg, tp)
+    assert (h, g) == (heads, 1)
+    assert lay["in_proj"].shape[-1] == 2 * heads * P + 2 * N + heads == \
+        {"ssm": 901, "hybrid": 773}[cfg.family]
+    assert lay["conv_w"].shape[0] == heads * P + 2 * N
+    assert bp["in_proj"].shape[-1] == (2 * cfg.d_inner + 2 * N + cfg.ssm_heads) // 16
+    calls = []
+    x = torch.empty((2, 256, cfg.d_model), dtype=cfg.torch_dtype, device="meta")
+    with work.sink(lambda kernel, w: calls.append((kernel, w))):
+        out = ssm.ssm_block(bp, x, cfg, tp=tp)
+    # (Bb 2, H_loc 5, one group, 2 chunks of 128)
+    assert calls == [("ssd_chunk", work.ssd_chunk(2, heads, 1, 2, cfg.ssm_chunk, N, P,
+                                                  x.element_size()))]
+    assert out.shape == x.shape
+    assert mesh.tp_routes["ssm"] == 2 and mesh.tp_routes["ssm_heads"] == heads
+
+
+OTHER = [a for a in ARCH_IDS if get_config(a).family not in SPLIT_FAMILIES]
 
 
 @pytest.mark.parametrize("arch", OTHER)
@@ -522,9 +742,9 @@ def test_other_families_raise_naming_their_item(arch):
     for make in (lambda: steps.make_train_step(cfg, mesh),
                  lambda: steps.make_prefill_step(cfg, shape, mesh),
                  lambda: steps.make_serve_step(cfg, shape, mesh)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([cd]\)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(d\)"):
             make()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\([cd]\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(d\)"):
         dryrun.lower_pair(arch, "decode_32k", cfg=cfg, verbose=False)
     steps.make_train_step(cfg, mesh_lib.Mesh.dry((2, 1), ("data", "model")))  # clients only
 
