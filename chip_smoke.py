@@ -39,7 +39,9 @@ Phases (any failure exits non-zero):
                qwen2-1.5b and olmoe-1b-7b planes at 2 layers, phase 23's
                (a) and (d); J 1, N_loc 2, M 2 at one model rank's
                mamba2-2.7b plane at 2 layers and zamba2-2.7b's at 6,
-               phase 23's (f) and (g)) in f32
+               phase 23's (f) and (g); and at llama-3.2-vision-11b's
+               plane at one group, K % 4 = 1, and musicgen-large's at 2
+               layers, phase 23's (i) and (j)) in f32
                and bf16, within 1e-5 of the largest |value| of the plain
                version, compared in column slices; `ssd_chunk` also at
                phase 22's mamba2 shapes (nc 32 at batch 1 and 4, nc 256)
@@ -281,7 +283,18 @@ Phases (any failure exits non-zero):
                against one process within `TP_SSM_SERVE_TOL` ((d), (f),
                (g) and (b) in one (1, 2) world); (h) as (c) for mamba2-2.7b
                (`TP_DRY_SSM`: 5 ssm heads a rank, the loss in chunks of
-               1,024 positions), and zamba2-2.7b's share reckoned;
+               1,024 positions), and zamba2-2.7b's share reckoned; (i) as
+               (d) for llama-3.2-vision-11b at one group (5 of 40 layers,
+               the cross layer among them), its tanh gates set to
+               `TP_GATE` in the ranks and the reference, 16 query and 4 kv
+               heads a rank; (j) as (d) for musicgen-large at 2 of 48
+               layers (frame embeddings in, the head vocab-parallel);
+               both served in f32 in that world against one process
+               within `TP_CROSS_SERVE_TOL` (the vlm's cross K/V on the
+               rank's kv heads, musicgen fed back `TP_FEED` tokens'
+               embeddings looked up vocab-parallel); (k) as (c) for the
+               vlm (`TP_DRY_CROSS`: 2 query heads and 1 kv head a rank,
+               `wk`/`wv` gathered), and musicgen-large's share reckoned;
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -316,9 +329,9 @@ phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
 and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
 the ninth the build, phase 2's rectangular drain and `ssd_chunk`
 checks, phase 23 and its drain shapes' phase 9 rows (with
-``--tp-faults``, then (a)'s, (d)'s and (f)'s checks against the planted
-faults of `TP_FAULTS`, each of which must fail them; ``--tp-faults``
-alone runs only those); the
+``--tp-faults``, then (a)'s, (d)'s, (f)'s and (i)'s checks against the
+planted faults of `TP_FAULTS`, each of which must fail them, and
+`TP_TRAP` beside, logged; ``--tp-faults`` alone runs only those); the
 tenth phase 16's comparison at other zamba2 depths, block
 by block (the only
 run that reproduces the measurement behind `FAMILY_CONTROLS`; exits 1
@@ -3515,6 +3528,13 @@ RECT_TP_MOE = (1, 2, 2, ("olmoe-1b-7b", 2, 2), 1)
 RECT_TP_SSM = {"mamba2 plane of one model rank": (1, 2, 2, ("mamba2-2.7b", 2, 2), 1),
                "zamba2 plane of one model rank": (1, 2, 2, ("zamba2-2.7b", 1, 2), 1)}
 RECT_DRY = {f"mamba2 plane at {d} layer(s)": (1, 1, 64, ("mamba2-2.7b", d), 1) for d in (1, 2)}
+# phase 23 (i)'s and (j)'s: llama-3.2-vision-11b's plane at one group (5
+# layers) and musicgen-large's at 2 layers as one of 2 model ranks holds
+# it, 2 senders against 2 receivers on one client rank. The vlm's K =
+# 1,070,641,153 is odd (K % 4 = 1: its rows start 4-byte aligned in f32,
+# 2-byte in bf16), the first such rectangular tile; musicgen's K % 4 = 0
+RECT_TP_CROSS = {"vlm plane of one model rank": (1, 2, 2, ("llama-3.2-vision-11b", 1, 2), 1),
+                 "musicgen plane of one model rank": (1, 2, 2, ("musicgen-large", 2, 2), 1)}
 # phase 21: the client mesh (`repro_torch.launch.mesh`). (a) the sharded
 # drain at fig4's window (J 3, N = M 25, K 146,447), over NCCL at one rank
 # per card and over gloo at MESH_RANKS ranks sharing the card; (c) fig4's
@@ -3597,16 +3617,16 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`, `RECT_TP_SSM`) in
-    f32 and bf16, against its plain version in column slices, within RTOL
-    of the largest |value|."""
+    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`, `RECT_TP_SSM`,
+    `RECT_TP_CROSS`) in f32 and bf16, against its plain version in column
+    slices, within RTOL of the largest |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
     for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
                          *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP),
                          ("olmoe plane of one model rank", RECT_TP_MOE),
-                         *RECT_TP_SSM.items()):
+                         *RECT_TP_SSM.items(), *RECT_TP_CROSS.items()):
         for i, dtype in enumerate((torch.float32, torch.bfloat16)):
             w, ring, slots = rect_case(torch, shape, dtype, seed=2000 + i)
             got = ops.gossip_drain(w, ring, slots)
@@ -3635,8 +3655,8 @@ def rect_time_cases(mesh=None, tp=None):
     if tp is not None:
         cases += [("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]),
                   ("olmoe plane of one model rank", RECT_TP_MOE, tp["moe_collective_ms"])]
-        cases += [(label, shape, tp["ssm_collective_ms"][label])
-                  for label, shape in RECT_TP_SSM.items()]
+        cases += [(label, shape, tp["plane_collective_ms"][label])
+                  for label, shape in (*RECT_TP_SSM.items(), *RECT_TP_CROSS.items())]
     return cases
 
 
@@ -4147,7 +4167,7 @@ F32_EPS = 2.0 ** -23  # one rounding of an f32 value, relative
 # (e) the dry run's (16, 16) pair of the moe family at depths 1 and 2:
 # 8 of qwen3-moe-30b-a3b's 128 experts a rank
 TP_DRY_MOE, TP_DRY_MOE_EXPERTS = ("qwen3-moe-30b-a3b", "train_4k", "ring", 8192), 8
-# `--tp-faults`: each planted in one run of (a), (d) or (f), each must fail
+# `--tp-faults`: each planted in one run of (a), (d), (f) or (i), each must fail
 # its check. weight-shard: model rank 1 adds TP_FAULT_SHIFT of its largest
 # |value| to one element of its w_down shard after step 1; router-twice: a
 # `TP.copy` on the router, its gradient summed over the 2 model ranks;
@@ -4176,12 +4196,12 @@ TP_DRY_MOE, TP_DRY_MOE_EXPERTS = ("qwen3-moe-30b-a3b", "train_4k", "ring", 8192)
 # decode steps in f32 at that depth against one process, within
 # TP_SSM_SERVE_TOL of the largest |logit| (calls 1-2: 2.1e-05 and
 # 4.0e-06). Phase 2 holds the drain at both planes (`RECT_TP_SSM`) and
-# `ssd_chunk` at their local heads. (d), (f), (g) and the servings of (b)
-# and (g) share one (1, 2) world: one start and one first step's warm-up
-# (~13 s a world) for all of them. (g) runs 1 step without remat (the
-# f32 gathers staged through the host were 95% of its step, twice over
-# with remat; (f) keeps both steps and remat). (tag, arch, layers, config
-# overrides, argv, zero-init bound, f32 bound)
+# `ssd_chunk` at their local heads. (d), (f), (g), (i), (j) and the
+# servings of (b), (g), (i) and (j) share one (1, 2) world: one start and
+# one first step's warm-up (~13 s a world) for all of them. (g) runs 1
+# step without remat (the f32 gathers staged through the host were 95% of
+# its step, twice over with remat; (f) keeps both steps and remat). (tag,
+# arch, layers, config overrides, argv, zero-init bound, f32 bound)
 TP_SSM_HEADS = 40
 TP_SSM_TOLS, TP_HYBRID_TOLS = (0.18, 0.09), (3e-4, 3e-4)
 TP_SSM = (("f", "mamba2-2.7b", 2, None, [], *TP_SSM_TOLS),
@@ -4191,15 +4211,17 @@ TP_SSM_SERVE = ("zamba2-2.7b", 6)
 TP_SSM_SERVE_TOL = 6e-5
 
 
-def tp_ssm_modes():
-    """(f)'s and (g)'s `tp_world` modes, and their checks by label."""
+def tp_family_modes():
+    """(f)'s, (g)'s, (i)'s and (j)'s `tp_world` modes, and their checks by
+    label."""
     modes, checks = [], {}
-    for _, arch, layers, overrides, argv, zero_tol, f32_tol in TP_SSM:
+    for _, arch, layers, overrides, argv, *tols in TP_SSM + TP_CROSS:
         label = f"{arch} dense"
         modes.append((label, arch, layers, overrides, ["--arch", arch, "--clients", "2",
                                                        "--mix", "dense", "--topology",
                                                        "complete", *argv], None))
-        checks[label] = ({"ssm_heads": TP_SSM_HEADS}, zero_tol, f32_tol)
+        checks[label] = (({"ssm_heads": TP_SSM_HEADS}, *tols) if tols else
+                         (TP_CROSS_ROUTES, TP_PARAM_TOL, TP_F32_TOL))
     return modes, checks
 
 
@@ -4211,27 +4233,70 @@ def tp_ssm_modes():
 # zamba2-2.7b's share (`TP_DRY_HYBRID`) reckoned on `meta` and printed
 TP_DRY_SSM, TP_DRY_SSM_HEADS = ("mamba2-2.7b", "train_4k", "ring", 8192, 1024), 5
 TP_DRY_HYBRID = ("zamba2-2.7b", "train_4k", "ring", 8192, 0)
+# (i) `train.main` on (d)'s (1, 2) world, llama-3.2-vision-11b at full width
+# and one group of its 40 layers (4 self-attention layers, the cross layer
+# and 5 MLPs), 2 clients, the dense mix, each cross layer's tanh gate set
+# to TP_GATE at init in the ranks and in the single-process reference (at
+# its init of 0 the layer adds nothing and its projections' gradients are
+# exactly 0, so a wrong cross layer would pass); (j) the same for
+# musicgen-large at 2 of its 48 layers (frame embeddings in, the head
+# vocab-parallel, the unused token embedding's update zero on every rank).
+# (d)'s checks, with (a)'s zero-init bound; the routes held: the heads
+# route in every attention layer (32 query heads a layer over 2 ranks, and
+# 8 or 32 kv heads: whole heads, nothing gathered). Read on an H100
+# (PERF.md §6), bf16 and stable: the vlm's losses 3.9e-05,
+# its embedding 2.7e-03 of its largest |value|, a norm 2.0e-02 of itself;
+# musicgen's 4.0e-05, 5.6e-04 and 1.4e-02, all under (a)'s bounds. (tag,
+# arch, layers, config overrides, argv)
+TP_GATE = 0.5
+TP_CROSS = (("i", "llama-3.2-vision-11b", 5, None, []),
+            ("j", "musicgen-large", 2, None, []))
+TP_CROSS_ROUTES = {"padded": 0, "gathered_leaves": 0}
+# then both served in f32 in the same world as (b): the vlm with patch
+# embeddings and its cross K/V on the rank's kv heads, musicgen with frame
+# embeddings as its prompt and TP_FEED decode steps past them fed back
+# their tokens' embeddings, looked up vocab-parallel (`M.token_embeds`);
+# (arch, layers) and the bound on the largest gap / largest |logit|, ~2.6x
+# its reading on an H100 (PERF.md §6: the vlm's prefill 2.474e-06,
+# musicgen's 8.214e-07)
+TP_CROSS_SERVE = (("llama-3.2-vision-11b", 5), ("musicgen-large", 2))
+TP_CROSS_SERVE_TOL = {"llama-3.2-vision-11b": 6.5e-6, "musicgen-large": 2.2e-6}
+TP_FEED = 2
+# (k) the dry run's (16, 16) pair of the vlm, as (c): 2 of the 32 query
+# heads a rank in every layer, the cross layer's too, its 8 kv heads cut
+# inside a head (each rank gathers wk and wv and slices the kv head its
+# heads read); the full-depth share reckoned on the CPU at 52.85 GiB (its
+# whole logits: 128,256 / 16 divides), so no loss in chunks. Then
+# musicgen-large's share reckoned on `meta` and printed
+TP_DRY_CROSS, TP_DRY_CROSS_HEADS = ("llama-3.2-vision-11b", "train_4k", "ring", 8192, 0), 2
+TP_DRY_AUDIO = ("musicgen-large", "train_4k", "ring", 8192, 0)
+# cross-unreduced: the cross layer's output product left partial on each
+# rank (its `TP.reduce` the identity), the other layers' reduced
 TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"),
-             ("norm-forward-only", "f"))
+             ("norm-forward-only", "f"), ("cross-unreduced", "i"))
+# and the same fault at the cross layer's init gate of 0, run beside it
+# under `--tp-faults` to show what a zero gate hides (not held)
+TP_TRAP = "cross-unreduced at gate 0"
 TP_FAULT_SHIFT = 1e-2
 
 _REFS = {}
 
 
-def single_reference(torch, cfg, argv, none, steps):
+def single_reference(torch, cfg, argv, none, steps, gate=TP_GATE):
     """The single-process trainer on `argv` (a mesh run's CLI without
-    --mesh-backend) for `steps` steps, its plane unmixed with `none`: per
+    --mesh-backend) for `steps` steps, its plane unmixed with `none`, a
+    vlm's cross layers' gates set to `gate` at init (`gate_init`): per
     step, each client's loss and delta-row digest (`row_digest`), and the
     params after step 1 saved to a file on the host. Cached by config,
-    argv and `none`: phase 21 (b) and phase 23 (a) share one run. Returns
-    (record, path)."""
+    argv, `none` and `gate`: phase 21 (b) and phase 23 (a) share one run.
+    Returns (record, path)."""
     import tempfile
 
     from repro_torch.core import flat as flat_lib
     from repro_torch.core import mixing
     from repro_torch.launch import train
 
-    key = (cfg, tuple(argv), none)
+    key = (cfg, tuple(argv), none, gate)
     if key in _REFS and len(_REFS[key][0]) >= steps:
         return _REFS[key]
     if "dir" not in _REFS:
@@ -4252,21 +4317,68 @@ def single_reference(torch, cfg, argv, none, steps):
 
     argv = [a for a in argv if a not in ("--mesh-backend", "gloo")] + ["--steps", str(steps)]
     mixing.mix_plane, train.train_step_clients = mix_plane, train_step_clients
+    ungate = gate_init(gate)
     try:
         train.main(argv, cfg=cfg)
     finally:
+        ungate()
         mixing.mix_plane, train.train_step_clients = real
     torch.cuda.empty_cache()
     _REFS[key] = record, path
     return record, path
 
 
+def mode_gate(fault):
+    """The cross layers' init gate of a phase 23 run planted with `fault`."""
+    return 0.0 if fault == TP_TRAP else TP_GATE
+
+
+def gate_init(gate):
+    """Make `M.init_params` set every cross layer's tanh gate to `gate` in
+    this process (a vlm's; other models have none); returns the function
+    that removes it."""
+    from repro_torch.models import model as M
+
+    real = M.init_params
+
+    def init_params(*a, **k):
+        params = real(*a, **k)
+        for name, block in params["groups"].items():
+            if name.endswith(":cross"):
+                block["gate"].fill_(gate)
+        return params
+
+    M.init_params = init_params
+    return lambda: setattr(M, "init_params", real)
+
+
 def plant(fault):
-    """Install `fault` of `TP_FAULTS` (moe's or ssm's) in this process;
+    """Install `fault` of `TP_FAULTS` (or `TP_TRAP`) in this process;
     returns the function that removes it."""
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
+    if fault in ("cross-unreduced", TP_TRAP):
+        from repro_torch.models import attention
+
+        real = attention.full_attention
+
+        class NoReduce:  # the rank's `TP`, its reduce the identity
+            def __init__(self, tp):
+                self.tp = tp
+
+            def __getattr__(self, name):
+                return getattr(self.tp, name)
+
+            @staticmethod
+            def reduce(x):
+                return x
+
+        def full_attention(*a, cross=False, tp=None, **k):
+            return real(*a, cross=cross, tp=NoReduce(tp) if cross and tp else tp, **k)
+
+        attention.full_attention = full_attention
+        return lambda: setattr(attention, "full_attention", real)
     if fault == "router-twice":
         real = M.moe_block
 
@@ -4385,12 +4497,13 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
         steps.mesh_mix, train.train_step_clients = mesh_mix, train_step_clients
         # 4 clients on (2, 2): the reference's rule lays 4 ranks of 4 clients as (4, 1)
         train.mesh_layout = lambda world, clients: layout
-        unplant = plant(fault)
+        unplant, ungate = plant(fault), gate_init(mode_gate(fault))
         torch.cuda.reset_peak_memory_stats()
         ops.gossip_drain.launches = 0
         try:
             losses = train.main(MESH_TRAIN_ARGS + argv, cfg=cfg)
         finally:
+            ungate()
             unplant()
             steps.mesh_mix, train.train_step_clients = real_mix, real_clients
             train.mesh_layout = real_layout
@@ -4521,7 +4634,7 @@ def tp_world(torch, tag, layout, modes, steps=1, serves=()):
     for label, arch, layers, overrides, argv, fault in modes:
         record, path = single_reference(torch, tp_config(arch, layers, overrides),
                                         tp_reference_argv(MESH_TRAIN_ARGS + argv),
-                                        "none" in argv, steps)
+                                        "none" in argv, steps, mode_gate(fault))
         refs[label] = record[0]["losses"]
         rank_modes.append((label, arch, layers, overrides, argv, path, fault))
     t0 = time.perf_counter()
@@ -4575,50 +4688,73 @@ def tp_dry(torch, tag, pair, failures):
 
 
 def tp_serve_inputs(torch, arch, layers):
-    """Phase 23 (b)'s or (g)'s config (f32, `layers` of `arch`'s layers or
-    all of them), prompt and shapes, alike in every process."""
+    """Phase 23 (b)'s, (g)'s, (i)'s or (j)'s config (f32, `layers` of
+    `arch`'s layers or all of them), prompt and shapes, alike in every
+    process: the prompt's tokens (an audio model: its frame embeddings)
+    and a vlm's patch embeddings."""
     from repro_torch.configs.base import ShapeConfig, get_config
 
     cfg = get_config(arch).with_(dtype="float32")
     if layers is not None:
         cfg = cfg.with_(num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 231)
-    prompt = torch.randint(0, cfg.vocab_size, (TP_SERVE_BATCH, TP_SERVE_PROMPT), generator=gen,
-                           device="cuda")
-    return (cfg, prompt, ShapeConfig("prefill", TP_SERVE_PROMPT, TP_SERVE_BATCH, "prefill"),
+    batch = prompt_batch(torch, cfg, gen, TP_SERVE_BATCH, TP_SERVE_PROMPT, "cuda")
+    return (cfg, batch, ShapeConfig("prefill", TP_SERVE_PROMPT, TP_SERVE_BATCH, "prefill"),
             ShapeConfig("serve", TP_SERVE_PROMPT, TP_SERVE_BATCH, "decode"))
 
 
-def tp_serve(torch, mesh, arch="qwen2-1.5b", layers=None):
+def tp_serve(torch, mesh, arch="qwen2-1.5b", layers=None, fed=None):
     """Prefill and `TP_DECODE_STEPS` decode steps of `arch` at `layers`
-    layers on `mesh` (None: one process); the logits on the host, the
+    layers on `mesh` (None: one process), a vlm's gates at `TP_GATE` and
+    its cross K/V the rank's kv heads; an audio model then decodes
+    `TP_FEED` steps more, each fed back a token's embedding
+    (`M.token_embeds`, vocab-parallel on the mesh): the argmax of the last
+    logits, or the tokens `fed` (another run's, so that one process feeds
+    what the ranks fed). The logits on the host, the tokens fed, the
     times, and the heads of each cache of group 0 (a KV cache's kv heads,
-    an SSM state's ssm heads)."""
+    an SSM state's ssm heads, the cross K/V's kv heads)."""
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.models.attention import KVCache
     from repro_torch.sharding import tp as tp_lib
 
-    cfg, prompt, pshape, dshape = tp_serve_inputs(torch, arch, layers)
-    params = M.init_params(SEED + 230, cfg, "cuda", shard=tp_lib.sharder(mesh))
+    cfg, batch, pshape, dshape = tp_serve_inputs(torch, arch, layers)
+    ungate = gate_init(TP_GATE)
+    try:
+        params = M.init_params(SEED + 230, cfg, "cuda", shard=tp_lib.sharder(mesh))
+    finally:
+        ungate()
     prefill_step = steps.make_prefill_step(cfg, pshape, mesh)
-    prefill_step(params, {"tokens": prompt})  # warm-up
+    prefill_step(params, batch)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill = prefill_step(params, {"tokens": prompt})
+    prefill = prefill_step(params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     serve = steps.make_serve_step(cfg, dshape, mesh)
     state = M.init_decode_state(cfg, TP_SERVE_BATCH, TP_SERVE_PROMPT, device="cuda", mesh=mesh)
-    logits = []
+    cross = None
+    if cfg.family == "vlm":
+        cross = M.init_cross_kv(params, cfg, batch["cross_embeds"], mesh)
+    logits, fed_now = [], []
     for t in range(TP_DECODE_STEPS):
-        lg, state = serve(params, prompt[:, t], state)
+        x = batch["embeds"][:, t:t + 1] if cfg.embeds_in else batch["tokens"][:, t]
+        lg, state = serve(params, x, state, cross)
+        logits.append(lg)
+    for j in range(TP_FEED if cfg.embeds_in else 0):
+        tok = torch.argmax(logits[-1], dim=-1) if fed is None else fed[:, j].to(lg.device)
+        fed_now.append(tok)
+        lg, state = serve(params, M.token_embeds(params, cfg, tok, mesh), state, cross)
         logits.append(lg)
     torch.cuda.synchronize()
+    heads = {name: c.k.shape[-2] if isinstance(c, KVCache) else c.h.shape[-3]
+             for name, c in state.caches.items()}
+    if cross is not None:
+        heads["cross"] = cross["k"].shape[-2]
     return dict(prefill=prefill.cpu(), decode=torch.stack(logits, 1).cpu(),
-                prefill_s=t1 - t0, decode_s=(time.perf_counter() - t1) / TP_DECODE_STEPS,
-                heads={name: c.k.shape[-2] if isinstance(c, KVCache) else c.h.shape[-3]
-                       for name, c in state.caches.items()})
+                fed=torch.stack(fed_now, 1).cpu() if fed_now else None,
+                prefill_s=t1 - t0, decode_s=(time.perf_counter() - t1) / len(logits),
+                heads=heads)
 
 
 def tp_rank_serve(rank, world, arch, layers):
@@ -4636,9 +4772,10 @@ def tp_rank_serve(rank, world, arch, layers):
 
 
 def tp_served(torch, tag, outs, arch, layers, tol):
-    """(b)'s or (g)'s check: the served logits of `outs` (each rank's)
-    against one process within `tol` of the largest |logit|; (ok, row)."""
-    one = tp_serve(torch, None, arch, layers)
+    """(b)'s, (g)'s, (i)'s or (j)'s check: the served logits of `outs`
+    (each rank's) against one process within `tol` of the largest
+    |logit|; (ok, row)."""
+    one = tp_serve(torch, None, arch, layers, fed=outs[0]["fed"])
     gaps = {k: max(rel_gap(o[k], one[k]) for o in outs) for k in ("prefill", "decode")}
     ok = all(g <= tol for g in gaps.values()) and all(
         bool(torch.isfinite(o["decode"]).all()) for o in outs)
@@ -4657,6 +4794,16 @@ def tp_served(torch, tag, outs, arch, layers, tol):
                     one_prefill_s=one["prefill_s"], one_decode_s=one["decode_s"])
 
 
+def cross_heads(cfg, size):
+    """Each of `size` model ranks' (query heads, kv heads) in an attention
+    layer of `cfg` (`attention.rank_heads`), for phase 23's logs."""
+    from repro_torch.models import attention
+
+    hd = cfg.resolved_head_dim
+    return [attention.rank_heads(cfg, r, size, cfg.num_heads * hd % size == 0,
+                                 cfg.num_kv_heads % size == 0)[1::2] for r in range(size)]
+
+
 def phase_tp(torch):
     """Phase 23 (see `TP_MODES` and the constants above them): returns
     its numbers for the kernels line, phase 9 and PERF.md."""
@@ -4666,15 +4813,17 @@ def phase_tp(torch):
     ssd_launches = 0
 
     # (a) the (2, 2) world of qwen2-1.5b; the (1, 2) world of (d) olmoe,
-    # (f) mamba2 and (g) zamba2, which then serves (b) qwen2 and (g) zamba2
-    ssm_modes, checks = tp_ssm_modes()
+    # (f) mamba2, (g) zamba2, (i) the vlm and (j) musicgen, which then
+    # serves (b) qwen2, (g) zamba2, (i) the vlm and (j) musicgen
+    family_modes, checks = tp_family_modes()
     checks.update({label: (None, TP_PARAM_TOL, TP_F32_TOL) for label, _ in TP_MODES})
     checks["moe dense"] = ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL)
     worlds = [("a", TP_SHAPE, [(label, "qwen2-1.5b", MESH_LAYERS, None, argv, None)
                                for label, argv in TP_MODES], ()),
-              ("d, f, g", TP_MOE_SHAPE,
-               [("moe dense", TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS, None), *ssm_modes],
-               (("qwen2-1.5b", None), TP_SSM_SERVE))]
+              ("d, f, g, i, j", TP_MOE_SHAPE,
+               [("moe dense", TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS, None),
+                *family_modes],
+               (("qwen2-1.5b", None), TP_SSM_SERVE, *TP_CROSS_SERVE))]
     for tag, layout, modes, serves in worlds:
         t0 = time.perf_counter()
         outs, refs = tp_world(torch, tag, layout, modes, serves=serves)
@@ -4686,6 +4835,11 @@ def phase_tp(torch):
             if not ok:
                 failures.append(f"({tag}) {label}")
             launches += v["launches"]
+        for _, arch, layers, overrides, _ in (w for w in TP_CROSS
+                                              if any(m[1] == w[1] for m in modes)):
+            log(f"  ({tag}) {arch} dense: (query heads, kv heads) a model rank in each "
+                f"attention layer, the cross layer's too: "
+                f"{cross_heads(tp_config(arch, layers, overrides), layout[1])}")
         ssd_launches += sum(o["ssd_chunk"] for o in outs)
         for serve in serves:
             served[serve] = [o["serve"][serve] for o in outs]
@@ -4702,25 +4856,28 @@ def phase_tp(torch):
         ms=1e3 * rows["moe dense"]["collective_s"],
         what=f"gloo collectives of a {TP_MOE_SHAPE} step of {TP_MOE_ARCH} at {TP_MOE_LAYERS} "
         f"layers (the model axis's; a client group of one sends nothing), rank 0, a step")
-    res["ssm_collective_ms"] = {
+    res["plane_collective_ms"] = {
         label: dict(ms=1e3 * rows[f"{arch} dense"]["collective_s"],
                     what=f"gloo collectives of a {TP_MOE_SHAPE} step of {arch} at {layers} "
                     f"layers (the model axis's), rank 0, a step")
-        for label, (_, arch, layers, *_) in zip(RECT_TP_SSM, TP_SSM)}
+        for label, (_, arch, layers, *_) in zip((*RECT_TP_SSM, *RECT_TP_CROSS),
+                                                TP_SSM + TP_CROSS)}
 
-    # (b) and (g)'s servings, in the (1, 2) world, against one process
+    # (b), (g), (i) and (j)'s servings, in the (1, 2) world, against one process
     res["serve"] = {}
     for tag, (arch, layers), tol in (("b", ("qwen2-1.5b", None), TP_SERVE_TOL),
-                                     ("g", TP_SSM_SERVE, TP_SSM_SERVE_TOL)):
+                                     ("g", TP_SSM_SERVE, TP_SSM_SERVE_TOL),
+                                     *(("ij"[i], sv, TP_CROSS_SERVE_TOL[sv[0]])
+                                       for i, sv in enumerate(TP_CROSS_SERVE))):
         ok, res["serve"][arch] = tp_served(torch, tag, served[arch, layers], arch, layers, tol)
         if not ok:
             failures.append(f"({tag}) serving")
         torch.cuda.empty_cache()
     del served
 
-    # (c), (e) and (h) the dry run's default mesh
+    # (c), (e), (h) and (k) the dry run's default mesh
     for tag, key, pair in (("c", "dry", TP_DRY), ("e", "dry_moe", TP_DRY_MOE),
-                           ("h", "dry_ssm", TP_DRY_SSM)):
+                           ("h", "dry_ssm", TP_DRY_SSM), ("k", "dry_cross", TP_DRY_CROSS)):
         t0 = time.perf_counter()
         res[key] = row = tp_dry(torch, tag, pair, failures)
         routes = row["tp_routes"]
@@ -4732,14 +4889,27 @@ def phase_tp(torch):
                            or not row["launches"]["ssd_chunk"]):
             failures.append(f"(h) routes {routes}, launches {row['launches']}: "
                             f"{TP_DRY_SSM_HEADS} ssm heads a rank, ssd_chunk launched")
+        if tag == "k":
+            from repro_torch.configs.base import get_config
+
+            heads = cross_heads(get_config(pair[0]), 16)[0]
+            log(f"  (k) (query heads, kv heads) of model rank 0 in each attention layer: "
+                f"{heads}")
+            if (routes["padded"] or not routes["heads"] or not routes["gathered_leaves"]
+                    or heads != (TP_DRY_CROSS_HEADS, 1)):
+                failures.append(f"(k) routes {routes}, heads {heads}: the heads route, "
+                                f"{TP_DRY_CROSS_HEADS} heads a rank, wk and wv gathered")
         ssd_launches += row["launches"]["ssd_chunk"]
         log(f"phase 23 ({tag}): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res["dry_hybrid"] = row = tp_dry_reckon(TP_DRY_HYBRID)
-    if row["tp_routes"]["ssm_heads"] != TP_DRY_SSM_HEADS:
-        failures.append(f"(h) zamba2 routes {row['tp_routes']}")
-    log(f"phase 23 (h) zamba2: {time.perf_counter() - t0:.1f} s")
+    for tag, key, pair in (("h", "dry_hybrid", TP_DRY_HYBRID), ("k", "dry_audio", TP_DRY_AUDIO)):
+        t0 = time.perf_counter()
+        res[key] = row = tp_dry_reckon(tag, pair)
+        routes = row["tp_routes"]
+        if (routes["ssm_heads"] != TP_DRY_SSM_HEADS if tag == "h"
+                else routes["padded"] or not routes["heads"]):
+            failures.append(f"({tag}) {pair[0]} routes {routes}")
+        log(f"phase 23 ({tag}) {pair[0]}: {time.perf_counter() - t0:.1f} s")
     res["ssd_chunk"] = ssd_launches
     log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s; ssd_chunk "
         f"launches {ssd_launches} (the ssm worlds' ranks and (h)'s runs)")
@@ -4748,48 +4918,67 @@ def phase_tp(torch):
     return res
 
 
-def tp_dry_reckon(pair):
-    """(h)'s second part: the (16, 16) share of `pair` reckoned on ``meta``
-    alone, its row printed; returns the row."""
+def tp_dry_reckon(tag, pair):
+    """(h)'s or (k)'s second part: the (16, 16) share of `pair` reckoned on
+    ``meta`` alone, its row printed; returns the row."""
     from repro_torch.launch import dryrun
 
     arch, shape, mix, threshold, chunk = pair
     row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold,
                             vocab_chunk=chunk, verbose=False)
-    log(f"phase 23 (h) reckoned row: {json.dumps(row)}")
+    log(f"phase 23 ({tag}) reckoned row: {json.dumps(row)}")
     coll = row["coll_breakdown"]
-    log(f"  (h) dry run {arch} x {shape} x {row['mesh']} ({mix}) reckoned on meta: full-depth "
-        f"peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, bound {row['t_bound_s']:.6f} s, "
-        f"useful_flops_ratio {row['useful_flops_ratio']:.3f}; routes {row['tp_routes']}; "
-        f"model-axis bytes {coll['model_all_reduce']} all-reduce, {coll['model_all_gather']} "
-        f"all-gather, {coll['model_reduce_scatter']} reduce-scatter; reckoned in "
-        f"{row['t_compile_s']:.1f} s")
+    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}) reckoned on meta: "
+        f"full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, bound "
+        f"{row['t_bound_s']:.6f} s, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
+        f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
+        f"{coll['model_all_gather']} all-gather, {coll['model_reduce_scatter']} "
+        f"reduce-scatter; reckoned in {row['t_compile_s']:.1f} s")
     return row
+
+
+def cross_reading(v):
+    """The largest gap / largest |value| among a verdict's cross-layer
+    projections (wq, wk, wv, wo of the ``:cross`` blocks) after step 1,
+    over the ranks: (reading, path)."""
+    return max(((gap / max(scale, 1e-30), path) for r in v["runs"]
+                for path, (gap, scale) in r["steps"][0]["gaps"].items()
+                if len(path) > 2 and path[1].endswith(":cross") and path[-1].startswith("w")),
+               default=(0.0, None))
 
 
 def tp_faults(torch):
     """`--tp-faults`: each of `TP_FAULTS` planted in its world, held by
-    (a)'s, (d)'s or (f)'s checks; returns the faults that passed them."""
+    (a)'s, (d)'s, (f)'s or (i)'s checks, and `TP_TRAP` beside
+    cross-unreduced (logged, not held); returns the faults that passed
+    them."""
     passed = []
-    ssm_modes, checks = tp_ssm_modes()
-    (_, arch, layers, overrides, argv, _), = [m for m in ssm_modes
-                                              if m[1] == TP_SSM[0][1]]  # (f)
-    ssm_check = checks[f"{arch} dense"]
+    family_modes, checks = tp_family_modes()
     runs = {"a": ("qwen2-1.5b", MESH_LAYERS, None, TP_MODES[0][1],
                   (None, TP_PARAM_TOL, TP_F32_TOL)),
             "d": (TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS,
-                  ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL)),
-            "f": (arch, layers, overrides, argv, ssm_check)}
-    for tags, layout in (("a", TP_SHAPE), ("df", TP_MOE_SHAPE)):
-        modes = [(fault, *runs[where][:4], fault) for fault, where in TP_FAULTS
-                 if where in tags]
+                  ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL))}
+    for tag, (_, arch, *_) in (("f", TP_SSM[0]), ("i", TP_CROSS[0])):
+        (_, _, layers, overrides, argv, _), = [m for m in family_modes if m[1] == arch]
+        runs[tag] = (arch, layers, overrides, argv, checks[f"{arch} dense"])
+    faults = TP_FAULTS + ((TP_TRAP, "i"),)
+    for tags, layout in (("a", TP_SHAPE), ("dfi", TP_MOE_SHAPE)):
+        modes = [(fault, *runs[where][:4], fault) for fault, where in faults if where in tags]
         outs, refs = tp_world(torch, ", ".join(tags), layout, modes)
-        for fault, where in TP_FAULTS:
+        for fault, where in faults:
             if where not in tags:
                 continue
             ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault], True,
                                *runs[where][4])
             log_verdict(where, f"planted fault {fault}", ok, v, refs[fault])
+            if where == "i":
+                rel, path = cross_reading(v)
+                log(f"  planted fault {fault}: the cross layer's projections' largest gap / "
+                    f"largest |value| {rel:.3e} at {'/'.join(path or ())}")
+            if fault == TP_TRAP:
+                log(f"  {fault} (gate {mode_gate(fault)}, not held): "
+                    f"{'passes' if ok else 'fails'} the checks")
+                continue
             log(f"  planted fault {fault}: {'PASSED the checks' if ok else 'rejected'}")
             if ok:
                 passed.append(fault)
@@ -4806,7 +4995,7 @@ def log_tp(r):
         elif label in ("dense", "none"):
             what = f"qwen2-1.5b at {MESH_LAYERS} layers on {TP_SHAPE}, 4"
         else:
-            (_, arch, layers, *_), = [w for w in TP_SSM if label == f"{w[1]} dense"]
+            (_, arch, layers, *_), = [w for w in TP_SSM + TP_CROSS if label == f"{w[1]} dense"]
             what = f"{arch} at {layers} layers on {TP_MOE_SHAPE}, 2"
         log(f"tensor-parallel trainer path ({label}, {what} gloo ranks on one card): "
             f"{row['s_step']:.4f} s/step, collectives {100 * row['share']:.1f}% of the step, "
@@ -4815,16 +5004,17 @@ def log_tp(r):
         log(f"tensor-parallel serving path ({arch} f32 on {TP_SERVE_SHAPE}): decode "
             f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
             f"process")
-    for key in ("dry", "dry_moe", "dry_ssm"):
+    for key in ("dry", "dry_moe", "dry_ssm", "dry_cross"):
         row = r[key]
         log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}): "
             f"{row['measured_s_per_step']:.6f} s/step at {row['run_depth']}, bound_fraction "
             f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
             f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
-    row = r["dry_hybrid"]
-    log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}, reckoned): "
-        f"full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, useful_flops_ratio "
-        f"{row['useful_flops_ratio']:.3f}")
+    for key in ("dry_hybrid", "dry_audio"):
+        row = r[key]
+        log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}, "
+            f"reckoned): full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, "
+            f"useful_flops_ratio {row['useful_flops_ratio']:.3f}")
 
 
 def main(argv=None) -> int:
@@ -4861,8 +5051,8 @@ def main(argv=None) -> int:
                         help="only phase 23, tensor parallelism over \"model\" (and phase 2's "
                              "and 9's rectangular drain and phase 2's ssd_chunk)")
     parser.add_argument("--tp-faults", action="store_true",
-                        help="only phase 23 (a)'s, (d)'s and (f)'s checks against planted faults "
-                             "(TP_FAULTS), after the rest of phase 23 with --tp; exits 1 "
+                        help="only phase 23 (a)'s, (d)'s, (f)'s and (i)'s checks against planted "
+                             "faults (TP_FAULTS), after the rest of phase 23 with --tp; exits 1 "
                              "when one passes them")
     parser.add_argument("--hybrid-depths", metavar="LAYERS",
                         help="only phase 16's comparison at these zamba2 depths "

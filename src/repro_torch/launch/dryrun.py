@@ -17,12 +17,12 @@ world (`Mesh.dry`): same class and step code, result shapes on
 Layout. The default mesh is the reference's production mesh, (16, 16)
 over ("data", "model") ((2, 16, 16) with "pod"): 16 clients, each
 over a 16-way "model" axis, so a rank's share is one client's 1 / 16
-block of the model (`repro_torch.sharding.tp`). The port splits the
-dense, moe, ssm and hybrid families over "model" (a moe rank runs E / 16
-of the experts, a Mamba2 block the rank's ceil(H / 16) ssm heads, with
-`ssd_chunk` at those local heads); the vlm and audio families raise
-`NotImplementedError` there, naming ROADMAP item 20(d). ``--clients
-W`` takes the client mesh (W, 1) of `make_sweep_mesh` instead (W ranks,
+block of the model (`repro_torch.sharding.tp`). The port splits every
+family over "model" (a moe rank runs E / 16 of the experts, a Mamba2
+block the rank's ceil(H / 16) ssm heads, with `ssd_chunk` at those local
+heads, a vlm's cross layer the rank's query heads against the kv heads
+they read, an audio model's head its block of the vocabulary).
+``--clients W`` takes the client mesh (W, 1) of `make_sweep_mesh` instead (W ranks,
 one client each; written ``"Wx1"`` in the row's ``mesh``), the layout the
 reference also has (``repro.launch.mesh``'s sweep mesh), for every
 family.
@@ -199,7 +199,8 @@ def _inputs(cfg, shape, mesh, device):
     if cfg.family != "vlm":
         return params, tok, state
     with torch.no_grad():
-        cross = M.init_cross_kv(params, scfg, embeds(rows, cfg.num_patch_tokens, cfg.d_model))
+        cross = M.init_cross_kv(params, scfg, embeds(rows, cfg.num_patch_tokens, cfg.d_model),
+                                mesh)
     return params, tok, state, cross
 
 
@@ -237,6 +238,7 @@ def reckon(cfg, shape, mesh, **kw) -> dict:
     collective tally and the memory analysis."""
     t0 = time.time()
     step, args = build(cfg, shape, mesh, **kw)
+    mesh.reset_tally()  # the inputs' own gathers (a vlm's cross K/V) are not the step's
     t_lower = time.time() - t0
     t0 = time.time()
     w = count_work(step, *args)
@@ -454,7 +456,7 @@ def main(argv=None):
     ap.add_argument("--clients", type=int, default=None,
                     help="the client mesh (W, 1): W ranks of one client each (default: "
                          "the reference's (16, 16) production mesh, 16 clients each over "
-                         "16 ranks of \"model\"; every family but the vlm and audio)")
+                         "16 ranks of \"model\")")
     ap.add_argument("--run", action="store_true",
                     help="also run the rank's share on the card and record its time")
     args = ap.parse_args(argv)

@@ -42,7 +42,6 @@ import torch.distributed as dist
 
 # the parts of ROADMAP item 20 (sharding inside one model) still to port,
 # each named where it raises
-ROADMAP_CROSS = "ROADMAP item 20(d)"  # the vlm's cross attention, the audio family
 ROADMAP_SEQ_PARALLEL = "ROADMAP item 20(e)"  # 'seq' over "model"
 ROADMAP_CACHE_SEQ = "ROADMAP item 20(f)"  # the cache over "data", cache_shard head_dim/seq
 ROADMAP_SSM_GROUPS = "ROADMAP item 20(g)"  # ssm groups a rank's heads read out of step

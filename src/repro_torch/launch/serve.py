@@ -42,9 +42,7 @@ def serve_batch(cfg, params, prompts, max_new: int, *, cross_embeds=None,
 
     def tok_input(tok):
         # an embeds-in model (audio) is fed its token's embedding back
-        if cfg.embeds_in:
-            return params["embed"][tok][:, None, :].to(cfg.torch_dtype)
-        return tok
+        return M.token_embeds(params, cfg, tok) if cfg.embeds_in else tok
 
     def next_token(logits):
         if greedy:

@@ -4,9 +4,8 @@ inputs (port of `repro.launch.steps`).
 ``make_train_step``: one DRACO superposition window on a mesh
 (`repro_torch.launch.mesh`): each rank holds N / D clients of the D
 client ranks, each as its block of the model over the T ranks of
-"model" (`repro_torch.sharding.tp`; the dense, moe, ssm and hybrid
-families, while the vlm and audio raise `NotImplementedError` naming
-ROADMAP item 20(d)), runs their local gradient steps
+"model" (`repro_torch.sharding.tp`; every family), runs their local
+gradient steps
 (`train.train_step_clients`), forms Delta on its rows and columns of the
 f32 plane, and the row-stochastic gossip mix runs as a collective over
 the client ranks of its model index (a column block of the plane mixes
@@ -186,7 +185,12 @@ def serve_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
     divide by the client ranks shards the cache's sequence axis over
     "data" in the reference. The port serves neither of those ways yet
     (`make_serve_step` raises, ROADMAP item 20(f)), but the specs say
-    where they go; `repro_torch.launch.dryrun` raises on them."""
+    where they go; `repro_torch.launch.dryrun` raises on them. A vlm's
+    cross K/V takes the reference's spec, its rows over the client axes
+    and its kv heads over "model" where they divide; where they do not,
+    the reference replicates them and a rank of the port holds the kv
+    heads its query heads read (`M.init_cross_kv` with the mesh), as its
+    KV cache does."""
     cax = _client_ax(mesh)
     B = shape.global_batch
     batch_shardable = B % mesh_lib.num_clients(mesh) == 0
@@ -300,16 +304,17 @@ def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
     Psi cap lives in ``q_eff`` (`train.mixing_weights`); `psi` is the
     reference's argument, which its step does not read either.
     `blocked_threshold` and `vocab_chunk` go to `M.lm_loss`. On a
-    "model" axis larger than 1 the vlm and audio families raise
-    `NotImplementedError` (ROADMAP item 20(d)); a Mamba2 block computes
-    the rank's own ssm heads (`repro_torch.models.ssm`)."""
+    "model" axis larger than 1 an attention layer (a vlm's cross layer
+    too) computes the rank's own query heads, a Mamba2 block its own ssm
+    heads (`repro_torch.models.ssm`); a vlm's ``cross_embeds`` and an
+    audio model's ``embeds`` hold the rank's clients' rows, whole over
+    "model"."""
     from repro_torch.launch import train as train_lib
 
     if mix_mode not in MIX_MODES:
         raise ValueError(f"mix_mode {mix_mode!r} not in {MIX_MODES}")
     del psi
 
-    tp_lib.check_family(cfg, mesh)
     tp = tp_lib.context(mesh)
 
     def train_step(params, batch, q_eff):
@@ -378,10 +383,9 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     vocabulary, gathered over "model" as the reference's are. A moe
     layer ranks its tokens' expert choices among the whole batch's
     (`repro_torch.sharding.tp.Rows`), as the reference's does; a Mamba2
-    block computes the rank's own ssm heads. The vlm and audio families
-    on a "model" axis larger than 1 raise (ROADMAP item 20(d))."""
+    block computes the rank's own ssm heads; a vlm's cross layer its own
+    query heads against the rank's rows of ``cross_embeds``."""
     _serving_rows(shape, mesh, "prefill step")
-    tp_lib.check_family(cfg, mesh)
     scfg = serve_config(cfg, shape)
     tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
 
@@ -402,12 +406,13 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     `cross_kv` hold those rows (a state from ``init_decode_state(scfg,
     B / ranks, S, mesh=mesh)``: the rank's kv heads where "model" divides
     them, its ssm heads and their conv channels), and the logits are
-    theirs over the whole vocabulary, gathered over "model". A batch that
-    does not divide by the client ranks raises `NotImplementedError`
-    (ROADMAP item 20(f)), and so do the vlm and audio families on a
-    "model" axis larger than 1 (item 20(d))."""
+    theirs over the whole vocabulary, gathered over "model". A vlm's
+    `cross_kv` holds the rank's rows and kv heads (``init_cross_kv(params,
+    scfg, cross_embeds, mesh)``); an audio model's `tok` is its rows'
+    embeddings, whole over "model" (`M.token_embeds` with the mesh for a
+    fed-back token). A batch that does not divide by the client ranks
+    raises `NotImplementedError` (ROADMAP item 20(f))."""
     _serving_rows(shape, mesh, "serve step")
-    tp_lib.check_family(cfg, mesh)
     tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
     scfg = serve_config(cfg, shape)
 

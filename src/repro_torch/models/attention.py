@@ -21,9 +21,10 @@ The port writes a decode step's keys and values into the cache in place
 (``index_copy_`` at a slot computed on the device from the 0-d ``pos``
 tensor), so a step copies no cache and reads nothing back to the host.
 
-Tensor parallelism (`repro_torch.sharding.tp`). Given a `TP`, the
-self-attention paths run on the rank's share of the query heads
-(`_layout`, `rank_heads`), on one of two routes:
+Tensor parallelism (`repro_torch.sharding.tp`). Given a `TP`, every
+attention path (self-attention, and the vlm's cross attention, whose
+keys and values come from the patch embeddings) runs on the rank's share
+of the query heads (`_layout`, `rank_heads`), on one of two routes:
 
   - heads (Megatron): ``wq`` is sharded at whole heads, and the rank
     multiplies its block;
@@ -44,7 +45,9 @@ replicated, and its query heads pick theirs from them. The QKV biases
 are replicated in storage, and each rank adds its slice of them through
 `TP.copy`, so their gradients are summed over the ranks.
 
-A decode cache holds the kv heads the rank computes (`rank_heads`).
+A decode cache holds the kv heads the rank computes (`rank_heads`), and
+so do a cross layer's static K/V (`rank_kv_weights`); at decode the cross
+layer multiplies only its query and output projections (``_layout(kv=False)``).
 """
 from __future__ import annotations
 
@@ -140,30 +143,11 @@ def _pick_kv(q0: int, hq: int, k0: int, n_rep: int):
     return pick
 
 
-def _layout(params, cfg, tp=None) -> Layout:
-    """The rank's `Layout` of one self-attention layer (see the module
-    docstring); the whole layer without `tp` or when nothing is sharded."""
-    hd = cfg.resolved_head_dim
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    n_rep = nq // nkv
-    whole = Layout(params, nq, nkv, _same, n_rep, _same, _same)
-    q_cols, kv_cols = params["wq"].shape[-1], params["wk"].shape[-1]
-    if tp is None or q_cols == nq * hd:  # kv columns divide only where q's do
-        return whole
-    kv_sharded = kv_cols < nkv * hd
-    kv_own = kv_sharded and kv_cols % hd == 0
-    q0, hq, k0, hkv = rank_heads(cfg, tp.rank, tp.size, True, kv_own)
-    qs, ks = slice(q0 * hd, (q0 + hq) * hd), slice(k0 * hd, (k0 + hkv) * hd)
-    gathered = 0
-    if q_cols % hd:  # a shard cuts a query head: the padded route
-        p = {"wq": tp.gather_partial(params["wq"])[..., qs],
-             "wo": tp.gather_partial(params["wo"], dim=-2)[..., qs, :]}
-        route, gathered = "padded", 2
-    else:
-        p = {"wq": params["wq"], "wo": params["wo"]}
-        route = "heads"
-    if "bq" in params:
-        p["bq"] = tp.copy(params["bq"])[qs]
+def _rank_kv(params, cfg, tp, ks, kv_own: bool):
+    """The rank's kv projections, columns `ks` of the kv heads (see the
+    module docstring), and how many leaves it gathered."""
+    p, gathered = {}, 0
+    kv_sharded = params["wk"].shape[-1] < cfg.num_kv_heads * cfg.resolved_head_dim
     for name in ("wk", "wv"):
         if kv_own:
             p[name] = params[name]
@@ -174,6 +158,62 @@ def _layout(params, cfg, tp=None) -> Layout:
             p[name] = tp.copy(params[name])[..., ks]
     if "bk" in params:
         p["bk"], p["bv"] = tp.copy(params["bk"])[ks], tp.copy(params["bv"])[ks]
+    return p, gathered
+
+
+def _rank_split(params, cfg, tp):
+    """``(q0, hq, k0, hkv, kv_own)`` of `rank_heads` for the rank of `tp`
+    (``kv_own``: ``wk``'s shard is whole heads), or None where the rank
+    computes the whole layer (no `tp`, or ``wq`` not sharded)."""
+    hd = cfg.resolved_head_dim
+    kv_cols = params["wk"].shape[-1]
+    if tp is None or params["wq"].shape[-1] == cfg.num_heads * hd:
+        return None  # kv columns divide only where q's do
+    kv_own = kv_cols < cfg.num_kv_heads * hd and kv_cols % hd == 0
+    return (*rank_heads(cfg, tp.rank, tp.size, True, kv_own), kv_own)
+
+
+def rank_kv_weights(params, cfg, tp=None):
+    """``(wk, wv, hkv)``: the kv projections of the ``hkv`` kv heads that
+    the rank of `tp` computes in the attention layer `params`, by
+    `_layout`'s rule (its own block where ``wk``'s shard is whole heads,
+    else the ones its query heads read), whole without `tp`."""
+    split = _rank_split(params, cfg, tp)
+    if split is None:
+        return params["wk"], params["wv"], cfg.num_kv_heads
+    _, _, k0, hkv, kv_own = split
+    hd = cfg.resolved_head_dim
+    p, _ = _rank_kv(params, cfg, tp, slice(k0 * hd, (k0 + hkv) * hd), kv_own)
+    return p["wk"], p["wv"], hkv
+
+
+def _layout(params, cfg, tp=None, kv: bool = True) -> Layout:
+    """The rank's `Layout` of one attention layer (see the module
+    docstring); the whole layer without `tp` or when nothing is sharded.
+    Without `kv` its params hold no kv projections (a cross layer at
+    decode reads cached keys and values)."""
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    n_rep = nq // nkv
+    split = _rank_split(params, cfg, tp)
+    if split is None:
+        return Layout(params, nq, nkv, _same, n_rep, _same, _same)
+    q0, hq, k0, hkv, kv_own = split
+    qs, ks = slice(q0 * hd, (q0 + hq) * hd), slice(k0 * hd, (k0 + hkv) * hd)
+    gathered = 0
+    if params["wq"].shape[-1] % hd:  # a shard cuts a query head: the padded route
+        p = {"wq": tp.gather_partial(params["wq"])[..., qs],
+             "wo": tp.gather_partial(params["wo"], dim=-2)[..., qs, :]}
+        route, gathered = "padded", 2
+    else:
+        p = {"wq": params["wq"], "wo": params["wo"]}
+        route = "heads"
+    if "bq" in params:
+        p["bq"] = tp.copy(params["bq"])[qs]
+    if kv:
+        kv_p, n = _rank_kv(params, cfg, tp, ks, kv_own)
+        p.update(kv_p)
+        gathered += n
     tp.count(route, gathered)
     if kv_own or (q0 % n_rep == 0 and hq % n_rep == 0):
         return Layout(p, hq, hkv, _same, n_rep, tp.copy, tp.reduce)
@@ -406,14 +446,17 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False, tp
     return lay.out_op(out.reshape(B, 1, -1) @ lay.params["wo"]), cache
 
 
-def cross_decode_attention(params, x, k_cache, v_cache, cfg):
+def cross_decode_attention(params, x, k_cache, v_cache, cfg, tp=None):
     """Cross-attention at decode: x (B, 1, d) against the static K/V of
-    the patch tokens, k_cache/v_cache (B, P, Hkv, hd)."""
+    the patch tokens, k_cache/v_cache (B, P, Hkv, hd). `tp`: the rank's
+    query heads and ``wo`` rows (`_layout`) against the kv heads it holds
+    (`repro_torch.models.model.init_cross_kv` with the mesh)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = _split_heads(x @ params["wq"], cfg.num_heads, hd)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    kk, vv = _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep)
+    lay = _layout(params, cfg, tp, kv=False)
+    q = _split_heads(lay.x_op(x) @ lay.params["wq"], lay.hq, hd)
+    kk = _repeat_kv(lay.pick(k_cache), lay.n_rep)
+    vv = _repeat_kv(lay.pick(v_cache), lay.n_rep)
     mask = torch.ones((1, 1, 1, kk.shape[1]), dtype=torch.bool, device=x.device)
     out = _sdpa(q, kk, vv, mask)
-    return out.reshape(B, 1, -1) @ params["wo"]
+    return lay.out_op(out.reshape(B, 1, -1) @ lay.params["wo"])

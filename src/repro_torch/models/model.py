@@ -43,17 +43,21 @@ back to the host.
 
 Tensor parallelism. Under a `repro_torch.sharding.tp.use` context (the
 steps of `repro_torch.launch.steps` set it on a mesh whose "model" axis
-is larger than 1) the dense, moe, ssm and hybrid families run on the
-rank's blocks of their leaves: attention on its heads
-(`attention.Layout`; the hybrid's shared block too), the MLP on its
+is larger than 1) every family runs on the rank's blocks of its leaves:
+attention on its heads (`attention.Layout`; the hybrid's shared block
+and the vlm's cross layers too, whose 0-d tanh gate is replicated and
+multiplies the layer's output after its reduce, so its gradient is
+whole on every rank), the MLP on its
 ``d_ff`` block, a moe layer on its experts (`moe.moe_block`), a Mamba2
 block on its ssm heads (`ssm.ssm_block`), the embedding on its rows of
 the vocabulary (ids outside them masked, looked up, then summed over the
 ranks), the head into its block of the logits, and `lm_loss` through the
 vocab-parallel cross-entropy (`layers.token_nll`). `apply_model` and
-`decode_step` then return the rank's vocabulary block of the logits. The
-vlm and audio families on such a mesh raise `NotImplementedError`
-naming their ROADMAP sub-item.
+`decode_step` then return the rank's vocabulary block of the logits. An
+audio model reads its frame embeddings whole on every model rank; its
+token embedding, which the loss never reads, is still split by rows, so
+a serving loop that feeds back a token's embedding looks it up
+vocab-parallel (`token_embeds`).
 """
 from __future__ import annotations
 
@@ -261,7 +265,7 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
     if kind == "ssm":
         return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn, tp=tp)
     if kind == "cross":
-        y = attn_lib.full_attention(bp["attn"], x, cfg, kv_x=cross_embeds, cross=True)
+        y = attn_lib.full_attention(bp["attn"], x, cfg, kv_x=cross_embeds, cross=True, tp=tp)
         return h + torch.tanh(bp["gate"].to(torch.float32)).to(y.dtype) * y
     raise ValueError(kind)
 
@@ -284,7 +288,6 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
     rank's block of the vocabulary (see the module docstring)."""
     pattern, n_groups = block_pattern(cfg)
     tp, rows = tp_lib.current(), tp_lib.current_rows()
-    tp_lib.check_family(cfg, tp and tp.mesh)
     h = _embed_inputs(params, cfg, batch, tp)
     S = h.shape[1]
     use_blocked = S >= blocked_attn_threshold and cfg.family != "ssm"
@@ -441,24 +444,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     return DecodeState(caches=caches, pos=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def init_cross_kv(params, cfg: ModelConfig, patch_embeds):
+def init_cross_kv(params, cfg: ModelConfig, patch_embeds, mesh=None):
     """The cross-attention K/V of the patch embeddings (B, P, d), stacked
     per group: ``{"k": (n_groups, B, P, Hkv, hd), "v": ...}``; None for a
-    model without cross-attention."""
+    model without cross-attention.
+
+    On a `mesh` whose "model" axis is larger than 1, `params` are the
+    rank's blocks and the K/V hold the kv heads the rank computes, by the
+    rule of `init_decode_state`: its own block where ``wk`` splits at
+    whole heads, else the heads its query heads read, sliced from the
+    gathered leaf (`attention.rank_kv_weights`). The reference lays the
+    cross K/V's head axis over "model" only where it divides and
+    replicates all of it otherwise (8 kv heads over 16 ranks: every rank
+    holds 8); the port holds the heads a rank reads (1 there)."""
     pattern, n_groups = block_pattern(cfg)
     idx = [i for i, k in enumerate(pattern) if k == "cross"]
     if not idx:
         return None
     (i,) = idx
+    tp = tp_lib.context(mesh)
     hd = cfg.resolved_head_dim
     ks, vs = [], []
     with torch.no_grad():
         for gp in _unbind_groups(params["groups"], n_groups):
-            ap = gp[f"{i}:cross"]["attn"]
-            x = patch_embeds.to(ap["wk"].dtype)
-            ks.append((x @ ap["wk"]).reshape(*x.shape[:-1], cfg.num_kv_heads, hd))
-            vs.append((x @ ap["wv"]).reshape(*x.shape[:-1], cfg.num_kv_heads, hd))
+            wk, wv, hkv = attn_lib.rank_kv_weights(gp[f"{i}:cross"]["attn"], cfg, tp)
+            x = patch_embeds.to(wk.dtype)
+            ks.append((x @ wk).reshape(*x.shape[:-1], hkv, hd))
+            vs.append((x @ wv).reshape(*x.shape[:-1], hkv, hd))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def token_embeds(params, cfg: ModelConfig, tok, mesh=None):
+    """(B, 1, d) in ``cfg.dtype``: the embedding rows of tokens `tok` (B,),
+    what an ``embeds_in`` model (audio) is fed back at decode. On a `mesh`
+    whose "model" axis is larger than 1 the rank holds a block of the
+    rows, and the lookup is the vocab-parallel one (`_embed`: each rank
+    looks up the ids in its block, the rows summed over the ranks)."""
+    return _embed(params, cfg, tok, tp_lib.context(mesh))[:, None, :].to(cfg.torch_dtype)
 
 
 @torch.no_grad()
@@ -470,11 +492,11 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
     Every cache of `state` is updated in place, group by group (the
     returned state holds the same tensors and ``pos + 1``), so pass each
     state once. A model with cross-attention needs `cross_kv`
-    (`init_cross_kv`). Under a `repro_torch.sharding.tp.use` context the
-    logits are the rank's block of the vocabulary."""
+    (`init_cross_kv`, with the mesh under tensor parallelism). Under a
+    `repro_torch.sharding.tp.use` context the logits are the rank's block
+    of the vocabulary."""
     pattern, n_groups = block_pattern(cfg)
     tp, rows = tp_lib.current(), tp_lib.current_rows()
-    tp_lib.check_family(cfg, tp and tp.mesh)
     if "cross" in pattern and cross_kv is None:
         raise ValueError(f"{cfg.name}: a vlm decode needs cross_kv (init_cross_kv)")
     if cfg.embeds_in:
@@ -514,7 +536,7 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
             elif kind == "cross":
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
                 y = attn_lib.cross_decode_attention(gp[name]["attn"], x, cross_kv["k"][g],
-                                                    cross_kv["v"][g], cfg)
+                                                    cross_kv["v"][g], cfg, tp)
                 gate = torch.tanh(gp[name]["gate"].to(torch.float32)).to(y.dtype)
                 h = h + gate * y
     logits = _logits(params, cfg, h, tp)[:, 0, :]

@@ -29,9 +29,10 @@ The operators below join the ranks' partial results:
 A moe layer's expert axis sums in its own dispatch and combine
 (`repro_torch.models.moe`); a Mamba2 block's gated RMSNorm sums its
 squares over the ranks with ``copy(reduce(.))``, an all-reduce both
-ways (`repro_torch.models.ssm`). Every family but the vlm and audio
-splits over "model" (`check_family`). All of them run through the
-`Mesh`'s model collectives, so the mesh's tally counts them
+ways (`repro_torch.models.ssm`); a vlm's cross layer splits as
+self-attention does, its keys and values projected from the patch
+embeddings (`repro_torch.models.attention`). Every family splits over
+"model". All of them run through the `Mesh`'s model collectives, so the mesh's tally counts them
 (``model_all_reduce``, ``model_all_gather``, ``model_reduce_scatter``). `context`
 gives None for ``mesh=None`` and for a model size of 1, and model code
 given None runs the single-device path unchanged. Whether a leaf is
@@ -56,20 +57,6 @@ import torch
 from repro_torch.sharding.specs import param_spec
 
 _TLS = threading.local()
-
-
-def check_family(cfg, mesh) -> None:
-    """Raise `NotImplementedError`, naming its ROADMAP sub-item, for the
-    vlm and audio families on a mesh whose "model" axis is larger than
-    1 (the dense, moe, ssm and hybrid families split over it)."""
-    from repro_torch.launch import mesh as mesh_lib
-
-    size = 1 if mesh is None else getattr(mesh, "model_size", 1)
-    if size > 1 and cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) over a {size}-way \"model\" axis: tensor "
-            f"parallelism covers the dense, moe, ssm and hybrid families; the "
-            f"{cfg.family} family is {mesh_lib.ROADMAP_CROSS}")
 
 
 class _Copy(torch.autograd.Function):

@@ -6,7 +6,9 @@ JAX, so a rank starts quickly.
 
 A world does every check of its layout in one run, for each of `ARCHS`
 (reduced qwen2, dense; reduced qwen3-moe-30b-a3b, moe; reduced
-mamba2-2.7b, ssm; reduced zamba2-2.7b, hybrid): the train step in each
+mamba2-2.7b, ssm; reduced zamba2-2.7b, hybrid; reduced
+llama-3.2-vision-11b, vlm, its cross layer's tanh gate set to
+`GATE`; reduced musicgen-large, audio): the train step in each
 mix mode from the reference's whole parameters (`convert.shard_params`)
 back to whole ones (`convert.gather_params`), the round trip of those
 two, the prefill and serve steps, and the model's gradients in f64
@@ -35,8 +37,17 @@ MOE = "qwen3-moe-30b-a3b"  # reduced: 4 experts, top-2, 4 query heads over 2 kv 
 # heads)
 MAMBA, ZAMBA = "mamba2-2.7b", "zamba2-2.7b"
 SSM_ARCHS = (MAMBA, ZAMBA)
-ARCHS = (ARCH, MOE) + SSM_ARCHS
+# reduced: one group of a self-attention layer and a cross layer, 4 query
+# heads over 2 kv heads of 64, 16 patch tokens, vocabulary 512 (the vlm);
+# 4 heads over 4 kv heads, vocabulary 128, frame embeddings in (musicgen)
+VLM, AUDIO = "llama-3.2-vision-11b", "musicgen-large"
+CROSS_ARCHS = (VLM, AUDIO)
+ARCHS = (ARCH, MOE) + SSM_ARCHS + CROSS_ARCHS
+# the cross layer's tanh gate: zeros at init, where the layer adds nothing
+# and its projections' gradients are exactly 0 on any layout
+GATE = 0.5
 SERVE_BATCH, SERVE_PROMPT = 4, 8
+SERVE_FEED = 2  # an audio model's decode steps past its prompt, fed tokens' embeddings
 CHUNK = 8  # lm_loss's vocab_chunk form over D.SEQ positions
 FLASH_FROM = 8  # apply_model's blocked_attn_threshold: the flash path at D.SEQ
 BLOCK = 8  # blocked_attention's q and kv blocks
@@ -45,16 +56,50 @@ MODES = (("dense", "dense", None), ("dense-bf16", "dense", torch.bfloat16),
          ("none", "none", None), ("ring", "ring", None))
 
 
+def set_gate(params, value=GATE):
+    """`params` (one model's, or client-stacked) with each cross layer's
+    tanh gate set to `value`, in place; returns them."""
+    for name, block in params["groups"].items():
+        if name.endswith(":cross"):
+            block["gate"].fill_(value)
+    return params
+
+
+def model_batch(cfg, tokens, rng):
+    """An (N, B, S) batch for `cfg` in numpy: `tokens` (a text model's
+    input), frame embeddings and labels (audio), patch embeddings (vlm)."""
+    n, b, s = tokens.shape
+    if cfg.embeds_in:
+        batch = {"embeds": rng.standard_normal((n, b, s, cfg.d_model)).astype(np.float32),
+                 "labels": rng.integers(0, cfg.vocab_size, (n, b, s))}
+    else:
+        batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["cross_embeds"] = rng.standard_normal(
+            (n, b, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def train_inputs(seed=0):
     """`_torch_dist.train_inputs`' tokens and ``q_eff``, and ``params``
-    for each of `ARCHS`: one init copied to the N clients."""
+    for each of `ARCHS`: one init copied to the N clients (the cross
+    layer's gate at `GATE`); ``batches``: each arch's numpy batch, the
+    text models' the tokens."""
     out = D.train_inputs(seed)
     out["params"] = {ARCH: out["params"]}
     for arch in ARCHS[1:]:
-        one = M.init_params(seed, get_reduced(arch), "cpu")
+        one = set_gate(M.init_params(seed, get_reduced(arch), "cpu"))
         out["params"][arch] = flat_lib.tree_map(
             lambda p: p[None].expand(N, *p.shape).clone(), one)
+    rng = np.random.default_rng(seed + 1)
+    out["batches"] = {arch: model_batch(get_reduced(arch), out["tokens"], rng)
+                      for arch in ARCHS}
     return out
+
+
+def torch_batch(batch, rows=slice(None)):
+    """A numpy batch's `rows` as tensors."""
+    return {k: torch.as_tensor(v[rows]) for k, v in batch.items()}
 
 
 def numpy_tree(tree):
@@ -62,12 +107,59 @@ def numpy_tree(tree):
 
 
 def serve_inputs(seed=5):
-    """(prompt (SERVE_BATCH, SERVE_PROMPT) int64, its serving shape); both
-    configs of `ARCHS` have a vocabulary of 512."""
+    """(prompt (SERVE_BATCH, SERVE_PROMPT) int64, its serving shape); the
+    text configs of `ARCHS` have a vocabulary of 512."""
     cfg = get_reduced(ARCH)
     gen = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)
     return prompt, ShapeConfig("serve", SERVE_PROMPT + 2, SERVE_BATCH, "decode")
+
+
+def serve_prompt(cfg, seed=6):
+    """`cfg`'s served inputs, (SERVE_BATCH, ...) tensors: `serve_inputs`'
+    tokens, or for an audio model frame embeddings (``embeds``) and the
+    tokens fed back after them (``feed``, SERVE_FEED of them); for a vlm
+    also patch embeddings (``cross_embeds``)."""
+    out = {}
+    if cfg.embeds_in:
+        rng = np.random.default_rng(seed)
+        out["embeds"] = torch.as_tensor(rng.standard_normal(
+            (SERVE_BATCH, SERVE_PROMPT, cfg.d_model)).astype(np.float32))
+        out["feed"] = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (SERVE_BATCH, SERVE_FEED)))
+    else:
+        out["tokens"] = serve_inputs()[0]
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(seed + 1)
+        out["cross_embeds"] = torch.as_tensor(rng.standard_normal(
+            (SERVE_BATCH, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def decode_inputs(cfg, prompt, params, mesh=None):
+    """Each decode step's input of `serve_prompt`'s `prompt` (a rank's
+    rows of it): a token, or an audio model's frame embedding, then the
+    embeddings of its fed-back tokens (`M.token_embeds`: vocab-parallel on
+    `mesh`)."""
+    if not cfg.embeds_in:
+        return [prompt["tokens"][:, t] for t in range(SERVE_PROMPT)]
+    return ([prompt["embeds"][:, t:t + 1] for t in range(SERVE_PROMPT)]
+            + [M.token_embeds(params, cfg, prompt["feed"][:, j], mesh)
+               for j in range(SERVE_FEED)])
+
+
+def decode(step, cfg, prompt, params, state, mesh=None):
+    """`step(params, input, state, cross_kv)` over `decode_inputs`, the
+    vlm's cross K/V from its patch embeddings (the rank's heads on
+    `mesh`): the logits (B, steps, V)."""
+    cross = None
+    if cfg.family == "vlm":
+        cross = M.init_cross_kv(params, cfg, prompt["cross_embeds"], mesh)
+    logits = []
+    for x in decode_inputs(cfg, prompt, params, mesh):
+        lg, state = step(params, x, state, cross)
+        logits.append(lg)
+    return torch.stack(logits, dim=1), cross
 
 
 def loss_inputs(seed=9):
@@ -85,7 +177,7 @@ def _train(mesh, cfg, train, out):
         params = convert.shard_params(flat_lib.tree_map(lambda p: p[:n], train["params"][cfg.name]),
                                       mesh)
         sl = mesh.client_slice(n)
-        batch = {"tokens": torch.as_tensor(train["tokens"][:n])[sl]}
+        batch = {k: torch.as_tensor(v[:n])[sl] for k, v in train["batches"][cfg.name].items()}
         step = steps.make_train_step(cfg, mesh, lr=LR, mix_mode=mode, mix_dtype=md)
         mesh.reset_tally()
         params, loss = step(params, batch, torch.as_tensor(train["q_eff"][:n, :n]))
@@ -95,28 +187,27 @@ def _train(mesh, cfg, train, out):
 
 
 def _serve(mesh, cfg, train, out):
-    prompt, shape = serve_inputs()
+    _, shape = serve_inputs()
     params0 = convert.shard_params(flat_lib.tree_map(lambda p: p[0], train["params"][cfg.name]),
                                    mesh, clients=False)
     rows = mesh.client_slice(SERVE_BATCH)
+    prompt = {k: v[rows] for k, v in serve_prompt(cfg).items()}
     mesh.reset_tally()
     pshape = ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
-    out["prefill"] = steps.make_prefill_step(cfg, pshape, mesh)(params0,
-                                                               {"tokens": prompt[rows]})
+    out["prefill"] = steps.make_prefill_step(cfg, pshape, mesh)(
+        params0, {k: v for k, v in prompt.items() if k != "feed"})
     serve = steps.make_serve_step(cfg, shape, mesh)
     state = M.init_decode_state(cfg, rows.stop - rows.start, shape.seq_len, device="cpu",
                                 mesh=mesh)
-    logits = []
-    for t in range(SERVE_PROMPT):
-        lg, state = serve(params0, prompt[rows, t], state)
-        logits.append(lg)
-    out["serve"] = torch.stack(logits, dim=1)
+    out["serve"], cross = decode(serve, cfg, prompt, params0, state, mesh)
     out["serve_routes"] = dict(mesh.tp_routes)
     # each cache's heads: a KV cache's kv heads, an SSM state's ssm heads
-    # (and its conv channels)
+    # (and its conv channels), the vlm's cross K/V's kv heads
     out["cache_heads"] = {name: (c.k.shape[-2],) if isinstance(c, KVCache) else
                           (c.h.shape[-3], c.conv.shape[-1])
                           for name, c in state.caches.items()}
+    if cross is not None:
+        out["cache_heads"]["cross"] = (cross["k"].shape[-2],)
 
 
 def arch_remat(cfg) -> bool:
@@ -138,7 +229,7 @@ def _f64(mesh, cfg, train, out):
     tp = tp_lib.context(mesh)
     cfg64 = cfg.with_(dtype="float64", remat=arch_remat(cfg))
     whole = flat_lib.tree_map(lambda p: p[0].double(), train["params"][cfg.name])
-    batch = {"tokens": torch.as_tensor(train["tokens"][0])}
+    batch = torch_batch(train["batches"][cfg.name], 0)
     for name, kw in (("f64_0", {}), (f"f64_{CHUNK}", {"vocab_chunk": CHUNK}),
                      ("f64_flash", {"blocked_attn_threshold": FLASH_FROM})):
         params = flat_lib.tree_map(lambda p: p.requires_grad_(),
@@ -147,12 +238,14 @@ def _f64(mesh, cfg, train, out):
             loss = M.lm_loss(params, cfg64, batch, **kw)
         leaves = flat_lib.tree_leaves(params)
         grads = flat_lib.tree_from_items(zip(
-            [p for p, _ in flat_lib.tree_items(params)], torch.autograd.grad(loss, leaves)))
+            [p for p, _ in flat_lib.tree_items(params)],
+            # an audio model's token embedding is unused: its gradient zeros
+            torch.autograd.grad(loss, leaves, materialize_grads=True)))
         out[name] = dict(loss=float(loss.detach()),
                          grads=convert.gather_params(grads, mesh, cfg64, clients=False))
     if "0:attn" not in params["groups"]:
         return
-    ap = M._unbind_groups(params["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
+    ap = M._unbind_groups(params["groups"], M.block_pattern(cfg)[1])[0]["0:attn"]["attn"]
     out["blocked"] = attention.blocked_attention(
         flat_lib.tree_map(torch.Tensor.detach, ap), attention_input(cfg), cfg64,
         block_q=BLOCK, block_kv=BLOCK, tp=tp)

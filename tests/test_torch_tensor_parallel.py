@@ -1,5 +1,5 @@
-"""Tensor parallelism over "model" for the dense, moe, ssm and hybrid
-families, in gloo worlds of 4 ranks on the CPU, against the JAX package.
+"""Tensor parallelism over "model" for every family, in gloo worlds of 4
+ranks on the CPU, against the JAX package.
 
 Three worlds run once each (`_torch_tp.world`, spawned by
 `repro_torch.launch.mesh.spawn_ranks`), each doing every check of its
@@ -17,8 +17,18 @@ kv heads out of all of them and the embedding, head and loss stay
 whole, where the 4 experts do not divide either, so every rank runs
 them all, and where the 16 ssm heads split 6, 6 and 4 (the padded
 split) out of replicated head leaves (mamba2's in_proj and conv still
-blocks, zamba2's whole). The JAX side runs once, in two subprocesses
-(the dense and moe archs, the ssm and hybrid ones) with four host
+blocks, zamba2's whole). Reduced llama-3.2-vision-11b (vlm: a
+self-attention and a cross layer of 4 query heads over 2 kv heads of 64,
+16 patch tokens, the cross layer's gate set to 0.5, since at its init of
+0 the layer adds nothing and its projections' gradients are exactly 0 on
+any layout) splits at whole heads at (2, 2), cuts its kv heads inside a
+head at (1, 4) (gathered, each rank slicing the kv head its query head
+reads) and keeps ``wq`` whole at (1, 3); reduced musicgen-large (audio:
+4 heads over 4 kv heads, a vocabulary of 128, frame embeddings in)
+splits at whole heads and vocab-parallel at (2, 2) and (1, 4) and stays
+whole at (1, 3), and its serving feeds back tokens' embeddings looked up
+vocab-parallel. The JAX side runs once, in two subprocesses
+(the dense, moe and audio archs; the ssm, hybrid and vlm ones) with four host
 devices each and ``Auto`` meshes of the same layouts (jax 0.9's default
 ``Explicit`` axes make the reference's ``constrain`` raise), started
 before the worlds so that all run at once: the reference's own
@@ -114,6 +124,12 @@ def put(tree, sh):
 out = {}
 modes = {"dense": ("dense", None), "dense-bf16": ("dense", jnp.bfloat16),
          "none": ("none", None), "ring": ("ring", None)}
+def arrays(prefix, rows=slice(None)):
+    """The npz's arrays under `prefix` by their last key, integers as int32."""
+    return {key[len(prefix):]: jnp.asarray(v[rows], jnp.int32 if v.dtype.kind == "i" else None)
+            for key, v in inp.items() if key.startswith(prefix)}
+
+
 for arch, layout in [(a, l) for a in sys.argv[4].split(",") for l in ((2, 2), (1, 4))]:
     cfg = get_reduced(arch)
     like = jax.eval_shape(lambda k: M.init_params(k, cfg), jax.random.PRNGKey(0))
@@ -122,15 +138,14 @@ for arch, layout in [(a, l) for a in sys.argv[4].split(",") for l in ((2, 2), (1
     for name, (mode, md) in modes.items():
         n = layout[0] if mode == "ring" else len(inp["tokens"])
         params = fill(nest(f"param/{arch}/", slice(0, n)), like)
-        tokens = jnp.asarray(inp["tokens"][:n], jnp.int32)
-        _, b, s = tokens.shape
+        batch = arrays(f"batch/{arch}/", slice(0, n))
+        _, b, s = inp["tokens"].shape
         param_sh, batch_sh, q_sh = steps.make_shardings(
             mesh, cfg, ShapeConfig("t", s, n * b, "train"))
         step = jax.jit(steps.make_train_step(cfg, mesh, lr=lr, mix_mode=mode, mix_dtype=md),
                        in_shardings=(param_sh, batch_sh, q_sh),
                        out_shardings=(param_sh, None))
-        new, loss = step(put(params, param_sh),
-                         {"tokens": jax.device_put(tokens, batch_sh["tokens"])},
+        new, loss = step(put(params, param_sh), put(batch, batch_sh),
                          jax.device_put(jnp.asarray(inp["q_eff"][:n, :n]), q_sh))
         out[f"{tag}/loss/{name}"] = np.asarray(loss)
         for path, leaf in jax.tree_util.tree_leaves_with_path(new):
@@ -138,22 +153,34 @@ for arch, layout in [(a, l) for a in sys.argv[4].split(",") for l in ((2, 2), (1
     if layout != (2, 2):
         continue
     params0 = fill(nest(f"param/{arch}/", 0), like)
-    prompt = jnp.asarray(inp["prompt"], jnp.int32)
-    B, L = prompt.shape
+    prompt = arrays(f"prompt/{arch}/")
+    feed = prompt.pop("feed", None)  # an audio model's fed-back tokens
+    B, L = next(iter(prompt.values())).shape[:2]
     pshape = ShapeConfig("prefill", L, B, "prefill")
     psh = steps.serve_shardings(mesh, cfg, pshape)[0]
-    prefill = jax.jit(steps.make_prefill_step(cfg, pshape, mesh),
-                      in_shardings=(psh, {"tokens": NamedSharding(mesh, P("data", None))}))
-    out[f"{arch}/prefill"] = np.asarray(prefill(put(params0, psh), {"tokens": prompt}))
+    prefill = jax.jit(steps.make_prefill_step(cfg, pshape, mesh), in_shardings=(
+        psh, {k: NamedSharding(mesh, P("data", *[None] * (v.ndim - 1)))
+              for k, v in prompt.items()}))
+    out[f"{arch}/prefill"] = np.asarray(prefill(put(params0, psh), prompt))
     shape = ShapeConfig("serve", L + 2, B, "decode")
-    param_sh, tok_sh, state_sh, _, scfg = steps.serve_shardings(mesh, cfg, shape)
-    serve = jax.jit(steps.make_serve_step(cfg, shape, mesh),
-                    in_shardings=(param_sh, tok_sh, state_sh))
+    param_sh, tok_sh, state_sh, cross_sh, scfg = steps.serve_shardings(mesh, cfg, shape)
     state = put(M.init_decode_state(scfg, B, shape.seq_len), state_sh)
     p0 = put(params0, param_sh)
+    if cross_sh is None:
+        serve = jax.jit(steps.make_serve_step(cfg, shape, mesh),
+                        in_shardings=(param_sh, tok_sh, state_sh))
+    else:
+        cross = put(M.init_cross_kv(params0, scfg, prompt["cross_embeds"]), cross_sh)
+        serve = jax.jit(lambda p, t, s: steps.make_serve_step(cfg, shape, mesh)(p, t, s, cross),
+                        in_shardings=(param_sh, tok_sh, state_sh))
+    if cfg.embeds_in:
+        inputs = [prompt["embeds"][:, t:t + 1] for t in range(L)] + [
+            params0["embed"][feed[:, j]][:, None, :] for j in range(feed.shape[1])]
+    else:
+        inputs = [prompt["tokens"][:, t] for t in range(L)]
     logits = []
-    for t in range(L):
-        lg, state = serve(p0, jax.device_put(prompt[:, t], tok_sh), state)
+    for x in inputs:
+        lg, state = serve(p0, jax.device_put(x, tok_sh), state)
         logits.append(np.asarray(lg))
     out[f"{arch}/serve"] = np.stack(logits, axis=1)
 np.savez(dst, **out)
@@ -167,7 +194,7 @@ def inputs():
 
 
 # the reference's archs, each set in a subprocess of its own, both at once
-REFERENCE_SETS = ((T.ARCH, T.MOE), T.SSM_ARCHS)
+REFERENCE_SETS = ((T.ARCH, T.MOE, T.AUDIO), T.SSM_ARCHS + (T.VLM,))
 
 
 @pytest.fixture(scope="module")
@@ -175,10 +202,13 @@ def reference(inputs, tmp_path_factory):
     """Starts the JAX subprocesses (one for each of `REFERENCE_SETS`);
     returns a function that waits for them and loads their outputs."""
     root = tmp_path_factory.mktemp("reference")
-    arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"],
-              "prompt": T.serve_inputs()[0].numpy()}
-    arrays.update({f"param/{arch}/" + "/".join(p): leaf.numpy()
-                   for arch in T.ARCHS for p, leaf in flat_lib.tree_items(inputs["params"][arch])})
+    arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"]}
+    for arch in T.ARCHS:
+        arrays.update({f"param/{arch}/" + "/".join(p): leaf.numpy()
+                       for p, leaf in flat_lib.tree_items(inputs["params"][arch])})
+        arrays.update({f"batch/{arch}/{k}": v for k, v in inputs["batches"][arch].items()})
+        arrays.update({f"prompt/{arch}/{k}": v.numpy()
+                       for k, v in T.serve_prompt(get_reduced(arch)).items()})
     np.savez(root / "in.npz", **arrays)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu",
@@ -238,7 +268,14 @@ CACHE_HEADS = {(T.ARCH, (2, 2)): {"0:attn": [1, 1]},
                (T.MOE, (1, 3)): {"0:attn": [2, 2, 2]},
                **{(T.MAMBA, lay): {"0:ssm": h} for lay, h in _SSM_HEADS.items()},
                **{(T.ZAMBA, lay): {"0:ssm": h, "2:shared": kv} for (lay, h), kv in
-                  zip(_SSM_HEADS.items(), ([2, 2], [1, 1, 1, 1], [4, 4, 4]))}}
+                  zip(_SSM_HEADS.items(), ([2, 2], [1, 1, 1, 1], [4, 4, 4]))},
+               # the vlm's 4 query heads read kv head h // 2, in its
+               # self-attention cache and its cross K/V alike; musicgen's 4
+               # read their own
+               **{(T.VLM, lay): {"0:attn": kv, "cross": kv} for lay, kv in
+                  (((2, 2), [1, 1]), ((1, 4), [1, 1, 1, 1]), ((1, 3), [2, 2, 2]))},
+               **{(T.AUDIO, lay): {"0:attn": kv} for lay, kv in
+                  (((2, 2), [2, 2]), ((1, 4), [1, 1, 1, 1]), ((1, 3), [4, 4, 4]))}}
 
 
 def _cache_heads(outs, arch, want):
@@ -304,16 +341,13 @@ def _serving_matches_reference(worlds, reference, arch):
 def _serving_matches_one_device(worlds, inputs, arch, layout):
     cfg = get_reduced(arch)
     params0 = flat_lib.tree_map(lambda p: p[0], inputs["params"][arch])
-    prompt, shape = T.serve_inputs()
+    _, shape = T.serve_inputs()
     state = M.init_decode_state(cfg, T.SERVE_BATCH, shape.seq_len, device="cpu")
-    want = []
-    for t in range(T.SERVE_PROMPT):
-        lg, state = M.decode_step(params0, cfg, prompt[:, t], state)
-        want.append(lg)
+    want, _ = T.decode(lambda *a: M.decode_step(a[0], cfg, *a[1:]), cfg, T.serve_prompt(cfg),
+                       params0, state)
     outs = sorted(worlds[layout], key=lambda o: o["coords"][1])
     for o in outs:
-        torch.testing.assert_close(o[arch]["serve"], torch.stack(want, dim=1), rtol=1e-5,
-                                   atol=1e-5)
+        torch.testing.assert_close(o[arch]["serve"], want, rtol=1e-5, atol=1e-5)
     _cache_heads(outs, arch, CACHE_HEADS[arch, layout])
 
 
@@ -322,7 +356,7 @@ def _train_matches_one_device(worlds, inputs, arch, mode):
     cfg = get_reduced(arch)
     params = flat_lib.tree_map(torch.clone, inputs["params"][arch])
     mix = (lambda q, plane: plane) if mode == "none" else None
-    params, loss = ttrain.train_step(params, {"tokens": torch.as_tensor(inputs["tokens"])},
+    params, loss = ttrain.train_step(params, T.torch_batch(inputs["batches"][arch]),
                                      torch.as_tensor(inputs["q_eff"]), cfg, T.LR, mix=mix)
     for o in worlds[(1, 3)]:
         got = o[arch][f"train_{mode}"]
@@ -338,12 +372,12 @@ def _f64_matches_one_device(worlds, inputs, arch, layout):
 
     cfg = get_reduced(arch).with_(dtype="float64")
     whole = flat_lib.tree_map(lambda p: p[0].double(), inputs["params"][arch])
-    batch = {"tokens": torch.as_tensor(inputs["tokens"][0])}
+    batch = T.torch_batch(inputs["batches"][arch], 0)
     for name, kw in (("f64_0", {}), (f"f64_{T.CHUNK}", {"vocab_chunk": T.CHUNK}),
                      ("f64_flash", {"blocked_attn_threshold": T.FLASH_FROM})):
         params = flat_lib.tree_map(lambda p: p.clone().requires_grad_(), whole)
         loss = M.lm_loss(params, cfg, batch, **kw)
-        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(params))
+        grads = torch.autograd.grad(loss, flat_lib.tree_leaves(params), materialize_grads=True)
         for o in worlds[layout]:
             got = o[arch][name]
             assert math.isclose(got["loss"], float(loss.detach()), rel_tol=1e-12)
@@ -351,7 +385,7 @@ def _f64_matches_one_device(worlds, inputs, arch, layout):
                 torch.testing.assert_close(g, want, rtol=1e-10, atol=1e-10, msg=str(path))
     if "0:attn" not in whole["groups"]:
         return
-    ap = M._unbind_groups(whole["groups"], cfg.num_layers)[0]["0:attn"]["attn"]
+    ap = M._unbind_groups(whole["groups"], M.block_pattern(cfg)[1])[0]["0:attn"]["attn"]
     want = attention.blocked_attention(ap, T.attention_input(cfg), cfg, block_q=T.BLOCK,
                                        block_kv=T.BLOCK)
     for o in worlds[layout]:
@@ -603,6 +637,114 @@ def test_ssm_rank_without_heads_matches_one_device(inputs):
         torch.testing.assert_close(o["serve"], want, rtol=1e-10, atol=1e-10)
 
 
+# -- the vlm's cross attention and the audio family over "model" (reduced
+# llama-3.2-vision-11b, musicgen-large)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("layout", LAYOUTS, ids=_tag)
+@pytest.mark.parametrize("mode", [m for m, _, _ in T.MODES])
+def test_cross_train_step_matches_reference(worlds, reference, arch, layout, mode):
+    """The vlm's cross layer on whole heads at (2, 2) and on its kv heads
+    cut inside a head (gathered) at (1, 4), its gate at `T.GATE`; the audio
+    model's frame embeddings whole over "model" and its head
+    vocab-parallel, its token embedding's update zero on every rank."""
+    _train_matches(worlds, reference, arch, layout, mode)
+
+
+def test_cross_layer_is_live(inputs, reference):
+    """The gate is not zero, so the cross layer adds to the stream and the
+    reference's step moves its projections (at a zero gate they would keep
+    their init on any layout, a trap for every check above); the audio
+    model's unused token embedding keeps its init."""
+    ref = reference()
+    for layout in LAYOUTS:
+        tag = _tag(layout)
+        for name in ("wq", "wk", "wv", "wo"):
+            init = inputs["params"][T.VLM]["groups"]["2:cross"]["attn"][name].numpy()
+            moved = ref[f"{T.VLM}/{tag}/train/dense/groups/2:cross/attn/{name}"] - init
+            assert np.abs(moved).max() > 1e-6, (layout, name)
+        np.testing.assert_array_equal(ref[f"{T.AUDIO}/{tag}/train/dense/embed"],
+                                      inputs["params"][T.AUDIO]["embed"].numpy())
+    assert (inputs["params"][T.VLM]["groups"]["2:cross"]["gate"] == T.GATE).all()
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_cross_replicated_leaves_equal_across_model_ranks(worlds, inputs, arch, layout):
+    """The vlm's 0-d gate (its gradient whole on every rank: it multiplies
+    the reduced output) and the norms bit for bit the same on every model
+    rank after the step (at (1, 3), where neither the heads nor d_ff nor
+    the vocabulary divide, every leaf); a block differs between them."""
+    kept = _replicated_equal(worlds, inputs, arch, layout)
+    if arch == T.VLM:
+        assert ("groups", "2:cross", "gate") in kept
+        assert (("groups", "2:cross", "attn", "wq") in kept) == (layout == (1, 3))
+    assert (("embed",) in kept) == (layout == (1, 3))
+
+
+def test_cross_routes_and_tally(worlds):
+    """The vlm's self-attention and cross layers take the heads route
+    where its 4 query heads split (their 2 kv heads gathered at (1, 4),
+    where a shard cuts a head); musicgen's two layers take it at 2 and 4
+    ways, their 4 kv heads their own; at (1, 3) every leaf is whole and the
+    step runs no model collective."""
+    for layout in WORLDS:
+        for o in worlds[layout]:
+            clients = T.N // layout[0]
+            split = layout != (1, 3)
+            for arch, layers, gathered in ((T.VLM, 2, 4 if layout == (1, 4) else 0),
+                                           (T.AUDIO, 2, 0)):
+                routes = o[arch]["train_dense"]["routes"]
+                assert routes == {"heads": layers * clients if split else 0, "padded": 0,
+                                  "gathered_leaves": gathered * clients, "moe": 0,
+                                  "experts": 0, "ssm": 0, "ssm_heads": 0}, (arch, layout)
+                counts = o[arch]["train_dense"]["tally"]["_counts"]
+                assert (counts["model_all_reduce"] > 0) == split
+                assert (counts["model_reduce_scatter"] > 0) == bool(gathered)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_cross_shard_and_gather_round_trip(worlds, inputs, arch, layout):
+    _round_trip(worlds, inputs, arch, layout)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+def test_cross_prefill_and_serve_match_reference(worlds, reference, arch):
+    """The vlm against the reference's cross K/V (whole heads at (2, 2));
+    the audio model fed frame embeddings, then `T.SERVE_FEED` tokens'
+    embeddings looked up vocab-parallel (the reference indexes its whole
+    table)."""
+    _serving_matches_reference(worlds, reference, arch)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("layout", ((1, 4), (1, 3)), ids=_tag)
+def test_cross_serve_on_one_client_rank_matches_one_device(worlds, inputs, arch, layout):
+    """The vlm's cross K/V on the kv head each rank's query head reads at
+    (1, 4) (one of 2), all of them at (1, 3); the audio model's fed-back
+    tokens looked up in 4 blocks of 32 rows at (1, 4), whole at (1, 3)."""
+    _serving_matches_one_device(worlds, inputs, arch, layout)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("mode", ["dense", "none"])
+def test_cross_replicated_layers_match_one_device(worlds, inputs, arch, mode):
+    """(1, 3): every rank computes the whole model from replicated leaves."""
+    _train_matches_one_device(worlds, inputs, arch, mode)
+
+
+@pytest.mark.parametrize("arch", T.CROSS_ARCHS)
+@pytest.mark.parametrize("layout", WORLDS, ids=_tag)
+def test_cross_loss_and_gradients_in_f64(worlds, inputs, arch, layout):
+    """The gate's gradient among them: a `TP.copy` on it would sum its
+    whole-on-every-rank gradient T times; a cross layer left unreduced
+    would leave its output, and so the gate's and the stream's
+    gradients, partial."""
+    _f64_matches_one_device(worlds, inputs, arch, layout)
+
+
 def test_ssm_heads_and_groups_of_each_rank():
     """`rank_ssm_heads`: the padded split, a rank without heads reading the
     last group, and groups a rank's heads read out of step raising
@@ -641,8 +783,7 @@ def _jax_local_shapes(cfg, mesh):
     return out
 
 
-SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-SPLIT = [a for a in ARCH_IDS if get_config(a).family in SPLIT_FAMILIES]
+SPLIT = list(ARCH_IDS)  # every family splits over "model"
 
 
 @pytest.mark.parametrize("arch", SPLIT)
@@ -670,26 +811,37 @@ def test_production_blocks_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", [a for a in SPLIT if get_config(a).num_heads])
 def test_every_attention_layer_at_16_ways_computes_its_own_heads(arch):
-    """At (16, 16) model rank 0 of every config with attention split over
-    "model" (zamba2's in its shared block) computes ceil(H / 16) query
-    heads, on the heads route where 16 divides H and the padded one where
-    it cuts a head; a moe rank runs E / 16 experts."""
+    """At (16, 16) model rank 0 of every config computes ceil(H / 16)
+    query heads in each attention layer (zamba2's in its shared block, the
+    vlm's in its cross layer too), on the heads route where 16 divides H
+    and the padded one where it cuts a head; a moe rank runs E / 16
+    experts; the vlm's cross K/V holds the one kv head its 2 query heads
+    read (the reference replicates all 8)."""
     from repro_torch.models import attention, moe
 
     cfg = get_config(arch)
     mesh = mesh_lib.Mesh.dry((16, 16), ("data", "model"))
     tp = tp_lib.context(mesh)
-    one = cfg.shared_attn_every if cfg.family == "hybrid" else 1
+    one = {"hybrid": cfg.shared_attn_every, "vlm": cfg.cross_attn_every}.get(cfg.family, 1)
     params = M.init_params(steps._MetaGenerator(), cfg.with_(num_layers=one),
                            shard=tp_lib.sharder(mesh))
     kind = "1:moe" if cfg.family == "moe" else "1:mlp"
-    ap = params["shared"] if cfg.family == "hybrid" else params["groups"]["0:attn"]
-    lay = attention._layout(ap["attn"], cfg, tp)
-    assert lay.hq == -(-cfg.num_heads // 16) and lay.params["wq"].shape[-1] == \
-        lay.hq * cfg.resolved_head_dim
+    layers = [params["shared"] if cfg.family == "hybrid" else params["groups"]["0:attn"]]
+    layers += [b for name, b in params["groups"].items() if name.endswith(":cross")]
+    assert len(layers) == (2 if cfg.family == "vlm" else 1)
+    for ap in layers:
+        lay = attention._layout(ap["attn"], cfg, tp)
+        assert lay.hq == -(-cfg.num_heads // 16) and lay.params["wq"].shape[-1] == \
+            lay.hq * cfg.resolved_head_dim
     route = "heads" if cfg.num_heads % 16 == 0 else "padded"
-    assert mesh.tp_routes[route] == 1 and sum(mesh.tp_routes[r] for r in
-                                              ("heads", "padded")) == 1
+    assert mesh.tp_routes[route] == len(layers) and sum(mesh.tp_routes[r] for r in
+                                                        ("heads", "padded")) == len(layers)
+    if cfg.family == "vlm":
+        x = torch.empty((2, cfg.num_patch_tokens, cfg.d_model), dtype=cfg.torch_dtype,
+                        device="meta")
+        cross = M.init_cross_kv(params, cfg.with_(num_layers=one), x, mesh)
+        assert tuple(cross["k"].shape) == (1, 2, cfg.num_patch_tokens, 1,
+                                           cfg.resolved_head_dim)
     if cfg.family == "moe":
         x = torch.empty((1, 8, cfg.d_model), dtype=cfg.torch_dtype, device="meta")
         moe.moe_block(flat_lib.tree_map(lambda t: t[0], params["groups"][kind]["moe"]), x,
@@ -729,24 +881,6 @@ def test_every_ssm_layer_at_16_ways_computes_its_own_heads(arch):
                                                   x.element_size()))]
     assert out.shape == x.shape
     assert mesh.tp_routes["ssm"] == 2 and mesh.tp_routes["ssm_heads"] == heads
-
-
-OTHER = [a for a in ARCH_IDS if get_config(a).family not in SPLIT_FAMILIES]
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise_naming_their_item(arch):
-    cfg = get_reduced(arch)
-    mesh = mesh_lib.Mesh.dry((2, 2), ("data", "model"))
-    shape = SHAPES["decode_32k"]
-    for make in (lambda: steps.make_train_step(cfg, mesh),
-                 lambda: steps.make_prefill_step(cfg, shape, mesh),
-                 lambda: steps.make_serve_step(cfg, shape, mesh)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(d\)"):
-            make()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(d\)"):
-        dryrun.lower_pair(arch, "decode_32k", cfg=cfg, verbose=False)
-    steps.make_train_step(cfg, mesh_lib.Mesh.dry((2, 1), ("data", "model")))  # clients only
 
 
 def test_seq_parallel_and_cache_layouts_raise_naming_their_item():
