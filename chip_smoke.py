@@ -33,7 +33,9 @@ Phases (any failure exits non-zero):
                each row equal to a solo launch, within 1e-5 of plain; the
                rectangular drain as the client mesh runs it (J 1, N_loc 2,
                M 4 at qwen2-1.5b's full plane; J 3, N_loc 5, M 25 at the
-               fig4 window; J 1, N_loc 1, M 64 at mamba2-2.7b's plane at 1
+               fig4 window; J 1 and J 4, N_loc 5, M 25 at the EMNIST plane,
+               a baseline round's mix and an event's drain, phase 21 (d);
+               J 1, N_loc 1, M 64 at mamba2-2.7b's plane at 1
                and 2 layers, phase 22's dense pair, M K past 2^31; J 1,
                N_loc 2, M 4 and J 1, N_loc 2, M 2 at one model rank's
                qwen2-1.5b and olmoe-1b-7b planes at 2 layers, phase 23's
@@ -214,7 +216,17 @@ Phases (any failure exits non-zero):
                `simulate_sweep(mesh=)` over the 5 gloo ranks against the
                unsharded sweep (params within 1e-4, the same
                acceptances), ms per batched window and the collective's
-               share;
+               share; (d) in that world, after (a) at the two tiles of
+               `MESH_TILES`, every other registered algorithm through
+               `simulate_sweep(mesh=)` (`MESH_ALGOS`: the four baselines
+               10 rounds at the fig3 setup, fedasync-window 2 seeds x 10
+               windows, the event family the first 60 rows of phase 14's
+               tape), each against its unsharded run (params within
+               1e-4, the counters exact, its accuracy printed), one drain
+               launch a rank a round, batched window and valid event and
+               no mix launch, ms per round, window and event sharded
+               against unsharded and the collective's share, the part's
+               seconds on the `phase times:` line as "21 (d) algorithms";
   9. times   - each kernel's time (CUDA events) beside its bound, its plain
                version and one PyTorch library call computing the same
                (where there is one), at its main path's shapes; the wide
@@ -3543,6 +3555,24 @@ RECT_TP_CROSS = {"vlm plane of one model rank": (1, 2, 2, ("llama-3.2-vision-11b
 # sweep in this process: params within PATH_TOL and the same acceptances
 MESH_DRAIN, MESH_RANKS, MESH_DRAIN_REPS = (3, 25, 146_447), 5, 10
 MESH_SWEEP_SEEDS, MESH_SWEEP_WINDOWS, MESH_SWEEP_EVAL = 2, 30, 10
+# (d) every other registered algorithm through `simulate_sweep(mesh=)` in
+# (c)'s world: the baselines at fig3_config() for MESH_ALGO_ROUNDS rounds,
+# fedasync-window at event_config() for MESH_SWEEP_SEEDS seeds x
+# MESH_ALGO_ROUNDS windows, the event family on the first MESH_ALGO_EVENTS
+# rows of phase 14's tape; each against its unsharded run in this process
+# (params within PATH_TOL, the counters of MESH_COUNTERS exact), one drain
+# launch a rank a round, batched window and valid event, no mix launch
+MESH_BASELINES = ("sync-symm", "sync-push", "async-symm", "async-push")
+MESH_EVENTS = ("draco-event", "fedasync-gossip", "event-triggered")
+MESH_ALGOS = MESH_BASELINES + ("fedasync-window",) + MESH_EVENTS
+MESH_ALGO_ROUNDS, MESH_ALGO_EVENTS = 10, 60
+MESH_COUNTERS = ("push_weight", "total_accept", "accept_count", "tx_sent", "tx_count")
+# (d)'s drain tiles on each of the MESH_RANKS ranks, (J, N_loc, M, K, ring
+# rows): a baseline round's mix (one bucket) and an event's drain (the D
+# slots of the ring), each held in phase 2, run sharded in (a)'s way in
+# (c)'s world and timed in phase 9
+RECT_MIX_TILE, RECT_EVENT_TILE = (1, 5, 25, 146_447, 1), (4, 5, 25, 146_447, 4)
+MESH_TILES = {"baseline mix tile": RECT_MIX_TILE, "event drain tile": RECT_EVENT_TILE}
 # (b) the mesh trainer `train.main --mesh-backend gloo` on qwen2-1.5b at full
 # width, 4 clients, cut to MESH_LAYERS of its 28 layers: gloo stages every
 # collective through host memory and the loopback, and the dense mix
@@ -3617,13 +3647,15 @@ def drain_against_plain(torch, ops, w, ring, slots, got):
 
 def phase_rect_kernels(torch):
     """Phase 2: the drain's rectangular route at the client mesh's shapes
-    (`RECT_QWEN2`, `RECT_FIG4`, `RECT_DRY`, `RECT_TP`, `RECT_TP_MOE`, `RECT_TP_SSM`,
-    `RECT_TP_CROSS`) in f32 and bf16, against its plain version in column
-    slices, within RTOL of the largest |value|."""
+    (`RECT_QWEN2`, `RECT_FIG4`, `MESH_TILES`, `RECT_DRY`, `RECT_TP`,
+    `RECT_TP_MOE`, `RECT_TP_SSM`, `RECT_TP_CROSS`) in f32 and bf16, against
+    its plain version in column slices, within RTOL of the largest
+    |value|."""
     from repro_torch.kernels.gossip import ops
 
     worst = 0.0
     for label, shape in (("qwen2 plane", RECT_QWEN2), ("fig4 window", RECT_FIG4),
+                         *MESH_TILES.items(),
                          *RECT_DRY.items(), ("qwen2 plane of one model rank", RECT_TP),
                          ("olmoe plane of one model rank", RECT_TP_MOE),
                          *RECT_TP_SSM.items(), *RECT_TP_CROSS.items()):
@@ -3652,6 +3684,8 @@ def rect_time_cases(mesh=None, tp=None):
     if mesh is not None:
         cases += [("qwen2 plane", RECT_QWEN2, mesh["train_collective_ms"]),
                   ("fig4 window", RECT_FIG4, mesh["gloo_collective_ms"])]
+        cases += [(label, shape, mesh["tile_collective_ms"][label])
+                  for label, shape in MESH_TILES.items()]
     if tp is not None:
         cases += [("qwen2 plane of one model rank", RECT_TP, tp["collective_ms"]),
                   ("olmoe plane of one model rank", RECT_TP_MOE, tp["moe_collective_ms"])]
@@ -3806,15 +3840,15 @@ def mesh_rank_train(rank, world, modes):
     return out
 
 
-def mesh_drain_run(torch, mesh):
+def mesh_drain_run(torch, mesh, j, n, k, s):
     """Phase 21 (a) in one rank: the sharded drain on this rank's senders
-    of `MESH_DRAIN` against the plain unsharded drain's rows (within RTOL
-    of the largest |value|), one launch; then `MESH_DRAIN_REPS` calls, the
-    mean ms per call and per collective."""
+    of J buckets of N clients, K columns and a ring of S rows, against
+    the plain unsharded drain's rows (within RTOL of the largest |value|),
+    one launch; then `MESH_DRAIN_REPS` calls, the mean ms per call and per
+    collective."""
     from repro_torch.kernels.gossip import ops
 
-    j, n, k = MESH_DRAIN
-    w, ring, slots = drain_case(torch, j, n, n, k, j + 1, j, torch.float32, seed=2200)
+    w, ring, slots = drain_case(torch, j, n, n, k, s, j, torch.float32, seed=2200)
     sl = mesh.client_slice(n)
     w_loc, ring_loc = w[:, sl].contiguous(), ring[:, sl].contiguous()
     ops.gossip_drain.launches = 0
@@ -3857,8 +3891,11 @@ def mesh_rank_drain(rank, world, backend, with_sweep):
     from repro_torch.launch import mesh as mesh_lib
 
     mesh = mesh_lib.make_sweep_mesh(backend=backend)
-    out = dict(drain=mesh_drain_run(torch, mesh), device=str(mesh.device))
+    out = dict(drain=mesh_drain_run(torch, mesh, *MESH_DRAIN, MESH_DRAIN[0] + 1),
+               device=str(mesh.device))
     if with_sweep:
+        out["tiles"] = {label: mesh_drain_run(torch, mesh, j, m, k, s)
+                        for label, (j, _, m, k, s) in MESH_TILES.items()}
         args = mesh_sweep_args(torch)
         torch.cuda.synchronize()
         ops.gossip_drain.launches = 0
@@ -3870,7 +3907,137 @@ def mesh_rank_drain(rank, world, backend, with_sweep):
                             accuracy=trace.metrics["accuracy"],
                             params=params if rank == 0 else None,
                             accepted=accepted if rank == 0 else None)
+        t0 = time.perf_counter()
+        out["algos"] = {algo: mesh_algo_run(torch, mesh, algo, rank == 0) for algo in MESH_ALGOS}
+        out["algos_s"] = time.perf_counter() - t0
     return out
+
+
+def algo_final(state):
+    """final_fn of phase 21 (d): each row's params and `MESH_COUNTERS`."""
+    return {"params": state.params,
+            **{f: getattr(state, f) for f in MESH_COUNTERS if hasattr(state, f)}}
+
+
+def mesh_algo_args(torch, algo):
+    """Phase 21 (d)'s sweep of `algo` (see `MESH_ALGOS`), made alike in
+    every process from one seed: ``simulate_sweep``'s keyword arguments
+    but ``mesh``."""
+    from repro_torch.events import events_context
+
+    cfg, task = fig3_config() if algo in MESH_BASELINES else event_config(EVENT_TRIGGER)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 215)
+    params0 = task.init_params(gen)
+    data, eval_data = task.make_data(gen, cfg.num_clients)
+    steps = MESH_ALGO_EVENTS if algo in MESH_EVENTS else MESH_ALGO_ROUNDS
+    seeds = MESH_SWEEP_SEEDS if algo == "fedasync-window" else 1
+    kw = dict(cfg_grid=cfg, params0=params0, data=data, num_steps=steps, task=task,
+              keys=[SEED + 216 + r for r in range(seeds)], eval_every=steps,
+              eval_data=eval_data, final_fn=algo_final)
+    if algo in MESH_EVENTS:
+        kw["ctx"] = events_context(cfg, task=task, data=data, params0=params0,
+                                   horizon=EVENT_HORIZON, tape_seed=EVENT_TAPE_SEED)
+    return kw
+
+
+def algo_drains(algo, args):
+    """The drain launches `algo`'s sweep of `args` makes on one rank: one a
+    round, a batched window (all seeds at once) or a valid tape row."""
+    if algo in MESH_EVENTS:
+        return int(args["ctx"].tape.valid[:args["num_steps"]].sum()) * len(args["keys"])
+    return args["num_steps"] * (1 if algo == "fedasync-window" else len(args["keys"]))
+
+
+def mesh_algo_run(torch, mesh, algo, keep):
+    """Phase 21 (d) of `algo` in one rank: its sweep on `mesh` (the wall
+    time with its init and one eval, the collective's seconds, the drain
+    and mix launches, the accuracy, and the N-wide finals when `keep`)."""
+    from repro_torch.api import simulate_sweep
+    from repro_torch.kernels.gossip import ops
+
+    args = mesh_algo_args(torch, algo)
+    torch.cuda.synchronize()
+    ops.gossip_drain.launches = ops.gossip_mix.launches = 0
+    c0, t0 = mesh.collective_s, time.perf_counter()
+    final, trace = simulate_sweep(algo, mesh=mesh, **args)
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0, collective_s=mesh.collective_s - c0,
+                drains=ops.gossip_drain.launches, mixes=ops.gossip_mix.launches,
+                expect=algo_drains(algo, args), steps=args["num_steps"],
+                accuracy=trace.metrics["accuracy"], final=final if keep else None)
+
+
+def phase_mesh_algos(torch, gloo):
+    """Phase 21 (d) in this process: each algorithm's unsharded sweep
+    against rank 0's N-wide finals (params within PATH_TOL, the counters
+    exact) and every rank's launches; ms per round, window or event,
+    sharded (rank 0, with its init and one eval) against unsharded, and
+    the collective's share. Returns (rows, drain launches of the ranks and
+    this process, mix launches of this process)."""
+    from repro_torch.api import simulate_sweep
+
+    rows, drains, mixes = {}, 0, 0
+    for algo in MESH_ALGOS:
+        ranks = [o["algos"][algo] for o in gloo]
+        args = mesh_algo_args(torch, algo)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        want, trace = simulate_sweep(algo, **args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plain = launch_counts()
+        got = ranks[0]["final"]
+        gap = max(float((got["params"][k] - want["params"][k]).abs().max())
+                  for k in want["params"])
+        same = sorted(got) == sorted(want) and all(
+            np.array_equal(np.asarray(torch.as_tensor(got[f]).cpu()),
+                           np.asarray(torch.as_tensor(want[f]).cpu()))
+            for f in want if f != "params")
+        acc_gap = max(float(np.abs(r["accuracy"] - trace.metrics["accuracy"]).max())
+                      for r in ranks)
+        launches_ok = all(r["drains"] == r["expect"] and r["mixes"] == 0 for r in ranks)
+        unit = ("round" if algo in MESH_BASELINES else "event" if algo in MESH_EVENTS
+                else "batched window")
+        sent = (f", {int(torch.as_tensor(want['tx_sent']).sum())} broadcasts sent"
+                if "tx_sent" in want else "")
+        r0 = ranks[0]
+        row = dict(unit=unit, ms=r0["wall"] / r0["steps"] * 1e3,
+                   plain_ms=wall / r0["steps"] * 1e3, share=r0["collective_s"] / r0["wall"],
+                   gap=gap, acc_gap=acc_gap, drains=sum(r["drains"] for r in ranks))
+        ok = gap <= PATH_TOL and same and launches_ok
+        log(f"  {algo} over {len(ranks)} gloo ranks, {r0['steps']} {unit}s: "
+            f"{row['ms']:.3f} ms per {unit} with its init and one eval (collective "
+            f"{100 * row['share']:.1f}%) against {row['plain_ms']:.3f} ms unsharded; drain "
+            f"launches a rank {[r['drains'] for r in ranks]} (expected {r0['expect']}), mix "
+            f"launches {sum(r['mixes'] for r in ranks)} (unsharded: {plain['mix']} mix, "
+            f"{plain['drain']} drain); max |d params| {gap:.3e} (tolerance {PATH_TOL}), same "
+            f"counters {same}{sent}, max |d accuracy| {acc_gap:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 21 (d): {algo} on the mesh differs from its "
+                                 "unsharded run or launched off count")
+        rows[algo] = row
+        drains += row["drains"] + plain["drain"]
+        mixes += plain["mix"]
+    return rows, drains, mixes
+
+
+def check_sharded_drain(runs, backend, device, what, tail):
+    """Phase 21 (a)'s verdict on the ranks' `mesh_drain_run` results:
+    each within RTOL of the largest |value|, finite, one launch a rank;
+    logged with rank 0's ms per call and the collective's. Returns rank
+    0's result."""
+    worst = max(r["err"] / max(r["scale"], 1e-30) for r in runs)
+    ok = all(r["finite"] and r["launches"] == 1 for r in runs) and worst <= RTOL
+    d = runs[0]
+    log(f"  sharded drain {what} over {len(runs)} {backend} rank(s) on {device} (staged "
+        f"through the host: {d['staged']}): max |err| / largest |value| {worst:.3e} "
+        f"(tolerance {RTOL}), one launch per rank; {d['call_ms']:.3f} ms per call, collective "
+        f"{d['collective_ms']:.3f} ms ({100 * d['collective_ms'] / d['call_ms']:.1f}%)"
+        f"{'; ' + tail if tail else ''} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 21: the sharded drain {what} over {backend} disagrees")
+    return d
 
 
 def log_mesh(r):
@@ -3883,6 +4050,10 @@ def log_mesh(r):
     log(f"mesh sweep path (fig4 Psi grid over {MESH_RANKS} gloo ranks): {sw['ms']:.3f} ms per "
         f"batched window with the evals (collective {100 * sw['share']:.1f}%) against "
         f"{sw['plain_ms']:.3f} ms unsharded")
+    for algo, a in r["algos"].items():
+        log(f"mesh sweep path ({algo} over {MESH_RANKS} gloo ranks): {a['ms']:.3f} ms per "
+            f"{a['unit']} (collective {100 * a['share']:.1f}%) against {a['plain_ms']:.3f} ms "
+            f"unsharded; max |d params| {a['gap']:.3e}")
 
 
 def phase_mesh(torch):
@@ -3907,21 +4078,19 @@ def phase_mesh(torch):
                                 timeout=300, threads=0, deadline=900)
     t2 = time.perf_counter()
     for label, outs, wall in (("nccl", nccl, t1 - t0), ("gloo", gloo, t2 - t1)):
-        worst = max(o["drain"]["err"] / max(o["drain"]["scale"], 1e-30) for o in outs)
-        ok = all(o["drain"]["finite"] and o["drain"]["launches"] == 1 for o in outs) \
-            and worst <= RTOL
-        d = outs[0]["drain"]
-        log(f"  sharded drain J={MESH_DRAIN[0]} N=M={MESH_DRAIN[1]} K={MESH_DRAIN[2]} over "
-            f"{len(outs)} {label} rank(s) on {outs[0]['device']} (staged through the host: "
-            f"{d['staged']}): max |err| / largest |value| {worst:.3e} (tolerance {RTOL}), one "
-            f"launch per rank; {d['call_ms']:.3f} ms per call, collective "
-            f"{d['collective_ms']:.3f} ms ({100 * d['collective_ms'] / d['call_ms']:.1f}%); "
-            f"world {wall:.1f} s with process start {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"phase 21: the sharded drain over {label} disagrees")
+        d = check_sharded_drain([o["drain"] for o in outs], label, outs[0]["device"],
+                                "J={} N=M={} K={}".format(*MESH_DRAIN),
+                                f"world {wall:.1f} s with process start")
         res[f"{label}_collective_ms"] = dict(
             ms=d["collective_ms"], what=f"{label} reduce-scatter of (25, 146447) f32 partials, "
             f"{len(outs)} rank(s)")
+    res["tile_collective_ms"] = {}
+    for tile, (j, n_loc, m, k, _) in MESH_TILES.items():
+        d = check_sharded_drain([o["tiles"][tile] for o in gloo], "gloo", gloo[0]["device"],
+                                f"{tile} J={j} N_loc={n_loc} M={m} K={k}", "")
+        res["tile_collective_ms"][tile] = dict(
+            ms=d["collective_ms"], what=f"gloo reduce-scatter of the ({m}, {k}) f32 partials, "
+            f"{len(gloo)} ranks")
 
     # (c) against the unsharded sweep in this process
     sweep = [o["sweep"] for o in gloo]
@@ -3948,7 +4117,16 @@ def phase_mesh(torch):
         raise AssertionError("phase 21: the sharded sweep differs from the unsharded one")
     res["sweep"] = dict(ms=s0["wall"] / windows * 1e3, plain_ms=plain_wall / windows * 1e3,
                         share=s0["collective_s"] / s0["wall"], gap=gap, acc_gap=acc_gap)
-    del params, sweep, gloo, nccl
+    del params, sweep
+
+    # (d) every other algorithm against its unsharded run in this process
+    t0 = time.perf_counter()
+    res["algos"], algo_launches, res["mix_launches"] = phase_mesh_algos(torch, gloo)
+    algos_s = max(o["algos_s"] for o in gloo) + time.perf_counter() - t0
+    PHASE_TIMES.append(("21 (d) algorithms", algos_s))
+    log(f"  (d): {algos_s:.1f} s (the ranks' {max(o['algos_s'] for o in gloo):.1f} s and this "
+        f"process's unsharded runs)")
+    del gloo, nccl
     torch.cuda.empty_cache()
 
     # (b) the single-process references (shared with phase 23 (a)), then
@@ -4012,7 +4190,7 @@ def phase_mesh(torch):
     res["train_collective_ms"] = dict(
         ms=rows["dense"]["collective_ms"],
         what=f"gloo reduce-scatter of the (4, K) f32 partial at {MESH_LAYERS} layers, 2 ranks")
-    res["launches"] = train_launches + sweep_launches
+    res["launches"] = train_launches + sweep_launches + algo_launches
     log(f"phase 21 mesh: {time.perf_counter() - t_start:.1f} s")
     return res
 
@@ -5202,7 +5380,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/gossip/gossip.py:33",
              launches=(mix_launches + m_launches["mix"] + baseline_launches + scen_mix
                        + sum(r["launches"]["mix"] for r in families.values())
-                       + entry["launches"]["mix"] + serving["launches"]["mix"]),
+                       + entry["launches"]["mix"] + serving["launches"]["mix"]
+                       + mesh["mix_launches"]),
              max_abs_err=max(mix_err, mix_err_train),
              **mix_times),
         dict(name="gossip_enqueue", route="cuda",
@@ -5256,7 +5435,7 @@ def main(argv=None) -> int:
     log(f"drain launches: {launches} on the windowed path, {scen_drain} on the scenario "
         f"paths, {sweep['launches']} on the sweep's, {events['launches']} on the event "
         f"engine's, {entry['launches']['drain']} on the entry points', {mesh['launches']} on "
-        f"the client mesh's (its ranks' sum), {dry['drain']} on the dry run's dense train "
+        f"the client mesh's (its ranks' sum and phase 21 (d)'s unsharded runs), {dry['drain']} on the dry run's dense train "
         f"pair (phase 22), {tp['launches']} on the tensor-parallel trainer's (phase 23, its "
         f"ranks' sum)")
     log(f"mix launches: {mix_launches} on the qwen2 trainer's path, {m_launches['mix']} on "
@@ -5264,7 +5443,9 @@ def main(argv=None) -> int:
         f"baselines', " + ", ".join(f"{r['launches']['mix']} on {r['cfg'].name}'s"
                                     for r in families.values())
         + f", {entry['launches']['mix']} on the entry points', "
-        f"{serving['launches']['mix']} on the long-context trainer's")
+        f"{serving['launches']['mix']} on the long-context trainer's, "
+        f"{mesh['mix_launches']} on the unsharded baselines beside the client mesh's (phase 21 "
+        f"(d); none on the mesh)")
     log(f"ssd_chunk launches: {m_launches['ssd_chunk']} on mamba2's trainer path, "
         + ", ".join(f"{r['launches']['ssd_chunk']} on {r['cfg'].name}'s"
                     for r in families.values() if r["launches"]["ssd_chunk"])

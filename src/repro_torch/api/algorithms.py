@@ -12,12 +12,20 @@ Each declares the config fields a sweep may re-bind per grid row
 (`sweepable`), and whether it runs a sweep's seeds as one seed-stacked
 state (`seed_axis`: `draco`'s window takes the R seeds in one pass) or
 one solo state after another.
+
+Each also has a `mesh` attribute, None on one device. `on_mesh` returns
+a copy of a registry singleton bound to a client mesh
+(`repro_torch.launch.mesh.Mesh`), as `simulate_sweep(mesh=)` runs it:
+its `step` runs on the rank's clients of a sharded state, and its
+`eval_params` gathers every client's params.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 from repro_torch.api.algorithm import register_algorithm
+from repro_torch.core import flat as flat_lib
 from repro_torch.core import baselines as baselines_lib
 from repro_torch.core import protocol as protocol_lib
 from repro_torch.scenarios.base import Snapshot
@@ -25,6 +33,20 @@ from repro_torch.scenarios.base import Snapshot
 # Partial-participation probability of the async baselines (the fig3
 # compute matching assumes this value; the reference's default).
 P_ACTIVE = 0.5
+
+
+def on_mesh(algo, mesh):
+    """A copy of `algo` (a registry singleton, left as it is) whose steps
+    run on the client `mesh`."""
+    bound = copy.copy(algo)
+    bound.mesh = mesh
+    return bound
+
+
+def gathered(mesh, params):
+    """Every client's `params`: the rank's rows gathered N-wide on a
+    `mesh`, the params themselves off one."""
+    return params if mesh is None else flat_lib.tree_map(mesh.all_gather, params)
 
 
 def _view(ctx, t: int) -> Snapshot:
@@ -44,8 +66,7 @@ class Draco:
     # config fields a sweep may re-bind per grid row
     sweepable = ("lr", "lambda_grad", "lambda_tx", "psi")
     seed_axis = True
-    # a client mesh (`repro_torch.launch.mesh.Mesh`) the windows run on, set
-    # by `simulate_sweep(mesh=)`'s adapter; None on one device
+    # the client mesh the windows run on (`on_mesh`); None on one device
     mesh = None
 
     def init(self, key, cfg, params0, task=None, *, device=None):
@@ -64,7 +85,7 @@ class Draco:
         return state.window_idx
 
     def eval_params(self, state):
-        return state.params
+        return gathered(self.mesh, state.params)
 
     def grads_per_step(self, cfg):
         # P(>= 1 Poisson grad event in one superposition window)
@@ -84,6 +105,7 @@ class _Baseline:
     # Poisson-rate and Psi knobs are DRACO's
     sweepable = ("lr",)
     seed_axis = False
+    mesh = None  # the client mesh the rounds run on (`on_mesh`)
 
     def init(self, key, cfg, params0, task=None, *, device=None):
         return baselines_lib.init_baseline_state(key, cfg, params0, task=task,
@@ -97,7 +119,8 @@ class _Baseline:
         return None if ctx.overrides is None else ctx.overrides.lr
 
     def eval_params(self, state):
-        return baselines_lib.eval_params(self.name, state)
+        return baselines_lib.eval_params(
+            self.name, state._replace(params=gathered(self.mesh, state.params)))
 
     def grads_per_step(self, cfg):
         return 1.0
@@ -110,7 +133,8 @@ class SyncSymm(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
-                                             ctx.data, draws=draws, **_scenario(v, ctx))
+                                             ctx.data, draws=draws, mesh=self.mesh,
+                                             **_scenario(v, ctx))
 
 
 @register_algorithm("sync-push")
@@ -120,7 +144,8 @@ class SyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.sync_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                             draws=draws, **_scenario(v, ctx))[0]
+                                             draws=draws, mesh=self.mesh,
+                                             **_scenario(v, ctx))[0]
 
 
 @register_algorithm("async-symm")
@@ -131,7 +156,7 @@ class AsyncSymm(_Baseline):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_symm_round(state, ctx.cfg, v.w_sym, v.adj, ctx.task,
                                               ctx.data, P_ACTIVE, draws=draws,
-                                              **_scenario(v, ctx))
+                                              mesh=self.mesh, **_scenario(v, ctx))
 
     def grads_per_step(self, cfg):
         return P_ACTIVE
@@ -144,7 +169,8 @@ class AsyncPush(_Baseline):
     def step(self, state, ctx, draws=None):
         v = _view(ctx, state.round_idx)
         return baselines_lib.async_push_round(state, ctx.cfg, v.adj, ctx.task, ctx.data,
-                                              P_ACTIVE, draws=draws, **_scenario(v, ctx))[0]
+                                              P_ACTIVE, draws=draws, mesh=self.mesh,
+                                              **_scenario(v, ctx))[0]
 
     def grads_per_step(self, cfg):
         return P_ACTIVE

@@ -30,14 +30,17 @@ Client-axis sharding: pass ``mesh=`` (a `repro_torch.launch.mesh.Mesh`,
 e.g. ``make_sweep_mesh(backend=...)``, one per rank of a world that runs
 the same call) and each rank holds N / ranks of the clients
 (`shard_grid_inputs`): its rows of the states and of the federated data
-shards. Every window drains through
+shards. Every registered algorithm runs so, bound to the mesh by
+`algorithms.on_mesh`. Every drain goes through
 `repro_torch.kernels.gossip.ops.gossip_drain_sharded` (each rank's
-rectangular drain, one reduce-scatter over the receiver axis) and
-unifies by a broadcast from the hub's rank; the draws, the channel and
-Psi run N-wide on every rank; evaluation gathers every client's params.
-The finals are gathered N-wide on every rank, so a rank's result equals
-the unsharded call's up to f32 summation order. ``draco`` only: the
-other algorithms raise (ROADMAP item 21).
+rectangular drain, one reduce-scatter over the receiver axis): a window
+of ``draco`` and ``fedasync-window``, each valid event of the event
+family, and a baseline round's mix (the drain's tile over one bucket).
+A unification broadcasts the hub's row from its rank; the draws, the
+channel, Psi, the push weights and the counters run N-wide on every
+rank; evaluation gathers every client's params. The finals are gathered
+N-wide on every rank, so a rank's result equals the unsharded call's up
+to f32 summation order.
 """
 from __future__ import annotations
 
@@ -48,14 +51,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.api.algorithm import Algorithm, get_algorithm
-from repro_torch.api.algorithms import Draco
+from repro_torch.api.algorithms import on_mesh
 from repro_torch.api.context import SimContext, make_context
 from repro_torch.api.simulate import SimTrace, _run, resolve_workload
-from repro_torch.core import flat as flat_lib
-from repro_torch.core.protocol import (Overrides, gather_state, shard_state, stack_draws,
-                                       stack_seeds)
-
-ROADMAP_MESH_BASELINES = "ROADMAP item 21"
+from repro_torch.core import protocol
+from repro_torch.core.protocol import Overrides, stack_draws, stack_seeds
 
 # Config fields the engine knows how to re-bind per grid row. An algorithm
 # declares which of these it consumes (`sweepable`); sweeping a field it
@@ -170,17 +170,18 @@ def _copy(v):
     return v
 
 
-class _MeshDraco(Draco):
-    """`draco` on a client mesh: each window on this rank's client slice
-    (`draco_window`'s `mesh`), evaluation on every client's params."""
+def _state_lib(state):
+    """The module whose ``shard_state`` / ``gather_state`` take `state`:
+    `protocol` for a `DracoState` (solo or seed-stacked), `baselines` for
+    a `BaselineState`, the event engine for an `EventState`."""
+    from repro_torch.core import baselines
+    from repro_torch.events import engine
 
-    name = "draco"
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-
-    def eval_params(self, state):
-        return flat_lib.tree_map(self.mesh.all_gather, state.params)
+    for lib, cls in ((protocol, protocol.DracoState), (baselines, baselines.BaselineState),
+                     (engine, engine.EventState)):
+        if isinstance(state, cls):
+            return lib
+    raise TypeError(f"no client sharding for a {type(state).__name__}")
 
 
 def _client_sharding(x, num_clients: int, mesh):
@@ -195,15 +196,16 @@ def _client_sharding(x, num_clients: int, mesh):
 
 
 def shard_grid_inputs(states, data, num_clients: int, mesh):
-    """This rank's rows of the states (a `DracoState` or a list of them,
-    solo or seed-stacked; `protocol.shard_state`) and of the federated
-    data shards (each tensor's first N-sized axis, `_client_sharding`).
-    Returns ``(states, data)``; either may be None."""
+    """This rank's rows of the states (a state or a list of them: a
+    `DracoState`, solo or seed-stacked, a `BaselineState` or an
+    `EventState`, each by its module's ``shard_state``) and of the
+    federated data shards (each tensor's first N-sized axis,
+    `_client_sharding`). Returns ``(states, data)``; either may be None."""
     rows = mesh.client_slice(num_clients)
     if isinstance(states, (list, tuple)):
-        states = [shard_state(s, rows) for s in states]
+        states = [_state_lib(s).shard_state(s, rows) for s in states]
     elif states is not None:
-        states = shard_state(states, rows)
+        states = _state_lib(states).shard_state(states, rows)
     if data is not None:
         idx = [_client_sharding(x, num_clients, mesh) for x in data]
         data = tuple(x if i is None else x[i].contiguous() for x, i in zip(data, idx))
@@ -261,11 +263,11 @@ def simulate_sweep(
       device: None means CUDA (raises without it); "cpu" on purpose.
       draws_fn: for tests, ``draws_fn(g, r, i)`` injects the draws of grid
         row g, seed r, step i (the algorithm's step index).
-      mesh: a client mesh (`repro_torch.launch.mesh.Mesh`) to run ``draco``
-        on, every rank of its world calling with the same arguments: each
-        rank holds N / ranks clients (see the module docstring); the
-        finals come back N-wide. Another algorithm raises
-        `NotImplementedError` (ROADMAP item 21).
+      mesh: a client mesh (`repro_torch.launch.mesh.Mesh`) to run any
+        registered algorithm on, every rank of its world calling with the
+        same arguments: each rank holds N / ranks clients (see the module
+        docstring; N must divide by the client ranks, else `ValueError`);
+        the finals come back N-wide.
 
     `finals` is `final_fn`'s output (or the final states) with leading
     (G, R) axes: tensors stacked, host numbers as numpy arrays (a
@@ -277,10 +279,6 @@ def simulate_sweep(
     dev = resolve_device(device)
     if isinstance(algo, str):
         algo = get_algorithm(algo)
-    if mesh is not None and type(algo) is not Draco:
-        raise NotImplementedError(
-            f"simulate_sweep(mesh=) runs draco only; {algo.name!r} on a client mesh is "
-            f"{ROADMAP_MESH_BASELINES}")
     cfgs = list(cfg_grid) if isinstance(cfg_grid, (list, tuple)) else [cfg_grid]
     base, overrides = stack_configs(cfgs)
     task, workload, params0, data, eval_data = resolve_workload(
@@ -357,7 +355,7 @@ def simulate_sweep(
     if mesh is not None:
         _, data_loc = shard_grid_inputs(None, ctx.data, base.num_clients, mesh)
         ctx = ctx._replace(data=data_loc)
-        algo = _MeshDraco(mesh)
+        algo = on_mesh(algo, mesh)
     finals, traces = [], []
     for g in range(grid):
         ctx_g = ctx._replace(overrides=row_overrides(overrides, g if len(cfgs) > 1 else 0))
@@ -373,11 +371,12 @@ def simulate_sweep(
             final, trace = _run(algo, ctx_g, stack_seeds(solo), draws_fn=fn,
                                 seeds=num_rows, **run)
             if mesh is not None:
-                final = gather_state(final, mesh)
+                final = protocol.gather_state(final, mesh)
         else:
             outs = [_run(algo, ctx_g, st, draws_fn=None if draws_fn is None else (
                 lambda i, g=g, r=r: draws_fn(g, r, i)), **run) for r, st in enumerate(solo)]
-            final = _stack([o[0] for o in outs])
+            final = _stack([o[0] if mesh is None else _state_lib(o[0]).gather_state(o[0], mesh)
+                            for o in outs])
             trace = SimTrace(outs[0][1].step, {k: np.stack([o[1].metrics[k] for o in outs])
                                                 for k in outs[0][1].metrics})
         finals.append(final if final_fn is None else final_fn(final))

@@ -26,6 +26,17 @@ it; the sync rounds then draw a participation mask they otherwise skip).
 Randomness, as in `protocol`: a round's random outcomes are one
 `RoundDraws` record, drawn from the state's `torch.Generator` in
 production and injected by tests from the reference's key ladder.
+
+A client mesh (`repro_torch.launch.mesh.Mesh`, each round function's
+``mesh=``): the state holds this rank's clients (`shard_state`: the rows
+of ``params`` and ``opt_state``); the draws, the channel, the weights and
+the push weights are computed N-wide on every rank from the same
+generator, so every rank takes the same decisions. The local step runs
+on the rank's rows, and the mix is `launch.steps.mesh_mix`'s dense mode:
+the drain kernel's rectangular tile over one bucket (the rank's sender
+rows of ``w.T`` against every receiver), then one reduce-scatter. The
+reference mixes by a per-leaf einsum on one device and lets GSPMD shard
+it; the kernel on one device and the tile on a mesh are the port's.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ import torch
 from repro_torch import as_generator
 from repro_torch.core import channel as channel_lib
 from repro_torch.core import flat as flat_lib
+from repro_torch.core import protocol
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.protocol import DracoConfig, local_step, opt_plane
 from repro_torch.core.topology import adjacency, metropolis
@@ -137,15 +149,32 @@ def _mix_rows(w, params, mix: Optional[Callable] = None):
     return flat_lib.unravel_clients(mix(w.T, plane), spec)
 
 
-def _local(state, cfg, task, data, draws, p_active, compute_rate, lr=None):
+def _rows(mesh, n: int) -> slice:
+    """This rank's clients of `n` (all of them off a mesh)."""
+    return slice(0, n) if mesh is None else mesh.client_slice(n)
+
+
+def _mixer(mix, mesh):
+    """The round's mix function: `mix` when given; on a `mesh`,
+    `launch.steps.mesh_mix`'s dense mode; else None (`gossip_mix`)."""
+    if mix is not None or mesh is None:
+        return mix
+    from repro_torch.launch import steps
+
+    return steps.mesh_mix(mesh, "dense")
+
+
+def _local(state, cfg, task, data, draws, p_active, compute_rate, lr=None, mesh=None):
     """The round's draws, and its local step on the active clients (`lr`,
-    when given, overriding ``cfg.lr``: a sweep row's):
-    ``(draws, params + Delta, opt_state)``."""
+    when given, overriding ``cfg.lr``: a sweep row's), on the `mesh`
+    rank's rows when one is given: ``(draws, params + Delta, opt_state)``."""
     if draws is None:
         draws = sample_round_draws(state.generator, cfg, data[0].shape[1], p_active,
                                    compute_rate)
-    delta, opt_state = local_step(state.params, draws.active, cfg, task, data,
-                                  draws.batch_idx, state.opt_state, state.round_idx, lr=lr)
+    sl = _rows(mesh, cfg.num_clients)
+    delta, opt_state = local_step(state.params, draws.active[sl], cfg, task, data,
+                                  draws.batch_idx[sl], state.opt_state, state.round_idx,
+                                  lr=lr)
     params = flat_lib.tree_map(lambda p, d: p + d.to(p.dtype), state.params, delta)
     return draws, params, opt_state
 
@@ -186,16 +215,18 @@ def _advance(state, params, opt_state, positions, push_weight=None):
 
 def sync_symm_round(state: BaselineState, cfg, w_sym, adj, task, data, *,
                     draws: Optional[RoundDraws] = None, mix=None, positions=None,
-                    compute_rate=None, lr=None) -> BaselineState:
+                    compute_rate=None, lr=None, mesh=None) -> BaselineState:
     """D-SGD with Metropolis weights `w_sym` (N, N); dropped links' mass
     folds into the self-loop. `task` is a `Task` or a bare batched loss;
     `draws` injects the round's `RoundDraws`; `mix` is the mix function
     (`gossip_ops.gossip_mix` when None). A schedule's `compute_rate`
     makes stragglers skip their local step (their params still mix);
-    `positions` move the channel's nodes; `lr` overrides ``cfg.lr`` (the
-    same in every round function)."""
+    `positions` move the channel's nodes; `lr` overrides ``cfg.lr``;
+    `mesh` runs the round on this rank's clients (see the module
+    docstring). The same in every round function."""
     n = cfg.num_clients
-    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr,
+                                      mesh)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
     succ = _link_success(state, cfg, adj, all_on, draws.fading, positions)
     succ = succ & succ.T  # symmetric methods need bidirectional links
@@ -203,56 +234,60 @@ def sync_symm_round(state: BaselineState, cfg, w_sym, adj, task, data, *,
     w = torch.where(succ & ~eye, w_sym, 0.0)
     # dropped links' weight folds back into the self-loop (w stays row-stochastic)
     w = torch.where(eye, 1.0 - w.sum(dim=1, keepdim=True), w)
-    return _advance(state, _mix_rows(w, params, mix), opt_state, positions)
+    return _advance(state, _mix_rows(w, params, _mixer(mix, mesh)), opt_state, positions)
 
 
 def sync_push_round(state: BaselineState, cfg, adj, task, data, *,
                     draws: Optional[RoundDraws] = None, mix=None, positions=None,
-                    compute_rate=None, lr=None):
+                    compute_rate=None, lr=None, mesh=None):
     """Synchronous push-sum (stochastic gradient push, Assran et al.).
-    Returns ``(state, de-biased params)``."""
+    Returns ``(state, de-biased params)``: on a `mesh` the rank's rows,
+    the push weights N-wide."""
     n = cfg.num_clients
-    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr)
+    draws, params, opt_state = _local(state, cfg, task, data, draws, None, compute_rate, lr,
+                                      mesh)
     all_on = torch.ones((n,), dtype=torch.bool, device=adj.device)
     col_p = push_split(_link_success(state, cfg, adj, all_on, draws.fading, positions))
-    params = _mix_rows(col_p.T, params, mix)  # z_j = sum_i colP[i, j] z_i
+    params = _mix_rows(col_p.T, params, _mixer(mix, mesh))  # z_j = sum_i colP[i, j] z_i
     w = col_p.T @ state.push_weight
-    return _advance(state, params, opt_state, positions, w), _de_bias(params, w)
+    return (_advance(state, params, opt_state, positions, w),
+            _de_bias(params, w[_rows(mesh, n)]))
 
 
 def async_symm_round(state: BaselineState, cfg, w_sym, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
                      mix=None, positions=None, compute_rate=None,
-                     lr=None) -> BaselineState:
+                     lr=None, mesh=None) -> BaselineState:
     """Async decentralized SGD with a delay deadline: a random subset is
     active each round (probability `p_active`, scaled by a schedule's
     `compute_rate`); symmetric mixing among the surviving links between
     active clients."""
     n = cfg.num_clients
     draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
-                                      compute_rate, lr)
+                                      compute_rate, lr, mesh)
     active = draws.active
     succ = _link_success(state, cfg, adj, active, draws.fading, positions)
     succ = succ & succ.T & active[:, None] & active[None, :]
     w = torch.where(succ, w_sym, 0.0)
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
     w = torch.where(eye, 1.0 - w.sum(dim=1, keepdim=True), w)
-    return _advance(state, _mix_rows(w, params, mix), opt_state, positions)
+    return _advance(state, _mix_rows(w, params, _mixer(mix, mesh)), opt_state, positions)
 
 
 def async_push_round(state: BaselineState, cfg, adj, task, data,
                      p_active: float = 0.5, *, draws: Optional[RoundDraws] = None,
-                     mix=None, positions=None, compute_rate=None, lr=None):
+                     mix=None, positions=None, compute_rate=None, lr=None, mesh=None):
     """Asynchronous push-sum gossip (Digest-style): active clients push
     half their mass, split across their successful out-neighbours.
-    Returns ``(state, de-biased params)``."""
+    Returns ``(state, de-biased params)``, as `sync_push_round` does."""
     draws, params, opt_state = _local(state, cfg, task, data, draws, p_active,
-                                      compute_rate, lr)
+                                      compute_rate, lr, mesh)
     p = half_push_split(_link_success(state, cfg, adj, draws.active, draws.fading,
                                       positions))
-    params = _mix_rows(p.T, params, mix)
+    params = _mix_rows(p.T, params, _mixer(mix, mesh))
     w = p.T @ state.push_weight
-    return _advance(state, params, opt_state, positions, w), _de_bias(params, w)
+    return (_advance(state, params, opt_state, positions, w),
+            _de_bias(params, w[_rows(mesh, cfg.num_clients)]))
 
 
 def baseline_round(method: str, state: BaselineState, cfg, w_sym, adj, task, data,
@@ -300,3 +335,17 @@ def eval_params(method: str, state: BaselineState):
     if method.endswith("push"):
         return _de_bias(state.params, state.push_weight)
     return state.params
+
+
+def shard_state(state: BaselineState, rows: slice) -> BaselineState:
+    """The client slice `rows` of a state, as a mesh round runs it (the
+    round functions' `mesh`): copies of those rows of ``params`` and
+    ``opt_state``; the push weights, positions, round index and generator
+    as they are."""
+    return protocol.shard_state(state, rows, {"opt_state": 0})
+
+
+def gather_state(state: BaselineState, mesh) -> BaselineState:
+    """Inverse of `shard_state` over a mesh: ``params`` and ``opt_state``
+    gathered N-wide from the client ranks (on every rank)."""
+    return protocol.gather_state(state, mesh, {"opt_state": 0})

@@ -435,6 +435,14 @@ def _unify(params, accept_count, widx: int, cfg, n: int, seeds: int = 0, mesh=No
     if (widx + 1) % cfg.unify_period != 0:
         return params, accept_count
     hub = (widx // max(cfg.unify_period, 1)) % n
+    return adopt_hub(params, hub, n, seeds, mesh), torch.zeros_like(accept_count)
+
+
+def adopt_hub(params, hub: int, n: int, seeds: int = 0, mesh=None):
+    """Every client's params replaced by client `hub`'s (of `n`), past
+    `seeds` leading seed axes. On a `mesh` the params hold this rank's
+    clients: the rank holding the hub broadcasts its row (every leaf in
+    one buffer)."""
     leaves = flat_lib.tree_leaves(params)
     if mesh is None:
         rows = [x.select(seeds, hub) for x in leaves]
@@ -442,10 +450,21 @@ def _unify(params, accept_count, widx: int, cfg, n: int, seeds: int = 0, mesh=No
         src = mesh.owner(hub, n)
         local = hub - src * (n // mesh.size) if src == mesh.rank else 0
         rows = mesh.broadcast_tensors([x.select(seeds, local) for x in leaves], src)
-    params = flat_lib.tree_from_items(
+    return flat_lib.tree_from_items(
         (path, row.unsqueeze(seeds).expand_as(x).clone())
         for (path, x), row in zip(flat_lib.tree_items(params), rows))
-    return params, torch.zeros_like(accept_count)
+
+
+def mesh_drain(mesh):
+    """The drain function of a window or an event on a client `mesh`:
+    `gossip_drain_sharded` over its client axes (the rank's rectangular
+    drain, one reduce-scatter)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    def drain(w, ring, slots):
+        return gossip_ops.gossip_drain_sharded(w, ring, slots, mesh,
+                                               mesh_lib.client_axes(mesh))
+    return drain
 
 
 def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
@@ -507,11 +526,7 @@ def draco_window(state: DracoState, cfg: DracoConfig, q, adj, task, data,
         draws = sample_window_draws(state.generator, cfg, data[0].shape[1],
                                     compute_rate, tx_rate, overrides)
     if drain is None and mesh is not None:
-        from repro_torch.launch import mesh as mesh_lib
-
-        def drain(w, ring, slots):
-            return gossip_ops.gossip_drain_sharded(w, ring, slots, mesh,
-                                                   mesh_lib.client_axes(mesh))
+        drain = mesh_drain(mesh)
     drain = gossip_ops.gossip_drain if drain is None else drain
 
     # --- 1. deliveries: fused delay-bucketed drain on the flat plane -------
@@ -612,28 +627,33 @@ def seed_row(state: DracoState, r: int) -> DracoState:
 _CLIENT_AXIS = {"pending": 0, "buffer": 1, "w_ring": 1, "delay_ring": 1, "opt_state": 0}
 
 
-def shard_state(state: DracoState, rows: slice) -> DracoState:
+def shard_state(state: DracoState, rows: slice, client_axis=None) -> DracoState:
     """The client slice `rows` of a state (solo or seed-stacked), as a
     mesh window runs it (`draco_window`'s `mesh`): copies of those rows of
     params, pending, the payload ring, opt_state and the sender axis of
     ``w_ring`` and ``delay_ring``; accept counts, positions, the window
-    index and the generator as they are."""
-    lead = state.pending.dim() - 2
+    index and the generator as they are. `client_axis` (field -> its
+    client axis past the seed axis) names the sliced fields besides the
+    params of another state type (`baselines.shard_state`,
+    `events.engine.shard_state`); every state has an ``opt_state``."""
+    axes = _CLIENT_AXIS if client_axis is None else client_axis
+    lead = state.opt_state.dim() - 2
 
     def take(x, axis):
         return x.narrow(lead + axis, rows.start, rows.stop - rows.start).clone()
 
     return state._replace(params=flat_lib.tree_map(lambda p: take(p, 0), state.params),
-                          **{f: take(getattr(state, f), a) for f, a in _CLIENT_AXIS.items()})
+                          **{f: take(getattr(state, f), a) for f, a in axes.items()})
 
 
-def gather_state(state: DracoState, mesh) -> DracoState:
+def gather_state(state: DracoState, mesh, client_axis=None) -> DracoState:
     """Inverse of `shard_state` over a mesh: every client-sliced field
     gathered N-wide from the client ranks (on every rank)."""
-    lead = state.pending.dim() - 2
+    axes = _CLIENT_AXIS if client_axis is None else client_axis
+    lead = state.opt_state.dim() - 2
     return state._replace(
         params=flat_lib.tree_map(lambda p: mesh.all_gather(p, lead), state.params),
-        **{f: mesh.all_gather(getattr(state, f), lead + a) for f, a in _CLIENT_AXIS.items()})
+        **{f: mesh.all_gather(getattr(state, f), lead + a) for f, a in axes.items()})
 
 
 def run_windows(state: DracoState, cfg: DracoConfig, q, adj, task, data,

@@ -21,7 +21,9 @@ bit), which keeps `draco`'s seed axis.
 The tape-walking three sweep over `lr` and `psi` only: the Poisson rates
 shape the sampled tape itself, so sweeping them in one call is
 rejected (resample tapes instead). They run a sweep's seeds one solo
-state after another.
+state after another. On a client mesh (`repro_torch.api.algorithms.on_mesh`)
+each runs on the rank's clients, as `draco` does: `event_step`'s `mesh`
+and `draco_window`'s.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import functools
 import numpy as np
 
 from repro_torch.api.algorithm import register_algorithm
-from repro_torch.api.algorithms import Draco, _view
+from repro_torch.api.algorithms import Draco, _view, gathered
 from repro_torch.core import protocol as protocol_lib
 from repro_torch.events import engine
 from repro_torch.events.staleness import staleness_damping_vector, staleness_fn
@@ -45,6 +47,7 @@ class _EventAlgo:
     seed_axis = False
     use_damping = False
     use_trigger = False
+    mesh = None  # the client mesh the events run on (`on_mesh`)
 
     def init(self, key, cfg, params0, task=None, *, device=None):
         return engine.init_event_state(key, cfg, params0, task=task, device=device)
@@ -53,13 +56,14 @@ class _EventAlgo:
         cfg = ctx.cfg
         damping = staleness_fn(cfg) if self.use_damping else None
         trigger = float(getattr(cfg, "trigger_threshold", 0.0)) if self.use_trigger else 0.0
-        return engine.event_step(state, ctx, damping=damping, trigger=trigger, draws=draws)
+        return engine.event_step(state, ctx, damping=damping, trigger=trigger, draws=draws,
+                                 mesh=self.mesh)
 
     def step_index(self, state) -> int:
         return state.event_idx
 
     def eval_params(self, state):
-        return state.params
+        return gathered(self.mesh, state.params)
 
     def grads_per_step(self, cfg):
         # one tape row is one merged-process event; a share lambda_grad /
@@ -108,6 +112,7 @@ class FedAsyncWindow(Draco):
         v = _view(ctx, state.window_idx)
         return protocol_lib.draco_window(
             state, ctx.cfg, v.q, v.adj, ctx.task, ctx.data,
-            spec=ctx.flat_spec, draws=draws, positions=v.positions,
-            compute_rate=v.compute_rate, tx_rate=v.tx_rate,
-            overrides=ctx.overrides, damping=_damping(ctx.cfg, ctx.q.device))
+            spec=ctx.flat_spec if self.mesh is None else None, draws=draws,
+            positions=v.positions, compute_rate=v.compute_rate, tx_rate=v.tx_rate,
+            overrides=ctx.overrides, damping=_damping(ctx.cfg, ctx.q.device),
+            mesh=self.mesh)

@@ -49,6 +49,21 @@ Randomness. A valid event draws its `EventDraws` from the state's
 generator: a grad event the batch rows of all N clients, a TX event
 with the channel on the (N, N) fading; tests inject the record the
 reference's 4-way key split gives.
+
+A client mesh (`event_step`'s ``mesh``, a `repro_torch.launch.mesh.Mesh`):
+the state holds this rank's clients (`shard_state`: the rows of
+``params``, ``pending``, ``opt_state`` and the payload ring, and the
+sender rows of ``w_ring`` and ``deadline_ring``); the send times, the
+counters and the positions stay N-wide, and the draws, the channel and
+Psi are computed N-wide on every rank from the same generator. Every
+valid event drains through `gossip_drain_sharded` (the rank's senders
+against every receiver, then one reduce-scatter), an empty drain
+included, as the reference's sharded drain does. A grad event runs the
+local step on the rank's rows; a TX event writes the rank's sender rows
+of the slot; `event-triggered`'s fire decision is taken by the rank that
+holds the sender's backlog and broadcast to the others (its one host
+read); a unification broadcasts the hub's row from the rank that holds
+it.
 """
 # repro-lint: disable-file=TRACED-PY-BRANCH(event_step runs eagerly, one tape row per Python call: the tape, cursor, clock and tx_count are host numpy and ints, and the branches on them are host control flow, never a traced value), HOST-SYNC-IN-JIT(the int and float reads are of host numpy tape entries; the one device read, event-triggered's fire decision, is deliberate and counted by chip_smoke.py)
 from __future__ import annotations
@@ -146,8 +161,28 @@ def event_view(ctx, t: np.float32):
     return step_t, v.q, v.adj, v.positions
 
 
+def _fires(pending, ci: int, n: int, trigger: float, mesh) -> bool:
+    """Whether client `ci`'s TX row fires: its backlog's L2 norm against
+    `trigger` (always, at 0), read on the host. On a `mesh` the rank that
+    holds the backlog decides and broadcasts, so every rank takes the
+    same decision (it sets the slot written and every later one)."""
+    if trigger <= 0:
+        return True
+    thr = float(np.float32(trigger) ** 2)
+    if mesh is None:
+        row = pending[ci]
+    else:
+        src = mesh.owner(ci, n)
+        row = pending[ci - src * (n // mesh.size) if src == mesh.rank else 0]
+    fire = (row.square().sum() >= thr).to(torch.int32)
+    if mesh is not None:
+        fire = mesh.broadcast(fire, src)
+    # repro-lint: disable-next-line=TENSOR-PY-BRANCH(event-triggered reads its fire decision on the host once per TX row by design, PERF.md section 2; the other event modes pass trigger 0 and return before it)
+    return bool(fire)
+
+
 def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
-               draws: Optional[EventDraws] = None, drain=None) -> EventState:
+               draws: Optional[EventDraws] = None, drain=None, mesh=None) -> EventState:
     """One tape row: drain what is due, then dispatch on the event kind.
 
     `ctx` is a `SimContext` carrying an `EventTape` (see
@@ -156,7 +191,9 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
     undamped DRACO semantics, bit for bit); `trigger` the suppression
     threshold (0: always fire). `draws` injects the event's
     `EventDraws`; `drain` is the drain function (`gossip_ops.gossip_drain`
-    when None). The rings are written in place: a state is consumed by
+    when None, `gossip_drain_sharded` on a `mesh`). `mesh` runs the event
+    on this rank's clients of a sharded state (see the module
+    docstring). The rings are written in place: a state is consumed by
     the step that advances it."""
     tape = ctx.tape
     if tape is None:
@@ -168,13 +205,17 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
         return state._replace(event_idx=e + 1)
     cfg = ctx.cfg
     n, D = cfg.num_clients, cfg.max_delay_windows
-    spec = ctx.flat_spec if ctx.flat_spec is not None else flat_lib.spec_of(state.params)
+    sl = slice(0, n) if mesh is None else mesh.client_slice(n)  # this rank's clients
+    spec = (ctx.flat_spec if ctx.flat_spec is not None and mesh is None
+            else flat_lib.spec_of(state.params))
     t, ci, kind = tape.t[e], int(tape.client[e]), int(tape.kind[e])
     tf = float(t)  # the f32 value, exact as a Python float
     step_t, q, adj, sched_pos = event_view(ctx, t)
     pos = state.positions if sched_pos is None else sched_pos
     if draws is None:
         draws = sample_event_draws(state.generator, cfg, ctx.data[0].shape[1], kind)
+    if drain is None and mesh is not None:
+        drain = protocol_lib.mesh_drain(mesh)
     drain = gossip_ops.gossip_drain if drain is None else drain
 
     # --- 1. continuous-time drain: everything due by t, oldest first --------
@@ -195,9 +236,9 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
     acc, tot, sent, txc = state.accept_count, state.total_accept, state.tx_sent, state.tx_count
     # --- 2. dispatch on the event kind --------------------------------------
     if kind == KIND_GRAD:
-        gm = torch.arange(n, device=pending.device) == ci
+        gm = torch.arange(n, device=pending.device)[sl] == ci
         delta, opt_state = protocol_lib.local_step(
-            params, gm, cfg, ctx.task, ctx.data, draws.batch_idx, opt_state, step_t,
+            params, gm, cfg, ctx.task, ctx.data, draws.batch_idx[sl], opt_state, step_t,
             lr=rebound(cfg, ctx.overrides, "lr"))
         pending = pending + flat_lib.ravel_clients(delta)
         if cfg.apply_self_update:
@@ -206,10 +247,8 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
         sender = torch.arange(n, device=pending.device) == ci
         # suppression: the backlog's norm against the threshold, read on the
         # host (the one sync of event-triggered's TX rows)
-        # repro-lint: disable-next-line=TENSOR-PY-BRANCH(event-triggered reads its fire decision on the host once per TX row by design, PERF.md section 2; the other event modes pass trigger 0 and never reach the read)
-        fire = trigger <= 0 or bool(
-            pending[ci].square().sum() >= float(np.float32(trigger) ** 2))
-        if fire:
+        # repro-lint: disable-next-line=TENSOR-PY-BRANCH(_fires returns a host bool, read once per TX row of event-triggered only)
+        if _fires(pending, ci, n, trigger, mesh):
             if cfg.channel is not None and cfg.channel.enabled:
                 gamma, success = channel_lib.transmission_delays(
                     draws.fading, pos, sender, cfg.channel)
@@ -227,15 +266,15 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
             acc, tot = acc + newly, tot + newly
             slot = txc % D  # evicts broadcast txc - D
             state.buffer[slot].copy_(pending)
-            state.w_ring[slot].copy_(q * accept.to(q.dtype))
-            state.deadline_ring[slot].copy_(deadlines)
+            state.w_ring[slot].copy_((q * accept.to(q.dtype))[sl])
+            state.deadline_ring[slot].copy_(deadlines[sl])
             state.send_time[slot].fill_(tf)
             sent = sent + sender.to(torch.int32)
             txc += 1
-            pending = pending * (~sender).to(torch.float32)[:, None]
+            pending = pending * (~sender[sl]).to(torch.float32)[:, None]
     elif kind == KIND_UNIFY:
         # hub = tape.client (the precomputed rotating hub, `unify_hub`)
-        params = flat_lib.tree_map(lambda x: x[ci].expand_as(x).clone(), params)
+        params = protocol_lib.adopt_hub(params, ci, n, mesh=mesh)
         acc = torch.zeros_like(acc)
     else:
         raise ValueError(f"unknown event kind {kind}")
@@ -243,6 +282,27 @@ def event_step(state: EventState, ctx, *, damping=None, trigger: float = 0.0,
         params=params, pending=pending, accept_count=acc, total_accept=tot, tx_sent=sent,
         tx_count=txc, event_idx=e + 1, time=np.float32(t), positions=pos,
         opt_state=opt_state)
+
+
+# fields of an `EventState` with a client axis, and which axis: the
+# backlog's and the optimizer plane's first, the payload ring's and (the
+# sender axis) w_ring's and deadline_ring's second
+_CLIENT_AXIS = {"pending": 0, "opt_state": 0, "buffer": 1, "w_ring": 1, "deadline_ring": 1}
+
+
+def shard_state(state: EventState, rows: slice) -> EventState:
+    """The client slice `rows` of a state, as a mesh event runs it
+    (`event_step`'s `mesh`): copies of those rows of ``params``,
+    ``pending``, ``opt_state`` and the payload ring, and of the sender
+    axis of ``w_ring`` and ``deadline_ring``; the send times, counters,
+    positions, cursor, clock and generator as they are."""
+    return protocol_lib.shard_state(state, rows, _CLIENT_AXIS)
+
+
+def gather_state(state: EventState, mesh) -> EventState:
+    """Inverse of `shard_state` over a mesh: every client-sliced field
+    gathered N-wide from the client ranks (on every rank)."""
+    return protocol_lib.gather_state(state, mesh, _CLIENT_AXIS)
 
 
 def run_events(state: EventState, ctx, num_events: int, *, damping=None,

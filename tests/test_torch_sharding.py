@@ -204,10 +204,13 @@ def test_model_axis_and_unported_paths_raise_naming_their_item():
     steps.make_serve_step(cfg, SHAPES["decode_32k"], SizedMesh(2))  # 128 rows divide
     from repro_torch.api import simulate_sweep
 
+    # every registered algorithm runs on a client mesh (ROADMAP item 21, done):
+    # N must divide by its client ranks
+    dry = mesh_lib.Mesh.dry((2, 1), ("data", "model"), device="cpu")
     for algo in ("sync-symm", "fedasync-window", "draco-event"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-            simulate_sweep(algo, DracoConfig(num_clients=4), task="mlp", num_steps=1,
-                           key=0, device="cpu", mesh=SizedMesh(2))
+        with pytest.raises(ValueError, match="divisible"):
+            simulate_sweep(algo, DracoConfig(num_clients=3), task="mlp", num_steps=1,
+                           key=0, device="cpu", mesh=dry)
     with pytest.raises(RuntimeError, match="init_world"):
         mesh_lib.make_sweep_mesh(2, backend="gloo", device="cpu")
     assert mesh_lib.client_axes(FakeMesh()) == ("pod", "data")
