@@ -307,6 +307,19 @@ Phases (any failure exits non-zero):
                embeddings looked up vocab-parallel); (k) as (c) for the
                vlm (`TP_DRY_CROSS`: 2 query heads and 1 kv head a rank,
                `wk`/`wv` gathered), and musicgen-large's share reckoned;
+               (l) sequence parallelism (`--seq-parallel`, `TP_SP`): in
+               (a)'s and (d)'s worlds one step with the flag for
+               qwen2-1.5b (none), olmoe, mamba2 and the vlm, each held
+               against one process under its twin's checks and against
+               its twin's step 1 without the flag in the same world under
+               the same bounds, the sequence-parallel sub-blocks in the
+               tally; the vlm in f32 with the flag and the none mix
+               (`TP_SP_F32`), its cross layer's step-1 update against one
+               process leaf by leaf within `TP_CROSS_F32_TOL` (ROADMAP
+               F4); then the dry run's (16, 16) yi-34b x train_4k share
+               with the flag (`TP_DRY_SP`: it fits only so) reckoned and
+               run at depths 1 and 2 as (c), and qwen2.5-32b's reckoned
+               with it;
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -4448,10 +4461,55 @@ TP_FEED = 2
 # musicgen-large's share reckoned on `meta` and printed
 TP_DRY_CROSS, TP_DRY_CROSS_HEADS = ("llama-3.2-vision-11b", "train_4k", "ring", 8192, 0), 2
 TP_DRY_AUDIO = ("musicgen-large", "train_4k", "ring", 8192, 0)
+# (l) sequence parallelism over "model" (`train.main --seq-parallel`,
+# ROADMAP item 20(e)): the residual stream between the layers is each
+# model rank's half of the 128 positions. In (a)'s world qwen2-1.5b with
+# the none mix (the dense mix's (4, K) reduce-scatter staged through the
+# host is most of a (2, 2) dense step and moves nothing the flag touches),
+# in (d)'s olmoe, mamba2 and the vlm with the dense mix: one step each
+# (`TP_SP_ARGV`), held against one process under its twin's checks (the
+# same mode without the flag: (a)'s none, (d)'s, (f)'s and (i)'s) and
+# against that twin's step 1 in the same world: the losses within
+# TP_LOSS_TOL (relative), each leaf under the twin's checks (a weight
+# within TP_WEIGHT_TOL of its largest |value|, a zero-init leaf within the
+# twin's bound, an f32 leaf within its bound of the twin's update). The
+# flag changes the order of the bf16 sums (reduce-scatters and
+# all-gathers in place of all-reduces), not what is computed, so the two
+# sit as close as either sits to one process. The twins' labels:
+TP_SP = ("none", "moe dense", "mamba2-2.7b dense", "llama-3.2-vision-11b dense")
+TP_SP_ARGV = ["--seq-parallel", "--steps", "1"]
+# ROADMAP F4: the vlm at (i)'s depth in f32 with the flag and the none mix
+# (so that a step's update is -lr times the gradient; the dense mix's f32
+# planes of two clients in each of two ranks do not fit the card beside
+# them, PERF.md §6), 1 step: its losses against one process within
+# TP_LOSS_TOL, and each of its cross layer's leaves (the 0-d gate, the norm
+# and the four projections of its ":cross" block) within TP_CROSS_F32_TOL
+# of that leaf's largest step-1 update in one process (f32 steps: an update
+# is exact to f32 rounding, where a bf16 step rounds most of it away). One
+# process saves only the cross layers' leaves (`single_reference`'s
+# `keep`); the bf16 step with the flag holds the rest. The bound is ~2.7x
+# its reading on an H100 (PERF.md §6: 4.381e-06, at the cross norm; the
+# losses equal one process's to the last digit); the cross layer's output
+# left unsummed over the ranks (`--tp-faults`, `TP_F4_FAULT`) reads 1.8 at
+# the gate, where the replicated leaves stay equal across the ranks.
+TP_SP_F32 = ("llama-3.2-vision-11b", 5, {"dtype": "float32"})
+TP_SP_F32_ARGV = ["--arch", TP_SP_F32[0], "--clients", "2", "--mix", "none", *TP_SP_ARGV]
+TP_SP_F32_LABEL = "llama-3.2-vision-11b f32 sp"
+TP_CROSS_F32_TOL = 1.2e-5
+# the dry run's (16, 16) pair with the flag: yi-34b's 1 / 16 share of
+# train_4k, 86.86 GiB reckoned without it (past the card), 33.49 with it
+# (the CPU's reckoning: each rank's 1 / 16 of the 60 layer groups' saved
+# carries), run at depths 1 and 2 as (c); then qwen2.5-32b's share with the
+# flag reckoned on `meta` (67.66 GiB without it). (arch, shape, mix,
+# blocked_threshold, vocab_chunk, seq_parallel)
+TP_DRY_SP = ("yi-34b", "train_4k", "ring", 8192, 0, True)
+TP_DRY_SP_RECKON = ("qwen2.5-32b", "train_4k", "ring", 8192, 0, True)
 # cross-unreduced: the cross layer's output product left partial on each
-# rank (its `TP.reduce` the identity), the other layers' reduced
+# rank (its `TP.leave` the identity; with the flag its positions of the
+# partial kept, unsummed), the other layers' joined
+TP_F4_FAULT = "cross-unreduced, f32 sp"
 TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"),
-             ("norm-forward-only", "f"), ("cross-unreduced", "i"))
+             ("norm-forward-only", "f"), ("cross-unreduced", "i"), (TP_F4_FAULT, "l"))
 # and the same fault at the cross layer's init gate of 0, run beside it
 # under `--tp-faults` to show what a zero gate hides (not held)
 TP_TRAP = "cross-unreduced at gate 0"
@@ -4460,21 +4518,23 @@ TP_FAULT_SHIFT = 1e-2
 _REFS = {}
 
 
-def single_reference(torch, cfg, argv, none, steps, gate=TP_GATE):
+def single_reference(torch, cfg, argv, none, steps, gate=TP_GATE, keep=None):
     """The single-process trainer on `argv` (a mesh run's CLI without
     --mesh-backend) for `steps` steps, its plane unmixed with `none`, a
     vlm's cross layers' gates set to `gate` at init (`gate_init`): per
     step, each client's loss and delta-row digest (`row_digest`), and the
-    params after step 1 saved to a file on the host. Cached by config,
-    argv, `none` and `gate`: phase 21 (b) and phase 23 (a) share one run.
-    Returns (record, path)."""
+    params after step 1 saved to a file on the host (with `keep`
+    ``"cross"`` only the cross layers' leaves: a whole f32 vlm's 17 GB
+    would take the machine's disk past its limit, PERF.md §6). Cached
+    by config, argv, `none`, `gate` and `keep`: phase 21 (b) and phase 23
+    (a) share one run. Returns (record, path)."""
     import tempfile
 
     from repro_torch.core import flat as flat_lib
     from repro_torch.core import mixing
     from repro_torch.launch import train
 
-    key = (cfg, tuple(argv), none, gate)
+    key = (cfg, tuple(argv), none, gate, keep)
     if key in _REFS and len(_REFS[key][0]) >= steps:
         return _REFS[key]
     if "dir" not in _REFS:
@@ -4490,7 +4550,9 @@ def single_reference(torch, cfg, argv, none, steps, gate=TP_GATE):
         params, losses = real[1](*args, **kw)
         record[-1]["losses"] = losses.tolist()
         if len(record) == 1:
-            torch.save(flat_lib.tree_map(lambda p: p.cpu(), params), path)
+            torch.save(flat_lib.tree_from_items(
+                (p, leaf.cpu()) for p, leaf in flat_lib.tree_items(params)
+                if keep is None or p[1:2] and p[1].endswith(":cross")), path)
         return params, losses
 
     argv = [a for a in argv if a not in ("--mesh-backend", "gloo")] + ["--steps", str(steps)]
@@ -4536,21 +4598,20 @@ def plant(fault):
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
-    if fault in ("cross-unreduced", TP_TRAP):
+    if fault in ("cross-unreduced", TP_TRAP, TP_F4_FAULT):
         from repro_torch.models import attention
 
         real = attention.full_attention
 
-        class NoReduce:  # the rank's `TP`, its reduce the identity
+        class NoReduce:  # the rank's `TP`, its output join the identity
             def __init__(self, tp):
                 self.tp = tp
 
             def __getattr__(self, name):
                 return getattr(self.tp, name)
 
-            @staticmethod
-            def reduce(x):
-                return x
+            def leave(self, x):  # the partial output (its positions with the flag)
+                return self.tp.positions(x) if self.tp.seq else x
 
         def full_attention(*a, cross=False, tp=None, **k):
             return real(*a, cross=cross, tp=NoReduce(tp) if cross and tp else tp, **k)
@@ -4570,7 +4631,7 @@ def plant(fault):
 
         class Combine(real):
             @staticmethod
-            def forward(ctx, out_e, gate, dst, src, tp):
+            def forward(ctx, out_e, gate, dst, src, tp, batch=0):
                 out = real.forward(ctx, out_e, gate, dst, src, None)  # the rank's part alone
                 ctx.tp = tp
                 return out
@@ -4609,8 +4670,12 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
     replicated leaves (no "model" in their spec) on the host, for the
     parent to compare across the model ranks. The drain launches are
     counted from 0 around each run, the `ssd_chunk` launches from 0 over
-    the rank's whole work (``"ssd_chunk"``). Then each (arch, layers) of
-    `serves` served in the same world (``"serve"``, keyed by them)."""
+    the rank's whole work (``"ssd_chunk"``). A mode labelled ``"<twin>
+    sp"`` (the flag's, part (l)) also holds step 1's blocks against those
+    of the mode ``<twin>`` run before it in the world (``"twin_gaps"``,
+    ``"twin_updates"``). Each mode's wall seconds, its process's set-up
+    and steps, under ``"wall_s"``. Then each (arch, layers) of `serves`
+    served in the same world (``"serve"``, keyed by them)."""
     import torch
 
     import repro_torch  # noqa: F401  (TF32 off)
@@ -4623,7 +4688,11 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
 
     out = {"serve": {}}
     ssd_ops.ssd_chunk.launches = 0
+    twins = {m[0][:-len(" sp")] for m in modes if m[0].endswith(" sp")}
+    firsts = {}  # a twin's step-1 blocks on the host
     for label, arch, layers, overrides, argv, ref_path, fault in modes:
+        t_mode = time.perf_counter()
+        twin = firsts.get(label[:-len(" sp")]) if label.endswith(" sp") else None
         cfg = tp_config(arch, layers, overrides)
         ref = torch.load(ref_path, mmap=True, weights_only=True)
         record, box = [], []
@@ -4637,7 +4706,9 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
 
         def train_step_clients(*a, **k):
             mesh = box[-1]
-            specs = dict(flat_lib.tree_items(tree_param_specs(ref, prefix=("data",),
+            n = next(iter(ref_leaves.values())).shape[0]
+            whole = steps.stack_clients_abstract(steps.param_specs_abstract(cfg), n)
+            specs = dict(flat_lib.tree_items(tree_param_specs(whole, prefix=("data",),
                                                               mesh=mesh)))
             torch.cuda.synchronize()
             c0, t0 = mesh.collective_s, time.perf_counter()
@@ -4658,16 +4729,27 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
                                              "model_reduce_scatter", "reduce_scatter")},
                          routes={k: v if k in ("experts", "ssm_heads") else v - routes0[k]
                                  for k, v in mesh.tp_routes.items()},
-                         replicated={}, gaps={}, updates={})
+                         replicated={}, gaps={}, updates={}, twin_gaps={}, twin_updates={})
             for path, leaf in flat_lib.tree_items(params):
                 if "model" not in specs[path]:
                     entry["replicated"][path] = leaf.cpu()
-                if not record:  # step 1: against the single-process params
+                if not record and path in ref_leaves:  # step 1: against one process
                     want = tp_lib.block(ref_leaves[path], specs[path], mesh).to(leaf.device)
                     entry["gaps"][path] = (float((leaf.float() - want.float()).abs().max()),
                                            float(want.float().abs().max()))
                     if path in before:
                         entry["updates"][path] = float((want - before[path]).abs().max())
+                    if label in twins:
+                        firsts[label] = firsts.get(label, {})
+                        firsts[label][path] = leaf.cpu()
+                    if twin is not None:  # against the twin's step 1, without the flag
+                        other = twin[path].to(leaf.device)
+                        entry["twin_gaps"][path] = (
+                            float((leaf.float() - other.float()).abs().max()),
+                            float(other.float().abs().max()))
+                        if path in before:
+                            entry["twin_updates"][path] = float(
+                                (other - before[path]).abs().max())
             record.append(entry)
             return params, losses
 
@@ -4688,7 +4770,8 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
         torch.cuda.synchronize()
         out[label] = dict(losses=losses, launches=ops.gossip_drain.launches, steps=record,
                           coords=(box[0].rank, box[0].model_rank), staged=box[0].staged,
-                          peak=torch.cuda.max_memory_allocated())
+                          peak=torch.cuda.max_memory_allocated(),
+                          wall_s=time.perf_counter() - t_mode)
         del ref, ref_leaves
         torch.cuda.empty_cache()
     for serve in serves:
@@ -4711,17 +4794,7 @@ def tp_verdict(torch, runs, ref_losses, dense, routes=None, zero_tol=TP_PARAM_TO
     runs = sorted(runs, key=lambda r: r["coords"])
     losses = [x for r in runs if r["coords"][1] == 0 for x in r["steps"][0]["losses"]]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-    worst = {}
-    for r in runs:
-        e = r["steps"][0]
-        for path, (gap, scale) in e["gaps"].items():
-            kind = "weight" if path[-1].startswith(TP_WEIGHTS) else "other"
-            worst[kind] = max(worst.get(kind, (0.0,)), (gap / max(scale, 1e-30), path, gap,
-                                                        scale))
-            if path in e["updates"] and gap > F32_EPS * scale:
-                upd = e["updates"][path]
-                worst["f32"] = max(worst.get("f32", (0.0,)), (gap / max(upd, 1e-30), path, gap,
-                                                              upd))
+    worst = worst_gaps(runs)
     # every model rank of a client index: the same losses, and the
     # replicated leaves bit for bit, after each step
     first = {r["coords"][0]: r for r in runs if r["coords"][1] == 0}
@@ -4742,6 +4815,59 @@ def tp_verdict(torch, runs, ref_losses, dense, routes=None, zero_tol=TP_PARAM_TO
     return ok, dict(losses=losses, loss_gap=loss_gap, worst=worst, equal=equal,
                     zero_tol=zero_tol, f32_tol=f32_tol, launches=launches, expect=expect, routes=got,
                     n_repl=len(runs[0]["steps"][0]["replicated"]), runs=runs)
+
+
+def worst_gaps(runs, gaps="gaps", updates="updates"):
+    """The largest step-1 gap of `runs` by kind of leaf: of a weight
+    (`TP_WEIGHTS`) and of another leaf over its largest |value|, of an f32
+    leaf over its largest update (where the gap is more than one rounding
+    of its value), each as (ratio, path, gap, scale)."""
+    worst = {}
+    for r in runs:
+        e = r["steps"][0]
+        for path, (gap, scale) in e[gaps].items():
+            kind = "weight" if path[-1].startswith(TP_WEIGHTS) else "other"
+            worst[kind] = max(worst.get(kind, (0.0,)), (gap / max(scale, 1e-30), path, gap,
+                                                        scale))
+            if path in e[updates] and gap > F32_EPS * scale:
+                upd = e[updates][path]
+                worst["f32"] = max(worst.get("f32", (0.0,)), (gap / max(upd, 1e-30), path, gap,
+                                                              upd))
+    return worst
+
+
+def twin_verdict(runs, twin_runs, zero_tol=TP_PARAM_TOL, f32_tol=TP_F32_TOL):
+    """Part (l)'s second check of a mode with the flag: its step 1 (`runs`,
+    each rank's) against its twin's without the flag in the same world
+    (`twin_runs`), the losses and every leaf under the twin's bounds, and
+    the sequence-parallel sub-blocks tallied on every rank at every step:
+    (ok, the readings)."""
+    runs = sorted(runs, key=lambda r: r["coords"])
+    twin_runs = sorted(twin_runs, key=lambda r: r["coords"])
+    loss_gap = max(abs(a - b) / abs(b) for r, t in zip(runs, twin_runs)
+                   for a, b in zip(r["steps"][0]["losses"], t["steps"][0]["losses"]))
+    worst = worst_gaps(runs, "twin_gaps", "twin_updates")
+    split = all(e["routes"]["seq"] > 0 and not e["routes"]["seq_whole"]
+                for r in runs for e in r["steps"])
+    ok = (loss_gap <= TP_LOSS_TOL and worst["weight"][0] <= TP_WEIGHT_TOL
+          and worst.get("other", (0.0,))[0] <= zero_tol
+          and worst.get("f32", (0.0,))[0] <= f32_tol and split)
+    return ok, dict(loss_gap=loss_gap, worst=worst, split=split,
+                    seq=runs[0]["steps"][0]["routes"]["seq"],
+                    wall_s=max(r["wall_s"] for r in runs))
+
+
+def cross_update_reading(v):
+    """ROADMAP F4's reading: the largest step-1 gap / largest step-1 update
+    among a verdict's cross-layer leaves (the ``:cross`` blocks' gate, norm
+    and projections) over the ranks, a gap within one rounding of the
+    leaf's largest |value| read as 0 (`worst_gaps`' rule): (reading,
+    path)."""
+    return max(((gap / max(r["steps"][0]["updates"][path], 1e-30), path) for r in v["runs"]
+                for path, (gap, scale) in r["steps"][0]["gaps"].items()
+                if len(path) > 2 and path[1].endswith(":cross")
+                and path in r["steps"][0]["updates"] and gap > F32_EPS * scale),
+               default=(0.0, None))
 
 
 def log_verdict(tag, label, ok, v, ref_losses):
@@ -4781,14 +4907,17 @@ def tp_train_rows(tag, label, v):
 
 
 def tp_reference_argv(argv):
-    """The single-process reference's CLI of a mesh run: its own without
-    the mix mode (one device mixes densely; `none` skips the mix)."""
+    """The single-process reference's CLI of a mode's own arguments
+    `argv`: without the mix mode (one device mixes densely; `none` skips
+    the mix), the flag (one device has no "model" axis) and the step
+    count (`single_reference` sets it)."""
     out, skip = [], False
     for a in argv:
-        if skip or a == "--mix":
-            skip = a == "--mix"
+        if skip or a in ("--mix", "--steps"):
+            skip = a in ("--mix", "--steps")
             continue
-        out.append(a)
+        if a != "--seq-parallel":
+            out.append(a)
     return out
 
 
@@ -4811,8 +4940,9 @@ def tp_world(torch, tag, layout, modes, steps=1, serves=()):
     refs, rank_modes = {}, []
     for label, arch, layers, overrides, argv, fault in modes:
         record, path = single_reference(torch, tp_config(arch, layers, overrides),
-                                        tp_reference_argv(MESH_TRAIN_ARGS + argv),
-                                        "none" in argv, steps, mode_gate(fault))
+                                        MESH_TRAIN_ARGS + tp_reference_argv(argv),
+                                        "none" in argv, steps, mode_gate(fault),
+                                        "cross" if argv is TP_SP_F32_ARGV else None)
         refs[label] = record[0]["losses"]
         rank_modes.append((label, arch, layers, overrides, argv, path, fault))
     t0 = time.perf_counter()
@@ -4825,16 +4955,17 @@ def tp_world(torch, tag, layout, modes, steps=1, serves=()):
 
 
 def tp_dry(torch, tag, pair, failures):
-    """Phase 23 (c), (e) or (h): the dry run's (16, 16) `pair` ((arch,
-    shape, mix, blocked_threshold[, vocab_chunk])) reckoned and run at
-    depths 1 and 2, each peak within `DRY_PEAK_TOL`; returns its row, the
-    run's kernel launches under ``"launches"``."""
+    """Phase 23 (c), (e), (h), (k) or (l): the dry run's (16, 16) `pair`
+    ((arch, shape, mix, blocked_threshold[, vocab_chunk[, seq_parallel]]))
+    reckoned and run at depths 1 and 2, each peak within `DRY_PEAK_TOL`;
+    returns its row, the run's kernel launches under ``"launches"``."""
     from repro_torch.launch import dryrun
 
-    arch, shape, mix, threshold, chunk = (*pair, 0)[:5]
+    arch, shape, mix, threshold, chunk, sp = (*pair, 0, False)[:6]
     reset_launches()
     row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
-                            by_depth=True, vocab_chunk=chunk, verbose=False)
+                            by_depth=True, vocab_chunk=chunk, seq_parallel=bool(sp),
+                            verbose=False)
     row["launches"] = launch_counts()
     log(f"phase 23 ({tag}) row: {json.dumps(row)}")
     peaks = []
@@ -4853,7 +4984,9 @@ def tp_dry(torch, tag, pair, failures):
                         f"the card's {total} bytes")
     coll = row["coll_breakdown"]
     log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
-        f"tokens, loss in chunks of {chunk or 'all'} positions): run at {row['run_depth']}, {row['measured_s_per_step']:.6f} s/step, "
+        f"tokens, loss in chunks of {chunk or 'all'} positions, seq_parallel "
+        f"{row['seq_parallel']}): run at {row['run_depth']}, peak "
+        f"{row['measured_peak_bytes'] / 2**30:.3f} GiB, {row['measured_s_per_step']:.6f} s/step, "
         f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
         f"{row['roofline_fraction']:.4f}, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
         f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
@@ -4996,12 +5129,19 @@ def phase_tp(torch):
     family_modes, checks = tp_family_modes()
     checks.update({label: (None, TP_PARAM_TOL, TP_F32_TOL) for label, _ in TP_MODES})
     checks["moe dense"] = ({"experts": TP_MOE_EXPERTS}, TP_MOE_PARAM_TOL, TP_F32_TOL)
-    worlds = [("a", TP_SHAPE, [(label, "qwen2-1.5b", MESH_LAYERS, None, argv, None)
-                               for label, argv in TP_MODES], ()),
-              ("d, f, g, i, j", TP_MOE_SHAPE,
+    worlds = [("a, l", TP_SHAPE, [(label, "qwen2-1.5b", MESH_LAYERS, None, argv, None)
+                                  for label, argv in TP_MODES], ()),
+              ("d, f, g, i, j, l", TP_MOE_SHAPE,
                [("moe dense", TP_MOE_ARCH, TP_MOE_LAYERS, None, TP_MOE_ARGS, None),
                 *family_modes],
                (("qwen2-1.5b", None), TP_SSM_SERVE, *TP_CROSS_SERVE))]
+    for _, _, modes, _ in worlds:  # (l): each twin's run with the flag after it
+        modes += [(f"{m[0]} sp", *m[1:4], m[4] + TP_SP_ARGV, None) for twin in TP_SP
+                  for m in modes if m[0] == twin]
+    checks.update({f"{twin} sp": checks[twin] for twin in TP_SP})
+    worlds[1][2].append(tp_f32_mode())
+    checks[TP_SP_F32_LABEL] = checks[f"{TP_SP_F32[0]} dense"]
+    res["sp"], sp_s = {}, 0.0
     for tag, layout, modes, serves in worlds:
         t0 = time.perf_counter()
         outs, refs = tp_world(torch, tag, layout, modes, serves=serves)
@@ -5013,6 +5153,11 @@ def phase_tp(torch):
             if not ok:
                 failures.append(f"({tag}) {label}")
             launches += v["launches"]
+            if "--seq-parallel" in argv:
+                ok_sp, res["sp"][label] = sp_verdict(label, outs, v, checks[label])
+                sp_s += res["sp"][label]["wall_s"]
+                if not ok_sp:
+                    failures.append(f"(l) {label}")
         for _, arch, layers, overrides, _ in (w for w in TP_CROSS
                                               if any(m[1] == w[1] for m in modes)):
             log(f"  ({tag}) {arch} dense: (query heads, kv heads) a model rank in each "
@@ -5088,6 +5233,16 @@ def phase_tp(torch):
                 else routes["padded"] or not routes["heads"]):
             failures.append(f"({tag}) {pair[0]} routes {routes}")
         log(f"phase 23 ({tag}) {pair[0]}: {time.perf_counter() - t0:.1f} s")
+    PHASE_TIMES.append(("23 (l) steps with the flag", sp_s))
+    # (l) the dry run's (16, 16) share with the flag: yi-34b's, which fits
+    # the card only so, run; qwen2.5-32b's reckoned
+    t0 = time.perf_counter()
+    res["dry_sp"] = row = tp_dry(torch, "l", TP_DRY_SP, failures)
+    if not row["tp_routes"]["seq"] or row["tp_routes"]["seq_whole"]:
+        failures.append(f"(l) routes {row['tp_routes']}: every sub-block sequence-parallel")
+    res["dry_sp_reckon"] = tp_dry_reckon("l", TP_DRY_SP_RECKON)
+    PHASE_TIMES.append(("23 (l) dry run", time.perf_counter() - t0))
+    log(f"phase 23 (l) dry run: {time.perf_counter() - t0:.1f} s")
     res["ssd_chunk"] = ssd_launches
     log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s; ssd_chunk "
         f"launches {ssd_launches} (the ssm worlds' ranks and (h)'s runs)")
@@ -5096,17 +5251,54 @@ def phase_tp(torch):
     return res
 
 
+def tp_f32_mode(fault=None):
+    """Part (l)'s f32 vlm mode (`TP_SP_F32`, ROADMAP F4) as a `tp_world`
+    mode, planted with `fault`."""
+    return (TP_SP_F32_LABEL if fault is None else fault, *TP_SP_F32, TP_SP_F32_ARGV, fault)
+
+
+def sp_verdict(label, outs, v, checks):
+    """Part (l)'s checks of the flag's mode `label` beyond `tp_verdict`'s
+    (`v`): against its twin's step 1 in the same world (`twin_verdict`),
+    and for the f32 vlm (`TP_SP_F32_LABEL`) ROADMAP F4's cross-layer
+    bound; logs them; (ok, the readings)."""
+    runs = [o[label] for o in outs]
+    out = dict(wall_s=max(r["wall_s"] for r in runs), loss_gap=v["loss_gap"])
+    ok = True
+    twin = label[:-len(" sp")]
+    if twin in outs[0]:
+        ok, t = twin_verdict(runs, [o[twin] for o in outs], *checks[1:])
+        out.update(twin=t)
+        leaves = {kind: f"{t['worst'][kind][0]:.3e} at {'/'.join(t['worst'][kind][1])}"
+                  for kind in ("weight", "other", "f32") if kind in t["worst"]}
+        log(f"  (l) {label} against {twin} (no flag) at step 1: losses' largest relative gap "
+            f"{t['loss_gap']:.3e} (tolerance {TP_LOSS_TOL}), the largest gap / largest |value| "
+            f"or update {leaves}; {t['seq']} sequence-parallel sub-blocks a step on rank 0, "
+            f"every step split {t['split']}; {t['wall_s']:.1f} s with set-up "
+            f"{'ok' if ok else 'FAIL'}")
+    if label == TP_SP_F32_LABEL:
+        rel, path = cross_update_reading(v)
+        out.update(f4=rel)
+        held = rel <= TP_CROSS_F32_TOL
+        ok = ok and held
+        log(f"  (l) {label}: ROADMAP F4, the cross layer's step-1 update against one process, "
+            f"largest gap / largest update {rel:.3e} at {'/'.join(path or ())} (tolerance "
+            f"{TP_CROSS_F32_TOL}) {'ok' if held else 'FAIL'}")
+    return ok, out
+
+
 def tp_dry_reckon(tag, pair):
-    """(h)'s or (k)'s second part: the (16, 16) share of `pair` reckoned on
-    ``meta`` alone, its row printed; returns the row."""
+    """(h)'s, (k)'s or (l)'s second part: the (16, 16) share of `pair`
+    reckoned on ``meta`` alone, its row printed; returns the row."""
     from repro_torch.launch import dryrun
 
-    arch, shape, mix, threshold, chunk = pair
+    arch, shape, mix, threshold, chunk, sp = (*pair, False)[:6]
     row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold,
-                            vocab_chunk=chunk, verbose=False)
+                            vocab_chunk=chunk, seq_parallel=sp, verbose=False)
     log(f"phase 23 ({tag}) reckoned row: {json.dumps(row)}")
     coll = row["coll_breakdown"]
-    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}) reckoned on meta: "
+    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, seq_parallel "
+        f"{row['seq_parallel']}) reckoned on meta: "
         f"full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, bound "
         f"{row['t_bound_s']:.6f} s, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
         f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
@@ -5127,9 +5319,10 @@ def cross_reading(v):
 
 def tp_faults(torch):
     """`--tp-faults`: each of `TP_FAULTS` planted in its world, held by
-    (a)'s, (d)'s, (f)'s or (i)'s checks, and `TP_TRAP` beside
-    cross-unreduced (logged, not held); returns the faults that passed
-    them."""
+    (a)'s, (d)'s, (f)'s or (i)'s checks, or `TP_F4_FAULT` in (l)'s f32
+    vlm with the flag by ROADMAP F4's cross-layer bound alone, and
+    `TP_TRAP` beside cross-unreduced (logged, not held); returns the
+    faults that passed them."""
     passed = []
     family_modes, checks = tp_family_modes()
     runs = {"a": ("qwen2-1.5b", MESH_LAYERS, None, TP_MODES[0][1],
@@ -5139,20 +5332,28 @@ def tp_faults(torch):
     for tag, (_, arch, *_) in (("f", TP_SSM[0]), ("i", TP_CROSS[0])):
         (_, _, layers, overrides, argv, _), = [m for m in family_modes if m[1] == arch]
         runs[tag] = (arch, layers, overrides, argv, checks[f"{arch} dense"])
+    runs["l"] = (*tp_f32_mode()[1:5], checks[f"{TP_SP_F32[0]} dense"])
     faults = TP_FAULTS + ((TP_TRAP, "i"),)
-    for tags, layout in (("a", TP_SHAPE), ("dfi", TP_MOE_SHAPE)):
+    for tags, layout in (("a", TP_SHAPE), ("dfil", TP_MOE_SHAPE)):
         modes = [(fault, *runs[where][:4], fault) for fault, where in faults if where in tags]
         outs, refs = tp_world(torch, ", ".join(tags), layout, modes)
         for fault, where in faults:
             if where not in tags:
                 continue
-            ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault], True,
-                               *runs[where][4])
+            ok, v = tp_verdict(torch, [o[fault] for o in outs], refs[fault],
+                               "dense" in runs[where][3], *runs[where][4])
             log_verdict(where, f"planted fault {fault}", ok, v, refs[fault])
             if where == "i":
                 rel, path = cross_reading(v)
                 log(f"  planted fault {fault}: the cross layer's projections' largest gap / "
                     f"largest |value| {rel:.3e} at {'/'.join(path or ())}")
+            if where == "l":  # held by F4's bound alone, not the replicated leaves' equality
+                rel, path = cross_update_reading(v)
+                ok = rel <= TP_CROSS_F32_TOL
+                log(f"  planted fault {fault}: ROADMAP F4's reading, the cross layer's largest "
+                    f"step-1 gap / largest update {rel:.3e} at {'/'.join(path or ())} (tolerance "
+                    f"{TP_CROSS_F32_TOL}; the replicated leaves equal across the ranks "
+                    f"{v['equal']}, not read here)")
             if fault == TP_TRAP:
                 log(f"  {fault} (gate {mode_gate(fault)}, not held): "
                     f"{'passes' if ok else 'fails'} the checks")
@@ -5168,12 +5369,15 @@ def tp_faults(torch):
 def log_tp(r):
     """Phase 23's summary lines."""
     for label, row in r["train"].items():
-        if label.startswith("moe"):
+        base = label[:-len(" sp")] if label.endswith(" sp") else label
+        if base.startswith("moe"):
             what = f"{TP_MOE_ARCH} at {TP_MOE_LAYERS} layers on {TP_MOE_SHAPE}, 2"
-        elif label in ("dense", "none"):
+        elif base in ("dense", "none"):
             what = f"qwen2-1.5b at {MESH_LAYERS} layers on {TP_SHAPE}, 4"
+        elif label == TP_SP_F32_LABEL:
+            what = f"{TP_SP_F32[0]} at {TP_SP_F32[1]} layers in f32 on {TP_MOE_SHAPE}, 2"
         else:
-            (_, arch, layers, *_), = [w for w in TP_SSM + TP_CROSS if label == f"{w[1]} dense"]
+            (_, arch, layers, *_), = [w for w in TP_SSM + TP_CROSS if base == f"{w[1]} dense"]
             what = f"{arch} at {layers} layers on {TP_MOE_SHAPE}, 2"
         log(f"tensor-parallel trainer path ({label}, {what} gloo ranks on one card): "
             f"{row['s_step']:.4f} s/step, collectives {100 * row['share']:.1f}% of the step, "
@@ -5182,17 +5386,32 @@ def log_tp(r):
         log(f"tensor-parallel serving path ({arch} f32 on {TP_SERVE_SHAPE}): decode "
             f"{sv['decode_s'] * 1e3:.2f} ms/step against {sv['one_decode_s'] * 1e3:.2f} in one "
             f"process")
-    for key in ("dry", "dry_moe", "dry_ssm", "dry_cross"):
+    for key in ("dry", "dry_moe", "dry_ssm", "dry_cross", "dry_sp"):
         row = r[key]
         log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}): "
             f"{row['measured_s_per_step']:.6f} s/step at {row['run_depth']}, bound_fraction "
             f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
             f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
-    for key in ("dry_hybrid", "dry_audio"):
+    for key in ("dry_hybrid", "dry_audio", "dry_sp_reckon"):
         row = r[key]
         log(f"tensor-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}, "
-            f"reckoned): full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB, "
-            f"useful_flops_ratio {row['useful_flops_ratio']:.3f}")
+            f"seq_parallel {row['seq_parallel']}, reckoned): full-depth peak "
+            f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB, useful_flops_ratio "
+            f"{row['useful_flops_ratio']:.3f}")
+    row = r["dry_sp"]
+    log(f"sequence-parallel dry run ({row['arch']} x {row['shape']} x {row['mesh']}, "
+        f"seq_parallel {row['seq_parallel']}): {row['measured_s_per_step']:.6f} s/step at "
+        f"{row['run_depth']}, measured peak {row['measured_peak_bytes'] / 2**30:.3f} GiB "
+        f"(reckoned {row['reckoned_run_peak_bytes'] / 2**30:.3f}), bound_fraction "
+        f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
+        f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
+    for label, sp in r["sp"].items():
+        twin = sp.get("twin")
+        log(f"sequence-parallel trainer step ({label}): losses within {sp['loss_gap']:.3e} of "
+            f"one process" + (f", {twin['loss_gap']:.3e} of the step without the flag"
+                              if twin else "")
+            + (f"; F4's cross-layer reading {sp['f4']:.3e}" if "f4" in sp else "")
+            + f"; {sp['wall_s']:.1f} s with set-up")
 
 
 def main(argv=None) -> int:

@@ -61,7 +61,13 @@ What the row holds:
     gathered (`repro_torch.models.attention`), the moe layers and the
     experts the rank runs in one (`repro_torch.models.moe`), the Mamba2
     blocks and the ssm heads the rank computes in one
-    (`repro_torch.models.ssm`).
+    (`repro_torch.models.ssm`), and with ``--seq-parallel`` the
+    sub-blocks run on the rank's positions of the sequence (``seq``) or,
+    where 16 does not divide it, on the whole residual
+    (``seq_whole``). The flag's train step carries a rank's S / T
+    positions of each layer group's checkpointed carry, and the model
+    axis's all-reduces become reduce-scatters and all-gathers along the
+    sequence (``coll_breakdown``: about the same bytes).
 
 ``--run`` then runs the same share on one card (the dry mesh on CUDA:
 its collectives are the rank's local share, so the collective's time
@@ -80,6 +86,7 @@ extrapolated, the depth-2 numbers as they are).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k --mix ring
+  python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mix ring --seq-parallel
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k --clients 16
   python -m repro_torch.launch.dryrun --all --clients 16
   python -m repro_torch.launch.dryrun --arch mamba2-2.7b --shape long_500k --clients 1 --run
@@ -208,10 +215,8 @@ def build(cfg, shape, mesh, *, device="meta", mix_mode: str = "dense",
           psi: int = 0, mix_dtype=None, blocked_threshold: int = 8192,
           vocab_chunk: int = 0, seq_parallel: bool = False, cache_shard: str = "kv_heads"):
     """``(step, args)``: the pair's step for the rank of `mesh` and that
-    rank's inputs on `device`."""
-    if seq_parallel:
-        raise NotImplementedError("seq_parallel lays the residual stream's 'seq' axis on "
-                                  f"\"model\" ({mesh_lib.ROADMAP_SEQ_PARALLEL})")
+    rank's inputs on `device`. `seq_parallel` goes to the train step
+    alone (the serving steps ignore it, as the reference's do)."""
     if cache_shard != "kv_heads" and mesh.model_size > 1:
         raise NotImplementedError(
             f"cache_shard={cache_shard!r} splits the cache's {cache_shard} over \"model\"; "
@@ -220,7 +225,7 @@ def build(cfg, shape, mesh, *, device="meta", mix_mode: str = "dense",
         md = torch.bfloat16 if mix_dtype == "bf16" else None
         step = steps_lib.make_train_step(cfg, mesh, mix_mode=mix_mode, psi=psi, mix_dtype=md,
                                          blocked_threshold=blocked_threshold,
-                                         vocab_chunk=vocab_chunk)
+                                         vocab_chunk=vocab_chunk, seq_parallel=seq_parallel)
     elif shape.mode == "prefill":
         step = steps_lib.make_prefill_step(cfg, shape, mesh)
     else:

@@ -42,7 +42,6 @@ import torch.distributed as dist
 
 # the parts of ROADMAP item 20 (sharding inside one model) still to port,
 # each named where it raises
-ROADMAP_SEQ_PARALLEL = "ROADMAP item 20(e)"  # 'seq' over "model"
 ROADMAP_CACHE_SEQ = "ROADMAP item 20(f)"  # the cache over "data", cache_shard head_dim/seq
 ROADMAP_SSM_GROUPS = "ROADMAP item 20(g)"  # ssm groups a rank's heads read out of step
 
@@ -92,8 +91,12 @@ COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange",
 # heads route, whole heads; the padded route, a shard that cuts a head),
 # the leaves the attention and Mamba2 layers gathered, the moe layers and
 # the experts a rank runs in one, the Mamba2 blocks and the ssm heads a
-# rank computes in one (`repro_torch.sharding.tp`)
-TP_ROUTES = ("heads", "padded", "gathered_leaves", "moe", "experts", "ssm", "ssm_heads")
+# rank computes in one, and the sub-blocks run with the residual stream
+# split along the sequence (``seq``) or kept whole where the flag asked to
+# split it and the model axis does not divide the sequence (``seq_whole``)
+# (`repro_torch.sharding.tp`)
+TP_ROUTES = ("heads", "padded", "gathered_leaves", "moe", "experts", "ssm", "ssm_heads", "seq",
+             "seq_whole")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 

@@ -287,7 +287,8 @@ def mesh_mix(mesh, mix_mode: str = "dense", mix_dtype: Optional[torch.dtype] = N
 
 def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
                     mix_mode: str = "dense", psi: int = 0, mix_dtype=None,
-                    blocked_threshold: int = 8192, vocab_chunk: int = 0):
+                    blocked_threshold: int = 8192, vocab_chunk: int = 0,
+                    seq_parallel: bool = False):
     """One DRACO window on the client mesh: local grad -> Delta -> gossip
     mix -> apply. Returns ``train_step(params, batch, q_eff) -> (params,
     loss)``.
@@ -308,14 +309,19 @@ def make_train_step(cfg: ModelConfig, mesh, *, lr: float = 1e-3,
     too) computes the rank's own query heads, a Mamba2 block its own ssm
     heads (`repro_torch.models.ssm`); a vlm's ``cross_embeds`` and an
     audio model's ``embeds`` hold the rank's clients' rows, whole over
-    "model"."""
+    "model". `seq_parallel` lays the residual stream's sequence over
+    "model" (the reference's `train_rules(seq_parallel=True)`): each
+    rank holds S / T positions of it between the layers
+    (`repro_torch.sharding.tp`), where T divides S; the numbers are the
+    same. The serving steps take no such flag, as the reference's dry
+    run passes it to the train step alone."""
     from repro_torch.launch import train as train_lib
 
     if mix_mode not in MIX_MODES:
         raise ValueError(f"mix_mode {mix_mode!r} not in {MIX_MODES}")
     del psi
 
-    tp = tp_lib.context(mesh)
+    tp = tp_lib.context(mesh, seq_parallel=seq_parallel)
 
     def train_step(params, batch, q_eff):
         mix = mesh_mix(mesh, mix_mode, mix_dtype, flat_lib.spec_of(params))

@@ -228,6 +228,9 @@ def parse_args(argv=None):
     ap.add_argument("--mix-dtype", default="float32", choices=["float32", "bfloat16"],
                     help="the mesh step's dense mix dtype (bfloat16 halves the "
                          "collective's bytes)")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="the mesh step keeps each model rank's share of the sequence "
+                         "between the layers (Megatron-style sequence parallelism)")
     return ap.parse_args(argv)
 
 
@@ -364,7 +367,8 @@ def _train(args, cfg, mesh, dev):
     else:
         step_fn = steps_lib.make_train_step(cfg, mesh, lr=args.lr, mix_mode=args.mix,
                                             psi=args.psi,
-                                            mix_dtype=getattr(torch, args.mix_dtype))
+                                            mix_dtype=getattr(torch, args.mix_dtype),
+                                            seq_parallel=args.seq_parallel)
     unify_fn = steps_lib.make_unify_step(cfg, mesh)
 
     start = 0

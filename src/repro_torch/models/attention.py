@@ -37,7 +37,13 @@ of the query heads (`_layout`, `rank_heads`), on one of two routes:
 
 On both, the input goes through `TP.copy`, the rank computes its query
 heads against the kv heads they read, and ``wo``'s rows finish with
-`TP.reduce`. The kv heads are the rank's own block where ``wk``'s
+`TP.reduce`. Under sequence parallelism the input is the rank's
+positions, gathered along the sequence (`TP.gather_seq`), the output
+reduce-scattered back to them (`TP.scatter_seq`), RoPE at the whole
+sequence's positions; a cross layer's keys and values still come from
+the whole patch embeddings, through `TP.copy`. A layer whose ``wq``
+stays whole runs alike on every rank on the gathered sequence
+(`TP.gather`) and keeps its positions (`TP.split`). The kv heads are the rank's own block where ``wk``'s
 shard is whole heads; else the rank slices the ones its query heads
 read out of ``wk`` and ``wv``, gathered (`TP.gather_partial`) where
 their shard cuts a head and through `TP.copy` where they are
@@ -96,14 +102,16 @@ class Layout(NamedTuple):
     projections as it multiplies them, ``hq`` and ``hkv`` the query and
     kv heads it computes (and caches), ``pick`` selects from those kv
     heads the ones its query heads read, ``n_rep`` query heads to each
-    picked kv head; ``x_op`` goes on the input, ``out_op`` on the output
-    product."""
+    picked kv head; ``x_op`` goes on the input, ``kv_op`` on a separate
+    input of the keys and values (a cross layer's patch embeddings),
+    ``out_op`` on the output product."""
     params: dict
     hq: int
     hkv: int
     pick: Callable
     n_rep: int
     x_op: Callable
+    kv_op: Callable
     out_op: Callable
 
 
@@ -197,7 +205,10 @@ def _layout(params, cfg, tp=None, kv: bool = True) -> Layout:
     n_rep = nq // nkv
     split = _rank_split(params, cfg, tp)
     if split is None:
-        return Layout(params, nq, nkv, _same, n_rep, _same, _same)
+        if tp is not None and tp.seq:  # the whole layer alike on every rank, whole sequence
+            return Layout(params, nq, nkv, _same, n_rep, lambda x: tp.gather(x, 1), _same,
+                          tp.split)
+        return Layout(params, nq, nkv, _same, n_rep, _same, _same, _same)
     q0, hq, k0, hkv, kv_own = split
     qs, ks = slice(q0 * hd, (q0 + hq) * hd), slice(k0 * hd, (k0 + hkv) * hd)
     gathered = 0
@@ -216,8 +227,8 @@ def _layout(params, cfg, tp=None, kv: bool = True) -> Layout:
         gathered += n
     tp.count(route, gathered)
     if kv_own or (q0 % n_rep == 0 and hq % n_rep == 0):
-        return Layout(p, hq, hkv, _same, n_rep, tp.copy, tp.reduce)
-    return Layout(p, hq, hkv, _pick_kv(q0, hq, k0, n_rep), 1, tp.copy, tp.reduce)
+        return Layout(p, hq, hkv, _same, n_rep, tp.enter, tp.copy, tp.leave)
+    return Layout(p, hq, hkv, _pick_kv(q0, hq, k0, n_rep), 1, tp.enter, tp.copy, tp.leave)
 
 
 def _proj_qkv(params, x, kv_x, cfg, lay=None):
@@ -227,7 +238,7 @@ def _proj_qkv(params, x, kv_x, cfg, lay=None):
     p, hd = lay.params, cfg.resolved_head_dim
     same = kv_x is x
     x = lay.x_op(x)
-    kv_x = x if same else lay.x_op(kv_x)
+    kv_x = x if same else lay.kv_op(kv_x)
     q = x @ p["wq"]
     k = kv_x @ p["wk"]
     v = kv_x @ p["wv"]
@@ -248,12 +259,17 @@ def _repeat_kv(k, n_rep: int):
     return torch.repeat_interleave(k, n_rep, dim=-2)
 
 
+def _wide(dtype):
+    """The scores' dtype: f32, f64 for an f64 model."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _sdpa(q, k, v, mask):
     """q (B, S, H, hd), k/v (B, T, H, hd); mask broadcastable to
-    (B, 1, S, T). Scores and softmax in f32, probabilities cast to
-    ``v.dtype``."""
+    (B, 1, S, T). Scores and softmax in f32 (f64 for an f64 model),
+    probabilities cast to ``v.dtype``."""
     hd = q.shape[-1]
-    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(_wide(q.dtype))
     scores = scores / math.sqrt(hd)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -265,12 +281,15 @@ def _sdpa_grouped(q, k, v, mask, n_rep: int):
 
     q (B, S, Hq, hd) with Hq = Hkv * n_rep, so query head h reads KV head
     ``h // n_rep``; k/v (B, T, Hkv, hd); mask (1, 1, S, T) bool. Scores
-    and softmax in f32 (masked with -1e30), probabilities cast to
-    ``v.dtype`` before the value product."""
+    and softmax in f32 (masked with -1e30; f64 for an f64 model, as
+    `apply_rope` and the norms: then the scores' rounding does not hang on
+    how many heads one softmax call holds, so f64 stays an exact witness
+    of a layout), probabilities cast to ``v.dtype`` before the value
+    product."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, n_rep, hd)
-    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k).to(torch.float32)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k).to(_wide(q.dtype))
     scores = scores / math.sqrt(hd)
     scores = torch.where(mask[:, :, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -295,11 +314,13 @@ def full_attention(params, x: torch.Tensor, cfg, positions=None,
     """Causal self-attention (RoPE at `positions`, default ``0..S-1``),
     or with `cross` attention to every row of `kv_x` without RoPE; scores
     fully materialized. x (B, S, d), kv_x (B, T, d) -> (B, S, d). `tp`:
-    the rank's share (see the module docstring)."""
-    B, S, _ = x.shape
+    the rank's share (see the module docstring; under sequence
+    parallelism x is the rank's positions and the default `positions`
+    those of the whole sequence)."""
+    B = x.shape[0]
     lay = _layout(params, cfg, tp)
     q, k, v = _proj_qkv(params, x, kv_x if kv_x is not None else x, cfg, lay)
-    T = k.shape[1]
+    S, T = q.shape[1], k.shape[1]
     if cross:
         mask = torch.ones((1, 1, S, T), dtype=torch.bool, device=x.device)
     else:
@@ -315,10 +336,9 @@ def full_attention(params, x: torch.Tensor, cfg, positions=None,
 def _rope_qkv(params, x, cfg, lay):
     """Self-attention q, k, v at positions 0..S-1 with the kv heads
     repeated to the query heads: three (B, S, H, hd) tensors, H the
-    `Layout`'s query heads."""
-    S = x.shape[1]
+    `Layout`'s query heads, S the whole sequence's."""
     q, k, v = _proj_qkv(params, x, x, cfg, lay)
-    positions = torch.arange(S, device=x.device)[None, :]
+    positions = torch.arange(q.shape[1], device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, _repeat_kv(lay.pick(k), lay.n_rep), _repeat_kv(lay.pick(v), lay.n_rep)
@@ -352,11 +372,12 @@ def blocked_attention(params, x, cfg, block_q: int = 512, block_kv: int = 1024,
     the backward recomputes the block probabilities instead of saving
     them (the reference's ``jax.checkpoint`` of the step). `tp`: the
     rank's share (see the module docstring)."""
-    B, S, _ = x.shape
+    B = x.shape[0]
     hd = cfg.resolved_head_dim
     lay = _layout(params, cfg, tp)
     H = lay.hq
     q, k, v = _rope_qkv(params, x, cfg, lay)
+    S = q.shape[1]
     n_q, n_kv = S // block_q, S // block_kv
     qb = q.reshape(B, n_q, block_q, H, hd)
     f32 = torch.float32
@@ -388,9 +409,10 @@ def flash_self_attention(params, x, cfg, sliding_window: int = 0,
     ``min(block, S)``; `tp` as in `full_attention`."""
     from repro_torch.models.flash import flash_attention
 
-    B, S, _ = x.shape
+    B = x.shape[0]
     lay = _layout(params, cfg, tp)
     q, k, v = _rope_qkv(params, x, cfg, lay)
+    S = q.shape[1]
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           min(block_q, S), min(block_kv, S), sliding_window)
     return lay.out_op(out.transpose(1, 2).reshape(B, S, -1) @ lay.params["wo"])

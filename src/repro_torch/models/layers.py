@@ -6,8 +6,9 @@ back to the input's dtype, as the reference does.
 
 `mlp` and `token_nll` take a `repro_torch.sharding.tp.TP` for the rank's
 share of a model split over "model": `mlp` on the rank's columns of
-``w_gate`` and ``w_up`` and rows of ``w_down``, `token_nll` on the
-rank's block of the vocabulary.
+``w_gate`` and ``w_up`` and rows of ``w_down`` (on the rank's positions
+under sequence parallelism), `token_nll` on the rank's block of the
+vocabulary.
 """
 from __future__ import annotations
 
@@ -73,12 +74,14 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype):
 def mlp(params, x: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU MLP. x (..., d) -> (..., d). With `tp`, the params are the
     rank's ``d_ff`` block (column-parallel gate and up, row-parallel down):
-    `tp.copy` on the input, `tp.reduce` on the output."""
+    `tp.enter` on the input, `tp.leave` on the output (`tp.copy` and
+    `tp.reduce`; under sequence parallelism x is the rank's positions,
+    gathered and scattered back along the sequence)."""
     if tp is not None:
-        x = tp.copy(x)
+        x = tp.enter(x)
     h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     out = h @ params["w_down"]
-    return out if tp is None else tp.reduce(out)
+    return out if tp is None else tp.leave(out)
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor, tp=None) -> torch.Tensor:

@@ -58,6 +58,21 @@ audio model reads its frame embeddings whole on every model rank; its
 token embedding, which the loss never reads, is still split by rows, so
 a serving loop that feeds back a token's embedding looks it up
 vocab-parallel (`token_embeds`).
+
+Sequence parallelism (a context with ``seq``, the train step's
+``seq_parallel=True``). The residual stream between the sub-blocks, and
+so a layer group's checkpointed carry, is the rank's S / T positions:
+the embedding ends in a reduce-scatter along the sequence (a whole
+table, or an audio model's frame embeddings, read at the rank's
+positions), every sharded layer gathers the sequence on its way in and
+reduce-scatters it on its way out (`TP.enter`, `TP.leave`), a moe layer
+routes the whole gathered sequence (`moe.moe_block`), the norms run on
+the rank's positions with their scales through `TP.copy` (`_rep`; so
+do the cross layer's gate and any replicated MLP), and the head
+gathers the sequence back (`_head_input`). The numbers are those
+without the flag; only where the data sits, and the memory it takes,
+change. Where the model axis does not divide S the residual stays
+whole, and the tally says so (`TP.count_seq`).
 """
 from __future__ import annotations
 
@@ -196,16 +211,49 @@ def _vocab_tp(params, cfg, tp):
     return tp if tp is not None and _head(params, cfg).shape[-1] < cfg.vocab_size else None
 
 
+def _rep(leaf, tp):
+    """A replicated leaf as the rank reads it (`TP.shared`: through
+    `TP.copy` under sequence parallelism, where the rank reads it on its
+    positions alone)."""
+    return leaf if tp is None else tp.shared(leaf)
+
+
+def _final_norm(params, cfg, h, tp=None):
+    return rms_norm(h, _rep(params["final_norm"], tp), cfg.norm_eps)
+
+
+def _head_input(params, cfg, x, tp=None):
+    """The final-normed hidden states `x` as the head multiplies them: with
+    a vocab-parallel head through `TP.copy` (each rank's gradient is its
+    vocabulary block's part); under sequence parallelism the rank's
+    positions gathered along the sequence, by `TP.gather_seq` for a
+    vocab-parallel head (the same partial gradients, summed and scattered
+    back) and by `TP.gather` for a whole head on every rank (its loss and
+    gradient alike on every rank, each keeping its positions')."""
+    vtp = _vocab_tp(params, cfg, tp)
+    if tp is not None and tp.seq:
+        return tp.gather(x, 1) if vtp is None else tp.gather_seq(x)
+    return x if vtp is None else vtp.copy(x)
+
+
 def _logits(params, cfg, h, tp=None):
     """The head's logits: the rank's vocabulary block when it is sharded."""
-    x = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    vtp = _vocab_tp(params, cfg, tp)
-    return (x if vtp is None else vtp.copy(x)) @ _head(params, cfg)
+    return _head_input(params, cfg, _final_norm(params, cfg, h, tp), tp) @ _head(params, cfg)
 
 
 def _ff_tp(mp, cfg, tp):
     """`tp` when the MLP's params `mp` are the rank's ``d_ff`` block."""
     return tp if tp is not None and mp["w_gate"].shape[-1] < cfg.d_ff else None
+
+
+def _mlp(mp, x, cfg, tp):
+    """The MLP of params `mp` on `x`: on the rank's ``d_ff`` block, or
+    whole (a position-wise layer: under sequence parallelism on the
+    rank's positions, its replicated leaves through `_rep`)."""
+    ftp = _ff_tp(mp, cfg, tp)
+    if ftp is None and tp is not None:
+        mp = {k: _rep(v, tp) for k, v in mp.items()}
+    return mlp(mp, x, ftp)
 
 
 def unused_leaves(cfg: ModelConfig):
@@ -218,21 +266,26 @@ def unused_leaves(cfg: ModelConfig):
 def _embed(params, cfg, ids, tp=None):
     """The embedding rows of `ids`; with `tp` and the rows split over the
     model ranks, each rank looks up the ids in its block (zeros for the
-    others) and the ranks' rows are summed."""
+    others) and the ranks' rows are summed. Under sequence parallelism
+    (ids (B, S)) the rank's positions of them: the vocab-parallel sum
+    reduce-scattered along the sequence, a whole table read at the
+    rank's positions' ids through `_rep`."""
     emb = params["embed"]
     rows = emb.shape[0]
+    seq = tp is not None and tp.seq
     if tp is None or rows == cfg.vocab_size:
-        return emb[ids]
+        return _rep(emb, tp)[tp.positions(ids)] if seq else emb[ids]
     local = ids - tp.rank * rows
     inside = (local >= 0) & (local < rows)
     h = emb[local.clamp(0, rows - 1)]
-    return tp.reduce(torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
-                                                                    device=h.device)))
+    h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+    return tp.leave(h)
 
 
 def _embed_inputs(params, cfg, batch, tp=None):
     if cfg.embeds_in:
-        return batch["embeds"].to(cfg.torch_dtype)
+        x = batch["embeds"].to(cfg.torch_dtype)
+        return tp.positions(x) if tp is not None and tp.seq else x
     return _embed(params, cfg, batch["tokens"], tp)
 
 
@@ -243,6 +296,13 @@ def _self_attention(ap, x, cfg, use_blocked, tp=None):
     return attn_lib.full_attention(ap, x, cfg, sliding_window=cfg.sliding_window, tp=tp)
 
 
+def _gate(gate, dtype):
+    """A cross layer's tanh gate, computed in f32 (f64 for an f64 model:
+    under sequence parallelism its gradient is summed over the ranks'
+    positions, so an f32 one would round each rank's part), in `dtype`."""
+    return torch.tanh(gate.to(torch.promote_types(dtype, torch.float32))).to(dtype)
+
+
 def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocked, tp=None,
                  rows=None):
     """One sub-block; returns the new h (and the aux loss for ``moe``).
@@ -250,15 +310,15 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
     place on the model axis, `rows` its place among client ranks that
     split the batch (moe blocks)."""
     if kind == "shared":
-        x = rms_norm(h, shared["norm_attn"], cfg.norm_eps)
+        x = rms_norm(h, _rep(shared["norm_attn"], tp), cfg.norm_eps)
         h = h + _self_attention(shared["attn"], x, cfg, use_blocked, tp)
-        x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)
-        return h + mlp(shared["mlp"], x, _ff_tp(shared["mlp"], cfg, tp))
-    x = rms_norm(h, bp["norm"], cfg.norm_eps)
+        x = rms_norm(h, _rep(shared["norm_mlp"], tp), cfg.norm_eps)
+        return h + _mlp(shared["mlp"], x, cfg, tp)
+    x = rms_norm(h, _rep(bp["norm"], tp), cfg.norm_eps)
     if kind == "attn":
         return h + _self_attention(bp["attn"], x, cfg, use_blocked, tp)
     if kind == "mlp":
-        return h + mlp(bp["mlp"], x, _ff_tp(bp["mlp"], cfg, tp))
+        return h + _mlp(bp["mlp"], x, cfg, tp)
     if kind == "moe":
         y, aux = moe_block(bp["moe"], x, cfg, tp, rows)
         return h + y, aux
@@ -266,7 +326,7 @@ def _apply_block(kind, bp, h, cfg, *, shared, cross_embeds, chunk_fn, use_blocke
         return h + ssm_block(bp["ssm"], x, cfg, chunk_fn=chunk_fn, tp=tp)
     if kind == "cross":
         y = attn_lib.full_attention(bp["attn"], x, cfg, kv_x=cross_embeds, cross=True, tp=tp)
-        return h + torch.tanh(bp["gate"].to(torch.float32)).to(y.dtype) * y
+        return h + _gate(_rep(bp["gate"], tp), y.dtype) * y
     raise ValueError(kind)
 
 
@@ -279,17 +339,23 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
 
     Self-attention takes the flash path when ``S >= blocked_attn_threshold``
     (not in the ssm family, which has none). `return_hidden` returns the
-    final-normed hidden states (B, S, d) in place of the logits.
+    final-normed hidden states (B, S, d) in place of the logits, as the
+    head takes them (`_head_input`: under tensor parallelism through its
+    join).
     `chunk_fn` replaces the SSD intra-chunk step of the ssm blocks
     (default: the kernel; ``kernels.ssd.ref.ssd_chunk_ref`` is the plain
     path).
 
     Under a `repro_torch.sharding.tp.use` context the logits are the
-    rank's block of the vocabulary (see the module docstring)."""
+    rank's block of the vocabulary (see the module docstring); a context
+    with sequence parallelism keeps the rank's S / T positions of the
+    residual stream between the sub-blocks (the whole of it where the
+    model axis does not divide S), each sub-block tallied."""
     pattern, n_groups = block_pattern(cfg)
-    tp, rows = tp_lib.current(), tp_lib.current_rows()
+    asked, rows = tp_lib.current(), tp_lib.current_rows()
+    S = (batch["embeds"] if cfg.embeds_in else batch["tokens"]).shape[1]
+    tp = None if asked is None else asked.for_seq(S)
     h = _embed_inputs(params, cfg, batch, tp)
-    S = h.shape[1]
     use_blocked = S >= blocked_attn_threshold and cfg.family != "ssm"
     cross_embeds = batch.get("cross_embeds") if cfg.family == "vlm" else None
     if cross_embeds is not None:
@@ -306,6 +372,8 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
                 aux = aux + a
             else:
                 h = out
+            if asked is not None and asked.seq:
+                asked.count_seq(tp.seq)
         return h, aux
 
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -323,9 +391,8 @@ def apply_model(params, cfg: ModelConfig, batch, *, chunk_fn=None,
         else:
             h, aux = group_fn(h, gp, shared)
         aux_total = aux_total + aux
-    if return_hidden:
-        return rms_norm(h, params["final_norm"], cfg.norm_eps), aux_total
-    return _logits(params, cfg, h, tp), aux_total
+    x = _head_input(params, cfg, _final_norm(params, cfg, h, tp), tp)
+    return (x if return_hidden else x @ _head(params, cfg)), aux_total
 
 
 def _labels_and_mask(batch):
@@ -377,8 +444,6 @@ def lm_loss(params, cfg: ModelConfig, batch, *, chunk_fn=None, vocab_chunk: int 
     h, aux = apply_model(params, cfg, batch, chunk_fn=chunk_fn,
                          blocked_attn_threshold=blocked_attn_threshold,
                          return_hidden=True)
-    if vtp is not None:
-        h = vtp.copy(h)
     w = _head(params, cfg)
     S = h.shape[1]
     C = vocab_chunk
@@ -537,7 +602,6 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 x = rms_norm(h, gp[name]["norm"], cfg.norm_eps)
                 y = attn_lib.cross_decode_attention(gp[name]["attn"], x, cross_kv["k"][g],
                                                     cross_kv["v"][g], cfg, tp)
-                gate = torch.tanh(gp[name]["gate"].to(torch.float32)).to(y.dtype)
-                h = h + gate * y
+                h = h + _gate(gp[name]["gate"], y.dtype) * y
     logits = _logits(params, cfg, h, tp)[:, 0, :]
     return logits, DecodeState(caches=state.caches, pos=pos + 1)

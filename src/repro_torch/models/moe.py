@@ -92,22 +92,29 @@ class _Combine(torch.autograd.Function):
     f64): each token's gated slot outputs ``dst (T, k)`` (S: none)
     summed, as the one-process combine sums them before its one rounding
     to ``out_e``'s dtype; with `tp` the ranks' partial sums are summed
-    over the model ranks. Backward: the gates' gradient per choice
-    (summed over the model ranks with `tp`: each rank's is its slots'),
-    and each slot's gradient gathered from its token and choice ``src
-    (S,)`` (T * k: an empty slot)."""
+    over the model ranks (under sequence parallelism reduce-scattered
+    along the sequence of the `batch` rows of T / batch tokens: the
+    output is then ``(batch, T / batch / size, d)``, the rank's
+    positions). Backward: the gates' gradient per choice (summed over
+    the model ranks with `tp`: each rank's is its slots'), and each
+    slot's gradient gathered from its token and choice ``src (S,)`` (T *
+    k: an empty slot)."""
 
     @staticmethod
-    def forward(ctx, out_e, gate, dst, src, tp):
+    def forward(ctx, out_e, gate, dst, src, tp, batch=0):
         ctx.save_for_backward(out_e, gate, dst, src)
-        ctx.tp = tp
+        ctx.tp, ctx.seq = tp, tp is not None and tp.seq
         rows = torch.cat([out_e, out_e.new_zeros(1, out_e.shape[1])])
         g = gate.to(out_e.dtype)
         acc = torch.zeros((dst.shape[0], out_e.shape[1]), device=out_e.device,
                           dtype=torch.promote_types(out_e.dtype, torch.float32))
         for j in range(dst.shape[1]):
             acc += rows[dst[:, j]] * g[:, j, None]
-        return acc if tp is None else tp.mesh.model_all_reduce(acc)
+        if tp is None:
+            return acc
+        if ctx.seq:
+            return tp.mesh.model_reduce_scatter(acc.reshape(batch, -1, acc.shape[1]), 1)
+        return tp.mesh.model_all_reduce(acc)
 
     @staticmethod
     def backward(ctx, go):
@@ -115,6 +122,8 @@ class _Combine(torch.autograd.Function):
         k = dst.shape[1]
         rows = torch.cat([out_e, out_e.new_zeros(1, out_e.shape[1])])
         g_out = g_gate = None
+        if ctx.seq:  # the whole sequence's gradient of the rank's positions
+            go = ctx.tp.mesh.model_all_gather(go, 1).reshape(-1, go.shape[-1])
         go = go.to(out_e.dtype)
         if ctx.needs_input_grad[0]:
             go_rows = torch.cat([go, go.new_zeros(1, go.shape[1])])
@@ -126,14 +135,16 @@ class _Combine(torch.autograd.Function):
                                  1).to(gate.dtype)
             if ctx.tp is not None:
                 g_gate = ctx.tp.mesh.model_all_reduce(g_gate)
-        return g_out, g_gate, None, None, None
+        return g_out, g_gate, None, None, None, None
 
 
-def _own_experts(params, xt, gate, flat_e, rank, keep, C, tp):
+def _own_experts(params, xt, gate, flat_e, rank, keep, C, tp, batch=0):
     """The layer's output (T, d) from the experts of `params`: its slots'
     buffer, the products, its slots combined. With `tp` the blocks hold
     the rank's share of the experts and the output is summed over the
-    model ranks (see the module docstring); without, they are all E."""
+    model ranks (see the module docstring; under sequence parallelism
+    reduce-scattered to the rank's positions of the `batch` rows); without,
+    they are all E."""
     T, d = xt.shape
     k = gate.shape[1]
     e_loc = params["experts_gate"].shape[0]
@@ -148,7 +159,7 @@ def _own_experts(params, xt, gate, flat_e, rank, keep, C, tp):
     buf = _Dispatch.apply(xt, tok, dst, tp).reshape(e_loc, C, d)
     h = F.silu(torch.bmm(buf, params["experts_gate"])) * torch.bmm(buf, params["experts_up"])
     out_e = torch.bmm(h, params["experts_down"]).reshape(n, d)
-    return _Combine.apply(out_e, gate, dst, src, tp).to(xt.dtype)
+    return _Combine.apply(out_e, gate, dst, src, tp, batch).to(xt.dtype)
 
 
 def _queue_rank(flat_e: torch.Tensor, E: int) -> torch.Tensor:
@@ -175,7 +186,21 @@ def moe_block(params, x: torch.Tensor, cfg, tp=None, rows=None):
     a batch split over the client ranks (serving); the queues and the
     capacity are then the whole batch's, every rank's choices gathered
     in rank order, so a token is dropped exactly where one device would
-    drop it (the aux loss stays the rank's rows')."""
+    drop it (the aux loss stays the rank's rows').
+
+    Under sequence parallelism (``tp.seq``) x is the rank's positions:
+    the layer gathers the whole sequence first (`TP.gather`), so that
+    the routing, the capacity, the queues and the aux loss are the
+    client's whole B * S tokens' alike on every rank, as without the
+    flag (a rank routing its positions alone would pick other experts),
+    and the gradient of the gathered input, whole on every rank (the
+    router's is, and the dispatch sums its rows' over the ranks), is
+    kept at the rank's positions. The combine's sum over the ranks is
+    then a reduce-scatter along the sequence (replicated experts: the
+    whole output kept at the rank's positions, `TP.split`)."""
+    seq = tp is not None and tp.seq
+    if seq:
+        x = tp.gather(x, 1)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -208,5 +233,8 @@ def moe_block(params, x: torch.Tensor, cfg, tp=None, rows=None):
         tp.count_moe(e_loc)
     # replicated experts (E does not divide by T) run whole on every rank,
     # with nothing summed
-    out = _own_experts(params, xt, gate, flat_e, rank, keep, C, tp if e_loc < E else None)
-    return out.reshape(B, S, d), aux
+    out = _own_experts(params, xt, gate, flat_e, rank, keep, C, tp if e_loc < E else None, B)
+    out = out.reshape(B, -1, d)
+    if seq and e_loc == E:
+        out = tp.split(out, 1)
+    return out, aux

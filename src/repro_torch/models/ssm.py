@@ -28,7 +28,11 @@ last ranks fewer or none) on its own slices of the leaves (`_layout`):
     are the rank's own block where that block holds exactly its heads;
     else sliced the same way;
   - the input goes through `TP.copy`, ``out_proj``'s rows give a partial
-    output summed by `TP.reduce`;
+    output summed by `TP.reduce`; under sequence parallelism the input is
+    the rank's positions, gathered along the sequence before ``in_proj``
+    (`TP.gather_seq`: the causal conv and the SSD need the whole
+    sequence), and the output reduce-scattered back to them
+    (`TP.scatter_seq`);
   - the gated RMSNorm is over all of ``d_inner``: the sum of the rank's
     squares is summed over the model ranks in both directions
     (``TP.copy(TP.reduce(.))``: each rank differentiates only its own
@@ -221,12 +225,13 @@ def ssm_block(params, x, cfg, *, chunk_fn=None, tp=None):
     The SSD runs through `ssd_forward`; `chunk_fn` replaces its
     intra-chunk step (default: the kernel, with the plain version's
     gradient). `tp`: the rank's own ssm heads (see the module
-    docstring)."""
-    B, S, _ = x.shape
+    docstring; under sequence parallelism x is the rank's positions, and
+    so is the output)."""
     P, N = cfg.ssm_head_dim, cfg.ssm_state
     p, H, G = _layout(params, cfg, tp)
     if tp is not None:
-        x = tp.copy(x)
+        x = tp.enter(x)
+    B, S, _ = x.shape
     proj = x @ p["in_proj"]
     z, xBC, dt_raw = _split_proj(proj, cfg, H, G)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
@@ -242,7 +247,7 @@ def ssm_block(params, x, cfg, *, chunk_fn=None, tp=None):
     y = y.reshape(B, S, H * P)
     y = _gated_norm(y, z, p["gnorm"], cfg, tp)
     out = y @ p["out_proj"]
-    return out if tp is None else tp.reduce(out)
+    return out if tp is None else tp.leave(out)
 
 
 # ---------------------------------------------------------------------------

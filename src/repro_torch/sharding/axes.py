@@ -6,7 +6,8 @@ The port shards explicitly: the client axis is split over ranks by the
 mesh steps (`repro_torch.launch.steps`), each rank holding its clients'
 rows, and the "model" axis by the tensor-parallel operators of
 `repro_torch.sharding.tp`, which the model code calls where the rules'
-"heads", "kv_heads", "ff" and "vocab" names would place an activation.
+"heads", "kv_heads", "ff", "vocab" and (with ``seq_parallel``) "seq"
+names would place an activation.
 So `constrain` never moves data and returns ``x`` itself, with or
 without rules.
 """
@@ -62,15 +63,13 @@ def train_rules(mesh, seq_parallel: bool = False) -> AxisRules:
     and only model-parallel axes constrain.
 
     ``seq_parallel=True`` maps the residual stream's 'seq' axis onto
-    "model" (Megatron-style sequence parallelism), which the port does not
-    lay yet: it raises `NotImplementedError`."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel maps 'seq' onto the 'model' axis, which is ROADMAP item 20(e), "
-            "not ported yet")
+    "model" (Megatron-style sequence parallelism, which the port lays by
+    hand: `repro_torch.sharding.tp`'s sequence joins)."""
     rules = dict(default_rules(mesh).rules)
     rules["batch"] = None
     rules["clients"] = None
+    if seq_parallel:
+        rules["seq"] = "model"
     return AxisRules(mesh=mesh, rules=rules)
 
 

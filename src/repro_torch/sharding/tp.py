@@ -32,12 +32,40 @@ squares over the ranks with ``copy(reduce(.))``, an all-reduce both
 ways (`repro_torch.models.ssm`); a vlm's cross layer splits as
 self-attention does, its keys and values projected from the patch
 embeddings (`repro_torch.models.attention`). Every family splits over
-"model". All of them run through the `Mesh`'s model collectives, so the mesh's tally counts them
-(``model_all_reduce``, ``model_all_gather``, ``model_reduce_scatter``). `context`
+"model". All of them run through the `Mesh`'s model collectives, so the
+mesh's tally counts them (``model_all_reduce``, ``model_all_gather``,
+``model_reduce_scatter``). `context`
 gives None for ``mesh=None`` and for a model size of 1, and model code
 given None runs the single-device path unchanged. Whether a leaf is
 sharded is read off its shape against the config's (a block is narrower
 than the whole), so the model code needs no spec tree.
+
+Sequence parallelism (``seq_parallel=True``, Megatron-style; the
+reference's `train_rules` laying the residual stream's 'seq' axis on
+"model"). Between the sub-blocks each rank holds its S / T positions of
+the residual stream (and so does a layer group's checkpointed carry),
+and the joins of a sharded layer become the sequence's:
+
+  - `TP.gather_seq`: all-gather along the sequence (dim 1) forward, a
+    reduce-scatter of the gradient backward: before a column-parallel
+    product, in place of `TP.copy` (each rank's gradient of the whole
+    sequence is its heads' or columns' part);
+  - `TP.scatter_seq`: reduce-scatter along the sequence forward, an
+    all-gather of the gradient backward: after a row-parallel product,
+    in place of `TP.reduce`.
+
+`TP.enter` and `TP.leave` pick the pair of the context. A layer that a
+rank computes whole (its leaves replicated) takes the whole sequence
+with `TP.gather` along dim 1 and keeps its positions with `TP.split`
+(the rank's slice forward, an all-gather of the gradient backward), so
+that it is computed alike on every rank, as without the flag. A
+replicated leaf read on the rank's positions alone (a norm's scale, the
+cross layer's gate, a whole embedding's rows) gets a partial gradient
+on each rank: it goes through `TP.copy` (`TP.shared`), whose backward
+sums the partials. The model code runs sequence-parallel only where
+the model axis divides the sequence (`TP.for_seq`); elsewhere it keeps
+the residual whole, and the tally says which ran (``seq``,
+``seq_whole``: a sub-block each).
 
 The steps (`repro_torch.launch.steps`) set the context for the model
 code with `use`; the model's entry points read it once (`current`) and
@@ -102,13 +130,38 @@ class _GatherPartial(torch.autograd.Function):
         return ctx.mesh.model_reduce_scatter(g, ctx.dim), None, None
 
 
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.mesh = dim, mesh
+        return mesh.model_reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_all_gather(g, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.mesh = dim, mesh
+        n = x.shape[dim] // mesh.model_size
+        return x.narrow(dim, mesh.model_rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_all_gather(g, ctx.dim), None, None
+
+
 class TP:
     """This rank's place on the model axis of `mesh`: ``rank`` of
-    ``size``, and the operators over its model group."""
+    ``size``, the operators over its model group, and whether the
+    residual stream is split along the sequence (``seq``)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, seq: bool = False):
         self.mesh = mesh
         self.rank, self.size = mesh.model_rank, mesh.model_size
+        self.seq = seq
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _Copy.apply(x, self.mesh)
@@ -121,6 +174,57 @@ class TP:
 
     def gather_partial(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return _GatherPartial.apply(x, self.mesh, dim % x.dim())
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's positions of `x` (B, S / T, ...) along dim 1; the
+        gradient summed over the ranks, each keeping its positions."""
+        return _GatherPartial.apply(x, self.mesh, 1)
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial `x` (B, S, ...) summed, this rank's S / T
+        positions kept; the gradient all-gathered."""
+        return _ScatterSeq.apply(x, self.mesh, 1)
+
+    def split(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of a whole `x` computed alike on every rank;
+        the gradient all-gathered (the inverse of `gather`)."""
+        return _Split.apply(x, self.mesh, dim % x.dim())
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel product: `gather_seq` under
+        sequence parallelism, else `copy`."""
+        return self.gather_seq(x) if self.seq else self.copy(x)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """The partial output of a row-parallel product joined:
+        `scatter_seq` under sequence parallelism, else `reduce`."""
+        return self.scatter_seq(x) if self.seq else self.reduce(x)
+
+    def shared(self, leaf: torch.Tensor) -> torch.Tensor:
+        """A replicated leaf as the rank reads it: through `copy` under
+        sequence parallelism (read on the rank's positions, its gradient
+        is their part), else itself."""
+        return self.copy(leaf) if self.seq else leaf
+
+    def positions(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's S / T positions (dim 1) of an input alike on every
+        rank, outside autograd (tokens, frame embeddings)."""
+        n = x.shape[1] // self.size
+        return x.narrow(1, self.rank * n, n)
+
+    def for_seq(self, S: int) -> "TP":
+        """The context for a sequence of `S` positions: this one, or
+        without sequence parallelism where the model axis does not divide
+        `S` (the residual kept whole, as the reference's
+        `filter_divisible` drops the constraint)."""
+        if self.seq and S % self.size:
+            return TP(self.mesh, seq=False)
+        return self
+
+    def count_seq(self, split: bool) -> None:
+        """Tally one sub-block run with the residual split along the
+        sequence (`split`) or kept whole where the flag asked to split."""
+        self.mesh.tp_routes["seq" if split else "seq_whole"] += 1
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the model ranks, outside autograd."""
@@ -167,11 +271,12 @@ class Rows:
         return self.mesh.all_gather(x, 0)
 
 
-def context(mesh) -> Optional[TP]:
-    """The `TP` of `mesh`, or None for no mesh or a model size of 1."""
+def context(mesh, seq_parallel: bool = False) -> Optional[TP]:
+    """The `TP` of `mesh`, or None for no mesh or a model size of 1;
+    `seq_parallel` splits the residual stream along the sequence."""
     if mesh is None or getattr(mesh, "model_size", 1) == 1:
         return None
-    return TP(mesh)
+    return TP(mesh, seq=seq_parallel)
 
 
 def rows_context(mesh) -> Optional[Rows]:

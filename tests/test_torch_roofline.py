@@ -185,9 +185,18 @@ def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
         dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, cache_shard="head_dim",
                           verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        dryrun.lower_pair("qwen2-1.5b", "decode_32k", clients=2, seq_parallel=True,
-                          cfg=tbase.get_reduced("qwen2-1.5b"), verbose=False)
+    # sequence parallelism (ROADMAP item 20(e), ported) goes to the train step
+    # alone: a decode pair with the flag reckons what it does without
+    flagged = dryrun.lower_pair("qwen2-1.5b", "decode_32k", clients=2, seq_parallel=True,
+                                cfg=cfg, verbose=False)
+    plain = dryrun.lower_pair("qwen2-1.5b", "decode_32k", clients=2, cfg=cfg, verbose=False)
+    assert flagged["seq_parallel"] and not plain["seq_parallel"]
+    for key in ("coll_breakdown", "tp_routes", "reckoned_peak_bytes", "flops_per_device"):
+        assert flagged[key] == plain[key], key
+    sp = dryrun.lower_pair("qwen2-1.5b", "decode_32k", seq_parallel=True, cfg=cfg,
+                           verbose=False)
+    assert sp["coll_breakdown"] == row["coll_breakdown"]
+    assert sp["tp_routes"] == row["tp_routes"] and sp["tp_routes"]["seq"] == 0
     with pytest.raises(NotImplementedError, match="ROADMAP item 20"):  # a batch of 1 on 16
         dryrun.lower_pair("qwen2-1.5b", "long_500k", clients=16,
                           cfg=tbase.get_reduced("qwen2-1.5b"), verbose=False)

@@ -29,6 +29,7 @@ from repro_torch.core.protocol import DracoConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.sharding import axes, constrain, param_spec, tree_param_specs
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.sharding.specs import PartitionSpec as P
 from repro_torch.sharding.specs import filter_divisible
 
@@ -193,8 +194,14 @@ def test_model_axis_and_unported_paths_raise_naming_their_item():
     assert (pod.size, pod.model_size) == (32, 16)
     steps.make_train_step(get_reduced("mamba2-2.7b"), pod)  # ssm splits over "model"
     steps.make_train_step(get_reduced("llama-3.2-vision-11b"), pod)  # and so does the vlm
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        axes.train_rules(OneMesh(), seq_parallel=True)
+    # sequence parallelism (item 20(e)) is ported: 'seq' on "model", as the reference's
+    assert axes.train_rules(OneMesh(), seq_parallel=True).rules["seq"] == "model"
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    for sp in (False, True):
+        assert axes.train_rules(OneMesh(), seq_parallel=sp).rules == \
+            jaxes.train_rules(jmesh, seq_parallel=sp).rules
+    assert tp_lib.context(pod, seq_parallel=True).seq and tp_lib.context(pod).seq is False
+    steps.make_train_step(get_reduced("mamba2-2.7b"), pod, seq_parallel=True)
     cfg = get_reduced("qwen2-1.5b")
     with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
         steps.make_serve_step(cfg, SHAPES["long_500k"], SizedMesh(2))

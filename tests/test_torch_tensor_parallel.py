@@ -42,11 +42,11 @@ by one step of its value: here |delta| < 0.02, a step under 8e-5; 1.5e-5
 read), prefill and serve logits within 1e-5 (3.3e-6 read); the round trip of
 `shard_params` and `gather_params` and the replicated leaves across the
 model ranks exact; the f64 loss and gradients within 1e-10 of one
-process at every layout (the attention scores are f32 for every dtype,
-as the reference's, but each query head's are computed whole on one
-rank; RoPE and the norms compute in f64 for an f64 model, so a kv
-head's gradient summed over the ranks that read it is not rounded to f32
-part by part; 7e-16 read). A wrong operator shows there: a router
+process at every layout (RoPE, the norms and the attention scores
+compute in f64 for an f64 model, so a kv head's gradient summed over
+the ranks that read it is not rounded to f32 part by part, and a
+softmax's rounding does not hang on how many heads one call holds;
+7e-16 read). A wrong operator shows there: a router
 gradient summed over the ranks (a `TP.copy` on the moe layer's input)
 would double it at (2, 2); a Mamba2 block's gated-norm sum of squares
 reduced forward only (`TP.reduce` without its `TP.copy`) would leave
@@ -419,7 +419,8 @@ def test_routes_and_tally(worlds):
         assert o["routes"] == {"heads": 0 if padded else layers_run,
                                "padded": layers_run if padded else 0,
                                "gathered_leaves": 4 * layers_run if padded else 0,
-                               "moe": 0, "experts": 0, "ssm": 0, "ssm_heads": 0}
+                               "moe": 0, "experts": 0, "ssm": 0, "ssm_heads": 0, "seq": 0,
+                               "seq_whole": 0}
         counts = o["tally"]["_counts"]
         assert counts["model_all_reduce"] > 0 and counts["reduce_scatter"] == 1
         assert (counts["model_all_gather"] > 0) == padded
@@ -498,7 +499,7 @@ def test_moe_experts_and_routes_tally(worlds):
             assert routes == {"heads": heads, "padded": 0,
                               "gathered_leaves": 2 * heads if layout == (1, 4) else 0,
                               "moe": 2 * layers_run, "experts": experts, "ssm": 0,
-                              "ssm_heads": 0}
+                              "ssm_heads": 0, "seq": 0, "seq_whole": 0}
             assert o[T.MOE]["serve_routes"]["experts"] == experts
             counts = o[T.MOE]["train_dense"]["tally"]["_counts"]
             assert (counts["model_all_reduce"] > 0) == (layout != (1, 3))
@@ -568,7 +569,8 @@ def test_ssm_heads_and_routes_tally(worlds):
             assert routes == {"heads": shared, "padded": 0,
                               "gathered_leaves": 3 * blocks * clients if cut else 0,
                               "moe": 0, "experts": 0, "ssm": blocks * clients,
-                              "ssm_heads": -(-16 // layout[1])}, (arch, layout, routes)
+                              "ssm_heads": -(-16 // layout[1]), "seq": 0,
+                              "seq_whole": 0}, (arch, layout, routes)
             counts = o[arch]["train_dense"]["tally"]["_counts"]
             assert counts["model_all_reduce"] > 0
             assert (counts["model_reduce_scatter"] > 0) == cut
@@ -698,7 +700,8 @@ def test_cross_routes_and_tally(worlds):
                 routes = o[arch]["train_dense"]["routes"]
                 assert routes == {"heads": layers * clients if split else 0, "padded": 0,
                                   "gathered_leaves": gathered * clients, "moe": 0,
-                                  "experts": 0, "ssm": 0, "ssm_heads": 0}, (arch, layout)
+                                  "experts": 0, "ssm": 0, "ssm_heads": 0, "seq": 0,
+                                  "seq_whole": 0}, (arch, layout)
                 counts = o[arch]["train_dense"]["tally"]["_counts"]
                 assert (counts["model_all_reduce"] > 0) == split
                 assert (counts["model_reduce_scatter"] > 0) == bool(gathered)
@@ -884,12 +887,26 @@ def test_every_ssm_layer_at_16_ways_computes_its_own_heads(arch):
 
 
 def test_seq_parallel_and_cache_layouts_raise_naming_their_item():
+    """Sequence parallelism (ROADMAP item 20(e), ported) lays 'seq' on
+    "model" and runs the dry run's train pair at (16, 16): every
+    sub-block on the rank's positions, the model axis's joins now
+    reduce-scatters and all-gathers along the sequence. The cache's other
+    layouts (item 20(f)) still raise naming their item."""
     cfg = get_reduced(T.ARCH)
     mesh = mesh_lib.Mesh.dry((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(e\)"):
-        axes.train_rules(mesh, seq_parallel=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(e\)"):
-        dryrun.lower_pair(T.ARCH, "train_4k", cfg=cfg, seq_parallel=True, verbose=False)
+    assert axes.train_rules(mesh, seq_parallel=True).rules["seq"] == "model"
+    assert axes.train_rules(mesh).rules["seq"] is None
+    rows = {sp: dryrun.lower_pair(T.ARCH, "train_4k", cfg=cfg, seq_parallel=sp, verbose=False)
+            for sp in (False, True)}
+    assert rows[True]["seq_parallel"] and not rows[False]["seq_parallel"]
+    # one tally a sub-block run: 2 a layer (the reduced config has no remat)
+    assert not cfg.remat and rows[True]["tp_routes"]["seq"] == 2 * cfg.num_layers
+    assert rows[True]["tp_routes"]["seq_whole"] == rows[False]["tp_routes"]["seq"] == 0
+    counts = {sp: r["coll_breakdown"]["counts"] for sp, r in rows.items()}
+    assert counts[True]["model_reduce_scatter"] > counts[False]["model_reduce_scatter"]
+    assert counts[True]["model_all_gather"] > counts[False]["model_all_gather"]
+    assert counts[True]["model_all_reduce"] < counts[False]["model_all_reduce"]
+    assert rows[True]["reckoned_peak_bytes"] < rows[False]["reckoned_peak_bytes"]
     for cache_shard in ("head_dim", "seq"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
             dryrun.lower_pair(T.ARCH, "decode_32k", cfg=cfg, cache_shard=cache_shard,
