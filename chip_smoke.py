@@ -211,7 +211,11 @@ Phases (any failure exits non-zero):
                step 1's mixed plane against the mix kernel on the gathered
                plane (`MESH_MIX_TOL`), every step's finite, s/step and
                the collective's share,
-               one drain launch a rank and step in the dense modes; (c)
+               one drain launch a rank and step in the dense modes (in
+               the whole run these modes run first in phase 23's worlds
+               of 2 and 4 ranks, one world start each, their checks
+               logged there and their seconds on the `phase times:` line
+               as "21 (b) in 23's worlds"); (c)
                fig4's Psi grid (2 seeds, 30 windows) through
                `simulate_sweep(mesh=)` over the 5 gloo ranks against the
                unsharded sweep (params within 1e-4, the same
@@ -319,7 +323,19 @@ Phases (any failure exits non-zero):
                F4); then the dry run's (16, 16) yi-34b x train_4k share
                with the flag (`TP_DRY_SP`: it fits only so) reckoned and
                run at depths 1 and 2 as (c), and qwen2.5-32b's reckoned
-               with it;
+               with it; (m) the decode cache's other layouts
+               (`steps.cache_layout`, ROADMAP item 20(f)) in (a)'s world:
+               qwen2-1.5b at full width and depth in f32, `TP_CACHE_STEPS`
+               decode steps from a cache pre-filled alike in every process
+               at long_500k's ring of 8,192 slots and batch of 1 (the
+               slots over "data", from position 8,190 across the wrap)
+               and under `cache_shard` head_dim and seq on (b)'s batch and
+               length, each against one process within `TP_SERVE_TOL`,
+               the layout as `TP_CACHE` says, the merge over "data"
+               tallied as client-axis all-reduces; then the (16, 16)
+               shares of `TP_DRY_CACHE` reckoned and run at full depth,
+               the peak within `DRY_PEAK_TOL`, and every other long_500k
+               pair reckoned (one row a client rank);
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Exits non-zero without CUDA and
@@ -334,6 +350,7 @@ without the repository's `src/` beside this file.
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --dryrun
     python3 chip_smoke.py --tp [--tp-faults]
+    python3 chip_smoke.py --mesh --tp
     python3 chip_smoke.py --hybrid-depths 6,12,54
 
 run one diagnostic instead: the first times variants of ssd_chunk.cu
@@ -353,7 +370,9 @@ alone; the seventh the build, phase 21 and the rectangular drain's
 phase 2 and 9 rows; the eighth the build, phase 2's rectangular drain
 and `ssd_chunk` checks (the kernels at phase 22's shapes) and phase 22;
 the ninth the build, phase 2's rectangular drain and `ssd_chunk`
-checks, phase 23 and its drain shapes' phase 9 rows (with
+checks, phase 23 and its drain shapes' phase 9 rows (with ``--mesh``
+also phase 21 before it, (b)'s modes in phase 23's worlds as in the
+whole run; with
 ``--tp-faults``, then (a)'s, (d)'s, (f)'s and (i)'s checks against the
 planted faults of `TP_FAULTS`, each of which must fail them, and
 `TP_TRAP` beside, logged; ``--tp-faults`` alone runs only those); the
@@ -3565,8 +3584,10 @@ RECT_TP_CROSS = {"vlm plane of one model rank": (1, 2, 2, ("llama-3.2-vision-11b
 # per card and over gloo at MESH_RANKS ranks sharing the card; (c) fig4's
 # Psi grid (SWEEP_PSIS) at the fig3 EMNIST setup, MESH_SWEEP_SEEDS seeds x
 # MESH_SWEEP_WINDOWS windows, in the same gloo world, against the unsharded
-# sweep in this process: params within PATH_TOL and the same acceptances
-MESH_DRAIN, MESH_RANKS, MESH_DRAIN_REPS = (3, 25, 146_447), 5, 10
+# sweep in this process: params within PATH_TOL and the same acceptances.
+# The sharded drain's call is timed over MESH_DRAIN_REPS calls after its
+# checked one (a time held against nothing: 3 calls)
+MESH_DRAIN, MESH_RANKS, MESH_DRAIN_REPS = (3, 25, 146_447), 5, 3
 MESH_SWEEP_SEEDS, MESH_SWEEP_WINDOWS, MESH_SWEEP_EVAL = 2, 30, 10
 # (d) every other registered algorithm through `simulate_sweep(mesh=)` in
 # (c)'s world: the baselines at fig3_config() for MESH_ALGO_ROUNDS rounds,
@@ -4069,9 +4090,11 @@ def log_mesh(r):
             f"unsharded; max |d params| {a['gap']:.3e}")
 
 
-def phase_mesh(torch):
+def phase_mesh(torch, share=False):
     """Phase 21: the client mesh (see `MESH_MODES` and the constants
-    above them). Returns its numbers for the kernels line and PERF.md."""
+    above them). Returns its numbers for the kernels line and PERF.md;
+    with `share`, (b)'s modes are left to phase 23's worlds of 4 and 2
+    ranks (`phase_tp` with these results), which fill its numbers in."""
     from repro_torch.api import simulate_sweep
     from repro_torch.configs.base import get_config
     from repro_torch.launch import mesh as mesh_lib
@@ -4143,20 +4166,44 @@ def phase_mesh(torch):
     torch.cuda.empty_cache()
 
     # (b) the single-process references (shared with phase 23 (a)), then
-    # the mesh trainer's worlds
+    # the mesh trainer's worlds: with `share`, phase 23's worlds of the same
+    # sizes run (b)'s modes first (`mesh_train_verdict` after them)
     cfg = get_config("qwen2-1.5b").with_(num_layers=MESH_LAYERS)
     ref, _ = single_reference(torch, cfg, MESH_TRAIN_ARGS + ["--topology", "complete"], False,
                               1)
     ref_none, _ = single_reference(torch, cfg, MESH_TRAIN_ARGS, True, 2)
+    res["refs"] = ref, ref_none
+    res["launches"] = sweep_launches + algo_launches
+    if not share:
+        outs = {}
+        for ranks in sorted({r for _, r, _ in MESH_MODES}):
+            t0 = time.perf_counter()
+            outs[ranks] = mesh_lib.spawn_ranks(mesh_rank_train, ranks, mesh_modes(ranks),
+                                               backend="gloo", timeout=600, threads=0,
+                                               deadline=1200)
+            log(f"  mesh trainer world of {ranks} gloo ranks: {time.perf_counter() - t0:.1f} s "
+                f"with process start")
+        mesh_train_verdict(res, outs)
+    log(f"phase 21 mesh: {time.perf_counter() - t_start:.1f} s" +
+        (" ((b)'s modes run in phase 23's worlds)" if share else ""))
+    return res
+
+
+def mesh_modes(ranks):
+    """Phase 21 (b)'s (label, argv) of `MESH_MODES` that run on `ranks` ranks."""
+    return [(label, argv) for label, r, argv in MESH_MODES if r == ranks]
+
+
+def mesh_train_verdict(res, outs_by_ranks):
+    """Phase 21 (b)'s checks of each world's ranks' `mesh_rank_train`
+    results ({ranks: [rank results]}) against the single-process
+    references ``res["refs"]``; fills ``res["train"]``,
+    ``res["train_collective_ms"]`` and adds the drain launches to
+    ``res["launches"]``."""
+    ref, ref_none = res["refs"]
     train_launches, rows = 0, {}
-    for ranks in sorted({r for _, r, _ in MESH_MODES}):
-        modes = [(label, argv) for label, r, argv in MESH_MODES if r == ranks]
-        t0 = time.perf_counter()
-        outs = mesh_lib.spawn_ranks(mesh_rank_train, ranks, modes, backend="gloo",
-                                    timeout=600, threads=0, deadline=1200)
-        log(f"  mesh trainer world of {ranks} gloo ranks: {time.perf_counter() - t0:.1f} s "
-            f"with process start")
-        for label, _ in modes:
+    for ranks, outs in sorted(outs_by_ranks.items()):
+        for label, _ in mesh_modes(ranks):
             runs = [o[label] for o in outs]
             want = ref_none if label == "none" else ref
             n_loc = 4 // ranks
@@ -4195,17 +4242,16 @@ def phase_mesh(torch):
             rows[label] = dict(ranks=ranks, s_step=max(steady), step=last,
                                share=runs[0]["steps"][-1]["collective_s"] / steady[0],
                                peak=max(r["peak"] for r in runs), launches=launches,
-                               collective_ms=runs[0]["steps"][-1]["collective_s"] * 1e3)
+                               collective_ms=runs[0]["steps"][-1]["collective_s"] * 1e3,
+                               wall=max(r["wall"] for r in runs))
             log(f"  {label}: {launches} drain launches, peak {rows[label]['peak'] / 2**30:.2f} "
                 f"GiB per rank, {rows[label]['s_step']:.4f} s/step at step {last} (its check's "
-                f"time left out)")
+                f"time left out), {rows[label]['wall']:.1f} s with set-up")
     res["train"] = rows
     res["train_collective_ms"] = dict(
         ms=rows["dense"]["collective_ms"],
         what=f"gloo reduce-scatter of the (4, K) f32 partial at {MESH_LAYERS} layers, 2 ranks")
-    res["launches"] = train_launches + sweep_launches + algo_launches
-    log(f"phase 21 mesh: {time.perf_counter() - t_start:.1f} s")
-    return res
+    res["launches"] += train_launches
 
 
 # phase 22: (arch, shape, client ranks W, mix mode). The dense mix's
@@ -4230,6 +4276,93 @@ DRY_PEAK_TOL = (1e-3, 128 << 20)  # relative, absolute (bytes)
 DRY_TRAIN_RATIO = (0.6, 0.95)
 
 
+# The dry run's pairs are reckoned on ``meta`` (a pure host computation,
+# the same on any host: 0.5-16 s a pair of the meta run's Python per op,
+# ~110 s in all) by RECKON_WORKERS background process(es) from phase 21 on,
+# while the card works; phases 22 and 23 take each row
+# (`dryrun.lower_pair(reckoned=)`) where they used to count it in turn. One
+# process stays ahead of them and takes one core, not two, from phase 21's
+# gloo worlds, which share the host (with two, phase 21 took 90.1 s on a
+# host ~17% slower than one where it took 57.3 s alone; PERF.md §6)
+RECKON_WORKERS = 1
+_RECKONS = {}
+
+
+def dry_key(arch, shape, clients=None, mix="dense", threshold=8192, chunk=0, sp=False,
+            cache_shard="kv_heads"):
+    """One dry-run pair's reckoning: `lower_pair`'s arguments."""
+    return arch, shape, clients, mix, threshold, chunk, bool(sp), cache_shard
+
+
+def tp_key(pair, cache_shard="kv_heads"):
+    """`dry_key` of a phase 23 pair ((arch, shape, mix, blocked_threshold[,
+    vocab_chunk[, seq_parallel]]), the (16, 16) mesh)."""
+    arch, shape, mix, threshold, chunk, sp = (*pair, 0, False)[:6]
+    return dry_key(arch, shape, None, mix, threshold, chunk, sp, cache_shard)
+
+
+def reckon_row(key):
+    """A background process's reckoning of the pair `key` (`dry_key`):
+    `lower_pair`'s row without ``run``, on one CPU thread."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    arch, shape, clients, mix, threshold, chunk, sp, cache_shard = key
+    return dryrun.lower_pair(arch, shape, clients=clients, mix_mode=mix,
+                             blocked_threshold=threshold, vocab_chunk=chunk, seq_parallel=sp,
+                             cache_shard=cache_shard, verbose=False)
+
+
+def start_reckons(keys):
+    """Submit the pairs of `keys` (in order of need) to the background
+    reckoning processes (`reckoned` waits for one; `stop_reckons` ends
+    them)."""
+    import concurrent.futures
+    import multiprocessing
+
+    if "pool" not in _RECKONS:
+        _RECKONS["pool"] = concurrent.futures.ProcessPoolExecutor(
+            RECKON_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    for key in keys:
+        _RECKONS[key] = _RECKONS["pool"].submit(reckon_row, key)
+
+
+def reckoned(key):
+    """The background row of `key`, waited for; None where none was
+    submitted (the caller then counts it itself)."""
+    future = _RECKONS.pop(key, None)
+    return None if future is None else future.result()
+
+
+def stop_reckons():
+    """End the background reckoning processes (pending pairs cancelled)."""
+    pool = _RECKONS.pop("pool", None)
+    _RECKONS.clear()
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def tp_dry_keys():
+    """Phase 23's pairs in order of need: (c), (e), (h), (k), the reckoned
+    zamba2 and musicgen, (l)'s two, (m)'s three and the other long_500k
+    pairs."""
+    keys = [tp_key(p) for p in (TP_DRY, TP_DRY_MOE, TP_DRY_SSM, TP_DRY_CROSS, TP_DRY_HYBRID,
+                                TP_DRY_AUDIO, TP_DRY_SP, TP_DRY_SP_RECKON)]
+    keys += [tp_key((a, s, "dense", 8192), cs) for a, s, cs in TP_DRY_CACHE]
+    return keys + [tp_key((a, "long_500k", "dense", 8192)) for a in long_reckoned()]
+
+
+def long_reckoned():
+    """(m)'s long_500k pairs reckoned only: every `ARCH_IDS` config's but
+    those `TP_DRY_CACHE` runs, by config name."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+
+    names = [get_config(a).name for a in ARCH_IDS]
+    return [n for n in names if (n, "long_500k", "kv_heads") not in TP_DRY_CACHE]
+
+
 def peak_gaps(row):
     """[(what, measured, reckoned)] of one row's peaks: each depth run and,
     extrapolated or not, the row's own."""
@@ -4252,7 +4385,8 @@ def phase_dryrun(torch):
     rows, failures = [], []
     for arch, shape, clients, mix in DRY_PAIRS:
         row = dryrun.lower_pair(arch, shape, clients=clients, mix_mode=mix, run=True,
-                                verbose=False)
+                                verbose=False,
+                                reckoned=reckoned(dry_key(arch, shape, clients, mix)))
         rows.append(row)
         log(f"phase 22 row: {json.dumps(row)}")
         peaks = []
@@ -4515,6 +4649,166 @@ TP_FAULTS = (("weight-shard", "a"), ("router-twice", "d"), ("unreduced", "d"),
 TP_TRAP = "cross-unreduced at gate 0"
 TP_FAULT_SHIFT = 1e-2
 
+# (m) the decode cache's other layouts (ROADMAP item 20(f),
+# `steps.cache_layout`), qwen2-1.5b at full width and depth in f32 served
+# in (a)'s (2, 2) world, TP_CACHE_STEPS decode steps from a cache pre-filled
+# alike in every process (`cache_fill`, each rank its block) against one
+# process on the same params and cache, within TP_SERVE_TOL of the largest
+# |logit|: long_500k's ring of 8,192 slots at its batch of 1 (whole on both
+# client ranks, the ring's slots 4,096 a data rank, the merge of the
+# partial softmaxes over "data"), from position TP_CACHE_LONG_POS so that
+# the steps wrap the ring; and `cache_shard` head_dim (64 of 128 a rank,
+# every kv head) and seq (16 of the 32 slots a rank) on (b)'s served batch
+# and cache length, from position TP_CACHE_POS so that the steps cross from
+# one rank's slots to the other's. (label, shape name or None for (b)'s,
+# cache_shard, start position, the layout that must take effect)
+TP_CACHE_STEPS, TP_CACHE_LONG_POS, TP_CACHE_POS = 4, 8190, 14
+TP_CACHE = (("long_500k ring, batch 1", "long_500k", "kv_heads", TP_CACHE_LONG_POS,
+             {"slots": "data", "head_dim": None, "kv_heads": "the rank's"}),
+            ("head_dim", None, "head_dim", TP_CACHE_POS,
+             {"slots": None, "head_dim": "model", "kv_heads": "every"}),
+            ("seq", None, "seq", TP_CACHE_POS,
+             {"slots": "model", "head_dim": None, "kv_heads": "every"}))
+# then the dry run's (16, 16) shares reckoned and run at full depth (they
+# fit the card; run at depths 1 and 2, a decode step's few ms left the
+# extrapolation to one timed step's noise: stablelm's head_dim pair read
+# bound_fraction 1.11 so; PERF.md §6), the peak within DRY_PEAK_TOL:
+# qwen2.5-32b x long_500k (the padded route's kv heads a rank, the ring over
+# the 16 data ranks) and stablelm-3b x decode_32k (32 heads over 32 kv heads
+# of 80: 2 heads a rank under seq, 5 head_dims a rank under head_dim; ~5.4
+# GB of bf16 cache a rank in either); every other long_500k pair reckoned.
+# (arch, shape, cache_shard)
+TP_DRY_CACHE = (("qwen2.5-32b", "long_500k", "kv_heads"), ("stablelm-3b", "decode_32k", "head_dim"),
+                ("stablelm-3b", "decode_32k", "seq"))
+
+
+def cache_shape(torch, name):
+    """(m)'s serving shape: `name`'s, or (b)'s served batch and length."""
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+
+    if name is not None:
+        return SHAPES[name]
+    return ShapeConfig("serve", TP_SERVE_PROMPT, TP_SERVE_BATCH, "decode")
+
+
+def cache_block(cfg, t, mesh, layout, rows):
+    """The rank's block of a whole KV cache leaf `t` (groups, B, C, Hkv, hd)
+    as `init_decode_state` lays it under `layout` on `mesh` (None: one
+    process, the whole): its `rows`, its block of the slots, its kv heads
+    (every one, or those of `attention.rank_heads`), its block of head_dim."""
+    from repro_torch.models import attention
+
+    if mesh is None:
+        return t
+    if rows < t.shape[1]:
+        t = t[:, mesh.client_slice(t.shape[1])]
+    for dim, (i, n) in ((2, (0, 1) if layout is None else layout.slot_block()),
+                        (4, (0, 1) if layout is None else layout.hd_block())):
+        k = t.shape[dim] // n
+        t = t.narrow(dim, i * k, k)
+    if (layout is None or not layout.every_head) and mesh.model_size > 1:
+        hd, size = cfg.resolved_head_dim, mesh.model_size
+        _, _, k0, hkv = attention.rank_heads(cfg, mesh.model_rank, size,
+                                             cfg.num_heads * hd % size == 0,
+                                             cfg.num_kv_heads % size == 0)
+        t = t.narrow(3, k0, hkv)
+    return t
+
+
+def cache_serve(torch, mesh):
+    """(m) on `mesh` (None: one process): for each of `TP_CACHE`, the serve
+    step under its `cache_shard` from a cache pre-filled from one seed
+    (the rank's block of it) at its start position, `TP_CACHE_STEPS` steps
+    of seeded tokens: the logits on the host, ms a step, the layout that
+    took effect, a KV cache's shape, the collective tally."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.sharding import tp as tp_lib
+
+    cfg = get_config("qwen2-1.5b").with_(dtype="float32")
+    params = M.init_params(SEED + 230, cfg, "cuda", shard=tp_lib.sharder(mesh))
+    out = {}
+    for i, (label, name, cache_shard, pos, _) in enumerate(TP_CACHE):
+        shape = cache_shape(torch, name)
+        scfg = steps.serve_config(cfg, shape)
+        serve = steps.make_serve_step(cfg, shape, mesh, cache_shard)
+        rows = steps.serving_rows(shape, mesh)
+        state = M.init_decode_state(scfg, rows, shape.seq_len, device="cuda", mesh=mesh,
+                                    layout=serve.layout)
+        whole = M.init_decode_state(scfg, shape.global_batch, shape.seq_len, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 232 + i)
+        for cname, c in state.caches.items():
+            for field in ("k", "v"):
+                full = torch.randn(tuple(getattr(whole.caches[cname], field).shape),
+                                   generator=gen, device="cuda")
+                getattr(c, field).copy_(cache_block(scfg, full, mesh, serve.layout, rows))
+        del whole
+        state = state._replace(pos=torch.tensor(pos, dtype=torch.int32, device="cuda"))
+        toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, TP_CACHE_STEPS),
+                             generator=gen, device="cuda")
+        if rows < shape.global_batch:
+            toks = toks[mesh.client_slice(shape.global_batch)]
+        if mesh is not None:
+            mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0, logits = time.perf_counter(), []
+        for t in range(TP_CACHE_STEPS):
+            lg, state = serve(params, toks[:, t], state)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        kv = next(c.k for c in state.caches.values())
+        out[label] = dict(
+            logits=torch.stack(logits, 1).cpu(), rows=rows,
+            ms=(time.perf_counter() - t0) / TP_CACHE_STEPS * 1e3,
+            layout=None if serve.layout is None else serve.layout.describe(),
+            kv=tuple(kv.shape), tally=None if mesh is None else mesh.collective_tally(),
+            coords=None if mesh is None else (mesh.rank, mesh.model_rank))
+        del state, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def cache_verdict(torch, outs, failures):
+    """(m)'s check of the ranks' `cache_serve` results `outs` against one
+    process: each layout's logits within TP_SERVE_TOL of the largest
+    |logit|, the layout that took effect as `TP_CACHE` says, the merge
+    over "data" tallied as client-axis all-reduces (none elsewhere);
+    returns each layout's readings."""
+    one = cache_serve(torch, None)
+    res = {}
+    for label, _, cache_shard, pos, want_layout in TP_CACHE:
+        want = one[label]["logits"]
+        gaps = []
+        for o in outs:
+            got = o[label]
+            rows = (slice(None) if got["rows"] == want.shape[0] else
+                    slice(got["coords"][0] * got["rows"], (got["coords"][0] + 1) * got["rows"]))
+            gaps.append(rel_gap(got["logits"], want[rows]))
+        o0 = outs[0][label]
+        counts, tally = o0["tally"]["_counts"], o0["tally"]
+        client = counts["client_all_reduce"]
+        ok = (max(gaps) <= TP_SERVE_TOL and o0["layout"] == want_layout
+              and (client > 0) == (want_layout["slots"] == "data")
+              and all(bool(torch.isfinite(o[label]["logits"]).all()) for o in outs))
+        res[label] = dict(gap=max(gaps), ms=max(o[label]["ms"] for o in outs),
+                          one_ms=one[label]["ms"], client_calls=client,
+                          client_bytes=tally["client_all_reduce"],
+                          model_calls=counts["model_all_reduce"] + counts["model_all_gather"],
+                          kv=o0["kv"], one_kv=one[label]["kv"])
+        log(f"  (m) {label} (cache_shard {cache_shard}, from position {pos}, "
+            f"{TP_CACHE_STEPS} steps, qwen2-1.5b f32, all layers) on {TP_SHAPE}: layout "
+            f"{o0['layout']}, a rank's KV cache {o0['kv']} of {one[label]['kv']}; "
+            f"{res[label]['ms']:.2f} ms/step (one process {one[label]['ms']:.2f}); client-axis "
+            f"all-reduces {client} calls {tally['client_all_reduce']} bytes, model axis "
+            f"{counts['model_all_reduce']} all-reduces, {counts['model_all_gather']} "
+            f"all-gathers; logits against one process, largest gap / largest |logit| "
+            f"{max(gaps):.3e} (tolerance {TP_SERVE_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(m) {label}")
+    return res
+
+
 _REFS = {}
 
 
@@ -4659,8 +4953,10 @@ def plant(fault):
     return lambda: None
 
 
-def tp_rank_train(rank, world, layout, modes, serves=()):
-    """Phase 23's trainers in one rank of the `layout` mesh: for each
+def tp_rank_train(rank, world, layout, modes, serves=(), mesh_modes=(), cache=False):
+    """Phase 21 (b)'s `mesh_modes` first (`mesh_rank_train`, under
+    ``"mesh"``: the world shared, phase 23's worlds of 4 and 2 ranks), then
+    phase 23's trainers in one rank of the `layout` mesh: for each
     (label, arch, layers, config overrides, argv, reference path, planted
     fault) of `modes`, `train.main` on `arch` at `layers` layers
     (`tp_config`). Around each step of the rank's clients: its time, the
@@ -4675,7 +4971,8 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
     of the mode ``<twin>`` run before it in the world (``"twin_gaps"``,
     ``"twin_updates"``). Each mode's wall seconds, its process's set-up
     and steps, under ``"wall_s"``. Then each (arch, layers) of `serves`
-    served in the same world (``"serve"``, keyed by them)."""
+    served in the same world (``"serve"``, keyed by them), and with `cache`
+    part (m)'s cache layouts (``"cache"``, `cache_serve`)."""
     import torch
 
     import repro_torch  # noqa: F401  (TF32 off)
@@ -4687,6 +4984,9 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
     from repro_torch.sharding.specs import tree_param_specs
 
     out = {"serve": {}}
+    if mesh_modes:
+        out["mesh"] = mesh_rank_train(rank, world, mesh_modes)
+        torch.cuda.empty_cache()
     ssd_ops.ssd_chunk.launches = 0
     twins = {m[0][:-len(" sp")] for m in modes if m[0].endswith(" sp")}
     firsts = {}  # a twin's step-1 blocks on the host
@@ -4776,6 +5076,12 @@ def tp_rank_train(rank, world, layout, modes, serves=()):
         torch.cuda.empty_cache()
     for serve in serves:
         out["serve"][serve] = tp_rank_serve(rank, world, *serve)
+        torch.cuda.empty_cache()
+    if cache:
+        from repro_torch.launch import mesh as mesh_lib
+
+        out["cache"] = cache_serve(torch, mesh_lib.make_mesh(layout, ("data", "model"),
+                                                             backend="gloo"))
         torch.cuda.empty_cache()
     out["ssd_chunk"] = ssd_ops.ssd_chunk.launches
     return out
@@ -4929,12 +5235,13 @@ def tp_config(arch, layers, overrides=None):
     return get_config(arch).with_(num_layers=layers, **(overrides or {}))
 
 
-def tp_world(torch, tag, layout, modes, steps=1, serves=()):
+def tp_world(torch, tag, layout, modes, steps=1, serves=(), mesh_modes=(), cache=False):
     """The single-process references and one world of phase 23's trainers:
     `modes` (label, arch, layers, config overrides, argv, fault) on the
-    `layout` mesh, then `serves` ((arch, layers) each) in the same world
-    (`tp_rank_train`); returns (each rank's results, {label: step-1
-    losses of the reference})."""
+    `layout` mesh, after phase 21 (b)'s `mesh_modes`, then `serves`
+    ((arch, layers) each) and with `cache` part (m)'s cache layouts in the
+    same world (`tp_rank_train`); returns (each rank's results, {label:
+    step-1 losses of the reference})."""
     from repro_torch.launch import mesh as mesh_lib
 
     refs, rank_modes = {}, []
@@ -4947,25 +5254,28 @@ def tp_world(torch, tag, layout, modes, steps=1, serves=()):
         rank_modes.append((label, arch, layers, overrides, argv, path, fault))
     t0 = time.perf_counter()
     outs = mesh_lib.spawn_ranks(tp_rank_train, math.prod(layout), layout, rank_modes,
-                                tuple(serves), backend="gloo", timeout=600, threads=0,
-                                deadline=900)
+                                tuple(serves), tuple(mesh_modes), cache, backend="gloo",
+                                timeout=600, threads=0, deadline=1100)
     log(f"  ({tag}) tensor-parallel world {layout} of {math.prod(layout)} gloo ranks: "
         f"{time.perf_counter() - t0:.1f} s with process start")
     return outs, refs
 
 
-def tp_dry(torch, tag, pair, failures):
-    """Phase 23 (c), (e), (h), (k) or (l): the dry run's (16, 16) `pair`
+def tp_dry(torch, tag, pair, failures, cache_shard="kv_heads", by_depth=True):
+    """Phase 23 (c), (e), (h), (k), (l) or (m): the dry run's (16, 16) `pair`
     ((arch, shape, mix, blocked_threshold[, vocab_chunk[, seq_parallel]]))
-    reckoned and run at depths 1 and 2, each peak within `DRY_PEAK_TOL`;
-    returns its row, the run's kernel launches under ``"launches"``."""
+    reckoned and run at depths 1 and 2 (`by_depth`; else at full depth
+    where it fits), a decode pair's caches laid by `cache_shard`, each peak
+    within `DRY_PEAK_TOL`; returns its row, the run's kernel launches under
+    ``"launches"``."""
     from repro_torch.launch import dryrun
 
     arch, shape, mix, threshold, chunk, sp = (*pair, 0, False)[:6]
     reset_launches()
     row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold, run=True,
-                            by_depth=True, vocab_chunk=chunk, seq_parallel=bool(sp),
-                            verbose=False)
+                            by_depth=by_depth, vocab_chunk=chunk, seq_parallel=bool(sp),
+                            cache_shard=cache_shard, verbose=False,
+                            reckoned=reckoned(tp_key(pair, cache_shard)))
     row["launches"] = launch_counts()
     log(f"phase 23 ({tag}) row: {json.dumps(row)}")
     peaks = []
@@ -4983,9 +5293,13 @@ def tp_dry(torch, tag, pair, failures):
         failures.append(f"({tag}) reckoned full-depth peak {row['reckoned_peak_bytes']} past "
                         f"the card's {total} bytes")
     coll = row["coll_breakdown"]
-    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, flash from {threshold} "
-        f"tokens, loss in chunks of {chunk or 'all'} positions, seq_parallel "
-        f"{row['seq_parallel']}): run at {row['run_depth']}, peak "
+    what = (f"cache_shard {cache_shard}, layout {row['cache_layout']}, {row['serving_rows']} "
+            f"rows a client rank, client-axis all-reduces {coll['counts']['client_all_reduce']} "
+            f"calls {coll['client_all_reduce']} bytes" if row["mode"] == "decode" else
+            f"{mix}, flash from {threshold} tokens, loss in chunks of {chunk or 'all'} "
+            f"positions, seq_parallel {row['seq_parallel']}")
+    log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({what}): run at "
+        f"{row['run_depth']}, peak "
         f"{row['measured_peak_bytes'] / 2**30:.3f} GiB, {row['measured_s_per_step']:.6f} s/step, "
         f"bound {row['t_bound_s']:.6f} s, bound_fraction {frac:.4f}, roofline_fraction "
         f"{row['roofline_fraction']:.4f}, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
@@ -5115,9 +5429,12 @@ def cross_heads(cfg, size):
                                  cfg.num_kv_heads % size == 0)[1::2] for r in range(size)]
 
 
-def phase_tp(torch):
+def phase_tp(torch, mesh=None):
     """Phase 23 (see `TP_MODES` and the constants above them): returns
-    its numbers for the kernels line, phase 9 and PERF.md."""
+    its numbers for the kernels line, phase 9 and PERF.md. Given phase
+    21's results `mesh` (`phase_mesh(share=True)`), its worlds of 4 and 2
+    ranks run phase 21 (b)'s modes first, whose checks then fill `mesh`
+    in (`mesh_train_verdict`)."""
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
     res, failures, rows, launches, served = {}, [], {}, 0, {}
@@ -5142,9 +5459,17 @@ def phase_tp(torch):
     worlds[1][2].append(tp_f32_mode())
     checks[TP_SP_F32_LABEL] = checks[f"{TP_SP_F32[0]} dense"]
     res["sp"], sp_s = {}, 0.0
+    shared, cache_outs = {}, None
     for tag, layout, modes, serves in worlds:
         t0 = time.perf_counter()
-        outs, refs = tp_world(torch, tag, layout, modes, serves=serves)
+        ranks = math.prod(layout)
+        outs, refs = tp_world(torch, tag, layout, modes, serves=serves,
+                              mesh_modes=() if mesh is None else mesh_modes(ranks),
+                              cache=layout == TP_SHAPE)
+        if mesh is not None:
+            shared[ranks] = [o["mesh"] for o in outs]
+        if layout == TP_SHAPE:
+            cache_outs = [o["cache"] for o in outs]
         for label, _, _, _, argv, _ in modes:
             ok, v = tp_verdict(torch, [o[label] for o in outs], refs[label],
                                "dense" in argv, *checks[label])
@@ -5197,6 +5522,17 @@ def phase_tp(torch):
             failures.append(f"({tag}) serving")
         torch.cuda.empty_cache()
     del served
+    if mesh is not None:  # phase 21 (b)'s checks of its modes in these worlds
+        mesh_train_verdict(mesh, shared)
+        PHASE_TIMES.append(("21 (b) in 23's worlds", sum(r["wall"] for r in
+                                                        mesh["train"].values())))
+        del shared
+    # (m) the cache's other layouts served in (a)'s world, against one process
+    t0 = time.perf_counter()
+    res["cache"] = cache_verdict(torch, cache_outs, failures)
+    del cache_outs
+    torch.cuda.empty_cache()
+    cache_s = time.perf_counter() - t0
 
     # (c), (e), (h) and (k) the dry run's default mesh
     for tag, key, pair in (("c", "dry", TP_DRY), ("e", "dry_moe", TP_DRY_MOE),
@@ -5243,12 +5579,45 @@ def phase_tp(torch):
     res["dry_sp_reckon"] = tp_dry_reckon("l", TP_DRY_SP_RECKON)
     PHASE_TIMES.append(("23 (l) dry run", time.perf_counter() - t0))
     log(f"phase 23 (l) dry run: {time.perf_counter() - t0:.1f} s")
+    # (m) the (16, 16) decode shares under the cache's other layouts, run;
+    # every other long_500k pair reckoned
+    t0 = time.perf_counter()
+    res["dry_cache"] = {}
+    for arch, shape, cache_shard in TP_DRY_CACHE:
+        row = tp_dry(torch, "m", (arch, shape, "dense", 8192), failures, cache_shard,
+                     by_depth=False)
+        res["dry_cache"][arch, shape, cache_shard] = row
+        want = steps_layout(arch, shape, cache_shard)
+        if row["cache_layout"] != want or (row["coll_breakdown"]["counts"]["client_all_reduce"]
+                                           > 0) != (want["slots"] == "data"):
+            failures.append(f"(m) {arch} x {shape} layout {row['cache_layout']}, not {want}")
+    long_rows = {}
+    for arch in long_reckoned():
+        row = tp_dry_reckon("m", (arch, "long_500k", "dense", 8192), quiet=True)
+        long_rows[arch] = row
+        if row["serving_rows"] != 1:
+            failures.append(f"(m) {arch} x long_500k serves {row['serving_rows']} rows")
+    res["dry_cache_reckoned"] = long_rows
+    PHASE_TIMES.append(("23 (m) cache layouts", cache_s + time.perf_counter() - t0))
+    log(f"phase 23 (m) cache layouts: {cache_s + time.perf_counter() - t0:.1f} s (served "
+        f"{cache_s:.1f} s, with the world's share not counted)")
     res["ssd_chunk"] = ssd_launches
     log(f"phase 23 tensor parallelism: {time.perf_counter() - t_start:.1f} s; ssd_chunk "
         f"launches {ssd_launches} (the ssm worlds' ranks and (h)'s runs)")
     if failures:
         raise RuntimeError("phase 23: " + "; ".join(failures))
     return res
+
+
+def steps_layout(arch, shape, cache_shard):
+    """The layout `steps.cache_layout` gives `arch` x `shape` under
+    `cache_shard` at the dry run's (16, 16), as its row records it."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun, steps
+
+    mesh, _ = dryrun.make_dry_mesh(None)
+    layout = steps.cache_layout(get_config(arch), SHAPES[shape], mesh, cache_shard)
+    return None if layout is None else layout.describe()
 
 
 def tp_f32_mode(fault=None):
@@ -5287,15 +5656,18 @@ def sp_verdict(label, outs, v, checks):
     return ok, out
 
 
-def tp_dry_reckon(tag, pair):
-    """(h)'s, (k)'s or (l)'s second part: the (16, 16) share of `pair`
-    reckoned on ``meta`` alone, its row printed; returns the row."""
+def tp_dry_reckon(tag, pair, quiet=False):
+    """(h)'s, (k)'s, (l)'s or (m)'s second part: the (16, 16) share of
+    `pair` reckoned on ``meta`` alone, its row printed (not with `quiet`);
+    returns the row."""
     from repro_torch.launch import dryrun
 
-    arch, shape, mix, threshold, chunk, sp = (*pair, False)[:6]
-    row = dryrun.lower_pair(arch, shape, mix_mode=mix, blocked_threshold=threshold,
-                            vocab_chunk=chunk, seq_parallel=sp, verbose=False)
-    log(f"phase 23 ({tag}) reckoned row: {json.dumps(row)}")
+    arch, shape, mix, threshold, chunk, sp = (*pair, 0, False)[:6]
+    row = reckoned(tp_key(pair)) or dryrun.lower_pair(
+        arch, shape, mix_mode=mix, blocked_threshold=threshold, vocab_chunk=chunk,
+        seq_parallel=sp, verbose=False)
+    if not quiet:
+        log(f"phase 23 ({tag}) reckoned row: {json.dumps(row)}")
     coll = row["coll_breakdown"]
     log(f"  ({tag}) dry run {arch} x {shape} x {row['mesh']} ({mix}, seq_parallel "
         f"{row['seq_parallel']}) reckoned on meta: "
@@ -5303,7 +5675,8 @@ def tp_dry_reckon(tag, pair):
         f"{row['t_bound_s']:.6f} s, useful_flops_ratio {row['useful_flops_ratio']:.3f}; "
         f"routes {row['tp_routes']}; model-axis bytes {coll['model_all_reduce']} all-reduce, "
         f"{coll['model_all_gather']} all-gather, {coll['model_reduce_scatter']} "
-        f"reduce-scatter; reckoned in {row['t_compile_s']:.1f} s")
+        f"reduce-scatter; client-axis all-reduces {coll['counts']['client_all_reduce']} calls "
+        f"{coll['client_all_reduce']} bytes; reckoned in {row['t_compile_s']:.1f} s")
     return row
 
 
@@ -5405,6 +5778,26 @@ def log_tp(r):
         f"(reckoned {row['reckoned_run_peak_bytes'] / 2**30:.3f}), bound_fraction "
         f"{row['bound_fraction']:.4f}, full-depth reckoned peak "
         f"{row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
+    for label, c in r["cache"].items():
+        log(f"cache layout serving path ({label}, qwen2-1.5b f32 on {TP_SHAPE}): "
+            f"{c['ms']:.2f} ms/step against {c['one_ms']:.2f} in one process, a rank's KV "
+            f"cache {c['kv']} of {c['one_kv']}, client-axis all-reduces {c['client_calls']} "
+            f"calls {c['client_bytes']} bytes in {TP_CACHE_STEPS} steps, logits within "
+            f"{c['gap']:.3e}")
+    for (arch, shape, cache_shard), row in r["dry_cache"].items():
+        coll = row["coll_breakdown"]
+        log(f"cache layout dry run ({arch} x {shape} x {row['mesh']}, cache_shard "
+            f"{cache_shard}, layout {row['cache_layout']}): {row['measured_s_per_step']:.6f} "
+            f"s/step at {row['run_depth']}, bound_fraction {row['bound_fraction']:.4f}, "
+            f"{row['host_syncs']} host syncs, client-axis all-reduces "
+            f"{coll['counts']['client_all_reduce']} calls {coll['client_all_reduce']} bytes, "
+            f"full-depth reckoned peak {row['reckoned_peak_bytes'] / 2**30:.3f} GiB")
+    for arch, row in r["dry_cache_reckoned"].items():
+        coll = row["coll_breakdown"]
+        log(f"cache layout dry run ({arch} x long_500k x {row['mesh']}, reckoned): layout "
+            f"{row['cache_layout']}, full-depth peak {row['reckoned_peak_bytes'] / 2**30:.3f} "
+            f"GiB, client-axis all-reduces {coll['counts']['client_all_reduce']} calls "
+            f"{coll['client_all_reduce']} bytes")
     for label, sp in r["sp"].items():
         twin = sp.get("twin")
         log(f"sequence-parallel trainer step ({label}): losses within {sp['loss_gap']:.3e} of "
@@ -5415,6 +5808,13 @@ def log_tp(r):
 
 
 def main(argv=None) -> int:
+    try:
+        return run_phases(argv)
+    finally:
+        stop_reckons()
+
+
+def run_phases(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ssd-variants", nargs="?", const="", metavar="NAMES",
                         help="only time variants of ssd_chunk.cu (comma-separated; "
@@ -5503,6 +5903,21 @@ def main(argv=None) -> int:
         log(f"chip_smoke --serving: {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         return 0
+    if args.mesh and args.tp:  # phase 21, then phase 23 in worlds shared with 21 (b)
+        t_start = time.perf_counter()
+        start_reckons(tp_dry_keys())
+        phase_build()
+        phase_rect_kernels(torch)
+        phase_ssd_kernels(torch)
+        mesh = timed("21 mesh", phase_mesh, torch, True)
+        tp = timed("23 tensor parallelism", phase_tp, torch, mesh)
+        phase_rect_times(torch, rect_time_cases(mesh, tp))
+        log_mesh(mesh)
+        log_tp(tp)
+        log("phase times: " + ", ".join(f"{label} {s:.1f} s" for label, s in PHASE_TIMES))
+        log(f"chip_smoke --mesh --tp: {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        return 0
     if args.mesh:
         t_start = time.perf_counter()
         phase_build()
@@ -5515,6 +5930,7 @@ def main(argv=None) -> int:
         return 0
     if args.dryrun:
         t_start = time.perf_counter()
+        start_reckons([dry_key(*pair) for pair in DRY_PAIRS])
         phase_build()
         phase_rect_kernels(torch)
         phase_ssd_kernels(torch)
@@ -5524,6 +5940,7 @@ def main(argv=None) -> int:
         return 0
     if args.tp:
         t_start = time.perf_counter()
+        start_reckons(tp_dry_keys())
         phase_build()
         phase_rect_kernels(torch)
         phase_ssd_kernels(torch)
@@ -5573,11 +5990,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serving = timed("20 serving", phase_serving, torch)
     torch.cuda.empty_cache()
-    mesh = timed("21 mesh", phase_mesh, torch)
+    start_reckons([dry_key(*pair) for pair in DRY_PAIRS] + tp_dry_keys())
+    mesh = timed("21 mesh", phase_mesh, torch, True)  # (b) in phase 23's worlds
     torch.cuda.empty_cache()
     dry = timed("22 dry run", phase_dryrun, torch)
     torch.cuda.empty_cache()
-    tp = timed("23 tensor parallelism", phase_tp, torch)
+    tp = timed("23 tensor parallelism", phase_tp, torch, mesh)
     times = timed("9 drain, mix, enqueue, ssd_chunk times", phase_times, torch)
     mix_times, mix_err_train = timed("9 mix times", phase_mix_times, torch, dflat)
     ssd_times, enq_times = timed("9 ssd_chunk and enqueue times", phase_new_times, torch)

@@ -140,16 +140,16 @@ def _meta_like(t: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _rows(mesh, n: int, what: str) -> int:
     if n % mesh.size:
-        raise NotImplementedError(
-            f"{what} of {n} does not divide over the mesh's {mesh.size} client ranks; "
-            f"sharding another axis instead is {mesh_lib.ROADMAP_CACHE_SEQ}")
+        raise ValueError(f"{what} of {n} does not divide over the mesh's {mesh.size} client "
+                         f"ranks (the reference's in_shardings refuse it too)")
     return n // mesh.size
 
 
-def _inputs(cfg, shape, mesh, device):
+def _inputs(cfg, shape, mesh, device, cache_shard="kv_heads"):
     """The rank's share of the step's inputs (its clients' rows, its
-    blocks of the params and its kv heads over "model"): meta tensors on
-    ``meta``, random ones from `RUN_SEED` on a real device."""
+    blocks of the params, its share of a decode cache as
+    `steps.cache_layout` lays it): meta tensors on ``meta``, random ones
+    from `RUN_SEED` on a real device."""
     from repro_torch.launch import train as train_lib
     from repro_torch.sharding import tp as tp_lib
 
@@ -173,7 +173,8 @@ def _inputs(cfg, shape, mesh, device):
             q = q / q.sum(dim=1, keepdim=True)
         return params, batch, q
     scfg = steps_lib.serve_config(cfg, shape)
-    rows = _rows(mesh, shape.global_batch, "the batch")
+    rows = (steps_lib.serving_rows(shape, mesh) if shape.mode == "decode" else
+            _rows(mesh, shape.global_batch, "the batch"))
     if meta:
         pspecs = steps_lib.serve_shardings(mesh, cfg, shape)[0]
         params = steps_lib.local_abstract(steps_lib.param_specs_abstract(scfg), pspecs, mesh)
@@ -197,7 +198,8 @@ def _inputs(cfg, shape, mesh, device):
         if cfg.family == "vlm":
             batch["cross_embeds"] = embeds(rows, cfg.num_patch_tokens, cfg.d_model)
         return params, batch
-    state = M.init_decode_state(scfg, rows, shape.seq_len, device=device, mesh=mesh)
+    state = M.init_decode_state(scfg, rows, shape.seq_len, device=device, mesh=mesh,
+                                layout=steps_lib.cache_layout(cfg, shape, mesh, cache_shard))
     if cfg.embeds_in:
         tok = embeds(rows, 1, cfg.d_model)
     else:
@@ -216,11 +218,8 @@ def build(cfg, shape, mesh, *, device="meta", mix_mode: str = "dense",
           vocab_chunk: int = 0, seq_parallel: bool = False, cache_shard: str = "kv_heads"):
     """``(step, args)``: the pair's step for the rank of `mesh` and that
     rank's inputs on `device`. `seq_parallel` goes to the train step
-    alone (the serving steps ignore it, as the reference's do)."""
-    if cache_shard != "kv_heads" and mesh.model_size > 1:
-        raise NotImplementedError(
-            f"cache_shard={cache_shard!r} splits the cache's {cache_shard} over \"model\"; "
-            f"the port lays it over the kv heads only ({mesh_lib.ROADMAP_CACHE_SEQ})")
+    alone (the serving steps ignore it, as the reference's do);
+    `cache_shard` to the serve step (`steps.cache_layout`)."""
     if shape.mode == "train":
         md = torch.bfloat16 if mix_dtype == "bf16" else None
         step = steps_lib.make_train_step(cfg, mesh, mix_mode=mix_mode, psi=psi, mix_dtype=md,
@@ -229,8 +228,8 @@ def build(cfg, shape, mesh, *, device="meta", mix_mode: str = "dense",
     elif shape.mode == "prefill":
         step = steps_lib.make_prefill_step(cfg, shape, mesh)
     else:
-        step = steps_lib.make_serve_step(cfg, shape, mesh)
-    return step, _inputs(cfg, shape, mesh, device)
+        step = steps_lib.make_serve_step(cfg, shape, mesh, cache_shard)
+    return step, _inputs(cfg, shape, mesh, device, cache_shard)
 
 
 def nbytes(tree) -> int:
@@ -260,6 +259,17 @@ def reckon(cfg, shape, mesh, **kw) -> dict:
         "peak": arg_bytes + w.temp_peak, "t_lower": t_lower, "t_count": t_count,
         "tp_routes": dict(mesh.tp_routes),
     }
+
+
+def _art_of(row: dict) -> dict:
+    """`reckon`'s result as a row of `lower_pair` holds it."""
+    coll = dict(row["coll_breakdown"])
+    counts = coll.pop("counts")
+    return {"flops": row["flops_per_device"], "bytes": row["bytes_per_device"],
+            "coll": row["coll_bytes_per_device"], "coll_breakdown": coll, "coll_counts": counts,
+            "kernels": row["kernel_work"], "memory": row["memory_analysis"],
+            "peak": row["reckoned_peak_bytes"], "t_lower": row["t_lower_s"],
+            "t_count": row["t_compile_s"], "tp_routes": row["tp_routes"]}
 
 
 def _timed_steps(step, args, dev) -> dict:
@@ -318,13 +328,17 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                blocked_threshold: int = 8192, cache_shard: str = "kv_heads",
                vocab_chunk: int = 0, seq_parallel: bool = False,
                clients: Optional[int] = None, run: bool = False, by_depth: bool = False,
-               cfg=None):
+               cfg=None, reckoned: Optional[dict] = None):
     """Reckon (and with `run`, measure) one pair; returns its row.
+    `reckoned` is the same pair's row from an earlier call without `run`
+    (say in another process: the reckoning on ``meta`` is the same on
+    any host), whose counts are taken instead of counting again.
     `by_depth`: run at depths 1 and 2 even where the full depth fits;
     `cfg` replaces ``get_config(arch)`` (a reduced config in tests);
-    `cache_shard` is recorded, and on a "model" axis larger than 1 any
-    value but 'kv_heads' raises (the port lays a cache over the kv heads
-    only)."""
+    `cache_shard` lays a decode pair's caches (`steps.cache_layout`), and
+    the row records it and, under ``cache_layout``, the layout that took
+    effect after `filter_divisible` (null for the rank's kv heads at every
+    slot)."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     mesh, mesh_name = make_dry_mesh(clients, multi_pod)
@@ -332,7 +346,7 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     kw = dict(mix_mode=mix_mode, psi=psi, mix_dtype=mix_dtype,
               blocked_threshold=blocked_threshold, vocab_chunk=vocab_chunk,
               seq_parallel=seq_parallel, cache_shard=cache_shard)
-    art = reckon(cfg, shape, mesh, **kw)
+    art = reckon(cfg, shape, mesh, **kw) if reckoned is None else _art_of(reckoned)
     corr_meta = {"method": "counted"}
     roof = Roofline(
         arch=arch,
@@ -352,7 +366,11 @@ def lower_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     t_bound = max(roof.model_flops / roof.n_devices / roof.peaks.flops,
                   necessary / roof.peaks.hbm_bw)
     row = roof.row()
+    layout = steps_lib.cache_layout(cfg, shape, mesh, cache_shard) \
+        if shape.mode == "decode" else None
     row.update({
+        "cache_layout": None if layout is None else layout.describe(),
+        "serving_rows": steps_lib.serving_rows(shape, mesh) if shape.mode == "decode" else None,
         "mix_mode": mix_mode,
         "psi": psi,
         "mix_dtype": mix_dtype or "f32",

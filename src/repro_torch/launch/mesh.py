@@ -9,9 +9,11 @@ one model (`repro_torch.sharding.tp`, Megatron-style tensor parallelism
 written by hand). The ranks of one model index form the client group,
 over which the mesh steps (`repro_torch.launch.steps`, the sharded
 drain, the ring mix, `simulate_sweep(mesh=)`) move rows with the
-collectives of `Mesh`; the ranks of one client index form the model
-group, over which the tensor-parallel operators all-reduce and
-all-gather (`Mesh.model_all_reduce`, `Mesh.model_all_gather`,
+collectives of `Mesh` (and a served cache whose slots lie over "data"
+merges its ranks' partial softmaxes, `Mesh.client_all_reduce`); the
+ranks of one client index form the model group, over which the
+tensor-parallel operators all-reduce and all-gather
+(`Mesh.model_all_reduce`, `Mesh.model_all_gather`,
 `Mesh.model_reduce_scatter`).
 
 Backends are explicit, never chosen for the caller and never fallen back
@@ -40,9 +42,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# the parts of ROADMAP item 20 (sharding inside one model) still to port,
-# each named where it raises
-ROADMAP_CACHE_SEQ = "ROADMAP item 20(f)"  # the cache over "data", cache_shard head_dim/seq
+# the part of ROADMAP item 20 (sharding inside one model) still to port,
+# named where it raises
 ROADMAP_SSM_GROUPS = "ROADMAP item 20(g)"  # ssm groups a rank's heads read out of step
 
 # the collectives' current spellings (torch 2.13 deprecates the older ones)
@@ -86,7 +87,8 @@ def rank_device(backend: str, device=None) -> torch.device:
 
 
 COLLECTIVES = ("reduce_scatter", "all_gather", "broadcast", "ring_exchange",
-               "model_all_reduce", "model_all_gather", "model_reduce_scatter")
+               "client_all_reduce", "model_all_reduce", "model_all_gather",
+               "model_reduce_scatter")
 # `Mesh.tp_routes`: the attention layers on each route over "model" (the
 # heads route, whole heads; the padded route, a shard that cuts a head),
 # the leaves the attention and Mamba2 layers gathered, the moe layers and
@@ -152,6 +154,10 @@ class Mesh:
                     self.group = group
         self.rank = dist.get_rank(self.group)
         self.size = dist.get_world_size(self.group)
+        # the "data" ranks of this rank's pod and model index (the client
+        # group itself on a mesh without "pod")
+        self.data_group = self.device_mesh.get_group("data") if len(caxes) > 1 else self.group
+        self.data_rank = dist.get_rank(self.data_group)
         self.model_group = self.device_mesh.get_group("model") if "model" in axes else None
         self.model_rank = dist.get_rank(self.model_group) if self.model_group else 0
         self.model_size = dist.get_world_size(self.model_group) if self.model_group else 1
@@ -170,6 +176,7 @@ class Mesh:
         mesh.backend, mesh.device, mesh.device_mesh, mesh.group = None, torch.device(device), \
             None, None
         mesh.model_group, mesh.model_rank = None, 0
+        mesh.data_group, mesh.data_rank = None, 0
         mesh.rank, mesh.staged, mesh.is_dry = 0, False, True
         mesh.reset_tally()
         return mesh
@@ -333,6 +340,19 @@ class Mesh:
             return from_prev, from_next
 
         return self._run("ring_exchange", exchange, local, to_next, to_prev)
+
+    def client_all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """`x` reduced (``"sum"`` or ``"max"``) over the "data" ranks of this
+        rank's model index (on a mesh with "pod", those of its pod; on one
+        without, the client group), in its own dtype; a new tensor. A dry
+        mesh returns a copy."""
+        def reduce(t):
+            t = t.contiguous().clone()
+            dist.all_reduce(t, op=_OPS[op], group=self.data_group)
+            return (t,)
+
+        return self._run("client_all_reduce", reduce, lambda t: (self._copy(t),), x,
+                         alone=self.shape["data"] == 1)[0]
 
     def barrier(self) -> None:
         if not self.is_dry:

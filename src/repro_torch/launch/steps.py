@@ -173,30 +173,50 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+CACHE_SHARDS = ("kv_heads", "head_dim", "seq")
+
+
+def _rows_split(shape: ShapeConfig, mesh) -> bool:
+    """Whether a served batch splits over the client ranks of `mesh`: where
+    it divides by them. Else it stays whole on every client rank and the
+    cache's slots go over "data" (the reference's long-context layout;
+    "data" alone on a mesh with "pod")."""
+    return shape.global_batch % _client_ranks(mesh) == 0
+
+
+def _client_ranks(mesh) -> int:
+    return getattr(mesh, "size", None) or mesh_lib.num_clients(mesh)
+
+
+def _kv_spec(cache_shard: str, batch_ax, seq_ax):
+    """The reference's spec of a KV cache leaf (n_groups, B, C, Hkv, hd)."""
+    if cache_shard == "head_dim":
+        return P(None, batch_ax, seq_ax, None, "model")
+    if cache_shard == "seq":
+        return P(None, batch_ax, "model", None, None)
+    return P(None, batch_ax, seq_ax, "model", None)
+
+
 def serve_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
                     cache_shard: str = "kv_heads"):
     """Specs for (params single-copy, token, decode state, cross_kv) and
     the serving config.
 
     cache_shard: 'kv_heads' shards the KV-head axis over "model" (falls
-    back to replicated when it does not divide), as the port's serve step
-    lays its cache (`M.init_decode_state` with the mesh); 'head_dim' the
-    head_dim axis, 'seq' the cache length axis. A batch that does not
-    divide by the client ranks shards the cache's sequence axis over
-    "data" in the reference. The port serves neither of those ways yet
-    (`make_serve_step` raises, ROADMAP item 20(f)), but the specs say
-    where they go; `repro_torch.launch.dryrun` raises on them. A vlm's
+    back to replicated when it does not divide); 'head_dim' the head_dim
+    axis, 'seq' the cache length axis. A batch that does not divide by the
+    client ranks stays whole on each of them and shards the cache's
+    sequence axis over "data" instead (not under 'seq', which puts it on
+    "model"). The port's serve step lays its caches so (`cache_layout`,
+    `M.init_decode_state` with it), except that where "model" does not
+    divide the kv heads under 'kv_heads' a rank holds the kv heads its
+    query heads read, where the reference replicates them all. A vlm's
     cross K/V takes the reference's spec, its rows over the client axes
     and its kv heads over "model" where they divide; where they do not,
     the reference replicates them and a rank of the port holds the kv
     heads its query heads read (`M.init_cross_kv` with the mesh), as its
     KV cache does."""
-    cax = _client_ax(mesh)
-    B = shape.global_batch
-    batch_shardable = B % mesh_lib.num_clients(mesh) == 0
-    batch_ax = cax if batch_shardable else None
-    seq_ax = None if batch_shardable else "data"
-
+    batch_ax, seq_ax = (_client_ax(mesh), None) if _rows_split(shape, mesh) else (None, "data")
     scfg = serve_config(cfg, shape)
     pspecs = tree_param_specs(param_specs_abstract(scfg), prefix=(), mesh=mesh)
     tok, state, cross = serve_input_specs(cfg, shape)
@@ -212,12 +232,7 @@ def serve_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
         elif "ssm" in name and nd == 5:  # h (n_groups, B, H, N, P)
             spec = P(None, batch_ax, "model", None, None)
         elif nd == 5:  # KV cache (n_groups, B, C, Hkv, hd)
-            if cache_shard == "head_dim":
-                spec = P(None, batch_ax, seq_ax, None, "model")
-            elif cache_shard == "seq":
-                spec = P(None, batch_ax, "model", None, None)
-            else:
-                spec = P(None, batch_ax, seq_ax, "model", None)
+            spec = _kv_spec(cache_shard, batch_ax, seq_ax)
         else:
             spec = P(*([None] * nd))
         return filter_divisible(spec, tuple(leaf.shape), mesh)
@@ -229,6 +244,45 @@ def serve_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig,
             lambda l: filter_divisible(P(None, batch_ax, None, "model", None),
                                        tuple(l.shape), mesh), cross)
     return pspecs, tok_spec, state_specs, cross_specs, scfg
+
+
+def serving_rows(shape: ShapeConfig, mesh) -> int:
+    """The rows of a served batch a client rank of `mesh` holds: its share
+    where the batch divides by the client ranks, else the whole batch."""
+    B = shape.global_batch
+    if mesh is None or not _rows_split(shape, mesh):
+        return B
+    return B // _client_ranks(mesh)
+
+
+def cache_layout(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                 cache_shard: str = "kv_heads") -> Optional[tp_lib.CacheLayout]:
+    """How the serve step of `shape` on `mesh` lays its KV caches under
+    `cache_shard` (`CACHE_SHARDS`): the reference's KV spec
+    (`serve_shardings`) after `filter_divisible`, as a
+    `repro_torch.sharding.tp.CacheLayout`; None for the port's default
+    (no mesh, or the rank's kv heads at every slot) and for a model
+    without a KV cache (mamba2). A 1-way axis splits nothing."""
+    if cache_shard not in CACHE_SHARDS:
+        raise ValueError(f"cache_shard {cache_shard!r} not in {CACHE_SHARDS}")
+    model = mesh is not None and getattr(mesh, "model_size", 1) > 1
+    pattern, _ = M.block_pattern(cfg)
+    if mesh is None or not model and _rows_split(shape, mesh) or not (
+            {"attn", "shared"} & set(pattern)):
+        return None  # nothing to lay out otherwise, or no KV cache at all
+    scfg = serve_config(cfg, shape)
+    ring = scfg.sliding_window > 0 and shape.seq_len > scfg.sliding_window
+    C = scfg.sliding_window if ring else shape.seq_len
+    hd = cfg.resolved_head_dim if cfg.num_heads else 1
+    kv = (1, shape.global_batch, C, max(cfg.num_kv_heads, 1), hd)
+    seq_ax = None if _rows_split(shape, mesh) else "data"
+    spec = tuple(filter_divisible(_kv_spec(cache_shard, None, seq_ax), kv, mesh))
+    slots = spec[2] if spec[2] == "data" and mesh.shape["data"] > 1 or \
+        spec[2] == "model" and model else None
+    head_dim, every = spec[4] == "model" and model, cache_shard != "kv_heads" and model
+    if slots is None and not head_dim and not every:
+        return None
+    return tp_lib.CacheLayout(mesh, slots, head_dim, every, {})
 
 
 # ---------------------------------------------------------------------------
@@ -364,12 +418,13 @@ def make_unify_step(cfg, mesh=None):
     return unify_step
 
 
-def _serving_rows(shape: ShapeConfig, mesh, what: str) -> None:
-    if mesh is not None and shape.global_batch % mesh.size:
-        raise NotImplementedError(
-            f"the {what} splits the batch over the {mesh.size} client ranks; a batch "
-            f"of {shape.global_batch} does not divide, and sharding the cache's "
-            f"sequence axis instead is {mesh_lib.ROADMAP_CACHE_SEQ}")
+def _prefill_rows(shape: ShapeConfig, mesh) -> None:
+    if mesh is not None and not _rows_split(shape, mesh):
+        raise ValueError(
+            f"the prefill lays its batch over the {_client_ranks(mesh)} client ranks, as the "
+            f"reference's in_shardings (P(client axes, None)) do; a batch of "
+            f"{shape.global_batch} does not divide, which jax refuses when it lowers the "
+            f"reference's prefill, and so does the port")
 
 
 def _whole_vocab(logits, cfg, tp):
@@ -390,8 +445,10 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     layer ranks its tokens' expert choices among the whole batch's
     (`repro_torch.sharding.tp.Rows`), as the reference's does; a Mamba2
     block computes the rank's own ssm heads; a vlm's cross layer its own
-    query heads against the rank's rows of ``cross_embeds``."""
-    _serving_rows(shape, mesh, "prefill step")
+    query heads against the rank's rows of ``cross_embeds``. A batch
+    that does not divide by the client ranks raises `ValueError`, as the
+    reference's lowering does."""
+    _prefill_rows(shape, mesh)
     scfg = serve_config(cfg, shape)
     tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
 
@@ -404,27 +461,51 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                    cache_shard: str = "kv_heads"):
     """``serve_step(params, tok, state, cross_kv=None) -> (logits, state)``:
     one `decode_step` under `serve_config` (its caches updated in place).
-    On a mesh each rank decodes its ``mesh.client_slice(B)`` rows with its
-    blocks of the params (`serve_shardings`): `tok`, `state` and
-    `cross_kv` hold those rows (a state from ``init_decode_state(scfg,
-    B / ranks, S, mesh=mesh)``: the rank's kv heads where "model" divides
-    them, its ssm heads and their conv channels), and the logits are
-    theirs over the whole vocabulary, gathered over "model". A vlm's
-    `cross_kv` holds the rank's rows and kv heads (``init_cross_kv(params,
-    scfg, cross_embeds, mesh)``); an audio model's `tok` is its rows'
-    embeddings, whole over "model" (`M.token_embeds` with the mesh for a
-    fed-back token). A batch that does not divide by the client ranks
-    raises `NotImplementedError` (ROADMAP item 20(f))."""
-    _serving_rows(shape, mesh, "serve step")
-    tp, rows = tp_lib.context(mesh), tp_lib.rows_context(mesh)
+    On a mesh each rank decodes its ``serving_rows(shape, mesh)`` rows (its
+    ``mesh.client_slice(B)`` where the batch divides by the client ranks,
+    else the whole batch on every client rank) with its blocks of the
+    params (`serve_shardings`): `tok`, `state` and `cross_kv` hold those
+    rows, the state from ``init_decode_state(scfg, rows, S, mesh=mesh,
+    layout=cache_layout(cfg, shape, mesh, cache_shard))`` (the step's
+    ``layout``): its KV caches as `cache_layout` says (by default the
+    rank's kv heads where "model" divides them, at every slot; the rank's
+    block of the slots over "data" where the batch does not divide; every
+    kv head at the rank's block of head_dim or of the slots over "model"
+    under ``cache_shard`` 'head_dim' or 'seq'), its ssm heads and their
+    conv channels. The logits are those rows' over the whole vocabulary,
+    gathered over "model". A vlm's `cross_kv` holds the rank's rows and
+    kv heads (``init_cross_kv(params, scfg, cross_embeds, mesh)``); an
+    audio model's `tok` is its rows' embeddings, whole over "model"
+    (`M.token_embeds` with the mesh for a fed-back token). A moe layer
+    ranks its expert queues over the whole batch, split over the client
+    ranks (`tp_lib.Rows`) or whole on each. On a mesh a state whose KV
+    caches are laid out otherwise raises `ValueError`."""
+    tp = tp_lib.context(mesh)
+    layout = cache_layout(cfg, shape, mesh, cache_shard)
+    rows = None if serving_rows(shape, mesh) == shape.global_batch else \
+        tp_lib.rows_context(mesh)
     scfg = serve_config(cfg, shape)
+    want = None
+    if mesh is not None:
+        meta = M.init_decode_state(scfg, 1, shape.seq_len, device="meta", mesh=mesh,
+                                   layout=layout)
+        want = {name: tuple(c.k.shape[2:]) for name, c in meta.caches.items()
+                if hasattr(c, "k")}
 
     def serve_step(params, tok, state, cross_kv=None):
-        with tp_lib.use(tp, rows):
+        if want is not None:
+            got = {name: tuple(state.caches[name].k.shape[2:]) for name in want}
+            if got != want:
+                raise ValueError(f"the state's KV caches are (slots, kv heads, head_dim) "
+                                 f"{got}; the serve step's layout ({cache_shard}) lays "
+                                 f"them {want}")
+        with tp_lib.use(tp, rows, layout):
             logits, state = M.decode_step(params, scfg, tok, state, cross_kv)
         return _whole_vocab(logits, scfg, tp), state
 
+    serve_step.layout = layout
     return serve_step

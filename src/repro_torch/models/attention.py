@@ -54,6 +54,11 @@ are replicated in storage, and each rank adds its slice of them through
 A decode cache holds the kv heads the rank computes (`rank_heads`), and
 so do a cross layer's static K/V (`rank_kv_weights`); at decode the cross
 layer multiplies only its query and output projections (``_layout(kv=False)``).
+A serve step's `repro_torch.sharding.tp.CacheLayout` lays the cache
+otherwise (`decode_attention`): the rank's block of its slots (over
+"data" or "model"), each rank's partial softmax merged with the others',
+or every kv head at the rank's block of head_dim, the partial scores
+summed.
 """
 from __future__ import annotations
 
@@ -173,12 +178,17 @@ def _rank_split(params, cfg, tp):
     """``(q0, hq, k0, hkv, kv_own)`` of `rank_heads` for the rank of `tp`
     (``kv_own``: ``wk``'s shard is whole heads), or None where the rank
     computes the whole layer (no `tp`, or ``wq`` not sharded)."""
+    if tp is None or params["wq"].shape[-1] == cfg.num_heads * cfg.resolved_head_dim:
+        return None  # kv columns divide only where q's do
+    kv_own = _kv_own(params, cfg)
+    return (*rank_heads(cfg, tp.rank, tp.size, True, kv_own), kv_own)
+
+
+def _kv_own(params, cfg) -> bool:
+    """Whether ``wk``'s shard is whole kv heads (the rank's own block)."""
     hd = cfg.resolved_head_dim
     kv_cols = params["wk"].shape[-1]
-    if tp is None or params["wq"].shape[-1] == cfg.num_heads * hd:
-        return None  # kv columns divide only where q's do
-    kv_own = kv_cols < cfg.num_kv_heads * hd and kv_cols % hd == 0
-    return (*rank_heads(cfg, tp.rank, tp.size, True, kv_own), kv_own)
+    return kv_cols < cfg.num_kv_heads * hd and kv_cols % hd == 0
 
 
 def rank_kv_weights(params, cfg, tp=None):
@@ -437,14 +447,133 @@ class KVCache(NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False, tp=None):
+def _rank_splits(params, cfg, tp):
+    """`rank_heads` of every model rank of `tp` under the layer's route
+    (`_rank_split`'s rule): ``[(q0, hq, k0, hkv), ...]`` in rank order."""
+    kv_own = _kv_own(params, cfg)
+    return [rank_heads(cfg, r, tp.size, True, kv_own) for r in range(tp.size)]
+
+
+def _every_head(q, k, v, cfg, tp, splits, memo):
+    """The decode step's q (B, 1, hq, hd), k and v (B, 1, hkv, hd) of the
+    rank's heads (RoPE applied) -> every query head's and every kv head's,
+    (B, 1, H, hd) and (B, 1, Hkv, hd): each rank's heads padded to the
+    largest share, the three packed and gathered over the model ranks in
+    one collective, each head taken from the first rank that computes it
+    (a rank without heads sends padding only). `memo` keeps the head
+    indices on each device."""
+    cq = max(hq for _, hq, _, _ in splits)
+    ck = max(hkv for _, _, _, hkv in splits)
+    w = cq + 2 * ck
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros(*t.shape[:2], n - t.shape[2], t.shape[3])], dim=2)
+
+    packed = torch.cat([pad(q, cq), pad(k, ck), pad(v, ck)], dim=2)
+    got = tp.mesh.model_all_gather(packed, dim=2)
+    iq, ik = [], []
+    for h in range(cfg.num_heads):
+        r = next(r for r, (q0, hq, _, _) in enumerate(splits) if q0 <= h < q0 + hq)
+        iq.append(r * w + h - splits[r][0])
+    for g in range(cfg.num_kv_heads):
+        r = next(r for r, (_, _, k0, hkv) in enumerate(splits) if k0 <= g < k0 + hkv)
+        ik.append(r * w + cq + g - splits[r][2])
+    ik = _index(memo, ik, q.device)
+    return (got.index_select(2, _index(memo, iq, q.device)), got.index_select(2, ik),
+            got.index_select(2, ik + ck))
+
+
+def _index(memo, values, device) -> torch.Tensor:
+    """A static index list as a tensor on `device`, made once and kept in
+    `memo` (a copy from the host on each step would be a host sync on the
+    card)."""
+    key = (tuple(values), str(device))
+    if key not in memo:
+        memo[key] = torch.tensor(values, dtype=torch.long, device=device)
+    return memo[key]
+
+
+def _sum_scores(scores, mesh):
+    """The partial scores of the rank's block of head_dim summed over the
+    model ranks, in their dtype (f32, f64 for an f64 model)."""
+    return mesh.model_all_reduce(scores)
+
+
+def _rescale(m_loc, m):
+    """A rank's partial softmax taken from its own row max `m_loc` to the
+    row max `m` over every slot: exactly 0 where every slot of the rank is
+    masked (``exp(-1e30 - m)``)."""
+    return torch.exp(m_loc - m)
+
+
+def _cached_attention(q, k, v, valid, n_rep: int, hd: int, layout=None):
+    """One query position against cached keys and values whose slots or
+    head_dim a `layout` (`repro_torch.sharding.tp.CacheLayout`) splits:
+    q (B, 1, Hq, hd_loc), k/v (B, C_loc, Hkv, hd_loc), valid (C_loc,) the
+    rank's slots that hold a token; `hd` the whole head_dim (the scale).
+    As `_sdpa_grouped`, the scores in f32 (f64 for an f64 model). A split
+    head_dim sums the partial scores over the model ranks. Split slots
+    run a partial softmax on each rank (its row max ``m``, the sum ``l``
+    of its exponentials, the weighted values ``o``), merged over the
+    ranks that hold the other slots: the row max, each rank's ``l`` and
+    ``o`` rescaled to it (`_rescale`), summed, ``o / l``. Returns the
+    output (B, 1, Hq, hd_loc) in ``v.dtype``."""
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, n_rep, d)
+    wide = _wide(q.dtype)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k).to(wide)
+    if layout is not None and layout.head_dim:
+        scores = _sum_scores(scores, layout.mesh)
+    scores = torch.where(valid, scores / math.sqrt(hd), NEG_INF)
+    if layout is None or layout.slots is None:
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bgrst,btgd->bsgrd", probs, v).reshape(B, S, Hq, d)
+    m_loc = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m_loc)
+    o = torch.einsum("bgrst,btgd->bgrsd", p.to(v.dtype), v).to(wide)
+    scale = _rescale(m_loc, layout.slot_reduce(m_loc, "max"))
+    lo = layout.slot_reduce(torch.cat([o * scale, p.sum(-1, keepdim=True) * scale], -1), "sum")
+    out = (lo[..., :-1] / lo[..., -1:]).to(v.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, d)
+
+
+def _write_slot(cache_t, new, slot, layout):
+    """`new` (B, 1, H, hd_loc) into `cache_t` (B, C_loc, H, hd_loc) at the
+    global `slot` (a 0-d tensor) when this rank holds it, in place; the
+    rank's slots a block of ``C_loc`` (`CacheLayout.slot_block`)."""
+    index, parts = (0, 1) if layout is None else layout.slot_block()
+    new = new.to(cache_t.dtype)
+    if parts == 1:
+        cache_t.index_copy_(1, slot.reshape(1).long(), new)
+        return
+    c_loc = cache_t.shape[1]
+    local = slot.reshape(1).long() - index * c_loc
+    own = (local >= 0) & (local < c_loc)
+    at = torch.clamp(local, 0, c_loc - 1)
+    cache_t.index_copy_(1, at, torch.where(own, new, cache_t.index_select(1, at)))
+
+
+def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False, tp=None,
+                     layout=None):
     """One-token decode. x (B, 1, d); pos a 0-d integer tensor (the
     current position). Returns ``(out (B, 1, d), cache)``: this token's
     key and value written into `cache` in place, at slot ``pos % C`` on a
     ring (sliding-window attention, O(C) a token) and ``min(pos, C - 1)``
-    otherwise. `tp` as in `full_attention`; the cache holds the kv heads
-    of the rank's `Layout`."""
+    otherwise, C the whole cache's slots. `tp` as in `full_attention`; the
+    cache holds the kv heads of the rank's `Layout`, unless `layout` (a
+    `repro_torch.sharding.tp.CacheLayout`) says otherwise:
+
+      - its slots split over "data" or "model": the rank writes the slot
+        when it holds it, and its partial softmax over its slots merges
+        with the other ranks' (`_cached_attention`);
+      - every kv head (``every_head``), whole or at the rank's block of
+        head_dim: RoPE at whole heads under the rank's route, then q, k
+        and v relaid to every head (`_every_head`); the attention of every
+        head, brought back to the rank's own heads (its head_dim block
+        gathered over the model ranks first) before ``wo``."""
     B = x.shape[0]
+    hd = cfg.resolved_head_dim
     pos = torch.as_tensor(pos, device=x.device)
     lay = _layout(params, cfg, tp)
     q, k, v = _proj_qkv(params, x, x, cfg, lay)
@@ -452,19 +581,40 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, ring: bool = False, tp
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
 
-    C = cache.k.shape[1]
+    index, parts = (0, 1) if layout is None else layout.slot_block()
+    c_loc = cache.k.shape[1]
+    C = c_loc * parts
     slot = torch.remainder(pos, C) if ring else torch.clamp(pos, max=C - 1)
-    index = slot.reshape(1).long()
-    cache.k.index_copy_(1, index, k.to(cache.k.dtype))
-    cache.v.index_copy_(1, index, v.to(cache.v.dtype))
+    every = layout is not None and layout.every_head and lay.hq < cfg.num_heads
+    q0 = 0
+    if every:
+        splits = _rank_splits(params, cfg, tp)
+        q0 = splits[tp.rank][0]
+        q, k, v = _every_head(q, k, v, cfg, tp, splits, layout.memo)
+    if layout is not None and layout.head_dim:
+        b, n = layout.hd_block()
+        blk = slice(b * hd // n, (b + 1) * hd // n)
+        q, k, v = q[..., blk], k[..., blk], v[..., blk]
+    _write_slot(cache.k, k, slot, layout)
+    _write_slot(cache.v, v, slot, layout)
 
-    idx = torch.arange(C, device=x.device)
+    idx = index * c_loc + torch.arange(c_loc, device=x.device)
     if ring:
         valid = (idx <= slot) | (pos >= C)  # the whole ring once wrapped
     else:
         valid = idx <= pos
-    out = _sdpa_grouped(q, lay.pick(cache.k), lay.pick(cache.v), valid[None, None, None, :],
-                        lay.n_rep)
+    if layout is not None and layout.every_head:
+        kk, vv, n_rep = cache.k, cache.v, cfg.num_heads // cfg.num_kv_heads
+    else:
+        kk, vv, n_rep = lay.pick(cache.k), lay.pick(cache.v), lay.n_rep
+    if layout is None:
+        out = _sdpa_grouped(q, kk, vv, valid[None, None, None, :], n_rep)
+    else:
+        out = _cached_attention(q, kk, vv, valid, n_rep, hd, layout)
+        if layout.head_dim:
+            out = layout.mesh.model_all_gather(out, dim=-1)
+        if every:
+            out = out[:, :, q0:q0 + lay.hq]
     return lay.out_op(out.reshape(B, 1, -1) @ lay.params["wo"]), cache
 
 

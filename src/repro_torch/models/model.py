@@ -474,7 +474,7 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None, mesh=None) -> DecodeState:
+                      device=None, mesh=None, layout=None) -> DecodeState:
     """Zero caches for serving `seq_len` positions: a ring of
     ``sliding_window`` slots when the window is on and shorter than
     `seq_len`, else `seq_len` slots; ``pos`` 0. On a `mesh` with a
@@ -482,12 +482,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     (`attention.rank_heads`): its block of them where the axis divides
     them (the reference's ``cache_spec``), else the ones its query heads
     read; an `SSMState` holds the rank's ssm heads and the conv channels
-    they read (`ssm.rank_ssm_heads`)."""
+    they read (`ssm.rank_ssm_heads`). A `layout`
+    (`repro_torch.sharding.tp.CacheLayout`, its mesh the `mesh`) lays
+    each KV cache otherwise: the rank's block of the slots where they
+    split, every kv head where it says so, the rank's block of head_dim
+    where that splits (`repro_torch.launch.steps.cache_layout`)."""
     dev = resolve_device(device)
+    if mesh is None and layout is not None:
+        mesh = layout.mesh
     t = getattr(mesh, "model_size", 1) if mesh is not None else 1
     pattern, n_groups = block_pattern(cfg)
     n_kv, ssm_heads, ssm_groups = cfg.num_kv_heads, None, None
-    if t > 1 and cfg.num_heads:
+    every = layout is not None and layout.every_head
+    if t > 1 and cfg.num_heads and not every:
         _, _, _, n_kv = attn_lib.rank_heads(
             cfg, mesh.model_rank, t, cfg.num_heads * cfg.resolved_head_dim % t == 0,
             cfg.num_kv_heads % t == 0)
@@ -496,12 +503,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     dtype = cfg.torch_dtype
     ring = cfg.sliding_window > 0 and seq_len > cfg.sliding_window
     cache_len = cfg.sliding_window if ring else seq_len
+    hd = cfg.resolved_head_dim
+    if layout is not None:
+        cache_len //= layout.slot_block()[1]
+        hd //= layout.hd_block()[1]
     caches = {}
     for i, kind in enumerate(pattern):
         if kind in ("attn", "shared"):
             caches[f"{i}:{kind}"] = KVCache.init(
-                batch, cache_len, n_kv, cfg.resolved_head_dim, dtype,
-                device=dev, lead=(n_groups,))
+                batch, cache_len, n_kv, hd, dtype, device=dev, lead=(n_groups,))
         elif kind == "ssm":
             caches[f"{i}:{kind}"] = SSMState.init(batch, cfg, dtype, device=dev,
                                                   lead=(n_groups,), heads=ssm_heads,
@@ -559,9 +569,11 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
     state once. A model with cross-attention needs `cross_kv`
     (`init_cross_kv`, with the mesh under tensor parallelism). Under a
     `repro_torch.sharding.tp.use` context the logits are the rank's block
-    of the vocabulary."""
+    of the vocabulary, and the KV caches lie as its `CacheLayout` says
+    (the state from `init_decode_state` with that layout)."""
     pattern, n_groups = block_pattern(cfg)
-    tp, rows = tp_lib.current(), tp_lib.current_rows()
+    tp, rows, layout = tp_lib.current(), tp_lib.current_rows(), tp_lib.current_cache()
+    parts = 1 if layout is None else layout.slot_block()[1]
     if "cross" in pattern and cross_kv is None:
         raise ValueError(f"{cfg.name}: a vlm decode needs cross_kv (init_cross_kv)")
     if cfg.embeds_in:
@@ -579,8 +591,9 @@ def decode_step(params, cfg: ModelConfig, token_or_embed, state: DecodeState,
                 x = rms_norm(h, norm, cfg.norm_eps)
                 cache = state.caches[name]
                 view = KVCache(cache.k[g], cache.v[g])
-                ring = cfg.sliding_window > 0 and view.k.shape[1] == cfg.sliding_window
-                y, _ = attn_lib.decode_attention(bp["attn"], x, view, pos, cfg, ring=ring, tp=tp)
+                ring = cfg.sliding_window > 0 and view.k.shape[1] * parts == cfg.sliding_window
+                y, _ = attn_lib.decode_attention(bp["attn"], x, view, pos, cfg, ring=ring, tp=tp,
+                                                 layout=layout)
                 h = h + y
                 if kind == "shared":
                     x = rms_norm(h, shared["norm_mlp"], cfg.norm_eps)

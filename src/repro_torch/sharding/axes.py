@@ -7,7 +7,8 @@ mesh steps (`repro_torch.launch.steps`), each rank holding its clients'
 rows, and the "model" axis by the tensor-parallel operators of
 `repro_torch.sharding.tp`, which the model code calls where the rules'
 "heads", "kv_heads", "ff", "vocab" and (with ``seq_parallel``) "seq"
-names would place an activation.
+names would place an activation; a decode cache's "cache_seq" and
+head_dim axes by the serve step's `repro_torch.sharding.tp.CacheLayout`.
 So `constrain` never moves data and returns ``x`` itself, with or
 without rules.
 """
@@ -44,7 +45,7 @@ def default_rules(mesh) -> AxisRules:
             "clients": client_axes if multi_pod else "data",
             "batch": client_axes if multi_pod else "data",  # serving batch
             "seq": None,
-            "cache_seq": None,  # 'data' for long-context decode (ROADMAP item 20(f))
+            "cache_seq": None,  # laid on "data" or "model" by the serve step's CacheLayout
             "heads": "model",
             "kv_heads": "model",
             "ff": "model",

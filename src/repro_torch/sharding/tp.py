@@ -72,13 +72,15 @@ code with `use`; the model's entry points read it once (`current`) and
 pass it down explicitly, so a checkpointed block recomputed during the
 backward sees the same context. The serving steps also set `Rows` where
 the client ranks split one batch: a moe layer's expert queues and
-capacity are the whole batch's (`repro_torch.models.moe`).
+capacity are the whole batch's (`repro_torch.models.moe`); and a
+`CacheLayout` where the decode caches lie otherwise than over the rank's
+kv heads (`repro_torch.models.attention.decode_attention`).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -271,6 +273,59 @@ class Rows:
         return self.mesh.all_gather(x, 0)
 
 
+class CacheLayout(NamedTuple):
+    """Where a served model's KV caches lie over the ranks of ``mesh``
+    beyond their batch rows: the reference's `serve_shardings` cache spec
+    after `filter_divisible` (`repro_torch.launch.steps.cache_layout`
+    makes it).
+
+      - ``slots``: the mesh axis the cache's slots split over: "data" (a
+        served batch that does not divide by the client ranks, whole on
+        each of them: the reference's long-context layout; on a mesh with
+        "pod", the "data" ranks of one pod), "model" (``cache_shard=
+        "seq"``) or None. A rank holds the slots ``index * C / parts`` on
+        (`slot_block`);
+      - ``head_dim``: the cache's head_dim split over "model"
+        (``cache_shard="head_dim"``), the rank's block ``model_rank * hd /
+        T`` on;
+      - ``every_head``: the cache holds every kv head (``cache_shard``
+        "head_dim" or "seq" on a "model" axis larger than 1, also where
+        `filter_divisible` keeps that cache whole); else the kv heads the
+        rank computes (`repro_torch.models.attention.rank_heads`).
+
+    ``memo`` keeps what the decode steps under the layout make once (the
+    heads' indices on each device)."""
+    mesh: object
+    slots: Optional[str]
+    head_dim: bool
+    every_head: bool
+    memo: dict
+
+    def slot_block(self) -> tuple:
+        """``(index, parts)``: this rank's block of the slots."""
+        if self.slots == "data":
+            return getattr(self.mesh, "data_rank", 0), self.mesh.shape["data"]
+        if self.slots == "model":
+            return self.mesh.model_rank, self.mesh.model_size
+        return 0, 1
+
+    def hd_block(self) -> tuple:
+        """``(index, parts)``: this rank's block of head_dim."""
+        return (self.mesh.model_rank, self.mesh.model_size) if self.head_dim else (0, 1)
+
+    def slot_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """`x` reduced (``"sum"`` or ``"max"``) over the ranks that hold the
+        other blocks of the slots."""
+        if self.slots == "data":
+            return self.mesh.client_all_reduce(x, op)
+        return self.mesh.model_all_reduce(x, op)
+
+    def describe(self) -> dict:
+        """The layout as the dry run's row records it."""
+        return {"slots": self.slots, "head_dim": "model" if self.head_dim else None,
+                "kv_heads": "every" if self.every_head else "the rank's"}
+
+
 def context(mesh, seq_parallel: bool = False) -> Optional[TP]:
     """The `TP` of `mesh`, or None for no mesh or a model size of 1;
     `seq_parallel` splits the residual stream along the sequence."""
@@ -294,16 +349,21 @@ def current_rows() -> Optional[Rows]:
     return getattr(_TLS, "rows", None)
 
 
+def current_cache() -> Optional[CacheLayout]:
+    return getattr(_TLS, "cache", None)
+
+
 @contextlib.contextmanager
-def use(tp: Optional[TP], rows: Optional[Rows] = None):
-    """Make `tp` (and `rows`, for a batch split over the client ranks) the
-    model code's context (`current`, `current_rows`) inside the block."""
-    prev = getattr(_TLS, "tp", None), getattr(_TLS, "rows", None)
-    _TLS.tp, _TLS.rows = tp, rows
+def use(tp: Optional[TP], rows: Optional[Rows] = None, cache: Optional[CacheLayout] = None):
+    """Make `tp` (and `rows`, for a batch split over the client ranks, and
+    `cache`, the decode caches' layout) the model code's context
+    (`current`, `current_rows`, `current_cache`) inside the block."""
+    prev = getattr(_TLS, "tp", None), getattr(_TLS, "rows", None), getattr(_TLS, "cache", None)
+    _TLS.tp, _TLS.rows, _TLS.cache = tp, rows, cache
     try:
         yield tp
     finally:
-        _TLS.tp, _TLS.rows = prev
+        _TLS.tp, _TLS.rows, _TLS.cache = prev
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +410,13 @@ def shard_leaf(path, leaf: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's model block of one leaf of `M.init_params` as it is
     made (a single client's leaf, or one layer group's slice of a
     stacked one: the rules' core dims are its last dims either way), a
-    contiguous copy, so that the whole leaf can be freed."""
+    copy of its own, so that the whole leaf can be freed (a block of
+    leading rows is contiguous already: a view would keep the whole
+    leaf's storage alive)."""
     spec = param_spec(path, tuple(leaf.shape), mesh)
-    return block(leaf, spec, mesh).contiguous()
+    b = block(leaf, spec, mesh)
+    return b.contiguous() if b.numel() == leaf.numel() else \
+        b.clone(memory_format=torch.contiguous_format)
 
 
 def sharder(mesh):

@@ -12,6 +12,9 @@ SHAPE = ShapeConfig("tiny_train", 16, 4, "train")
 # (name, mix_mode, mix_dtype): dense in f32 and bf16, ring (one client a rank), none
 MODES = (("dense", "dense", None), ("dense-bf16", "dense", "bf16"),
          ("ring", "ring", None), ("none", "none", None))
+# a served batch of 1 on every client rank, its ring of 8 slots over "data"
+# (the decode cache's layout at long_500k): 2 decode steps
+SERVE_SHAPE, SERVE_WINDOW, SERVE_STEPS = ShapeConfig("tiny_long", 16, 1, "decode"), 8, 2
 
 
 def tallies(rank, world):
@@ -24,4 +27,10 @@ def tallies(rank, world):
                                   mix_dtype=dtype)
         step(*args)
         out[name] = mesh.collective_tally()
+    mesh.reset_tally()
+    step, (params, tok, state) = dryrun.build(cfg.with_(sliding_window=SERVE_WINDOW),
+                                              SERVE_SHAPE, mesh, device="cpu")
+    for _ in range(SERVE_STEPS):
+        _, state = step(params, tok, state)
+    out["serve"] = mesh.collective_tally()
     return out

@@ -14,8 +14,12 @@ back to whole ones (`convert.gather_params`), the round trip of those
 two, the prefill and serve steps, and the model's gradients in f64
 against one process (the ssm and hybrid models under remat, so that a
 recomputed block runs its collectives again); and the vocab-parallel
-cross-entropy once.
+cross-entropy once. Then the decode cache's other layouts
+(`CACHE_CASES`, reduced qwen2 with a ring of `CACHE_WINDOW` slots): each
+served in f32 and f64, and f64 again with a planted merge fault.
 """
+from unittest import mock
+
 import numpy as np
 import torch
 
@@ -162,6 +166,83 @@ def decode(step, cfg, prompt, params, state, mesh=None):
     return torch.stack(logits, dim=1), cross
 
 
+# the decode cache's other layouts (`steps.cache_layout`), reduced qwen2
+# with a sliding window of CACHE_WINDOW slots (a ring: the steps wrap it
+# twice, and at (2, 2) the rank holding slots 2 and 3 holds no token for
+# the first two steps), decoding CACHE_STEPS prompt tokens: (name, batch,
+# cache_shard) by layout. A batch of 1 does not divide by 2 client ranks:
+# the whole batch on each, the ring's slots over "data"; head_dim and seq
+# split the cache's head_dim (32 / T) or slots (4 / T) over "model", every
+# kv head on each rank (at (1, 4) the 6 query heads on the padded route)
+CACHE_WINDOW, CACHE_STEPS = 4, 10
+CACHE_CASES = {(2, 2): (("rows whole", 1, "kv_heads"), ("head_dim", SERVE_BATCH, "head_dim"),
+                        ("seq", SERVE_BATCH, "seq"), ("rows whole head_dim", 1, "head_dim"),
+                        ("rows whole seq", 1, "seq")),
+               (1, 4): (("head_dim", SERVE_BATCH, "head_dim"), ("seq", SERVE_BATCH, "seq"))}
+# planted in the f64 decode of a case each: the merge's rescale to the row
+# max over every slot left out, the head_dim blocks' partial scores left
+# unsummed over the model ranks
+CACHE_FAULTS = (("unscaled merge", "rows whole", "_rescale", lambda m_loc, m: m_loc * 0 + 1),
+                ("unsummed scores", "head_dim", "_sum_scores", lambda scores, mesh: scores))
+
+
+def cache_config(dtype="float32"):
+    return get_reduced(ARCH).with_(sliding_window=CACHE_WINDOW, dtype=dtype)
+
+
+def cache_tokens(seed=7):
+    """(SERVE_BATCH, CACHE_STEPS) int64 prompt tokens of `CACHE_CASES`."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cache_config().vocab_size, (SERVE_BATCH, CACHE_STEPS), generator=gen)
+
+
+def cache_decode(params, cfg, tokens, mesh=None, cache_shard="kv_heads"):
+    """`tokens` (B, CACHE_STEPS) decoded by the serve step of `cfg` under
+    `cache_shard` on `mesh` (one process without), each rank its
+    `steps.serving_rows`: (logits (rows, CACHE_STEPS, V), the state)."""
+    shape = ShapeConfig("serve", CACHE_STEPS, tokens.shape[0], "decode")
+    serve = steps.make_serve_step(cfg, shape, mesh, cache_shard)
+    rows = steps.serving_rows(shape, mesh)
+    if rows != tokens.shape[0]:
+        tokens = tokens[mesh.client_slice(tokens.shape[0])]
+    state = M.init_decode_state(cfg, rows, CACHE_STEPS, device="cpu", mesh=mesh,
+                                layout=serve.layout)
+    logits = []
+    for t in range(CACHE_STEPS):
+        lg, state = serve(params, tokens[:, t], state)
+        logits.append(lg)
+    return torch.stack(logits, dim=1), state
+
+
+def _cache_layouts(mesh, train, out):
+    """Each of this layout's `CACHE_CASES` in f32 and f64 (logits, the
+    layout and the KV cache's shape), and the `CACHE_FAULTS` planted."""
+    from repro_torch.models import attention
+
+    whole = flat_lib.tree_map(lambda p: p[0], train["params"][ARCH])
+    tokens = cache_tokens()
+    for name, batch, cache_shard in CACHE_CASES.get(mesh_shape(mesh), ()):
+        got = {}
+        for dtype in ("float32", "float64"):
+            cfg = cache_config(dtype)
+            params = convert.shard_params(flat_lib.tree_map(lambda p: p.to(cfg.torch_dtype),
+                                                            whole), mesh, clients=False)
+            mesh.reset_tally()
+            got[dtype], state = cache_decode(params, cfg, tokens[:batch], mesh, cache_shard)
+        layout = steps.cache_layout(cfg, ShapeConfig("serve", CACHE_STEPS, batch, "decode"),
+                                    mesh, cache_shard)
+        out[name] = dict(got, layout=layout.describe(), counts=dict(
+            mesh.collective_tally()["_counts"]), kv=tuple(state.caches["0:attn"].k.shape))
+        for fault, case, fn, planted in CACHE_FAULTS:
+            if case == name:  # in f64
+                with mock.patch.object(attention, fn, planted):
+                    out[fault] = cache_decode(params, cfg, tokens[:batch], mesh, cache_shard)[0]
+
+
+def mesh_shape(mesh):
+    return (mesh.shape["data"], mesh.shape["model"])
+
+
 def loss_inputs(seed=9):
     """f64 logits (2, D.SEQ, V) and labels for the cross-entropy check."""
     cfg = get_reduced(ARCH)
@@ -293,6 +374,8 @@ def world(rank, world_size, shape, train):
         _serve(mesh, cfg, train, out[arch])
         _f64(mesh, cfg, train, out[arch])
     _cross_entropy(mesh, out)
+    out["cache"] = {}
+    _cache_layouts(mesh, train, out["cache"])
     return out
 
 

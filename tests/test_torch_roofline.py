@@ -153,6 +153,16 @@ def test_dry_mesh_tally_equals_a_gloo_world():
         assert {**got["coll_breakdown"], "_counts": got["coll_counts"]} == worlds[0][name]
     assert worlds[0]["dense"]["reduce_scatter"] == 2 * worlds[0]["dense-bf16"]["reduce_scatter"]
     assert worlds[0]["ring"]["_counts"]["ring_exchange"] >= 1
+    # a served batch of 1 with its ring's slots over "data": each step's merge
+    # of the partial softmaxes, two client-axis all-reduces a layer
+    mesh, _ = dryrun.make_dry_mesh(2)
+    step, (params, tok, state) = dryrun.build(cfg.with_(sliding_window=R.SERVE_WINDOW),
+                                              R.SERVE_SHAPE, mesh)
+    for _ in range(R.SERVE_STEPS):
+        _, state = step(params, tok, state)
+    assert mesh.collective_tally() == worlds[0]["serve"]
+    assert worlds[0]["serve"]["_counts"]["client_all_reduce"] == \
+        2 * cfg.num_layers * R.SERVE_STEPS
 
 
 def test_lower_pair_returns_every_key_of_the_reference_row():
@@ -182,9 +192,14 @@ def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
     audio = dryrun.lower_pair("musicgen-large", "decode_32k",
                               cfg=tbase.get_reduced("musicgen-large"), verbose=False)
     assert audio["tp_routes"]["padded"] == 2  # 4 heads over 16 ranks: one a rank, or none
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
-        dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, cache_shard="head_dim",
-                          verbose=False)
+    # the cache's other layouts: head_dim over the 16 model ranks, every kv
+    # head at 2 of the 32 head_dims, recorded
+    hd = dryrun.lower_pair("qwen2-1.5b", "decode_32k", cfg=cfg, cache_shard="head_dim",
+                           verbose=False)
+    assert hd["cache_shard"] == "head_dim" and row["cache_layout"] is None
+    assert hd["cache_layout"] == {"slots": None, "head_dim": "model", "kv_heads": "every"}
+    assert hd["coll_breakdown"]["counts"]["model_all_reduce"] > \
+        row["coll_breakdown"]["counts"]["model_all_reduce"]
     # sequence parallelism (ROADMAP item 20(e), ported) goes to the train step
     # alone: a decode pair with the flag reckons what it does without
     flagged = dryrun.lower_pair("qwen2-1.5b", "decode_32k", clients=2, seq_parallel=True,
@@ -197,9 +212,22 @@ def test_production_mesh_and_seq_parallel_raise_naming_the_roadmap():
                            verbose=False)
     assert sp["coll_breakdown"] == row["coll_breakdown"]
     assert sp["tp_routes"] == row["tp_routes"] and sp["tp_routes"]["seq"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):  # a batch of 1 on 16
-        dryrun.lower_pair("qwen2-1.5b", "long_500k", clients=16,
-                          cfg=tbase.get_reduced("qwen2-1.5b"), verbose=False)
+    # a batch of 1 on 16 client ranks: whole on each, the ring's slots over "data"
+    long = dryrun.lower_pair("qwen2-1.5b", "long_500k", clients=16,
+                             cfg=tbase.get_reduced("qwen2-1.5b"), verbose=False)
+    assert long["serving_rows"] == 1 and long["cache_layout"]["slots"] == "data"
+    assert long["coll_breakdown"]["counts"]["client_all_reduce"] == 2 * cfg.num_layers
+
+
+def test_lower_pair_takes_a_reckoned_row():
+    """A row reckoned before (in another process, say) stands for the
+    counting: the same row, timings and all."""
+    cfg = tbase.get_reduced("qwen2-1.5b")
+    for shape, kw in (("train_4k", {"clients": 4}), ("long_500k", {})):
+        row = dryrun.lower_pair("qwen2-1.5b", shape, cfg=cfg, verbose=False, **kw)
+        again = dryrun.lower_pair("qwen2-1.5b", shape, cfg=cfg, verbose=False, reckoned=row,
+                                  **kw)
+        assert again == row
 
 
 def test_temp_peak_tracks_live_storages():

@@ -180,15 +180,24 @@ def test_prefill_and_serve_steps_match_reference(shape):
 class _Ranks:
     def __init__(self, size):
         self.size = size
+        self.axis_names, self.shape = ("data", "model"), {"data": size, "model": 1}
 
 
 def test_steps_on_a_mesh_raise():
-    """A batch that does not divide by the mesh's client ranks would shard
-    the cache's sequence axis, which is not ported (ROADMAP item 20)."""
+    """A batch that does not divide by the mesh's client ranks: the prefill
+    keeps the reference's refusal (jax will not lower the batch laid over
+    the client ranks); the serve step serves the whole batch on every
+    client rank, the cache's sequence axis over "data" where it divides
+    (32,768 slots over 2 ranks) and whole where it does not (over 3: the
+    reference's `filter_divisible` keeps it so)."""
     cfg, shape = tbase.get_reduced("qwen2-1.5b"), tbase.SHAPES["decode_32k"]
+    odd = shape.__class__("b3", shape.seq_len, 3, "decode")
+    with pytest.raises(ValueError, match="the reference's prefill"):
+        tsteps.make_prefill_step(cfg, shape, mesh=_Ranks(3))
+    assert tsteps.make_serve_step(cfg, shape, mesh=_Ranks(3)).layout is None
+    assert tsteps.serving_rows(shape, _Ranks(3)) == shape.global_batch
+    assert tsteps.make_serve_step(cfg, odd, mesh=_Ranks(2)).layout.slot_block() == (0, 2)
     for make in (tsteps.make_prefill_step, tsteps.make_serve_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-            make(cfg, shape, mesh=_Ranks(3))
         assert callable(make(cfg, shape, mesh=_Ranks(4)))
         # a "model" axis builds for the dense family
         assert callable(make(cfg, shape, mesh=tmesh.Mesh.dry((4, 2), ("data", "model"))))

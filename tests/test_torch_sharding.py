@@ -203,12 +203,18 @@ def test_model_axis_and_unported_paths_raise_naming_their_item():
     assert tp_lib.context(pod, seq_parallel=True).seq and tp_lib.context(pod).seq is False
     steps.make_train_step(get_reduced("mamba2-2.7b"), pod, seq_parallel=True)
     cfg = get_reduced("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        steps.make_serve_step(cfg, SHAPES["long_500k"], SizedMesh(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
+    # the decode cache's other layouts (item 20(f)) are ported: a batch of 1
+    # stays whole on both client ranks, its ring's slots over "data"
+    serve = steps.make_serve_step(cfg, SHAPES["long_500k"], SizedMesh(2))
+    assert serve.layout.describe() == {"slots": "data", "head_dim": None,
+                                       "kv_heads": "the rank's"}
+    assert steps.serving_rows(SHAPES["long_500k"], SizedMesh(2)) == 1
+    # the prefill keeps the reference's own refusal: jax will not lower a
+    # batch of 3 laid over 2 devices
+    with pytest.raises(ValueError, match="jax refuses when it lowers the reference's prefill"):
         steps.make_prefill_step(cfg, SHAPES["decode_32k"].__class__("b3", 8, 3, "prefill"),
                                 SizedMesh(2))
-    steps.make_serve_step(cfg, SHAPES["decode_32k"], SizedMesh(2))  # 128 rows divide
+    assert steps.make_serve_step(cfg, SHAPES["decode_32k"], SizedMesh(2)).layout is None
     from repro_torch.api import simulate_sweep
 
     # every registered algorithm runs on a client mesh (ROADMAP item 21, done):
@@ -223,6 +229,34 @@ def test_model_axis_and_unported_paths_raise_naming_their_item():
     assert mesh_lib.client_axes(FakeMesh()) == ("pod", "data")
     assert mesh_lib.num_clients(FakeMesh()) == 8
     assert mesh_lib.num_clients(OneMesh()) == 1
+
+
+@pytest.mark.parametrize("shape, axes", [((16, 16), ("data", "model")),
+                                         ((2, 16, 16), ("pod", "data", "model"))],
+                         ids=["16x16", "2x16x16"])
+def test_long_context_reckons_on_the_production_mesh(shape, axes):
+    """A reduced config at long_500k on the reference's production mesh: the
+    batch of 1 whole on every client rank, the ring's 8,192 slots over the
+    16 "data" ranks (one pod's, with "pod"), the merge of each attention
+    layer's partial softmaxes two client-axis all-reduces (the row max,
+    the sums), and an SSM state whole over "data"."""
+    from repro_torch.launch import dryrun
+
+    for arch in ("qwen2-1.5b", "zamba2-2.7b"):
+        cfg = get_reduced(arch)
+        mesh = mesh_lib.Mesh.dry(shape, axes)
+        step, (params, tok, state) = dryrun.build(cfg, SHAPES["long_500k"], mesh)
+        assert step.layout.slot_block() == (0, 16) and tuple(tok.shape) == (1,)
+        mesh.reset_tally()
+        dryrun.count_work(step, params, tok, state)
+        attn = [n for n in state.caches if not n.endswith(":ssm")]
+        for name, cache in state.caches.items():
+            assert cache[0].shape[1] == 1, name  # the whole batch
+            if name in attn:
+                assert cache.k.shape[2] == 8192 // 16, name
+        layers = sum(len(state.caches[n].k) for n in attn)  # layer groups with a cache
+        assert mesh.collective_counts["client_all_reduce"] == 2 * layers, arch
+        assert mesh.collective_bytes["client_all_reduce"] > 0
 
 
 def test_pack_round_trip_is_exact():

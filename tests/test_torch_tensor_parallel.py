@@ -33,7 +33,10 @@ devices each and ``Auto`` meshes of the same layouts (jax 0.9's default
 ``Explicit`` axes make the reference's ``constrain`` raise), started
 before the worlds so that all run at once: the reference's own
 `make_train_step` in each mix mode, and its prefill and serve steps at
-(2, 2), on the same params, tokens and ``q_eff``.
+(2, 2), on the same params, tokens and ``q_eff``; and its serve step of
+reduced qwen2 with a ring of 4 slots under each decode cache layout of
+`_torch_tp.CACHE_CASES` (its `serve_shardings` of that layout) at (2, 2)
+and (1, 4), which the ranks serve under `steps.cache_layout`.
 
 Tolerances: the f32 train steps within rtol/atol 1e-5 of the reference
 (f32 sums re-associated across ranks; 3e-8 read), the bf16 mix within
@@ -55,6 +58,7 @@ the cross term alone; a `TP.copy` on B or C (computed whole on every
 rank) would sum their gradient over the ranks on top of the
 reduce-scatter that already does, counting it T times.
 """
+import json
 import math
 import os
 import subprocess
@@ -83,6 +87,7 @@ LAYOUTS = ((2, 2), (1, 4))  # held against the reference
 WORLDS = LAYOUTS + ((1, 3),)
 
 REFERENCE = r'''
+import json
 import sys
 import jax, jax.numpy as jnp
 import numpy as np
@@ -92,6 +97,7 @@ from repro.launch import steps
 from repro.models import model as M
 
 src, dst, lr = sys.argv[1], sys.argv[2], float(sys.argv[3])
+cache = json.loads(sys.argv[5])  # the decode cache's layouts: window, cases by layout
 inp = dict(np.load(src))
 assert len(jax.devices()) == 4
 auto = (jax.sharding.AxisType.Auto,) * 2
@@ -150,6 +156,23 @@ for arch, layout in [(a, l) for a in sys.argv[4].split(",") for l in ((2, 2), (1
         out[f"{tag}/loss/{name}"] = np.asarray(loss)
         for path, leaf in jax.tree_util.tree_leaves_with_path(new):
             out[f"{tag}/train/{name}/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+    if arch == "qwen2-1.5b":  # the serve step under each cache layout (serve_shardings)
+        ccfg = cfg.with_(sliding_window=cache["window"])
+        ctoks = inp["cache_tokens"]
+        p0 = fill(nest(f"param/{arch}/", 0), like)
+        for name, B, cache_shard in cache["cases"].get("x".join(map(str, layout)), []):
+            cshape = ShapeConfig("serve", ctoks.shape[1], B, "decode")
+            param_sh, tok_sh, state_sh, _, scfg = steps.serve_shardings(mesh, ccfg, cshape,
+                                                                        cache_shard)
+            state = put(M.init_decode_state(scfg, B, cshape.seq_len), state_sh)
+            serve = jax.jit(steps.make_serve_step(ccfg, cshape, mesh),
+                            in_shardings=(param_sh, tok_sh, state_sh))
+            pc, logits = put(p0, param_sh), []
+            for t in range(cshape.seq_len):
+                tok = jax.device_put(jnp.asarray(ctoks[:B, t], jnp.int32), tok_sh)
+                lg, state = serve(pc, tok, state)
+                logits.append(np.asarray(lg))
+            out[f"cache/{tag}/{name}"] = np.stack(logits, axis=1)
     if layout != (2, 2):
         continue
     params0 = fill(nest(f"param/{arch}/", 0), like)
@@ -195,6 +218,8 @@ def inputs():
 
 # the reference's archs, each set in a subprocess of its own, both at once
 REFERENCE_SETS = ((T.ARCH, T.MOE, T.AUDIO), T.SSM_ARCHS + (T.VLM,))
+CACHE_ARG = json.dumps({"window": T.CACHE_WINDOW, "cases": {
+    "x".join(map(str, lay)): [list(c) for c in cases] for lay, cases in T.CACHE_CASES.items()}})
 
 
 @pytest.fixture(scope="module")
@@ -202,7 +227,8 @@ def reference(inputs, tmp_path_factory):
     """Starts the JAX subprocesses (one for each of `REFERENCE_SETS`);
     returns a function that waits for them and loads their outputs."""
     root = tmp_path_factory.mktemp("reference")
-    arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"]}
+    arrays = {"tokens": inputs["tokens"], "q_eff": inputs["q_eff"],
+              "cache_tokens": T.cache_tokens().numpy()}
     for arch in T.ARCHS:
         arrays.update({f"param/{arch}/" + "/".join(p): leaf.numpy()
                        for p, leaf in flat_lib.tree_items(inputs["params"][arch])})
@@ -219,7 +245,8 @@ def reference(inputs, tmp_path_factory):
         with open(root / f"log{i}.txt", "w") as log:
             procs.append((subprocess.Popen(
                 [sys.executable, "-c", REFERENCE, str(root / "in.npz"), str(root / f"out{i}.npz"),
-                 str(T.LR), ",".join(archs)], env=env, stdout=log, stderr=subprocess.STDOUT),
+                 str(T.LR), ",".join(archs), CACHE_ARG], env=env, stdout=log,
+                stderr=subprocess.STDOUT),
                 i))
     loaded = {}
 
@@ -466,6 +493,92 @@ def test_loss_forms_and_gradients_in_f64(worlds, inputs, layout):
             continue
         assert math.isclose(o["ce"]["loss"], float(ce), rel_tol=1e-12)
         torch.testing.assert_close(o["ce"]["grad"], g, rtol=1e-12, atol=1e-14)
+
+
+# -- the decode cache's other layouts (reduced qwen2, a ring of 4 slots) -----
+
+# (layout, case) -> (the layout that took effect, a rank's KV cache (groups,
+# rows, slots, kv heads, head_dim)): the rows whole and the ring's 4 slots 2
+# a data rank; every kv head at 32 / T of head_dim or 4 / T slots a model rank
+_WHOLE, _EVERY = "the rank's", "every"
+CACHE_EXPECT = {
+    ((2, 2), "rows whole"): ({"slots": "data", "head_dim": None, "kv_heads": _WHOLE},
+                             (2, 1, 2, 1, 32)),
+    ((2, 2), "head_dim"): ({"slots": None, "head_dim": "model", "kv_heads": _EVERY},
+                           (2, 2, 4, 2, 16)),
+    ((2, 2), "seq"): ({"slots": "model", "head_dim": None, "kv_heads": _EVERY}, (2, 2, 2, 2, 32)),
+    ((2, 2), "rows whole head_dim"): ({"slots": "data", "head_dim": "model",
+                                       "kv_heads": _EVERY}, (2, 1, 2, 2, 16)),
+    ((2, 2), "rows whole seq"): ({"slots": "model", "head_dim": None, "kv_heads": _EVERY},
+                                 (2, 1, 2, 2, 32)),
+    ((1, 4), "head_dim"): ({"slots": None, "head_dim": "model", "kv_heads": _EVERY},
+                           (2, 4, 4, 2, 8)),
+    ((1, 4), "seq"): ({"slots": "model", "head_dim": None, "kv_heads": _EVERY}, (2, 4, 1, 2, 32))}
+CACHE_IDS = [f"{_tag(lay)}-{name.replace(' ', '_')}" for lay, name in CACHE_EXPECT]
+
+
+def _cache_rows(o, got, batch):
+    """The rows of the batch that rank `o` served as `got`: all of them, or
+    its client rank's block."""
+    n = got.shape[0]
+    return slice(None) if n == batch else slice(o["coords"][0] * n, (o["coords"][0] + 1) * n)
+
+
+def _cache_case(layout, name):
+    (batch, cache_shard), = [c[1:] for c in T.CACHE_CASES[layout] if c[0] == name]
+    return batch, cache_shard
+
+
+def _cache_one_device(inputs, dtype, batch):
+    cfg = T.cache_config(dtype)
+    params = flat_lib.tree_map(lambda p: p[0].to(cfg.torch_dtype), inputs["params"][T.ARCH])
+    return T.cache_decode(params, cfg, T.cache_tokens()[:batch])[0]
+
+
+@pytest.mark.parametrize("layout, name", list(CACHE_EXPECT), ids=CACHE_IDS)
+def test_cache_layout_matches_reference(worlds, reference, layout, name):
+    """The serve step under each layout against the reference's on the
+    same params and tokens (its `serve_shardings` of that layout), f32
+    logits within 1e-5, through a ring that wraps twice; the layout that
+    took effect and a rank's KV cache as `CACHE_EXPECT` says; the merge of
+    the slots over "data" tallied as client-axis all-reduces, none
+    elsewhere."""
+    batch, _ = _cache_case(layout, name)
+    want = reference()[f"cache/{T.ARCH}/{_tag(layout)}/{name}"]
+    for o in worlds[layout]:
+        got = o["cache"][name]
+        _close(got["float32"].numpy(), want[_cache_rows(o, got["float32"], batch)], 1e-5, name)
+        assert (got["layout"], got["kv"]) == CACHE_EXPECT[layout, name]
+        assert (got["counts"]["client_all_reduce"] > 0) == (got["layout"]["slots"] == "data")
+        assert got["counts"]["model_all_reduce"] > 0
+
+
+@pytest.mark.parametrize("layout, name", list(CACHE_EXPECT), ids=CACHE_IDS)
+def test_cache_layout_in_f64_matches_one_device(worlds, inputs, layout, name):
+    """The exact witness: f64 decode under each layout within 1e-10 of one
+    process (the merged partial softmaxes, the summed head_dim scores)."""
+    batch, _ = _cache_case(layout, name)
+    want = _cache_one_device(inputs, "float64", batch)
+    for o in worlds[layout]:
+        got = o["cache"][name]["float64"]
+        torch.testing.assert_close(got, want[_cache_rows(o, got, batch)], rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("fault", [f[0] for f in T.CACHE_FAULTS])
+def test_planted_cache_faults_fail(worlds, inputs, fault):
+    """A merge that skips the rescale to the row max over every slot (an
+    empty rank's count of masked slots and a full rank's unscaled sums
+    enter it), and head_dim blocks' scores left unsummed, each move the f64
+    logits far past the witness's 1e-10: O(1) of them."""
+    (case,) = [c for f, c, _, _ in T.CACHE_FAULTS if f == fault]
+    layout = next(lay for lay, cases in T.CACHE_CASES.items() if any(c[0] == case for c in cases))
+    batch, _ = _cache_case(layout, case)
+    want = _cache_one_device(inputs, "float64", batch)
+    for o in worlds[layout]:
+        got = o["cache"][fault]
+        gap = float((got - want[_cache_rows(o, got, batch)]).abs().max())
+        assert gap > 0.1 * float(want.abs().max()), (fault, gap)
 
 
 # -- the moe expert axis over "model" (reduced qwen3-moe-30b-a3b) ----------
@@ -891,7 +1004,12 @@ def test_seq_parallel_and_cache_layouts_raise_naming_their_item():
     "model" and runs the dry run's train pair at (16, 16): every
     sub-block on the rank's positions, the model axis's joins now
     reduce-scatters and all-gathers along the sequence. The cache's other
-    layouts (item 20(f)) still raise naming their item."""
+    layouts (item 20(f), ported) reckon decode_32k at (2, 2): head_dim adds
+    one model-axis all-reduce a layer (the partial scores' sum) and two
+    all-gathers (q, k and v relaid to every head; the output's head_dim
+    blocks), seq two all-reduces a layer (the merge's row max and sums) and
+    the relay's all-gather; 64 rows a client rank, no client-axis
+    collective."""
     cfg = get_reduced(T.ARCH)
     mesh = mesh_lib.Mesh.dry((2, 2), ("data", "model"))
     assert axes.train_rules(mesh, seq_parallel=True).rules["seq"] == "model"
@@ -907,8 +1025,16 @@ def test_seq_parallel_and_cache_layouts_raise_naming_their_item():
     assert counts[True]["model_all_gather"] > counts[False]["model_all_gather"]
     assert counts[True]["model_all_reduce"] < counts[False]["model_all_reduce"]
     assert rows[True]["reckoned_peak_bytes"] < rows[False]["reckoned_peak_bytes"]
-    for cache_shard in ("head_dim", "seq"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\(f\)"):
-            dryrun.lower_pair(T.ARCH, "decode_32k", cfg=cfg, cache_shard=cache_shard,
-                              verbose=False)
+    counts = {cs: dryrun.reckon(cfg, SHAPES["decode_32k"],
+                                mesh_lib.Mesh.dry((2, 2), ("data", "model")),
+                                cache_shard=cs)["coll_counts"] for cs in steps.CACHE_SHARDS}
+    layers = cfg.num_layers
+    added = {cs: {kind: counts[cs][kind] - counts["kv_heads"][kind]
+                  for kind in ("model_all_reduce", "model_all_gather", "client_all_reduce")}
+             for cs in ("head_dim", "seq")}
+    assert added == {"head_dim": {"model_all_reduce": layers, "model_all_gather": 2 * layers,
+                                  "client_all_reduce": 0},
+                     "seq": {"model_all_reduce": 2 * layers, "model_all_gather": layers,
+                             "client_all_reduce": 0}}
+    assert all(c["client_all_reduce"] == 0 for c in counts.values())
     assert axes.train_rules(mesh).rules["heads"] == "model"
